@@ -1,0 +1,98 @@
+"""Composition of Experts (counterpart of ``repro.core.coe``): one router +
+N experts of one backbone, the experts on the capacity tier until activated
+into the HBM weight cache. ``LMRouter`` and ``generate`` are not ported yet
+(``ROADMAP.md``); serving goes through ``serving.engine.ServingEngine``."""
+from __future__ import annotations
+
+import functools
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from repro_torch import resolve_device
+from repro_torch.bridge import tree_bytes
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.memory_tiers import HBMBudget
+from repro_torch.core.switching import HBMWeightCache
+from repro_torch.store import ExpertStore, HostMemoryStore
+
+
+@dataclass
+class ExpertHandle:
+    """One expert of the composition. ``host_params`` is a tree of tensors
+    (on any device); registration copies it into the store and drops it."""
+    name: str
+    cfg: ModelConfig
+    host_params: Any = None
+    domain: str = "general"
+
+    @functools.cached_property
+    def nbytes(self) -> int:
+        if self.host_params is None:
+            raise ValueError(
+                f"expert {self.name}: nbytes unknown before registration")
+        return tree_bytes(self.host_params)
+
+
+class CompositionOfExperts:
+    """The Samba-CoE execution substrate on the three-tier memory system."""
+
+    def __init__(self, router, router_params, hbm_capacity_bytes: int,
+                 kv_reserve_bytes: int = 0,
+                 store: Optional[ExpertStore] = None,
+                 max_inflight_prefetch: int = 2, device=None):
+        """``kv_reserve_bytes`` carves a slice of the HBM tier out of the
+        weight cache for the engine's paged KV pool (``self.hbm_budget``).
+        ``device`` defaults to the card and raises where there is none."""
+        if not 0 <= kv_reserve_bytes < hbm_capacity_bytes:
+            raise ValueError(
+                f"kv_reserve_bytes={kv_reserve_bytes} must be in "
+                f"[0, hbm_capacity_bytes={hbm_capacity_bytes})")
+        self.device = resolve_device(device)
+        self.router = router
+        self.router_params = router_params
+        self.experts: Dict[str, ExpertHandle] = {}
+        self.store = store if store is not None else HostMemoryStore()
+        self.hbm_budget = HBMBudget(
+            total_bytes=hbm_capacity_bytes,
+            weights_bytes=hbm_capacity_bytes - kv_reserve_bytes,
+            kv_bytes=kv_reserve_bytes)
+        self.cache = HBMWeightCache(self.hbm_budget.weights_bytes,
+                                    store=self.store, device=self.device,
+                                    max_inflight=max_inflight_prefetch)
+
+    def register(self, handle: ExpertHandle):
+        if handle.name in self.experts:
+            raise KeyError(f"duplicate expert {handle.name}")
+        if handle.host_params is not None:
+            handle.nbytes                  # prime the size contract
+            self.store.put(handle.name, handle.host_params)
+            handle.host_params = None      # the store owns the copy now
+        elif not self.store.contains(handle.name):
+            raise KeyError(
+                f"expert {handle.name}: no host_params given and not "
+                f"present in the capacity-tier store")
+        else:
+            handle.__dict__["nbytes"] = self.store.nbytes(handle.name)
+        self.experts[handle.name] = handle
+
+    def memory_contract(self, name: str) -> Dict[str, int]:
+        h = self.experts[name]
+        return {"hbm_bytes": h.nbytes,
+                "ddr_bytes": self.store.stored_bytes(name)}
+
+    def expert_names(self) -> List[str]:
+        return list(self.experts.keys())
+
+    def route(self, tokens) -> np.ndarray:
+        return np.asarray(self.router.route(self.router_params, tokens))
+
+    def route_request(self, tokens) -> tuple:
+        """Route ONE prompt ``(S,)`` to an expert name; returns
+        ``(name, seconds)``."""
+        t0 = time.perf_counter()
+        names = self.expert_names()
+        e = int(self.route(np.asarray(tokens)[None])[0]) % len(names)
+        return names[e], time.perf_counter() - t0

@@ -1,0 +1,3 @@
+from repro_torch.kernels.flash_attention.ops import decode_paged
+
+__all__ = ["decode_paged"]
