@@ -64,12 +64,15 @@ def _log(msg):
 
 def time_ms(fn, flush, reps):
     """Mean device time of ``fn`` over ``reps`` launches, each after the L2
-    cache was overwritten, after two warm-up calls."""
+    cache was overwritten, after two warm-up calls. A spin kernel ahead of
+    each launch keeps the card busy while the host enqueues ``fn``, so the
+    events bracket device work only, not the wrapper's host overhead."""
     fn()
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
+        torch.cuda._sleep(2_000_000)         # ~1 ms of device time
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -323,6 +326,43 @@ def serve_phase(cfg, dev, depth_note=""):
     if not err <= tol:
         raise AssertionError(f"fused vs reference logits differ by {err}")
     del l32
+
+    # where one decode step's time goes: host wall per step without the
+    # profiler, device time per kernel name with it
+    kc, vc = (t.clone() for t in state)
+    step = lambda: engine.runner.extend(params, kc, vc, tables, lengths,
+                                        active, toks)
+    step()
+    torch.cuda.synchronize()
+    n_steps = 10
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+    dev = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            dev[e.key] = us / n_steps / 1e3
+    dev_ms = sum(dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    if dev_ms > 0:
+        _log(f"decode step ({s['n_slots']} lanes, {cfg.n_layers} layers): "
+             f"host wall {wall_ms:.3f} ms, device busy {dev_ms:.3f} ms "
+             f"(idle share {max(0.0, 1 - dev_ms / wall_ms):.3f}); by kernel: "
+             + "; ".join(f"{k[:48]}={v:.3f}ms" for k, v in top))
+    else:
+        _log(f"decode step: host wall {wall_ms:.3f} ms; device time not "
+             "measured (the profiler saw no device activity)")
+    del kc, vc
     for r in rids:
         engine.pool.free(r)
     coe.cache.close()

@@ -29,23 +29,9 @@ class ModelConfig:
 
     rope_style: str = "full"          # only 'full' is ported
     rope_theta: float = 10000.0
-    rope_fraction: float = 1.0
 
     sliding_window: int = 0
-    attn_chunk: int = 1024
-
     n_experts: int = 0
-    first_dense_layers: int = 0
-
-    dtype: str = "bfloat16"
-
-    @property
-    def q_dim(self) -> int:
-        return self.n_heads * self.head_dim
-
-    @property
-    def kv_dim(self) -> int:
-        return self.n_kv_heads * self.head_dim
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
@@ -59,10 +45,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         head_dim=32,
         d_ff=256 if cfg.d_ff else 0,
         vocab_size=512,
-        attn_chunk=64,
     )
     if cfg.sliding_window:
         upd["sliding_window"] = 32
-    if cfg.rope_fraction < 1.0:
-        upd["rope_fraction"] = 0.5
     return replace(cfg, name=cfg.name + "-reduced", **upd)

@@ -163,9 +163,6 @@ class HBMWeightCache:
     def resident(self, expert_id: str) -> bool:
         return expert_id in self._entries
 
-    def inflight(self, expert_id: str) -> bool:
-        return expert_id in self._inflight
-
     def ready(self, expert_id: str) -> bool:
         """Activating this expert would not stall: resident, or its prefetch
         has landed successfully."""
@@ -232,9 +229,6 @@ class HBMWeightCache:
         fut.cancel()
         self.stats.prefetches_cancelled += 1
         return True
-
-    def expert_ids(self):
-        return list(self._entries.keys())
 
     def close(self):
         """Cancel pending prefetches and stop the background thread."""

@@ -14,15 +14,16 @@ from repro_torch.kernels.fused_decode.ref import (oproj_ffn_swiglu_ref,
                                                   rope_inv_freq)
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
-_QKV_ARGS = [rt.P] * 10 + [rt.I] * 6 + [rt.P]
+_QKV_ARGS = [rt.P] * 11 + [rt.I] * 7 + [rt.P]
 _EPI_ARGS = [rt.P] * 13 + [rt.I] * 6 + [rt.P]
 _SMS = 132            # H100 SXM streaming multiprocessors
-_TILE_N, _KC = 64, 256  # the epilogue's column tile and staged K chunk
+_TILE_N = 64          # the epilogue's column tile
+_MIN_ROWS = 256       # fewest weight rows a K split streams
 
 
 @functools.lru_cache(maxsize=16)
-def _inv_freq(dh: int, theta: float, rope_frac: float, device: str):
-    return torch.as_tensor(rope_inv_freq(dh, theta, rope_frac), device=device)
+def _inv_freq(dh: int, theta: float, device: str):
+    return torch.as_tensor(rope_inv_freq(dh, theta), device=device)
 
 
 def _check_dtype(name, dtype, **tensors):
@@ -33,20 +34,21 @@ def _check_dtype(name, dtype, **tensors):
             raise TypeError(f"{name}: {k} is {t.dtype}, expected {dtype}")
 
 
-def qkv_rope_paged(x, norm_scale, wq, wk, wv, pos, *, theta=10000.0,
-                   rope_frac=1.0):
+def qkv_rope_paged(x, norm_scale, wq, wk, wv, pos, *, theta=10000.0):
     """RMSNorm + QKV + per-lane RoPE for the paged decode step.
 
     x (B,D); wq (D,Hq,dh), wk/wv (D,Hkv,dh) — the native attention layout;
     pos (B,) int32 per-lane positions. Returns q (B,Hq,dh), k, v (B,Hkv,dh)
-    in x.dtype, with RoPE on q and k."""
+    in x.dtype, with RoPE on q and k. On the card this is two launches of
+    the hand-written kernel (see its source) with f32 scratch from
+    ``torch.empty``."""
     B, D = x.shape
     _, Hq, dh = wq.shape
     Hkv = wk.shape[1]
     if wq.shape[0] != D or wk.shape != (D, Hkv, dh) or wv.shape != wk.shape:
         raise ValueError("qkv_rope_paged: weight shapes do not match x")
     if not rt.on_card(x, norm_scale, wq, wk, wv, pos):
-        inv = _inv_freq(dh, float(theta), float(rope_frac), "cpu")
+        inv = _inv_freq(dh, float(theta), "cpu")
         return qkv_rope_paged_ref(x, norm_scale, wq, wk, wv, pos, inv)
     _check_dtype("qkv_rope_paged", x.dtype, norm_scale=norm_scale, wq=wq,
                  wk=wk, wv=wv)
@@ -59,14 +61,18 @@ def qkv_rope_paged(x, norm_scale, wq, wk, wv, pos, *, theta=10000.0,
                         wk=wk, wv=wv, pos=pos)
     fn = rt.bind("qkv_rope_paged", f"qkv_rope_paged_{_SUFFIX[x.dtype]}",
                  _QKV_ARGS)
-    inv = _inv_freq(dh, float(theta), float(rope_frac), str(x.device))
+    inv = _inv_freq(dh, float(theta), str(x.device))
+    Ht = Hq + 2 * Hkv
+    splits = max(1, min(8, -(-2 * _SMS // Ht), D // _MIN_ROWS))
     q = torch.empty((B, Hq, dh), dtype=x.dtype, device=x.device)
     k = torch.empty((B, Hkv, dh), dtype=x.dtype, device=x.device)
     v = torch.empty_like(k)
+    partial = torch.empty((splits, B, Ht * dh), dtype=torch.float32,
+                          device=x.device)
     rc = fn(x.data_ptr(), norm_scale.data_ptr(), wq.data_ptr(), wk.data_ptr(),
             wv.data_ptr(), pos.data_ptr(), inv.data_ptr(), q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), B, D, Hq, Hkv, dh, inv.shape[0],
-            rt.stream_ptr(x))
+            k.data_ptr(), v.data_ptr(), partial.data_ptr(), B, D, Hq, Hkv, dh,
+            inv.shape[0], splits, rt.stream_ptr(x))
     rt.check_launch("qkv_rope_paged", rc)
     rt.count_launch("qkv_rope_paged")
     return q, k, v
@@ -75,7 +81,7 @@ def qkv_rope_paged(x, norm_scale, wq, wk, wv, pos, *, theta=10000.0,
 def _splits(n_cols: int, k: int) -> int:
     """K splits of a skinny product so that about two CTAs per SM run."""
     tiles = -(-n_cols // _TILE_N)
-    return max(1, min(8, -(-2 * _SMS // tiles), k // _KC))
+    return max(1, min(8, -(-2 * _SMS // tiles), k // _MIN_ROWS))
 
 
 def oproj_ffn_swiglu(x, attn_out, w_o, norm_scale, w_gate, w_up, w_down):
@@ -111,13 +117,13 @@ def oproj_ffn_swiglu(x, attn_out, w_o, norm_scale, w_gate, w_up, w_down):
     f32 = dict(dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     y = torch.empty((B, D), **f32)
-    rstd = torch.empty((B,), **f32)
+    ss = torch.empty((B, -(-D // 256)), **f32)      # per-chunk sum of y^2
     h = torch.empty((B, F), **f32)
     p_o = torch.empty((so, B, D), **f32)
     p_d = torch.empty((sd, B, D), **f32)
     rc = fn(x.data_ptr(), attn_out.data_ptr(), w_o.data_ptr(),
             norm_scale.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-            w_down.data_ptr(), out.data_ptr(), y.data_ptr(), rstd.data_ptr(),
+            w_down.data_ptr(), out.data_ptr(), y.data_ptr(), ss.data_ptr(),
             h.data_ptr(), p_o.data_ptr(), p_d.data_ptr(), B, D, HD, F, so, sd,
             rt.stream_ptr(x))
     rt.check_launch("oproj_ffn_swiglu", rc)

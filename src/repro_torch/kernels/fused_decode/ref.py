@@ -12,11 +12,11 @@ def rms_ref(x, scale, eps=1e-6):
     return xf * torch.rsqrt(var + eps) * scale.float()
 
 
-def rope_inv_freq(dh: int, theta: float, rope_frac: float = 1.0) -> np.ndarray:
-    """(rot/2,) f32 inverse frequencies, with the host numpy arithmetic of
-    the JAX kernel wrapper (``qkv_rope_paged``), so both packages agree."""
-    rot = int(dh * rope_frac)
-    rot -= rot % 2
+def rope_inv_freq(dh: int, theta: float) -> np.ndarray:
+    """(rot/2,) f32 inverse frequencies of full RoPE, with the host numpy
+    arithmetic of the JAX kernel wrapper (``qkv_rope_paged``), so both
+    packages agree."""
+    rot = dh - dh % 2
     return (1.0 / (theta ** (np.arange(0, rot, 2) / rot))).astype(np.float32)
 
 

@@ -62,10 +62,6 @@ def init_params(specs, generator: torch.Generator, device):
     return out
 
 
-def param_count(specs) -> int:
-    return int(sum(int(np.prod(s.shape)) for _, s in _spec_leaves(specs)))
-
-
 def param_bytes(specs) -> int:
     return int(sum(int(np.prod(s.shape)) * torch.empty((), dtype=s.dtype)
                    .element_size() for _, s in _spec_leaves(specs)))

@@ -85,11 +85,6 @@ def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     return o.reshape(B, Sq, Hq, dv)
 
 
-def attention(cfg: ModelConfig, q, k, v, *, causal=True, window=0, q_offset=0):
-    return naive_attention(q, k, v, causal=causal, window=window,
-                           q_offset=q_offset)
-
-
 def ffn_specs(cfg: ModelConfig, d_ff=None):
     from repro_torch.models.common import spec
     D, F = cfg.d_model, d_ff or cfg.d_ff

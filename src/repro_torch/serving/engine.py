@@ -43,16 +43,10 @@ class Request:
     max_new_tokens: int
     arrival_s: float = field(default_factory=time.perf_counter)
     expert: Optional[str] = None        # routed at submit when None
-    prefill_done_s: Optional[float] = None
     first_token_s: Optional[float] = None
     done_s: Optional[float] = None
     output: Optional[np.ndarray] = None
     skipped: int = 0                    # admission passes survived unadmitted
-    submit_s: Optional[float] = None
-    admit_s: Optional[float] = None
-    last_token_s: Optional[float] = None
-    route_s: float = 0.0
-    switch_stall_s: float = 0.0
 
     @property
     def latency_s(self) -> Optional[float]:
@@ -180,10 +174,8 @@ class ServingEngine:
 
     def __init__(self, coe: CompositionOfExperts, cfg: ModelConfig, *,
                  max_len: int = 4096, n_slots: int = 8, block_size: int = 16,
-                 kv_budget_bytes: Optional[int] = None, policy=None,
-                 switch_quantum: int = 8, starvation_limit: int = 16,
-                 runner: Optional[PagedDecodeRunner] = None,
-                 backend: str = "fused",
+                 policy=None, switch_quantum: int = 8,
+                 starvation_limit: int = 16, backend: str = "fused",
                  prefill_buckets: Optional[Sequence[int]] = None,
                  prefill_max_segments: Optional[int] = None,
                  kv_dtype=torch.bfloat16, device=None):
@@ -201,32 +193,18 @@ class ServingEngine:
         self.policy = policy or GreedyDecode()
         self.max_blocks = -(-(max_len + self.policy.reserve_slack)
                             // block_size)
-        if kv_budget_bytes is None:
-            # every slot can hold a full-length request, + scratch
-            pool_blocks = self.n_slots * self.max_blocks + 1
-            kv_budget_bytes = coe.hbm_budget.kv_bytes or (
-                pool_blocks * PagedKVCache.block_bytes(
-                    block_size, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
-                    kv_dtype))
+        # the budget's KV carve, else every slot holds a full-length request
+        kv_budget_bytes = coe.hbm_budget.kv_bytes or (
+            (self.n_slots * self.max_blocks + 1) * PagedKVCache.block_bytes(
+                block_size, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
+                kv_dtype))
         self.pool = PagedKVCache.for_budget(
             kv_budget_bytes, block_size, cfg.n_layers, cfg.n_kv_heads,
             cfg.head_dim, kv_dtype, scratch=True, device=self.device)
         self._empty_table = np.full((self.max_blocks,),
                                     self.pool.scratch_index, np.int32)
-        if runner is None:
-            self.runner = PagedDecodeRunner(cfg, self.pool.scratch_index,
-                                            backend=backend)
-        else:
-            if runner.backend_name != backend:
-                raise ValueError(
-                    f"shared runner executes backend "
-                    f"{runner.backend_name!r}, engine asked for {backend!r}")
-            self.runner = runner
-        if self.runner.scratch_row != self.pool.scratch_index:
-            raise ValueError(
-                "shared runner was built for a different pool size "
-                f"(scratch row {self.runner.scratch_row} != "
-                f"{self.pool.scratch_index})")
+        self.runner = PagedDecodeRunner(cfg, self.pool.scratch_index,
+                                        backend=backend)
         self._dev_tables = _DeviceTableCache(self.pool, self.max_blocks,
                                              self._empty_table)
         self._active_cache: Optional[Tuple[np.ndarray, torch.Tensor]] = None
@@ -248,8 +226,6 @@ class ServingEngine:
     def submit(self, req: Request):
         """Enqueue a request. An untagged request is routed through the
         composition's router once, here."""
-        if req.submit_s is None:
-            req.submit_s = time.perf_counter()
         need = len(req.tokens) + req.max_new_tokens + self.policy.reserve_slack
         if need > self.max_blocks * self.block:
             raise ValueError(
@@ -261,7 +237,6 @@ class ServingEngine:
         if req.expert is None:
             req.expert, dt = self.coe.route_request(req.tokens)
             self.stats.route_s += dt
-            req.route_s = dt
         elif req.expert not in self.coe.experts:
             raise KeyError(
                 f"request {req.rid}: unknown expert {req.expert!r}")
@@ -380,20 +355,15 @@ class ServingEngine:
                       done: List[Request]):
         """Group this step's admits by expert (selection order kept) and run
         one packed prefill per bucket-capacity chunk."""
-        now = time.perf_counter()
         groups: Dict[str, List[Request]] = {}
         for r in reqs:
-            r.admit_s = r.admit_s or now
             groups.setdefault(r.expert, []).append(r)
         foreign = False
         pr = self.prefill_runner
         for expert, rs in groups.items():
             t0 = time.perf_counter()
             params = self.coe.cache.activate(expert)
-            dt = time.perf_counter() - t0
-            self.stats.switch_s += dt
-            for r in rs:                 # activation stall split pro rata
-                r.switch_stall_s += dt / len(rs)
+            self.stats.switch_s += time.perf_counter() - t0
             foreign |= expert != self._active_expert
             for idx in plan_packs([len(r.tokens) for r in rs], pr.buckets,
                                   pr.max_segments):
@@ -423,13 +393,8 @@ class ServingEngine:
 
     def _slot_ready(self, slot_idx: int, req: Request, first: int, params,
                     done: List[Request]):
-        now = time.perf_counter()
-        req.admit_s = req.admit_s or now
-        req.prefill_done_s = now
-        if req.first_token_s is None:
-            req.first_token_s = now
-            self.ttft_s.append(req.first_token_s - req.arrival_s)
-        req.last_token_s = now
+        req.first_token_s = time.perf_counter()
+        self.ttft_s.append(req.first_token_s - req.arrival_s)
         self.stats.admitted += 1
         self.stats.tokens_out += 1
         slot = _Slot(req=req, expert=req.expert, last_token=first,
@@ -483,13 +448,11 @@ class ServingEngine:
     def _decode_round(self, active: np.ndarray, done: List[Request]):
         t0 = time.perf_counter()
         emits = self.policy.round(self._params, active)
-        now = time.perf_counter()
         for i, toks in emits.items():
             slot = self.slots[i]
             self.pool.advance(slot.req.rid, len(toks))
             slot.generated.extend(toks)
             slot.last_token = toks[-1]
-            slot.req.last_token_s = now
             self.stats.tokens_out += len(toks)
             if slot.remaining <= 0:
                 self._finish(slot, done)
@@ -502,30 +465,6 @@ class ServingEngine:
         req = slot.req
         req.output = np.asarray(slot.generated[: req.max_new_tokens], np.int32)
         req.done_s = time.perf_counter()
-        req.last_token_s = req.done_s
         self.pool.free(req.rid)
         self.policy.on_free(req.rid)
         done.append(req)
-
-    # -- accounting --------------------------------------------------------
-    def hbm_in_budget(self) -> bool:
-        """Weights + live KV inside this engine's HBM tier right now."""
-        cache = self.coe.cache
-        if cache.used_bytes > cache.capacity:
-            return False
-        b = self.coe.hbm_budget
-        if b.kv_bytes:
-            if self.pool.capacity_bytes() > b.kv_bytes:
-                return False
-            return cache.used_bytes + self.pool.bytes_in_use() <= b.total_bytes
-        return True
-
-    def debug_pool(self) -> Dict[str, object]:
-        p = self.pool
-        return {"n_blocks": p.n_blocks, "block_size": p.block,
-                "free_blocks": p.free_blocks,
-                "blocks_in_use": p.stats.blocks_in_use,
-                "bytes_in_use": p.bytes_in_use(),
-                "capacity_bytes": p.capacity_bytes(),
-                "open_rids": list(p.open_rids()),
-                "invariant_violations": p.check_invariants()}

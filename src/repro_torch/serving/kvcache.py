@@ -18,7 +18,7 @@ The prefix-sharing half of the JAX pool (``PrefixIndex``, adoption,
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -30,8 +30,6 @@ class PagedStats:
     frees: int = 0
     blocks_in_use: int = 0
     peak_blocks: int = 0
-    shared_blocks: int = 0
-    cow_splits: int = 0
 
     def as_dict(self):
         return asdict(self)
@@ -99,9 +97,6 @@ class PagedKVCache:
         """Bytes of the allocatable blocks (scratch row excluded)."""
         return self.n_blocks * self._per_block_bytes()
 
-    def bytes_in_use(self) -> int:
-        return self.stats.blocks_in_use * self._per_block_bytes()
-
     def table(self, rid: int) -> List[int]:
         return list(self._tables[rid])
 
@@ -117,14 +112,8 @@ class PagedKVCache:
     def length(self, rid: int) -> int:
         return self._lengths[rid]
 
-    def refcount(self, blk: int) -> int:
-        return self._refs.get(blk, 0)
-
     def live_table_refs(self) -> int:
         return sum(len(t) for t in self._tables.values())
-
-    def open_rids(self) -> Tuple[int, ...]:
-        return tuple(self._tables)
 
     def check_invariants(self) -> List[str]:
         """Audit the refcount books; returns violations (empty = healthy)."""

@@ -15,7 +15,7 @@ from __future__ import annotations
 import abc
 import threading
 from dataclasses import asdict, dataclass
-from typing import Any, Dict, List
+from typing import Any, Dict
 
 import torch
 
@@ -35,9 +35,6 @@ class StoreStats:
 
 class ExpertStore(abc.ABC):
     """One expert-per-key store over trees of host tensors."""
-
-    # True when nbytes() answers from metadata without reading the blob
-    cheap_nbytes = True
 
     def __init__(self):
         self.stats = StoreStats()
@@ -63,25 +60,11 @@ class ExpertStore(abc.ABC):
     def contains(self, name: str) -> bool: ...
 
     @abc.abstractmethod
-    def delete(self, name: str) -> None: ...
-
-    @abc.abstractmethod
-    def keys(self) -> List[str]: ...
-
-    @abc.abstractmethod
     def nbytes(self, name: str) -> int: ...
 
     def stored_bytes(self, name: str) -> int:
+        """Bytes occupied on the capacity tier; defaults to ``nbytes``."""
         return self.nbytes(name)
-
-    def total_stored_bytes(self) -> int:
-        return sum(self.stored_bytes(n) for n in self.keys())
-
-    def __contains__(self, name: str) -> bool:
-        return self.contains(name)
-
-    def __len__(self) -> int:
-        return len(self.keys())
 
 
 def _host_copy(t: torch.Tensor) -> torch.Tensor:
@@ -114,13 +97,6 @@ class HostMemoryStore(ExpertStore):
 
     def contains(self, name):
         return name in self._trees
-
-    def delete(self, name):
-        del self._trees[name]
-        del self._nbytes[name]
-
-    def keys(self):
-        return list(self._trees.keys())
 
     def nbytes(self, name):
         return self._nbytes[name]
