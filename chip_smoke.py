@@ -211,7 +211,7 @@ def kernel_phase(cfg, dev, B=8):
     return rows_out
 
 
-def serve_phase(cfg, dev, depth_note=""):
+def serve_phase(cfg, dev):
     """The port's main path: the engine serving full-width experts."""
     from repro_torch.kernels import runtime as rt
     from repro_torch.launch.serve import build_coe, make_requests
@@ -223,7 +223,7 @@ def serve_phase(cfg, dev, depth_note=""):
                             dev)
     torch.cuda.empty_cache()
     _log(f"built {s['n_experts']} experts of {nbytes / 1e9:.2f} GB each in "
-         f"pinned host memory in {time.perf_counter() - t0:.1f}s{depth_note}")
+         f"pinned host memory in {time.perf_counter() - t0:.1f}s")
     engine = ServingEngine(coe, cfg, max_len=s["max_len"],
                            n_slots=s["n_slots"], block_size=s["block_size"],
                            backend="fused", device=dev)

@@ -42,6 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[tuple, ctypes._CFuncPtr] = {}
 _build_logs: Dict[str, str] = {}
 _launches: Dict[str, int] = {name: 0 for name in SOURCES}
 
@@ -166,10 +167,13 @@ def library(name: str) -> ctypes.CDLL:
 def bind(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """One C entry point of library ``name`` with its argument types set
     (``c_void_p`` for every pointer and the stream, ``c_int`` for ints)."""
-    fn = getattr(library(name), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
+    key = (name, symbol)
+    if key not in _fns:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _fns[key] = fn
+    return _fns[key]
 
 
 P = ctypes.c_void_p

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field, fields
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +34,12 @@ from repro_torch.serving.backends import PagedDecodeRunner
 from repro_torch.serving.kvcache import PagedKVCache
 from repro_torch.serving.prefill import (PackedPrefillRunner, default_buckets,
                                          plan_packs)
+
+
+# the JAX engine's scheduling defaults: decode rounds an expert keeps the
+# batch while others wait, and admission passes a request may be skipped
+SWITCH_QUANTUM = 8
+STARVATION_LIMIT = 16
 
 
 @dataclass(eq=False)
@@ -174,11 +180,8 @@ class ServingEngine:
 
     def __init__(self, coe: CompositionOfExperts, cfg: ModelConfig, *,
                  max_len: int = 4096, n_slots: int = 8, block_size: int = 16,
-                 policy=None, switch_quantum: int = 8,
-                 starvation_limit: int = 16, backend: str = "fused",
-                 prefill_buckets: Optional[Sequence[int]] = None,
-                 prefill_max_segments: Optional[int] = None,
-                 kv_dtype=torch.bfloat16, device=None):
+                 backend: str = "fused", kv_dtype=torch.bfloat16,
+                 device=None):
         self.device = resolve_device(device)
         if self.device != coe.device:
             raise ValueError(f"engine device {self.device} differs from the "
@@ -188,9 +191,9 @@ class ServingEngine:
         self.max_len = max_len
         self.n_slots = n_slots
         self.block = block_size
-        self.switch_quantum = switch_quantum
-        self.starvation_limit = starvation_limit
-        self.policy = policy or GreedyDecode()
+        self.switch_quantum = SWITCH_QUANTUM
+        self.starvation_limit = STARVATION_LIMIT
+        self.policy = GreedyDecode()
         self.max_blocks = -(-(max_len + self.policy.reserve_slack)
                             // block_size)
         # the budget's KV carve, else every slot holds a full-length request
@@ -209,8 +212,7 @@ class ServingEngine:
                                              self._empty_table)
         self._active_cache: Optional[Tuple[np.ndarray, torch.Tensor]] = None
         self.prefill_runner = PackedPrefillRunner(
-            cfg, buckets=prefill_buckets or default_buckets(max_len),
-            max_segments=prefill_max_segments or n_slots)
+            cfg, buckets=default_buckets(max_len), max_segments=n_slots)
         self.ttft_s: List[float] = []     # arrival -> first token, per request
         self.policy.bind(self)
 
