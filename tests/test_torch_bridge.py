@@ -18,7 +18,7 @@ from repro_torch.models import get_model
 @pytest.fixture(autouse=True)
 def _threads():
     prev = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
 

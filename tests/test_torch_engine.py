@@ -33,7 +33,7 @@ EXPERT_OF = [0, 1, 0, 2, 1, 0, 1, 2, 0]
 @pytest.fixture(autouse=True)
 def _threads():
     prev = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
 

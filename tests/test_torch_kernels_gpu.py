@@ -52,66 +52,70 @@ def _t(rs, shape, dev, dtype, scale=1.0):
                            dtype=torch.float32, device=dev).to(dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+# few test cases per file keep the xdist work queue of the whole suite in
+# its usual order: each case loops over its dtypes and shapes
+DTYPES = (torch.bfloat16, torch.float32)
+
+
 @pytest.mark.parametrize("hq,hkv,dh", [(32, 32, 128), (8, 4, 64), (8, 2, 128),
                                        (4, 1, 32)])
-def test_decode_paged_kernel_matches_plain(dev, dtype, hq, hkv, dh):
+def test_decode_paged_kernel_matches_plain(dev, hq, hkv, dh):
     B, block, maxb = 8, 16, 32
     rows = B * maxb + 1
-    rs = np.random.RandomState(0)
-    q = _t(rs, (B, hq, dh), dev, dtype)
-    kp = _t(rs, (rows, block, hkv, dh), dev, dtype)
-    vp = _t(rs, (rows, block, hkv, dh), dev, dtype)
-    tables = torch.as_tensor(rs.permutation(rows - 1)[:B * maxb]
-                             .reshape(B, maxb), dtype=torch.int32, device=dev)
-    tables[3] = rows - 1                    # an inactive lane on scratch
-    len1 = torch.as_tensor([1, 15, 16, 1, 17, 255, 300, 512],
-                           dtype=torch.int32, device=dev)
-    rt.reset_launches()
-    got = decode_paged(q, kp, vp, tables, len1)
-    torch.cuda.synchronize()
-    assert rt.launch_counts()["decode_paged"] == 1
-    _close(got, decode_paged_ref(q, kp, vp, tables, len1), dtype)
+    for dtype in DTYPES:
+        rs = np.random.RandomState(0)
+        q = _t(rs, (B, hq, dh), dev, dtype)
+        kp = _t(rs, (rows, block, hkv, dh), dev, dtype)
+        vp = _t(rs, (rows, block, hkv, dh), dev, dtype)
+        tables = torch.as_tensor(rs.permutation(rows - 1)[:B * maxb]
+                                 .reshape(B, maxb), dtype=torch.int32,
+                                 device=dev)
+        tables[3] = rows - 1                # an inactive lane on scratch
+        len1 = torch.as_tensor([1, 15, 16, 1, 17, 255, 300, 512],
+                               dtype=torch.int32, device=dev)
+        rt.reset_launches()
+        got = decode_paged(q, kp, vp, tables, len1)
+        torch.cuda.synchronize()
+        assert rt.launch_counts()["decode_paged"] == 1
+        _close(got, decode_paged_ref(q, kp, vp, tables, len1), dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D,hq,hkv,dh,B", [(4096, 32, 32, 128, 8),
-                                           (128, 4, 2, 32, 3),
-                                           (512, 8, 2, 64, 11)])
-def test_qkv_rope_paged_kernel_matches_plain(dev, dtype, D, hq, hkv, dh, B):
-    rs = np.random.RandomState(1)
-    x = _t(rs, (B, D), dev, dtype)
-    scale = _t(rs, (D,), dev, dtype)
-    wq = _t(rs, (D, hq, dh), dev, dtype, D ** -0.5)
-    wk = _t(rs, (D, hkv, dh), dev, dtype, D ** -0.5)
-    wv = _t(rs, (D, hkv, dh), dev, dtype, D ** -0.5)
-    pos = torch.as_tensor(rs.randint(0, 512, (B,)), dtype=torch.int32,
-                          device=dev)
-    got = qkv_rope_paged(x, scale, wq, wk, wv, pos)
-    inv = torch.as_tensor(rope_inv_freq(dh, 10000.0), device=dev)
-    ref = qkv_rope_paged_ref(x, scale, wq, wk, wv, pos, inv)
-    torch.cuda.synchronize()
-    for g, r in zip(got, ref):
-        _close(g, r, dtype)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_qkv_rope_paged_kernel_matches_plain(dev, dtype):
+    for D, hq, hkv, dh, B in ((4096, 32, 32, 128, 8), (128, 4, 2, 32, 3),
+                              (512, 8, 2, 64, 11)):
+        rs = np.random.RandomState(1)
+        x = _t(rs, (B, D), dev, dtype)
+        scale = _t(rs, (D,), dev, dtype)
+        wq = _t(rs, (D, hq, dh), dev, dtype, D ** -0.5)
+        wk = _t(rs, (D, hkv, dh), dev, dtype, D ** -0.5)
+        wv = _t(rs, (D, hkv, dh), dev, dtype, D ** -0.5)
+        pos = torch.as_tensor(rs.randint(0, 512, (B,)), dtype=torch.int32,
+                              device=dev)
+        got = qkv_rope_paged(x, scale, wq, wk, wv, pos)
+        inv = torch.as_tensor(rope_inv_freq(dh, 10000.0), device=dev)
+        ref = qkv_rope_paged_ref(x, scale, wq, wk, wv, pos, inv)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            _close(g, r, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D,HD,F,B", [(4096, 4096, 11008, 8),
-                                      (128, 128, 256, 3),
-                                      (256, 512, 200, 9)])
-def test_oproj_ffn_swiglu_kernel_matches_plain(dev, dtype, D, HD, F, B):
-    rs = np.random.RandomState(2)
-    x = _t(rs, (B, D), dev, dtype)
-    attn = _t(rs, (B, HD), dev, dtype)
-    wo = _t(rs, (HD, D), dev, dtype, HD ** -0.5)
-    scale = _t(rs, (D,), dev, dtype)
-    wg = _t(rs, (D, F), dev, dtype, D ** -0.5)
-    wu = _t(rs, (D, F), dev, dtype, D ** -0.5)
-    wd = _t(rs, (F, D), dev, dtype, F ** -0.5)
-    got = oproj_ffn_swiglu(x, attn, wo, scale, wg, wu, wd)
-    ref = oproj_ffn_swiglu_ref(x, attn, wo, scale, wg, wu, wd)
-    torch.cuda.synchronize()
-    _close(got, ref, dtype)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_oproj_ffn_swiglu_kernel_matches_plain(dev, dtype):
+    for D, HD, F, B in ((4096, 4096, 11008, 8), (128, 128, 256, 3),
+                        (256, 512, 200, 9)):
+        rs = np.random.RandomState(2)
+        x = _t(rs, (B, D), dev, dtype)
+        attn = _t(rs, (B, HD), dev, dtype)
+        wo = _t(rs, (HD, D), dev, dtype, HD ** -0.5)
+        scale = _t(rs, (D,), dev, dtype)
+        wg = _t(rs, (D, F), dev, dtype, D ** -0.5)
+        wu = _t(rs, (D, F), dev, dtype, D ** -0.5)
+        wd = _t(rs, (F, D), dev, dtype, F ** -0.5)
+        got = oproj_ffn_swiglu(x, attn, wo, scale, wg, wu, wd)
+        ref = oproj_ffn_swiglu_ref(x, attn, wo, scale, wg, wu, wd)
+        torch.cuda.synchronize()
+        _close(got, ref, dtype)
 
 
 def test_kernel_results_repeat_bit_for_bit(dev):

@@ -15,7 +15,7 @@ L, H, DH, BLOCK = 2, 2, 8, 4
 @pytest.fixture(autouse=True)
 def _threads():
     prev = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
 

@@ -24,7 +24,7 @@ ATOL = 1e-4
 @pytest.fixture(autouse=True)
 def _threads():
     prev = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
 
