@@ -14,7 +14,6 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
 }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }

@@ -233,13 +233,4 @@ extern "C" int decode_paged_bf16(const void* q, const void* kp, const void* vp,
                                  block, maxb, scale, stream);
 }
 
-extern "C" int decode_paged_f32(const void* q, const void* kp, const void* vp,
-                                const void* tables, const void* len1,
-                                void* out, int B, int Hkv, int G, int dh,
-                                int block, int maxb, float scale,
-                                void* stream) {
-  return dispatch<float>(q, kp, vp, tables, len1, out, B, Hkv, G, dh, block,
-                         maxb, scale, stream);
-}
-
 REPRO_EXPORT_ERROR_STRING

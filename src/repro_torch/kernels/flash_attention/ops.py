@@ -9,7 +9,6 @@ import torch
 from repro_torch.kernels import runtime as rt
 from repro_torch.kernels.flash_attention.ref import decode_paged_ref
 
-_DTYPES = {torch.bfloat16: "decode_paged_bf16", torch.float32: "decode_paged_f32"}
 _ARGS = [rt.P] * 6 + [rt.I] * 6 + [rt.F, rt.P]
 
 
@@ -19,7 +18,8 @@ def decode_paged(q, k_pool, v_pool, tables, len1):
     scratch row (every entry must be a valid row); len1 (B,) int32 = valid
     positions per lane including this step's token. Returns (B,Hq,dh).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version, in any float dtype; CUDA tensors
+    launch the kernel, which takes bf16 q and pools."""
     B, Hq, dh = q.shape
     rows, block, Hkv, dh_p = k_pool.shape
     if dh_p != dh or Hq % Hkv or v_pool.shape != k_pool.shape:
@@ -28,11 +28,10 @@ def decode_paged(q, k_pool, v_pool, tables, len1):
     if not rt.on_card(q, k_pool, v_pool, tables, len1):
         return decode_paged_ref(q, k_pool, v_pool, tables, len1)
     G = Hq // Hkv
-    if (q.dtype not in _DTYPES or k_pool.dtype != q.dtype
-            or v_pool.dtype != q.dtype):
+    if not q.dtype == k_pool.dtype == v_pool.dtype == torch.bfloat16:
         raise TypeError(f"decode_paged: dtypes q={q.dtype} k={k_pool.dtype} "
-                        f"v={v_pool.dtype}; the kernel takes one of "
-                        f"{list(_DTYPES)} for all three")
+                        f"v={v_pool.dtype}; the kernel takes bf16 for all "
+                        "three")
     if tables.dtype != torch.int32 or len1.dtype != torch.int32:
         raise TypeError("decode_paged: tables and len1 must be int32")
     if dh not in (32, 64, 128, 256) or G not in (1, 2, 4, 8):
@@ -40,7 +39,7 @@ def decode_paged(q, k_pool, v_pool, tables, len1):
                          f"G in 1/2/4/8, got dh={dh}, G={G}")
     rt.check_contiguous("decode_paged", q=q, k_pool=k_pool, v_pool=v_pool,
                         tables=tables, len1=len1)
-    fn = rt.bind("decode_paged", _DTYPES[q.dtype], _ARGS)
+    fn = rt.bind("decode_paged", "decode_paged_bf16", _ARGS)
     out = torch.empty_like(q)
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             tables.data_ptr(), len1.data_ptr(), out.data_ptr(), B, Hkv, G, dh,

@@ -206,15 +206,4 @@ extern "C" int oproj_ffn_swiglu_bf16(const void* x, const void* attn,
                             p_o, p_d, B, D, HD, F, splits_o, splits_d, stream);
 }
 
-extern "C" int oproj_ffn_swiglu_f32(const void* x, const void* attn,
-                                    const void* wo, const void* scale,
-                                    const void* wg, const void* wu,
-                                    const void* wd, void* out, void* y,
-                                    void* ss, void* h, void* p_o, void* p_d,
-                                    int B, int D, int HD, int F, int splits_o,
-                                    int splits_d, void* stream) {
-  return run<float>(x, attn, wo, scale, wg, wu, wd, out, y, ss, h, p_o, p_d,
-                    B, D, HD, F, splits_o, splits_d, stream);
-}
-
 REPRO_EXPORT_ERROR_STRING

@@ -184,15 +184,4 @@ extern "C" int qkv_rope_paged_bf16(const void* x, const void* scale,
                                  stream);
 }
 
-extern "C" int qkv_rope_paged_f32(const void* x, const void* scale,
-                                  const void* wq, const void* wk,
-                                  const void* wv, const void* pos,
-                                  const void* inv_freq, void* q, void* k,
-                                  void* v, void* partial, int B, int D,
-                                  int Hq, int Hkv, int dh, int rot2,
-                                  int splits, void* stream) {
-  return dispatch<float>(x, scale, wq, wk, wv, pos, inv_freq, q, k, v,
-                         partial, B, D, Hq, Hkv, dh, rot2, splits, stream);
-}
-
 REPRO_EXPORT_ERROR_STRING

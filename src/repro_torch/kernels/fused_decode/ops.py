@@ -1,7 +1,8 @@
 """Wrappers of the paged fused-decode kernels (counterparts of
 ``repro.kernels.fused_decode.kernel.qkv_rope_paged`` and
 ``oproj_ffn_swiglu``). CPU tensors take the plain versions in ``ref.py``;
-CUDA tensors launch the hand-written kernels or the call raises."""
+CUDA tensors launch the hand-written kernels, which take bf16 activations
+and weights, or the call raises."""
 from __future__ import annotations
 
 import functools
@@ -13,7 +14,6 @@ from repro_torch.kernels.fused_decode.ref import (oproj_ffn_swiglu_ref,
                                                   qkv_rope_paged_ref,
                                                   rope_inv_freq)
 
-_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _QKV_ARGS = [rt.P] * 11 + [rt.I] * 7 + [rt.P]
 _EPI_ARGS = [rt.P] * 13 + [rt.I] * 6 + [rt.P]
 _SMS = 132            # H100 SXM streaming multiprocessors
@@ -26,12 +26,11 @@ def _inv_freq(dh: int, theta: float, device: str):
     return torch.as_tensor(rope_inv_freq(dh, theta), device=device)
 
 
-def _check_dtype(name, dtype, **tensors):
-    if dtype not in _SUFFIX:
-        raise TypeError(f"{name}: the kernel takes {list(_SUFFIX)}, got {dtype}")
+def _check_bf16(name, **tensors):
     for k, t in tensors.items():
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: {k} is {t.dtype}, expected {dtype}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: {k} is {t.dtype}; the kernel takes "
+                            "bf16")
 
 
 def qkv_rope_paged(x, norm_scale, wq, wk, wv, pos, *, theta=10000.0):
@@ -50,8 +49,8 @@ def qkv_rope_paged(x, norm_scale, wq, wk, wv, pos, *, theta=10000.0):
     if not rt.on_card(x, norm_scale, wq, wk, wv, pos):
         inv = _inv_freq(dh, float(theta), "cpu")
         return qkv_rope_paged_ref(x, norm_scale, wq, wk, wv, pos, inv)
-    _check_dtype("qkv_rope_paged", x.dtype, norm_scale=norm_scale, wq=wq,
-                 wk=wk, wv=wv)
+    _check_bf16("qkv_rope_paged", x=x, norm_scale=norm_scale, wq=wq, wk=wk,
+                wv=wv)
     if pos.dtype != torch.int32:
         raise TypeError("qkv_rope_paged: pos must be int32")
     if dh not in (32, 64, 128, 256):
@@ -59,8 +58,7 @@ def qkv_rope_paged(x, norm_scale, wq, wk, wv, pos, *, theta=10000.0):
                          f"got {dh}")
     rt.check_contiguous("qkv_rope_paged", x=x, norm_scale=norm_scale, wq=wq,
                         wk=wk, wv=wv, pos=pos)
-    fn = rt.bind("qkv_rope_paged", f"qkv_rope_paged_{_SUFFIX[x.dtype]}",
-                 _QKV_ARGS)
+    fn = rt.bind("qkv_rope_paged", "qkv_rope_paged_bf16", _QKV_ARGS)
     inv = _inv_freq(dh, float(theta), str(x.device))
     Ht = Hq + 2 * Hkv
     splits = max(1, min(8, -(-2 * _SMS // Ht), D // _MIN_ROWS))
@@ -102,17 +100,16 @@ def oproj_ffn_swiglu(x, attn_out, w_o, norm_scale, w_gate, w_up, w_down):
     if not rt.on_card(x, attn_out, w_o, norm_scale, w_gate, w_up, w_down):
         return oproj_ffn_swiglu_ref(x, attn_out, w_o, norm_scale, w_gate,
                                     w_up, w_down)
-    _check_dtype("oproj_ffn_swiglu", x.dtype, attn_out=attn_out, w_o=w_o,
-                 norm_scale=norm_scale, w_gate=w_gate, w_up=w_up,
-                 w_down=w_down)
+    _check_bf16("oproj_ffn_swiglu", x=x, attn_out=attn_out, w_o=w_o,
+                norm_scale=norm_scale, w_gate=w_gate, w_up=w_up,
+                w_down=w_down)
     if D % 8 or F % 8:
         raise ValueError(f"oproj_ffn_swiglu: kernel needs D and F multiples "
                          f"of 8, got D={D}, F={F}")
     rt.check_contiguous("oproj_ffn_swiglu", x=x, attn_out=attn_out, w_o=w_o,
                         norm_scale=norm_scale, w_gate=w_gate, w_up=w_up,
                         w_down=w_down)
-    fn = rt.bind("oproj_ffn_swiglu", f"oproj_ffn_swiglu_{_SUFFIX[x.dtype]}",
-                 _EPI_ARGS)
+    fn = rt.bind("oproj_ffn_swiglu", "oproj_ffn_swiglu_bf16", _EPI_ARGS)
     so, sd = _splits(D, HD), _splits(D, F)
     f32 = dict(dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)

@@ -4,7 +4,7 @@ Builds a Samba-CoE-style composition (hash router + N experts derived from
 one backbone), keeps every expert in pinned host memory (the capacity tier),
 and serves a batch of requests through the continuous-batching engine, the
 HBM weight cache and the paged KV pool, decoding through the hand-written
-kernels (``--backend fused``, the default). For example, on one H100:
+kernels. For example, on one H100:
 
     python -m repro_torch.launch.serve --device cuda --n-experts 3 \\
         --hbm-experts 2 --requests 16 --new-tokens 32
@@ -105,9 +105,6 @@ def main(argv=None):
     ap.add_argument("--n-slots", type=int, default=8)
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=512)
-    ap.add_argument("--backend", default="fused", choices=["fused", "xla"],
-                    help="'fused' decodes through the hand-written kernels, "
-                    "'xla' through the plain PyTorch reference body")
     ap.add_argument("--tagged-fraction", type=float, default=0.5)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -122,7 +119,7 @@ def main(argv=None):
                             args.device)
     engine = ServingEngine(coe, cfg, max_len=args.max_len,
                            n_slots=args.n_slots, block_size=args.block_size,
-                           backend=args.backend, device=args.device)
+                           device=args.device)
     reqs, n_tagged = make_requests(args.requests, cfg.vocab_size,
                                    args.prompt_len, args.new_tokens,
                                    coe.expert_names(), args.tagged_fraction,

@@ -4,7 +4,8 @@
   * ``XlaPagedBackend`` — the plain PyTorch counterpart of the JAX package's
     XLA reference body (``xla_paged_extend``; the names are kept so the two
     packages line up): contiguous ``pool[tables]`` gather + masked softmax.
-    It is the correctness reference of the fused path.
+    It is the correctness reference of the fused path; the parity tests
+    pass it in as an object, serving never selects it.
   * ``FusedPagedBackend`` — per decoder layer, the three hand-written
     kernels: ``qkv_rope_paged`` -> K/V scatter -> ``decode_paged`` ->
     ``oproj_ffn_swiglu``. On CPU tensors the wrappers run their plain
@@ -17,7 +18,7 @@ Both bodies update the pools in place and return them.
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -139,27 +140,31 @@ def fused_paged_extend(cfg: ModelConfig, params, pk, pv, tables, lengths,
     return T.unembed(cfg, params, h), pk, pv
 
 
+# bytes per element on the port's main path: bf16 weights, activations and
+# K/V pools; f32 RoPE frequencies; int32 positions, tables and len1
+_BF16, _F32, _I32 = 2, 4, 4
+
+
 def kernel_hbm_bytes(cfg: ModelConfig, batch: int, len1: Sequence[int],
-                     maxb: int, kv_itemsize: int = 2, p_itemsize: int = 2,
-                     act_itemsize: int = 2) -> Dict[str, int]:
+                     maxb: int) -> Dict[str, int]:
     """Device-memory bytes each kernel must move in ONE layer of one fused
     g = 1 step: each input read once, each output written once. K/V bytes
     follow each lane's ``len1`` (the positions it attends), not the table
-    width. Weights are bf16 (``p_itemsize=2``) on the port's main path."""
+    width."""
     B = batch
     Hq, Hkv, dh, D, F = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                          cfg.d_model, cfg.d_ff)
     H = Hq + 2 * Hkv
     rot = dh - dh % 2
-    qkv = (B * D * act_itemsize + D * p_itemsize + B * 4 + rot // 2 * 4
-           + D * H * dh * p_itemsize + B * H * dh * act_itemsize)
+    qkv = (B * D * _BF16 + D * _BF16 + B * _I32 + rot // 2 * _F32
+           + D * H * dh * _BF16 + B * H * dh * _BF16)
     kv_tokens = int(sum(int(n) for n in len1))
-    attn = (2 * B * Hq * dh * act_itemsize            # q in + o out
-            + B * maxb * 4 + B * 4                    # tables + len1
-            + kv_tokens * Hkv * dh * kv_itemsize * 2)
-    epilogue = ((B * D + B * Hq * dh) * act_itemsize + D * p_itemsize
-                + (Hq * dh * D + 3 * D * F) * p_itemsize
-                + B * D * act_itemsize)
+    attn = (2 * B * Hq * dh * _BF16                   # q in + o out
+            + B * maxb * _I32 + B * _I32              # tables + len1
+            + kv_tokens * Hkv * dh * _BF16 * 2)
+    epilogue = ((B * D + B * Hq * dh) * _BF16 + D * _BF16
+                + (Hq * dh * D + 3 * D * F) * _BF16
+                + B * D * _BF16)
     return {"qkv_rope_paged": qkv, "decode_paged": attn,
             "oproj_ffn_swiglu": epilogue}
 
@@ -178,13 +183,11 @@ def kernel_flops(cfg: ModelConfig, batch: int,
 
 
 def fused_kernel_hbm_bytes(cfg: ModelConfig, batch: int, len1: Sequence[int],
-                           maxb: int, kv_itemsize: int = 2,
-                           p_itemsize: int = 2, act_itemsize: int = 2) -> int:
+                           maxb: int) -> int:
     """Device-memory bytes the three kernels must move in one fused g = 1
     step over all layers (see ``kernel_hbm_bytes``)."""
-    return cfg.n_layers * sum(kernel_hbm_bytes(
-        cfg, batch, len1, maxb, kv_itemsize, p_itemsize,
-        act_itemsize).values())
+    return cfg.n_layers * sum(kernel_hbm_bytes(cfg, batch, len1,
+                                               maxb).values())
 
 
 # ----------------------------------------------------------------------
@@ -196,22 +199,24 @@ class PagedBackend:
 
     name = "?"
 
-    def __init__(self, cfg: ModelConfig, scratch_row: int):
+    def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
-        self.scratch_row = scratch_row
 
-    def extend(self, params, pk, pv, tables, lengths, active, tokens):
+    def extend(self, params, pk, pv, tables, lengths, active, tokens,
+               scratch_row: int):
         raise NotImplementedError
 
 
 class XlaPagedBackend(PagedBackend):
-    """The plain PyTorch reference step."""
+    """The plain PyTorch reference step. Serving never picks it by itself:
+    a caller that wants it (a parity test) passes the object in."""
 
     name = "xla"
 
-    def extend(self, params, pk, pv, tables, lengths, active, tokens):
+    def extend(self, params, pk, pv, tables, lengths, active, tokens,
+               scratch_row: int):
         return xla_paged_extend(self.cfg, params, pk, pv, tables, lengths,
-                                active, tokens, self.scratch_row)
+                                active, tokens, scratch_row)
 
 
 class FusedPagedBackend(PagedBackend):
@@ -219,8 +224,8 @@ class FusedPagedBackend(PagedBackend):
 
     name = "fused"
 
-    def __init__(self, cfg: ModelConfig, scratch_row: int):
-        super().__init__(cfg, scratch_row)
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
         unsupported = []
         if cfg.n_experts > 0:
             unsupported.append("MoE FFN")
@@ -234,40 +239,41 @@ class FusedPagedBackend(PagedBackend):
             unsupported.append("attention/MLP biases")
         if unsupported:
             raise ValueError(
-                "backend='fused' supports the dense RMSNorm/SwiGLU/full-RoPE "
+                "the fused kernels serve the dense RMSNorm/SwiGLU/full-RoPE "
                 f"decoder family only; {cfg.name!r} needs "
-                f"{', '.join(unsupported)} — use backend='xla'")
+                f"{', '.join(unsupported)}, which the port does not serve yet")
 
-    def extend(self, params, pk, pv, tables, lengths, active, tokens):
+    def extend(self, params, pk, pv, tables, lengths, active, tokens,
+               scratch_row: int):
         return fused_paged_extend(self.cfg, params, pk, pv, tables, lengths,
-                                  active, tokens, self.scratch_row)
+                                  active, tokens, scratch_row)
 
 
-BACKENDS = {"xla": XlaPagedBackend, "fused": FusedPagedBackend}
-
-
-def make_backend(backend, cfg: ModelConfig, scratch_row: int) -> PagedBackend:
-    """'xla' / 'fused' / an already-built ``PagedBackend``."""
-    if isinstance(backend, PagedBackend):
-        return backend
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r} "
-                         f"(choose from {sorted(BACKENDS)})")
-    return BACKENDS[backend](cfg, scratch_row)
+def make_backend(backend: Optional[PagedBackend],
+                 cfg: ModelConfig) -> PagedBackend:
+    """The fused kernels' backend, unless the caller passes a built
+    ``PagedBackend``."""
+    if backend is None:
+        return FusedPagedBackend(cfg)
+    if not isinstance(backend, PagedBackend):
+        raise TypeError(f"backend must be a PagedBackend or None, got "
+                        f"{backend!r}")
+    return backend
 
 
 class PagedDecodeRunner:
     """Paged prefill / extend for one backbone config, shared by every expert
     of the composition (same backbone, paper §II)."""
 
-    def __init__(self, cfg: ModelConfig, scratch_row: int, backend="fused"):
+    def __init__(self, cfg: ModelConfig, scratch_row: int,
+                 backend: Optional[PagedBackend] = None):
         if cfg.family != "dense":
             raise ValueError("paged serving supports the dense family only")
         if cfg.sliding_window:
             raise ValueError("paged serving does not support sliding windows")
         self.cfg = cfg
         self.scratch_row = scratch_row
-        self.backend = make_backend(backend, cfg, scratch_row)
+        self.backend = make_backend(backend, cfg)
 
     @property
     def backend_name(self) -> str:
@@ -284,10 +290,10 @@ class PagedDecodeRunner:
 
     def extend(self, params, pk, pv, tables, lengths, active, tokens):
         return self.backend.extend(params, pk, pv, tables, lengths, active,
-                                   tokens)
+                                   tokens, self.scratch_row)
 
 
 def make_runner(cfg: ModelConfig, scratch_row: int,
-                backend="fused") -> PagedDecodeRunner:
+                backend: Optional[PagedBackend] = None) -> PagedDecodeRunner:
     """The backend-selection seam: a single-device paged runner."""
     return PagedDecodeRunner(cfg, scratch_row, backend=backend)

@@ -13,7 +13,7 @@
   * next-expert prefetch overlaps the weight copy with decode (paper Fig 9).
 
 Ported here: the continuous scheduler, packed prefill, ``GreedyDecode`` and
-``backend="fused"`` (the hand-written kernels) as the default. Not ported
+decoding through the hand-written kernels (``FusedPagedBackend``). Not ported
 yet (``ROADMAP.md``): the trace / lifecycle / SLO / flight-recorder plane,
 prefix sharing, sessions, ``SpeculativeDecode``, the run-to-completion
 scheduler, sequential prefill and disaggregated prefill handoffs.
@@ -30,7 +30,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.coe import CompositionOfExperts
-from repro_torch.serving.backends import PagedDecodeRunner
+from repro_torch.serving.backends import PagedBackend, PagedDecodeRunner
 from repro_torch.serving.kvcache import PagedKVCache
 from repro_torch.serving.prefill import (PackedPrefillRunner, default_buckets,
                                          plan_packs)
@@ -176,11 +176,14 @@ class ServingEngine:
     the next-most-demanded expert, run one decode round for the active
     expert's slots, recycle completed slots. ``drain()`` loops until idle.
     ``device`` defaults to the card and must be the composition's device.
+    Decode runs through the fused kernels unless ``backend`` passes another
+    ``PagedBackend`` object (the parity tests pass the reference).
     """
 
     def __init__(self, coe: CompositionOfExperts, cfg: ModelConfig, *,
                  max_len: int = 4096, n_slots: int = 8, block_size: int = 16,
-                 backend: str = "fused", kv_dtype=torch.bfloat16,
+                 backend: Optional[PagedBackend] = None,
+                 kv_dtype=torch.bfloat16,
                  device=None):
         self.device = resolve_device(device)
         if self.device != coe.device:

@@ -111,13 +111,16 @@ def test_hbm_bytes_at_7b_width():
 def test_backend_seam():
     cfg = reduced(get_config("samba-coe-expert-7b"))
     assert B.make_runner(cfg, 7).backend_name == "fused"
-    assert B.make_runner(cfg, 7, backend="xla").backend_name == "xla"
-    be = B.FusedPagedBackend(cfg, 7)
-    assert B.make_backend(be, cfg, 7) is be
-    with pytest.raises(ValueError, match="unknown backend"):
-        B.make_runner(cfg, 7, backend="dataflow")
+    ref = B.XlaPagedBackend(cfg)
+    assert B.make_runner(cfg, 7, backend=ref).backend_name == "xla"
+    be = B.FusedPagedBackend(cfg)
+    assert B.make_backend(be, cfg) is be
+    # no name selects the reference body: it is reachable only as an object
+    for name in ("xla", "fused", "dataflow"):
+        with pytest.raises(TypeError, match="PagedBackend"):
+            B.make_runner(cfg, 7, backend=name)
     for bad in (dataclasses.replace(cfg, qkv_bias=True),
                 dataclasses.replace(cfg, act="gelu"),
                 dataclasses.replace(cfg, norm="ln")):
-        with pytest.raises(ValueError, match="backend='xla'"):
-            B.FusedPagedBackend(bad, 0)
+        with pytest.raises(ValueError, match="dense RMSNorm/SwiGLU"):
+            B.FusedPagedBackend(bad)

@@ -22,7 +22,7 @@ from repro_torch.bridge import to_torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import (DGX_H100, CompositionOfExperts, ExpertHandle,
                               HashRouter, model_switch_time, plan_hbm_budget)
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import Request, ServingEngine, XlaPagedBackend
 
 ENGINE = dict(max_len=48, n_slots=4, block_size=8)
 # expert of each request: strictly decreasing demand (4 / 3 / 2) keeps the
@@ -79,7 +79,8 @@ def _port_drain(experts, backend):
                                device="cpu")
     for i, t in enumerate(trees):
         coe.register(ExpertHandle(f"e{i}", cfg, to_torch(t)))
-    eng = ServingEngine(coe, cfg, backend=backend, kv_dtype=torch.float32,
+    be = XlaPagedBackend(cfg) if backend == "xla" else None
+    eng = ServingEngine(coe, cfg, backend=be, kv_dtype=torch.float32,
                         device="cpu", **ENGINE)
     for r in _requests(Request, cfg.vocab_size):
         eng.submit(r)

@@ -116,6 +116,43 @@ def test_cuda_tensor_never_falls_back_to_the_plain_version(kernel,
     assert rt.launch_counts()[kernel] == 0
 
 
+def test_cuda_f32_tensor_raises_instead_of_falling_back(monkeypatch):
+    """The kernels take bf16 only: an f32 tensor on the card raises before
+    anything is built, and never reaches the plain version."""
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.kernels.flash_attention.ops import decode_paged
+    from repro_torch.kernels.fused_decode.ops import (oproj_ffn_swiglu,
+                                                      qkv_rope_paged)
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version or build reached")
+
+    for name in ("flash_attention.ops.decode_paged_ref",
+                 "fused_decode.ops.qkv_rope_paged_ref",
+                 "fused_decode.ops.oproj_ffn_swiglu_ref"):
+        monkeypatch.setattr(f"repro_torch.kernels.{name}", refuse)
+    monkeypatch.setattr(rt, "bind", refuse)
+    f32, i32 = torch.float32, torch.int32
+    calls = [
+        lambda: decode_paged(
+            _cuda_looking((2, 4, 32), f32), _cuda_looking((5, 8, 4, 32), f32),
+            _cuda_looking((5, 8, 4, 32), f32), _cuda_looking((2, 2), i32),
+            _cuda_looking((2,), i32, torch.ones(2, dtype=i32))),
+        lambda: qkv_rope_paged(
+            _cuda_looking((2, 64), f32), _cuda_looking((64,), f32),
+            _cuda_looking((64, 4, 32), f32), _cuda_looking((64, 2, 32), f32),
+            _cuda_looking((64, 2, 32), f32), _cuda_looking((2,), i32)),
+        lambda: oproj_ffn_swiglu(
+            _cuda_looking((2, 64), f32), _cuda_looking((2, 128), f32),
+            _cuda_looking((128, 64), f32), _cuda_looking((64,), f32),
+            _cuda_looking((64, 96), f32), _cuda_looking((64, 96), f32),
+            _cuda_looking((96, 64), f32)),
+    ]
+    for call in calls:
+        with pytest.raises(TypeError, match="bf16"):
+            call()
+
+
 def test_mixed_devices_raise():
     from repro_torch.kernels.runtime import on_card
     with pytest.raises(ValueError, match="mixed"):

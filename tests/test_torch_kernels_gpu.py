@@ -6,10 +6,10 @@ inside the test, where no card is present. Run them on an H100 with
 
 This file imports no JAX: the machine with the card has none.
 
-Tolerances: kernel and plain version both accumulate in f32 and round to the
-output type once, so they differ by summation order plus at most one
-rounding of the output: in bf16 two units in the last place of the largest
-value (2^-7 relative), in f32 1e-4 relative.
+The kernels take bf16 (the served type). Tolerance: kernel and plain version
+both accumulate in f32 and round to bf16 once, so they differ by summation
+order plus at most one rounding of the output: two units in the last place
+of the largest value (2^-7 relative).
 """
 import numpy as np
 import pytest
@@ -36,25 +36,17 @@ def dev():
     return torch.device("cuda")
 
 
-def _tol(ref, dtype):
-    scale = float(ref.float().abs().max())
-    return (2.0 ** -7 if dtype == torch.bfloat16 else 1e-4) * max(scale, 1.0)
-
-
-def _close(got, ref, dtype):
+def _close(got, ref):
     err = float((got.float() - ref.float()).abs().max())
+    tol = 2.0 ** -7 * max(float(ref.float().abs().max()), 1.0)
     assert torch.isfinite(got.float()).all()
-    assert err <= _tol(ref, dtype), (err, _tol(ref, dtype))
+    assert got.dtype == torch.bfloat16
+    assert err <= tol, (err, tol)
 
 
-def _t(rs, shape, dev, dtype, scale=1.0):
+def _t(rs, shape, dev, scale=1.0):
     return torch.as_tensor(rs.standard_normal(shape) * scale,
-                           dtype=torch.float32, device=dev).to(dtype)
-
-
-# few test cases per file keep the xdist work queue of the whole suite in
-# its usual order: each case loops over its dtypes and shapes
-DTYPES = (torch.bfloat16, torch.float32)
+                           dtype=torch.float32, device=dev).to(torch.bfloat16)
 
 
 @pytest.mark.parametrize("hq,hkv,dh", [(32, 32, 128), (8, 4, 64), (8, 2, 128),
@@ -62,34 +54,33 @@ DTYPES = (torch.bfloat16, torch.float32)
 def test_decode_paged_kernel_matches_plain(dev, hq, hkv, dh):
     B, block, maxb = 8, 16, 32
     rows = B * maxb + 1
-    for dtype in DTYPES:
-        rs = np.random.RandomState(0)
-        q = _t(rs, (B, hq, dh), dev, dtype)
-        kp = _t(rs, (rows, block, hkv, dh), dev, dtype)
-        vp = _t(rs, (rows, block, hkv, dh), dev, dtype)
-        tables = torch.as_tensor(rs.permutation(rows - 1)[:B * maxb]
-                                 .reshape(B, maxb), dtype=torch.int32,
-                                 device=dev)
-        tables[3] = rows - 1                # an inactive lane on scratch
-        len1 = torch.as_tensor([1, 15, 16, 1, 17, 255, 300, 512],
-                               dtype=torch.int32, device=dev)
-        rt.reset_launches()
-        got = decode_paged(q, kp, vp, tables, len1)
-        torch.cuda.synchronize()
-        assert rt.launch_counts()["decode_paged"] == 1
-        _close(got, decode_paged_ref(q, kp, vp, tables, len1), dtype)
+    rs = np.random.RandomState(0)
+    q = _t(rs, (B, hq, dh), dev)
+    kp = _t(rs, (rows, block, hkv, dh), dev)
+    vp = _t(rs, (rows, block, hkv, dh), dev)
+    tables = torch.as_tensor(rs.permutation(rows - 1)[:B * maxb]
+                             .reshape(B, maxb), dtype=torch.int32, device=dev)
+    tables[3] = rows - 1                    # an inactive lane on scratch
+    len1 = torch.as_tensor([1, 15, 16, 1, 17, 255, 300, 512],
+                           dtype=torch.int32, device=dev)
+    rt.reset_launches()
+    got = decode_paged(q, kp, vp, tables, len1)
+    torch.cuda.synchronize()
+    assert rt.launch_counts()["decode_paged"] == 1
+    _close(got, decode_paged_ref(q, kp, vp, tables, len1))
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_qkv_rope_paged_kernel_matches_plain(dev, dtype):
+# few test cases per file keep the xdist work queue of the whole suite in
+# its usual order: the next two cases loop over their shapes
+def test_qkv_rope_paged_kernel_matches_plain(dev):
     for D, hq, hkv, dh, B in ((4096, 32, 32, 128, 8), (128, 4, 2, 32, 3),
                               (512, 8, 2, 64, 11)):
         rs = np.random.RandomState(1)
-        x = _t(rs, (B, D), dev, dtype)
-        scale = _t(rs, (D,), dev, dtype)
-        wq = _t(rs, (D, hq, dh), dev, dtype, D ** -0.5)
-        wk = _t(rs, (D, hkv, dh), dev, dtype, D ** -0.5)
-        wv = _t(rs, (D, hkv, dh), dev, dtype, D ** -0.5)
+        x = _t(rs, (B, D), dev)
+        scale = _t(rs, (D,), dev)
+        wq = _t(rs, (D, hq, dh), dev, D ** -0.5)
+        wk = _t(rs, (D, hkv, dh), dev, D ** -0.5)
+        wv = _t(rs, (D, hkv, dh), dev, D ** -0.5)
         pos = torch.as_tensor(rs.randint(0, 512, (B,)), dtype=torch.int32,
                               device=dev)
         got = qkv_rope_paged(x, scale, wq, wk, wv, pos)
@@ -97,34 +88,34 @@ def test_qkv_rope_paged_kernel_matches_plain(dev, dtype):
         ref = qkv_rope_paged_ref(x, scale, wq, wk, wv, pos, inv)
         torch.cuda.synchronize()
         for g, r in zip(got, ref):
-            _close(g, r, dtype)
+            _close(g, r)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_oproj_ffn_swiglu_kernel_matches_plain(dev, dtype):
+def test_oproj_ffn_swiglu_kernel_matches_plain(dev):
     for D, HD, F, B in ((4096, 4096, 11008, 8), (128, 128, 256, 3),
                         (256, 512, 200, 9)):
         rs = np.random.RandomState(2)
-        x = _t(rs, (B, D), dev, dtype)
-        attn = _t(rs, (B, HD), dev, dtype)
-        wo = _t(rs, (HD, D), dev, dtype, HD ** -0.5)
-        scale = _t(rs, (D,), dev, dtype)
-        wg = _t(rs, (D, F), dev, dtype, D ** -0.5)
-        wu = _t(rs, (D, F), dev, dtype, D ** -0.5)
-        wd = _t(rs, (F, D), dev, dtype, F ** -0.5)
+        x = _t(rs, (B, D), dev)
+        attn = _t(rs, (B, HD), dev)
+        wo = _t(rs, (HD, D), dev, HD ** -0.5)
+        scale = _t(rs, (D,), dev)
+        wg = _t(rs, (D, F), dev, D ** -0.5)
+        wu = _t(rs, (D, F), dev, D ** -0.5)
+        wd = _t(rs, (F, D), dev, F ** -0.5)
         got = oproj_ffn_swiglu(x, attn, wo, scale, wg, wu, wd)
         ref = oproj_ffn_swiglu_ref(x, attn, wo, scale, wg, wu, wd)
         torch.cuda.synchronize()
-        _close(got, ref, dtype)
+        _close(got, ref)
 
 
 def test_kernel_results_repeat_bit_for_bit(dev):
     """Every sum runs in a fixed order: two launches agree exactly."""
     rs = np.random.RandomState(3)
     D, HD, F, B = 512, 512, 1024, 8
-    args = [_t(rs, s, dev, torch.bfloat16, 0.05)
+    args = [_t(rs, s, dev, 0.05)
             for s in ((B, D), (B, HD), (HD, D), (D,), (D, F), (D, F), (F, D))]
     a = oproj_ffn_swiglu(*args)
     b = oproj_ffn_swiglu(*args)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
