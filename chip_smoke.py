@@ -5,20 +5,30 @@
 1. Builds the hand-written kernels from ``src/repro_torch/**/csrc`` (one
    ``nvcc`` per source, in parallel) and prints each one's registers and
    spills.
-2. Kernel phase at the samba-coe-expert-7b widths (B = 8 lanes, bf16, ragged
-   positions 1..512 straddling blocks, one inactive lane): each kernel
-   against its plain PyTorch version on the same inputs, timed with CUDA
-   events (the 50 MB L2 flushed before every launch), beside the plain
-   version and one PyTorch library call computing the same function.
+2. Kernel phase at the samba-coe-expert-7b widths (B = 8 lanes, bf16): the
+   paged kernels at ragged positions 1..512 straddling blocks with one
+   inactive lane, the dense-cache kernels at length 4096 in a 4096-position
+   cache (``ffn_swiglu`` in both forms). Each kernel against its plain
+   PyTorch version on the same inputs, timed with CUDA events (the 50 MB L2
+   flushed before every launch), beside the plain version and one PyTorch
+   library call computing the same function.
 3. Serve phase at full width (L = 32, D = 4096): three experts in pinned host
    memory, an HBM weight cache for two, 16 requests through the
    continuous-batching engine with the fused backend. Every request must
-   finish with 32 tokens, the KV pool must be clean, every kernel must have
-   launched once per layer per decode round, and one decode step's logits
-   must match the plain reference body run in f32 on the same pool state;
-   the run also prints what faults planted in one layer read against it.
-   Then one step's device time by kernel, from the profiler.
-4. Prints the kernel table as one JSON line, the card's name and power
+   finish with 32 tokens, the KV pool must be clean, every paged kernel must
+   have launched once per layer per decode round, and one decode step's
+   logits must match the plain reference body run in f32 on the same pool
+   state; the run also prints what faults planted in one layer read against
+   it. Then one step's device time by kernel, from the profiler.
+4. Dense decode phase on one of those experts: ``prefill`` of 8 lanes x 2048
+   tokens into a 4096-position cache, 16 greedy steps of 32
+   ``decoder_layer_step``s (each dense kernel once per layer per step), one
+   step's logits against the plain ``decode_step`` run in f32 a layer at a
+   time, two planted faults, and one step's device time by kernel.
+5. Generate phase: ``CompositionOfExperts.generate`` over the same three
+   experts (their pinned store, an HBM cache of two) with an ``LMRouter`` on
+   the expert backbone: 8 prompts of 128 tokens, 16 new tokens each.
+6. Prints the kernel table as one JSON line, the card's name and power
    limit, and ends with ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a card, and on any failure. Weights are random,
@@ -27,6 +37,7 @@ drawn from a fixed seed.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -64,7 +75,27 @@ KERNELS = {
     "oproj_ffn_swiglu": dict(
         source="src/repro_torch/kernels/fused_decode/csrc/oproj_ffn_swiglu.cu",
         replaces="src/repro/kernels/fused_decode/kernel.py:263"),
+    "qkv_rope": dict(
+        source="src/repro_torch/kernels/fused_decode/csrc/qkv_rope.cu",
+        replaces="src/repro/kernels/fused_decode/kernel.py:71"),
+    "flash_decode": dict(
+        source="src/repro_torch/kernels/flash_attention/csrc/decode.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:248"),
+    "ffn_swiglu": dict(
+        source="src/repro_torch/kernels/fused_decode/csrc/ffn_swiglu.cu",
+        replaces="src/repro/kernels/fused_decode/kernel.py:202"),
 }
+PAGED_KERNELS = ("decode_paged", "qkv_rope_paged", "oproj_ffn_swiglu")
+DENSE_KERNELS = ("qkv_rope", "flash_decode", "ffn_swiglu")
+# the dense-cache decode path: 8 lanes prefilled with 2048-token prompts into
+# a 4096-position cache, then greedy steps of 32 decoder_layer_steps each
+DENSE = dict(lanes=8, prompt_len=2048, max_len=4096, steps=16, seed=2)
+# One dense step's logits (kernels, bf16) against the port's plain
+# decode_step run in f32 on the same cache, a layer at a time.
+DENSE_LOGIT_TOL_REL = 0.03
+# CompositionOfExperts.generate over the serve phase's experts with an
+# LMRouter on the expert backbone
+GEN = dict(prompts=8, prompt_len=128, new_tokens=16, hbm_experts=2.0, seed=3)
 
 
 def _log(msg):
@@ -103,6 +134,44 @@ def build_kernels():
         regs = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
         _log(f"  {name}: " + " | ".join(regs[:6]))
+
+
+def kernel_row(name, kern, plain, lib, nbytes, flops, flush):
+    """Holds kernel ``name`` against its plain version on the same inputs,
+    times the kernel, the plain version and the library call, and returns
+    its row of the kernel table."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err, tol = 0.0, 0.0
+    for g, w in zip(got, want):
+        if not torch.isfinite(g.float()).all():
+            raise AssertionError(f"{name}: non-finite kernel output")
+        err = max(err, float((g.float() - w.float()).abs().max()))
+        # both accumulate in f32 and round to bf16 once: two units in
+        # the last place of the largest output
+        tol = max(tol, 2.0 ** -7 * max(1.0, float(w.float().abs().max())))
+    if not err <= tol:
+        raise AssertionError(f"{name}: max |kernel - plain| = {err} > "
+                             f"tolerance {tol}")
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / BF16_FLOPS_PER_S
+    r = dict(
+        name=name, route="cuda", **KERNELS[name],
+        max_abs_err=err, max_err=err, tol=tol,
+        ms=time_ms(kern, flush, 50), plain_ms=time_ms(plain, flush, 10),
+        library_ms=time_ms(lib, flush, 20),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=nbytes, flops=flops)
+    r["kernel_ms"] = r["ms"]
+    r["bound_us"] = r["bound_ms"] * 1e3
+    _log(f"kernel {name}: max_err={err:.3e} (tol {tol:.3e}) "
+         f"kernel={r['ms']:.4f}ms plain={r['plain_ms']:.4f}ms "
+         f"library={r['library_ms']:.4f}ms bound={r['bound_ms']:.4f}ms "
+         f"({r['bound_by']}, {nbytes} B)")
+    return r
 
 
 def kernel_phase(cfg, dev, B=8):
@@ -182,50 +251,105 @@ def kernel_phase(cfg, dev, B=8):
     }
     nbytes = kernel_hbm_bytes(cfg, B, len1_host, maxb)
     flops = kernel_flops(cfg, B, len1_host)
-    rows_out = {}
-    for name, (kern, plain, lib) in cases.items():
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err, tol = 0.0, 0.0
-        for g, w in zip(got, want):
-            if not torch.isfinite(g.float()).all():
-                raise AssertionError(f"{name}: non-finite kernel output")
-            err = max(err, float((g.float() - w.float()).abs().max()))
-            # both accumulate in f32 and round to bf16 once: two units in
-            # the last place of the largest output
-            tol = max(tol, 2.0 ** -7 * max(1.0, float(w.float().abs().max())))
-        if not err <= tol:
-            raise AssertionError(f"{name}: max |kernel - plain| = {err} > "
-                                 f"tolerance {tol}")
-        t_bytes = nbytes[name] / HBM_BYTES_PER_S
-        t_ops = flops[name] / BF16_FLOPS_PER_S
-        rows_out[name] = dict(
-            name=name, route="cuda", **KERNELS[name],
-            max_abs_err=err, max_err=err, tol=tol,
-            ms=time_ms(kern, flush, 50), plain_ms=time_ms(plain, flush, 10),
-            library_ms=time_ms(lib, flush, 20),
-            bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            bytes=nbytes[name], flops=flops[name])
-        r = rows_out[name]
-        r["kernel_ms"] = r["ms"]
-        r["bound_us"] = r["bound_ms"] * 1e3
-        _log(f"kernel {name}: max_err={err:.3e} (tol {tol:.3e}) "
-             f"kernel={r['ms']:.4f}ms plain={r['plain_ms']:.4f}ms "
-             f"library={r['library_ms']:.4f}ms bound={r['bound_ms']:.4f}ms "
-             f"({r['bound_by']}, {nbytes[name]} B)")
+    rows_out = {name: kernel_row(name, *fns, nbytes[name], flops[name], flush)
+                for name, fns in cases.items()}
     del flush
     return rows_out
+
+
+def dense_kernel_phase(cfg, dev, B=8):
+    """The dense-cache decode kernels against their plain versions at the
+    config's widths: ``flash_decode`` at length 4096 in a 4096-position
+    cache (8 lanes x 32 kv heads), ``qkv_rope`` at position 4095,
+    ``ffn_swiglu`` in both forms (the row times the residual form)."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.flash_attention.ops import decode
+    from repro_torch.kernels.flash_attention.ref import decode_attention_ref
+    from repro_torch.kernels.fused_decode.ops import ffn_swiglu, qkv_rope
+    from repro_torch.kernels.fused_decode.ref import (ffn_swiglu_ref,
+                                                      qkv_rope_ref,
+                                                      rope_inv_freq)
+    from repro_torch.serving.backends import (dense_kernel_flops,
+                                              dense_kernel_hbm_bytes)
+
+    bf = torch.bfloat16
+    D, Hq, Hkv, dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.head_dim, cfg.d_ff)
+    H, S = Hq + 2 * Hkv, DENSE["max_len"]
+    length, pos = S, S - 1
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    x = rnd(B, D)
+    q = rnd(B, Hq, dh)
+    kc, vc = rnd(B, S, Hkv, dh), rnd(B, S, Hkv, dh)
+    scale = (1.0 + 0.1 * rnd(D).float()).to(bf)
+    w_qkv = rnd(D, H * dh, scale=D ** -0.5)
+    wg, wu = rnd(D, F, scale=D ** -0.5), rnd(D, F, scale=D ** -0.5)
+    wd = rnd(F, D, scale=F ** -0.5)
+    qkw = dict(n_q=Hq, n_kv=Hkv, dh=dh, theta=cfg.rope_theta)
+    ang = pos * torch.as_tensor(rope_inv_freq(dh, cfg.rope_theta),
+                                device=dev)
+    cos, sin = torch.cos(ang).to(bf), torch.sin(ang).to(bf)
+    mask = torch.arange(S, device=dev)[None, None, None, :] < length
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def lib_qkv():
+        xn = (Fn.rms_norm(x.float(), (D,), eps=1e-6) * scale.float()).to(bf)
+        y = torch.matmul(xn, w_qkv).reshape(B, H, dh)
+        qk, v = y[:, :Hq + Hkv], y[:, Hq + Hkv:]
+        y1, y2 = qk[..., :dh // 2], qk[..., dh // 2:]
+        return torch.cat([torch.cat([y1 * cos - y2 * sin,
+                                     y2 * cos + y1 * sin], -1), v], 1)
+
+    def lib_decode():
+        return Fn.scaled_dot_product_attention(
+            q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=mask, enable_gqa=Hq != Hkv)
+
+    def lib_ffn():
+        xn = Fn.rms_norm(x, (D,), weight=scale, eps=1e-6)
+        return x + (Fn.silu(xn @ wg) * (xn @ wu)) @ wd
+
+    ffn_args = (x, scale, wg, wu, wd)
+    cases = {
+        "qkv_rope": (lambda: qkv_rope(x, scale, w_qkv, pos, **qkw),
+                     lambda: qkv_rope_ref(x, scale, w_qkv, pos, **qkw),
+                     lib_qkv),
+        "flash_decode": (lambda: decode(q, kc, vc, length),
+                         lambda: decode_attention_ref(q, kc, vc, length),
+                         lib_decode),
+        "ffn_swiglu": (lambda: ffn_swiglu(*ffn_args),
+                       lambda: ffn_swiglu_ref(*ffn_args), lib_ffn),
+    }
+    nbytes = dense_kernel_hbm_bytes(cfg, B, length)
+    flops = dense_kernel_flops(cfg, B, length)
+    rows = {name: kernel_row(name, *fns, nbytes[name], flops[name], flush)
+            for name, fns in cases.items()}
+    # the tensor-parallel partial form, held to the same tolerance
+    got = ffn_swiglu(*ffn_args, residual=False)
+    want = ffn_swiglu_ref(*ffn_args, residual=False)
+    err = float((got.float() - want.float()).abs().max())
+    tol = 2.0 ** -7 * max(1.0, float(want.float().abs().max()))
+    if not (torch.isfinite(got.float()).all() and err <= tol):
+        raise AssertionError(f"ffn_swiglu(residual=False): max |kernel - "
+                             f"plain| = {err} > tolerance {tol}")
+    rows["ffn_swiglu"]["partial_form_max_abs_err"] = err
+    _log(f"kernel ffn_swiglu(residual=False): max_err={err:.3e} "
+         f"(tol {tol:.3e})")
+    del flush
+    return rows
 
 
 @contextlib.contextmanager
 def fault_planted(name, fault):
     """Within the block, the kernel wrapper ``name`` runs ``fault(real,
     *args)`` for layer ``FAULT_LAYER``'s call and is itself for the others
-    (``fused_paged_extend`` looks the wrappers up on every call). Nothing in
-    the port is edited."""
+    (``fused_paged_extend`` and ``decoder_layer_step`` look the wrappers up
+    on every call). Nothing in the port is edited."""
     import repro_torch.kernels.flash_attention.ops as attn_ops
     import repro_torch.kernels.fused_decode.ops as fused_ops
     module = attn_ops if name == "decode_paged" else fused_ops
@@ -313,7 +437,8 @@ def serve_phase(cfg, dev):
                              f"{engine.pool.stats.blocks_in_use} leaked")
     want = cfg.n_layers * st.decode_rounds
     for name, n in launches.items():
-        if n != want:
+        if name in PAGED_KERNELS and n != want or \
+                name not in PAGED_KERNELS and n != 0:
             raise AssertionError(f"{name}: {n} launches, expected {want} "
                                  f"({cfg.n_layers} layers x "
                                  f"{st.decode_rounds} decode rounds)")
@@ -400,9 +525,20 @@ def serve_phase(cfg, dev):
     kc, vc = (t.clone() for t in state)
     step = lambda: engine.runner.extend(params, kc, vc, tables, lengths,
                                         active, toks)
+    step_breakdown(step, f"decode step ({s['n_slots']} lanes, "
+                         f"{cfg.n_layers} layers)")
+    del kc, vc
+    for r in rids:
+        engine.pool.free(r)
+    coe.cache.close()
+    return launches, coe.store, coe.expert_names()
+
+
+def step_breakdown(step, label, n_steps=10):
+    """Where one step's time goes: host wall per step without the profiler,
+    device time per kernel name with it (device-kernel events only)."""
     step()
     torch.cuda.synchronize()
-    n_steps = 10
     t0 = time.perf_counter()
     for _ in range(n_steps):
         step()
@@ -424,18 +560,172 @@ def serve_phase(cfg, dev):
     dev_ms = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     if dev_ms > 0:
-        _log(f"decode step ({s['n_slots']} lanes, {cfg.n_layers} layers): "
-             f"host wall {wall_ms:.3f} ms, device busy {dev_ms:.3f} ms "
-             f"(idle share {max(0.0, 1 - dev_ms / wall_ms):.3f}); by kernel: "
+        _log(f"{label}: host wall {wall_ms:.3f} ms, device busy "
+             f"{dev_ms:.3f} ms (idle share "
+             f"{max(0.0, 1 - dev_ms / wall_ms):.3f}); by kernel: "
              + "; ".join(f"{k[:48]}={v:.3f}ms" for k, v in top))
     else:
-        _log(f"decode step: host wall {wall_ms:.3f} ms; device time not "
+        _log(f"{label}: host wall {wall_ms:.3f} ms; device time not "
              "measured (the profiler saw no device activity)")
-    del kc, vc
-    for r in rids:
-        engine.pool.free(r)
-    coe.cache.close()
+
+
+def dense_decode_phase(cfg, dev, params):
+    """The dense-cache decode path on one full-width expert: the port's
+    ``prefill`` of 8 lanes x 2048 tokens into a 4096-position cache, then
+    greedy steps of 32 ``decoder_layer_step``s (the kernels ``qkv_rope``,
+    ``decode``, ``ffn_swiglu``) plus embedding, final norm and unembedding.
+    Checks the launch counts, finite logits, and one step's logits against
+    the plain ``decode_step`` layer run in f32; prints what two planted
+    faults read and where a step's time goes. Returns the launch counts."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.kernels.fused_decode.ops import (decoder_layer_step,
+                                                      layer_step_params)
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    d = DENSE
+    B, P, nL = d["lanes"], d["prompt_len"], cfg.n_layers
+    rs = np.random.RandomState(d["seed"])
+    prompts = torch.as_tensor(rs.randint(0, cfg.vocab_size, (B, P)),
+                              device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = T.prefill(cfg, params, prompts, d["max_len"])
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    layers = [layer_step_params(params, i) for i in range(nL)]  # once
+    torch.cuda.synchronize()
+    _log(f"dense: prefill of {B} x {P} tokens into a {d['max_len']}-position "
+         f"cache in {prefill_s:.3f}s; w_qkv of {nL} layers built in "
+         f"{time.perf_counter() - t0:.3f}s")
+    kw = dict(n_q=cfg.n_heads, n_kv=cfg.n_kv_heads, dh=cfg.head_dim,
+              theta=cfg.rope_theta)
+    kc, vc = cache["k"], cache["v"]
+
+    @torch.no_grad()
+    def step(tok, pos):
+        h = T.embed_tokens(cfg, params, tok)
+        for i, p in enumerate(layers):
+            h, _, _ = decoder_layer_step(h, p, kc[i], vc[i], pos, **kw)
+        h = L.apply_norm(cfg, params["final_norm"], h)
+        return T.unembed(cfg, params, h)
+
+    tok = last.argmax(-1)
+    rt.reset_launches()
+    t0 = time.perf_counter()
+    for t in range(d["steps"]):
+        logits = step(tok, P + t)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rt.launch_counts()
+    for name, n in launches.items():
+        want = nL * d["steps"] if name in DENSE_KERNELS else 0
+        if n != want:
+            raise AssertionError(f"{name}: {n} launches, expected {want} "
+                                 f"({nL} layers x {d['steps']} steps of "
+                                 f"the dense kernels)")
+    if not torch.isfinite(logits.float()).all():
+        raise AssertionError("dense decode logits not finite")
+    if not ((tok >= 0) & (tok < cfg.vocab_size)).all():
+        raise AssertionError("dense decode token out of vocabulary")
+    _log(f"dense: {d['steps']} steps of {B} lanes in {wall:.3f}s = "
+         f"{B * d['steps'] / wall:.2f} tok/s; launches {launches}")
+
+    # one step against the plain decode_step layer run in f32 on the same
+    # cache, upcasting one layer's weights and cache at a time
+    pos = P + d["steps"]
+    S = d["max_len"]
+    posv = torch.full((B, 1), pos, dtype=torch.long, device=dev)
+    valid = (torch.arange(S, device=dev) < pos + 1)[None].expand(B, S)
+    f32 = lambda tree: tree_map(lambda t: t.float(), tree)
+    with torch.no_grad():
+        h = T.embed_tokens(cfg, params, tok[:, None]).float()
+        for i in range(nL):
+            h, _ = T._decode_dense_layer(cfg, f32(T.layer_params(params, i)),
+                                         h, kc[i].float(), vc[i].float(), pos,
+                                         posv, valid)
+        h = L.apply_norm(cfg, f32(params["final_norm"]), h)
+        l32 = (h @ params["lm_head"].float())[:, 0]
+    lf = step(tok, pos).float()
+    tol = DENSE_LOGIT_TOL_REL * float(l32.abs().max())
+
+    def gap(lx):
+        return (float((lx - l32).abs().max()),
+                float((lx - l32).norm() / l32.norm()))
+
+    err, rel = gap(lf)
+    agree = float((lf.argmax(-1) == l32.argmax(-1)).float().mean())
+    _log(f"dense reference check: kernels vs f32 plain decode_step "
+         f"max_abs_err={err:.4f} (tol {tol:.4f}) rel_l2={rel:.5f} "
+         f"argmax_agree={agree:.3f} |logits|max={float(l32.abs().max()):.3f}")
+    if not err <= tol:
+        raise AssertionError(f"dense kernels vs f32 reference logits differ "
+                             f"by {err} > {tol}")
+    faults = {
+        "newest_position_skipped": ("decode", lambda real, q, k, v, n:
+                                    real(q, k, v, n - 1)),
+        "rope_dropped": ("qkv_rope", lambda real, x, sc, w, p, **k:
+                         real(x, sc, w, 0, **k)),
+    }
+    for fault, (name, fn) in faults.items():
+        with fault_planted(name, fn):
+            f_err, f_rel = gap(step(tok, pos).float())
+        _log(f"dense planted fault {fault} (layer {FAULT_LAYER}): "
+             f"max_abs_err={f_err:.4f} rel_l2={f_rel:.5f} -> "
+             f"{'caught' if f_err > tol else 'NOT caught'} at tol {tol:.4f}")
+    del l32
+    step_breakdown(lambda: step(tok, pos),
+                   f"dense decode step ({B} lanes, {nL} layers, length "
+                   f"{pos + 1})")
+    del kc, vc, cache, layers
     return launches
+
+
+def generate_phase(cfg, dev, store, names):
+    """``CompositionOfExperts.generate`` with an ``LMRouter`` on the expert
+    backbone (resident on the card) over the experts in ``store``, with an
+    HBM weight cache of two experts: 8 prompts of 128 tokens, 16 new tokens
+    each, prefetching the next group's expert."""
+    from repro_torch.core import CompositionOfExperts, ExpertHandle, LMRouter
+
+    g = GEN
+    router = LMRouter(cfg, len(names))
+    rparams = router.init(torch.Generator(device=dev).manual_seed(g["seed"]),
+                          dev)
+    nbytes = store.nbytes(names[0])
+    coe = CompositionOfExperts(router, rparams,
+                               int(g["hbm_experts"] * nbytes), store=store,
+                               device=dev)
+    for n in names:
+        coe.register(ExpertHandle(n, cfg))        # already in the store
+    toks = np.random.RandomState(g["seed"]).randint(
+        0, cfg.vocab_size, (g["prompts"], g["prompt_len"])).astype(np.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = coe.generate(toks, g["new_tokens"], prefetch_next=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cs = coe.cache.stats
+    coe.cache.close()
+    n_groups = len(np.unique(res.expert_of_prompt))
+    if res.tokens.shape != (g["prompts"], g["new_tokens"]):
+        raise AssertionError(f"generate: tokens {res.tokens.shape}")
+    if not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
+        raise AssertionError("generate: token out of vocabulary")
+    if cs.hits + cs.misses != n_groups:
+        raise AssertionError(f"generate: hits {cs.hits} + misses "
+                             f"{cs.misses} != {n_groups} groups")
+    n_out = res.tokens.size
+    _log(f"generate: {g['prompts']} prompts x {g['prompt_len']} tokens -> "
+         f"{n_out} tokens in {wall:.3f}s = {n_out / wall:.2f} tok/s; "
+         f"experts {np.bincount(res.expert_of_prompt, minlength=len(names))}"
+         f", {n_groups} groups, hits={cs.hits} misses={cs.misses} "
+         f"prefetch_hits={cs.prefetch_hits}; switch_s="
+         f"{res.switch_seconds:.4f} exec_s={res.exec_seconds:.4f} "
+         f"route_s={res.route_seconds:.4f}")
 
 
 def main():
@@ -444,6 +734,7 @@ def main():
                  "H100")
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
+    from repro_torch.bridge import tree_map
     from repro_torch.configs import get_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -453,10 +744,21 @@ def main():
     t_start = time.perf_counter()
     build_kernels()
     rows = kernel_phase(cfg, dev)
+    rows.update(dense_kernel_phase(cfg, dev))
     torch.cuda.empty_cache()
-    launches = serve_phase(cfg, dev)
-    for name, n in launches.items():
-        rows[name]["launches"] = n
+    launches, store, names = serve_phase(cfg, dev)
+    for name in PAGED_KERNELS:
+        rows[name]["launches"] = launches[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = tree_map(lambda t: t.to(dev), store.get(names[0]))
+    launches = dense_decode_phase(cfg, dev, params)
+    for name in DENSE_KERNELS:
+        rows[name]["launches"] = launches[name]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    generate_phase(cfg, dev, store, names)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,7 +1,12 @@
 """Composition of Experts (counterpart of ``repro.core.coe``): one router +
 N experts of one backbone, the experts on the capacity tier until activated
-into the HBM weight cache. ``LMRouter`` and ``generate`` are not ported yet
-(``ROADMAP.md``); serving goes through ``serving.engine.ServingEngine``."""
+into the HBM weight cache.
+
+One inference through ``generate``: route the prompt batch, group the
+prompts per expert (paper §VI-C BS > 1 semantics), activate each group's
+expert (prefetching the next group's), then prefill and greedy decode on
+the dense cache with the model's plain ``decode_step``. Continuous-batching
+serving goes through ``serving.engine.ServingEngine``."""
 from __future__ import annotations
 
 import functools
@@ -10,12 +15,14 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.bridge import tree_bytes
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.memory_tiers import HBMBudget
 from repro_torch.core.switching import HBMWeightCache
+from repro_torch.models import get_model
 from repro_torch.store import ExpertStore, HostMemoryStore
 
 
@@ -36,6 +43,15 @@ class ExpertHandle:
         return tree_bytes(self.host_params)
 
 
+@dataclass
+class GenerationResult:
+    tokens: np.ndarray
+    switch_seconds: float
+    exec_seconds: float
+    route_seconds: float
+    expert_of_prompt: np.ndarray
+
+
 class CompositionOfExperts:
     """The Samba-CoE execution substrate on the three-tier memory system."""
 
@@ -54,6 +70,7 @@ class CompositionOfExperts:
         self.router = router
         self.router_params = router_params
         self.experts: Dict[str, ExpertHandle] = {}
+        self._models: Dict[str, Any] = {}
         self.store = store if store is not None else HostMemoryStore()
         self.hbm_budget = HBMBudget(
             total_bytes=hbm_capacity_bytes,
@@ -77,6 +94,7 @@ class CompositionOfExperts:
         else:
             handle.__dict__["nbytes"] = self.store.nbytes(handle.name)
         self.experts[handle.name] = handle
+        self._models[handle.name] = get_model(handle.cfg)
 
     def memory_contract(self, name: str) -> Dict[str, int]:
         h = self.experts[name]
@@ -96,3 +114,52 @@ class CompositionOfExperts:
         names = self.expert_names()
         e = int(self.route(np.asarray(tokens)[None])[0]) % len(names)
         return names[e], time.perf_counter() - t0
+
+    def generate(self, tokens: np.ndarray, n_tokens: int, *,
+                 prefetch_next: bool = True) -> GenerationResult:
+        """tokens (B,S) int. Each prompt may route to a different expert;
+        prompts are grouped per expert in stable order and each group runs
+        in turn (prefill, then greedy ``decode_step``s on a dense cache of
+        S + n_tokens positions), with the next group's expert prefetched
+        while the current group runs."""
+        names = self.expert_names()
+        t0 = time.perf_counter()
+        eidx = self.route(tokens) % len(names)
+        route_s = time.perf_counter() - t0
+
+        order = np.argsort(eidx, kind="stable")
+        groups: List[tuple] = []
+        for e in np.unique(eidx[order]):
+            groups.append((int(e), np.where(eidx == e)[0]))
+
+        B, S = tokens.shape
+        out = np.zeros((B, n_tokens), np.int32)
+        switch_s = 0.0
+        exec_s = 0.0
+        for gi, (e, rows) in enumerate(groups):
+            name = names[e]
+            t0 = time.perf_counter()
+            params = self.cache.activate(name)
+            switch_s += time.perf_counter() - t0
+
+            if prefetch_next and gi + 1 < len(groups):
+                self.cache.prefetch(names[groups[gi + 1][0]])
+
+            model = self._models[name]
+            sub = torch.as_tensor(np.asarray(tokens)[rows],
+                                  device=self.device).long()
+            t0 = time.perf_counter()
+            last, cache = model.prefill(params, {"tokens": sub},
+                                        max_len=S + n_tokens)
+            tok = last.argmax(-1)
+            toks = [tok]
+            for t in range(n_tokens - 1):
+                lg, cache = model.decode_step(params, cache, tok[:, None],
+                                              S + t)
+                tok = lg.argmax(-1)
+                toks.append(tok)
+            seq = torch.stack(toks, dim=1).cpu().numpy()
+            exec_s += time.perf_counter() - t0
+            out[rows] = seq
+            del cache
+        return GenerationResult(out, switch_s, exec_s, route_s, eidx)

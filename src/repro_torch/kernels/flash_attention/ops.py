@@ -1,5 +1,5 @@
-"""Wrapper of the paged decode kernel (counterpart of
-``repro.kernels.flash_attention.ops.decode_paged``)."""
+"""Wrappers of the decode-attention kernels (counterparts of
+``repro.kernels.flash_attention.ops.decode_paged`` and ``decode``)."""
 from __future__ import annotations
 
 import math
@@ -7,9 +7,17 @@ import math
 import torch
 
 from repro_torch.kernels import runtime as rt
-from repro_torch.kernels.flash_attention.ref import decode_paged_ref
+from repro_torch.kernels.flash_attention.ref import (decode_attention_ref,
+                                                     decode_paged_ref)
 
 _ARGS = [rt.P] * 6 + [rt.I] * 6 + [rt.F, rt.P]
+_DENSE_ARGS = [rt.P] * 4 + [rt.I] * 6 + [rt.F, rt.P]
+
+
+def _check_head_shape(name, dh, G):
+    if dh not in (32, 64, 128, 256) or G not in (1, 2, 4, 8):
+        raise ValueError(f"{name}: kernel takes dh in 32/64/128/256 and G in "
+                         f"1/2/4/8, got dh={dh}, G={G}")
 
 
 def decode_paged(q, k_pool, v_pool, tables, len1):
@@ -34,9 +42,7 @@ def decode_paged(q, k_pool, v_pool, tables, len1):
                         "three")
     if tables.dtype != torch.int32 or len1.dtype != torch.int32:
         raise TypeError("decode_paged: tables and len1 must be int32")
-    if dh not in (32, 64, 128, 256) or G not in (1, 2, 4, 8):
-        raise ValueError(f"decode_paged: kernel takes dh in 32/64/128/256 and "
-                         f"G in 1/2/4/8, got dh={dh}, G={G}")
+    _check_head_shape("decode_paged", dh, G)
     rt.check_contiguous("decode_paged", q=q, k_pool=k_pool, v_pool=v_pool,
                         tables=tables, len1=len1)
     fn = rt.bind("decode_paged", "decode_paged_bf16", _ARGS)
@@ -46,4 +52,40 @@ def decode_paged(q, k_pool, v_pool, tables, len1):
             block, tables.shape[1], 1.0 / math.sqrt(dh), rt.stream_ptr(q))
     rt.check_launch("decode_paged", rc)
     rt.count_launch("decode_paged")
+    return out
+
+
+def decode(q, k_cache, v_cache, length: int):
+    """Dense-cache GQA decode: q (B,Hq,dh) against caches (B,S,Hkv,dh),
+    attending positions ``< length`` (a host int shared by the batch, at
+    least 1); the rest of the cache is never read. Returns (B,Hq,dh).
+
+    CPU tensors take the plain version, in any float dtype; CUDA tensors
+    launch the kernel, which takes bf16 q and caches."""
+    B, Hq, dh = q.shape
+    _, S, Hkv, dh_c = k_cache.shape
+    if (dh_c != dh or Hq % Hkv or k_cache.shape[0] != B
+            or v_cache.shape != k_cache.shape):
+        raise ValueError(f"decode: q {tuple(q.shape)} does not match caches "
+                         f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}")
+    length = int(length)
+    if length < 1:
+        raise ValueError(f"decode: length {length} leaves no position to "
+                         "attend")
+    if not rt.on_card(q, k_cache, v_cache):
+        return decode_attention_ref(q, k_cache, v_cache, length)
+    G = Hq // Hkv
+    if not q.dtype == k_cache.dtype == v_cache.dtype == torch.bfloat16:
+        raise TypeError(f"decode: dtypes q={q.dtype} k={k_cache.dtype} "
+                        f"v={v_cache.dtype}; the kernel takes bf16 for all "
+                        "three")
+    _check_head_shape("decode", dh, G)
+    rt.check_contiguous("decode", q=q, k_cache=k_cache, v_cache=v_cache)
+    fn = rt.bind("flash_decode", "flash_decode_bf16", _DENSE_ARGS)
+    out = torch.empty_like(q)
+    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            out.data_ptr(), B, S, Hkv, G, dh, length, 1.0 / math.sqrt(dh),
+            rt.stream_ptr(q))
+    rt.check_launch("flash_decode", rc)
+    rt.count_launch("flash_decode")
     return out

@@ -1,5 +1,5 @@
-"""Plain PyTorch version of the paged decode kernel: gather the lanes' blocks
-into contiguous caches, masked softmax in f32."""
+"""Plain PyTorch versions of the decode kernels: the paged one gathers the
+lanes' blocks into contiguous caches; both take a masked softmax in f32."""
 from __future__ import annotations
 
 import math
@@ -26,3 +26,16 @@ def decode_paged_ref(q, k_pool, v_pool, tables, len1):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgs,bshd->bhgd", p, vc)
     return o.reshape(B, Hq, dh).to(q.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, length: int):
+    """q (B,Hq,dh), caches (B,S,Hkv,dh), ``length`` host int: positions
+    ``< length`` are attended, the rest never enter the softmax. Returns
+    (B,Hq,dh) in q.dtype. Scores are f32 as in the kernel (the JAX oracle
+    rounds bf16 scores to bf16 first); probabilities are cast to the cache's
+    dtype for the value product."""
+    from repro_torch.models.layers import decode_attention
+    B, S = k_cache.shape[:2]
+    valid = (torch.arange(S, device=q.device) < int(length))[None]
+    return decode_attention(q[:, None], k_cache, v_cache,
+                            valid.expand(B, S))[:, 0]

@@ -35,6 +35,9 @@ SOURCES = {
     "decode_paged": "flash_attention/csrc/decode_paged.cu",
     "qkv_rope_paged": "fused_decode/csrc/qkv_rope_paged.cu",
     "oproj_ffn_swiglu": "fused_decode/csrc/oproj_ffn_swiglu.cu",
+    "flash_decode": "flash_attention/csrc/decode.cu",
+    "qkv_rope": "fused_decode/csrc/qkv_rope.cu",
+    "ffn_swiglu": "fused_decode/csrc/ffn_swiglu.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,5 +1,6 @@
 """Shared layers of the dense family (counterpart of ``repro.models.layers``):
-RMSNorm, full RoPE, the quadratic attention oracle and the SwiGLU FFN."""
+RMSNorm, full RoPE, the quadratic attention oracle, single-token attention
+against a dense cache, and the SwiGLU FFN."""
 from __future__ import annotations
 
 import math
@@ -83,6 +84,22 @@ def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
     return o.reshape(B, Sq, Hq, dv)
+
+
+def decode_attention(q, k_cache, v_cache, valid_mask):
+    """Single-token decode. q (B,1,Hq,dh); caches (B,S,Hkv,dh); valid_mask
+    (B,S) bool. Scores and softmax in f32; probabilities cast to the cache's
+    dtype for the value product, summed in f32 (as the JAX function does)."""
+    B, _, Hq, dh = q.shape
+    _, S, Hkv, dv = v_cache.shape
+    qg = q.reshape(B, Hkv, Hq // Hkv, dh)
+    s = torch.einsum("bhgd,bshd->bhgs", qg.float(), k_cache.float()) \
+        / math.sqrt(dh)
+    s = s.masked_fill(~valid_mask[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(B, 1, Hq, dv).to(q.dtype)
 
 
 def ffn_specs(cfg: ModelConfig, d_ff=None):

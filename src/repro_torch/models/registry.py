@@ -4,6 +4,8 @@ family only.
     model = get_model(cfg)
     params = model.init(generator, device)
     logits = model.forward(params, {"tokens": tokens})
+    last, cache = model.prefill(params, {"tokens": tokens}, max_len)
+    logits, cache = model.decode_step(params, cache, tokens, pos)
 """
 from __future__ import annotations
 
@@ -30,6 +32,18 @@ class Model:
         return transformer.forward(self.cfg, params, batch,
                                    return_cache=return_cache,
                                    last_only=last_only)
+
+    def prefill(self, params, batch, max_len):
+        return transformer.prefill(self.cfg, params, batch["tokens"], max_len)
+
+    def decode_step(self, params, cache, tokens, pos):
+        return transformer.decode_step(self.cfg, params, cache, tokens, pos)
+
+    def cache_spec(self, batch, max_len):
+        return transformer.cache_spec(self.cfg, batch, max_len)
+
+    def init_cache(self, batch, max_len, device):
+        return transformer.init_cache(self.cfg, batch, max_len, device)
 
 
 def get_model(cfg: ModelConfig) -> Model:

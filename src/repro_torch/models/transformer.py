@@ -1,7 +1,12 @@
 """Dense decoder-only transformer (counterpart of the dense branch of
 ``repro.models.transformer``). Layer params are stacked on a leading L axis
 and iterated with a Python loop; the per-layer K/V are returned stacked,
-as the JAX scan emits them."""
+as the JAX scan emits them.
+
+Serving with a dense cache: ``prefill`` fills a ``(L,B,max_len,Hkv,dh)``
+bf16 cache ``{"k","v"}`` and ``decode_step`` extends it by one token at a
+position shared by the batch, writing the cache in place (JAX returns a new
+one). Sliding-window configs are not ported (``ROADMAP.md`` Queue 1)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -112,3 +117,82 @@ def forward(cfg: ModelConfig, params, batch, *, return_cache: bool = False,
     if return_cache:
         return logits, [(torch.stack(ks), torch.stack(vs))]
     return logits
+
+
+# ---------------------------- serving --------------------------------
+
+def _check_no_window(cfg: ModelConfig):
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            "the dense cache's sliding-window ring buffer is not ported yet "
+            "(ROADMAP.md Queue 1)")
+
+
+def cache_spec(cfg: ModelConfig, batch: int, max_len: int):
+    """``{name: (shape, dtype)}`` of the decode cache."""
+    _check_dense(cfg)
+    _check_no_window(cfg)
+    sh = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": (sh, torch.bfloat16), "v": (sh, torch.bfloat16)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+    return {k: torch.zeros(sh, dtype=dt, device=device)
+            for k, (sh, dt) in cache_spec(cfg, batch, max_len).items()}
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params, tokens, max_len: int):
+    """Run the full forward over tokens (B,S); return (last-token logits
+    (B,V), cache filled to S). Each layer's K/V go straight into the cache,
+    so no stacked copy of all layers is held beside it. (``no_grad``, not
+    ``inference_mode``: the cache is written in place afterwards.)"""
+    _check_dense(cfg)
+    B, S = tokens.shape
+    cache = init_cache(cfg, B, max_len, tokens.device)
+    h = embed_tokens(cfg, params, tokens)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    for i in range(cfg.n_layers):
+        h, (k, v) = _layer(cfg, layer_params(params, i), h, positions)
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+    h = L.apply_norm(cfg, params["final_norm"], h[:, -1:])
+    return unembed(cfg, params, h)[:, -1], cache
+
+
+def _decode_dense_layer(cfg, lp, hh, kc, vc, idx, posv, valid):
+    """One layer of the decode step; writes this token's K/V into the
+    layer's caches kc/vc (B,S,Hkv,dh) at ``idx``, in place."""
+    p = lp["attn"]
+    hn = L.apply_norm(cfg, p["norm"], hh)
+    q = torch.einsum("bsd,dhk->bshk", hn, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", hn, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", hn, p["wv"])
+    q = L.apply_rope(cfg, q, posv)
+    k = L.apply_rope(cfg, k, posv)
+    kc[:, idx] = k[:, 0]
+    vc[:, idx] = v[:, 0]
+    o = L.decode_attention(q, kc, vc, valid)
+    hh = hh + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return _mlp(cfg, lp["mlp_norm"], lp["mlp"], hh), (kc, vc)
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
+    """tokens (B,1) int, ``pos`` host int (next position index, shared by
+    the batch). Returns (logits (B,V), cache), the cache updated in place."""
+    _check_dense(cfg)
+    _check_no_window(cfg)
+    B = tokens.shape[0]
+    S = cache["k"].shape[2]
+    pos = int(pos)
+    dev = tokens.device
+    h = embed_tokens(cfg, params, tokens)
+    posv = torch.full((B, 1), pos, dtype=torch.long, device=dev)
+    valid = (torch.arange(S, device=dev) < min(pos + 1, S))[None].expand(B, S)
+    for i in range(cfg.n_layers):
+        h, _ = _decode_dense_layer(cfg, layer_params(params, i), h,
+                                   cache["k"][i], cache["v"][i], pos, posv,
+                                   valid)
+    h = L.apply_norm(cfg, params["final_norm"], h)
+    return unembed(cfg, params, h)[:, 0], cache

@@ -182,6 +182,38 @@ def kernel_flops(cfg: ModelConfig, batch: int,
             "oproj_ffn_swiglu": 2 * B * (Hq * dh * D + 3 * D * F)}
 
 
+def dense_kernel_hbm_bytes(cfg: ModelConfig, batch: int, length: int,
+                           rope_frac: float = 1.0) -> Dict[str, int]:
+    """Device-memory bytes each kernel of ``decoder_layer_step`` must move in
+    one layer of one dense-cache step at ``length`` attended positions:
+    each input read once, each output written once, bf16 activations,
+    weights and caches. K/V bytes follow ``length``, not the cache's S;
+    ``pos`` and ``length`` are host ints and move nothing."""
+    B = batch
+    Hq, Hkv, dh, D, F = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                         cfg.d_model, cfg.d_ff)
+    H = Hq + 2 * Hkv
+    rot = int(dh * rope_frac) - int(dh * rope_frac) % 2
+    qkv = (B * D * _BF16 + D * _BF16 + rot // 2 * _F32
+           + D * H * dh * _BF16 + H * B * dh * _BF16)
+    attn = (2 * B * Hq * dh * _BF16                   # q in + o out
+            + 2 * B * int(length) * Hkv * dh * _BF16)
+    ffn = 2 * B * D * _BF16 + D * _BF16 + 3 * D * F * _BF16
+    return {"qkv_rope": qkv, "flash_decode": attn, "ffn_swiglu": ffn}
+
+
+def dense_kernel_flops(cfg: ModelConfig, batch: int,
+                       length: int) -> Dict[str, int]:
+    """Arithmetic of each kernel of ``decoder_layer_step`` in one layer of
+    one dense-cache step (2 per multiply-add of the products)."""
+    B = batch
+    Hq, Hkv, dh, D, F = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                         cfg.d_model, cfg.d_ff)
+    return {"qkv_rope": 2 * B * D * (Hq + 2 * Hkv) * dh,
+            "flash_decode": 4 * B * int(length) * Hq * dh,
+            "ffn_swiglu": 2 * B * 3 * D * F}
+
+
 def fused_kernel_hbm_bytes(cfg: ModelConfig, batch: int, len1: Sequence[int],
                            maxb: int) -> int:
     """Device-memory bytes the three kernels must move in one fused g = 1

@@ -23,6 +23,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 
 @dataclass
 class PagedStats:
@@ -44,12 +46,14 @@ class PagedKVCache:
 
     def __init__(self, n_blocks: int, block_size: int, n_layers: int,
                  kv_heads: int, head_dim: int, dtype=torch.bfloat16,
-                 scratch: bool = False, device="cpu"):
+                 scratch: bool = False, device=None):
+        """``device`` defaults to the card and raises where there is none;
+        pass ``"cpu"`` for a host pool."""
         self.n_blocks = n_blocks
         self.block = block_size
         rows = n_blocks + (1 if scratch else 0)
         self.k = torch.zeros((n_layers, rows, block_size, kv_heads, head_dim),
-                             dtype=dtype, device=device)
+                             dtype=dtype, device=resolve_device(device))
         self.v = torch.zeros_like(self.k)
         self.scratch_index = n_blocks if scratch else None
         self._free: List[int] = list(range(n_blocks))[::-1]
@@ -72,7 +76,7 @@ class PagedKVCache:
     @classmethod
     def for_budget(cls, budget_bytes: int, block_size: int, n_layers: int,
                    kv_heads: int, head_dim: int, dtype=torch.bfloat16,
-                   scratch: bool = False, device="cpu") -> "PagedKVCache":
+                   scratch: bool = False, device=None) -> "PagedKVCache":
         """Largest pool whose K+V arrays fit in ``budget_bytes``; the scratch
         row counts against the budget."""
         per = cls.block_bytes(block_size, n_layers, kv_heads, head_dim, dtype)

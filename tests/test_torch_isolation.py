@@ -129,7 +129,8 @@ def test_cuda_f32_tensor_raises_instead_of_falling_back(monkeypatch):
 
     for name in ("flash_attention.ops.decode_paged_ref",
                  "fused_decode.ops.qkv_rope_paged_ref",
-                 "fused_decode.ops.oproj_ffn_swiglu_ref"):
+                 "fused_decode.ops.oproj_ffn_swiglu_ref",
+                 *_DENSE_PLAIN):
         monkeypatch.setattr(f"repro_torch.kernels.{name}", refuse)
     monkeypatch.setattr(rt, "bind", refuse)
     f32, i32 = torch.float32, torch.int32
@@ -147,10 +148,55 @@ def test_cuda_f32_tensor_raises_instead_of_falling_back(monkeypatch):
             _cuda_looking((128, 64), f32), _cuda_looking((64,), f32),
             _cuda_looking((64, 96), f32), _cuda_looking((64, 96), f32),
             _cuda_looking((96, 64), f32)),
+        *_dense_calls(f32).values(),
     ]
     for call in calls:
         with pytest.raises(TypeError, match="bf16"):
             call()
+
+
+# the dense-cache decode kernels: wrapper -> its plain version in ``ops``
+_DENSE_PLAIN = ("flash_attention.ops.decode_attention_ref",
+                "fused_decode.ops.qkv_rope_ref",
+                "fused_decode.ops.ffn_swiglu_ref")
+
+
+def _dense_calls(dtype=torch.bfloat16):
+    """One call of each dense-cache kernel wrapper on CUDA-looking tensors,
+    keyed by its launch-count name."""
+    from repro_torch.kernels.flash_attention.ops import decode
+    from repro_torch.kernels.fused_decode.ops import ffn_swiglu, qkv_rope
+    c = lambda *shape: _cuda_looking(shape, dtype)
+    return {
+        "flash_decode": lambda: decode(c(2, 4, 32), c(2, 16, 2, 32),
+                                       c(2, 16, 2, 32), 5),
+        "qkv_rope": lambda: qkv_rope(c(2, 64), c(64,), c(64, 8 * 32), 3,
+                                     n_q=4, n_kv=2, dh=32, rope_frac=0.5),
+        "ffn_swiglu": lambda: ffn_swiglu(c(2, 64), c(64,), c(64, 96),
+                                         c(64, 96), c(96, 64),
+                                         residual=False),
+    }
+
+
+def test_cuda_tensor_never_reaches_the_dense_plain_versions(monkeypatch):
+    """As above for ``decode``, ``qkv_rope`` and ``ffn_swiglu``: without a
+    compiler the build raises, nothing launches, and the plain versions are
+    never called."""
+    from repro_torch.kernels import runtime as rt
+
+    def refuse_plain(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for name in _DENSE_PLAIN:
+        monkeypatch.setattr(f"repro_torch.kernels.{name}", refuse_plain)
+    monkeypatch.setattr(rt, "_nvcc", lambda: (_ for _ in ()).throw(
+        RuntimeError("nvcc not found: the CUDA kernels cannot be built")))
+    monkeypatch.setattr(rt, "BUILD_DIR", pathlib.Path("/nonexistent"))
+    for kernel, call in _dense_calls().items():
+        rt.reset_launches()
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+        assert rt.launch_counts()[kernel] == 0
 
 
 def test_mixed_devices_raise():

@@ -27,20 +27,22 @@ def test_sizing_matches_jax():
             JaxPagedKVCache.block_bytes(16, 32, 32, 128, jdt)
     budget = 10 * PagedKVCache.block_bytes(BLOCK, L, H, DH, torch.float32) + 7
     p = PagedKVCache.for_budget(budget, BLOCK, L, H, DH, torch.float32,
-                                scratch=True)
+                                scratch=True, device="cpu")
     j = JaxPagedKVCache.for_budget(budget, BLOCK, L, H, DH, jnp.float32,
                                    scratch=True)
     assert (p.n_blocks, p.scratch_index, tuple(p.k.shape)) == \
         (j.n_blocks, j.scratch_index, j.k.shape)
     assert p.capacity_bytes() == j.capacity_bytes()
     with pytest.raises(MemoryError):
-        PagedKVCache.for_budget(1, BLOCK, L, H, DH, scratch=True)
+        PagedKVCache.for_budget(1, BLOCK, L, H, DH, scratch=True,
+                                device="cpu")
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_random_ops_match_jax_pool(seed):
     rs = np.random.RandomState(seed)
-    p = PagedKVCache(12, BLOCK, L, H, DH, torch.float32, scratch=True)
+    p = PagedKVCache(12, BLOCK, L, H, DH, torch.float32, scratch=True,
+                     device="cpu")
     j = JaxPagedKVCache(12, BLOCK, L, H, DH, jnp.float32, scratch=True)
     open_rids, next_rid = [], 0
     for _ in range(60):
@@ -90,7 +92,8 @@ def test_random_ops_match_jax_pool(seed):
 
 
 def test_versions_and_errors():
-    p = PagedKVCache(3, BLOCK, L, H, DH, torch.float32, scratch=True)
+    p = PagedKVCache(3, BLOCK, L, H, DH, torch.float32, scratch=True,
+                     device="cpu")
     tv, lv = p.table_version, p.length_version
     p.open(0)
     p.reserve(0, 5)
@@ -105,3 +108,15 @@ def test_versions_and_errors():
         p.reserve(0, 13)
     p.free(0)
     assert p.check_invariants() == []
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """Without ``device`` the pool is on the card, and raises without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedKVCache(3, BLOCK, L, H, DH)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedKVCache.for_budget(
+            4 * PagedKVCache.block_bytes(BLOCK, L, H, DH), BLOCK, L, H, DH)
+    assert PagedKVCache(3, BLOCK, L, H, DH, device="cpu").k.device.type == \
+        "cpu"

@@ -86,7 +86,8 @@ def test_packed_runner_and_scatter_match_jax(setup):
     shape = (cfg.n_layers, cfg.n_kv_heads, cfg.head_dim)
     jpool = JaxPagedKVCache(16, block, *shape, dtype=jnp.float32,
                             scratch=True)
-    pool = PagedKVCache(16, block, *shape, dtype=torch.float32, scratch=True)
+    pool = PagedKVCache(16, block, *shape, dtype=torch.float32, scratch=True,
+                        device="cpu")
     jr.scatter_into(jpool, jres, [10, 11, 12], extra_tokens=[2, 0, 5])
     pr.scatter_into(pool, res, [10, 11, 12], extra_tokens=[2, 0, 5])
     for rid in (10, 11, 12):
