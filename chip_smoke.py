@@ -91,8 +91,14 @@ DENSE_KERNELS = ("qkv_rope", "flash_decode", "ffn_swiglu")
 # a 4096-position cache, then greedy steps of 32 decoder_layer_steps each
 DENSE = dict(lanes=8, prompt_len=2048, max_len=4096, steps=16, seed=2)
 # One dense step's logits (kernels, bf16) against the port's plain
-# decode_step run in f32 on the same cache, a layer at a time.
-DENSE_LOGIT_TOL_REL = 0.03
+# decode_step run in f32 on the same cache, a layer at a time. The H100 run
+# read 0.1515 max-abs (2.5 % relative L2) at a largest logit of 5.607, i.e.
+# 2.70 % of it; the limit is 1.25x that. Faults planted in one of the 32
+# layers read 0.14-0.16 there, inside the noise: with random weights the
+# attention over ~2065 positions is near uniform, so a lost position or a
+# lost rotation in one layer moves the logits little. The per-kernel checks
+# hold each kernel to two bf16 units in the last place.
+DENSE_LOGIT_TOL_REL = 0.034
 # CompositionOfExperts.generate over the serve phase's experts with an
 # LMRouter on the expert backbone
 GEN = dict(prompts=8, prompt_len=128, new_tokens=16, hbm_experts=2.0, seed=3)
@@ -649,6 +655,7 @@ def dense_decode_phase(cfg, dev, params):
                                          posv, valid)
         h = L.apply_norm(cfg, f32(params["final_norm"]), h)
         l32 = (h @ params["lm_head"].float())[:, 0]
+    lb = T.decode_step(cfg, params, cache, tok[:, None], pos)[0].float()
     lf = step(tok, pos).float()
     tol = DENSE_LOGIT_TOL_REL * float(l32.abs().max())
 
@@ -660,7 +667,9 @@ def dense_decode_phase(cfg, dev, params):
     agree = float((lf.argmax(-1) == l32.argmax(-1)).float().mean())
     _log(f"dense reference check: kernels vs f32 plain decode_step "
          f"max_abs_err={err:.4f} (tol {tol:.4f}) rel_l2={rel:.5f} "
-         f"argmax_agree={agree:.3f} |logits|max={float(l32.abs().max()):.3f}")
+         f"argmax_agree={agree:.3f} |logits|max={float(l32.abs().max()):.3f}"
+         "; bf16 plain decode_step vs f32: max_abs_err=%.4f rel_l2=%.5f"
+         % gap(lb))
     if not err <= tol:
         raise AssertionError(f"dense kernels vs f32 reference logits differ "
                              f"by {err} > {tol}")
@@ -703,29 +712,35 @@ def generate_phase(cfg, dev, store, names):
         coe.register(ExpertHandle(n, cfg))        # already in the store
     toks = np.random.RandomState(g["seed"]).randint(
         0, cfg.vocab_size, (g["prompts"], g["prompt_len"])).astype(np.int32)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = coe.generate(toks, g["new_tokens"], prefetch_next=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    cs = coe.cache.stats
+    # the first call meets every plain op's first launch; the second runs
+    # the same prompts on a warm process, its groups' experts partly resident
+    for run in ("first", "second"):
+        cs0 = dict(vars(coe.cache.stats))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = coe.generate(toks, g["new_tokens"], prefetch_next=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hits, misses, pf = (getattr(coe.cache.stats, k) - cs0[k] for k in
+                            ("hits", "misses", "prefetch_hits"))
+        n_groups = len(np.unique(res.expert_of_prompt))
+        if res.tokens.shape != (g["prompts"], g["new_tokens"]):
+            raise AssertionError(f"generate: tokens {res.tokens.shape}")
+        if not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
+            raise AssertionError("generate: token out of vocabulary")
+        if hits + misses != n_groups:
+            raise AssertionError(f"generate: hits {hits} + misses {misses} "
+                                 f"!= {n_groups} groups")
+        n_out = res.tokens.size
+        _log(f"generate ({run} call): {g['prompts']} prompts x "
+             f"{g['prompt_len']} tokens -> {n_out} tokens in {wall:.3f}s = "
+             f"{n_out / wall:.2f} tok/s; experts "
+             f"{np.bincount(res.expert_of_prompt, minlength=len(names))}, "
+             f"{n_groups} groups, hits={hits} misses={misses} "
+             f"prefetch_hits={pf}; switch_s={res.switch_seconds:.4f} "
+             f"exec_s={res.exec_seconds:.4f} "
+             f"route_s={res.route_seconds:.4f}")
     coe.cache.close()
-    n_groups = len(np.unique(res.expert_of_prompt))
-    if res.tokens.shape != (g["prompts"], g["new_tokens"]):
-        raise AssertionError(f"generate: tokens {res.tokens.shape}")
-    if not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
-        raise AssertionError("generate: token out of vocabulary")
-    if cs.hits + cs.misses != n_groups:
-        raise AssertionError(f"generate: hits {cs.hits} + misses "
-                             f"{cs.misses} != {n_groups} groups")
-    n_out = res.tokens.size
-    _log(f"generate: {g['prompts']} prompts x {g['prompt_len']} tokens -> "
-         f"{n_out} tokens in {wall:.3f}s = {n_out / wall:.2f} tok/s; "
-         f"experts {np.bincount(res.expert_of_prompt, minlength=len(names))}"
-         f", {n_groups} groups, hits={cs.hits} misses={cs.misses} "
-         f"prefetch_hits={cs.prefetch_hits}; switch_s="
-         f"{res.switch_seconds:.4f} exec_s={res.exec_seconds:.4f} "
-         f"route_s={res.route_seconds:.4f}")
 
 
 def main():

@@ -38,8 +38,7 @@ class LMRouter:
     def logits(self, params, tokens) -> torch.Tensor:
         """tokens (B,S) -> (B, n_experts) f32, on the params' device."""
         head = params["head"]
-        tokens = torch.as_tensor(np.asarray(tokens) if not isinstance(
-            tokens, torch.Tensor) else tokens, device=head.device).long()
+        tokens = torch.as_tensor(tokens, device=head.device).long()
         h = self._last_hidden(params["backbone"], tokens)
         return h.float() @ head.float()
 

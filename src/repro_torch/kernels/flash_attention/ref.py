@@ -6,6 +6,8 @@ import math
 
 import torch
 
+from repro_torch.models.layers import decode_attention
+
 
 def decode_paged_ref(q, k_pool, v_pool, tables, len1):
     """q (B,Hq,dh); pools (rows, block, Hkv, dh); tables (B, maxb) int;
@@ -34,7 +36,6 @@ def decode_attention_ref(q, k_cache, v_cache, length: int):
     (B,Hq,dh) in q.dtype. Scores are f32 as in the kernel (the JAX oracle
     rounds bf16 scores to bf16 first); probabilities are cast to the cache's
     dtype for the value product."""
-    from repro_torch.models.layers import decode_attention
     B, S = k_cache.shape[:2]
     valid = (torch.arange(S, device=q.device) < int(length))[None]
     return decode_attention(q[:, None], k_cache, v_cache,

@@ -89,6 +89,14 @@ def _head_splits(n_heads: int, k: int) -> int:
     return max(1, min(8, -(-2 * _SMS // n_heads), k // _MIN_ROWS))
 
 
+def _ffn_scratch(B: int, D: int, F: int, splits_d: int, device):
+    """f32 scratch of the FFN passes: y (B,D), per-256-column sums of y^2,
+    h (B,F) and the down-projection's split partials."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty((B, D), **f32), torch.empty((B, -(-D // 256)), **f32),
+            torch.empty((B, F), **f32), torch.empty((splits_d, B, D), **f32))
+
+
 def _splits(n_cols: int, k: int) -> int:
     """K splits of a skinny product so that about two CTAs per SM run."""
     tiles = -(-n_cols // _TILE_N)
@@ -124,13 +132,9 @@ def oproj_ffn_swiglu(x, attn_out, w_o, norm_scale, w_gate, w_up, w_down):
                         w_down=w_down)
     fn = rt.bind("oproj_ffn_swiglu", "oproj_ffn_swiglu_bf16", _EPI_ARGS)
     so, sd = _splits(D, HD), _splits(D, F)
-    f32 = dict(dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
-    y = torch.empty((B, D), **f32)
-    ss = torch.empty((B, -(-D // 256)), **f32)      # per-chunk sum of y^2
-    h = torch.empty((B, F), **f32)
-    p_o = torch.empty((so, B, D), **f32)
-    p_d = torch.empty((sd, B, D), **f32)
+    y, ss, h, p_d = _ffn_scratch(B, D, F, sd, x.device)
+    p_o = torch.empty((so, B, D), dtype=torch.float32, device=x.device)
     rc = fn(x.data_ptr(), attn_out.data_ptr(), w_o.data_ptr(),
             norm_scale.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
             w_down.data_ptr(), out.data_ptr(), y.data_ptr(), ss.data_ptr(),
@@ -204,12 +208,8 @@ def ffn_swiglu(x, norm_scale, w_gate, w_up, w_down, *, residual=True):
                         w_gate=w_gate, w_up=w_up, w_down=w_down)
     fn = rt.bind("ffn_swiglu", "ffn_swiglu_bf16", _FFN_ARGS)
     sd = _splits(D, F)
-    f32 = dict(dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
-    y = torch.empty((B, D), **f32)
-    ss = torch.empty((B, -(-D // 256)), **f32)      # per-chunk sum of x^2
-    h = torch.empty((B, F), **f32)
-    p_d = torch.empty((sd, B, D), **f32)
+    y, ss, h, p_d = _ffn_scratch(B, D, F, sd, x.device)
     rc = fn(x.data_ptr(), norm_scale.data_ptr(), w_gate.data_ptr(),
             w_up.data_ptr(), w_down.data_ptr(), out.data_ptr(), y.data_ptr(),
             ss.data_ptr(), h.data_ptr(), p_d.data_ptr(), B, D, F, sd,

@@ -8,6 +8,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.flash_attention.ref import decode_attention_ref
+
 
 def rms_ref(x, scale, eps=1e-6):
     xf = x.float()
@@ -113,7 +115,6 @@ def decoder_layer_step_ref(x, p, k_cache, v_cache, pos: int, *, n_q, n_kv,
                            dh, theta=10000.0):
     """The full decode step of one layer in the plain versions. x (B,D);
     caches (B,S,n_kv,dh), written in place. Returns (y, k_cache, v_cache)."""
-    from repro_torch.kernels.flash_attention.ref import decode_attention_ref
     return layer_step(qkv_rope_ref, decode_attention_ref, ffn_swiglu_ref, x,
                       p, k_cache, v_cache, pos, n_q=n_q, n_kv=n_kv, dh=dh,
                       theta=theta)

@@ -182,8 +182,8 @@ def kernel_flops(cfg: ModelConfig, batch: int,
             "oproj_ffn_swiglu": 2 * B * (Hq * dh * D + 3 * D * F)}
 
 
-def dense_kernel_hbm_bytes(cfg: ModelConfig, batch: int, length: int,
-                           rope_frac: float = 1.0) -> Dict[str, int]:
+def dense_kernel_hbm_bytes(cfg: ModelConfig, batch: int,
+                           length: int) -> Dict[str, int]:
     """Device-memory bytes each kernel of ``decoder_layer_step`` must move in
     one layer of one dense-cache step at ``length`` attended positions:
     each input read once, each output written once, bf16 activations,
@@ -193,7 +193,7 @@ def dense_kernel_hbm_bytes(cfg: ModelConfig, batch: int, length: int,
     Hq, Hkv, dh, D, F = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                          cfg.d_model, cfg.d_ff)
     H = Hq + 2 * Hkv
-    rot = int(dh * rope_frac) - int(dh * rope_frac) % 2
+    rot = dh - dh % 2
     qkv = (B * D * _BF16 + D * _BF16 + rot // 2 * _F32
            + D * H * dh * _BF16 + H * B * dh * _BF16)
     attn = (2 * B * Hq * dh * _BF16                   # q in + o out
