@@ -8,27 +8,43 @@
 2. Kernel phase at the samba-coe-expert-7b widths (B = 8 lanes, bf16): the
    paged kernels at ragged positions 1..512 straddling blocks with one
    inactive lane, the dense-cache kernels at length 4096 in a 4096-position
-   cache (``ffn_swiglu`` in both forms). Each kernel against its plain
-   PyTorch version on the same inputs, timed with CUDA events (the 50 MB L2
-   flushed before every launch), beside the plain version and one PyTorch
-   library call computing the same function.
+   cache (``ffn_swiglu`` in both forms); then the prefill kernels:
+   ``flash_prefill`` at the expert's prefill (8 x 2048 tokens, 32 heads,
+   dh 128, causal) and at RecurrentGemma-9B's (4 x 3000 tokens, 16 q heads
+   on 1 kv head, dh 256, window 2048), ``lru_scan`` at (4, 3000, 4096) f32.
+   Each kernel against its plain PyTorch version on the same inputs, timed
+   with CUDA events (the 50 MB L2 flushed before every launch), beside the
+   plain version and one PyTorch library call computing the same function
+   (none for ``lru_scan``: no single PyTorch call computes a linear
+   recurrence).
 3. Serve phase at full width (L = 32, D = 4096): three experts in pinned host
    memory, an HBM weight cache for two, 16 requests through the
    continuous-batching engine with the fused backend. Every request must
    finish with 32 tokens, the KV pool must be clean, every paged kernel must
-   have launched once per layer per decode round, and one decode step's
+   have launched once per layer per decode round (and no other kernel: the
+   packed prefill's attention is plain, as in JAX), and one decode step's
    logits must match the plain reference body run in f32 on the same pool
    state; the run also prints what faults planted in one layer read against
    it. Then one step's device time by kernel, from the profiler.
 4. Dense decode phase on one of those experts: ``prefill`` of 8 lanes x 2048
-   tokens into a 4096-position cache, 16 greedy steps of 32
-   ``decoder_layer_step``s (each dense kernel once per layer per step), one
-   step's logits against the plain ``decode_step`` run in f32 a layer at a
-   time, two planted faults, and one step's device time by kernel.
+   tokens into a 4096-position cache (``flash_prefill`` once per layer), its
+   first lane's last-token logits against the plain ``forward`` run in f32 a
+   layer at a time, 16 greedy steps of 32 ``decoder_layer_step``s (each
+   dense kernel once per layer per step), one step's logits against the
+   plain ``decode_step`` run in f32 a layer at a time, two planted faults,
+   and one step's device time by kernel.
 5. Generate phase: ``CompositionOfExperts.generate`` over the same three
    experts (their pinned store, an HBM cache of two) with an ``LMRouter`` on
-   the expert backbone: 8 prompts of 128 tokens, 16 new tokens each.
-6. Prints the kernel table as one JSON line, the card's name and power
+   the expert backbone: 8 prompts of 128 tokens, 16 new tokens each; the
+   router and every group's prefill through ``flash_prefill``.
+6. RecurrentGemma phase, after the experts' store is released:
+   recurrentgemma-9b at full width and depth (38 layers, 10.4 G parameters,
+   bf16) as the one expert of a ``CompositionOfExperts(HashRouter(1))`` on
+   a pinned host store with an HBM cache of one expert; ``generate`` on 4
+   prompts of 3000 tokens (past the 2048-position window), 16 new tokens,
+   twice: 12 ``flash_prefill`` and 26 ``lru_scan`` launches per call; the
+   first lane's prefill logits against the plain f32 composition.
+7. Prints the kernel table as one JSON line, the card's name and power
    limit, and ends with ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a card, and on any failure. Weights are random,
@@ -49,6 +65,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak, same source
+F32_FLOPS_PER_S = 67e12          # f32 outside the tensor cores, same source
 SERVE = dict(n_experts=3, hbm_experts=2.0, requests=16, prompt_lens=(64, 256),
              new_tokens=32, n_slots=8, block_size=16, max_len=512,
              tagged_fraction=0.5, seed=0)
@@ -84,9 +101,17 @@ KERNELS = {
     "ffn_swiglu": dict(
         source="src/repro_torch/kernels/fused_decode/csrc/ffn_swiglu.cu",
         replaces="src/repro/kernels/fused_decode/kernel.py:202"),
+    "flash_prefill": dict(
+        source="src/repro_torch/kernels/flash_attention/csrc/prefill.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:81"),
+    "lru_scan": dict(
+        source="src/repro_torch/kernels/lru_scan/csrc/lru_scan.cu",
+        replaces="src/repro/kernels/lru_scan/kernel.py:41"),
 }
 PAGED_KERNELS = ("decode_paged", "qkv_rope_paged", "oproj_ffn_swiglu")
 DENSE_KERNELS = ("qkv_rope", "flash_decode", "ffn_swiglu")
+# the kernel-table row of flash_prefill at RecurrentGemma's widths
+RG_PREFILL_ROW = "flash_prefill[window=2048]"
 # the dense-cache decode path: 8 lanes prefilled with 2048-token prompts into
 # a 4096-position cache, then greedy steps of 32 decoder_layer_steps each
 DENSE = dict(lanes=8, prompt_len=2048, max_len=4096, steps=16, seed=2)
@@ -99,6 +124,25 @@ DENSE = dict(lanes=8, prompt_len=2048, max_len=4096, steps=16, seed=2)
 # lost rotation in one layer moves the logits little. The per-kernel checks
 # hold each kernel to two bf16 units in the last place.
 DENSE_LOGIT_TOL_REL = 0.034
+# The dense prefill's last-token logits (first lane, kernels, bf16) against
+# the port's plain forward run in f32 a layer at a time (quadratic
+# attention, the same bf16 weights upcast). The H100 run read 0.1632
+# max-abs (3.3 % relative L2) at a largest logit of 4.683, i.e. 3.48 % of
+# it; the limit is 1.25x that.
+DENSE_PREFILL_LOGIT_TOL_REL = 0.044
+# the same prefill with the quadratic attention it replaced, read on an
+# H100 80GB HBM3 at 700 W
+QUADRATIC_DENSE_PREFILL_S = 1.220
+# recurrentgemma-9b behind CompositionOfExperts.generate: 4 prompts of 3000
+# tokens, past the 2048-position window so the ring's roll is not the
+# identity ((3000 - 2048) % 2048 = 952)
+RG = dict(prompts=4, prompt_len=3000, new_tokens=16, seed=5)
+# The RG prefill's last-token logits (first lane, kernels, bf16) against the
+# plain f32 composition (quadratic attention, doubling-scan recurrence),
+# one group of three layers upcast at a time. The H100 run read 0.1551
+# max-abs (3.4 % relative L2) at a largest logit of 4.479, i.e. 3.46 % of
+# it; the limit is 1.25x that.
+RG_LOGIT_TOL_REL = 0.044
 # CompositionOfExperts.generate over the serve phase's experts with an
 # LMRouter on the expert backbone
 GEN = dict(prompts=8, prompt_len=128, new_tokens=16, hbm_experts=2.0, seed=3)
@@ -142,10 +186,15 @@ def build_kernels():
         _log(f"  {name}: " + " | ".join(regs[:6]))
 
 
-def kernel_row(name, kern, plain, lib, nbytes, flops, flush):
-    """Holds kernel ``name`` against its plain version on the same inputs,
-    times the kernel, the plain version and the library call, and returns
-    its row of the kernel table."""
+def kernel_row(name, kern, plain, lib, nbytes, flops, flush, *,
+               kernel=None, rel_tol=2.0 ** -7, peak=BF16_FLOPS_PER_S):
+    """Holds kernel ``name`` (the row's name; ``kernel`` names the kernel
+    where a row is one of several shapes) against its plain version on the
+    same inputs, times the kernel, the plain version and the library call
+    (``lib`` None where there is none), and returns its row of the kernel
+    table. The default tolerance is for bf16 outputs: both accumulate in f32
+    and round to bf16 once, two units in the last place of the largest
+    output."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -155,28 +204,28 @@ def kernel_row(name, kern, plain, lib, nbytes, flops, flush):
         if not torch.isfinite(g.float()).all():
             raise AssertionError(f"{name}: non-finite kernel output")
         err = max(err, float((g.float() - w.float()).abs().max()))
-        # both accumulate in f32 and round to bf16 once: two units in
-        # the last place of the largest output
-        tol = max(tol, 2.0 ** -7 * max(1.0, float(w.float().abs().max())))
+        tol = max(tol, rel_tol * max(1.0, float(w.float().abs().max())))
+    del got, want
     if not err <= tol:
         raise AssertionError(f"{name}: max |kernel - plain| = {err} > "
                              f"tolerance {tol}")
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / BF16_FLOPS_PER_S
+    t_ops = flops / peak
     r = dict(
-        name=name, route="cuda", **KERNELS[name],
+        name=name, route="cuda", **KERNELS[kernel or name],
         max_abs_err=err, max_err=err, tol=tol,
         ms=time_ms(kern, flush, 50), plain_ms=time_ms(plain, flush, 10),
-        library_ms=time_ms(lib, flush, 20),
+        library_ms=None if lib is None else time_ms(lib, flush, 20),
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         bytes=nbytes, flops=flops)
     r["kernel_ms"] = r["ms"]
     r["bound_us"] = r["bound_ms"] * 1e3
+    lib_s = "none" if lib is None else f"{r['library_ms']:.4f}ms"
     _log(f"kernel {name}: max_err={err:.3e} (tol {tol:.3e}) "
          f"kernel={r['ms']:.4f}ms plain={r['plain_ms']:.4f}ms "
-         f"library={r['library_ms']:.4f}ms bound={r['bound_ms']:.4f}ms "
-         f"({r['bound_by']}, {nbytes} B)")
+         f"library={lib_s} bound={r['bound_ms']:.4f}ms "
+         f"({r['bound_by']}, {nbytes} B, {flops} flops)")
     return r
 
 
@@ -350,6 +399,68 @@ def dense_kernel_phase(cfg, dev, B=8):
     return rows
 
 
+def prefill_kernel_phase(cfg, rg_cfg, dev):
+    """The prefill kernels against their plain versions at the main paths'
+    shapes: ``flash_prefill`` at the dense phase's prefill (8 x 2048 tokens
+    at the expert's widths, causal) and at the RG phase's (4 x 3000 tokens,
+    RecurrentGemma's local attention), ``lru_scan`` at the RG phase's
+    recurrence (4 x 3000 x d_rnn, f32, coefficients in (0, 1) as
+    ``_lru_coeffs`` makes them)."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.lru_scan.ops import lru_scan
+    from repro_torch.kernels.lru_scan.ref import lru_scan_ref
+    from repro_torch.serving.backends import (lru_scan_hbm_bytes,
+                                              prefill_attention_flops,
+                                              prefill_attention_hbm_bytes)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    shapes = {
+        "flash_prefill": (cfg, DENSE["lanes"], DENSE["prompt_len"], 0),
+        RG_PREFILL_ROW: (rg_cfg, RG["prompts"], RG["prompt_len"],
+                         rg_cfg.sliding_window),
+    }
+    for row, (c, B, S, window) in shapes.items():
+        Hq, Hkv, dh = c.n_heads, c.n_kv_heads, c.head_dim
+        q, k, v = (torch.randn((B, S, h, dh), generator=gen, device=dev)
+                   .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window:
+            i = torch.arange(S, device=dev)
+            band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+
+            def lib():
+                return Fn.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=band, enable_gqa=Hq != Hkv)
+        else:
+            def lib():
+                return Fn.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=Hq != Hkv)
+        rows[row] = kernel_row(
+            row, lambda: attention(q, k, v, causal=True, window=window),
+            lambda: attention_ref(q, k, v, causal=True, window=window), lib,
+            prefill_attention_hbm_bytes(B, S, Hq, Hkv, dh),
+            prefill_attention_flops(B, S, Hq, dh, window), flush,
+            kernel="flash_prefill")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    B, S, D = RG["prompts"], RG["prompt_len"], rg_cfg.d_rnn
+    a = torch.rand((B, S, D), generator=gen, device=dev)
+    b = torch.randn((B, S, D), generator=gen, device=dev)
+    # f32 in both, summed in other orders (a sequential walk, a doubling
+    # scan): 1e-5 of the largest |h| (CPU trials at S = 3000: 5e-7)
+    rows["lru_scan"] = kernel_row(
+        "lru_scan", lambda: lru_scan(a, b), lambda: lru_scan_ref(a, b), None,
+        lru_scan_hbm_bytes(B, S, D), 2 * B * S * D, flush, rel_tol=1e-5,
+        peak=F32_FLOPS_PER_S)
+    del a, b, flush
+    return rows
+
+
 @contextlib.contextmanager
 def fault_planted(name, fault):
     """Within the block, the kernel wrapper ``name`` runs ``fault(real,
@@ -370,6 +481,51 @@ def fault_planted(name, fault):
         yield
     finally:
         setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def plain_prefill():
+    """Within the block, prefill attention is the quadratic oracle and the
+    RG-LRU recurrence the doubling scan, whatever the device: the f32
+    references run the model's own code with the plain versions where the
+    kernels would run (they take bf16 / f32 only). Nothing in the port is
+    edited."""
+    import repro_torch.kernels.lru_scan.ops as lru_ops
+    from repro_torch.kernels.lru_scan.ref import lru_scan_ref
+    from repro_torch.models import layers as L
+    real = L.attention, lru_ops.lru_scan
+    L.attention = lambda cfg, q, k, v, **kw: L.naive_attention(q, k, v, **kw)
+    lru_ops.lru_scan = lru_scan_ref
+    try:
+        yield
+    finally:
+        L.attention, lru_ops.lru_scan = real
+
+
+def check_launches(label, launches, want):
+    """Every kernel launched exactly ``want.get(name, 0)`` times."""
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{label}: {name} launched {n} times, "
+                                 f"expected {want.get(name, 0)}")
+
+
+def logits_check(label, got, ref, tol_rel):
+    """Max |got - ref| within ``tol_rel`` of the largest reference logit;
+    prints the reading either way."""
+    got, ref = got.float(), ref.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: logits not finite")
+    err = float((got - ref).abs().max())
+    rel = float((got - ref).norm() / ref.norm())
+    top = float(ref.abs().max())
+    tol = tol_rel * top
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    _log(f"{label}: max_abs_err={err:.4f} (tol {tol:.4f}, "
+         f"{err / top:.4f} of |logits|max={top:.3f}) rel_l2={rel:.5f} "
+         f"argmax_agree={agree:.3f}")
+    if not err <= tol:
+        raise AssertionError(f"{label}: logits differ by {err} > {tol}")
 
 
 def planted_faults(cfg):
@@ -595,17 +751,39 @@ def dense_decode_phase(cfg, dev, params):
     rs = np.random.RandomState(d["seed"])
     prompts = torch.as_tensor(rs.randint(0, cfg.vocab_size, (B, P)),
                               device=dev)
+    f32 = lambda tree: tree_map(lambda t: t.float(), tree)
     torch.cuda.synchronize()
+    rt.reset_launches()
     t0 = time.perf_counter()
     last, cache = T.prefill(cfg, params, prompts, d["max_len"])
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    prefill_launches = rt.launch_counts()
+    check_launches("dense prefill", prefill_launches, {"flash_prefill": nL})
     t0 = time.perf_counter()
     layers = [layer_step_params(params, i) for i in range(nL)]  # once
     torch.cuda.synchronize()
     _log(f"dense: prefill of {B} x {P} tokens into a {d['max_len']}-position "
-         f"cache in {prefill_s:.3f}s; w_qkv of {nL} layers built in "
+         f"cache in {prefill_s:.3f}s (quadratic attention: "
+         f"{QUADRATIC_DENSE_PREFILL_S:.3f}s); "
+         f"{prefill_launches['flash_prefill']} "
+         f"flash_prefill launches; w_qkv of {nL} layers built in "
          f"{time.perf_counter() - t0:.3f}s")
+    # the first lane's last-token logits against the plain forward in f32,
+    # upcasting one layer's weights at a time
+    with torch.no_grad(), plain_prefill():
+        h = T.embed_tokens(cfg, params, prompts[:1]).float()
+        positions = torch.arange(P, device=dev)[None]
+        for i in range(nL):
+            h, _ = T._layer(cfg, f32(T.layer_params(params, i)), h, positions)
+        h = L.apply_norm(cfg, f32(params["final_norm"]), h[:, -1:])
+        l32 = (h @ params["lm_head"].float())[:, 0]
+    logits_check("dense prefill reference check: kernels vs f32 plain "
+                 "forward", last[:1], l32, DENSE_PREFILL_LOGIT_TOL_REL)
+    del h, l32
+    step_breakdown(lambda: T.prefill(cfg, params, prompts, d["max_len"]),
+                   f"dense prefill ({B} x {P} tokens, {nL} layers)",
+                   n_steps=3)
     kw = dict(n_q=cfg.n_heads, n_kv=cfg.n_kv_heads, dh=cfg.head_dim,
               theta=cfg.rope_theta)
     kc, vc = cache["k"], cache["v"]
@@ -646,7 +824,6 @@ def dense_decode_phase(cfg, dev, params):
     S = d["max_len"]
     posv = torch.full((B, 1), pos, dtype=torch.long, device=dev)
     valid = (torch.arange(S, device=dev) < pos + 1)[None].expand(B, S)
-    f32 = lambda tree: tree_map(lambda t: t.float(), tree)
     with torch.no_grad():
         h = T.embed_tokens(cfg, params, tok[:, None]).float()
         for i in range(nL):
@@ -690,7 +867,7 @@ def dense_decode_phase(cfg, dev, params):
                    f"dense decode step ({B} lanes, {nL} layers, length "
                    f"{pos + 1})")
     del kc, vc, cache, layers
-    return launches
+    return launches, prefill_launches
 
 
 def generate_phase(cfg, dev, store, names):
@@ -699,6 +876,7 @@ def generate_phase(cfg, dev, store, names):
     HBM weight cache of two experts: 8 prompts of 128 tokens, 16 new tokens
     each, prefetching the next group's expert."""
     from repro_torch.core import CompositionOfExperts, ExpertHandle, LMRouter
+    from repro_torch.kernels import runtime as rt
 
     g = GEN
     router = LMRouter(cfg, len(names))
@@ -717,6 +895,7 @@ def generate_phase(cfg, dev, store, names):
     for run in ("first", "second"):
         cs0 = dict(vars(coe.cache.stats))
         torch.cuda.synchronize()
+        rt.reset_launches()
         t0 = time.perf_counter()
         res = coe.generate(toks, g["new_tokens"], prefetch_next=True)
         torch.cuda.synchronize()
@@ -724,6 +903,10 @@ def generate_phase(cfg, dev, store, names):
         hits, misses, pf = (getattr(coe.cache.stats, k) - cs0[k] for k in
                             ("hits", "misses", "prefetch_hits"))
         n_groups = len(np.unique(res.expert_of_prompt))
+        # the router's backbone and each group's prefill: one flash_prefill
+        # per layer; the decode steps are plain
+        check_launches(f"generate ({run} call)", rt.launch_counts(),
+                       {"flash_prefill": cfg.n_layers * (1 + n_groups)})
         if res.tokens.shape != (g["prompts"], g["new_tokens"]):
             raise AssertionError(f"generate: tokens {res.tokens.shape}")
         if not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
@@ -739,8 +922,127 @@ def generate_phase(cfg, dev, store, names):
              f"{n_groups} groups, hits={hits} misses={misses} "
              f"prefetch_hits={pf}; switch_s={res.switch_seconds:.4f} "
              f"exec_s={res.exec_seconds:.4f} "
-             f"route_s={res.route_seconds:.4f}")
+             f"route_s={res.route_seconds:.4f}; flash_prefill launches "
+             f"{cfg.n_layers * (1 + n_groups)}")
     coe.cache.close()
+
+
+def rg_phase(cfg, dev):
+    """recurrentgemma-9b at full width and depth behind
+    ``CompositionOfExperts.generate``: random bf16 weights from a fixed seed
+    made on the card, moved into a pinned host store, activated into an HBM
+    cache of one expert. Two ``generate`` calls on 4 prompts of 3000 tokens
+    with 16 new tokens: each prefill launches ``flash_prefill`` once per
+    attention layer (12) and ``lru_scan`` once per rec layer (26); the decode
+    steps are plain. Then the prefill and the decode alone on the resident
+    weights, timed, and the first lane's prefill logits against the plain
+    f32 composition. Returns the first call's launch counts."""
+    from repro_torch.bridge import tree_bytes, tree_map
+    from repro_torch.core import (CompositionOfExperts, ExpertHandle,
+                                  HashRouter)
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    from repro_torch.models import rglru as R
+    from repro_torch.store import HostMemoryStore
+
+    r = RG
+    G, tail = R._group_counts(cfg)
+    n_rec = G * R._n_rec(cfg) + tail
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(r["seed"]),
+                        dev)
+    nbytes = tree_bytes(params)
+    coe = CompositionOfExperts(HashRouter(1), None, nbytes,
+                               store=HostMemoryStore(), device=dev)
+    coe.register(ExpertHandle(cfg.name, cfg, params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"rg: {cfg.name} ({cfg.n_layers} layers: {G} groups "
+         f"{cfg.block_pattern} + {tail} rec, {nbytes / 1e9:.2f} GB bf16) "
+         f"made and moved to pinned host memory in "
+         f"{time.perf_counter() - t0:.1f}s; HBM cache of one expert")
+    P, n_new, B = r["prompt_len"], r["new_tokens"], r["prompts"]
+    toks = np.random.RandomState(r["seed"]).randint(
+        0, cfg.vocab_size, (B, P)).astype(np.int32)
+    first = None
+    for run in ("first", "second"):
+        cs0 = dict(vars(coe.cache.stats))
+        torch.cuda.synchronize()
+        rt.reset_launches()
+        t0 = time.perf_counter()
+        res = coe.generate(toks, n_new, prefetch_next=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rt.launch_counts()
+        first = first or launches
+        check_launches(f"rg generate ({run} call)", launches,
+                       {"flash_prefill": G, "lru_scan": n_rec})
+        hits, misses = (getattr(coe.cache.stats, k) - cs0[k]
+                        for k in ("hits", "misses"))
+        if res.tokens.shape != (B, n_new):
+            raise AssertionError(f"rg generate: tokens {res.tokens.shape}")
+        if not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
+            raise AssertionError("rg generate: token out of vocabulary")
+        if hits + misses != 1:
+            raise AssertionError(f"rg generate: hits {hits} + misses "
+                                 f"{misses} != 1 group")
+        _log(f"rg generate ({run} call): {B} prompts x {P} tokens -> "
+             f"{res.tokens.size} tokens in {wall:.3f}s = "
+             f"{res.tokens.size / wall:.2f} tok/s; hits={hits} "
+             f"misses={misses}; switch_s={res.switch_seconds:.4f} "
+             f"exec_s={res.exec_seconds:.4f}; launches "
+             f"flash_prefill={launches['flash_prefill']} "
+             f"lru_scan={launches['lru_scan']}")
+
+    # the prefill and the decode alone, on the resident weights
+    params = coe.cache.activate(cfg.name)
+    tt = torch.as_tensor(toks, device=dev).long()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = model.prefill(params, {"tokens": tt}, P + n_new)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = last.argmax(-1)
+    t0 = time.perf_counter()
+    for t in range(n_new - 1):
+        lg, cache = model.decode_step(params, cache, tok[:, None], P + t)
+        tok = lg.argmax(-1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if cache["k"].shape[2] != cfg.sliding_window:
+        raise AssertionError(f"rg: ring of {cache['k'].shape[2]} positions")
+    _log(f"rg: prefill of {B} x {P} tokens in {prefill_s:.3f}s "
+         f"({B * P / prefill_s:.0f} tok/s); {n_new - 1} decode steps in "
+         f"{decode_s:.3f}s = {B * (n_new - 1) / decode_s:.2f} tok/s")
+    step_breakdown(lambda: model.decode_step(params, cache, tok[:, None],
+                                             P + n_new - 1),
+                   f"rg decode step ({B} lanes, {cfg.n_layers} layers)")
+    del cache
+    step_breakdown(lambda: model.prefill(params, {"tokens": tt}, P + n_new),
+                   f"rg prefill ({B} x {P} tokens, {cfg.n_layers} layers)",
+                   n_steps=3)
+
+    # the first lane against the plain f32 composition
+    f32 = lambda tree: tree_map(lambda t: t.float(), tree)
+    with torch.no_grad(), plain_prefill():
+        h = params["embed"]["tok"][tt[:1]].float()
+        positions = torch.arange(P, device=dev)[None]
+        for g in range(G):
+            h, _, _ = R._group_apply(cfg, f32(R._take(params["groups"], g)),
+                                     h, positions)
+        for i in range(tail):
+            h, _ = R.rec_block(cfg, f32(R._take(params["tail_rec"], i)), h)
+            h = R._mlp_block(cfg, f32(R._take(params["tail_mlp"], i)), h)
+        h = L.apply_norm(cfg, f32(params["final_norm"]), h[:, -1:])
+        l32 = (h @ params["lm_head"].float())[:, 0]
+    logits_check("rg reference check: kernels vs f32 plain composition",
+                 last[:1], l32, RG_LOGIT_TOL_REL)
+    del h, l32, params
+    coe.cache.close()
+    return first
 
 
 def main():
@@ -758,8 +1060,10 @@ def main():
     cfg = get_config("samba-coe-expert-7b")
     t_start = time.perf_counter()
     build_kernels()
+    rg_cfg = get_config("recurrentgemma-9b")
     rows = kernel_phase(cfg, dev)
     rows.update(dense_kernel_phase(cfg, dev))
+    rows.update(prefill_kernel_phase(cfg, rg_cfg, dev))
     torch.cuda.empty_cache()
     launches, store, names = serve_phase(cfg, dev)
     for name in PAGED_KERNELS:
@@ -767,13 +1071,20 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     params = tree_map(lambda t: t.to(dev), store.get(names[0]))
-    launches = dense_decode_phase(cfg, dev, params)
+    launches, prefill_launches = dense_decode_phase(cfg, dev, params)
     for name in DENSE_KERNELS:
         rows[name]["launches"] = launches[name]
+    rows["flash_prefill"]["launches"] = prefill_launches["flash_prefill"]
     del params
     gc.collect()
     torch.cuda.empty_cache()
     generate_phase(cfg, dev, store, names)
+    del store
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = rg_phase(rg_cfg, dev)
+    rows[RG_PREFILL_ROW]["launches"] = launches["flash_prefill"]
+    rows["lru_scan"]["launches"] = launches["lru_scan"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -2,9 +2,11 @@
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, reduced
+from repro_torch.configs.recurrentgemma_9b import CONFIG as _recurrentgemma_9b
 from repro_torch.configs.samba_coe_expert import CONFIG as _samba_coe_expert
 
-CONFIGS = {"samba-coe-expert-7b": _samba_coe_expert}
+CONFIGS = {"samba-coe-expert-7b": _samba_coe_expert,
+           "recurrentgemma-9b": _recurrentgemma_9b}
 
 
 def get_config(name: str) -> ModelConfig:

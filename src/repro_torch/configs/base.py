@@ -1,11 +1,13 @@
-"""Model configuration: the dense-family subset of ``repro.configs.base``.
+"""Model configuration: the subset of ``repro.configs.base`` that the
+ported families (dense, rglru) read.
 
-Only the fields the dense decoder family reads are kept; the other families
-are not ported yet (``ROADMAP.md`` Queue 1).
+Only the fields those families read are kept; the other families are not
+ported yet (``ROADMAP.md`` Queue 1).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -21,7 +23,7 @@ class ModelConfig:
     vocab_size: int
 
     norm: str = "rms"                 # only 'rms' is ported
-    act: str = "swiglu"               # only 'swiglu' is ported
+    act: str = "swiglu"               # 'swiglu' | 'geglu'  ('gelu' not ported)
     qkv_bias: bool = False
     attn_out_bias: bool = False
     mlp_bias: bool = False
@@ -29,14 +31,22 @@ class ModelConfig:
 
     rope_style: str = "full"          # only 'full' is ported
     rope_theta: float = 10000.0
+    rope_fraction: float = 1.0        # 'partial' RoPE only (not ported);
+                                      # kept so configs match JAX's
 
-    sliding_window: int = 0
+    sliding_window: int = 0           # >0: local attention (rglru)
+    attn_chunk: int = 1024            # block of the CPU's streaming attention
     n_experts: int = 0
+
+    # --- hybrid (recurrentgemma) ---
+    block_pattern: Tuple[str, ...] = ()   # e.g. ('rec', 'rec', 'attn')
+    d_rnn: int = 0
+    conv_width: int = 4
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
-    """Tiny same-family config for CPU tests (the dense branch of
-    ``repro.configs.base.reduced``)."""
+    """Tiny same-family config for CPU tests (the dense and rglru branches
+    of ``repro.configs.base.reduced``)."""
     upd = dict(
         n_layers=min(cfg.n_layers, 4),
         d_model=128,
@@ -45,7 +55,13 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         head_dim=32,
         d_ff=256 if cfg.d_ff else 0,
         vocab_size=512,
+        attn_chunk=64,
     )
+    if cfg.block_pattern:
+        upd["n_layers"] = len(cfg.block_pattern)  # one full pattern group
+        upd["d_rnn"] = 128
     if cfg.sliding_window:
         upd["sliding_window"] = 32
+    if cfg.rope_fraction < 1.0:
+        upd["rope_fraction"] = 0.5
     return replace(cfg, name=cfg.name + "-reduced", **upd)

@@ -1,3 +1,4 @@
-from repro_torch.kernels.flash_attention.ops import decode, decode_paged
+from repro_torch.kernels.flash_attention.ops import (attention, decode,
+                                                     decode_paged)
 
-__all__ = ["decode_paged", "decode"]
+__all__ = ["attention", "decode_paged", "decode"]

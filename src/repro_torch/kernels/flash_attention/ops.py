@@ -1,5 +1,6 @@
-"""Wrappers of the decode-attention kernels (counterparts of
-``repro.kernels.flash_attention.ops.decode_paged`` and ``decode``)."""
+"""Wrappers of the attention kernels (counterparts of
+``repro.kernels.flash_attention.ops.attention``, ``decode_paged`` and
+``decode``)."""
 from __future__ import annotations
 
 import math
@@ -7,11 +8,13 @@ import math
 import torch
 
 from repro_torch.kernels import runtime as rt
-from repro_torch.kernels.flash_attention.ref import (decode_attention_ref,
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     decode_attention_ref,
                                                      decode_paged_ref)
 
 _ARGS = [rt.P] * 6 + [rt.I] * 6 + [rt.F, rt.P]
 _DENSE_ARGS = [rt.P] * 4 + [rt.I] * 6 + [rt.F, rt.P]
+_PREFILL_ARGS = [rt.P] * 4 + [rt.I] * 19 + [rt.F, rt.P]
 
 
 def _check_head_shape(name, dh, G):
@@ -88,4 +91,55 @@ def decode(q, k_cache, v_cache, length: int):
             rt.stream_ptr(q))
     rt.check_launch("flash_decode", rc)
     rt.count_launch("flash_decode")
+    return out
+
+
+def _row_strides(name, **tensors):
+    """(batch, position, head) strides in elements of BSHD tensors whose
+    head_dim is contiguous; each row must start on a 16-byte boundary, the
+    width of the kernel's copies."""
+    out = []
+    for k, t in tensors.items():
+        if t.stride(3) != 1 or t.data_ptr() % 16 or \
+                any(s % 8 for s in t.stride()[:3]):
+            raise ValueError(f"{name}: {k} needs a contiguous head_dim and "
+                             "16-byte aligned rows")
+        out.extend(t.stride()[:3])
+    return out
+
+
+def attention(q, k, v, *, causal=True, window=0):
+    """Causal / sliding-window GQA attention over a whole prompt:
+    q (B,S,Hq,dh), k/v (B,S,Hkv,dh) -> (B,S,Hq,dh). Query i attends key j
+    where ``j <= i`` (causal) and ``i - j < window`` (window > 0). Any
+    S >= 1; the BSHD tensors are read by their strides, so a slice of a
+    larger buffer is taken as it is.
+
+    CPU tensors take the plain version, in any float dtype; CUDA tensors
+    launch the ``flash_prefill`` kernel, which takes bf16."""
+    B, S, Hq, dh = q.shape
+    if k.shape[:2] != (B, S) or k.shape[3] != dh or v.shape != k.shape \
+            or Hq % k.shape[2]:
+        raise ValueError(f"attention: q {tuple(q.shape)} does not match "
+                         f"k {tuple(k.shape)} / v {tuple(v.shape)}")
+    if window < 0:
+        raise ValueError(f"attention: window {window} < 0")
+    if not rt.on_card(q, k, v):
+        return attention_ref(q, k, v, causal=causal, window=window)
+    Hkv = k.shape[2]
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        raise TypeError(f"attention: dtypes q={q.dtype} k={k.dtype} "
+                        f"v={v.dtype}; the kernel takes bf16 for all three")
+    if dh not in (32, 64, 128, 256):
+        raise ValueError(f"attention: kernel takes dh in 32/64/128/256, got "
+                         f"{dh}")
+    strides = _row_strides("attention", q=q, k=k, v=v)
+    fn = rt.bind("flash_prefill", "flash_prefill_bf16", _PREFILL_ARGS)
+    out = torch.empty((B, S, Hq, dh), dtype=q.dtype, device=q.device)
+    strides += out.stride()[:3]
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            Hq, Hkv, dh, int(causal), int(window), *strides,
+            1.0 / math.sqrt(dh), rt.stream_ptr(q))
+    rt.check_launch("flash_prefill", rc)
+    rt.count_launch("flash_prefill")
     return out

@@ -1,12 +1,18 @@
-"""Plain PyTorch versions of the decode kernels: the paged one gathers the
-lanes' blocks into contiguous caches; both take a masked softmax in f32."""
+"""Plain PyTorch versions of the attention kernels: prefill is the quadratic
+oracle; the paged decode gathers the lanes' blocks into contiguous caches;
+each takes a masked softmax in f32."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from repro_torch.models.layers import decode_attention
+from repro_torch.models.layers import decode_attention, naive_attention
+
+
+def attention_ref(q, k, v, *, causal=True, window=0):
+    """q (B,S,Hq,dh), k/v (B,S,Hkv,dh) -> (B,S,Hq,dh)."""
+    return naive_attention(q, k, v, causal=causal, window=window)
 
 
 def decode_paged_ref(q, k_pool, v_pool, tables, len1):

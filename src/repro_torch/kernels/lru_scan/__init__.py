@@ -1,0 +1,3 @@
+from repro_torch.kernels.lru_scan.ops import lru_scan
+
+__all__ = ["lru_scan"]

@@ -38,6 +38,8 @@ SOURCES = {
     "flash_decode": "flash_attention/csrc/decode.cu",
     "qkv_rope": "fused_decode/csrc/qkv_rope.cu",
     "ffn_swiglu": "fused_decode/csrc/ffn_swiglu.cu",
+    "flash_prefill": "flash_attention/csrc/prefill.cu",
+    "lru_scan": "lru_scan/csrc/lru_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

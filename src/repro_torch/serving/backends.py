@@ -214,6 +214,33 @@ def dense_kernel_flops(cfg: ModelConfig, batch: int,
             "ffn_swiglu": 2 * B * 3 * D * F}
 
 
+def attention_pairs(seq: int, window: int = 0) -> int:
+    """(query, key) pairs a causal prefill of ``seq`` positions attends:
+    sum over i of min(i + 1, W), W = seq without a window."""
+    W = min(window or seq, seq)
+    return W * (W + 1) // 2 + (seq - W) * W
+
+
+def prefill_attention_flops(batch: int, seq: int, n_q: int, dh: int,
+                            window: int = 0) -> int:
+    """Arithmetic of one causal ``flash_prefill`` call: q k^T and p v, 2 per
+    multiply-add, over the attended pairs only."""
+    return 4 * batch * n_q * dh * attention_pairs(seq, window)
+
+
+def prefill_attention_hbm_bytes(batch: int, seq: int, n_q: int, n_kv: int,
+                                dh: int) -> int:
+    """Device-memory bytes of one ``flash_prefill`` call: q, k and v read
+    once and o written once, bf16."""
+    return _BF16 * batch * seq * (2 * n_q + 2 * n_kv) * dh
+
+
+def lru_scan_hbm_bytes(batch: int, seq: int, d: int) -> int:
+    """Device-memory bytes of one ``lru_scan`` call: a and b read once and h
+    written once, f32 (two flops per element besides)."""
+    return 3 * _F32 * batch * seq * d
+
+
 def fused_kernel_hbm_bytes(cfg: ModelConfig, batch: int, len1: Sequence[int],
                            maxb: int) -> int:
     """Device-memory bytes the three kernels must move in one fused g = 1

@@ -130,7 +130,7 @@ def test_cuda_f32_tensor_raises_instead_of_falling_back(monkeypatch):
     for name in ("flash_attention.ops.decode_paged_ref",
                  "fused_decode.ops.qkv_rope_paged_ref",
                  "fused_decode.ops.oproj_ffn_swiglu_ref",
-                 *_DENSE_PLAIN):
+                 *_DENSE_PLAIN, *_PREFILL_PLAIN):
         monkeypatch.setattr(f"repro_torch.kernels.{name}", refuse)
     monkeypatch.setattr(rt, "bind", refuse)
     f32, i32 = torch.float32, torch.int32
@@ -152,6 +152,11 @@ def test_cuda_f32_tensor_raises_instead_of_falling_back(monkeypatch):
     ]
     for call in calls:
         with pytest.raises(TypeError, match="bf16"):
+            call()
+    # the prefill kernels each given the other's type: flash_prefill takes
+    # bf16 only, lru_scan f32 only
+    for call in _prefill_calls(wrong_dtype=True).values():
+        with pytest.raises(TypeError, match="the kernel takes (bf16|f32)"):
             call()
 
 
@@ -178,21 +183,44 @@ def _dense_calls(dtype=torch.bfloat16):
     }
 
 
+# the prefill kernels: wrapper -> its plain version in ``ops``
+_PREFILL_PLAIN = ("flash_attention.ops.attention_ref",
+                  "lru_scan.ops.lru_scan_ref")
+
+
+def _prefill_calls(wrong_dtype=False):
+    """One call of each prefill kernel wrapper on CUDA-looking tensors of
+    the kernel's type (bf16 attention, f32 recurrence), or each of the
+    other's type, keyed by its launch-count name."""
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.lru_scan.ops import lru_scan
+    at, lt = torch.bfloat16, torch.float32
+    if wrong_dtype:
+        at, lt = lt, at
+    return {
+        "flash_prefill": lambda: attention(
+            _cuda_looking((2, 16, 4, 32), at), _cuda_looking((2, 16, 2, 32), at),
+            _cuda_looking((2, 16, 2, 32), at), causal=True, window=8),
+        "lru_scan": lambda: lru_scan(_cuda_looking((2, 16, 64), lt),
+                                     _cuda_looking((2, 16, 64), lt)),
+    }
+
+
 def test_cuda_tensor_never_reaches_the_dense_plain_versions(monkeypatch):
-    """As above for ``decode``, ``qkv_rope`` and ``ffn_swiglu``: without a
-    compiler the build raises, nothing launches, and the plain versions are
-    never called."""
+    """As above for ``decode``, ``qkv_rope``, ``ffn_swiglu`` and the prefill
+    kernels ``flash_prefill`` and ``lru_scan``: without a compiler the build
+    raises, nothing launches, and the plain versions are never called."""
     from repro_torch.kernels import runtime as rt
 
     def refuse_plain(*a, **k):
         raise AssertionError("plain version called for a CUDA tensor")
 
-    for name in _DENSE_PLAIN:
+    for name in _DENSE_PLAIN + _PREFILL_PLAIN:
         monkeypatch.setattr(f"repro_torch.kernels.{name}", refuse_plain)
     monkeypatch.setattr(rt, "_nvcc", lambda: (_ for _ in ()).throw(
         RuntimeError("nvcc not found: the CUDA kernels cannot be built")))
     monkeypatch.setattr(rt, "BUILD_DIR", pathlib.Path("/nonexistent"))
-    for kernel, call in _dense_calls().items():
+    for kernel, call in {**_dense_calls(), **_prefill_calls()}.items():
         rt.reset_launches()
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
