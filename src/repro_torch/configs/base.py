@@ -31,11 +31,8 @@ class ModelConfig:
 
     rope_style: str = "full"          # only 'full' is ported
     rope_theta: float = 10000.0
-    rope_fraction: float = 1.0        # 'partial' RoPE only (not ported);
-                                      # kept so configs match JAX's
 
     sliding_window: int = 0           # >0: local attention (rglru)
-    attn_chunk: int = 1024            # block of the CPU's streaming attention
     n_experts: int = 0
 
     # --- hybrid (recurrentgemma) ---
@@ -55,13 +52,10 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         head_dim=32,
         d_ff=256 if cfg.d_ff else 0,
         vocab_size=512,
-        attn_chunk=64,
     )
     if cfg.block_pattern:
         upd["n_layers"] = len(cfg.block_pattern)  # one full pattern group
         upd["d_rnn"] = 128
     if cfg.sliding_window:
         upd["sliding_window"] = 32
-    if cfg.rope_fraction < 1.0:
-        upd["rope_fraction"] = 0.5
     return replace(cfg, name=cfg.name + "-reduced", **upd)

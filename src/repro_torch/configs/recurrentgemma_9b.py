@@ -15,7 +15,6 @@ CONFIG = ModelConfig(
     act="geglu",
     rope_style="full",
     rope_theta=10000.0,
-    rope_fraction=0.5,        # griffin rotates half the head dim
     sliding_window=2048,      # local attention window
     block_pattern=("rec", "rec", "attn"),
     d_rnn=4096,

@@ -1,8 +1,7 @@
 """Shared layers of the dense and rglru families (counterpart of
 ``repro.models.layers``): RMSNorm, full RoPE, attention (the quadratic
-oracle, the streaming-block form and the dispatch between them and the
-``flash_prefill`` kernel), single-token attention against a dense cache,
-and the SwiGLU / GeGLU FFN."""
+oracle and the ``flash_prefill`` kernel's entry), single-token attention
+against a dense cache, and the SwiGLU / GeGLU FFN."""
 from __future__ import annotations
 
 import math
@@ -88,77 +87,12 @@ def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     return o.reshape(B, Sq, Hq, dv)
 
 
-def _block_pairs(nq, nk, block, *, causal, window):
-    """Statically enumerate valid (qi, kj) block pairs."""
-    pairs = []
-    for i in range(nq):
-        for j in range(nk):
-            if causal and j > i:
-                continue
-            if window and (i - j) * block >= window + block:
-                continue
-            pairs.append((i, j))
-    return pairs
-
-
-def block_attention(q, k, v, *, causal=True, window=0, block=1024):
-    """Streaming-block attention with an online softmax over the valid
-    (q-block, kv-block) pairs only; shapes as ``naive_attention``. Small or
-    non-block-aligned inputs take ``naive_attention``, as in JAX."""
-    B, Sq, Hq, dh = q.shape
-    _, Sk, Hkv, dv = v.shape
-    if (Sq <= 2 * block and Sk <= 2 * block) or Sq % block or Sk % block:
-        return naive_attention(q, k, v, causal=causal, window=window)
-    G = Hq // Hkv
-    scale = 1.0 / math.sqrt(dh)
-    qg = q.reshape(B, Sq, Hkv, G, dh)
-    acc = torch.zeros((B, Sq, Hkv, G, dv), dtype=torch.float32,
-                      device=q.device)
-    m = torch.full((B, Hkv, G, Sq), float("-inf"), device=q.device)
-    l = torch.zeros((B, Hkv, G, Sq), device=q.device)
-    ar = torch.arange(block, device=q.device)
-    for i, j in _block_pairs(Sq // block, Sk // block, block, causal=causal,
-                             window=window):
-        rq, rk = slice(i * block, (i + 1) * block), \
-            slice(j * block, (j + 1) * block)
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qg[:, rq].float(),
-                         k[:, rk].float()) * scale
-        qpos = i * block + ar[:, None]
-        kpos = j * block + ar[None, :]
-        mask = torch.ones((block, block), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= kpos <= qpos
-        if window:
-            mask &= qpos - kpos < window
-        s = s.masked_fill(~mask, float("-inf"))
-        mb, lb = m[..., rq], l[..., rq]
-        m_new = torch.maximum(mb, s.amax(-1))
-        m_safe = torch.where(torch.isfinite(m_new), m_new,
-                             torch.zeros_like(m_new))
-        p = torch.exp(s - m_safe[..., None]).masked_fill(~mask, 0.0)
-        alpha = torch.where(torch.isfinite(mb), torch.exp(mb - m_safe),
-                            torch.zeros_like(mb))
-        l[..., rq] = lb * alpha + p.sum(-1)
-        pv = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(),
-                          v[:, rk].float())
-        m[..., rq] = m_new
-        acc[:, rq] = acc[:, rq] * alpha.permute(0, 3, 1, 2)[..., None] + pv
-    out = acc / l.clamp_min(1e-30).permute(0, 3, 1, 2)[..., None]
-    return out.reshape(B, Sq, Hq, dv).to(q.dtype)
-
-
-def attention(cfg: ModelConfig, q, k, v, *, causal=True, window=0):
-    """Prefill / forward attention, q (B,S,Hq,dh), k/v (B,S,Hkv,dh). On the
-    card it is the ``flash_prefill`` kernel; on the CPU it is JAX's split:
-    ``block_attention`` above two ``attn_chunk`` blocks, the quadratic
-    oracle below."""
+def attention(q, k, v, *, causal=True, window=0):
+    """Prefill / forward attention, q (B,S,Hq,dh), k/v (B,S,Hkv,dh): the
+    ``flash_prefill`` kernel on the card, its plain version (the quadratic
+    oracle) on the CPU."""
     from repro_torch.kernels.flash_attention import ops
-    if q.device.type == "cuda":
-        return ops.attention(q, k, v, causal=causal, window=window)
-    if q.shape[1] > 2 * cfg.attn_chunk:
-        return block_attention(q, k, v, causal=causal, window=window,
-                               block=cfg.attn_chunk)
-    return naive_attention(q, k, v, causal=causal, window=window)
+    return ops.attention(q, k, v, causal=causal, window=window)
 
 
 def decode_attention(q, k_cache, v_cache, valid_mask):

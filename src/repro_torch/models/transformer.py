@@ -73,7 +73,7 @@ def _dense_attn(cfg, p, x, positions):
     v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
     q = L.apply_rope(cfg, q, positions)
     k = L.apply_rope(cfg, k, positions)
-    o = L.attention(cfg, q, k, v, window=cfg.sliding_window)
+    o = L.attention(q, k, v, window=cfg.sliding_window)
     y = torch.einsum("bshk,hkd->bsd", o, p["wo"])
     return x + y, (k, v)
 

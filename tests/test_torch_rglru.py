@@ -82,8 +82,8 @@ def _close(got, want, atol=ATOL):
 def test_config_and_param_tree_match_jax(cfgs, params):
     jcfg, cfg = cfgs
     for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
-              "d_ff", "vocab_size", "act", "rope_fraction", "sliding_window",
-              "attn_chunk", "block_pattern", "d_rnn", "conv_width"):
+              "d_ff", "vocab_size", "act", "sliding_window", "block_pattern",
+              "d_rnn", "conv_width"):
         assert getattr(cfg, f) == getattr(jcfg, f), f
     full = get_config("recurrentgemma-9b")
     assert full == dataclasses.replace(
@@ -152,8 +152,9 @@ def test_rec_block_scan_and_step_match_jax(cfgs, params):
 
 
 def test_forward_logits_match_jax(cfgs, params):
-    """S = 40 takes the quadratic attention; S = 256 (> 2 attn_chunk) the
-    streaming-block form with the 32-position window."""
+    """At S = 40 JAX takes its quadratic attention; at S = 256
+    (> 2 attn_chunk) its streaming-block form with the 32-position window.
+    The port's plain attention is the quadratic oracle at both."""
     jcfg, cfg = cfgs
     tp = to_torch(params)
     for S in (40, 256):
