@@ -17,7 +17,17 @@
    plain version and one PyTorch library call computing the same function
    (none for ``lru_scan``: no single PyTorch call computes a linear
    recurrence).
-3. Serve phase at full width (L = 32, D = 4096): three experts in pinned host
+3. Monarch phase, the FFT-conv showcase of the paper's Fig. 3-4 and Table
+   I: ``monarch_fused`` and ``monarch_conv_fused`` against their plain
+   versions at the 1M-point shape (16, 1024, 1024) bf16, max-abs and row
+   by row, beside the cuBLAS chain, with faults planted in the plain
+   versions that the row check must catch; then the showcase's entry point
+   (``repro_torch.launch.monarch_fftconv``: the Table I ledger, both
+   kernels against their plain versions and the conv timed as kernels, one
+   plain expression and op by op, at (16, 1024, 1024) and (16, 256, 256)),
+   each ``monarch`` / ``monarch_conv`` call launching its kernel once; and
+   one conv call's device time by launch.
+4. Serve phase at full width (L = 32, D = 4096): three experts in pinned host
    memory, an HBM weight cache for two, 16 requests through the
    continuous-batching engine with the fused backend. Every request must
    finish with 32 tokens, the KV pool must be clean, every paged kernel must
@@ -26,25 +36,25 @@
    logits must match the plain reference body run in f32 on the same pool
    state; the run also prints what faults planted in one layer read against
    it. Then one step's device time by kernel, from the profiler.
-4. Dense decode phase on one of those experts: ``prefill`` of 8 lanes x 2048
+5. Dense decode phase on one of those experts: ``prefill`` of 8 lanes x 2048
    tokens into a 4096-position cache (``flash_prefill`` once per layer), its
    first lane's last-token logits against the plain ``forward`` run in f32 a
    layer at a time, 16 greedy steps of 32 ``decoder_layer_step``s (each
    dense kernel once per layer per step), one step's logits against the
    plain ``decode_step`` run in f32 a layer at a time, two planted faults,
    and one step's device time by kernel.
-5. Generate phase: ``CompositionOfExperts.generate`` over the same three
+6. Generate phase: ``CompositionOfExperts.generate`` over the same three
    experts (their pinned store, an HBM cache of two) with an ``LMRouter`` on
    the expert backbone: 8 prompts of 128 tokens, 16 new tokens each; the
    router and every group's prefill through ``flash_prefill``.
-6. RecurrentGemma phase, after the experts' store is released:
+7. RecurrentGemma phase, after the experts' store is released:
    recurrentgemma-9b at full width and depth (38 layers, 10.4 G parameters,
    bf16) as the one expert of a ``CompositionOfExperts(HashRouter(1))`` on
    a pinned host store with an HBM cache of one expert; ``generate`` on 4
    prompts of 3000 tokens (past the 2048-position window), 16 new tokens,
    twice: 12 ``flash_prefill`` and 26 ``lru_scan`` launches per call; the
    first lane's prefill logits against the plain f32 composition.
-7. Prints the kernel table as one JSON line, the card's name and power
+8. Prints the kernel table as one JSON line, the card's name and power
    limit, and ends with ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a card, and on any failure. Weights are random,
@@ -107,6 +117,12 @@ KERNELS = {
     "lru_scan": dict(
         source="src/repro_torch/kernels/lru_scan/csrc/lru_scan.cu",
         replaces="src/repro/kernels/lru_scan/kernel.py:41"),
+    "monarch_fused": dict(
+        source="src/repro_torch/kernels/monarch_fft/csrc/monarch.cu",
+        replaces="src/repro/kernels/monarch_fft/kernel.py:37"),
+    "monarch_conv_fused": dict(
+        source="src/repro_torch/kernels/monarch_fft/csrc/monarch_conv.cu",
+        replaces="src/repro/kernels/monarch_fft/kernel.py:77"),
 }
 PAGED_KERNELS = ("decode_paged", "qkv_rope_paged", "oproj_ffn_swiglu")
 DENSE_KERNELS = ("qkv_rope", "flash_decode", "ffn_swiglu")
@@ -154,6 +170,8 @@ RG_LOGIT_TOL_REL = 0.044
 # CompositionOfExperts.generate over the serve phase's experts with an
 # LMRouter on the expert backbone
 GEN = dict(prompts=8, prompt_len=128, new_tokens=16, hbm_experts=2.0, seed=3)
+# the Monarch kernels' rows at the paper's 1M-point shape, bf16
+MONARCH = dict(shape=(16, 1024, 1024), seed=7)
 
 
 def _log(msg):
@@ -504,6 +522,150 @@ def prefill_kernel_phase(cfg, rg_cfg, dev):
         peak=F32_FLOPS_PER_S)
     del a, b, flush
     return rows
+
+
+def monarch_faults(m_args, c_args):
+    """``{label: (function, planted plain output)}``: faults planted in the
+    plain versions of the Monarch kernels, each of which the row check
+    against the true plain output must catch."""
+    from repro_torch.kernels.monarch_fft import ref
+    x, w0, tw, w1 = m_args
+    filt, w0i, twi, w1i = c_args
+    blk = w0.clone()
+    blk[:64] = 0                              # one 64-row N1 block
+
+    def last_k_skipped(w):
+        w = w.clone()
+        w[:, -64:] = 0
+        return w
+
+    def untransposed(x, w0, tw, w1):          # a where a^T belongs
+        a = ref._mm(w0, x) * tw.float()
+        return ref._mm(w1, a.to(w1.dtype)).to(x.dtype)
+
+    def conv(first, *c):
+        return ref.monarch_ref(first * c[0], *c[1:])
+
+    ones = torch.ones_like
+    return {
+        "twiddle dropped": ("monarch", ref.monarch_ref(x, w0, ones(tw), w1)),
+        "a^T replaced by a": ("monarch", untransposed(*m_args)),
+        "N1 block zeroed": ("monarch", ref.monarch_ref(x, blk, tw, w1)),
+        "last K tile skipped": ("monarch", ref.monarch_ref(
+            x, w0, tw, last_k_skipped(w1))),
+        "conv twiddle dropped": ("monarch_conv", conv(
+            ref.monarch_ref(x, w0, tw, w1), filt, w0i, ones(twi), w1i)),
+        "conv filter dropped": ("monarch_conv", conv(
+            ref.monarch_ref(x, w0, tw, w1), ones(filt), w0i, twi, w1i)),
+        "conv a^T replaced by a": ("monarch_conv", conv(
+            untransposed(*m_args), *c_args)),
+        "conv N1 block zeroed": ("monarch_conv", conv(
+            ref.monarch_ref(x, blk, tw, w1), *c_args)),
+        "conv last K tile skipped": ("monarch_conv", conv(
+            ref.monarch_ref(x, w0, tw, w1), filt, w0i, twi,
+            last_k_skipped(w1i))),
+    }
+
+
+def monarch_kernel_phase(dev):
+    """The Monarch kernels against their plain versions at the paper's
+    1M-point shape (16, 1024, 1024) bf16, each also row by row, beside the
+    cuBLAS chain (``torch.matmul`` for each product, the twiddle, transpose
+    and filter as tensor ops); then faults planted in the plain versions,
+    each of which the row check must catch."""
+    from repro_torch.kernels.monarch_fft import ref
+    from repro_torch.kernels.monarch_fft.ops import (monarch, monarch_conv,
+                                                     monarch_conv_flops_bytes,
+                                                     monarch_flops_bytes)
+    from repro_torch.launch import monarch_fftconv as M
+
+    B, N1, N2 = MONARCH["shape"]
+    m_args, c_args = M.make_inputs(B, N1, N2, dev, MONARCH["seed"])
+    filt, w0i, twi, w1i = c_args
+    args = m_args + c_args
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def lib_monarch(x, w0, tw, w1):
+        return torch.matmul(w1, (torch.matmul(w0, x) * tw).transpose(1, 2))
+
+    def lib_conv():
+        return lib_monarch(lib_monarch(*m_args) * filt, w0i, twi, w1i)
+
+    fl, nb = monarch_flops_bytes(B, N1, N2)
+    rows = {"monarch_fused": kernel_row(
+        "monarch_fused", lambda: monarch(*m_args),
+        lambda: ref.monarch_ref(*m_args), lambda: lib_monarch(*m_args), nb,
+        fl, flush, rel_tol=M.MAX_ABS_REL, row_tol=M.ROW_REL_L2)}
+    fl, nb = monarch_conv_flops_bytes(B, N1, N2)
+    rows["monarch_conv_fused"] = kernel_row(
+        "monarch_conv_fused", lambda: monarch_conv(*args),
+        lambda: ref.monarch_conv_ref(*args), lib_conv, nb, fl, flush,
+        rel_tol=M.MAX_ABS_REL, row_tol=M.ROW_REL_L2)
+    want = {"monarch": ref.monarch_ref(*m_args),
+            "monarch_conv": ref.monarch_conv_ref(*args)}
+    for label, (fn, planted) in monarch_faults(m_args, c_args).items():
+        m_err = row_rel_l2(planted, want[fn])
+        _log(f"kernel {fn}: planted {label}: row relative L2 error "
+             f"{m_err:.3e} "
+             f"{'caught' if m_err > M.ROW_REL_L2 else 'NOT caught'}")
+        if not m_err > M.ROW_REL_L2:
+            raise AssertionError(f"{fn}: the row check misses a planted "
+                                 f"{label}")
+    del m_args, c_args, args, want, flush
+    return rows
+
+
+def monarch_phase(dev):
+    """The Monarch showcase through its entry point, ``python -m
+    repro_torch.launch.monarch_fftconv`` (``main``: the Table I ledger,
+    then both kernels against their plain versions and the FFT-conv timed
+    three ways at (16, 1024, 1024) and (16, 256, 256), on the card). Every
+    ``ops.monarch`` call must launch ``monarch_fused`` once and every
+    ``ops.monarch_conv`` call ``monarch_conv_fused`` once (its two CUDA
+    kernels), and nothing else may launch; then where one conv call's time
+    goes at both shapes. Returns the launch counts."""
+    import repro_torch.kernels.monarch_fft.ops as mops
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.launch import monarch_fftconv as M
+
+    calls = {"monarch": 0, "monarch_conv": 0}
+    real = {name: getattr(mops, name) for name in calls}
+
+    def counted(name):
+        def call(*args):
+            calls[name] += 1
+            return real[name](*args)
+        return call
+
+    for name in calls:
+        setattr(mops, name, counted(name))
+    try:
+        torch.cuda.synchronize()
+        rt.reset_launches()
+        t0 = time.perf_counter()
+        results = M.main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rt.launch_counts()
+    finally:
+        for name in calls:
+            setattr(mops, name, real[name])
+    check_launches("monarch showcase", launches,
+                   {"monarch_fused": calls["monarch"],
+                    "monarch_conv_fused": calls["monarch_conv"]})
+    if len(results) != len(M.TABLE1_SHAPES):
+        raise AssertionError(f"monarch showcase: {len(results)} results")
+    _log(f"monarch: showcase at {[r['shape'] for r in results]} in "
+         f"{wall:.1f}s; {calls['monarch']} monarch and "
+         f"{calls['monarch_conv']} monarch_conv calls, launches "
+         f"monarch_fused={launches['monarch_fused']} "
+         f"monarch_conv_fused={launches['monarch_conv_fused']}")
+    # where one conv call's time goes: its two launches, and the host
+    for shape in M.TABLE1_SHAPES:
+        m_args, c_args = M.make_inputs(*shape, dev, MONARCH["seed"])
+        step_breakdown(lambda: mops.monarch_conv(*m_args, *c_args),
+                       f"monarch_conv {shape}")
+    return launches
 
 
 @contextlib.contextmanager
@@ -1108,6 +1270,11 @@ def main():
     rows = kernel_phase(cfg, dev)
     rows.update(dense_kernel_phase(cfg, dev))
     rows.update(prefill_kernel_phase(cfg, rg_cfg, dev))
+    rows.update(monarch_kernel_phase(dev))
+    torch.cuda.empty_cache()
+    launches = monarch_phase(dev)
+    for name in ("monarch_fused", "monarch_conv_fused"):
+        rows[name]["launches"] = launches[name]
     torch.cuda.empty_cache()
     launches, store, names = serve_phase(cfg, dev)
     for name in PAGED_KERNELS:

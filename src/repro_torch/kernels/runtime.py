@@ -40,6 +40,8 @@ SOURCES = {
     "ffn_swiglu": "fused_decode/csrc/ffn_swiglu.cu",
     "flash_prefill": "flash_attention/csrc/prefill.cu",
     "lru_scan": "lru_scan/csrc/lru_scan.cu",
+    "monarch_fused": "monarch_fft/csrc/monarch.cu",
+    "monarch_conv_fused": "monarch_fft/csrc/monarch_conv.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
