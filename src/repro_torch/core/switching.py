@@ -32,12 +32,15 @@ class SwitchStats:
     hits: int = 0
     misses: int = 0
     prefetch_hits: int = 0
+    prefetch_failures: int = 0        # prefetch loads that raised; retried as miss
     prefetches_issued: int = 0
     prefetches_cancelled: int = 0
     evictions: int = 0
     bytes_copied_in: int = 0
     bytes_copyback_elided: int = 0
     switch_seconds: float = 0.0       # caller-side stall inside activate()
+    stall_failed_prefetch_seconds: float = 0.0  # ...waiting on a prefetch
+    # that then raised
     store_read_seconds: float = 0.0
     h2d_seconds: float = 0.0
 
@@ -179,19 +182,28 @@ class HBMWeightCache:
     def activate(self, expert_id: str):
         """The device tree of an expert. Resident -> no stall; in-flight
         prefetch -> wait for its unfinished tail; miss -> synchronous load.
-        The stall lands in ``stats.switch_seconds``."""
+        A prefetch whose store read or copy raised is counted in
+        ``stats.prefetch_failures`` and reloaded inline as a miss. The stall
+        lands in ``stats.switch_seconds``."""
         if expert_id in self._entries:
             self._entries.move_to_end(expert_id)
             self.stats.hits += 1
             return self._entries[expert_id]
         t0 = time.perf_counter()
         fut = self._inflight.pop(expert_id, None)
+        loaded = None
         if fut is not None:
             self._reserved.pop(expert_id, None)
-            loaded = fut.result()
-            self.stats.hits += 1
-            self.stats.prefetch_hits += 1
-        else:
+            try:
+                loaded = fut.result()
+                self.stats.hits += 1
+                self.stats.prefetch_hits += 1
+            except Exception:
+                # the wait on the doomed load is its own stall cause
+                self.stats.prefetch_failures += 1
+                self.stats.stall_failed_prefetch_seconds += (
+                    time.perf_counter() - t0)
+        if loaded is None:
             self.stats.misses += 1
             loaded = self._load_job(expert_id)
         value = self._install(expert_id, loaded)
@@ -201,12 +213,17 @@ class HBMWeightCache:
     def prefetch(self, expert_id: str) -> bool:
         """Start loading a predicted-next expert; True if a load started.
         On the card the load runs on the background thread and this call
-        never blocks; on the CPU it is a synchronous copy."""
+        never blocks; on the CPU it is a synchronous copy. An expert the store
+        cannot size is skipped (False); a load that raises is left in its
+        future for ``activate`` to retry."""
         if expert_id in self._entries or expert_id in self._inflight:
             return False
         while len(self._inflight) >= self.max_inflight:
             self.cancel(next(iter(self._inflight)))   # oldest prediction loses
-        need = self.store.nbytes(expert_id)
+        try:
+            need = self.store.nbytes(expert_id)
+        except Exception:
+            return False                        # unknown expert
         if not self._make_room(need, strict=False):
             return False
         self._reserved[expert_id] = need
@@ -214,7 +231,10 @@ class HBMWeightCache:
             fut = self._executor().submit(self._load_job, expert_id)
         else:
             fut = Future()
-            fut.set_result(self._load_job(expert_id))
+            try:
+                fut.set_result(self._load_job(expert_id))
+            except Exception as e:
+                fut.set_exception(e)
         self._inflight[expert_id] = fut
         self.stats.prefetches_issued += 1
         return True

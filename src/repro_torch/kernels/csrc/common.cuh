@@ -49,6 +49,12 @@ __device__ __forceinline__ void load_span(const T* p, float (&out)[N]) {
   }
 }
 
+// two floats rounded to bf16 and packed into one 32-bit register, lo first
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);

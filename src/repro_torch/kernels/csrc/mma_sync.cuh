@@ -1,7 +1,7 @@
 // Warp-level tensor-core helpers shared by the port's mma.sync kernels
-// (flash_prefill, the Monarch kernels): 16-byte cp.async copies into shared
-// memory, ldmatrix fragment loads (plain and transposed), the
-// m16n8k16 bf16 product with f32 accumulation, and bf16 packing.
+// (the Monarch kernels): 16-byte cp.async copies into shared memory,
+// ldmatrix fragment loads (plain and transposed) and the m16n8k16 bf16
+// product with f32 accumulation.
 #pragma once
 
 #include "common.cuh"
@@ -51,11 +51,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
 }
 
 }  // namespace repro

@@ -7,10 +7,11 @@
 // Computes o (B, S, Hq, dh) = softmax(mask(q k^T * scale)) v for bf16
 // q (B, S, Hq, dh) and k / v (B, S, Hkv, dh), q head h reading kv head
 // h / (Hq / Hkv). Query i attends key j where j <= i (causal) and
-// i - j < window (window > 0). All four tensors are read and written by
-// their (batch, position, head) strides; head_dim is contiguous. Any
-// S >= 1: the Pallas kernel asserts S % 128 == 0, this one masks the ragged
-// tail itself and never reads past S.
+// i - j < window (window > 0). q, k and v are read through TMA tensor maps
+// built from their (batch, position, head) strides, o is written by its
+// strides; head_dim is contiguous. Any S >= 1: the Pallas kernel asserts
+// S % 128 == 0, here the maps' position extent is S itself, so TMA fills
+// the rows past S with zeros and nothing past S is ever read.
 //
 // Bound: tensor-core operations. 4 * B * Hq * dh * pairs flops, pairs =
 // sum_i min(i + 1, W) (W = S without a window), against 2 * B * S *
@@ -19,248 +20,429 @@
 // RecurrentGemma's (B 4, S 3000, 16 q heads on 1 kv head, dh 256, window
 // 2048) 2.65e11 flops and 209 MB, 0.268 ms.
 //
-// Design: FlashAttention-2 on warp-level mma.sync.m16n8k16 (bf16 in, f32
-// accumulate) for both q k^T and p v. One CTA of 4 warps per (batch, q
-// head, 64-row q tile), each warp owning 16 rows; the TPU streamed K/V
-// blocks through VMEM along a sequential fori_loop, here the CTA walks the
-// K/V tiles of its band [lo, hi) -- the same bounds as the Pallas kernel
-// (causal: keys up to the tile's last row; window: from its first row's
-// window start) -- so tiles outside the band are never loaded. K/V tiles
-// are double-buffered in shared memory with cp.async (16-byte copies, rows
-// past S zero-filled), fragments come from shared memory by ldmatrix (rows
-// padded by 8 elements, so the 8 rows of each 8x8 matrix fall in distinct
-// banks), and the online softmax state (m, l) stays in registers. Masks are
-// applied only on tiles that cross the diagonal, the window's edge or S.
-// Heavier (later) causal q tiles are scheduled first. At dh = 256 the
-// key tile is 32 wide so that the f32 accumulator (128 per thread) and the
-// scores fit in registers; the shared memory (above 48 KB at dh >= 128)
-// is opted in with cudaFuncSetAttribute.
+// Design: FlashAttention-3's warp-specialised shape, without its
+// ping-pong scheduling. One CTA per (batch, q head, 128-row q tile): two
+// consumer warpgroups of 64 q rows each, then a producer warpgroup, of
+// which one warp issues the loads. Registers are allocated a warpgroup at
+// a time (168 a thread at entry for 384 threads); setmaxnreg hands the
+// producer's down to 24 and raises the consumers' to 240.
+//  * Producer (one thread): one TMA load of the Q tile, then the K and V
+//    tiles of the CTA's band [lo, hi) -- the Pallas kernel's bounds
+//    (causal: keys up to the tile's last row; window: from its first row's
+//    window start) -- into a 2-stage ring; each stage has a full mbarrier
+//    (TMA bytes) and an empty one (the 8 consumer warps).
+//  * Consumers: S = Q K^T by wgmma.m64nBNk16 with both operands in shared
+//    memory, K-major; scale in f32; the causal / window / S mask only on
+//    tiles that cross an edge; the online softmax in registers (the wgmma
+//    accumulator gives each thread rows g and g + 8 of its warp's 16, as
+//    mma.sync does, so the quad shuffles carry over); P rounded to bf16 is
+//    the register A operand of O += P V, V read MN-major (the transpose
+//    bit). A consumer warpgroup skips the products of a tile its 64 rows do
+//    not attend, but still waits for and releases it.
+//  * BN = 128 keys per tile at dh <= 128, 64 at dh 256 (O takes 128 f32
+//    registers per consumer thread there). Shared memory: Q 32 KB + a
+//    128 KB K/V ring at dh 128, Q 64 KB + 128 KB at dh 256.
+//  * Heavier (later) causal q tiles are scheduled first.
+// Not yet: ping-pong between the two consumer warpgroups (one's softmax
+// under the other's products), intra-warpgroup overlap of softmax and the
+// next tile's Q K^T, a persistent grid, packing the G q heads of one kv
+// head into one CTA, and TMA multicast across a cluster.
+//
+// Where it can go wrong, and what guards it:
+//  * The swizzle of a TMA box and of the wgmma descriptor that reads it
+//    must agree (128-byte rows of 64 elements; 64-byte rows at dh 32). A
+//    mismatch gives finite, wrong numbers: the card tests and
+//    chip_smoke.py hold the kernel to its plain version row by row.
+//  * A wrong mbarrier phase hangs the CTA: mbar_wait traps after ~10 s,
+//    so a fault fails the launch instead.
+//  * setmaxnreg.inc blocks until the registers the producer released are
+//    free: the launch refuses a build whose entry register count cannot
+//    cover the consumers' increase.
+//  * No atomics and no split along keys: two calls agree bit for bit.
 //
 // Two numerical choices: scores are scaled in f32 AFTER the bf16 product,
 // as JAX's _gqa_scores does (the Pallas kernel scales q in f32 first, which
 // bf16 tensor-core inputs cannot mirror); p is rounded to bf16 before the
 // p v product, as both JAX versions do, while l sums the f32 p.
-#include "mma_sync.cuh"
+#include <cuda.h>
+
+#include "hopper.cuh"
 
 using namespace repro;
 
 namespace {
 
-constexpr int BQ = 64;            // q rows per CTA
-constexpr int NWARPS = BQ / 16;   // one warp per 16 rows
-constexpr int PAD = 8;            // bf16 elements of padding per smem row
-
 using bf16 = __nv_bfloat16;
 
-struct Strides {
-  long long b, s, h;              // elements
+constexpr int BM = 128;                  // q rows per CTA
+constexpr int CONSUMER_WARPS = 8;        // two warpgroups of 64 rows
+constexpr int THREADS = CONSUMER_WARPS * 32 + 128;   // + the producer's
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr int STAGES = 2;
+constexpr bool PINGPONG = true;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int DH>
+struct Tile {
+  static constexpr int BN = DH == 256 ? 64 : 128;     // keys per tile
+  static constexpr int PW = DH < 64 ? DH : 64;        // elements per panel row
+  static constexpr int SW = PW * 2;                   // swizzle bytes
+  static constexpr int NP = DH / PW;                  // panels per row
+  static constexpr int Q_BYTES = BM * DH * 2;
+  static constexpr int KV_BYTES = BN * DH * 2;        // K or V, one stage
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 128;
 };
 
 struct Args {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* o;
   int S, G, causal, window;
-  Strides sq, sk, sv, so;
   float scale;
 };
 
-// ROWS rows of DH elements starting at position row0 of one (batch, head)
-// into shared memory (row stride DH + PAD); rows at or past S are zeroed.
-template <int DH, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* sm, const bf16* g, int row0,
-                                          int S, long long stride) {
-  constexpr int CPR = DH / 8;     // 16-byte chunks per row
-  for (int i = threadIdx.x; i < ROWS * CPR; i += NWARPS * 32) {
-    const int r = i / CPR, c = i % CPR;
-    const bool ok = row0 + r < S;
-    const bf16* src = g + (ok ? (long long)(row0 + r) * stride : 0) + c * 8;
-    cp_async16(sm + r * (DH + PAD) + c * 8, src, ok);
-  }
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int DH, int BK>
-constexpr int smem_bytes() {
-  return (BQ + 4 * BK) * (DH + PAD) * (int)sizeof(bf16);
-}
-
-template <int DH, int BK>
-__global__ void __launch_bounds__(NWARPS * 32)
-prefill_kernel(const Args p) {
-  constexpr int LD = DH + PAD;
-  constexpr int NT = BK / 8;      // score n-tiles per warp
-  constexpr int OT = DH / 8;      // output n-tiles per warp
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BQ * LD;                     // [2][BK][LD]
-  bf16* Vs = Ks + 2 * BK * LD;                 // [2][BK][LD]
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+prefill_kernel(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap to, const Args p) {
+  using T = Tile<DH>;
+  constexpr int BN = T::BN, SW = T::SW, PW = T::PW;
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte aligned tiles: the swizzle pattern follows address bits
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = q_s + T::Q_BYTES;                  // [STAGES] tiles
+  const uint32_t v_s = k_s + STAGES * T::KV_BYTES;        // [STAGES] tiles
+  // mbarriers: the Q tile's, then per stage K full, V full, K empty, V empty
+  const uint32_t q_full = v_s + STAGES * T::KV_BYTES;
+  auto bar = [&](int kind, int s) { return q_full + 8 * (1 + kind * STAGES + s); };
+  enum { K_FULL, V_FULL, K_EMPTY, V_EMPTY };
 
   const int S = p.S;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / p.G;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
 
-  const bf16* qg = p.q + b * p.sq.b + h * p.sq.h;
-  const bf16* kg = p.k + b * p.sk.b + hk * p.sk.h;
-  const bf16* vg = p.v + b * p.sv.b + hk * p.sv.h;
-
-  // the band of keys any row of this tile attends: [lo, hi)
-  const int hi = p.causal ? min(q0 + BQ, S) : S;
+  // the band of keys any row of this tile attends: [lo, hi); tile t of it
+  // lies in stage (t - t_lo) % STAGES, in that stage's use number
+  // (t - t_lo) / STAGES, whose parity its barrier waits take
+  const int hi = p.causal ? min(q0 + BM, S) : S;
   const int lo = p.window ? max(q0 - p.window + 1, 0) : 0;
-  const int t_lo = lo / BK, t_hi = (hi + BK - 1) / BK;
+  const int t_lo = lo / BN, t_hi = (hi + BN - 1) / BN;
+  auto stage = [&](int t) { return (t - t_lo) % STAGES; };
+  auto parity = [&](int t) { return unsigned((t - t_lo) / STAGES) & 1; };
 
-  load_rows<DH, BQ>(Qs, qg, q0, S, p.sq.s);
-  load_rows<DH, BK>(Ks, kg, t_lo * BK, S, p.sk.s);
-  load_rows<DH, BK>(Vs, vg, t_lo * BK, S, p.sv.s);
-  cp_async_commit();
-
-  float o[OT][4];
-#pragma unroll
-  for (int j = 0; j < OT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const bf16* q_frag = Qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                LD + (lane >> 4) * 8;
-
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int stage = (t - t_lo) & 1;
-    if (t + 1 < t_hi) {
-      const int nxt = stage ^ 1;
-      load_rows<DH, BK>(Ks + nxt * BK * LD, kg, (t + 1) * BK, S, p.sk.s);
-      load_rows<DH, BK>(Vs + nxt * BK * LD, vg, (t + 1) * BK, S, p.sv.s);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar(K_FULL, s), 1);
+      mbar_init(bar(V_FULL, s), 1);
+      mbar_init(bar(K_EMPTY, s), CONSUMER_WARPS);
+      mbar_init(bar(V_EMPTY, s), CONSUMER_WARPS);
     }
-    __syncthreads();
-    const bf16* Kt = Ks + stage * BK * LD;
-    const bf16* Vt = Vs + stage * BK * LD;
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    // s = q k^T for this warp's 16 rows x BK keys
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      unsigned a[4];
-      ldsm_x4(a, q_frag + kk * 16);
-#pragma unroll
-      for (int nn = 0; nn < BK / 16; ++nn) {
-        unsigned bfr[4];
-        ldsm_x4(bfr, Kt + (nn * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
-                         kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * nn], a, bfr[0], bfr[1]);
-        mma_bf16(s[2 * nn + 1], a, bfr[2], bfr[3]);
+  if (warp >= CONSUMER_WARPS) {
+    // ------------------------------------------------------- producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == CONSUMER_WARPS && lane == 0) {
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tk);
+      tma_prefetch_map(&tv);
+      tma_prefetch_map(&to);
+      mbar_expect_tx(q_full, T::Q_BYTES);
+      for (int c = 0; c < T::NP; ++c)
+        tma_load_4d(q_s + c * BM * SW, &tq, q_full, c * PW, h, q0, b);
+      for (int t = t_lo; t < t_hi; ++t) {
+        const int s = stage(t);
+        const uint32_t off = s * T::KV_BYTES;
+        mbar_wait(bar(K_EMPTY, s), parity(t) ^ 1);
+        mbar_expect_tx(bar(K_FULL, s), T::KV_BYTES);
+        for (int c = 0; c < T::NP; ++c)
+          tma_load_4d(k_s + off + c * BN * SW, &tk, bar(K_FULL, s), c * PW,
+                      hk, t * BN, b);
+        mbar_wait(bar(V_EMPTY, s), parity(t) ^ 1);
+        mbar_expect_tx(bar(V_FULL, s), T::KV_BYTES);
+        for (int c = 0; c < T::NP; ++c)
+          tma_load_4d(v_s + off + c * BN * SW, &tv, bar(V_FULL, s), c * PW,
+                      hk, t * BN, b);
       }
     }
+  } else {
+    // ------------------------------------------------------- consumers
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = warp >> 2, g = lane >> 2, tig = lane & 3;
+    const int r0 = q0 + wg * 64;                 // this warpgroup's rows
+    const int row[2] = {r0 + (warp & 3) * 16 + g, r0 + (warp & 3) * 16 + g + 8};
+    const float sl2 = p.scale * LOG2E;
+    // both layouts here step 8 rows of SW bytes between core-matrix groups
+    constexpr uint32_t HI = desc_hi(8 * SW, SW);
+    const uint32_t q_lo = desc_lo(q_s + wg * 64 * SW, 16);
+    auto release = [&](int kind, int t) {
+      if (lane == 0) mbar_arrive(bar(kind, stage(t)));
+    };
+    // ping-pong: the two warpgroups take turns to issue their products, so
+    // one's softmax runs under the other's; warpgroup 0 goes first
+    auto turn_begin = [&]() { if (PINGPONG) named_sync(1 + wg, 256); };
+    auto turn_end = [&]() { if (PINGPONG) named_arrive(2 - wg, 256); };
+    if (PINGPONG && wg == 1) named_arrive(1, 256);
 
-    // scale; mask only the tiles that cross the diagonal, window or S
-    const int k0 = t * BK;
-    const bool need_mask = (p.causal && k0 + BK - 1 > q0) ||
-                           (p.window && q0 + BQ - 1 - k0 >= p.window) ||
-                           k0 + BK > S;
+    float o[DH / 2];
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float sc[BN / 2];            // scores, then p, of the newest tile
+    unsigned pa[BN / 16][4];     // p of the tile in the p v product
+    float alpha[2];
+
+    // s = q k^T for the warpgroup's 64 rows x BN keys, issued; k-step kk
+    // is 32 bytes into a 128- (or 64-) byte panel row
+    auto issue_qk = [&](int t) {
+      mbar_wait(bar(K_FULL, stage(t)), parity(t));
+      const uint32_t qd = opaque(q_lo);
+      const uint32_t kd = desc_lo(k_s + stage(t) * T::KV_BYTES, 16);
+      fence_regs(sc);
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * p.scale;
-        if (need_mask) {
-          const int r = row[e >> 1], c = k0 + j * 8 + tig * 2 + (e & 1);
-          if (c >= S || (p.causal && c > r) ||
-              (p.window && r - c >= p.window))
-            x = -INFINITY;
-        }
-        s[j][e] = x;
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const int c = kk / (PW / 16), off = (kk % (PW / 16)) * 32;
+        wgmma_ss<BN>(sc, make_desc(qd + ((c * BM * SW + off) >> 4), HI),
+                     make_desc(kd + ((c * BN * SW + off) >> 4), HI), kk);
       }
+      wgmma_commit();
+    };
+    // o += p v, issued: p's A fragments from pa, v read MN-major
+    auto issue_pv = [&](int t) {
+      mbar_wait(bar(V_FULL, stage(t)), parity(t));
+      const uint32_t vd = desc_lo(v_s + stage(t) * T::KV_BYTES, BN * SW);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs_tb<DH>(o, pa[kk],
+                        make_desc(vd + ((kk * 16 * SW) >> 4), HI), 1);
+      wgmma_commit();
+    };
+    // the online softmax of tile t's scores in sc, rows g (e = 0, 1) and
+    // g + 8 (e = 2, 3); the four threads of a quad share a row. Scores are
+    // scaled in f32 here; m is kept unscaled (scale > 0, so max(s * scale)
+    // = max(s) * scale). Leaves p in sc and the factor o takes in alpha.
+    auto softmax = [&](int t) {
+      const int k0 = t * BN;
+      // mask only the tiles that cross the diagonal, window or S
+      if ((p.causal && k0 + BN - 1 > r0) ||
+          (p.window && r0 + 63 - k0 >= p.window) || k0 + BN > S) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = row[e >> 1], c = k0 + j * 8 + tig * 2 + (e & 1);
+            if (c >= S || (p.causal && c > r) ||
+                (p.window && r - c >= p.window))
+              sc[4 * j + e] = -INFINITY;
+          }
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * hr], sc[4 * j + 2 * hr + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hr], mx);
+        const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
+        alpha[hr] = (m[hr] == -INFINITY) ? 0.f : ex2((m[hr] - m_use) * sl2);
+        m[hr] = m_new;
+        const float neg = -m_use * sl2;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+            const float pe = ex2(fmaf(sc[4 * j + e], sl2, neg));
+            sc[4 * j + e] = pe;
+            sum += pe;
+          }
+        l[hr] = l[hr] * alpha[hr] + sum;
+      }
+    };
+    // p rounded to bf16: the score accumulators are p's A fragments in
+    // mma.sync's layout
+    auto pack = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    };
+    auto pv_done = [&]() {
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) fence_regs(pa[kk]);
+    };
 
-    // online softmax, rows g (e = 0, 1) and g + 8 (e = 2, 3); the four
-    // threads of a quad share a row
+    // Both warpgroups walk the whole band, so that their turns pair up; a
+    // tile that none of a warpgroup's rows attends is masked whole and
+    // adds exact zeros.
+    mbar_wait(q_full, 0);
+    turn_begin();
+    issue_qk(t_lo);
+    turn_end();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    release(K_EMPTY, t_lo);
+    softmax(t_lo);                         // o is 0: alpha is not needed
+    pack();
+    // steady state: tile t's q k^T and tile t - 1's p v are in flight
+    // together, and t's softmax runs under t - 1's p v
+    for (int t = t_lo + 1; t < t_hi; ++t) {
+      turn_begin();
+      issue_qk(t);
+      issue_pv(t - 1);
+      turn_end();
+      wgmma_wait<1>();                     // q k^T, the older group
+      fence_regs(sc);
+      release(K_EMPTY, t);
+      softmax(t);
+      wgmma_wait<0>();                     // p v
+      pv_done();
+      release(V_EMPTY, t - 1);
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+      pack();
+    }
+    turn_begin();
+    issue_pv(t_hi - 1);
+    if (wg == 0) turn_end();               // warpgroup 1 takes no more turns
+    wgmma_wait<0>();
+    pv_done();
+    release(V_EMPTY, t_hi - 1);
+
+    // normalise; stage the warpgroup's 64 x DH tile in its own rows of the
+    // Q tile (no longer read), swizzled as the O map's box, and store it
+    // with TMA, which drops the rows past S. 16-byte chunk c of row r lies
+    // at chunk c ^ (r % 8) (128-byte rows) or c ^ (r / 2 % 4) (64-byte).
+    const uint32_t o_s = q_s + wg * 64 * SW;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      float mx = -INFINITY;
+      float lt = l[hr];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const float inv = 1.f / fmaxf(lt, 1e-30f);
+      const int r = (warp & 3) * 16 + g + 8 * hr;
+      const int swz = SW == 128 ? (r & 7) : ((r >> 1) & 3);
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-        mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[hr], mx);
-      const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
-      const float alpha = (m[hr] == -INFINITY) ? 0.f : __expf(m[hr] - m_use);
-      m[hr] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
-          const float pe = __expf(s[j][e] - m_use);
-          s[j][e] = pe;
-          sum += pe;
-        }
-      l[hr] = l[hr] * alpha + sum;
-#pragma unroll
-      for (int j = 0; j < OT; ++j) {
-        o[j][2 * hr] *= alpha;
-        o[j][2 * hr + 1] *= alpha;
+      for (int j = 0; j < DH / 8; ++j) {
+        const int c = j / (PW / 8), chunk = j % (PW / 8);
+        st_shared_u32(o_s + c * BM * SW + r * SW + ((chunk ^ swz) << 4) +
+                          tig * 4,
+                      pack_bf16(o[4 * j + 2 * hr] * inv,
+                                o[4 * j + 2 * hr + 1] * inv));
       }
     }
-
-    // o += p v: the score accumulators, rounded to bf16, are p's A
-    // fragments; v's B fragments come transposed by ldmatrix
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      unsigned a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dn = 0; dn < DH / 16; ++dn) {
-        unsigned bfr[4];
-        ldsm_x4_trans(bfr, Vt + (kk * 16 + (lane & 7) +
-                                 ((lane >> 3) & 1) * 8) * LD +
-                               dn * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * dn], a, bfr[0], bfr[1]);
-        mma_bf16(o[2 * dn + 1], a, bfr[2], bfr[3]);
-      }
-    }
-    __syncthreads();              // the stage is refilled next iteration
-  }
-
-  // normalise and write the rows below S
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    float lt = l[hr];
-    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
-    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-    const float inv = 1.f / fmaxf(lt, 1e-30f);
-    if (row[hr] < S) {
-      bf16* dst = p.o + b * p.so.b + row[hr] * p.so.s + h * p.so.h + tig * 2;
-#pragma unroll
-      for (int j = 0; j < OT; ++j)
-        *reinterpret_cast<unsigned*>(dst + j * 8) =
-            pack_bf16(o[j][2 * hr] * inv, o[j][2 * hr + 1] * inv);
+    fence_async_shared();
+    named_sync(3 + wg, 128);
+    if ((threadIdx.x & 127) == 0) {
+      for (int c = 0; c < T::NP; ++c)
+        tma_store_4d(&to, o_s + c * BM * SW, c * PW, h, r0, b);
+      tma_store_wait();
     }
   }
 }
 
-template <int DH, int BK>
-int launch(const Args& a, int B, int Hq, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<DH, BK>();
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so that the library needs no -lcuda
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, S, H, dh) bf16 tensor as the 4-D map (dh, H, S, B), strides in
+// elements; boxes of (pw, 1, rows, 1), swizzled to pw * 2 bytes. The
+// position extent is the logical S: rows past it load as zeros.
+bool encode(CUtensorMap* map, const void* ptr, int dh, int H, int S, int B,
+            long long sh, long long ss, long long sb, int pw, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)pw, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            pw * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, void* o,
+           const Args& a, int B, int Hq, int Hkv, const long long (&st)[12],
+           cudaStream_t stream) {
+  using T = Tile<DH>;
+  CUtensorMap tq, tk, tv, to;
+  if (!encode(&tq, q, DH, Hq, a.S, B, st[2], st[1], st[0], T::PW, BM) ||
+      !encode(&tk, k, DH, Hkv, a.S, B, st[5], st[4], st[3], T::PW, T::BN) ||
+      !encode(&tv, v, DH, Hkv, a.S, B, st[8], st[7], st[6], T::PW, T::BN) ||
+      !encode(&to, o, DH, Hq, a.S, B, st[11], st[10], st[9], T::PW, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // setmaxnreg.inc waits for the registers the producer warpgroup gives
+  // back: refuse a build whose entry count would leave the consumers
+  // waiting
+  static const int regs = [] {
+    cudaFuncAttributes fa;
+    return cudaFuncGetAttributes(&fa, prefill_kernel<DH>) == cudaSuccess
+               ? fa.numRegs : 0;
+  }();
+  if ((regs - PRODUCER_REGS) * 128 < (CONSUMER_REGS - regs) * 32 * CONSUMER_WARPS)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   // above 48 KB of dynamic shared memory only after this opt-in (set on
   // every launch: it is per device and costs no device time)
   const cudaError_t e = cudaFuncSetAttribute(
-      prefill_kernel<DH, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      prefill_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((a.S + BQ - 1) / BQ, Hq, B);
-  prefill_kernel<DH, BK><<<grid, NWARPS * 32, bytes, stream>>>(a);
+  const dim3 grid((a.S + BM - 1) / BM, Hq, B);
+  prefill_kernel<DH><<<grid, THREADS, T::SMEM, stream>>>(tq, tk, tv, to, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -272,16 +454,15 @@ extern "C" int flash_prefill_bf16(
     int sqh, int skb, int sks, int skh, int svb, int svs, int svh, int sob,
     int sos, int soh, float scale, void* stream) {
   if (S < 1 || Hkv < 1 || Hq % Hkv) return static_cast<int>(cudaErrorInvalidValue);
-  Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-         static_cast<const bf16*>(v), static_cast<bf16*>(o), S, Hq / Hkv,
-         causal, window, {sqb, sqs, sqh}, {skb, sks, skh}, {svb, svs, svh},
-         {sob, sos, soh}, scale};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Args a{S, Hq / Hkv, causal, window, scale};
+  const long long st[12] = {sqb, sqs, sqh, skb, sks, skh,
+                            svb, svs, svh, sob, sos, soh};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 32: return launch<32, 64>(a, B, Hq, st);
-    case 64: return launch<64, 64>(a, B, Hq, st);
-    case 128: return launch<128, 64>(a, B, Hq, st);
-    case 256: return launch<256, 32>(a, B, Hq, st);
+    case 32: return launch<32>(q, k, v, o, a, B, Hq, Hkv, st, s);
+    case 64: return launch<64>(q, k, v, o, a, B, Hq, Hkv, st, s);
+    case 128: return launch<128>(q, k, v, o, a, B, Hq, Hkv, st, s);
+    case 256: return launch<256>(q, k, v, o, a, B, Hq, Hkv, st, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -64,16 +64,18 @@ def _padded(rs, B, S, H, dh, dev):
 
 
 def test_flash_prefill_matches_plain(dev):
-    """G in {1, 2, 16}, dh in {64, 128, 256}, S in {1, 17, 129, 3000},
-    window in {0, 48, 2048}; causal, as every prefill calls it."""
+    """G in {1, 2, 16}, dh in {32, 64, 128, 256}, S from 1 to 3000 (at and
+    around the kernel's 128-row q tiles and its 64- and 128-key K/V tiles),
+    window in {0, 48, 100, 2048} (48 and 100 are no multiple of a K/V
+    tile); causal, as every prefill calls it."""
     for G, hkv, dh in ((1, 2, 64), (2, 2, 128), (16, 1, 256), (16, 1, 64),
-                       (2, 1, 256), (1, 1, 128)):
-        for S in (1, 17, 129, 3000):
+                       (2, 1, 256), (1, 1, 128), (4, 1, 32)):
+        for S in (1, 17, 63, 64, 65, 127, 128, 129, 191, 257, 3000):
             rs = np.random.RandomState(G * 1000 + dh + S)
             q, q0 = _padded(rs, 2, S, G * hkv, dh, dev)
             k, k0 = _padded(rs, 2, S, hkv, dh, dev)
             v, v0 = _padded(rs, 2, S, hkv, dh, dev)
-            for window in (0, 48, 2048):
+            for window in (0, 48, 100, 2048):
                 rt.reset_launches()
                 got = attention(q, k, v, causal=True, window=window)
                 again = attention(q, k, v, causal=True, window=window)
@@ -101,6 +103,51 @@ def test_flash_prefill_without_the_causal_mask(dev):
         err = float((got.float() - want.float()).abs().max())
         assert err <= 2.0 ** -7 * max(float(want.float().abs().max()), 1.0)
         assert _row_rel_l2(got, want) <= ROW_REL_L2
+
+
+def test_flash_prefill_on_views_of_a_fused_buffer(dev):
+    """q, k and v as head slices of one (B, S + 7, Hq + 2 Hkv, dh) buffer
+    filled with BIG past S, as a fused qkv projection leaves them: the
+    kernel reads each by its strides and nothing past S."""
+    for B, S, hkv, G, dh, window in ((2, 129, 2, 2, 128, 0),
+                                     (1, 300, 1, 16, 256, 100),
+                                     (2, 65, 2, 4, 64, 48)):
+        Hq, H = G * hkv, G * hkv + 2 * hkv
+        rs = np.random.RandomState(S + dh)
+        x = torch.as_tensor(rs.standard_normal((B, S, H, dh)),
+                            dtype=torch.float32, device=dev).to(torch.bfloat16)
+        buf = torch.full((B, S + 7, H, dh), BIG, dtype=torch.bfloat16,
+                         device=dev)
+        buf[:, :S] = x
+        q, k, v = (buf[:, :S, :Hq], buf[:, :S, Hq:Hq + hkv],
+                   buf[:, :S, Hq + hkv:])
+        rt.reset_launches()
+        got = attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        assert rt.launch_counts()["flash_prefill"] == 1
+        want = attention_ref(x[:, :, :Hq], x[:, :, Hq:Hq + hkv],
+                             x[:, :, Hq + hkv:], causal=True, window=window)
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2.0 ** -7 * max(float(want.float().abs().max()), 1.0)
+        assert _row_rel_l2(got, want) <= ROW_REL_L2, (B, S, G, dh, window)
+
+
+def test_flash_prefill_refuses_misaligned_views(dev):
+    """A view whose rows do not start on 16 bytes, or whose strides are no
+    multiple of 8 elements, raises: nothing falls back to the plain
+    version."""
+    buf = torch.zeros((1, 64, 2, 136), dtype=torch.bfloat16, device=dev)
+    good = buf[..., :128]                   # stride 136: aligned rows
+    for bad in (buf[..., 1:129],            # rows start 2 bytes off
+                torch.zeros((1, 64, 2, 132), dtype=torch.bfloat16,
+                            device=dev)[..., :128]):   # stride 132
+        for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
+            rt.reset_launches()
+            with pytest.raises(ValueError):
+                attention(*args, causal=True)
+            assert rt.launch_counts()["flash_prefill"] == 0
+    attention(good, good, good, causal=True)
+    torch.cuda.synchronize()
 
 
 def test_lru_scan_matches_plain(dev):
