@@ -4,7 +4,9 @@
 
 1. Builds the hand-written kernels from ``src/repro_torch/**/csrc`` (one
    ``nvcc`` per source, in parallel) and prints each one's registers and
-   spills.
+   spills; for ``flash_prefill`` one line per head_dim instantiation with
+   its registers, spills and dynamic shared memory, failing on a spill or
+   on wgmma instructions that ptxas serialised.
 2. Kernel phase at the samba-coe-expert-7b widths (B = 8 lanes, bf16): the
    paged kernels at ragged positions 1..512 straddling blocks with one
    inactive lane, the dense-cache kernels at length 4096 in a 4096-position
@@ -16,7 +18,8 @@
    with CUDA events (the 50 MB L2 flushed before every launch), beside the
    plain version and one PyTorch library call computing the same function
    (none for ``lru_scan``: no single PyTorch call computes a linear
-   recurrence).
+   recurrence); each ``flash_prefill`` row also prints its TFLOP/s, its
+   share of the bound and SDPA's time beside it.
 3. Monarch phase, the FFT-conv showcase of the paper's Fig. 3-4 and Table
    I: ``monarch_fused`` and ``monarch_conv_fused`` against their plain
    versions at the 1M-point shape (16, 1024, 1024) bf16, max-abs and row
@@ -207,9 +210,43 @@ def build_kernels():
     _log(f"built {len(logs)} kernel libraries in "
          f"{time.perf_counter() - t0:.1f}s (sm_90a)")
     for name, log in logs.items():
+        if name == "flash_prefill":
+            prefill_build_report(rt, log)
+            continue
         regs = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
         _log(f"  {name}: " + " | ".join(regs[:6]))
+
+
+def prefill_build_report(rt, log):
+    """``flash_prefill``'s ``-Xptxas -v`` report, one line per head_dim
+    instantiation: registers at entry (setmaxnreg moves them later), spills
+    and the dynamic shared memory of a CTA. Fails on a spill, or on a
+    warning that ptxas serialised the wgmma instructions."""
+    import re
+    serialised = [ln.strip() for ln in log.splitlines()
+                  if "wgmma" in ln and "serialized" in ln]
+    if serialised:
+        raise AssertionError("flash_prefill: " + " | ".join(serialised))
+    smem = rt.bind("flash_prefill", "flash_prefill_smem_bytes", [rt.I])
+    report, dh = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*prefill_kernelILi(\d+)E",
+                      ln)
+        if m:
+            dh = int(m.group(1))
+        elif dh is not None and ("spill" in ln or "Used" in ln):
+            report.setdefault(dh, []).append(
+                ln.split("info    :")[-1].strip())
+    if sorted(report) != [32, 64, 128, 256]:
+        raise AssertionError(f"flash_prefill: no build report per head_dim "
+                             f"in:\n{log}")
+    for dh, lines in sorted(report.items()):
+        _log(f"  flash_prefill[dh={dh}]: " + " | ".join(lines)
+             + f" | {smem(dh)} bytes dynamic shared memory")
+        if not any(" 0 bytes spill stores, 0 bytes spill loads" in ln
+                   for ln in lines):
+            raise AssertionError(f"flash_prefill[dh={dh}] spills: {lines}")
 
 
 def row_rel_l2(got, want):
@@ -493,6 +530,11 @@ def prefill_kernel_phase(cfg, rg_cfg, dev):
             prefill_attention_hbm_bytes(B, S, Hq, Hkv, dh),
             prefill_attention_flops(B, S, Hq, dh, window), flush,
             kernel="flash_prefill", row_tol=PREFILL_ROW_REL_L2)
+        r = rows[row]
+        _log(f"kernel {row}: {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s, "
+             f"{r['bound_ms'] / r['ms']:.3f} of the bound; SDPA "
+             f"{r['library_ms']:.4f} ms ({r['library_ms'] / r['ms']:.3f}x "
+             "the kernel's time)")
         # off-by-one masks, planted in the plain version: each must fail
         # the row check against the true plain output
         want = attention_ref(q, k, v, causal=True, window=window)

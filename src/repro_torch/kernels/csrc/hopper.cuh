@@ -51,14 +51,9 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
   } while (!done);
 }
 
-// named barrier ``id`` (1-15; 0 is __syncthreads) over ``n`` threads: wait
-// for it, or only arrive
+// named barrier ``id`` (1-15; 0 is __syncthreads) over ``n`` threads
 __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void named_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // ------------------------------------------------------------------ TMA
@@ -80,8 +75,9 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
 }
 
 // One box of shared memory at src into a 4-D tensor map at (c0, c1, c2,
-// c3); elements outside the tensor's extent are not written. Committed as a
-// bulk group: tma_store_wait before src is reused or the CTA exits.
+// c3); elements outside the tensor's extent are not written. The thread
+// that issued it commits it as a bulk group and waits (tma_store_wait)
+// before src is reused or the CTA exits.
 __device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src,
                                              int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -91,8 +87,12 @@ __device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src,
       : "memory");
 }
 
-__device__ __forceinline__ void tma_store_wait() {
+__device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until this thread's committed stores have read their shared memory
+__device__ __forceinline__ void tma_store_wait() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 

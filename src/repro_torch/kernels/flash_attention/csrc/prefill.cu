@@ -7,11 +7,12 @@
 // Computes o (B, S, Hq, dh) = softmax(mask(q k^T * scale)) v for bf16
 // q (B, S, Hq, dh) and k / v (B, S, Hkv, dh), q head h reading kv head
 // h / (Hq / Hkv). Query i attends key j where j <= i (causal) and
-// i - j < window (window > 0). q, k and v are read through TMA tensor maps
-// built from their (batch, position, head) strides, o is written by its
-// strides; head_dim is contiguous. Any S >= 1: the Pallas kernel asserts
+// i - j < window (window > 0). All four tensors are read and written
+// through TMA tensor maps built from their (batch, position, head) strides;
+// head_dim is contiguous. Any S >= 1: the Pallas kernel asserts
 // S % 128 == 0, here the maps' position extent is S itself, so TMA fills
-// the rows past S with zeros and nothing past S is ever read.
+// the rows past S with zeros on a load, drops them on a store, and nothing
+// past S is ever read or written.
 //
 // Bound: tensor-core operations. 4 * B * Hq * dh * pairs flops, pairs =
 // sum_i min(i + 1, W) (W = S without a window), against 2 * B * S *
@@ -20,44 +21,59 @@
 // RecurrentGemma's (B 4, S 3000, 16 q heads on 1 kv head, dh 256, window
 // 2048) 2.65e11 flops and 209 MB, 0.268 ms.
 //
-// Design: FlashAttention-3's warp-specialised shape, without its
-// ping-pong scheduling. One CTA per (batch, q head, 128-row q tile): two
-// consumer warpgroups of 64 q rows each, then a producer warpgroup, of
-// which one warp issues the loads. Registers are allocated a warpgroup at
-// a time (168 a thread at entry for 384 threads); setmaxnreg hands the
-// producer's down to 24 and raises the consumers' to 240.
-//  * Producer (one thread): one TMA load of the Q tile, then the K and V
-//    tiles of the CTA's band [lo, hi) -- the Pallas kernel's bounds
-//    (causal: keys up to the tile's last row; window: from its first row's
-//    window start) -- into a 2-stage ring; each stage has a full mbarrier
-//    (TMA bytes) and an empty one (the 8 consumer warps).
-//  * Consumers: S = Q K^T by wgmma.m64nBNk16 with both operands in shared
-//    memory, K-major; scale in f32; the causal / window / S mask only on
+// Design: FlashAttention-3's warp-specialised shape. A CTA of 384 threads
+// per (batch, q head, pair of 128-row q tiles): two consumer warpgroups of
+// 64 q rows each, then a producer warpgroup of which one thread issues
+// every load. Registers are allocated a warpgroup at a time (168 a thread
+// at entry); setmaxnreg hands the producer's down to 24 and raises the
+// consumers' to 240.
+//  * Producer: the Q tile by one TMA load, then the K and V tiles of its
+//    band [lo, hi) -- the Pallas kernel's bounds (causal: keys up to the
+//    tile's last row; window: from its first row's window start) -- into a
+//    2-stage ring. K and V each have a full mbarrier (TMA bytes) and an
+//    empty one (the 8 consumer warps) per stage, so a K slot refills as
+//    soon as its q k^T is done.
+//  * Consumers: s = q k^T by wgmma.m64nBNk16, both operands in shared
+//    memory, K-major; scaled in f32; the causal / window / S mask only on
 //    tiles that cross an edge; the online softmax in registers (the wgmma
 //    accumulator gives each thread rows g and g + 8 of its warp's 16, as
-//    mma.sync does, so the quad shuffles carry over); P rounded to bf16 is
-//    the register A operand of O += P V, V read MN-major (the transpose
-//    bit). A consumer warpgroup skips the products of a tile its 64 rows do
-//    not attend, but still waits for and releases it.
-//  * BN = 128 keys per tile at dh <= 128, 64 at dh 256 (O takes 128 f32
-//    registers per consumer thread there). Shared memory: Q 32 KB + a
-//    128 KB K/V ring at dh 128, Q 64 KB + 128 KB at dh 256.
-//  * Heavier (later) causal q tiles are scheduled first.
-// Not yet: ping-pong between the two consumer warpgroups (one's softmax
-// under the other's products), intra-warpgroup overlap of softmax and the
-// next tile's Q K^T, a persistent grid, packing the G q heads of one kv
-// head into one CTA, and TMA multicast across a cluster.
+//    mma.sync does, so the quad shuffles carry over); p rounded to bf16 is
+//    the register A operand of o += p v, v read MN-major (the transpose
+//    bit). Tile t's q k^T and tile t - 1's p v are in flight together, and
+//    t's softmax runs under t - 1's p v; o is rescaled only where a row's
+//    maximum moved.
+//  * Two q tiles per CTA at dh <= 128, each with its own Q buffer: the
+//    heavy causal tile n_qt - 1 - x, then its light mirror x, so every CTA
+//    walks n_qt + 1 key tiles and the second tile's loads run under the
+//    first one's tail. One q tile, heaviest first, at dh 256.
+//  * Epilogue: o is staged in the warpgroup's own rows of its Q buffer
+//    (swizzled as the O map's box) and written by one TMA store per panel.
+//  * BN = 128 keys per tile at dh <= 128, 64 at dh 256 (o takes 128 f32
+//    registers per consumer thread there). Shared memory: 2 x 32 KB of Q +
+//    a 128 KB K/V ring at dh 128; 64 KB + 128 KB at dh 256.
+// Measured on the H100 and left out: ping-pong turns between the two
+// consumer warpgroups (no gain over the overlap above), and running the
+// causal diagonal tile at half width for warpgroup 0 (the branch makes
+// ptxas serialise every wgmma). Not tried yet: a persistent grid, packing
+// the G q heads of one kv head into one CTA, TMA multicast across a
+// cluster.
 //
 // Where it can go wrong, and what guards it:
 //  * The swizzle of a TMA box and of the wgmma descriptor that reads it
-//    must agree (128-byte rows of 64 elements; 64-byte rows at dh 32). A
-//    mismatch gives finite, wrong numbers: the card tests and
-//    chip_smoke.py hold the kernel to its plain version row by row.
-//  * A wrong mbarrier phase hangs the CTA: mbar_wait traps after ~10 s,
-//    so a fault fails the launch instead.
+//    must agree (128-byte rows of 64 elements; 64-byte rows at dh 32), and
+//    so must the epilogue's staging. A mismatch gives finite, wrong
+//    numbers: the card tests and chip_smoke.py hold the kernel to its
+//    plain version row by row, at every dh.
+//  * A wrong mbarrier phase hangs the CTA. No timeout guards the waits: a
+//    trap on that path makes ptxas ignore setmaxnreg (spills at dh 256);
+//    run new work under a timeout.
 //  * setmaxnreg.inc blocks until the registers the producer released are
 //    free: the launch refuses a build whose entry register count cannot
 //    cover the consumers' increase.
+//  * ptxas serialises the wgmmas (warning C7512 / C7520 in the build
+//    report) when their descriptors stay live across the loop or a wgmma
+//    sits on a branch it cannot prove uniform: each k-step's descriptor is
+//    derived from one opaque register where it is used.
 //  * No atomics and no split along keys: two calls agree bit for bit.
 //
 // Two numerical choices: scores are scaled in f32 AFTER the bf16 product,
@@ -80,7 +96,6 @@ constexpr int THREADS = CONSUMER_WARPS * 32 + 128;   // + the producer's
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 constexpr int STAGES = 2;
-constexpr bool PINGPONG = true;
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DH>
@@ -89,9 +104,14 @@ struct Tile {
   static constexpr int PW = DH < 64 ? DH : 64;        // elements per panel row
   static constexpr int SW = PW * 2;                   // swizzle bytes
   static constexpr int NP = DH / PW;                  // panels per row
+  // q tiles per CTA, each with a Q buffer of its own: a heavy causal tile
+  // and its light mirror (equal work in every CTA), the second one's loads
+  // under the first one's tail; one at dh 256, where two do not fit
+  static constexpr int ITEMS = DH == 256 ? 1 : 2;
   static constexpr int Q_BYTES = BM * DH * 2;
   static constexpr int KV_BYTES = BN * DH * 2;        // K or V, one stage
-  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 128;
+  static constexpr int SMEM =
+      1024 + ITEMS * Q_BYTES + 2 * STAGES * KV_BYTES + 128;
 };
 
 struct Args {
@@ -116,36 +136,43 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
   extern __shared__ unsigned char smem_raw[];
   // 1024-byte aligned tiles: the swizzle pattern follows address bits
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t q_s = base;
-  const uint32_t k_s = q_s + T::Q_BYTES;                  // [STAGES] tiles
+  const uint32_t k_s = base + T::ITEMS * T::Q_BYTES;      // [STAGES] tiles
   const uint32_t v_s = k_s + STAGES * T::KV_BYTES;        // [STAGES] tiles
-  // mbarriers: the Q tile's, then per stage K full, V full, K empty, V empty
-  const uint32_t q_full = v_s + STAGES * T::KV_BYTES;
-  auto bar = [&](int kind, int s) { return q_full + 8 * (1 + kind * STAGES + s); };
+  auto q_s = [&](int j) { return base + j * T::Q_BYTES; };
+  // mbarriers: per stage K full, V full, K empty, V empty; then each q
+  // tile's Q full
+  const uint32_t bars = v_s + STAGES * T::KV_BYTES;
   enum { K_FULL, V_FULL, K_EMPTY, V_EMPTY };
+  auto bar = [&](int kind, int s) { return bars + 8 * (kind * STAGES + s); };
+  auto q_full = [&](int j) { return bars + 8 * (4 * STAGES + j); };
 
   const int S = p.S;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / p.G;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  // the band of keys any row of this tile attends: [lo, hi); tile t of it
-  // lies in stage (t - t_lo) % STAGES, in that stage's use number
-  // (t - t_lo) / STAGES, whose parity its barrier waits take
-  const int hi = p.causal ? min(q0 + BM, S) : S;
-  const int lo = p.window ? max(q0 - p.window + 1, 0) : 0;
-  const int t_lo = lo / BN, t_hi = (hi + BN - 1) / BN;
-  auto stage = [&](int t) { return (t - t_lo) % STAGES; };
-  auto parity = [&](int t) { return unsigned((t - t_lo) / STAGES) & 1; };
+  // this CTA's q tiles: n_qt - 1 - x, then x if that is another one
+  const int n_qt = (S + BM - 1) / BM, x = blockIdx.x;
+  const int items = (T::ITEMS == 2 && x < n_qt - 1 - x) ? 2 : 1;
+  auto q0_of = [&](int j) { return (j == 0 ? n_qt - 1 - x : x) * BM; };
+  // the band of keys any row of q tile j attends: tiles [t_lo, t_hi)
+  auto t_lo_of = [&](int j) {
+    return (p.window ? max(q0_of(j) - p.window + 1, 0) : 0) / BN;
+  };
+  auto t_hi_of = [&](int j) {
+    return ((p.causal ? min(q0_of(j) + BM, S) : S) + BN - 1) / BN;
+  };
+  // the n-th K/V tile the CTA walks lies in stage n % STAGES, in that
+  // stage's use number n / STAGES, whose parity its barrier waits take
+  auto stage = [](int n) { return n % STAGES; };
+  auto parity = [](int n) { return unsigned(n / STAGES) & 1; };
 
   if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(bar(K_FULL, s), 1);
       mbar_init(bar(V_FULL, s), 1);
       mbar_init(bar(K_EMPTY, s), CONSUMER_WARPS);
       mbar_init(bar(V_EMPTY, s), CONSUMER_WARPS);
     }
+    for (int j = 0; j < T::ITEMS; ++j) mbar_init(q_full(j), 1);
     mbar_fence_init();
   }
   __syncthreads();
@@ -158,57 +185,55 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
       tma_prefetch_map(&tk);
       tma_prefetch_map(&tv);
       tma_prefetch_map(&to);
-      mbar_expect_tx(q_full, T::Q_BYTES);
-      for (int c = 0; c < T::NP; ++c)
-        tma_load_4d(q_s + c * BM * SW, &tq, q_full, c * PW, h, q0, b);
-      for (int t = t_lo; t < t_hi; ++t) {
-        const int s = stage(t);
-        const uint32_t off = s * T::KV_BYTES;
-        mbar_wait(bar(K_EMPTY, s), parity(t) ^ 1);
-        mbar_expect_tx(bar(K_FULL, s), T::KV_BYTES);
+      int n = 0;
+      for (int j = 0; j < items; ++j) {
+        mbar_expect_tx(q_full(j), T::Q_BYTES);
         for (int c = 0; c < T::NP; ++c)
-          tma_load_4d(k_s + off + c * BN * SW, &tk, bar(K_FULL, s), c * PW,
-                      hk, t * BN, b);
-        mbar_wait(bar(V_EMPTY, s), parity(t) ^ 1);
-        mbar_expect_tx(bar(V_FULL, s), T::KV_BYTES);
-        for (int c = 0; c < T::NP; ++c)
-          tma_load_4d(v_s + off + c * BN * SW, &tv, bar(V_FULL, s), c * PW,
-                      hk, t * BN, b);
+          tma_load_4d(q_s(j) + c * BM * SW, &tq, q_full(j), c * PW, h,
+                      q0_of(j), b);
+        for (int t = t_lo_of(j); t < t_hi_of(j); ++t, ++n) {
+          const int s = stage(n);
+          const uint32_t off = s * T::KV_BYTES;
+          mbar_wait(bar(K_EMPTY, s), parity(n) ^ 1);
+          mbar_expect_tx(bar(K_FULL, s), T::KV_BYTES);
+          for (int c = 0; c < T::NP; ++c)
+            tma_load_4d(k_s + off + c * BN * SW, &tk, bar(K_FULL, s), c * PW,
+                        hk, t * BN, b);
+          mbar_wait(bar(V_EMPTY, s), parity(n) ^ 1);
+          mbar_expect_tx(bar(V_FULL, s), T::KV_BYTES);
+          for (int c = 0; c < T::NP; ++c)
+            tma_load_4d(v_s + off + c * BN * SW, &tv, bar(V_FULL, s), c * PW,
+                        hk, t * BN, b);
+        }
       }
     }
   } else {
     // ------------------------------------------------------- consumers
     setmaxnreg_inc<CONSUMER_REGS>();
     const int wg = warp >> 2, g = lane >> 2, tig = lane & 3;
-    const int r0 = q0 + wg * 64;                 // this warpgroup's rows
-    const int row[2] = {r0 + (warp & 3) * 16 + g, r0 + (warp & 3) * 16 + g + 8};
+    const int wrow = (warp & 3) * 16 + g;        // row g of the warp's 16
     const float sl2 = p.scale * LOG2E;
     // both layouts here step 8 rows of SW bytes between core-matrix groups
     constexpr uint32_t HI = desc_hi(8 * SW, SW);
-    const uint32_t q_lo = desc_lo(q_s + wg * 64 * SW, 16);
-    auto release = [&](int kind, int t) {
-      if (lane == 0) mbar_arrive(bar(kind, stage(t)));
+    auto release = [&](int kind, int n) {
+      if (lane == 0) mbar_arrive(bar(kind, stage(n)));
     };
-    // ping-pong: the two warpgroups take turns to issue their products, so
-    // one's softmax runs under the other's; warpgroup 0 goes first
-    auto turn_begin = [&]() { if (PINGPONG) named_sync(1 + wg, 256); };
-    auto turn_end = [&]() { if (PINGPONG) named_arrive(2 - wg, 256); };
-    if (PINGPONG && wg == 1) named_arrive(1, 256);
 
     float o[DH / 2];
-#pragma unroll
-    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float m[2], l[2];
     float sc[BN / 2];            // scores, then p, of the newest tile
     unsigned pa[BN / 16][4];     // p of the tile in the p v product
     float alpha[2];
+    int r0, row[2];              // the warpgroup's first row; this thread's
+    uint32_t q_lo;               // the warpgroup's rows of the Q tile
 
-    // s = q k^T for the warpgroup's 64 rows x BN keys, issued; k-step kk
-    // is 32 bytes into a 128- (or 64-) byte panel row
-    auto issue_qk = [&](int t) {
-      mbar_wait(bar(K_FULL, stage(t)), parity(t));
+    // s = q k^T for the warpgroup's 64 rows x BN keys of the CTA's n-th
+    // K/V tile, issued; k-step kk is 32 bytes into a 128- (or 64-) byte
+    // panel row
+    auto issue_qk = [&](int n) {
+      mbar_wait(bar(K_FULL, stage(n)), parity(n));
       const uint32_t qd = opaque(q_lo);
-      const uint32_t kd = desc_lo(k_s + stage(t) * T::KV_BYTES, 16);
+      const uint32_t kd = desc_lo(k_s + stage(n) * T::KV_BYTES, 16);
       fence_regs(sc);
       wgmma_fence();
 #pragma unroll
@@ -220,9 +245,9 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_commit();
     };
     // o += p v, issued: p's A fragments from pa, v read MN-major
-    auto issue_pv = [&](int t) {
-      mbar_wait(bar(V_FULL, stage(t)), parity(t));
-      const uint32_t vd = desc_lo(v_s + stage(t) * T::KV_BYTES, BN * SW);
+    auto issue_pv = [&](int n) {
+      mbar_wait(bar(V_FULL, stage(n)), parity(n));
+      const uint32_t vd = desc_lo(v_s + stage(n) * T::KV_BYTES, BN * SW);
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
@@ -231,10 +256,11 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
                         make_desc(vd + ((kk * 16 * SW) >> 4), HI), 1);
       wgmma_commit();
     };
-    // the online softmax of tile t's scores in sc, rows g (e = 0, 1) and
-    // g + 8 (e = 2, 3); the four threads of a quad share a row. Scores are
-    // scaled in f32 here; m is kept unscaled (scale > 0, so max(s * scale)
-    // = max(s) * scale). Leaves p in sc and the factor o takes in alpha.
+    // the online softmax of key tile t's scores in sc, rows g (e = 0, 1)
+    // and g + 8 (e = 2, 3); the four threads of a quad share a row. Scores
+    // are scaled in f32 here; m is kept unscaled (scale > 0, so
+    // max(s * scale) = max(s) * scale). Leaves p in sc and the factor o
+    // takes in alpha.
     auto softmax = [&](int t) {
       const int k0 = t * BN;
       // mask only the tiles that cross the diagonal, window or S
@@ -292,77 +318,91 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
       for (int kk = 0; kk < BN / 16; ++kk) fence_regs(pa[kk]);
     };
 
-    // Both warpgroups walk the whole band, so that their turns pair up; a
-    // tile that none of a warpgroup's rows attends is masked whole and
-    // adds exact zeros.
-    mbar_wait(q_full, 0);
-    turn_begin();
-    issue_qk(t_lo);
-    turn_end();
-    wgmma_wait<0>();
-    fence_regs(sc);
-    release(K_EMPTY, t_lo);
-    softmax(t_lo);                         // o is 0: alpha is not needed
-    pack();
-    // steady state: tile t's q k^T and tile t - 1's p v are in flight
-    // together, and t's softmax runs under t - 1's p v
-    for (int t = t_lo + 1; t < t_hi; ++t) {
-      turn_begin();
-      issue_qk(t);
-      issue_pv(t - 1);
-      turn_end();
-      wgmma_wait<1>();                     // q k^T, the older group
-      fence_regs(sc);
-      release(K_EMPTY, t);
-      softmax(t);
-      wgmma_wait<0>();                     // p v
-      pv_done();
-      release(V_EMPTY, t - 1);
+    int n = 0;                   // the CTA's K/V tiles walked so far
+    for (int j = 0; j < items; ++j) {
+      const int t_lo = t_lo_of(j), t_hi = t_hi_of(j);
+      r0 = q0_of(j) + wg * 64;
+      row[0] = r0 + wrow;
+      row[1] = r0 + wrow + 8;
+      q_lo = desc_lo(q_s(j) + wg * 64 * SW, 16);
 #pragma unroll
-      for (int j = 0; j < DH / 8; ++j) {
-        o[4 * j] *= alpha[0];
-        o[4 * j + 1] *= alpha[0];
-        o[4 * j + 2] *= alpha[1];
-        o[4 * j + 3] *= alpha[1];
-      }
-      pack();
-    }
-    turn_begin();
-    issue_pv(t_hi - 1);
-    if (wg == 0) turn_end();               // warpgroup 1 takes no more turns
-    wgmma_wait<0>();
-    pv_done();
-    release(V_EMPTY, t_hi - 1);
+      for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+      m[0] = m[1] = -INFINITY;
+      l[0] = l[1] = 0.f;
 
-    // normalise; stage the warpgroup's 64 x DH tile in its own rows of the
-    // Q tile (no longer read), swizzled as the O map's box, and store it
-    // with TMA, which drops the rows past S. 16-byte chunk c of row r lies
-    // at chunk c ^ (r % 8) (128-byte rows) or c ^ (r / 2 % 4) (64-byte).
-    const uint32_t o_s = q_s + wg * 64 * SW;
+      // Both warpgroups walk the whole band; a tile that none of a
+      // warpgroup's rows attends is masked whole and adds exact zeros.
+      mbar_wait(q_full(j), 0);
+      issue_qk(n);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      release(K_EMPTY, n);
+      softmax(t_lo);                       // o is 0: alpha is not needed
+      pack();
+      // steady state: key tile t's q k^T and tile t - 1's p v are in
+      // flight together, and t's softmax runs under t - 1's p v
+      for (int t = t_lo + 1; t < t_hi; ++t) {
+        ++n;
+        issue_qk(n);
+        issue_pv(n - 1);
+        wgmma_wait<1>();                   // q k^T, the older group
+        fence_regs(sc);
+        release(K_EMPTY, n);
+        softmax(t);
+        wgmma_wait<0>();                   // p v
+        pv_done();
+        release(V_EMPTY, n - 1);
+        // o * 1 is o: skip the rescale where no row of the warp moved its
+        // maximum
+        if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      float lt = l[hr];
-      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
-      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-      const float inv = 1.f / fmaxf(lt, 1e-30f);
-      const int r = (warp & 3) * 16 + g + 8 * hr;
-      const int swz = SW == 128 ? (r & 7) : ((r >> 1) & 3);
+          for (int i = 0; i < DH / 8; ++i) {
+            o[4 * i] *= alpha[0];
+            o[4 * i + 1] *= alpha[0];
+            o[4 * i + 2] *= alpha[1];
+            o[4 * i + 3] *= alpha[1];
+          }
+        }
+        pack();
+      }
+      issue_pv(n);
+      wgmma_wait<0>();
+      pv_done();
+      release(V_EMPTY, n);
+      ++n;
+
+      // normalise; stage the warpgroup's 64 x DH tile in its own rows of
+      // the Q tile (no longer read), swizzled as the O map's box, and store
+      // it with TMA, which drops the rows past S. 16-byte chunk c of row r
+      // lies at chunk c ^ (r % 8) (128-byte rows) or c ^ (r / 2 % 4)
+      // (64-byte rows).
+      const uint32_t o_s = q_s(j) + wg * 64 * SW;
 #pragma unroll
-      for (int j = 0; j < DH / 8; ++j) {
-        const int c = j / (PW / 8), chunk = j % (PW / 8);
-        st_shared_u32(o_s + c * BM * SW + r * SW + ((chunk ^ swz) << 4) +
-                          tig * 4,
-                      pack_bf16(o[4 * j + 2 * hr] * inv,
-                                o[4 * j + 2 * hr + 1] * inv));
+      for (int hr = 0; hr < 2; ++hr) {
+        float lt = l[hr];
+        lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+        lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+        const float inv = 1.f / fmaxf(lt, 1e-30f);
+        const int r = wrow + 8 * hr;
+        const int swz = SW == 128 ? (r & 7) : ((r >> 1) & 3);
+#pragma unroll
+        for (int i = 0; i < DH / 8; ++i) {
+          const int c = i / (PW / 8), chunk = i % (PW / 8);
+          st_shared_u32(o_s + c * BM * SW + r * SW + ((chunk ^ swz) << 4) +
+                            tig * 4,
+                        pack_bf16(o[4 * i + 2 * hr] * inv,
+                                  o[4 * i + 2 * hr + 1] * inv));
+        }
+      }
+      fence_async_shared();
+      named_sync(1 + wg, 128);
+      if ((threadIdx.x & 127) == 0) {
+        for (int c = 0; c < T::NP; ++c)
+          tma_store_4d(&to, o_s + c * BM * SW, c * PW, h, r0, b);
+        tma_store_commit();
       }
     }
-    fence_async_shared();
-    named_sync(3 + wg, 128);
-    if ((threadIdx.x & 127) == 0) {
-      for (int c = 0; c < T::NP; ++c)
-        tma_store_4d(&to, o_s + c * BM * SW, c * PW, h, r0, b);
-      tma_store_wait();
-    }
+    if ((threadIdx.x & 127) == 0) tma_store_wait();
   }
 }
 
@@ -441,7 +481,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
       prefill_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       T::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((a.S + BM - 1) / BM, Hq, B);
+  const int n_qt = (a.S + BM - 1) / BM;
+  const dim3 grid((n_qt + T::ITEMS - 1) / T::ITEMS, Hq, B);
   prefill_kernel<DH><<<grid, THREADS, T::SMEM, stream>>>(tq, tk, tv, to, a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -464,6 +505,17 @@ extern "C" int flash_prefill_bf16(
     case 128: return launch<128>(q, k, v, o, a, B, Hq, Hkv, st, s);
     case 256: return launch<256>(q, k, v, o, a, B, Hq, Hkv, st, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the dynamic shared memory one CTA takes at head_dim dh (0 for another)
+extern "C" int flash_prefill_smem_bytes(int dh) {
+  switch (dh) {
+    case 32: return Tile<32>::SMEM;
+    case 64: return Tile<64>::SMEM;
+    case 128: return Tile<128>::SMEM;
+    case 256: return Tile<256>::SMEM;
+    default: return 0;
   }
 }
 

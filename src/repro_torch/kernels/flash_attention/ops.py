@@ -96,8 +96,9 @@ def decode(q, k_cache, v_cache, length: int):
 
 def _row_strides(name, **tensors):
     """(batch, position, head) strides in elements of BSHD tensors whose
-    head_dim is contiguous; each row must start on a 16-byte boundary, the
-    width of the kernel's copies."""
+    head_dim is contiguous. The kernel reads and writes them through TMA
+    tensor maps, which take a 16-byte aligned base and strides that are
+    multiples of 16 bytes."""
     out = []
     for k, t in tensors.items():
         if t.stride(3) != 1 or t.data_ptr() % 16 or \
