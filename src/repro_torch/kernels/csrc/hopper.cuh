@@ -1,8 +1,8 @@
-// Hopper (sm_90a) primitives shared by the port's warp-specialised kernels,
-// as inline PTX: mbarriers with phase-parity waits, 4-D TMA tile loads,
-// warpgroup MMA (wgmma) with its shared-memory matrix descriptor and
-// fences, and setmaxnreg. Compile for sm_90a: wgmma and setmaxnreg exist
-// only there.
+// Hopper (sm_90a) primitives for the port's warp-specialised kernels, as
+// inline PTX: mbarriers with phase-parity waits, named barriers, 4-D TMA
+// tile loads and stores, warpgroup MMA (wgmma) with its shared-memory
+// matrix descriptor and fences, and setmaxnreg. Compile for sm_90a: wgmma
+// and setmaxnreg exist only there.
 #pragma once
 
 #include "common.cuh"
@@ -155,10 +155,9 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t lo, uint32_t hi) {
   return static_cast<uint64_t>(hi) << 32 | lo;
 }
 
-// x, opaque to the compiler: what is derived from it is computed where it
-// is used, not hoisted out of a loop into registers of its own (a tile's
-// descriptors, one per k-step, would otherwise stay live across the loop
-// and crowd out the accumulators)
+// x, opaque to the compiler: what is derived from it (a tile's descriptor
+// for each k-step) is computed where it is used, not hoisted out of a loop
+// into registers of its own
 __device__ __forceinline__ uint32_t opaque(uint32_t x) {
   asm volatile("" : "+r"(x));
   return x;

@@ -65,15 +65,15 @@
 //    numbers: the card tests and chip_smoke.py hold the kernel to its
 //    plain version row by row, at every dh.
 //  * A wrong mbarrier phase hangs the CTA. No timeout guards the waits: a
-//    trap on that path makes ptxas ignore setmaxnreg (spills at dh 256);
-//    run new work under a timeout.
+//    trap on that path makes ptxas ignore setmaxnreg (spills at dh 128 and
+//    256); run new work under a timeout.
 //  * setmaxnreg.inc blocks until the registers the producer released are
 //    free: the launch refuses a build whose entry register count cannot
 //    cover the consumers' increase.
 //  * ptxas serialises the wgmmas (warning C7512 / C7520 in the build
-//    report) when their descriptors stay live across the loop or a wgmma
-//    sits on a branch it cannot prove uniform: each k-step's descriptor is
-//    derived from one opaque register where it is used.
+//    report) when it loses track of setmaxnreg (a trap did that) or a
+//    wgmma sits on a branch it cannot prove uniform. chip_smoke.py fails
+//    on either warning; tools/prefill_variants.py shows what they cost.
 //  * No atomics and no split along keys: two calls agree bit for bit.
 //
 // Two numerical choices: scores are scaled in f32 AFTER the bf16 product,
@@ -87,8 +87,6 @@
 using namespace repro;
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int BM = 128;                  // q rows per CTA
 constexpr int CONSUMER_WARPS = 8;        // two warpgroups of 64 rows

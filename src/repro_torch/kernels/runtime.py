@@ -50,7 +50,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, ctypes._CFuncPtr] = {}
-_build_logs: Dict[str, str] = {}
 _launches: Dict[str, int] = {name: 0 for name in SOURCES}
 
 
@@ -131,8 +130,9 @@ def _lib_path(name: str) -> Path:
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile the named kernel libraries (all by default) that are not built
-    yet, one ``nvcc`` per source, all started together. Returns each built
-    library's ``-Xptxas -v`` report (registers, shared memory, spills)."""
+    yet, one ``nvcc`` per source, all started together. Returns each
+    library's ``-Xptxas -v`` report (registers, shared memory, spills), kept
+    beside it from the build that made it."""
     names = list(SOURCES if names is None else names)
     todo = [n for n in names if not _lib_path(n).exists()]
     nvcc = _nvcc() if todo else ""
@@ -149,14 +149,15 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     failed = []
     for n, (p, tmp, out) in procs.items():
         log, _ = p.communicate()
-        _build_logs[n] = log
         if p.returncode != 0:
             failed.append(f"{n}:\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return {n: _build_logs.get(n, "") for n in names}
+    logs = {n: _lib_path(n).with_suffix(".log") for n in names}
+    return {n: p.read_text() if p.exists() else "" for n, p in logs.items()}
 
 
 def library(name: str) -> ctypes.CDLL:
