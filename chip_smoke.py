@@ -4,9 +4,10 @@
 
 1. Builds the hand-written kernels from ``src/repro_torch/**/csrc`` (one
    ``nvcc`` per source, in parallel) and prints each one's registers and
-   spills; for ``flash_prefill`` one line per head_dim instantiation with
-   its registers, spills and dynamic shared memory, failing on a spill or
-   on wgmma instructions that ptxas serialised.
+   spills; for ``flash_prefill``, ``oproj_ffn_swiglu`` and ``ffn_swiglu``
+   one line per kernel instantiation (head_dim; pass and lanes) with its
+   registers, spills and dynamic shared memory, failing on a spill or on
+   wgmma instructions that ptxas serialised.
 2. Kernel phase at the samba-coe-expert-7b widths (B = 8 lanes, bf16): the
    paged kernels at ragged positions 1..512 straddling blocks with one
    inactive lane, the dense-cache kernels at length 4096 in a 4096-position
@@ -19,7 +20,9 @@
    plain version and one PyTorch library call computing the same function
    (none for ``lru_scan``: no single PyTorch call computes a linear
    recurrence); each ``flash_prefill`` row also prints its TFLOP/s, its
-   share of the bound and SDPA's time beside it.
+   share of the bound and SDPA's time beside it; ``oproj_ffn_swiglu`` and
+   ``ffn_swiglu`` their largest row relative L2 error, achieved TB/s and,
+   from the profiler, each of their three passes' device time.
 3. Monarch phase, the FFT-conv showcase of the paper's Fig. 3-4 and Table
    I: ``monarch_fused`` and ``monarch_conv_fused`` against their plain
    versions at the 1M-point shape (16, 1024, 1024) bf16, max-abs and row
@@ -160,6 +163,10 @@ DENSE_PREFILL_LOGIT_TOL_REL = 0.044
 # plants those in the plain version and fails if the check misses one;
 # they read 0.40-2.16 there.
 PREFILL_ROW_REL_L2 = 2.0 ** -6
+# oproj_ffn_swiglu and ffn_swiglu against their plain versions, row by row:
+# both sum in f32 and round each output to bf16 once, so a row differs by
+# at most two units in the last place of each value, 2^-7 of its norm.
+FFN_ROW_REL_L2 = 2.0 ** -7
 # recurrentgemma-9b behind CompositionOfExperts.generate: 4 prompts of 3000
 # tokens, past the 2048-position window so the ring's roll is not the
 # identity ((3000 - 2048) % 2048 = 952)
@@ -209,44 +216,64 @@ def build_kernels():
     logs = rt.build()
     _log(f"built {len(logs)} kernel libraries in "
          f"{time.perf_counter() - t0:.1f}s (sm_90a)")
+    prefill_smem = rt.bind("flash_prefill", "flash_prefill_smem_bytes",
+                           [rt.I])
+    passes = ("OprojPass", "GateUpPass", "DownPass")
     for name, log in logs.items():
         if name == "flash_prefill":
-            prefill_build_report(rt, log)
-            continue
-        regs = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        _log(f"  {name}: " + " | ".join(regs[:6]))
+            entry_build_report(
+                name, log, r"prefill_kernelILi(\d+)E",
+                [(str(dh),) for dh in (32, 64, 128, 256)],
+                lambda k: f"flash_prefill[dh={k[0]}]",
+                lambda k: prefill_smem(int(k[0])))
+        elif name in ("oproj_ffn_swiglu", "ffn_swiglu"):
+            stream_smem = rt.bind(name, "stream_smem_bytes", [rt.I, rt.I])
+            first = ([("OprojPass", "8"), ("OprojPass", "16")]
+                     if name == "oproj_ffn_swiglu" else [("ffn_prep_kernel",)])
+            entry_build_report(
+                name, log, r"(OprojPass|GateUpPass|DownPass)ILi(\d+)E|"
+                     r"(ffn_prep_kernel)",
+                first + [(p, str(nl)) for p in passes[1:] for nl in (8, 16)],
+                lambda k: f"{name}[{k[0]}" + (f" NL={k[1]}]" if len(k) > 1
+                                              else "]"),
+                lambda k: stream_smem(passes.index(k[0]), int(k[1]))
+                if len(k) > 1 else 0)
+        else:
+            regs = [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+            _log(f"  {name}: " + " | ".join(regs[:6]))
 
 
-def prefill_build_report(rt, log):
-    """``flash_prefill``'s ``-Xptxas -v`` report, one line per head_dim
-    instantiation: registers at entry (setmaxnreg moves them later), spills
-    and the dynamic shared memory of a CTA. Fails on a spill, or on a
-    warning that ptxas serialised the wgmma instructions."""
+def entry_build_report(name, log, entry_re, want, label, smem):
+    """Library ``name``'s ``-Xptxas -v`` report, one line per entry function
+    whose mangled name matches ``entry_re`` (its matched groups are the
+    key): registers at entry (setmaxnreg may move them later), spills and
+    ``smem(key)`` bytes of dynamic shared memory. Fails on a spill, on a
+    key of ``want`` without a report, or on a warning that ptxas
+    serialised the wgmma instructions."""
     import re
     serialised = [ln.strip() for ln in log.splitlines()
                   if "wgmma" in ln and "serialized" in ln]
     if serialised:
-        raise AssertionError("flash_prefill: " + " | ".join(serialised))
-    smem = rt.bind("flash_prefill", "flash_prefill_smem_bytes", [rt.I])
-    report, dh = {}, None
+        raise AssertionError(f"{name}: " + " | ".join(serialised))
+    report, key = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*prefill_kernelILi(\d+)E",
-                      ln)
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            dh = int(m.group(1))
-        elif dh is not None and ("spill" in ln or "Used" in ln):
-            report.setdefault(dh, []).append(
+            k = re.search(entry_re, m.group(1))
+            key = tuple(g for g in k.groups() if g) if k else None
+        elif key is not None and ("spill" in ln or "Used" in ln):
+            report.setdefault(key, []).append(
                 ln.split("info    :")[-1].strip())
-    if sorted(report) != [32, 64, 128, 256]:
-        raise AssertionError(f"flash_prefill: no build report per head_dim "
+    if sorted(report) != sorted(want):
+        raise AssertionError(f"{name}: no build report for each of {want} "
                              f"in:\n{log}")
-    for dh, lines in sorted(report.items()):
-        _log(f"  flash_prefill[dh={dh}]: " + " | ".join(lines)
-             + f" | {smem(dh)} bytes dynamic shared memory")
+    for key, lines in sorted(report.items()):
+        _log(f"  {label(key)}: " + " | ".join(lines)
+             + f" | {smem(key)} bytes dynamic shared memory")
         if not any(" 0 bytes spill stores, 0 bytes spill loads" in ln
                    for ln in lines):
-            raise AssertionError(f"flash_prefill[dh={dh}] spills: {lines}")
+            raise AssertionError(f"{label(key)} spills: {lines}")
 
 
 def row_rel_l2(got, want):
@@ -310,6 +337,56 @@ def kernel_row(name, kern, plain, lib, nbytes, flops, flush, *,
          f"library={lib_s} bound={r['bound_ms']:.4f}ms "
          f"({r['bound_by']}, {nbytes} B, {flops} flops)")
     return r
+
+
+# the launches of one call of each FFN kernel, in order (kernel names)
+FFN_PASSES = {"oproj_ffn_swiglu": ("OprojPass", "GateUpPass", "DownPass"),
+              "ffn_swiglu": ("ffn_prep_kernel", "GateUpPass", "DownPass")}
+
+
+def pass_times(name, row, fn, flush, n=10):
+    """Where one call of FFN kernel ``name`` spends its device time, from
+    the profiler's kernel events over ``n`` calls (the L2 flushed before
+    each): each pass's own span, and how far it moves the call's end (its
+    end minus the previous pass's end; the first pass from its start).
+    With programmatic launch a pass starts while the one ahead drains, so
+    the spans overlap; the moves add up to the call's span. Prints them
+    beside the row's achieved TB/s and adds both to ``row``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    passes = FFN_PASSES[name]
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            torch.cuda._sleep(2_000_000)
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    spans = {p: sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and p in e.name)
+             for p in passes}
+    row["tb_per_s"] = row["bytes"] / (row["ms"] * 1e-3) / 1e12
+    head = (f"kernel {name}: {row['tb_per_s']:.3f} TB/s of "
+            f"{HBM_BYTES_PER_S / 1e12:.2f}")
+    if any(len(v) != n for v in spans.values()):
+        _log(f"{head}; device time per pass not measured (the profiler "
+             f"gave {[len(v) for v in spans.values()]} launches of "
+             f"{list(passes)} for {n} calls)")
+        return
+    # call c's passes are the c-th launch of each
+    t = np.array([spans[p] for p in passes])          # (pass, call, 2)
+    own = (t[:, :, 1] - t[:, :, 0]).mean(axis=1)
+    ends = np.concatenate([t[:1, :, 0], t[:, :, 1]])  # first start, ends
+    moves = np.diff(ends, axis=0).mean(axis=1)
+    row["pass_ms"] = {p: dict(own=o / 1e3, moves=m / 1e3)
+                      for p, o, m in zip(passes, own, moves)}
+    _log(f"{head}; device span {moves.sum() / 1e3:.4f} ms by pass (own span"
+         f" / moves the end): " + "; ".join(
+             f"{p} {o / 1e3:.4f} / {m / 1e3:.4f} ms"
+             for p, o, m in zip(passes, own, moves)))
 
 
 def kernel_phase(cfg, dev, B=8):
@@ -389,8 +466,12 @@ def kernel_phase(cfg, dev, B=8):
     }
     nbytes = kernel_hbm_bytes(cfg, B, len1_host, maxb)
     flops = kernel_flops(cfg, B, len1_host)
-    rows_out = {name: kernel_row(name, *fns, nbytes[name], flops[name], flush)
+    rows_out = {name: kernel_row(name, *fns, nbytes[name], flops[name], flush,
+                                 row_tol=FFN_ROW_REL_L2
+                                 if name in FFN_PASSES else None)
                 for name, fns in cases.items()}
+    pass_times("oproj_ffn_swiglu", rows_out["oproj_ffn_swiglu"],
+               cases["oproj_ffn_swiglu"][0], flush)
     del flush
     return rows_out
 
@@ -465,8 +546,12 @@ def dense_kernel_phase(cfg, dev, B=8):
     }
     nbytes = dense_kernel_hbm_bytes(cfg, B, length)
     flops = dense_kernel_flops(cfg, B, length)
-    rows = {name: kernel_row(name, *fns, nbytes[name], flops[name], flush)
+    rows = {name: kernel_row(name, *fns, nbytes[name], flops[name], flush,
+                             row_tol=FFN_ROW_REL_L2
+                             if name in FFN_PASSES else None)
             for name, fns in cases.items()}
+    pass_times("ffn_swiglu", rows["ffn_swiglu"], cases["ffn_swiglu"][0],
+               flush)
     # the tensor-parallel partial form, held to the same tolerance
     got = ffn_swiglu(*ffn_args, residual=False)
     want = ffn_swiglu_ref(*ffn_args, residual=False)
@@ -946,8 +1031,11 @@ def serve_phase(cfg, dev):
 
 
 def step_breakdown(step, label, n_steps=10):
-    """Where one step's time goes: host wall per step without the profiler,
-    device time per kernel name with it (device-kernel events only)."""
+    """Where one step's time goes: host wall per step without the profiler;
+    with it, the device's busy time (the union of its kernels' spans: the
+    FFN kernels' passes start before the pass ahead of them ends, so their
+    spans overlap) and each kernel name's summed span (device-kernel events
+    only; a pass's span includes its wait for the one ahead)."""
     step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -968,7 +1056,13 @@ def step_breakdown(step, label, n_steps=10):
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             dev[e.key] = e.self_device_time_total / n_steps / 1e3
-    dev_ms = sum(dev.values())
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, reach = 0.0, -np.inf
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+    dev_ms = busy_us / n_steps / 1e3
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     if dev_ms > 0:
         _log(f"{label}: host wall {wall_ms:.3f} ms, device busy "

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives for the port's warp-specialised kernels, as
-// inline PTX: mbarriers with phase-parity waits, named barriers, 4-D TMA
-// tile loads and stores, warpgroup MMA (wgmma) with its shared-memory
-// matrix descriptor and fences, and setmaxnreg. Compile for sm_90a: wgmma
-// and setmaxnreg exist only there.
+// inline PTX: mbarriers with phase-parity waits, named barriers, 2-D and 4-D
+// TMA tile loads and 4-D stores, warpgroup MMA (wgmma) with its
+// shared-memory matrix descriptor and fences, setmaxnreg, and the grid
+// dependency controls of programmatic dependent launch. Compile for sm_90a:
+// wgmma and setmaxnreg exist only there.
 #pragma once
 
 #include "common.cuh"
@@ -61,6 +62,18 @@ __device__ __forceinline__ void tma_prefetch_map(const void* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(map) : "memory");
 }
 
+// One box of a 2-D tensor map at coordinates (c0, c1), innermost first,
+// into shared memory at dst; its bytes complete_tx on bar. Elements outside
+// the tensor's extent arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // One box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost
 // first, into shared memory at dst; its bytes complete_tx on bar. Elements
 // outside the tensor's extent arrive as zeros.
@@ -104,6 +117,23 @@ __device__ __forceinline__ void fence_async_shared() {
 
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, unsigned v) {
   asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// ------------------------------------------- programmatic dependent launch
+// A kernel launched with cudaLaunchAttributeProgrammaticStreamSerialization
+// may start before the kernel ahead of it on the stream has finished.
+// griddep_wait blocks until that kernel has completed and its memory
+// operations are visible; a kernel launched without the attribute passes
+// it at once. Nothing the previous kernel writes may be read, and nothing
+// it reads may be written, before it.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// lets the next kernel on the stream, if launched with the attribute,
+// start once every CTA of this one has called it or exited
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // -------------------------------------------------------------- registers
@@ -189,6 +219,13 @@ __device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
 template <int N>
 __device__ void wgmma_rs_tb(float (&d)[N / 2], const unsigned (&a)[4],
                             uint64_t b, int scale_d);
+
+// d (64 x N, f32) = a * b, plus d where scale_d != 0: a (64 x 16) bf16 in
+// shared memory, MN-major (the transpose bit: M contiguous, k-steps advance
+// by rows), b (N x 16) bf16 in shared memory, K-major.
+template <int N>
+__device__ void wgmma_ss_ta(float (&d)[N / 2], uint64_t a, uint64_t b,
+                            int scale_d);
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
@@ -382,6 +419,69 @@ __device__ __forceinline__ void wgmma_rs_tb<256>(float (&d)[128],
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_ta<8>(float (&d)[4], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_ta<16>(float (&d)[8], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_ta<32>(float (&d)[16], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_ta<64>(float (&d)[32], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 }  // namespace repro

@@ -80,9 +80,8 @@
 // as JAX's _gqa_scores does (the Pallas kernel scales q in f32 first, which
 // bf16 tensor-core inputs cannot mirror); p is rounded to bf16 before the
 // p v product, as both JAX versions do, while l sums the f32 p.
-#include <cuda.h>
-
 #include "hopper.cuh"
+#include "tensor_map.cuh"
 
 using namespace repro;
 
@@ -402,33 +401,6 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
     }
     if ((threadIdx.x & 127) == 0) tma_store_wait();
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// so that the library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
 }
 
 // A (B, S, H, dh) bf16 tensor as the 4-D map (dh, H, S, B), strides in

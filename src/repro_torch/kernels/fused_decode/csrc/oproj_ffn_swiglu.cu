@@ -10,45 +10,46 @@
 // (304 MB in bf16 at the 7B width), read once; at B = 8 the arithmetic is
 // 2 * B flops per weight. Least time = weight bytes / 3.35 TB/s.
 //
-// Design: five launches of ffn_core.cuh's passes on one stream: split-K
-// out-projection, residual + per-chunk squares, gate/up, split-K
-// down-projection, residual.
-#include "ffn_core.cuh"
+// Design: three weight streams of stream_gemm.cuh (TMA ring, wgmma with the
+// weights as the 64-row side, one CTA per SM, a deterministic fix-up of
+// split column tiles) chained by programmatic dependent launch, so each
+// pass's weight loads start while the one ahead drains: OprojPass (y and
+// its per-tile squares in the fix-up), GateUpPass (rstd applied to the
+// finished sums, SwiGLU), DownPass (the residual add and the cast). See
+// ffn_passes.cuh.
+#include "ffn_passes.cuh"
 
 using namespace repro;
 
+// ws: the wrapper's workspace; plan: its int64 plan (ffn_passes.cuh
+// PlanField); rows past B of attn and of the activations load as zeros.
 extern "C" int oproj_ffn_swiglu_bf16(const void* x, const void* attn,
                                      const void* wo, const void* scale,
                                      const void* wg, const void* wu,
-                                     const void* wd, void* out, void* y,
-                                     void* ss, void* h, void* p_o,
-                                     void* p_d, int B, int D, int HD, int F,
-                                     int splits_o, int splits_d,
-                                     void* stream) {
-  using T = __nv_bfloat16;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int SMEM = a_smem_bytes<FFN_LB, FFN_KC>();
-  cudaFuncSetAttribute(splitk_gemm_kernel<T, T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  REPRO_CHECK_LAUNCH();
-  float* yf = static_cast<float*>(y);
-  float* ssf = static_cast<float*>(ss);
-  float* po = static_cast<float*>(p_o);
-  const int tiles_d = (D + FFN_NT - 1) / FFN_NT;
-  const int n_chunks = (D + FFN_CHUNK - 1) / FFN_CHUNK;
-  const int kper_o = (HD + splits_o - 1) / splits_o;
-  splitk_gemm_kernel<T, T><<<dim3(tiles_d, splits_o), FFN_NTHREADS, SMEM, s>>>(
-      static_cast<const T*>(attn), static_cast<const T*>(wo), po, B, HD, D,
-      kper_o);
-  REPRO_CHECK_LAUNCH();
-  residual_kernel<T><<<dim3(n_chunks, B), FFN_CHUNK, 0, s>>>(
-      static_cast<const T*>(x), po, yf, ssf, B, D, splits_o);
-  REPRO_CHECK_LAUNCH();
-  return ffn_passes<T>(yf, ssf, static_cast<const T*>(scale),
-                       static_cast<const T*>(wg), static_cast<const T*>(wu),
-                       static_cast<const T*>(wd), static_cast<T*>(out),
-                       static_cast<float*>(h), static_cast<float*>(p_d), B, D,
-                       F, splits_d, 1, s);
+                                     const void* wd, void* out, void* ws,
+                                     const long long* plan, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_lanes(plan[PL_NL], [&](auto L) {
+    constexpr int NL = decltype(L)::value;
+    const int B = plan[PL_B], D = plan[PL_D], HD = plan[PL_HD];
+    FfnStreams<NL> ffn;
+    CUtensorMap m_wo, m_attn;
+    if (!ffn.init(plan, ws, wg, wu, wd) ||
+        !map_rows(&m_wo, wo, HD, D, unit_rows(1)) ||
+        !map_rows(&m_attn, attn, B, HD, NL))
+      return static_cast<int>(cudaErrorInvalidValue);
+    float* y = at<float>(ws, plan, PL_Y);
+    const OprojPass<NL> op{static_cast<const bf16*>(x),
+                           static_cast<const bf16*>(scale), y,
+                           at<float>(ws, plan, PL_SS),
+                           at<bf16>(ws, plan, PL_IMG_G), B, D,
+                           (D + SG_NT - 1) / SG_NT};
+    const int rc = launch_stream(
+        m_wo, m_wo, m_attn, plan_of(plan, HD, D, 1, PL_CTAS_O, PL_MAXS_O),
+        at<float>(ws, plan, PL_PART_O), at<int>(ws, plan, PL_CNT_O), op, s);
+    if (rc) return rc;
+    return ffn.launch(plan, ws, out, y, nullptr, s);
+  });
 }
 
 REPRO_EXPORT_ERROR_STRING

@@ -4,10 +4,13 @@
 decoder-layer step composed from them (``ops.decoder_layer_step``). CPU
 tensors take the plain versions in ``ref.py``; CUDA tensors launch the
 hand-written kernels, which take bf16 activations and weights, or the call
-raises."""
+raises. ``stream_plan`` is the FFN kernels' split of a weight over the
+SMs."""
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -20,12 +23,27 @@ from repro_torch.kernels.fused_decode.ref import (ffn_swiglu_ref, layer_step,
                                                   rope_inv_freq)
 
 _QKV_ARGS = [rt.P] * 11 + [rt.I] * 7 + [rt.P]
-_EPI_ARGS = [rt.P] * 13 + [rt.I] * 6 + [rt.P]
+_EPI_ARGS = [rt.P] * 11
 _QKV_DENSE_ARGS = [rt.P] * 6 + [rt.I] * 8 + [rt.P]
-_FFN_ARGS = [rt.P] * 10 + [rt.I] * 5 + [rt.P]
-_SMS = 132            # H100 SXM streaming multiprocessors
-_TILE_N = 64          # the epilogue's column tile
-_MIN_ROWS = 256       # fewest weight rows a K split streams
+_FFN_ARGS = [rt.P] * 8 + [rt.I, rt.P]
+_MIN_ROWS = 256       # fewest weight rows a K split of qkv_rope streams
+# the FFN kernels' weight stream (csrc/stream_gemm.cuh)
+STREAM_TILE = 64      # output columns per tile (the squares' granularity)
+STREAM_GROUP = 128    # output columns per unit: two adjacent tiles
+STREAM_UNIT_BYTES = 16 * 1024   # weight bytes per unit
+_CONSUMERS = 128      # consumer threads of a CTA: a partial slot's rows
+_MAX_LANES = 16       # lanes of one weight stream; more run in slices
+_CNT_BYTES = 64 * 1024    # the workspace's counters, at its start
+# ffn_passes.cuh::PlanField, in order
+_PLAN_FIELDS = ("B", "D", "HD", "F", "NL", "ctas_o", "maxs_o", "ctas_gu",
+                "maxs_gu", "ctas_dn", "maxs_dn", "y", "ss", "img_g", "img_d",
+                "part_o", "part_gu", "part_dn", "cnt_o", "cnt_gu", "cnt_dn")
+
+
+@functools.lru_cache(maxsize=None)
+def device_sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=16)
@@ -68,7 +86,7 @@ def qkv_rope_paged(x, norm_scale, wq, wk, wv, pos, *, theta=10000.0):
     fn = rt.bind("qkv_rope_paged", "qkv_rope_paged_bf16", _QKV_ARGS)
     inv = _inv_freq(dh, float(theta), 1.0, str(x.device))
     Ht = Hq + 2 * Hkv
-    splits = _head_splits(Ht, D)
+    splits = _head_splits(Ht, D, device_sms(x.device.index))
     q = torch.empty((B, Hq, dh), dtype=x.dtype, device=x.device)
     k = torch.empty((B, Hkv, dh), dtype=x.dtype, device=x.device)
     v = torch.empty_like(k)
@@ -83,24 +101,128 @@ def qkv_rope_paged(x, norm_scale, wq, wk, wv, pos, *, theta=10000.0):
     return q, k, v
 
 
-def _head_splits(n_heads: int, k: int) -> int:
+def _head_splits(n_heads: int, k: int, sms: int) -> int:
     """D splits of the per-head products so that about two CTAs per SM
     run."""
-    return max(1, min(8, -(-2 * _SMS // n_heads), k // _MIN_ROWS))
+    return max(1, min(8, -(-2 * sms // n_heads), k // _MIN_ROWS))
 
 
-def _ffn_scratch(B: int, D: int, F: int, splits_d: int, device):
-    """f32 scratch of the FFN passes: y (B,D), per-256-column sums of y^2,
-    h (B,F) and the down-projection's split partials."""
-    f32 = dict(dtype=torch.float32, device=device)
-    return (torch.empty((B, D), **f32), torch.empty((B, -(-D // 256)), **f32),
-            torch.empty((B, F), **f32), torch.empty((splits_d, B, D), **f32))
+def unit_rows(n_weights: int) -> int:
+    """Weight rows per unit of a stream of ``n_weights`` weights (64 for
+    one, 32 for gate/up's two): 16 KB of weights a unit."""
+    return STREAM_UNIT_BYTES // (n_weights * STREAM_GROUP * 2)
 
 
-def _splits(n_cols: int, k: int) -> int:
-    """K splits of a skinny product so that about two CTAs per SM run."""
-    tiles = -(-n_cols // _TILE_N)
-    return max(1, min(8, -(-2 * _SMS // tiles), k // _MIN_ROWS))
+class StreamPlan(NamedTuple):
+    """How one weight stream of the FFN kernels (``csrc/stream_gemm.cuh``)
+    spreads a (k, n) row-major weight over the card: units of 128 output
+    columns (two adjacent 64-column tiles, whose rows are read back to back)
+    x ``unit_rows`` weight rows, group-major (unit u is column group
+    ``u // kblocks``, k-block ``u % kblocks``); CTA c streams units
+    ``[first(c), first(c + 1))``, so every CTA gets within one unit of the
+    mean; a column group held by several CTAs is summed by its ``splits``
+    in CTA order."""
+    kblocks: int
+    groups: int
+    ctas: int
+    max_splits: int       # most CTAs that share one column group
+
+    @property
+    def units(self) -> int:
+        return self.kblocks * self.groups
+
+    def first(self, c: int) -> int:
+        return c * self.units // self.ctas
+
+    def owner(self, u: int) -> int:
+        """The CTA whose run holds unit ``u``."""
+        return ((u + 1) * self.ctas - 1) // self.units
+
+    def splits(self, g: int) -> int:
+        """The CTAs that stream a part of column group ``g``."""
+        return (self.owner((g + 1) * self.kblocks - 1)
+                - self.owner(g * self.kblocks) + 1)
+
+
+@functools.lru_cache(maxsize=256)
+def stream_plan(k: int, n: int, sms: int, n_weights: int = 1) -> StreamPlan:
+    """The weight stream of ``n_weights`` (k, n) weights read together on
+    ``sms`` SMs: one CTA per SM, at most one per unit. The kernel does the
+    same arithmetic."""
+    kblocks = -(-k // unit_rows(n_weights))
+    groups = -(-n // STREAM_GROUP)
+    ctas = min(sms, kblocks * groups)
+    plan = StreamPlan(kblocks, groups, ctas, 1)
+    return plan._replace(max_splits=max(plan.splits(g)
+                                        for g in range(groups)))
+
+
+def _lanes(B: int) -> int:
+    """The lanes one weight stream is built for (NL): 8 or 16."""
+    return 8 if B <= 8 else _MAX_LANES
+
+
+@functools.lru_cache(maxsize=64)
+def _ffn_layout(B: int, D: int, HD: int, F: int, sms: int):
+    """(workspace bytes, int64 plan) of one FFN kernel call on ``B`` <= 16
+    lanes; ``HD`` 0 for ``ffn_swiglu`` (no out-projection). The workspace:
+    the counters (zeroed once, reset by the kernels), y (B, D) f32, the
+    per-tile squares (B, D / 64), the gate/up and down activations (2 NL,
+    D) and (2 NL, F) bf16 (hi | lo), and each pass's partial slots. The
+    counters are one per column group and pass."""
+    nl = _lanes(B)
+    po = stream_plan(HD, D, sms) if HD else None
+    pgu, pdn = stream_plan(D, F, sms, 2), stream_plan(F, D, sms)
+    groups_d, tiles_d = pdn.groups, -(-D // STREAM_TILE)
+    if 2 * groups_d + pgu.groups > _CNT_BYTES // 4:
+        raise ValueError(f"FFN kernels: D={D}, F={F} exceed the counters")
+    off, end = {}, _CNT_BYTES
+
+    def region(name, nbytes):
+        nonlocal end
+        off[name] = end
+        end += -(-nbytes // 256) * 256
+
+    # one split's partial of a group per weight, f32: two tiles' fragments
+    slot = _CONSUMERS * 2 * (nl // 2) * 4
+    region("y", B * D * 4 if HD else 0)
+    region("ss", B * tiles_d * 4)
+    region("img_g", 2 * nl * D * 2)
+    region("img_d", 2 * nl * F * 2)
+    region("part_o", po.groups * po.max_splits * slot if HD else 0)
+    region("part_gu", pgu.groups * pgu.max_splits * 2 * slot)
+    region("part_dn", pdn.groups * pdn.max_splits * slot)
+    off.update(cnt_o=0, cnt_gu=4 * groups_d,
+               cnt_dn=4 * (groups_d + pgu.groups))
+    vals = dict(B=B, D=D, HD=HD, F=F, NL=nl,
+                ctas_o=po.ctas if HD else 0,
+                maxs_o=po.max_splits if HD else 0,
+                ctas_gu=pgu.ctas, maxs_gu=pgu.max_splits,
+                ctas_dn=pdn.ctas, maxs_dn=pdn.max_splits, **off)
+    plan = (ctypes.c_longlong * len(_PLAN_FIELDS))(
+        *(vals[f] for f in _PLAN_FIELDS))
+    return end, plan
+
+
+_workspaces: dict = {}
+
+
+def _workspace(x: torch.Tensor, stream: int, nbytes: int) -> torch.Tensor:
+    """The FFN kernels' workspace for ``x``'s device and ``stream``: kept
+    between calls (its counters must start at zero, and the kernels leave
+    them so), grown, zeroed, when a call needs more."""
+    key = (x.device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws.numel() < nbytes:
+        ws = torch.zeros(nbytes, dtype=torch.uint8, device=x.device)
+        _workspaces[key] = ws
+    return ws
+
+
+def _lane_slices(B: int):
+    """Row ranges of at most 16 lanes: each is one weight stream (wider
+    accumulators spill at 32)."""
+    return [(b, min(B, b + _MAX_LANES)) for b in range(0, B, _MAX_LANES)]
 
 
 def oproj_ffn_swiglu(x, attn_out, w_o, norm_scale, w_gate, w_up, w_down):
@@ -110,8 +232,9 @@ def oproj_ffn_swiglu(x, attn_out, w_o, norm_scale, w_gate, w_up, w_down):
 
     x (B,D); attn_out (B, Hq*dh); w_o (Hq*dh, D) (the native (Hq,dh,D) ``wo``
     reshaped); w_gate/w_up (D,F); w_down (F,D). Returns (B,D) in x.dtype.
-    On the card this is five launches of the hand-written kernel (see its
-    source); scratch comes from ``torch.empty``."""
+    On the card this is three launches of the hand-written kernel (see its
+    source) per 16 lanes, with scratch in a workspace kept per device and
+    stream (``_workspace``)."""
     B, D = x.shape
     HD = attn_out.shape[1]
     F = w_gate.shape[1]
@@ -124,23 +247,26 @@ def oproj_ffn_swiglu(x, attn_out, w_o, norm_scale, w_gate, w_up, w_down):
     _check_bf16("oproj_ffn_swiglu", x=x, attn_out=attn_out, w_o=w_o,
                 norm_scale=norm_scale, w_gate=w_gate, w_up=w_up,
                 w_down=w_down)
-    if D % 8 or F % 8:
-        raise ValueError(f"oproj_ffn_swiglu: kernel needs D and F multiples "
-                         f"of 8, got D={D}, F={F}")
+    if D % 8 or F % 8 or HD % 8:
+        raise ValueError(f"oproj_ffn_swiglu: kernel needs D, F and Hq*dh "
+                         f"multiples of 8, got D={D}, F={F}, Hq*dh={HD}")
     rt.check_contiguous("oproj_ffn_swiglu", x=x, attn_out=attn_out, w_o=w_o,
                         norm_scale=norm_scale, w_gate=w_gate, w_up=w_up,
                         w_down=w_down)
     fn = rt.bind("oproj_ffn_swiglu", "oproj_ffn_swiglu_bf16", _EPI_ARGS)
-    so, sd = _splits(D, HD), _splits(D, F)
     out = torch.empty_like(x)
-    y, ss, h, p_d = _ffn_scratch(B, D, F, sd, x.device)
-    p_o = torch.empty((so, B, D), dtype=torch.float32, device=x.device)
-    rc = fn(x.data_ptr(), attn_out.data_ptr(), w_o.data_ptr(),
-            norm_scale.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-            w_down.data_ptr(), out.data_ptr(), y.data_ptr(), ss.data_ptr(),
-            h.data_ptr(), p_o.data_ptr(), p_d.data_ptr(), B, D, HD, F, so, sd,
-            rt.stream_ptr(x))
-    rt.check_launch("oproj_ffn_swiglu", rc)
+    if B == 0:
+        return out
+    sms, stream = device_sms(x.device.index), rt.stream_ptr(x)
+    for b0, b1 in _lane_slices(B):
+        nbytes, plan = _ffn_layout(b1 - b0, D, HD, F, sms)
+        ws = _workspace(x, stream, nbytes)
+        rc = fn(x.data_ptr() + 2 * b0 * D, attn_out.data_ptr() + 2 * b0 * HD,
+                w_o.data_ptr(), norm_scale.data_ptr(), w_gate.data_ptr(),
+                w_up.data_ptr(), w_down.data_ptr(),
+                out.data_ptr() + 2 * b0 * D, ws.data_ptr(),
+                ctypes.addressof(plan), stream)
+        rt.check_launch("oproj_ffn_swiglu", rc)
     rt.count_launch("oproj_ffn_swiglu")
     return out
 
@@ -172,7 +298,7 @@ def qkv_rope(x, norm_scale, w_qkv, pos: int, *, n_q, n_kv, dh, theta=10000.0,
     rt.check_contiguous("qkv_rope", x=x, norm_scale=norm_scale, w_qkv=w_qkv)
     fn = rt.bind("qkv_rope", "qkv_rope_bf16", _QKV_DENSE_ARGS)
     inv = _inv_freq(dh, float(theta), float(rope_frac), str(x.device))
-    splits = _head_splits(Ht, D)
+    splits = _head_splits(Ht, D, device_sms(x.device.index))
     out = torch.empty((Ht, B, dh), dtype=x.dtype, device=x.device)
     partial = torch.empty((splits, B, Ht * dh), dtype=torch.float32,
                           device=x.device)
@@ -189,8 +315,8 @@ def ffn_swiglu(x, norm_scale, w_gate, w_up, w_down, *, residual=True):
     SwiGLU(RMSNorm(x)) @ w_down, the tensor-parallel partial form.
 
     x (B,D); w_gate/w_up (D,F); w_down (F,D). Returns (B,D) in x.dtype. On
-    the card this is four launches of the hand-written kernel (see its
-    source); scratch comes from ``torch.empty``."""
+    the card this is three launches of the hand-written kernel (see its
+    source) per 16 lanes, with ``oproj_ffn_swiglu``'s workspace."""
     B, D = x.shape
     F = w_gate.shape[1]
     if (w_gate.shape != (D, F) or w_up.shape != (D, F)
@@ -207,14 +333,18 @@ def ffn_swiglu(x, norm_scale, w_gate, w_up, w_down, *, residual=True):
     rt.check_contiguous("ffn_swiglu", x=x, norm_scale=norm_scale,
                         w_gate=w_gate, w_up=w_up, w_down=w_down)
     fn = rt.bind("ffn_swiglu", "ffn_swiglu_bf16", _FFN_ARGS)
-    sd = _splits(D, F)
     out = torch.empty_like(x)
-    y, ss, h, p_d = _ffn_scratch(B, D, F, sd, x.device)
-    rc = fn(x.data_ptr(), norm_scale.data_ptr(), w_gate.data_ptr(),
-            w_up.data_ptr(), w_down.data_ptr(), out.data_ptr(), y.data_ptr(),
-            ss.data_ptr(), h.data_ptr(), p_d.data_ptr(), B, D, F, sd,
-            int(bool(residual)), rt.stream_ptr(x))
-    rt.check_launch("ffn_swiglu", rc)
+    if B == 0:
+        return out
+    sms, stream = device_sms(x.device.index), rt.stream_ptr(x)
+    for b0, b1 in _lane_slices(B):
+        nbytes, plan = _ffn_layout(b1 - b0, D, 0, F, sms)
+        ws = _workspace(x, stream, nbytes)
+        rc = fn(x.data_ptr() + 2 * b0 * D, norm_scale.data_ptr(),
+                w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
+                out.data_ptr() + 2 * b0 * D, ws.data_ptr(),
+                ctypes.addressof(plan), int(bool(residual)), stream)
+        rt.check_launch("ffn_swiglu", rc)
     rt.count_launch("ffn_swiglu")
     return out
 

@@ -94,14 +94,21 @@ def test_qkv_rope_kernel_matches_plain(dev):
 
 
 def test_ffn_swiglu_kernel_matches_plain_both_forms(dev):
-    for D, F, B in ((4096, 11008, 8), (128, 256, 3), (256, 200, 9)):
+    # the 7B widths at 1, 8 and 16 lanes; F no multiple of the weight
+    # stream's 64-column tile (200) or 64-row k-block (328); 40 lanes (three
+    # weight streams of at most 16)
+    for D, F, B in ((4096, 11008, 8), (4096, 11008, 1), (4096, 11008, 16),
+                    (128, 256, 3), (256, 200, 9), (128, 328, 16),
+                    (512, 1024, 40)):
         rs = np.random.RandomState(D + F)
         args = (_t(rs, (B, D), dev), _t(rs, (D,), dev),
                 _t(rs, (D, F), dev, D ** -0.5), _t(rs, (D, F), dev, D ** -0.5),
                 _t(rs, (F, D), dev, F ** -0.5))
         for residual in (True, False):
+            rt.reset_launches()
             got = ffn_swiglu(*args, residual=residual)
             torch.cuda.synchronize()
+            assert rt.launch_counts()["ffn_swiglu"] == 1
             _close(got, ffn_swiglu_ref(*args, residual=residual))
 
 

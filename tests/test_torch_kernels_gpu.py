@@ -91,31 +91,56 @@ def test_qkv_rope_paged_kernel_matches_plain(dev):
             _close(g, r)
 
 
+# (D, Hq*dh, F, B): the 7B widths at 1, 8 and 16 lanes; a K that is no
+# multiple of the weight stream's 64-row k-block (Hq*dh 520, F 328 as the
+# down-projection's K), N no multiple of its 64-column tile (F 200, 328),
+# D 128, and 40 lanes (three weight streams of at most 16)
+EPI_SHAPES = ((4096, 4096, 11008, 8), (4096, 4096, 11008, 1),
+              (4096, 4096, 11008, 16), (128, 128, 256, 3), (256, 512, 200, 9),
+              (128, 520, 328, 16), (512, 512, 1024, 40))
+
+
+def _epilogue_args(rs, D, HD, F, B, dev):
+    return (_t(rs, (B, D), dev), _t(rs, (B, HD), dev),
+            _t(rs, (HD, D), dev, HD ** -0.5), _t(rs, (D,), dev),
+            _t(rs, (D, F), dev, D ** -0.5), _t(rs, (D, F), dev, D ** -0.5),
+            _t(rs, (F, D), dev, F ** -0.5))
+
+
 def test_oproj_ffn_swiglu_kernel_matches_plain(dev):
-    for D, HD, F, B in ((4096, 4096, 11008, 8), (128, 128, 256, 3),
-                        (256, 512, 200, 9)):
-        rs = np.random.RandomState(2)
-        x = _t(rs, (B, D), dev)
-        attn = _t(rs, (B, HD), dev)
-        wo = _t(rs, (HD, D), dev, HD ** -0.5)
-        scale = _t(rs, (D,), dev)
-        wg = _t(rs, (D, F), dev, D ** -0.5)
-        wu = _t(rs, (D, F), dev, D ** -0.5)
-        wd = _t(rs, (F, D), dev, F ** -0.5)
-        got = oproj_ffn_swiglu(x, attn, wo, scale, wg, wu, wd)
-        ref = oproj_ffn_swiglu_ref(x, attn, wo, scale, wg, wu, wd)
+    for D, HD, F, B in EPI_SHAPES:
+        args = _epilogue_args(np.random.RandomState(2), D, HD, F, B, dev)
+        rt.reset_launches()
+        got = oproj_ffn_swiglu(*args)
+        ref = oproj_ffn_swiglu_ref(*args)
         torch.cuda.synchronize()
+        assert rt.launch_counts()["oproj_ffn_swiglu"] == 1
         _close(got, ref)
 
 
+def test_oproj_ffn_swiglu_counters_reset_between_shapes(dev):
+    """The fix-up counters live in a workspace kept between calls and reset
+    by the kernels: calls at alternating shapes stay right and repeat."""
+    shapes = ((512, 512, 1024, 8), (256, 520, 200, 9))
+    args = [_epilogue_args(np.random.RandomState(4), *s, dev) for s in shapes]
+    first = [oproj_ffn_swiglu(*a) for a in args]
+    again = [oproj_ffn_swiglu(*a) for a in args]
+    torch.cuda.synchronize()
+    for a, f, g in zip(args, first, again):
+        _close(f, oproj_ffn_swiglu_ref(*a))
+        assert torch.equal(f, g)
+
+
 def test_kernel_results_repeat_bit_for_bit(dev):
-    """Every sum runs in a fixed order: two launches agree exactly."""
+    """Every sum runs in a fixed order: two launches agree exactly, also at
+    the 7B widths, where the fix-up sums up to three splits of a tile."""
     rs = np.random.RandomState(3)
     D, HD, F, B = 512, 512, 1024, 8
-    args = [_t(rs, s, dev, 0.05)
-            for s in ((B, D), (B, HD), (HD, D), (D,), (D, F), (D, F), (F, D))]
-    a = oproj_ffn_swiglu(*args)
-    b = oproj_ffn_swiglu(*args)
-    torch.cuda.synchronize()
-    assert torch.equal(a, b)
-
+    small = [_t(rs, s, dev, 0.05)
+             for s in ((B, D), (B, HD), (HD, D), (D,), (D, F), (D, F), (F, D))]
+    big = _epilogue_args(np.random.RandomState(3), 4096, 4096, 11008, 8, dev)
+    for args in (small, big):
+        a = oproj_ffn_swiglu(*args)
+        b = oproj_ffn_swiglu(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
