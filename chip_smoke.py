@@ -4,10 +4,11 @@
 
 1. Builds the hand-written kernels from ``src/repro_torch/**/csrc`` (one
    ``nvcc`` per source, in parallel) and prints each one's registers and
-   spills; for ``flash_prefill``, ``oproj_ffn_swiglu`` and ``ffn_swiglu``
-   one line per kernel instantiation (head_dim; pass and lanes) with its
-   registers, spills and dynamic shared memory, failing on a spill or on
-   wgmma instructions that ptxas serialised.
+   spills; for ``flash_prefill`` and the four weight-stream kernels
+   (``qkv_rope_paged``, ``oproj_ffn_swiglu``, ``qkv_rope``, ``ffn_swiglu``)
+   one line per kernel instantiation (head_dim; pass, lanes and column
+   group) with its registers, spills and dynamic shared memory, failing on
+   a spill or on wgmma instructions that ptxas serialised.
 2. Kernel phase at the samba-coe-expert-7b widths (B = 8 lanes, bf16): the
    paged kernels at ragged positions 1..512 straddling blocks with one
    inactive lane, the dense-cache kernels at length 4096 in a 4096-position
@@ -20,9 +21,11 @@
    plain version and one PyTorch library call computing the same function
    (none for ``lru_scan``: no single PyTorch call computes a linear
    recurrence); each ``flash_prefill`` row also prints its TFLOP/s, its
-   share of the bound and SDPA's time beside it; ``oproj_ffn_swiglu`` and
-   ``ffn_swiglu`` their largest row relative L2 error, achieved TB/s and,
-   from the profiler, each of their three passes' device time.
+   share of the bound and SDPA's time beside it; the four weight-stream
+   kernels their largest row relative L2 error, achieved TB/s and, from
+   the profiler, each of their passes' device time; the two QKV rows also
+   a planted fault (RoPE dropped in the plain version) that their check
+   must catch.
 3. Monarch phase, the FFT-conv showcase of the paper's Fig. 3-4 and Table
    I: ``monarch_fused`` and ``monarch_conv_fused`` against their plain
    versions at the 1M-point shape (16, 1024, 1024) bf16, max-abs and row
@@ -163,10 +166,11 @@ DENSE_PREFILL_LOGIT_TOL_REL = 0.044
 # plants those in the plain version and fails if the check misses one;
 # they read 0.40-2.16 there.
 PREFILL_ROW_REL_L2 = 2.0 ** -6
-# oproj_ffn_swiglu and ffn_swiglu against their plain versions, row by row:
-# both sum in f32 and round each output to bf16 once, so a row differs by
-# at most two units in the last place of each value, 2^-7 of its norm.
-FFN_ROW_REL_L2 = 2.0 ** -7
+# the weight-stream kernels (qkv_rope_paged, oproj_ffn_swiglu, qkv_rope,
+# ffn_swiglu) against their plain versions, row by row: both sum in f32 and
+# round each output to bf16 once, so a row differs by at most two units in
+# the last place of each value, 2^-7 of its norm.
+STREAM_ROW_REL_L2 = 2.0 ** -7
 # recurrentgemma-9b behind CompositionOfExperts.generate: 4 prompts of 3000
 # tokens, past the 2048-position window so the ring's roll is not the
 # identity ((3000 - 2048) % 2048 = 952)
@@ -219,6 +223,7 @@ def build_kernels():
     prefill_smem = rt.bind("flash_prefill", "flash_prefill_smem_bytes",
                            [rt.I])
     passes = ("OprojPass", "GateUpPass", "DownPass")
+    lanes = ("8", "16")
     for name, log in logs.items():
         if name == "flash_prefill":
             entry_build_report(
@@ -228,16 +233,27 @@ def build_kernels():
                 lambda k: prefill_smem(int(k[0])))
         elif name in ("oproj_ffn_swiglu", "ffn_swiglu"):
             stream_smem = rt.bind(name, "stream_smem_bytes", [rt.I, rt.I])
-            first = ([("OprojPass", "8"), ("OprojPass", "16")]
-                     if name == "oproj_ffn_swiglu" else [("ffn_prep_kernel",)])
+            first = ("OprojPass" if name == "oproj_ffn_swiglu"
+                     else "rms_prep_kernel")
             entry_build_report(
-                name, log, r"(OprojPass|GateUpPass|DownPass)ILi(\d+)E|"
-                     r"(ffn_prep_kernel)",
-                first + [(p, str(nl)) for p in passes[1:] for nl in (8, 16)],
-                lambda k: f"{name}[{k[0]}" + (f" NL={k[1]}]" if len(k) > 1
-                                              else "]"),
+                name, log, r"(OprojPass|GateUpPass|DownPass|rms_prep_kernel)"
+                           r"ILi(\d+)E",
+                [(p, nl) for p in (first, *passes[1:]) for nl in lanes],
+                lambda k: f"{name}[{k[0]} NL={k[1]}]",
                 lambda k: stream_smem(passes.index(k[0]), int(k[1]))
-                if len(k) > 1 else 0)
+                if k[0] in passes else 0)
+        elif name in ("qkv_rope_paged", "qkv_rope"):
+            qkv_smem = rt.bind(name, "qkv_smem_bytes", [rt.I, rt.I])
+            entry_build_report(
+                name, log, r"(rms_prep_kernel)ILi(\d+)E|"
+                           r"(QkvPass)ILi(\d+)ELi(\d+)E",
+                [("rms_prep_kernel", nl) for nl in lanes]
+                + [("QkvPass", nl, tw) for nl in lanes for tw in ("2", "4")],
+                lambda k: f"{name}[{k[0]} NL={k[1]}" + (
+                    "]" if len(k) == 2 else
+                    f" dh={'256' if k[2] == '4' else '32-128'}]"),
+                lambda k: qkv_smem(int(k[1]), int(k[2])) if len(k) == 3
+                else 0)
         else:
             regs = [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -339,22 +355,27 @@ def kernel_row(name, kern, plain, lib, nbytes, flops, flush, *,
     return r
 
 
-# the launches of one call of each FFN kernel, in order (kernel names)
-FFN_PASSES = {"oproj_ffn_swiglu": ("OprojPass", "GateUpPass", "DownPass"),
-              "ffn_swiglu": ("ffn_prep_kernel", "GateUpPass", "DownPass")}
+# the launches of one call of each weight-stream kernel, in order (kernel
+# names)
+STREAM_PASSES = {
+    "qkv_rope_paged": ("rms_prep_kernel", "QkvPass"),
+    "oproj_ffn_swiglu": ("OprojPass", "GateUpPass", "DownPass"),
+    "qkv_rope": ("rms_prep_kernel", "QkvPass"),
+    "ffn_swiglu": ("rms_prep_kernel", "GateUpPass", "DownPass")}
 
 
 def pass_times(name, row, fn, flush, n=10):
-    """Where one call of FFN kernel ``name`` spends its device time, from
-    the profiler's kernel events over ``n`` calls (the L2 flushed before
-    each): each pass's own span, and how far it moves the call's end (its
-    end minus the previous pass's end; the first pass from its start).
+    """Where one call of weight-stream kernel ``name`` spends its device
+    time, from the profiler's kernel events over ``n`` calls (the L2
+    flushed before each): each pass's own span, and how far it moves the
+    call's end (its end minus the previous pass's end; the first pass from
+    its start).
     With programmatic launch a pass starts while the one ahead drains, so
     the spans overlap; the moves add up to the call's span. Prints them
     beside the row's achieved TB/s and adds both to ``row``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    passes = FFN_PASSES[name]
+    passes = STREAM_PASSES[name]
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -387,6 +408,21 @@ def pass_times(name, row, fn, flush, n=10):
          f" / moves the end): " + "; ".join(
              f"{p} {o / 1e3:.4f} / {m / 1e3:.4f} ms"
              for p, o, m in zip(passes, own, moves)))
+
+
+def rope_fault_caught(name, got, plain_fault):
+    """The row check of a QKV kernel must catch a fault planted in its plain
+    version: RoPE dropped (every position 0). Fails where it does not."""
+    torch.cuda.synchronize()
+    err = max(row_rel_l2(g, w) for g, w in zip(
+        got if isinstance(got, tuple) else (got,),
+        plain_fault if isinstance(plain_fault, tuple) else (plain_fault,)))
+    caught = err > STREAM_ROW_REL_L2
+    _log(f"kernel {name}: planted fault rope_dropped (in the plain version) "
+         f"reads a row relative L2 error of {err:.3e} -> "
+         f"{'caught' if caught else 'NOT caught'} at {STREAM_ROW_REL_L2:.3e}")
+    if not caught:
+        raise AssertionError(f"{name}: the row check missed a planted fault")
 
 
 def kernel_phase(cfg, dev, B=8):
@@ -467,11 +503,14 @@ def kernel_phase(cfg, dev, B=8):
     nbytes = kernel_hbm_bytes(cfg, B, len1_host, maxb)
     flops = kernel_flops(cfg, B, len1_host)
     rows_out = {name: kernel_row(name, *fns, nbytes[name], flops[name], flush,
-                                 row_tol=FFN_ROW_REL_L2
-                                 if name in FFN_PASSES else None)
+                                 row_tol=STREAM_ROW_REL_L2
+                                 if name in STREAM_PASSES else None)
                 for name, fns in cases.items()}
-    pass_times("oproj_ffn_swiglu", rows_out["oproj_ffn_swiglu"],
-               cases["oproj_ffn_swiglu"][0], flush)
+    for name in ("qkv_rope_paged", "oproj_ffn_swiglu"):
+        pass_times(name, rows_out[name], cases[name][0], flush)
+    got = cases["qkv_rope_paged"][0]()
+    rope_fault_caught("qkv_rope_paged", got, qkv_rope_paged_ref(
+        x, scale, wq, wk, wv, torch.zeros_like(pos), inv))
     del flush
     return rows_out
 
@@ -547,11 +586,13 @@ def dense_kernel_phase(cfg, dev, B=8):
     nbytes = dense_kernel_hbm_bytes(cfg, B, length)
     flops = dense_kernel_flops(cfg, B, length)
     rows = {name: kernel_row(name, *fns, nbytes[name], flops[name], flush,
-                             row_tol=FFN_ROW_REL_L2
-                             if name in FFN_PASSES else None)
+                             row_tol=STREAM_ROW_REL_L2
+                             if name in STREAM_PASSES else None)
             for name, fns in cases.items()}
-    pass_times("ffn_swiglu", rows["ffn_swiglu"], cases["ffn_swiglu"][0],
-               flush)
+    for name in ("qkv_rope", "ffn_swiglu"):
+        pass_times(name, rows[name], cases[name][0], flush)
+    rope_fault_caught("qkv_rope", cases["qkv_rope"][0](),
+                      qkv_rope_ref(x, scale, w_qkv, 0, **qkw))
     # the tensor-parallel partial form, held to the same tolerance
     got = ffn_swiglu(*ffn_args, residual=False)
     want = ffn_swiglu_ref(*ffn_args, residual=False)

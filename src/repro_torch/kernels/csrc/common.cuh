@@ -61,19 +61,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Sum of v over the whole block (blockDim.x a multiple of 32, <= 1024), in a
-// fixed order; every thread gets the result. red needs 32 floats.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = 0.f;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t += red[w];
-  return t;
-}
-
 }  // namespace repro
 
 #define REPRO_EXPORT_ERROR_STRING                                  \

@@ -11,23 +11,21 @@
 // RMSNorm(y) @ W = rstd * ((y * scale) @ W): rstd is a per-lane factor, so
 // it is applied to the finished sums and the activation needs no pass over
 // all of y first. oproj_ffn_swiglu.cu runs o-proj, gate/up, down;
-// ffn_swiglu.cu runs its own first pass (x's squares and x * scale), then
-// gate/up, down. Three launches each, chained by programmatic dependent
-// launch.
+// ffn_swiglu.cu runs rms_prep.cuh's first pass (x's squares and x * scale),
+// then gate/up, down. Three launches each, chained by programmatic
+// dependent launch.
 #pragma once
 
-#include <type_traits>
-
-#include "stream_gemm.cuh"
+#include "rms_prep.cuh"
 
 namespace repro {
-
-using bf16 = __nv_bfloat16;
 
 template <int NL_>
 struct OprojPass {
   static constexpr int NW = 1, NL = NL_, AR = NL_;
   static constexpr bool SPLIT = false;        // attn is exact in bf16
+  static constexpr int TW = SG_TW;
+  static constexpr bool MAPPED = false, GROUP_EPILOGUE = false;
   struct Shared { float red[4][NL_]; };
   const bf16* x;
   const bf16* scale;
@@ -90,35 +88,15 @@ template <int NL_>
 struct GateUpPass {
   static constexpr int NW = 2, NL = NL_, AR = 2 * NL_;
   static constexpr bool SPLIT = true;
+  static constexpr int TW = SG_TW;
+  static constexpr bool MAPPED = false, GROUP_EPILOGUE = false;
   struct Shared { float rstd[NL_]; };
   const float* ss;      // (B, tiles_d) per-tile sums of y^2
   bf16* img;            // (2 NL, F): h, hi | lo
   int B, D, F, tiles_d;
 
-  // lane b's rstd from its tiles' squares: warp w takes lanes w, w + 4,
-  // ...; its threads load the tiles 32 apart, all in flight at once, then
-  // sum in a fixed order
   __device__ void setup(Shared& sh) const {
-    constexpr int PER = 8;                     // loads per thread and lane
-    const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-#pragma unroll
-    for (int b = w; b < NL_; b += SG_CONSUMERS / 32) {
-      float s = 0.f;
-      for (int k0 = 0; k0 < tiles_d; k0 += 32 * PER) {
-        float part[PER];
-#pragma unroll
-        for (int k = 0; k < PER; ++k) {
-          const int kt = k0 + 32 * k + l;
-          part[k] = b < B && kt < tiles_d
-                        ? __ldcg(ss + (size_t)b * tiles_d + kt) : 0.f;
-        }
-#pragma unroll
-        for (int k = 0; k < PER; ++k) s += part[k];
-      }
-      s = warp_sum(s);
-      if (l == 0) sh.rstd[b] = b < B ? rsqrtf(s / (float)D + 1e-6f) : 0.f;
-    }
-    named_sync(1, SG_CONSUMERS);
+    lanes_rstd<NL_>(ss, B, D, tiles_d, sh.rstd);
   }
 
   struct In {};
@@ -141,6 +119,8 @@ template <int NL_>
 struct DownPass {
   static constexpr int NW = 1, NL = NL_, AR = 2 * NL_;
   static constexpr bool SPLIT = true;
+  static constexpr int TW = SG_TW;
+  static constexpr bool MAPPED = false, GROUP_EPILOGUE = false;
   struct Shared {};
   bf16* out;            // (B, D)
   const float* y;       // residual in f32, or nullptr
@@ -191,18 +171,6 @@ inline Plan plan_of(const long long* pl, int k, int n, int nw, PlanField ctas,
               static_cast<int>(pl[ctas]), static_cast<int>(pl[maxs]), n};
 }
 
-// a row-major (rows, cols) bf16 matrix read in boxes of 64 columns x
-// box_rows rows
-inline bool map_rows(CUtensorMap* m, const void* p, long long rows,
-                     long long cols, int box_rows) {
-  return map_2d_bf16(m, p, cols, rows, cols * 2, SG_NT, box_rows);
-}
-
-template <class T>
-T* at(void* ws, const long long* pl, PlanField f) {
-  return reinterpret_cast<T*>(static_cast<char*>(ws) + pl[f]);
-}
-
 // The gate/up and down weight streams of one call: their maps and plans.
 template <int NL>
 struct FfnStreams {
@@ -231,25 +199,16 @@ struct FfnStreams {
     const GateUpPass<NL> pg{at<float>(ws, pl, PL_SS),
                             at<bf16>(ws, pl, PL_IMG_D), B, D, F,
                             (D + SG_NT - 1) / SG_NT};
-    int rc = launch_stream(wg, wu, act_g, gu, at<float>(ws, pl, PL_PART_GU),
+    int rc = launch_stream(wg, wu, wu, act_g, gu,
+                           at<float>(ws, pl, PL_PART_GU),
                            at<int>(ws, pl, PL_CNT_GU), pg, s);
     if (rc) return rc;
     const DownPass<NL> pd{static_cast<bf16*>(out), y, x, B, D};
-    return launch_stream(wd, wd, act_d, dn, at<float>(ws, pl, PL_PART_DN),
+    return launch_stream(wd, wd, wd, act_d, dn,
+                         at<float>(ws, pl, PL_PART_DN),
                          at<int>(ws, pl, PL_CNT_DN), pd, s);
   }
 };
-
-// Calls f(NL) with NL as a std::integral_constant for the lane counts the
-// kernels are built for; others are refused.
-template <class Fn>
-int with_lanes(long long nl, Fn&& f) {
-  switch (nl) {
-    case 8: return f(std::integral_constant<int, 8>{});
-    case 16: return f(std::integral_constant<int, 16>{});
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 }  // namespace repro
 

@@ -45,7 +45,8 @@ extern "C" int oproj_ffn_swiglu_bf16(const void* x, const void* attn,
                            at<bf16>(ws, plan, PL_IMG_G), B, D,
                            (D + SG_NT - 1) / SG_NT};
     const int rc = launch_stream(
-        m_wo, m_wo, m_attn, plan_of(plan, HD, D, 1, PL_CTAS_O, PL_MAXS_O),
+        m_wo, m_wo, m_wo, m_attn,
+        plan_of(plan, HD, D, 1, PL_CTAS_O, PL_MAXS_O),
         at<float>(ws, plan, PL_PART_O), at<int>(ws, plan, PL_CNT_O), op, s);
     if (rc) return rc;
     return ffn.launch(plan, ws, out, y, nullptr, s);

@@ -1,19 +1,24 @@
-// The skinny product at the core of the port's FFN kernels on Hopper
-// (sm_90a): out (B lanes x N) = A (B x K) @ W (K x N, row-major bf16), W
-// streamed once from device memory, each pass's epilogue (a Pass policy)
-// applied to the finished 64-column tiles.
+// The skinny product at the core of the port's decode-step kernels on
+// Hopper (sm_90a), the FFN's passes and the QKV projection: out (B lanes x
+// N) = A (B x K) @ W (K x N, row-major bf16), W streamed once from device
+// memory, each pass's epilogue (a Pass policy) applied to the finished
+// 64-column tiles, or to a whole column group at once.
 //
 // Bound: the weight bytes. At B = 8 each weight byte feeds 8 multiply-adds,
 // about 1/70 of the card's bf16 rate, so the design is about keeping the
 // memory streaming on every SM and spending few instructions per byte.
 //
-//  * Units. W is cut into units of 16 KB: two adjacent 64-column tiles (a
-//    128-column group) x 64 weight rows (32 rows where a unit carries two
-//    weights, gate/up's). Unit u is (group u / kblocks, k-block u %
-//    kblocks). A persistent grid of one CTA per SM (Plan.ctas = min(SMs,
-//    units)) gives CTA c the units [c U / ctas, (c + 1) U / ctas): every
-//    CTA streams within one unit of the mean, and a CTA's run covers a few
-//    groups, each over a contiguous range of k-blocks (a segment).
+//  * Units. W is cut into units of 16 KB: TW adjacent 64-column tiles (a
+//    column group; TW = 2, 128 columns, except the QKV pass at head_dim
+//    256, whose group of four tiles holds a whole head) x 64 weight rows
+//    (32 rows where a unit carries two weights, gate/up's, or four tiles).
+//    A pass may take its tiles from up to three weights (Pass::source):
+//    the QKV pass reads wq, wk and wv as one virtual N. Unit u is (group
+//    u / kblocks, k-block u % kblocks). A persistent grid of one CTA per
+//    SM (Plan.ctas = min(SMs, units)) gives CTA c the units [c U / ctas,
+//    (c + 1) U / ctas): every CTA streams within one unit of the mean, and
+//    a CTA's run covers a few groups, each over a contiguous range of
+//    k-blocks (a segment).
 //    stream_plan in fused_decode/ops.py is the same arithmetic, tested on
 //    the host. Two tiles whose rows are read back to back: the H100
 //    streams 256 bytes of each row markedly faster than a 64-column strip's
@@ -63,10 +68,14 @@
 // inputs are loaded only once a segment's products are done.
 #pragma once
 
+#include <type_traits>
+
 #include "hopper.cuh"
 #include "tensor_map.cuh"
 
 namespace repro {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int SG_NT = 64;                  // columns per tile: wgmma's M
 constexpr int SG_TW = 2;                   // adjacent tiles per unit
@@ -82,13 +91,21 @@ constexpr int SG_SPLIT_LOADS = 8;          // partial sums in flight at once
 constexpr int SG_EARLY = 2;
 constexpr int SG_UNIT_BYTES = 16 * 1024;   // weight bytes per unit
 
-// Weight rows per unit of a pass with nw weights: 16 KB of weights each.
-__host__ __device__ constexpr int unit_rows(int nw) {
-  return SG_UNIT_BYTES / (nw * SG_GROUP * 2);
+// Weight rows per unit of a pass with nw weights and tw tiles a group: 16
+// KB of weights each.
+__host__ __device__ constexpr int unit_rows(int nw, int tw = SG_TW) {
+  return SG_UNIT_BYTES / (nw * tw * SG_NT * 2);
 }
 
+// Where a pass's weight tile comes from: the tensor map (0-2) and its
+// column.
+struct TileSrc {
+  int map, col;
+};
+
 // The units of one K x N product over `ctas` CTAs (see the top of the
-// file): `groups` column groups of 128, `kblocks` blocks of unit_rows rows.
+// file): `groups` column groups of 64 TW, `kblocks` blocks of unit_rows
+// rows.
 struct Plan {
   int kblocks, groups, ctas, max_splits, cols;
   __device__ int units() const { return kblocks * groups; }
@@ -102,15 +119,15 @@ struct Plan {
   }
 };
 
-// The ring of a pass: STAGES units, each NW x TW weight tiles of KB rows
+// The ring of a pass: STAGES units, each NW x P::TW weight tiles of KB rows
 // (each 64 columns of 128 bytes, swizzled) and the activation tile of the
 // 64-row k-block that holds them (AR rows of 64 k), 1024-byte aligned.
 template <class P>
 struct Ring {
-  static constexpr int KB = unit_rows(P::NW);
+  static constexpr int KB = unit_rows(P::NW, P::TW);
   static constexpr int TILE = KB * SG_NT * 2;
   static constexpr int A_BYTES = P::AR * 128;
-  static constexpr int STAGE = P::NW * SG_TW * TILE + A_BYTES;
+  static constexpr int STAGE = P::NW * P::TW * TILE + A_BYTES;
   static constexpr int STAGES = SG_RING / STAGE;
   static constexpr int SMEM = 1024 + STAGES * STAGE + 16 * STAGES + 8;
   static_assert(A_BYTES % 1024 == 0 && TILE % 1024 == 0 && 64 % KB == 0,
@@ -161,17 +178,24 @@ __device__ __forceinline__ void store_hi_lo(__nv_bfloat16* img, int width,
 // hides under it: not earlier, since each unit's wgmma.fence waits for
 // every load in flight), and finish(tile, v, In, Shared&, Frag) with
 // v[NW][NL / 2] the finished sums of 64-column tile `tile`. load and finish
-// are called for each tile that starts inside the N columns.
+// are called for each tile that starts inside the N columns. Besides: TW
+// (tiles a column group, SG_TW but for the QKV pass at head_dim 256);
+// MAPPED, where the pass gives source(tile) (the weight map and its
+// column; else tile t of weight j is column 64 t of map j); and
+// GROUP_EPILOGUE, where finish_group(group, v[TW][NL / 2], Shared&, Frag)
+// takes the place of load and finish.
 template <class P>
 __global__ void __launch_bounds__(SG_THREADS, 1)
 stream_kernel(const __grid_constant__ CUtensorMap w0,
               const __grid_constant__ CUtensorMap w1,
+              const __grid_constant__ CUtensorMap w2,
               const __grid_constant__ CUtensorMap act, const Plan plan,
               float* __restrict__ partial, int* __restrict__ counters,
               const P p) {
   using R = Ring<P>;
   constexpr int NW = P::NW, AR = P::AR, NV = P::NL / 2, KB = R::KB;
-  constexpr int NT = NW * SG_TW;           // weight tiles per unit
+  constexpr int TW = P::TW;
+  constexpr int NT = NW * TW;              // weight tiles per unit
   static_assert(AR == (P::SPLIT ? 2 : 1) * P::NL && NV % 4 == 0, "lanes");
   extern __shared__ unsigned char smem_raw[];
   __shared__ typename P::Shared sh;
@@ -208,21 +232,26 @@ stream_kernel(const __grid_constant__ CUtensorMap w0,
     // ------------------------------------------------------- producer
     if (lane != 0) return;
     tma_prefetch_map(&w0);
-    if (NW == 2) tma_prefetch_map(&w1);
+    if (NW == 2 || P::MAPPED) tma_prefetch_map(&w1);
+    if (P::MAPPED) tma_prefetch_map(&w2);
     tma_prefetch_map(&act);
-    // the unit's tiles, the two of a weight back to back: they share rows
+    // the unit's tiles, those of a weight back to back: they share rows
     auto load_w = [&](int i) {
       const int u = u_lo + i, s = i % R::STAGES;
       const uint32_t st = base + s * R::STAGE;
-      const int n0 = (u / plan.kblocks) * SG_GROUP;
+      const int t0 = (u / plan.kblocks) * TW;
       const int k0 = (u % plan.kblocks) * KB;
       mbar_expect_tx(full(s), R::STAGE);
 #pragma unroll
       for (int j = 0; j < NW; ++j)
 #pragma unroll
-        for (int h = 0; h < SG_TW; ++h)
-          tma_load_2d(st + (j * SG_TW + h) * R::TILE, j == 0 ? &w0 : &w1,
-                      full(s), n0 + h * SG_NT, k0);
+        for (int h = 0; h < TW; ++h) {
+          TileSrc src{j, (t0 + h) * SG_NT};
+          if constexpr (P::MAPPED) src = p.source(t0 + h);
+          tma_load_2d(st + (j * TW + h) * R::TILE,
+                      src.map == 0 ? &w0 : src.map == 1 ? &w1 : &w2,
+                      full(s), src.col, k0);
+        }
     };
     auto load_a = [&](int i) {
       const int u = u_lo + i, s = i % R::STAGES;
@@ -287,11 +316,13 @@ stream_kernel(const __grid_constant__ CUtensorMap w0,
       p.setup(sh);
       set_up = true;
     }
-    auto live = [&](int h) { return (grp * SG_TW + h) * SG_NT < plan.cols; };
-    typename P::In in[SG_TW];      // in flight under the wait and the sum
+    auto live = [&](int h) { return (grp * TW + h) * SG_NT < plan.cols; };
+    typename P::In in[TW];         // in flight under the wait and the sum
+    if constexpr (!P::GROUP_EPILOGUE) {
 #pragma unroll
-    for (int h = 0; h < SG_TW; ++h)
-      if (live(h)) p.load(grp * SG_TW + h, fr, in[h]);
+      for (int h = 0; h < TW; ++h)
+        if (live(h)) p.load(grp * TW + h, fr, in[h]);
+    }
     if (splits > 1) {
       if (threadIdx.x == 0) {
         while (ld_acquire(counters + grp) != splits - 1) {
@@ -328,15 +359,19 @@ stream_kernel(const __grid_constant__ CUtensorMap w0,
           v[j][q + 3] = sum.w;
         }
     }
+    if constexpr (P::GROUP_EPILOGUE) {
+      p.finish_group(grp, v, sh, fr);
+    } else {
 #pragma unroll
-    for (int h = 0; h < SG_TW; ++h) {
-      if (!live(h)) break;
-      float vt[NW][NV];
+      for (int h = 0; h < TW; ++h) {
+        if (!live(h)) break;
+        float vt[NW][NV];
 #pragma unroll
-      for (int j = 0; j < NW; ++j)
+        for (int j = 0; j < NW; ++j)
 #pragma unroll
-        for (int q = 0; q < NV; ++q) vt[j][q] = v[j * SG_TW + h][q];
-      p.finish(grp * SG_TW + h, vt, in[h], sh, fr);
+          for (int q = 0; q < NV; ++q) vt[j][q] = v[j * TW + h][q];
+        p.finish(grp * TW + h, vt, in[h], sh, fr);
+      }
     }
   };
 
@@ -387,14 +422,16 @@ stream_kernel(const __grid_constant__ CUtensorMap w0,
 }
 
 // Launches one pass on `plan.ctas` CTAs with programmatic stream
-// serialisation. The dynamic shared memory opt-in is set once per device.
-// Static: each kernel library keeps its own record of the opt-in (an
-// inline function's static would be one object for every library loaded
-// in the process, and a second library's kernel would launch without it).
+// serialisation; w1 and w2 are read only by a pass that names them. The
+// dynamic shared memory opt-in is set once per device. Static: each kernel
+// library keeps its own record of the opt-in (an inline function's static
+// would be one object for every library loaded in the process, and a
+// second library's kernel would launch without it).
 template <class P>
 static int launch_stream(const CUtensorMap& w0, const CUtensorMap& w1,
-                  const CUtensorMap& act, const Plan& plan, float* partial,
-                  int* counters, const P& p, cudaStream_t stream) {
+                         const CUtensorMap& w2, const CUtensorMap& act,
+                         const Plan& plan, float* partial, int* counters,
+                         const P& p, cudaStream_t stream) {
   static unsigned opted = 0;                 // one bit per device
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -417,9 +454,33 @@ static int launch_stream(const CUtensorMap& w0, const CUtensorMap& w1,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, stream_kernel<P>, w0, w1, act, plan, partial,
-                         counters, p);
+  e = cudaLaunchKernelEx(&cfg, stream_kernel<P>, w0, w1, w2, act, plan,
+                         partial, counters, p);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// a row-major (rows, cols) bf16 matrix read in boxes of 64 columns x
+// box_rows rows
+inline bool map_rows(CUtensorMap* m, const void* p, long long rows,
+                     long long cols, int box_rows) {
+  return map_2d_bf16(m, p, cols, rows, cols * 2, SG_NT, box_rows);
+}
+
+// the workspace region at byte offset pl[f] of a wrapper's int64 plan
+template <class T>
+T* at(void* ws, const long long* pl, int f) {
+  return reinterpret_cast<T*>(static_cast<char*>(ws) + pl[f]);
+}
+
+// Calls f(NL) with NL as a std::integral_constant for the lane counts the
+// kernels are built for; others are refused.
+template <class Fn>
+int with_lanes(long long nl, Fn&& f) {
+  switch (nl) {
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace repro

@@ -4,8 +4,9 @@
 decoder-layer step composed from them (``ops.decoder_layer_step``). CPU
 tensors take the plain versions in ``ref.py``; CUDA tensors launch the
 hand-written kernels, which take bf16 activations and weights, or the call
-raises. ``stream_plan`` is the FFN kernels' split of a weight over the
-SMs."""
+raises. ``stream_plan`` is the split of a weight over the SMs that every
+one of them streams (``csrc/stream_gemm.cuh``), ``qkv_columns`` the QKV
+kernels' column layout."""
 from __future__ import annotations
 
 import ctypes
@@ -22,14 +23,14 @@ from repro_torch.kernels.fused_decode.ref import (ffn_swiglu_ref, layer_step,
                                                   qkv_rope_ref,
                                                   rope_inv_freq)
 
-_QKV_ARGS = [rt.P] * 11 + [rt.I] * 7 + [rt.P]
+_QKV_ARGS = [rt.P] * 13
 _EPI_ARGS = [rt.P] * 11
-_QKV_DENSE_ARGS = [rt.P] * 6 + [rt.I] * 8 + [rt.P]
+_QKV_DENSE_ARGS = [rt.P] * 7 + [rt.I] * 3 + [rt.P]
 _FFN_ARGS = [rt.P] * 8 + [rt.I, rt.P]
-_MIN_ROWS = 256       # fewest weight rows a K split of qkv_rope streams
-# the FFN kernels' weight stream (csrc/stream_gemm.cuh)
+# the kernels' weight stream (csrc/stream_gemm.cuh)
 STREAM_TILE = 64      # output columns per tile (the squares' granularity)
-STREAM_GROUP = 128    # output columns per unit: two adjacent tiles
+STREAM_GROUP = 128    # output columns per unit: two adjacent tiles, four
+                      # for the QKV stream at head_dim 256 (a whole head)
 STREAM_UNIT_BYTES = 16 * 1024   # weight bytes per unit
 _CONSUMERS = 128      # consumer threads of a CTA: a partial slot's rows
 _MAX_LANES = 16       # lanes of one weight stream; more run in slices
@@ -38,6 +39,9 @@ _CNT_BYTES = 64 * 1024    # the workspace's counters, at its start
 _PLAN_FIELDS = ("B", "D", "HD", "F", "NL", "ctas_o", "maxs_o", "ctas_gu",
                 "maxs_gu", "ctas_dn", "maxs_dn", "y", "ss", "img_g", "img_d",
                 "part_o", "part_gu", "part_dn", "cnt_o", "cnt_gu", "cnt_dn")
+# qkv_pass.cuh::QkvPlanField, in order
+_QKV_PLAN_FIELDS = ("B", "D", "Hq", "Hkv", "dh", "rot2", "NL", "TW", "k0",
+                    "v0", "cols", "ctas", "maxs", "ss", "img", "part", "cnt")
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,8 +68,8 @@ def qkv_rope_paged(x, norm_scale, wq, wk, wv, pos, *, theta=10000.0):
     x (B,D); wq (D,Hq,dh), wk/wv (D,Hkv,dh) — the native attention layout;
     pos (B,) int32 per-lane positions. Returns q (B,Hq,dh), k, v (B,Hkv,dh)
     in x.dtype, with RoPE on q and k. On the card this is two launches of
-    the hand-written kernel (see its source) with f32 scratch from
-    ``torch.empty``."""
+    the hand-written kernel (see its source) per 16 lanes, with scratch in
+    a workspace kept per device and stream (``_workspace``)."""
     B, D = x.shape
     _, Hq, dh = wq.shape
     Hkv = wk.shape[1]
@@ -78,46 +82,53 @@ def qkv_rope_paged(x, norm_scale, wq, wk, wv, pos, *, theta=10000.0):
                 wv=wv)
     if pos.dtype != torch.int32:
         raise TypeError("qkv_rope_paged: pos must be int32")
-    if dh not in (32, 64, 128, 256):
-        raise ValueError(f"qkv_rope_paged: kernel takes dh in 32/64/128/256, "
-                         f"got {dh}")
+    _check_qkv_widths("qkv_rope_paged", D, dh)
     rt.check_contiguous("qkv_rope_paged", x=x, norm_scale=norm_scale, wq=wq,
                         wk=wk, wv=wv, pos=pos)
     fn = rt.bind("qkv_rope_paged", "qkv_rope_paged_bf16", _QKV_ARGS)
     inv = _inv_freq(dh, float(theta), 1.0, str(x.device))
-    Ht = Hq + 2 * Hkv
-    splits = _head_splits(Ht, D, device_sms(x.device.index))
     q = torch.empty((B, Hq, dh), dtype=x.dtype, device=x.device)
     k = torch.empty((B, Hkv, dh), dtype=x.dtype, device=x.device)
     v = torch.empty_like(k)
-    partial = torch.empty((splits, B, Ht * dh), dtype=torch.float32,
-                          device=x.device)
-    rc = fn(x.data_ptr(), norm_scale.data_ptr(), wq.data_ptr(), wk.data_ptr(),
-            wv.data_ptr(), pos.data_ptr(), inv.data_ptr(), q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), partial.data_ptr(), B, D, Hq, Hkv, dh,
-            inv.shape[0], splits, rt.stream_ptr(x))
-    rt.check_launch("qkv_rope_paged", rc)
+    if B == 0:
+        return q, k, v
+    sms, stream = device_sms(x.device.index), rt.stream_ptr(x)
+    for b0, b1 in _lane_slices(B):
+        nbytes, plan = _qkv_layout(b1 - b0, D, Hq, Hkv, dh, inv.shape[0],
+                                   True, sms)
+        ws = _workspace(x, stream, nbytes, "qkv")
+        rc = fn(x.data_ptr() + 2 * b0 * D, norm_scale.data_ptr(),
+                wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+                pos.data_ptr() + 4 * b0, inv.data_ptr(),
+                q.data_ptr() + 2 * b0 * Hq * dh,
+                k.data_ptr() + 2 * b0 * Hkv * dh,
+                v.data_ptr() + 2 * b0 * Hkv * dh, ws.data_ptr(),
+                ctypes.addressof(plan), stream)
+        rt.check_launch("qkv_rope_paged", rc)
     rt.count_launch("qkv_rope_paged")
     return q, k, v
 
 
-def _head_splits(n_heads: int, k: int, sms: int) -> int:
-    """D splits of the per-head products so that about two CTAs per SM
-    run."""
-    return max(1, min(8, -(-2 * sms // n_heads), k // _MIN_ROWS))
+def _check_qkv_widths(name: str, D: int, dh: int) -> None:
+    if dh not in (32, 64, 128, 256):
+        raise ValueError(f"{name}: kernel takes dh in 32/64/128/256, got "
+                         f"{dh}")
+    if D % 8:
+        raise ValueError(f"{name}: kernel needs D a multiple of 8, got {D}")
 
 
-def unit_rows(n_weights: int) -> int:
-    """Weight rows per unit of a stream of ``n_weights`` weights (64 for
-    one, 32 for gate/up's two): 16 KB of weights a unit."""
-    return STREAM_UNIT_BYTES // (n_weights * STREAM_GROUP * 2)
+def unit_rows(n_weights: int, group: int = STREAM_GROUP) -> int:
+    """Weight rows per unit of a stream of ``n_weights`` weights and
+    ``group`` columns a unit (64 for one weight, 32 for gate/up's two or a
+    group of 256): 16 KB of weights a unit."""
+    return STREAM_UNIT_BYTES // (n_weights * group * 2)
 
 
 class StreamPlan(NamedTuple):
-    """How one weight stream of the FFN kernels (``csrc/stream_gemm.cuh``)
-    spreads a (k, n) row-major weight over the card: units of 128 output
-    columns (two adjacent 64-column tiles, whose rows are read back to back)
-    x ``unit_rows`` weight rows, group-major (unit u is column group
+    """How one weight stream (``csrc/stream_gemm.cuh``) spreads a (k, n)
+    row-major weight over the card: units of a column group (128 output
+    columns, two adjacent 64-column tiles whose rows are read back to back;
+    or 256) x ``unit_rows`` weight rows, group-major (unit u is column group
     ``u // kblocks``, k-block ``u % kblocks``); CTA c streams units
     ``[first(c), first(c + 1))``, so every CTA gets within one unit of the
     mean; a column group held by several CTAs is summed by its ``splits``
@@ -145,12 +156,13 @@ class StreamPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def stream_plan(k: int, n: int, sms: int, n_weights: int = 1) -> StreamPlan:
+def stream_plan(k: int, n: int, sms: int, n_weights: int = 1,
+                group: int = STREAM_GROUP) -> StreamPlan:
     """The weight stream of ``n_weights`` (k, n) weights read together on
-    ``sms`` SMs: one CTA per SM, at most one per unit. The kernel does the
-    same arithmetic."""
-    kblocks = -(-k // unit_rows(n_weights))
-    groups = -(-n // STREAM_GROUP)
+    ``sms`` SMs in column groups of ``group``: one CTA per SM, at most one
+    per unit. The kernel does the same arithmetic."""
+    kblocks = -(-k // unit_rows(n_weights, group))
+    groups = -(-n // group)
     ctas = min(sms, kblocks * groups)
     plan = StreamPlan(kblocks, groups, ctas, 1)
     return plan._replace(max_splits=max(plan.splits(g)
@@ -204,14 +216,98 @@ def _ffn_layout(B: int, D: int, HD: int, F: int, sms: int):
     return end, plan
 
 
+class QkvColumns(NamedTuple):
+    """The QKV kernels' output columns (``csrc/qkv_pass.cuh``): one virtual
+    N holding wq's ``wq`` columns from 0, then wk's and v's ``wkv`` each
+    from ``k0`` and ``v0``. Where wq, wk and wv are ``separate`` tensors,
+    each starts on a whole 64-column tile (columns in between are padding:
+    streamed as zeros, never written); else they are w_qkv's columns."""
+    wq: int
+    wkv: int
+    k0: int
+    v0: int
+    separate: bool
+
+    @property
+    def cols(self) -> int:
+        return self.v0 + self.wkv
+
+    def column(self, n: int):
+        """(weight 0 q / 1 k / 2 v, its column) of virtual column ``n``, or
+        None for padding and past the end: the epilogue's arithmetic."""
+        s = 0 if n < self.k0 else 1 if n < self.v0 else 2
+        nl = n - (0, self.k0, self.v0)[s]
+        return (s, nl) if nl < (self.wq if s == 0 else self.wkv) else None
+
+    def tile_source(self, t: int):
+        """(tensor map, column) of 64-column tile ``t``: the producer's
+        arithmetic (``QkvPass::source``)."""
+        n = t * STREAM_TILE
+        if not self.separate:
+            return 0, n
+        s = 0 if n < self.k0 else 1 if n < self.v0 else 2
+        return s, n - (0, self.k0, self.v0)[s]
+
+
+def qkv_columns(Hq: int, Hkv: int, dh: int, separate: bool) -> QkvColumns:
+    """The column layout of a QKV call: three weights (``qkv_rope_paged``)
+    or one concatenated w_qkv (``qkv_rope``)."""
+    tile = lambda n: -(-n // STREAM_TILE) * STREAM_TILE if separate else n
+    wq, wkv = Hq * dh, Hkv * dh
+    k0 = tile(wq)
+    return QkvColumns(wq, wkv, k0, k0 + tile(wkv), separate)
+
+
+def qkv_group(dh: int) -> int:
+    """Columns of a QKV column group: a head with its RoPE partners must lie
+    in one, so 256 at dh = 256, else 128."""
+    return 256 if dh == 256 else STREAM_GROUP
+
+
+@functools.lru_cache(maxsize=64)
+def _qkv_layout(B: int, D: int, Hq: int, Hkv: int, dh: int, rot2: int,
+                separate: bool, sms: int):
+    """(workspace bytes, int64 plan) of one QKV kernel call on ``B`` <= 16
+    lanes. The workspace: the counters (one per column group, zeroed once,
+    reset by the kernel; a fixed region, so that a call of another shape
+    never finds its partial sums there), the per-tile squares (B, D / 64),
+    the activation (2 NL, D) bf16 (hi | lo) and the partial slots."""
+    nl, group = _lanes(B), qkv_group(dh)
+    qc = qkv_columns(Hq, Hkv, dh, separate)
+    plan = stream_plan(D, qc.cols, sms, 1, group)
+    if plan.groups > _CNT_BYTES // 4:
+        raise ValueError(f"QKV kernels: {qc.cols} columns exceed the "
+                         "counters")
+    off, end = {"cnt": 0}, _CNT_BYTES
+
+    def region(name, nbytes):
+        nonlocal end
+        off[name] = end
+        end += -(-nbytes // 256) * 256
+
+    region("ss", B * -(-D // STREAM_TILE) * 4)
+    region("img", 2 * nl * D * 2)
+    # one split's partial of a group, f32: its tiles' fragments
+    region("part", plan.groups * plan.max_splits * _CONSUMERS
+           * (group // STREAM_TILE) * (nl // 2) * 4)
+    vals = dict(B=B, D=D, Hq=Hq, Hkv=Hkv, dh=dh, rot2=rot2, NL=nl,
+                TW=group // STREAM_TILE, k0=qc.k0, v0=qc.v0, cols=qc.cols,
+                ctas=plan.ctas, maxs=plan.max_splits, **off)
+    return end, (ctypes.c_longlong * len(_QKV_PLAN_FIELDS))(
+        *(vals[f] for f in _QKV_PLAN_FIELDS))
+
+
 _workspaces: dict = {}
 
 
-def _workspace(x: torch.Tensor, stream: int, nbytes: int) -> torch.Tensor:
-    """The FFN kernels' workspace for ``x``'s device and ``stream``: kept
-    between calls (its counters must start at zero, and the kernels leave
-    them so), grown, zeroed, when a call needs more."""
-    key = (x.device.index, stream)
+def _workspace(x: torch.Tensor, stream: int, nbytes: int,
+               kind: str = "ffn") -> torch.Tensor:
+    """The workspace of the FFN (``kind`` "ffn") or the QKV kernels
+    ("qkv") for ``x``'s device and ``stream``, one each, so that their
+    counters never meet: kept between calls (its counters must start at
+    zero, and the kernels leave them so), grown, zeroed, when a call needs
+    more."""
+    key = (x.device.index, stream, kind)
     ws = _workspaces.get(key)
     if ws is None or ws.numel() < nbytes:
         ws = torch.zeros(nbytes, dtype=torch.uint8, device=x.device)
@@ -280,8 +376,8 @@ def qkv_rope(x, norm_scale, w_qkv, pos: int, *, n_q, n_kv, dh, theta=10000.0,
     shared by the batch. Returns (n_q+2*n_kv, B, dh) in x.dtype, head-major,
     with RoPE on the q and k heads over their first ``int(dh * rope_frac)``
     (even) elements; v heads are not rotated. On the card this is two
-    launches of the hand-written kernel (see its source) with f32 scratch
-    from ``torch.empty``."""
+    launches of the hand-written kernel (see its source) per 16 lanes, with
+    ``qkv_rope_paged``'s workspace."""
     B, D = x.shape
     Ht = n_q + 2 * n_kv
     if w_qkv.shape != (D, Ht * dh):
@@ -292,20 +388,22 @@ def qkv_rope(x, norm_scale, w_qkv, pos: int, *, n_q, n_kv, dh, theta=10000.0,
         return qkv_rope_ref(x, norm_scale, w_qkv, pos, n_q=n_q, n_kv=n_kv,
                             dh=dh, theta=theta, rope_frac=rope_frac)
     _check_bf16("qkv_rope", x=x, norm_scale=norm_scale, w_qkv=w_qkv)
-    if dh not in (32, 64, 128, 256):
-        raise ValueError(f"qkv_rope: kernel takes dh in 32/64/128/256, got "
-                         f"{dh}")
+    _check_qkv_widths("qkv_rope", D, dh)
     rt.check_contiguous("qkv_rope", x=x, norm_scale=norm_scale, w_qkv=w_qkv)
     fn = rt.bind("qkv_rope", "qkv_rope_bf16", _QKV_DENSE_ARGS)
     inv = _inv_freq(dh, float(theta), float(rope_frac), str(x.device))
-    splits = _head_splits(Ht, D, device_sms(x.device.index))
     out = torch.empty((Ht, B, dh), dtype=x.dtype, device=x.device)
-    partial = torch.empty((splits, B, Ht * dh), dtype=torch.float32,
-                          device=x.device)
-    rc = fn(x.data_ptr(), norm_scale.data_ptr(), w_qkv.data_ptr(),
-            inv.data_ptr(), out.data_ptr(), partial.data_ptr(), B, D, n_q,
-            n_kv, dh, pos, inv.shape[0], splits, rt.stream_ptr(x))
-    rt.check_launch("qkv_rope", rc)
+    if B == 0:
+        return out
+    sms, stream = device_sms(x.device.index), rt.stream_ptr(x)
+    for b0, b1 in _lane_slices(B):
+        nbytes, plan = _qkv_layout(b1 - b0, D, n_q, n_kv, dh, inv.shape[0],
+                                   False, sms)
+        ws = _workspace(x, stream, nbytes, "qkv")
+        rc = fn(x.data_ptr() + 2 * b0 * D, norm_scale.data_ptr(),
+                w_qkv.data_ptr(), inv.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), ctypes.addressof(plan), pos, B, b0, stream)
+        rt.check_launch("qkv_rope", rc)
     rt.count_launch("qkv_rope")
     return out
 

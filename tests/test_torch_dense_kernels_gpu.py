@@ -76,10 +76,17 @@ def test_decode_kernel_matches_plain(dev):
 
 
 def test_qkv_rope_kernel_matches_plain(dev):
+    # the 7B widths at 8 and 16 lanes; dh 32; partial rotation at dh 64 and
+    # 128 (partners 32 and 16 columns apart); dh 256 (a column group of four
+    # tiles), fully and half rotated; 40 lanes (three slices of at most 16)
     for D, n_q, n_kv, dh, B, frac in ((4096, 32, 32, 128, 8, 1.0),
+                                      (4096, 32, 32, 128, 16, 1.0),
                                       (128, 4, 2, 32, 3, 1.0),
                                       (512, 8, 2, 64, 11, 0.5),
-                                      (256, 4, 1, 128, 5, 0.5)):
+                                      (256, 4, 1, 128, 5, 0.5),
+                                      (512, 4, 1, 256, 5, 1.0),
+                                      (512, 4, 1, 256, 3, 0.5),
+                                      (256, 4, 1, 128, 40, 0.5)):
         rs = np.random.RandomState(D + dh)
         H = n_q + 2 * n_kv
         x = _t(rs, (B, D), dev)
@@ -87,8 +94,10 @@ def test_qkv_rope_kernel_matches_plain(dev):
         w = _t(rs, (D, H * dh), dev, D ** -0.5)
         kw = dict(n_q=n_q, n_kv=n_kv, dh=dh, theta=10000.0, rope_frac=frac)
         for pos in (0, 1, 777):
+            rt.reset_launches()
             got = qkv_rope(x, scale, w, pos, **kw)
             torch.cuda.synchronize()
+            assert rt.launch_counts()["qkv_rope"] == 1
             assert got.shape == (H, B, dh)
             _close(got, qkv_rope_ref(x, scale, w, pos, **kw))
 
@@ -150,9 +159,17 @@ def test_dense_kernel_results_repeat_bit_for_bit(dev):
            _t(rs, (F, D), dev, 0.05))
     q = _t(rs, (B, n_q, dh), dev)
     kc, vc = _t(rs, (B, S, n_kv, dh), dev), _t(rs, (B, S, n_kv, dh), dev)
+    # the QKV stream at dh 256 (four tiles a group) and at 7B (up to three
+    # splits of a column group)
+    w256 = _t(rs, (D, 6 * 256), dev, 0.05)
+    x7, s7 = _t(rs, (B, 4096), dev), _t(rs, (4096,), dev)
+    w7 = _t(rs, (4096, 96 * 128), dev, 4096 ** -0.5)
     runs = [(qkv_rope(x, scale, w, 33, n_q=n_q, n_kv=n_kv, dh=dh),
              decode(q, kc, vc, 400), ffn_swiglu(*ffn),
-             ffn_swiglu(*ffn, residual=False)) for _ in range(2)]
+             ffn_swiglu(*ffn, residual=False),
+             qkv_rope(x, scale, w256, 4000, n_q=4, n_kv=1, dh=256),
+             qkv_rope(x7, s7, w7, 4095, n_q=32, n_kv=32, dh=128))
+            for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)

@@ -18,10 +18,12 @@ import torch
 from repro_torch.kernels import runtime as rt
 from repro_torch.kernels.flash_attention.ops import decode_paged
 from repro_torch.kernels.flash_attention.ref import decode_paged_ref
-from repro_torch.kernels.fused_decode.ops import (oproj_ffn_swiglu,
-                                                  qkv_rope_paged)
-from repro_torch.kernels.fused_decode.ref import (oproj_ffn_swiglu_ref,
+from repro_torch.kernels.fused_decode.ops import (ffn_swiglu, oproj_ffn_swiglu,
+                                                  qkv_rope, qkv_rope_paged)
+from repro_torch.kernels.fused_decode.ref import (ffn_swiglu_ref,
+                                                  oproj_ffn_swiglu_ref,
                                                   qkv_rope_paged_ref,
+                                                  qkv_rope_ref,
                                                   rope_inv_freq)
 
 pytestmark = pytest.mark.gpu
@@ -70,23 +72,37 @@ def test_decode_paged_kernel_matches_plain(dev, hq, hkv, dh):
     _close(got, decode_paged_ref(q, kp, vp, tables, len1))
 
 
+# (D, Hq, Hkv, dh, B): the 7B widths at 8 and 16 lanes (one weight
+# stream), dh 32 with 64 k / v columns and with Hq 3, Hkv 1 (wq and wk end
+# inside a 64-column tile: padded), dh 64 at 11 lanes, dh 256 (a column
+# group of four tiles), 40 lanes (three slices of at most 16)
+QKV_PAGED_SHAPES = ((4096, 32, 32, 128, 8), (4096, 32, 32, 128, 16),
+                    (128, 4, 2, 32, 3), (128, 3, 1, 32, 16),
+                    (512, 8, 2, 64, 11), (512, 4, 1, 256, 5),
+                    (256, 4, 2, 64, 40))
+
+
+def _qkv_paged_args(rs, D, hq, hkv, dh, B, dev):
+    return (_t(rs, (B, D), dev), _t(rs, (D,), dev),
+            _t(rs, (D, hq, dh), dev, D ** -0.5),
+            _t(rs, (D, hkv, dh), dev, D ** -0.5),
+            _t(rs, (D, hkv, dh), dev, D ** -0.5),
+            torch.as_tensor(rs.randint(0, 4096, (B,)), dtype=torch.int32,
+                            device=dev))
+
+
 # few test cases per file keep the xdist work queue of the whole suite in
 # its usual order: the next two cases loop over their shapes
 def test_qkv_rope_paged_kernel_matches_plain(dev):
-    for D, hq, hkv, dh, B in ((4096, 32, 32, 128, 8), (128, 4, 2, 32, 3),
-                              (512, 8, 2, 64, 11)):
-        rs = np.random.RandomState(1)
-        x = _t(rs, (B, D), dev)
-        scale = _t(rs, (D,), dev)
-        wq = _t(rs, (D, hq, dh), dev, D ** -0.5)
-        wk = _t(rs, (D, hkv, dh), dev, D ** -0.5)
-        wv = _t(rs, (D, hkv, dh), dev, D ** -0.5)
-        pos = torch.as_tensor(rs.randint(0, 512, (B,)), dtype=torch.int32,
-                              device=dev)
-        got = qkv_rope_paged(x, scale, wq, wk, wv, pos)
+    for D, hq, hkv, dh, B in QKV_PAGED_SHAPES:
+        args = _qkv_paged_args(np.random.RandomState(1), D, hq, hkv, dh, B,
+                               dev)
+        rt.reset_launches()
+        got = qkv_rope_paged(*args)
         inv = torch.as_tensor(rope_inv_freq(dh, 10000.0), device=dev)
-        ref = qkv_rope_paged_ref(x, scale, wq, wk, wv, pos, inv)
+        ref = qkv_rope_paged_ref(*args, inv)
         torch.cuda.synchronize()
+        assert rt.launch_counts()["qkv_rope_paged"] == 1
         for g, r in zip(got, ref):
             _close(g, r)
 
@@ -119,16 +135,42 @@ def test_oproj_ffn_swiglu_kernel_matches_plain(dev):
 
 
 def test_oproj_ffn_swiglu_counters_reset_between_shapes(dev):
-    """The fix-up counters live in a workspace kept between calls and reset
-    by the kernels: calls at alternating shapes stay right and repeat."""
-    shapes = ((512, 512, 1024, 8), (256, 520, 200, 9))
-    args = [_epilogue_args(np.random.RandomState(4), *s, dev) for s in shapes]
-    first = [oproj_ffn_swiglu(*a) for a in args]
-    again = [oproj_ffn_swiglu(*a) for a in args]
+    """The fix-up counters live in workspaces kept between calls (one for
+    the FFN kernels, one for the QKV kernels) and reset by the kernels:
+    calls of all four weight-stream kernels at alternating shapes,
+    interleaved, stay right and repeat bit for bit."""
+    rs = np.random.RandomState(4)
+    calls = []
+    for D, HD, F, B in ((512, 512, 1024, 8), (256, 520, 200, 9)):
+        a = _epilogue_args(rs, D, HD, F, B, dev)
+        calls.append((lambda a=a: oproj_ffn_swiglu(*a),
+                      lambda a=a: oproj_ffn_swiglu_ref(*a)))
+        f = (a[0], a[3], a[4], a[5], a[6])
+        calls.append((lambda f=f: ffn_swiglu(*f),
+                      lambda f=f: ffn_swiglu_ref(*f)))
+    for D, hq, hkv, dh, B in ((512, 8, 2, 64, 8), (128, 3, 1, 32, 16),
+                              (512, 4, 1, 256, 5)):
+        a = _qkv_paged_args(rs, D, hq, hkv, dh, B, dev)
+        inv = torch.as_tensor(rope_inv_freq(dh, 10000.0), device=dev)
+        calls.append((lambda a=a: qkv_rope_paged(*a),
+                      lambda a=a, inv=inv: qkv_rope_paged_ref(*a, inv)))
+        w = torch.cat([t.reshape(D, -1) for t in a[2:5]], 1).contiguous()
+        kw = dict(n_q=hq, n_kv=hkv, dh=dh, rope_frac=0.5)
+        calls.append((lambda a=a, w=w, kw=kw: qkv_rope(a[0], a[1], w, 77,
+                                                        **kw),
+                      lambda a=a, w=w, kw=kw: qkv_rope_ref(a[0], a[1], w, 77,
+                                                            **kw)))
+    first = [kern() for kern, _ in calls]
+    again = [kern() for kern, _ in calls]
     torch.cuda.synchronize()
-    for a, f, g in zip(args, first, again):
-        _close(f, oproj_ffn_swiglu_ref(*a))
-        assert torch.equal(f, g)
+    for (_, plain), f, g in zip(calls, first, again):
+        f = f if isinstance(f, tuple) else (f,)
+        g = g if isinstance(g, tuple) else (g,)
+        want = plain()
+        for fi, gi, wi in zip(f, g, want if isinstance(want, tuple)
+                              else (want,)):
+            _close(fi, wi)
+            assert torch.equal(fi, gi)
 
 
 def test_kernel_results_repeat_bit_for_bit(dev):
@@ -144,3 +186,10 @@ def test_kernel_results_repeat_bit_for_bit(dev):
         b = oproj_ffn_swiglu(*args)
         torch.cuda.synchronize()
         assert torch.equal(a, b)
+    # the QKV stream, whose column groups take up to three splits at 7B
+    for shape in ((512, 8, 2, 64, 8), (4096, 32, 32, 128, 8),
+                  (512, 4, 1, 256, 16)):
+        args = _qkv_paged_args(rs, *shape, dev)
+        a, b = qkv_rope_paged(*args), qkv_rope_paged(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
