@@ -4,14 +4,18 @@
 
 1. Builds the hand-written kernels from ``src/repro_torch/**/csrc`` (one
    ``nvcc`` per source, in parallel) and prints each one's registers and
-   spills; for ``flash_prefill`` and the four weight-stream kernels
-   (``qkv_rope_paged``, ``oproj_ffn_swiglu``, ``qkv_rope``, ``ffn_swiglu``)
-   one line per kernel instantiation (head_dim; pass, lanes and column
-   group) with its registers, spills and dynamic shared memory, failing on
-   a spill or on wgmma instructions that ptxas serialised.
+   spills; for ``decode_paged``, ``flash_prefill`` and the four
+   weight-stream kernels (``qkv_rope_paged``, ``oproj_ffn_swiglu``,
+   ``qkv_rope``, ``ffn_swiglu``) one line per kernel instantiation
+   (head_dim and group; pass, lanes and column group) with its registers,
+   spills and dynamic shared memory, failing on a spill or on wgmma
+   instructions that ptxas serialised.
 2. Kernel phase at the samba-coe-expert-7b widths (B = 8 lanes, bf16): the
    paged kernels at ragged positions 1..512 straddling blocks with one
-   inactive lane, the dense-cache kernels at length 4096 in a 4096-position
+   inactive lane (``decode_paged`` also with every lane at 512, held row by
+   row to both its plain versions, the masked softmax and its own chunked
+   arithmetic, with two chunk faults planted in the latter that the row
+   check must catch), the dense-cache kernels at length 4096 in a 4096-position
    cache (``ffn_swiglu`` in both forms); then the prefill kernels:
    ``flash_prefill`` at the expert's prefill (8 x 2048 tokens, 32 heads,
    dh 128, causal) and at RecurrentGemma-9B's (4 x 3000 tokens, 16 q heads
@@ -44,7 +48,9 @@
    packed prefill's attention is plain, as in JAX), and one decode step's
    logits must match the plain reference body run in f32 on the same pool
    state; the run also prints what faults planted in one layer read against
-   it. Then one step's device time by kernel, from the profiler.
+   it. Then one step's device time by kernel, from the profiler, and in how
+   many of its layers the o-proj pass started before ``decode_paged``
+   ended (programmatic launch).
 5. Dense decode phase on one of those experts: ``prefill`` of 8 lanes x 2048
    tokens into a 4096-position cache (``flash_prefill`` once per layer), its
    first lane's last-token logits against the plain ``forward`` run in f32 a
@@ -137,6 +143,8 @@ PAGED_KERNELS = ("decode_paged", "qkv_rope_paged", "oproj_ffn_swiglu")
 DENSE_KERNELS = ("qkv_rope", "flash_decode", "ffn_swiglu")
 # the kernel-table row of flash_prefill at RecurrentGemma's widths
 RG_PREFILL_ROW = "flash_prefill[window=2048]"
+# the kernel-table row of decode_paged with every lane at 512 positions
+FULL_PAGED_ROW = "decode_paged[len1=512x8]"
 # the dense-cache decode path: 8 lanes prefilled with 2048-token prompts into
 # a 4096-position cache, then greedy steps of 32 decoder_layer_steps each
 DENSE = dict(lanes=8, prompt_len=2048, max_len=4096, steps=16, seed=2)
@@ -171,6 +179,12 @@ PREFILL_ROW_REL_L2 = 2.0 ** -6
 # round each output to bf16 once, so a row differs by at most two units in
 # the last place of each value, 2^-7 of its norm.
 STREAM_ROW_REL_L2 = 2.0 ** -7
+# decode_paged against its plain versions, row by row (each head's dh
+# values): all three sum in f32 from the same bf16 inputs, in other orders,
+# and round each output to bf16 once. A chunk's partial dropped, or the
+# position at each chunk's start left out, planted in the split plain
+# version, must read above it.
+DECODE_ROW_REL_L2 = 2.0 ** -7
 # recurrentgemma-9b behind CompositionOfExperts.generate: 4 prompts of 3000
 # tokens, past the 2048-position window so the ring's roll is not the
 # identity ((3000 - 2048) % 2048 = 952)
@@ -192,18 +206,25 @@ def _log(msg):
     print(msg, flush=True)
 
 
-def time_ms(fn, flush, reps):
+def time_ms(fn, flush, reps, read=False):
     """Mean device time of ``fn`` over ``reps`` launches, each after the L2
     cache was overwritten, after two warm-up calls. A spin kernel ahead of
     each launch keeps the card busy while the host enqueues ``fn``, so the
-    events bracket device work only, not the wrapper's host overhead."""
+    events bracket device work only, not the wrapper's host overhead. The
+    flush writes ``flush`` (128 MB), so ``fn`` also pays the write-back of
+    the ~50 MB of dirty lines it evicts; with ``read`` it reads ``flush``
+    instead and finds the L2 holding clean lines, as on the serving path,
+    where the kernel ahead streams weights."""
     fn()
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
         torch.cuda._sleep(2_000_000)         # ~1 ms of device time
-        flush.zero_()
+        if read:
+            flush.max()
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -225,7 +246,16 @@ def build_kernels():
     passes = ("OprojPass", "GateUpPass", "DownPass")
     lanes = ("8", "16")
     for name, log in logs.items():
-        if name == "flash_prefill":
+        if name == "decode_paged":
+            paged_smem = rt.bind(name, "decode_paged_smem_bytes",
+                                 [rt.I, rt.I])
+            entry_build_report(
+                name, log, r"decode_split_kernelILi(\d+)ELi(\d+)E",
+                [(str(dh), str(g)) for dh in (32, 64, 128, 256)
+                 for g in (1, 2, 4, 8)],
+                lambda k: f"decode_paged[dh={k[0]} G={k[1]}]",
+                lambda k: paged_smem(int(k[0]), int(k[1])))
+        elif name == "flash_prefill":
             entry_build_report(
                 name, log, r"prefill_kernelILi(\d+)E",
                 [(str(dh),) for dh in (32, 64, 128, 256)],
@@ -341,6 +371,7 @@ def kernel_row(name, kern, plain, lib, nbytes, flops, flush, *,
         **({} if row_tol is None else dict(row_rel_l2=row_err,
                                            row_tol=row_tol)),
         ms=time_ms(kern, flush, 50), plain_ms=time_ms(plain, flush, 10),
+        ms_read_flushed=time_ms(kern, flush, 50, read=True),
         library_ms=None if lib is None else time_ms(lib, flush, 20),
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -349,7 +380,8 @@ def kernel_row(name, kern, plain, lib, nbytes, flops, flush, *,
     r["bound_us"] = r["bound_ms"] * 1e3
     lib_s = "none" if lib is None else f"{r['library_ms']:.4f}ms"
     _log(f"kernel {name}: max_err={err:.3e} (tol {tol:.3e}) "
-         f"kernel={r['ms']:.4f}ms plain={r['plain_ms']:.4f}ms "
+         f"kernel={r['ms']:.4f}ms (read-flushed {r['ms_read_flushed']:.4f}ms) "
+         f"plain={r['plain_ms']:.4f}ms "
          f"library={lib_s} bound={r['bound_ms']:.4f}ms "
          f"({r['bound_by']}, {nbytes} B, {flops} flops)")
     return r
@@ -425,6 +457,51 @@ def rope_fault_caught(name, got, plain_fault):
         raise AssertionError(f"{name}: the row check missed a planted fault")
 
 
+def split_faults_caught(name, got, q, kp, vp, tables, len1):
+    """Row ``name`` of ``decode_paged``: its output ``got`` against its
+    split plain version (the kernel's own chunks, merged in chunk order) row
+    by row, within
+    DECODE_ROW_REL_L2; then two faults planted in that plain version must
+    read above it: the longest lane's second chunk's partial dropped, and
+    the position at the start of every chunk but the first left out. Fails
+    where a check does not hold."""
+    from repro_torch.kernels.flash_attention.ops import split_chunk
+    from repro_torch.kernels.flash_attention.ref import (merge_partials,
+                                                         split_inputs,
+                                                         split_partials)
+    C = split_chunk()
+    s, vc, valid = split_inputs(q, kp, vp, tables, len1)
+    m, l, acc = split_partials(s, vc, valid, C)
+
+    def merged(m, l, acc):
+        return merge_partials(m, l, acc).reshape(q.shape).to(q.dtype)
+
+    err = row_rel_l2(got, merged(m, l, acc))
+    _log(f"kernel {name}: against the split plain version (chunk {C})"
+         f" largest row relative L2 error {err:.3e} (tol "
+         f"{DECODE_ROW_REL_L2:.3e})")
+    if not err <= DECODE_ROW_REL_L2:
+        raise AssertionError(f"{name}: a row's relative L2 error "
+                             f"{err} against the split plain version")
+    b = int(len1.argmax())
+    m, l, acc = m.clone(), l.clone(), acc.clone()
+    m[b, :, :, 1], l[b, :, :, 1], acc[b, :, :, 1] = float("-inf"), 0.0, 0.0
+    edge = valid.clone()
+    edge[:, C::C] = False
+    for fault, want in (("chunk_dropped", merged(m, l, acc)),
+                        ("chunk_edge_dropped",
+                         merged(*split_partials(s, vc, edge, C)))):
+        f_err = row_rel_l2(got, want)
+        caught = f_err > DECODE_ROW_REL_L2
+        _log(f"kernel {name}: planted fault {fault} (in the split "
+             f"plain version) reads a row relative L2 error of {f_err:.3e} "
+             f"-> {'caught' if caught else 'NOT caught'} at "
+             f"{DECODE_ROW_REL_L2:.3e}")
+        if not caught:
+            raise AssertionError(f"{name}: the row check missed a planted "
+                                 f"fault ({fault})")
+
+
 def kernel_phase(cfg, dev, B=8):
     """Each kernel against its plain version at the config's widths."""
     import torch.nn.functional as Fn
@@ -467,7 +544,7 @@ def kernel_phase(cfg, dev, B=8):
     inv = torch.as_tensor(rope_inv_freq(dh, cfg.rope_theta), device=dev)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
 
-    def lib_decode():
+    def lib_decode(tables, len1):
         S = maxb * block
         kc = kp[tables.long()].reshape(B, S, Hkv, dh).transpose(1, 2)
         vc = vp[tables.long()].reshape(B, S, Hkv, dh).transpose(1, 2)
@@ -488,7 +565,7 @@ def kernel_phase(cfg, dev, B=8):
     cases = {
         "decode_paged": (lambda: decode_paged(q, kp, vp, tables, len1),
                          lambda: decode_paged_ref(q, kp, vp, tables, len1),
-                         lib_decode),
+                         lambda: lib_decode(tables, len1)),
         "qkv_rope_paged": (lambda: qkv_rope_paged(x, scale, wq, wk, wv, pos,
                                                   theta=cfg.rope_theta),
                            lambda: qkv_rope_paged_ref(x, scale, wq, wk, wv,
@@ -503,9 +580,25 @@ def kernel_phase(cfg, dev, B=8):
     nbytes = kernel_hbm_bytes(cfg, B, len1_host, maxb)
     flops = kernel_flops(cfg, B, len1_host)
     rows_out = {name: kernel_row(name, *fns, nbytes[name], flops[name], flush,
-                                 row_tol=STREAM_ROW_REL_L2
-                                 if name in STREAM_PASSES else None)
+                                 row_tol=DECODE_ROW_REL_L2
+                                 if name == "decode_paged"
+                                 else STREAM_ROW_REL_L2)
                 for name, fns in cases.items()}
+    split_faults_caught("decode_paged", decode_paged(q, kp, vp, tables, len1),
+                        q, kp, vp, tables, len1)
+    # every lane at 512 positions, on rows of its own
+    full = perm[:B * maxb].reshape(B, maxb).to(torch.int32)
+    len1_full = torch.full((B,), maxb * block, dtype=torch.int32, device=dev)
+    rows_out[FULL_PAGED_ROW] = kernel_row(
+        FULL_PAGED_ROW, lambda: decode_paged(q, kp, vp, full, len1_full),
+        lambda: decode_paged_ref(q, kp, vp, full, len1_full),
+        lambda: lib_decode(full, len1_full),
+        kernel_hbm_bytes(cfg, B, [maxb * block] * B, maxb)["decode_paged"],
+        kernel_flops(cfg, B, [maxb * block] * B)["decode_paged"], flush,
+        kernel="decode_paged", row_tol=DECODE_ROW_REL_L2)
+    split_faults_caught(FULL_PAGED_ROW,
+                        decode_paged(q, kp, vp, full, len1_full), q, kp, vp,
+                        full, len1_full)
     for name in ("qkv_rope_paged", "oproj_ffn_swiglu"):
         pass_times(name, rows_out[name], cases[name][0], flush)
     got = cases["qkv_rope_paged"][0]()
@@ -1062,13 +1155,23 @@ def serve_phase(cfg, dev):
     kc, vc = (t.clone() for t in state)
     step = lambda: engine.runner.extend(params, kc, vc, tables, lengths,
                                         active, toks)
-    step_breakdown(step, f"decode step ({s['n_slots']} lanes, "
-                         f"{cfg.n_layers} layers)")
+    label = f"decode step ({s['n_slots']} lanes, {cfg.n_layers} layers)"
+    step_breakdown(step, label)
+    step_under(step, label, ("decode_split_kernel", "OprojPass"))
     del kc, vc
     for r in rids:
         engine.pool.free(r)
     coe.cache.close()
     return launches, coe.store, coe.expert_names()
+
+
+def busy_us(spans):
+    """The length of the union of sorted (start, end) spans."""
+    busy, reach = 0.0, -np.inf
+    for a, b in spans:
+        busy += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+    return busy
 
 
 def step_breakdown(step, label, n_steps=10):
@@ -1097,13 +1200,9 @@ def step_breakdown(step, label, n_steps=10):
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             dev[e.key] = e.self_device_time_total / n_steps / 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, reach = 0.0, -np.inf
-    for a, b in spans:
-        busy_us += max(0.0, b - max(a, reach))
-        reach = max(reach, b)
-    dev_ms = busy_us / n_steps / 1e3
+    dev_ms = busy_us(sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == DeviceType.CUDA)) / n_steps / 1e3
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     if dev_ms > 0:
         _log(f"{label}: host wall {wall_ms:.3f} ms, device busy "
@@ -1113,6 +1212,51 @@ def step_breakdown(step, label, n_steps=10):
     else:
         _log(f"{label}: host wall {wall_ms:.3f} ms; device time not "
              "measured (the profiler saw no device activity)")
+
+
+def step_under(step, label, under, n_steps=10):
+    """With the host ahead of the card (the steps enqueued behind a device
+    sleep longer than their host time), each step's device span, and in how
+    many launches of kernel ``under[0]`` the next ``under[1]`` launch
+    started before it ended (programmatic launch), by how much (kernel-name
+    parts)."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    first, then = under
+    # device activity only: tracing the host's ops would slow it past the
+    # sleep
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(n_steps * 40_000_000)     # ~20 ms a step
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+    evs = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and "spin_kernel" not in e.name)
+    if not evs:
+        _log(f"{label}: host ahead: device time not measured (the profiler "
+             "saw no device activity)")
+        return
+    span_us = max(b for _, b, _ in evs) - evs[0][0]
+    busy = busy_us([(a, b) for a, b, _ in evs])
+    starts = [a for a, _, n in evs if then in n]
+    leads = []
+    for a, b, n in evs:
+        if first not in n:
+            continue
+        i = bisect.bisect_left(starts, a)
+        if i < len(starts):
+            leads.append(b - starts[i])
+    n_under = sum(d > 0 for d in leads)
+    med = float(np.median(leads)) if leads else float("nan")
+    _log(f"{label}: host ahead: device span {span_us / n_steps / 1e3:.3f} "
+         f"ms a step, busy {busy / span_us:.3f} of it (~0.97 with the gaps "
+         f"between launches; well below, the host fell behind); {then} "
+         f"started before {first} ended in "
+         f"{n_under} of {len(leads)} launches (median lead {med:.2f} us)")
 
 
 def dense_decode_phase(cfg, dev, params):
@@ -1456,6 +1600,7 @@ def main():
     launches, store, names = serve_phase(cfg, dev)
     for name in PAGED_KERNELS:
         rows[name]["launches"] = launches[name]
+    rows[FULL_PAGED_ROW]["launches"] = launches["decode_paged"]
     gc.collect()
     torch.cuda.empty_cache()
     params = tree_map(lambda t: t.to(dev), store.get(names[0]))

@@ -1,7 +1,7 @@
-// The CTA body shared by the port's GQA decode-attention kernels on Hopper
-// (sm_90a): decode_paged.cu (block-table pools) and decode.cu (dense
-// caches). Only where a lane's token t of kv head h lives differs between
-// them; the caller hands that in as a row functor.
+// The CTA body of the port's dense-cache GQA decode kernel on Hopper
+// (sm_90a), decode.cu, and the head-shape dispatch (with_head_shape) that
+// the paged kernel, decode_paged.cu, shares. Where a lane's token t of kv
+// head h lives, the caller hands in as a row functor.
 //
 // Computes, for one lane b and kv head h, the G grouped queries
 // q[b,h,:,:] (scaled by 1/sqrt(dh)) against the lane's first L cached keys

@@ -12,7 +12,7 @@ from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      decode_attention_ref,
                                                      decode_paged_ref)
 
-_ARGS = [rt.P] * 6 + [rt.I] * 6 + [rt.F, rt.P]
+_ARGS = [rt.P] * 8 + [rt.I] * 6 + [rt.F, rt.P]
 _DENSE_ARGS = [rt.P] * 4 + [rt.I] * 6 + [rt.F, rt.P]
 _PREFILL_ARGS = [rt.P] * 4 + [rt.I] * 19 + [rt.F, rt.P]
 
@@ -23,14 +23,49 @@ def _check_head_shape(name, dh, G):
                          f"1/2/4/8, got dh={dh}, G={G}")
 
 
+_chunk = None
+_workspaces: dict = {}
+
+
+def split_chunk() -> int:
+    """Positions each CTA of the paged kernel takes (a constant of its
+    source); builds the kernel library on first use."""
+    global _chunk
+    if _chunk is None:
+        _chunk = rt.bind("decode_paged", "decode_paged_chunk", [])()
+    return _chunk
+
+
+def _split_workspace(q: torch.Tensor, stream: int, n_part: int,
+                     n_count: int):
+    """The paged kernel's partial slots (f32) and per-(lane, head) counters
+    (int32) for ``q``'s device and ``stream``: kept between calls (the
+    counters must start at zero, and the kernel leaves them so), each grown
+    when a call needs more; the counters are zeroed when they grow. No other
+    kernel shares them."""
+    key = (q.device.index, stream)
+    part, count = _workspaces.get(key, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=q.device)
+    if count is None or count.numel() < n_count:
+        count = torch.zeros(n_count, dtype=torch.int32, device=q.device)
+    _workspaces[key] = part, count
+    return part, count
+
+
 def decode_paged(q, k_pool, v_pool, tables, len1):
     """Paged-native GQA decode: q (B,Hq,dh) against the block pools
     (rows, block, Hkv, dh). tables (B, maxb) int32, padded with the pool's
     scratch row (every entry must be a valid row); len1 (B,) int32 = valid
-    positions per lane including this step's token. Returns (B,Hq,dh).
+    positions per lane including this step's token (positions past
+    maxb * block are not attended). Returns (B,Hq,dh).
 
     CPU tensors take the plain version, in any float dtype; CUDA tensors
-    launch the kernel, which takes bf16 q and pools."""
+    launch the kernel, which takes bf16 q and pools. It splits each lane's
+    positions in chunks of ``split_chunk()`` over CTAs and merges them in
+    chunk order, in one launch; ``len1`` is never read on the host. Its
+    scratch lives in a workspace kept per device and stream
+    (``_split_workspace``)."""
     B, Hq, dh = q.shape
     rows, block, Hkv, dh_p = k_pool.shape
     if dh_p != dh or Hq % Hkv or v_pool.shape != k_pool.shape:
@@ -49,10 +84,17 @@ def decode_paged(q, k_pool, v_pool, tables, len1):
     rt.check_contiguous("decode_paged", q=q, k_pool=k_pool, v_pool=v_pool,
                         tables=tables, len1=len1)
     fn = rt.bind("decode_paged", "decode_paged_bf16", _ARGS)
+    maxb = tables.shape[1]
+    chunks = -(-maxb * block // split_chunk())
+    slot = -(-G * (dh + 2) // 4) * 4
+    stream = rt.stream_ptr(q)
+    part, count = _split_workspace(q, stream, B * Hkv * chunks * slot,
+                                   B * Hkv)
     out = torch.empty_like(q)
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            tables.data_ptr(), len1.data_ptr(), out.data_ptr(), B, Hkv, G, dh,
-            block, tables.shape[1], 1.0 / math.sqrt(dh), rt.stream_ptr(q))
+            tables.data_ptr(), len1.data_ptr(), out.data_ptr(),
+            part.data_ptr(), count.data_ptr(), B, Hkv, G, dh, block, maxb,
+            1.0 / math.sqrt(dh), stream)
     rt.check_launch("decode_paged", rc)
     rt.count_launch("decode_paged")
     return out

@@ -13,7 +13,8 @@ from repro.kernels.fused_decode.kernel import (
     qkv_rope_paged as jax_qkv_rope_paged)
 from repro_torch.kernels import runtime as rt
 from repro_torch.kernels.flash_attention.ops import decode_paged
-from repro_torch.kernels.flash_attention.ref import decode_paged_ref
+from repro_torch.kernels.flash_attention.ref import (decode_paged_ref,
+                                                     decode_paged_split_ref)
 from repro_torch.kernels.fused_decode.ops import (oproj_ffn_swiglu,
                                                   qkv_rope_paged)
 from repro_torch.kernels.fused_decode.ref import (oproj_ffn_swiglu_ref,
@@ -55,6 +56,37 @@ def test_decode_paged_plain_matches_pallas(hq, hkv):
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
                                rtol=0)
+
+
+def test_decode_paged_split_plain_matches_pallas():
+    """The card kernel's arithmetic written plainly (each chunk of positions
+    to its partial, merged in chunk order) against the Pallas kernel and
+    decode_paged_ref, at G 1/2/4, for chunks that are a multiple of the
+    block (16 at block 8) and that end inside a page (12), at the chunk
+    edges: 1, C - 1, C, C + 1, 2 C + 1, maxb * block and past it (not
+    attended), and an inactive lane on the scratch row."""
+    B, dh, block, maxb = 8, 32, 8, 5
+    rows = B * maxb + 1
+    rs = np.random.RandomState(5)
+    for hq, hkv in ((4, 4), (4, 2), (8, 2)):
+        q = rs.standard_normal((B, hq, dh)).astype(np.float32)
+        kp = rs.standard_normal((rows, block, hkv, dh)).astype(np.float32)
+        vp = rs.standard_normal((rows, block, hkv, dh)).astype(np.float32)
+        tables = rs.permutation(rows - 1)[:B * maxb].reshape(B, maxb) \
+            .astype(np.int32)
+        tables[3] = rows - 1                  # inactive lane on scratch
+        for C in (16, 12):
+            len1 = np.asarray([1, C - 1, C, 1, C + 1, 2 * C + 1,
+                               maxb * block, maxb * block + 3], np.int32)
+            args = (q, kp, vp, tables, len1)
+            want = np.asarray(jax_decode_paged(*map(jnp.asarray, args),
+                                               interpret=True))
+            got = decode_paged_split_ref(*map(_t, args), C)
+            assert torch.isfinite(got).all()
+            np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+            np.testing.assert_allclose(
+                got.numpy(), decode_paged_ref(*map(_t, args)).numpy(),
+                atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("n_kv", [4, 2, 1])

@@ -16,8 +16,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import runtime as rt
-from repro_torch.kernels.flash_attention.ops import decode_paged
-from repro_torch.kernels.flash_attention.ref import decode_paged_ref
+from repro_torch.kernels.flash_attention.ops import decode_paged, split_chunk
+from repro_torch.kernels.flash_attention.ref import (decode_paged_ref,
+                                                     decode_paged_split_ref)
 from repro_torch.kernels.fused_decode.ops import (ffn_swiglu, oproj_ffn_swiglu,
                                                   qkv_rope, qkv_rope_paged)
 from repro_torch.kernels.fused_decode.ref import (ffn_swiglu_ref,
@@ -51,25 +52,71 @@ def _t(rs, shape, dev, scale=1.0):
                            dtype=torch.float32, device=dev).to(torch.bfloat16)
 
 
+def _rows_close(got, ref):
+    """_close, and every head's dh values within 2^-7 relative L2 error."""
+    _close(got, ref)
+    g, r = got.float(), ref.float()
+    err = float(((g - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30))
+                .max())
+    assert err <= 2.0 ** -7, err
+
+
+def _paged_args(rs, B, hq, hkv, dh, block, maxb, len1, dev, inactive=3):
+    """q, pools, tables (distinct rows, lane ``inactive`` on the scratch
+    row unless None) and len1 of one paged decode call."""
+    rows = B * maxb + 1
+    tables = torch.as_tensor(rs.permutation(rows - 1)[:B * maxb]
+                             .reshape(B, maxb), dtype=torch.int32, device=dev)
+    if inactive is not None:
+        tables[inactive] = rows - 1
+    return (_t(rs, (B, hq, dh), dev), _t(rs, (rows, block, hkv, dh), dev),
+            _t(rs, (rows, block, hkv, dh), dev), tables,
+            torch.as_tensor(len1, dtype=torch.int32, device=dev))
+
+
 @pytest.mark.parametrize("hq,hkv,dh", [(32, 32, 128), (8, 4, 64), (8, 2, 128),
                                        (4, 1, 32)])
 def test_decode_paged_kernel_matches_plain(dev, hq, hkv, dh):
-    B, block, maxb = 8, 16, 32
-    rows = B * maxb + 1
-    rs = np.random.RandomState(0)
-    q = _t(rs, (B, hq, dh), dev)
-    kp = _t(rs, (rows, block, hkv, dh), dev)
-    vp = _t(rs, (rows, block, hkv, dh), dev)
-    tables = torch.as_tensor(rs.permutation(rows - 1)[:B * maxb]
-                             .reshape(B, maxb), dtype=torch.int32, device=dev)
-    tables[3] = rows - 1                    # an inactive lane on scratch
-    len1 = torch.as_tensor([1, 15, 16, 1, 17, 255, 300, 512],
-                           dtype=torch.int32, device=dev)
-    rt.reset_launches()
-    got = decode_paged(q, kp, vp, tables, len1)
+    """One launch, held to both plain versions (the masked softmax and the
+    kernel's chunked arithmetic), at ragged lengths, at the chunk edges (C
+    positions a CTA; at block 12 a chunk ends inside a page; len1 past
+    maxb * block is not attended), and with every lane full."""
+    B, C = 8, split_chunk()
+    for block, maxb in ((16, 32), (12, 43)):
+        S = block * maxb
+        for len1, inactive in (
+                ([1, 15, 16, 1, 17, 255, 300, 512], 3),
+                ([1, C - 1, C, 1, C + 1, 2 * C + 1, S, S + 5], 3),
+                ([S] * B, None)):
+            args = _paged_args(np.random.RandomState(0), B, hq, hkv, dh,
+                               block, maxb, len1, dev, inactive)
+            rt.reset_launches()
+            got = decode_paged(*args)
+            torch.cuda.synchronize()
+            assert rt.launch_counts()["decode_paged"] == 1
+            _rows_close(got, decode_paged_ref(*args))
+            _rows_close(got, decode_paged_split_ref(*args, C))
+
+
+def test_decode_paged_counters_reset_between_calls(dev):
+    """The merge counters live in a workspace kept between calls and are
+    reset by the kernel: calls at two shapes (dh 128 G 1 at block 16; dh
+    256 G 8 at block 8) on two pools each, interleaved, stay right and
+    repeat bit for bit."""
+    rs = np.random.RandomState(6)
+    calls = []
+    for B, hq, hkv, dh, block, maxb in ((8, 32, 32, 128, 16, 32),
+                                        (5, 16, 2, 256, 8, 40)):
+        for _ in range(2):
+            len1 = rs.randint(1, block * maxb + 1, size=B)
+            calls.append(_paged_args(rs, B, hq, hkv, dh, block, maxb, len1,
+                                     dev))
+    first = [decode_paged(*a) for a in calls]
+    again = [decode_paged(*a) for a in calls]
     torch.cuda.synchronize()
-    assert rt.launch_counts()["decode_paged"] == 1
-    _close(got, decode_paged_ref(q, kp, vp, tables, len1))
+    for a, f, g in zip(calls, first, again):
+        _rows_close(f, decode_paged_ref(*a))
+        assert torch.equal(f, g)
 
 
 # (D, Hq, Hkv, dh, B): the 7B widths at 8 and 16 lanes (one weight
@@ -175,7 +222,8 @@ def test_oproj_ffn_swiglu_counters_reset_between_shapes(dev):
 
 def test_kernel_results_repeat_bit_for_bit(dev):
     """Every sum runs in a fixed order: two launches agree exactly, also at
-    the 7B widths, where the fix-up sums up to three splits of a tile."""
+    the 7B widths, where the fix-up sums up to three splits of a tile and
+    the paged decode merges up to eight chunks of a lane."""
     rs = np.random.RandomState(3)
     D, HD, F, B = 512, 512, 1024, 8
     small = [_t(rs, s, dev, 0.05)
@@ -186,6 +234,12 @@ def test_kernel_results_repeat_bit_for_bit(dev):
         b = oproj_ffn_swiglu(*args)
         torch.cuda.synchronize()
         assert torch.equal(a, b)
+    # the paged decode, whose lanes merge up to eight chunks at 7B
+    args = _paged_args(rs, 8, 32, 32, 128, 16, 32,
+                       [1, 15, 16, 1, 17, 255, 300, 512], dev)
+    a, b = decode_paged(*args), decode_paged(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
     # the QKV stream, whose column groups take up to three splits at 7B
     for shape in ((512, 8, 2, 64, 8), (4096, 32, 32, 128, 8),
                   (512, 4, 1, 256, 16)):
