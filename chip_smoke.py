@@ -284,10 +284,76 @@ def build_kernels():
                     f" dh={'256' if k[2] == '4' else '32-128'}]"),
                 lambda k: qkv_smem(int(k[1]), int(k[2])) if len(k) == 3
                 else 0)
+        elif name in ("monarch_fused", "monarch_conv_fused"):
+            monarch_build_report(name, log)
         else:
             regs = [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
             _log(f"  {name}: " + " | ".join(regs[:6]))
+
+
+# Shapes whose plans between them pick every Monarch kernel instantiation
+# (tests/test_torch_monarch_kernels_gpu.py): the build report prints each
+# instantiation's shared memory at the first of them that picks it
+MONARCH_PLAN_SHAPES = {
+    "monarch_fused": ((16, 1024, 1024), (16, 256, 256), (2, 128, 2048),
+                      (1, 128, 1664), (1, 64, 4096), (1, 64, 5888)),
+    "monarch_conv_fused": ((16, 1024, 1024), (16, 256, 256), (4, 1024, 1024),
+                           (2, 128, 2048), (1, 128, 2304), (16, 640, 256),
+                           (8, 512, 2048), (8, 512, 2304), (4, 2048, 256),
+                           (4, 1664, 256), (2, 4096, 256), (2, 5888, 128))}
+
+
+def monarch_launches(name, B, N1, N2):
+    """The CUDA kernels one call of Monarch library ``name`` launches at
+    (B, N1, N2), as [(kernel, plan or None, the launch's (B, N1, N2))]."""
+    from repro_torch.kernels.monarch_fft.ops import (monarch_conv_plan,
+                                                     monarch_plan)
+    if name == "monarch_fused":
+        return [("monarch_kernel", monarch_plan(B, N1, N2), (B, N1, N2))]
+    first, second = monarch_conv_plan(B, N1, N2)
+    if second is None:
+        return [("conv_front_kernel", first, (B, N1, N2)),
+                ("conv_back_kernel", None, (B, N1, N2))]
+    return [("conv_forward_kernel", first, (B, N1, N2)),
+            ("conv_inverse_kernel", second, (B, N2, N1))]
+
+
+def monarch_build_report(name, log):
+    """The Monarch libraries' build report: one line per kernel
+    instantiation (kernel, BM, the phase-1 slab: 1 or all the chunk pairs
+    the accumulators hold; the cluster is a launch setting), the conv's
+    back GEMM one line, failing as ``entry_build_report`` does, and also
+    where ``MONARCH_PLAN_SHAPES`` leave an instantiation unpicked. The
+    shared memory is the library's own sum at the first of those shapes
+    that picks the instantiation (the back GEMM's is fixed)."""
+    from repro_torch.kernels import runtime as rt
+    conv = name == "monarch_conv_fused"
+    if conv:
+        smem_fn = rt.bind(name, "monarch_conv_smem_bytes", [rt.I] * 4)
+    else:
+        bytes_fn = rt.bind(name, "monarch_smem_bytes", [rt.I] * 3)
+        smem_fn = lambda bm, stages, n2, front: bytes_fn(bm, stages, n2)
+    picked = {}
+    for shape in MONARCH_PLAN_SHAPES[name]:
+        for kernel, p, (_, _, n2) in monarch_launches(name, *shape):
+            if p is None:
+                picked.setdefault((kernel,), (smem_fn(0, 0, 0, 0), None))
+            else:
+                picked.setdefault(
+                    (kernel, str(p.bm), str(p.chunks)),
+                    (smem_fn(p.bm, p.stages, n2, kernel == "conv_front_kernel"),
+                     f"at {shape}: cluster {p.cluster}, {p.stages} stages"))
+
+    def label(k):
+        if len(k) == 1:
+            return f"{name}[{k[0]}]"
+        return f"{name}[{k[0]} BM={k[1]} slab={k[2]}; {picked[k][1]}]"
+
+    entry_build_report(
+        name, log, r"(monarch_kernel|conv_front_kernel|conv_forward_kernel|"
+                   r"conv_inverse_kernel)ILi(\d+)ELi(\d+)E|(conv_back_kernel)E",
+        sorted(picked), label, lambda k: picked[k][0])
 
 
 def entry_build_report(name, log, entry_re, want, label, smem):
@@ -857,11 +923,15 @@ def monarch_kernel_phase(dev):
         "monarch_fused", lambda: monarch(*m_args),
         lambda: ref.monarch_ref(*m_args), lambda: lib_monarch(*m_args), nb,
         fl, flush, rel_tol=M.MAX_ABS_REL, row_tol=M.ROW_REL_L2)}
+    monarch_rates("monarch_fused", rows["monarch_fused"],
+                  lambda: lib_monarch(*m_args), flush, m_args)
     fl, nb = monarch_conv_flops_bytes(B, N1, N2)
     rows["monarch_conv_fused"] = kernel_row(
         "monarch_conv_fused", lambda: monarch_conv(*args),
         lambda: ref.monarch_conv_ref(*args), lib_conv, nb, fl, flush,
         rel_tol=M.MAX_ABS_REL, row_tol=M.ROW_REL_L2)
+    monarch_rates("monarch_conv_fused", rows["monarch_conv_fused"], lib_conv,
+                  flush, args)
     want = {"monarch": ref.monarch_ref(*m_args),
             "monarch_conv": ref.monarch_conv_ref(*args)}
     for label, (fn, planted) in monarch_faults(m_args, c_args).items():
@@ -874,6 +944,59 @@ def monarch_kernel_phase(dev):
                                  f"{label}")
     del m_args, c_args, args, want, flush
     return rows
+
+
+def monarch_rates(name, row, chain, flush, args):
+    """A Monarch row's TFLOP/s, share of its bound and L2 reads a call
+    (``ops.monarch_l2_bytes`` of its plans at ``MONARCH``'s shape), beside
+    the cuBLAS chain's time read-flushed too; then the kernel's time with
+    every launch's cluster set to each size that divides its N1 / bm (the
+    C entry called directly, so no launch is counted): what the plans'
+    choice costs or saves. Added to ``row``."""
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.kernels.monarch_fft import ops
+    conv = name == "monarch_conv_fused"
+    B, N1, N2 = MONARCH["shape"]
+    launches = monarch_launches(name, B, N1, N2)
+    plans = [p for _, p, _ in launches if p is not None]
+    row["plans"] = {k: p._asdict() for k, p, _ in launches if p is not None}
+    row["l2_bytes"] = ops.monarch_l2_bytes(
+        B, N1, N2, ops.monarch_conv_plan(B, N1, N2) if conv else plans[0],
+        conv=conv)
+    row["tflops"] = row["flops"] / row["ms"] / 1e9
+    row["library_ms_read_flushed"] = time_ms(chain, flush, 20, read=True)
+    fn = rt.bind(name, "monarch_conv_bf16" if conv else "monarch_bf16",
+                 ops._CONV_ARGS if conv else ops._MONARCH_ARGS)
+    outs = [torch.empty((B, N2, N1), dtype=torch.bfloat16,
+                        device=args[0].device)]
+    if conv:
+        outs.append(torch.empty_like(args[0]))
+    row["cluster_ms"] = {}
+    for c in (4, 2, 1):
+        if any((shape[1] // p.bm) % c for _, p, shape in launches if p):
+            continue
+        ints = [v for p in plans for v in p._replace(cluster=c)[:4]]
+        if conv and len(plans) == 1:
+            ints += [0, 0, 0, 0]
+
+        def run():
+            rt.check_launch(name, fn(
+                *(t.data_ptr() for t in args), *(o.data_ptr() for o in outs),
+                B, N1, N2, *ints, rt.stream_ptr(args[0])))
+        row["cluster_ms"][c] = time_ms(run, flush, 20)
+    _log(f"kernel {name}: {row['tflops']:.1f} TFLOP/s, "
+         f"{row['bound_ms'] / row['ms']:.3f} of the bound; L2 reads a call "
+         + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in
+                     row["l2_bytes"].items())
+         + "; " + ", ".join(f"{k} BM {p.bm} cluster {p.cluster} {p.stages} "
+                            f"stages slab {p.chunks}"
+                            for k, p, _ in launches if p)
+         + f"; kernel {row['ms']:.4f} ms (read-flushed "
+         f"{row['ms_read_flushed']:.4f}) against the chain's "
+         f"{row['library_ms']:.4f} ms (read-flushed "
+         f"{row['library_ms_read_flushed']:.4f}); in clusters of "
+         + ", ".join(f"{c}: {v:.4f} ms" for c, v in
+                     row["cluster_ms"].items()))
 
 
 def monarch_phase(dev):

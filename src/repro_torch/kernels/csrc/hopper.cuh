@@ -1,9 +1,11 @@
 // Hopper (sm_90a) primitives for the port's warp-specialised kernels, as
-// inline PTX: mbarriers with phase-parity waits, named barriers, 2-D and 4-D
-// TMA tile loads and 4-D stores, warpgroup MMA (wgmma) with its
-// shared-memory matrix descriptor and fences, setmaxnreg, and the grid
-// dependency controls of programmatic dependent launch. Compile for sm_90a:
-// wgmma and setmaxnreg exist only there.
+// inline PTX: mbarriers with phase-parity waits (and arrivals on a peer
+// CTA's barrier in a thread-block cluster), named and cluster barriers, 2-D
+// and 4-D TMA tile loads (2-D also multicast to the CTAs of a cluster) and
+// 4-D stores, stmatrix, warpgroup MMA (wgmma) with its shared-memory matrix
+// descriptor and fences, setmaxnreg, and the grid dependency controls of
+// programmatic dependent launch. Compile for sm_90a: wgmma and setmaxnreg
+// exist only there.
 #pragma once
 
 #include "common.cuh"
@@ -52,6 +54,36 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
   } while (!done);
 }
 
+// arrive on the barrier at shared-memory offset ``bar`` of the cluster's
+// CTA ``rank`` (this CTA's own rank included). The default release at CTA
+// scope: enough where what it releases was read by wgmma or TMA, whose
+// completion the arriving thread has waited for; a cluster-scope release
+// fences every arrival and slows a multicast ring several times over.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    unsigned rank) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n"
+      ::"r"(bar), "r"(rank) : "memory");
+}
+
+// ------------------------------------------------------------- clusters
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster: what each wrote to shared
+// memory (its barriers' initialisation included) is visible to the others
+// after it, and no CTA leaves while a peer may still reach into it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // named barrier ``id`` (1-15; 0 is __syncthreads) over ``n`` threads
 __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
@@ -71,6 +103,21 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(map), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One box of a 2-D tensor map at (c0, c1) into shared-memory offset dst of
+// every CTA of the cluster whose rank has its bit set in ``mask``; each
+// destination's barrier at offset bar receives the box's bytes.
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
+                                                      const void* map,
+                                                      uint32_t bar, int c0,
+                                                      int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n"
+      ::"r"(dst), "l"(map), "r"(bar), "r"(c0), "r"(c1), "h"(mask)
       : "memory");
 }
 
@@ -117,6 +164,19 @@ __device__ __forceinline__ void fence_async_shared() {
 
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, unsigned v) {
   asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from the warp's mma fragments (register q of a
+// thread: its row g = lane / 4, columns 2 (lane % 4) and + 1, of matrix q)
+// stored transposed: lane 8 q + i gives the address of the 16-byte memory
+// row that receives column i of matrix q.
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, unsigned r0,
+                                                  unsigned r1, unsigned r2,
+                                                  unsigned r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], "
+      "{%1, %2, %3, %4};\n" ::"r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
 }
 
 // ------------------------------------------- programmatic dependent launch
@@ -226,6 +286,35 @@ __device__ void wgmma_rs_tb(float (&d)[N / 2], const unsigned (&a)[4],
 template <int N>
 __device__ void wgmma_ss_ta(float (&d)[N / 2], uint64_t a, uint64_t b,
                             int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,

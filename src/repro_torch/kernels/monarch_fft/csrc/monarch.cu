@@ -10,23 +10,18 @@
 // the paper's 1M-point shape (16, 1024, 1024) 6.87e10 flops and 73.4 MB,
 // 0.0695 ms at 989 TFLOP/s (0.022 ms of bytes).
 //
-// Design: the Pallas kernel's grid (B, N1 / blk), one CTA of 8 warps per
-// (batch row, block of BM rows of N1). Phase 1 computes A_blk = (W0[blk] @
-// x[b]) (*) tw[blk] by 128-column chunks on mma.sync (W0 rows and x tiles
-// streamed by cp.async through two shared-memory stages), multiplies the
-// twiddle in registers, rounds to bf16 where the oracle casts, and keeps
-// the whole BM x N2 A_blk in shared memory (128 KB at BM 64, N2 1024).
-// Phase 2 streams W1 by 128-row chunks and contracts it with A_blk read
-// n-major from shared memory, which is A_blk^T as the product's B operand:
-// the transpose is an access pattern, as in the Pallas kernel, and the
-// intermediate never reaches device memory. Each Z tile (128 x BM) leaves
-// through shared memory in 16-byte row stores. BM is the largest of 64,
-// 32, 16 whose shared memory fits the block (N2 up to 5888).
-//
-// Not yet fast: x[b] and W1 are re-read from L2 by each of the N1 / BM
-// CTAs of a batch row (16x at the 1M-point shape), and mma.sync runs below
-// the wgmma rate; a wgmma/TMA pipeline and a cluster sharing x[b] are
-// later work.
+// Design: phases 1 and 2 of monarch_core.cuh, one CTA of two consumer
+// warpgroups and a producer warpgroup per (batch row, block of BM rows of
+// N1): A_blk = (W0[blk] . x[b]) (*) tw[blk] on wgmma from a TMA ring, kept
+// in shared memory as phase 2's K-major operand, then Z[b][:, blk] = W1 .
+// A_blk^T by 128-row chunk pairs, stored from the accumulators. Clusters
+// of C consecutive blocks of a row share each x[b] and W1 tile by TMA
+// multicast. At (16, 1024, 1024) the plan is BM 64, C 2, a slab of 4
+// chunk pairs (W0[blk] read twice), 5 stages: 256 CTAs in two waves,
+// 0.638 GB read from L2 a call (x[b] and W1 once a cluster, 4 MiB; W0[blk]
+// twice and tw[blk] once a CTA, 384 KiB; 0.369 GB at C 4, which takes a
+// third wave), where a CTA reading x[b] and W1 for itself reads 1.14 GB;
+// ops.py::monarch_l2_bytes counts it for any plan.
 #include "monarch_core.cuh"
 
 using namespace repro;
@@ -34,65 +29,54 @@ using namespace repro::monarch;
 
 namespace {
 
-template <int BM>
-__global__ void __launch_bounds__(NTHREADS)
-monarch_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
-               const bf16* __restrict__ tw, const bf16* __restrict__ w1,
-               bf16* __restrict__ z, int N1, int N2) {
-  using P = Pass<BM>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);   // [BM][N2 + PAD]
-  bf16* st = As + BM * (N2 + PAD);
-  const int r0 = blockIdx.x * BM, b = blockIdx.y;
-  const long long plane = (long long)N1 * N2;
-
-  P::twiddled_rows(x + b * plane, w0, tw, N1, N2, r0, As, st);
-  // Z[b][m0 + i][r0 + j] = (W1[m0 + i, :] . A_blk[j, :])
-  for (int m0 = 0; m0 < N2; m0 += NC) {
-    typename P::P2::Acc acc;
-    P::P2::run(acc, w1 + (long long)m0 * N2, N2, As, N2 + PAD, N2, st);
-    P::P2::store(acc, st, z + b * plane + (long long)m0 * N1 + r0, N1,
-                 [](int, int, float v0, float v1) {
-                   return pack_bf16(v0, v1);
-                 });
-  }
+template <int BM, int R>
+__global__ void __launch_bounds__(THREADS, 1)
+monarch_kernel(const __grid_constant__ Maps mp, bf16* __restrict__ z, int N1,
+               int N2, int C, int S) {
+  front<false, BM, R>(mp, z, N1, N2, C, S);
 }
 
-template <int BM>
-int launch(const bf16* x, const bf16* w0, const bf16* tw, const bf16* w1,
-           bf16* z, int B, int N1, int N2, size_t bytes, cudaStream_t s) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      monarch_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  monarch_kernel<BM><<<dim3(N1 / BM, B), NTHREADS, bytes, s>>>(x, w0, tw, w1,
-                                                               z, N1, N2);
-  return static_cast<int>(cudaGetLastError());
+template <int BM, int R>
+int launch(const Maps& mp, bf16* z, int B, int N1, int N2, int C, int S,
+           cudaStream_t s) {
+  return launch_cluster(monarch_kernel<BM, R>, dim3(N1 / BM, B), C,
+                        smem_bytes(BM, S, N2, false), s, mp, z, N1, N2, C, S);
 }
 
 }  // namespace
 
 // x (B, N1, N2), w0 (N1, N1), tw (N1, N2), w1 (N2, N2) -> z (B, N2, N1),
-// all bf16, contiguous. N1 % 64 == 0 and N2 % 128 == 0.
+// all bf16, contiguous; the plan (bm, cluster, stages, chunks) is
+// ops.py::monarch_plan's for this shape.
 extern "C" int monarch_bf16(const void* x, const void* w0, const void* tw,
                             const void* w1, void* z, int B, int N1, int N2,
+                            int bm, int cluster, int stages, int chunks,
                             void* stream) {
-  if (B < 1 || N1 < 64 || N1 % 64 || N2 < NC || N2 % NC)
+  if (B < 1 || !plan_ok(N1, N2, bm, cluster, stages, chunks, false))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto X = static_cast<const bf16*>(x);
-  auto W0 = static_cast<const bf16*>(w0);
-  auto TW = static_cast<const bf16*>(tw);
-  auto W1 = static_cast<const bf16*>(w1);
+  Maps mp;
+  if (!front_maps(&mp, x, w0, tw, w1, nullptr, nullptr, nullptr, B, N1, N2,
+                  bm, cluster))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto Z = static_cast<bf16*>(z);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t limit = static_cast<size_t>(smem_limit());
-  if (monarch_smem_bytes<64>(N2) <= limit)
-    return launch<64>(X, W0, TW, W1, Z, B, N1, N2, monarch_smem_bytes<64>(N2), s);
-  if (monarch_smem_bytes<32>(N2) <= limit)
-    return launch<32>(X, W0, TW, W1, Z, B, N1, N2, monarch_smem_bytes<32>(N2), s);
-  if (monarch_smem_bytes<16>(N2) <= limit)
-    return launch<16>(X, W0, TW, W1, Z, B, N1, N2, monarch_smem_bytes<16>(N2), s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const bool slab = chunks > 1;
+  switch (bm) {
+    case 64:
+      return slab ? launch<64, 4>(mp, Z, B, N1, N2, cluster, stages, s)
+                  : launch<64, 1>(mp, Z, B, N1, N2, cluster, stages, s);
+    case 32:
+      return slab ? launch<32, 8>(mp, Z, B, N1, N2, cluster, stages, s)
+                  : launch<32, 1>(mp, Z, B, N1, N2, cluster, stages, s);
+    default:
+      return slab ? launch<16, 8>(mp, Z, B, N1, N2, cluster, stages, s)
+                  : launch<16, 1>(mp, Z, B, N1, N2, cluster, stages, s);
+  }
+}
+
+// The dynamic shared memory of a launch with this plan, in bytes
+extern "C" int monarch_smem_bytes(int bm, int stages, int N2) {
+  return smem_bytes(bm, stages, N2, false);
 }
 
 REPRO_EXPORT_ERROR_STRING

@@ -15,24 +15,35 @@
 //
 // Design: TWO launches where the TPU kernel has one, because a 1M-point row
 // (2 MB in bf16) does not fit the 227 KB of shared memory a CTA may have.
-// The first three products are local to a block of BM rows of N1, so one
-// CTA of 8 warps per (batch row, N1 block) runs them back to back in
-// shared memory (monarch_core.cuh): A_blk (BM x N2) as in monarch.cu, then
-// F_blk = bf16(bf16(W1 @ A_blk^T) (*) filt[:, blk]) (N2 x BM, k-major),
-// then Bm[:, blk] = bf16((W0i @ F_blk) (*) twi[:, blk]), written to device
-// memory as Bm (B, N2, N1) bf16, where the oracle rounds it anyway. Only
-// the last product, Z[b] = W1i @ Bm[b]^T, contracts across every N1 block;
-// the second launch computes it in 64 x 128 tiles, Bm's rows read as the
-// product's n-major B operand (the transpose again an access pattern). The
-// intermediate costs 2 * B * N1 * N2 * 2 bytes of device traffic (64 MB at
-// the 1M-point shape, 0.019 ms at 3.35 TB/s). Every rounding point is the
-// oracle's (monarch_conv_ref): each pass's twiddled intermediate and output
-// are rounded to bf16, and the filter multiplies the rounded pass output.
-// BM is 32, or 16 where 32 does not fit (N2 up to 2304).
-//
-// A one-launch design (a thread-block cluster sharing the row through
-// distributed shared memory) is later work, as are wgmma/TMA and the L2
-// re-reads of x[b], W1 and W0i by each of the N1 / BM CTAs of a row.
+// ops.py::monarch_conv_plan picks one of two forms; both keep every
+// rounding point of the oracle (monarch_conv_ref: each pass's twiddled
+// intermediate and output rounded to bf16, the filter multiplying the
+// rounded pass output) and sum in the same order.
+//  * Two passes (N1 % 128 == 0, N1 <= 5888, a grid past one wave; the
+//    1M-point shape): conv_forward_kernel is monarch.cu's pass with the
+//    filter in its epilogue, F = bf16(bf16(W1 . A^T) (*) filt) written to
+//    device memory (B, N2, N1); conv_inverse_kernel is the pass again on F
+//    with W0i, twi, W1i, which writes Z. Each runs 64-row blocks in
+//    clusters of two at (16, 1024, 1024) (5 stages; 0.671 and 0.638 GB
+//    read from L2 a call).
+//  * One front launch, then a GEMM (small grids, N1 % 128 == 64, N1 past
+//    5888): conv_front_kernel runs the three products that are local to a
+//    block of BM rows of N1 (monarch_core.cuh, phases 1-3): A_blk, then
+//    F_blk = bf16(bf16(W1 . A_blk^T) (*) filt[:, blk]) kept K-major for
+//    phase 3, then Bm[:, blk] = bf16((W0i . F_blk) (*) twi[:, blk]),
+//    written to device memory as Bm (B, N2, N1). conv_back_kernel
+//    contracts across every block: Z[b] = W1i . Bm[b]^T, a TMA / wgmma
+//    GEMM with both operands K-major (Bm's rows are the product's columns:
+//    the transpose again an access pattern), 128 x 128 tiles, a 3-stage
+//    ring of 32 KB, two CTAs an SM. Holding A_blk and F_blk together caps
+//    the front's blocks at 32 rows, so its products are half as wide and
+//    it reads each streamed byte half as often as a pass: at (16, 1024,
+//    1024) it would take 512 CTAs in four waves and 1.745 GB of L2 reads
+//    (3.36 GB with every CTA reading x[b], W1 and W0i for itself), and
+//    the back GEMM 0.537 GB.
+// The intermediate (F or Bm) costs 2 * B * N1 * N2 * 2 bytes of device
+// traffic (64 MB at the 1M-point shape, 0.019 ms at 3.35 TB/s).
+// ops.py::monarch_l2_bytes counts each launch's L2 reads for any plan.
 #include "monarch_core.cuh"
 
 using namespace repro;
@@ -40,124 +51,226 @@ using namespace repro::monarch;
 
 namespace {
 
-template <int BM>
-__global__ void __launch_bounds__(NTHREADS)
-conv_front_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w0,
-                  const bf16* __restrict__ tw, const bf16* __restrict__ w1,
-                  const bf16* __restrict__ filt,
-                  const bf16* __restrict__ w0i,
-                  const bf16* __restrict__ twi, bf16* __restrict__ bm,
-                  int N1, int N2) {
-  using P = Pass<BM>;
-  constexpr int LDF = BM + PAD;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);   // [BM][N2 + PAD]
-  bf16* Fs = As + BM * (N2 + PAD);                // [N2][BM + PAD]
-  bf16* st = Fs + N2 * LDF;
-  const int r0 = blockIdx.x * BM, b = blockIdx.y;
-  const long long plane = (long long)N1 * N2;
+template <int BM, int R>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_front_kernel(const __grid_constant__ Maps mp, bf16* __restrict__ bm,
+                  int N1, int N2, int C, int S) {
+  front<true, BM, R>(mp, bm, N1, N2, C, S);
+}
 
-  P::twiddled_rows(x + b * plane, w0, tw, N1, N2, r0, As, st);
-  // F_blk[m0 + i][j] = bf16(bf16(W1[m0 + i, :] . A_blk[j, :]) *
-  //                         filt[m0 + i][r0 + j])
-  for (int m0 = 0; m0 < N2; m0 += NC) {
-    typename P::P2::Acc acc;
-    P::P2::run(acc, w1 + (long long)m0 * N2, N2, As, N2 + PAD, N2, st);
-    P::P2::each_pair(acc, [&](int r, int c, float v0, float v1) {
-      const bf16* f = filt + (long long)(m0 + r) * N1 + r0 + c;
-      *reinterpret_cast<unsigned*>(Fs + (m0 + r) * LDF + c) =
-          pack_bf16(round_bf16(v0) * to_f(f[0]), round_bf16(v1) * to_f(f[1]));
-    });
+// The two passes: F = bf16(bf16(monarch(x)) * filt) (B, N2, N1), then Z =
+// monarch(F, W0i, twi, W1i), each the pass of monarch.cu
+template <int BM, int R>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_forward_kernel(const __grid_constant__ Maps mp, bf16* __restrict__ f,
+                    int N1, int N2, int C, int S) {
+  front<false, BM, R>(mp, f, N1, N2, C, S, true);
+}
+
+template <int BM, int R>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_inverse_kernel(const __grid_constant__ Maps mp, bf16* __restrict__ z,
+                    int N1, int N2, int C, int S) {
+  front<false, BM, R>(mp, z, N1, N2, C, S);
+}
+
+constexpr int BACK_STAGES = 3;
+constexpr int BACK_THREADS = CONSUMERS + 32;  // + a producer warp
+constexpr int BACK_STAGE = 2 * A_STAGE;      // a W1i tile and a Bm tile
+constexpr int BACK_SMEM = 1024 + BACK_STAGES * BACK_STAGE + 64;
+
+// Z[b][i0 + i][n0 + n] = W1i[i0 + i, :] . Bm[b][n0 + n, :], i, n < 128:
+// grid (N2 / 128, ceil(N1 / 128), B); rows of W1i past N1 load as zeros
+// and their outputs are not stored.
+__global__ void __launch_bounds__(BACK_THREADS, 2)
+conv_back_kernel(const __grid_constant__ CUtensorMap mw1i,
+                 const __grid_constant__ CUtensorMap mbm,
+                 bf16* __restrict__ z, int N1, int N2) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bars = ring + BACK_STAGES * BACK_STAGE;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (BACK_STAGES + s); };
+  const int n0 = blockIdx.x * MC, i0 = blockIdx.y * MC, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int KT = N1 / KD;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < BACK_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), CONSUMERS / 32);
+    }
+    mbar_fence_init();
   }
   __syncthreads();
-  // Bm[b][m0 + i][r0 + j] = bf16((W0i[m0 + i, :] . F_blk[:, j]) *
-  //                              twi[m0 + i][r0 + j])
-  for (int m0 = 0; m0 < N2; m0 += NC) {
-    typename P::P3::Acc acc;
-    P::P3::run(acc, w0i + (long long)m0 * N2, N2, Fs, LDF, N2, st);
-    P::P3::store(acc, st, bm + b * plane + (long long)m0 * N1 + r0, N1,
-                 [&](int r, int c, float v0, float v1) {
-                   const bf16* t = twi + (long long)(m0 + r) * N1 + r0 + c;
-                   return pack_bf16(v0 * to_f(t[0]), v1 * to_f(t[1]));
-                 });
+  if (warp == CONSUMERS / 32) {
+    if (lane == 0) {
+      tma_prefetch_map(&mw1i);
+      tma_prefetch_map(&mbm);
+      Pos a;
+      for (int kt = 0; kt < KT; ++kt) {
+        mbar_wait(empty(a.s), a.p ^ 1);
+        mbar_expect_tx(full(a.s), BACK_STAGE);
+        const uint32_t st = ring + a.s * BACK_STAGE;
+        tma_load_2d(st, &mw1i, full(a.s), kt * KD, i0);
+        tma_load_2d(st + A_STAGE, &mbm, full(a.s), kt * KD, b * N2 + n0);
+        a.next(BACK_STAGES);
+      }
+    }
+    return;
+  }
+  const int wg = warp >> 2;
+  float acc[MC / 2];
+#pragma unroll
+  for (int i = 0; i < MC / 2; ++i) acc[i] = 0.f;
+  Pos a;
+  int pend = -1;
+  for (int kt = 0; kt < KT; ++kt) {
+    mbar_wait(full(a.s), a.p);
+    const uint32_t st = ring + a.s * BACK_STAGE;
+    const uint32_t ad = desc_lo(st + wg * HALF, 16);
+    const uint32_t bd = desc_lo(st + A_STAGE, 16);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD / 16; ++kk)
+      wgmma_ss<MC>(acc, make_desc(ad + ((kk * 32) >> 4), HI),
+                   make_desc(bd + ((kk * 32) >> 4), HI), kt > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (pend >= 0 && lane == 0) mbar_arrive(empty(pend));
+    pend = a.s;
+    a.next(BACK_STAGES);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (lane == 0) mbar_arrive(empty(pend));
+  const int wi = warp & 3, g = lane >> 2, tig = lane & 3;
+  bf16* zb = z + (long long)b * N1 * N2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = i0 + wg * 64 + 16 * wi + g + 8 * h;
+    if (i < N1) {
+#pragma unroll
+      for (int c = 0; c < MC / 8; ++c)
+        *reinterpret_cast<unsigned*>(zb + (long long)i * N2 + n0 + 8 * c +
+                                     2 * tig) =
+            pack_bf16(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+    }
   }
 }
 
-// Z[b][m0:m0 + 64, n0:n0 + 128] = W1i[m0:m0 + 64, :] @ Bm[b][n0:n0 + 128, :]^T
-using Back = Tile<64, 128, 2, 4, B_NK_GLOBAL>;
-
-__global__ void __launch_bounds__(NTHREADS)
-conv_back_kernel(const bf16* __restrict__ w1i, const bf16* __restrict__ bm,
-                 bf16* __restrict__ z, int N1, int N2) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* st = reinterpret_cast<bf16*>(smem_raw);
-  const int n0 = blockIdx.x * 128, m0 = blockIdx.y * 64, b = blockIdx.z;
-  const long long plane = (long long)N1 * N2;
-  Back::Acc acc;
-  Back::run(acc, w1i + (long long)m0 * N1, N1,
-            bm + b * plane + (long long)n0 * N1, N1, N1, st);
-  Back::store(acc, st, z + b * plane + (long long)m0 * N2 + n0, N2,
-              [](int, int, float v0, float v1) { return pack_bf16(v0, v1); });
+template <int BM, int R>
+int launch_front(const Maps& mp, bf16* bm, int B, int N1, int N2, int C,
+                 int S, cudaStream_t s) {
+  return launch_cluster(conv_front_kernel<BM, R>, dim3(N1 / BM, B), C,
+                        smem_bytes(BM, S, N2, true), s, mp, bm, N1, N2, C, S);
 }
 
-template <int BM>
-size_t front_smem_bytes(int N2) {
-  return (size_t(BM) * (N2 + PAD) + size_t(N2) * (BM + PAD) +
-          Pass<BM>::STAGE_ELEMS) * sizeof(bf16);
+// One of the two passes at (B, N1, N2) with its plan
+template <bool FORWARD, int BM, int R>
+int launch_pass(const Maps& mp, bf16* out, int B, int N1, int N2, int C,
+                int S, cudaStream_t s) {
+  const int smem = smem_bytes(BM, S, N2, false);
+  if constexpr (FORWARD)
+    return launch_cluster(conv_forward_kernel<BM, R>, dim3(N1 / BM, B), C,
+                          smem, s, mp, out, N1, N2, C, S);
+  else
+    return launch_cluster(conv_inverse_kernel<BM, R>, dim3(N1 / BM, B), C,
+                          smem, s, mp, out, N1, N2, C, S);
 }
 
-template <int BM>
-int launch_front(const bf16* x, const bf16* w0, const bf16* tw,
-                 const bf16* w1, const bf16* filt, const bf16* w0i,
-                 const bf16* twi, bf16* bm, int B, int N1, int N2,
-                 cudaStream_t s) {
-  const size_t bytes = front_smem_bytes<BM>(N2);
-  const cudaError_t e = cudaFuncSetAttribute(
-      conv_front_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  conv_front_kernel<BM><<<dim3(N1 / BM, B), NTHREADS, bytes, s>>>(
-      x, w0, tw, w1, filt, w0i, twi, bm, N1, N2);
-  return static_cast<int>(cudaGetLastError());
+template <bool FORWARD>
+int launch_pass(const Maps& mp, bf16* out, int B, int N1, int N2, int bm,
+                int C, int S, int chunks, cudaStream_t s) {
+  const bool slab = chunks > 1;
+  switch (bm) {
+    case 64:
+      return slab ? launch_pass<FORWARD, 64, 4>(mp, out, B, N1, N2, C, S, s)
+                  : launch_pass<FORWARD, 64, 1>(mp, out, B, N1, N2, C, S, s);
+    case 32:
+      return slab ? launch_pass<FORWARD, 32, 8>(mp, out, B, N1, N2, C, S, s)
+                  : launch_pass<FORWARD, 32, 1>(mp, out, B, N1, N2, C, S, s);
+    default:
+      // the forward pass's N2 (<= MONARCH_CONV_MAX_N2) always fits 32 rows
+      if (FORWARD) return static_cast<int>(cudaErrorInvalidValue);
+      return slab ? launch_pass<false, 16, 8>(mp, out, B, N1, N2, C, S, s)
+                  : launch_pass<false, 16, 1>(mp, out, B, N1, N2, C, S, s);
+  }
 }
 
 }  // namespace
 
 // x (B, N1, N2), w0 (N1, N1), tw (N1, N2), w1 (N2, N2), filt (N2, N1),
 // w0i (N2, N2), twi (N2, N1), w1i (N1, N1) -> z (B, N1, N2), all bf16,
-// contiguous; bm is scratch of B * N2 * N1 bf16. N1 % 64 == 0 and
-// N2 % 128 == 0. Launches conv_front_kernel, then conv_back_kernel, on the
-// given stream.
+// contiguous; bm is scratch of B * N2 * N1 bf16. The plan is
+// ops.py::monarch_conv_plan's for this shape: with bm2 == 0, one front
+// launch (bm_rows, cluster, stages, chunks; conv_front_kernel, phases 1-3,
+// writing Bm to the scratch), then conv_back_kernel; else two passes,
+// conv_forward_kernel at (B, N1, N2) with the first plan writing F to the
+// scratch, then conv_inverse_kernel at (B, N2, N1) with the second
+// (bm2, cluster2, stages2, chunks2). Both on the given stream.
 extern "C" int monarch_conv_bf16(const void* x, const void* w0,
                                  const void* tw, const void* w1,
                                  const void* filt, const void* w0i,
                                  const void* twi, const void* w1i, void* bm,
-                                 void* z, int B, int N1, int N2,
+                                 void* z, int B, int N1, int N2, int bm_rows,
+                                 int cluster, int stages, int chunks, int bm2,
+                                 int cluster2, int stages2, int chunks2,
                                  void* stream) {
-  if (B < 1 || N1 < 64 || N1 % 64 || N2 < NC || N2 % NC)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto c = [](const void* p) { return static_cast<const bf16*>(p); };
   auto Bm = static_cast<bf16*>(bm);
+  auto Z = static_cast<bf16*>(z);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t limit = static_cast<size_t>(smem_limit());
-  int rc;
-  if (front_smem_bytes<32>(N2) <= limit)
-    rc = launch_front<32>(c(x), c(w0), c(tw), c(w1), c(filt), c(w0i), c(twi),
-                          Bm, B, N1, N2, s);
-  else if (front_smem_bytes<16>(N2) <= limit)
-    rc = launch_front<16>(c(x), c(w0), c(tw), c(w1), c(filt), c(w0i), c(twi),
-                          Bm, B, N1, N2, s);
-  else
+  if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (bm2 != 0) {
+    if (N1 % MC || bm_rows == 16 ||
+        !plan_ok(N1, N2, bm_rows, cluster, stages, chunks, false) ||
+        !plan_ok(N2, N1, bm2, cluster2, stages2, chunks2, false))
+      return static_cast<int>(cudaErrorInvalidValue);
+    Maps fwd, inv;
+    if (!front_maps(&fwd, x, w0, tw, w1, filt, nullptr, nullptr, B, N1, N2,
+                    bm_rows, cluster) ||
+        !front_maps(&inv, bm, w0i, twi, w1i, nullptr, nullptr, nullptr, B,
+                    N2, N1, bm2, cluster2))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int rc = launch_pass<true>(fwd, Bm, B, N1, N2, bm_rows, cluster,
+                                     stages, chunks, s);
+    if (rc != 0) return rc;
+    return launch_pass<false>(inv, Z, B, N2, N1, bm2, cluster2, stages2,
+                              chunks2, s);
+  }
+  if (!plan_ok(N1, N2, bm_rows, cluster, stages, chunks, true))
     return static_cast<int>(cudaErrorInvalidValue);
+  Maps mp;
+  CUtensorMap mw1i, mbm;
+  if (!front_maps(&mp, x, w0, tw, w1, filt, w0i, twi, B, N1, N2, bm_rows,
+                  cluster) ||
+      !map_2d_bf16(&mw1i, w1i, N1, N1, uint64_t(N1) * 2, 64, MC) ||
+      !map_2d_bf16(&mbm, bm, N1, uint64_t(B) * N2, uint64_t(N1) * 2, 64, MC))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool slab = chunks > 1;
+  int rc;
+  if (bm_rows == 32)
+    rc = slab ? launch_front<32, 8>(mp, Bm, B, N1, N2, cluster, stages, s)
+              : launch_front<32, 1>(mp, Bm, B, N1, N2, cluster, stages, s);
+  else
+    rc = slab ? launch_front<16, 8>(mp, Bm, B, N1, N2, cluster, stages, s)
+              : launch_front<16, 1>(mp, Bm, B, N1, N2, cluster, stages, s);
   if (rc != 0) return rc;
-  constexpr int back_bytes = Back::SMEM_ELEMS * sizeof(bf16);
   const cudaError_t e = cudaFuncSetAttribute(
       conv_back_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      back_bytes);
+      BACK_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  conv_back_kernel<<<dim3(N2 / 128, N1 / 64, B), NTHREADS, back_bytes, s>>>(
-      c(w1i), Bm, static_cast<bf16*>(z), N1, N2);
+  conv_back_kernel<<<dim3(N2 / MC, (N1 + MC - 1) / MC, B), BACK_THREADS,
+                     BACK_SMEM, s>>>(mw1i, mbm, Z, N1, N2);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The dynamic shared memory of a launch with this plan, in bytes: the
+// front launch (front != 0), a pass, or the back launch (bm_rows 0)
+extern "C" int monarch_conv_smem_bytes(int bm_rows, int stages, int N2,
+                                       int front) {
+  return bm_rows == 0 ? BACK_SMEM
+                      : smem_bytes(bm_rows, stages, N2, front != 0);
 }
 
 REPRO_EXPORT_ERROR_STRING

@@ -3,21 +3,143 @@
 ``operational_intensity``). CPU tensors take the plain versions in
 ``ref.py``, in any float dtype; CUDA tensors launch the hand-written
 kernels, which take bf16 (the type Table I counts), or the call raises.
-The kernels pick their own tiles: there is no ``block_n1``."""
+The kernels' tiles come from ``monarch_plan``: there is no ``block_n1``."""
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import runtime as rt
 from repro_torch.kernels.monarch_fft.ref import monarch_conv_ref, monarch_ref
 
-_MONARCH_ARGS = [rt.P] * 5 + [rt.I] * 3 + [rt.P]
-_CONV_ARGS = [rt.P] * 10 + [rt.I] * 3 + [rt.P]
+_MONARCH_ARGS = [rt.P] * 5 + [rt.I] * 7 + [rt.P]
+_CONV_ARGS = [rt.P] * 10 + [rt.I] * 11 + [rt.P]
 # The largest N2 whose N1-block intermediates fit a block's 227 KB of
-# shared memory at the smallest block of 16 rows (monarch.cu,
-# monarch_conv.cu)
+# shared memory at the smallest block of 16 rows (monarch_plan)
 MONARCH_MAX_N2 = 5888
 MONARCH_CONV_MAX_N2 = 2304
+
+# The plan's arithmetic, as monarch_core.cuh does it: an H100's SMs and the
+# opt-in shared memory of one block; a ring stage of 128 rows x 64 k bf16;
+# the B ring's two slots, the conv's epilogue slot; the barriers.
+SMS = 132
+SMEM_LIMIT = 232448
+_A_STAGE = 128 * 64 * 2
+_SLOTS = 2
+_MAX_STAGES = 6          # the kernels take up to 8
+_BAR_BYTES = 8 * 2 * (8 + 2 * _SLOTS + 1)
+_BACK_TILE = 128         # conv_back_kernel's square output tile
+# CTAs of one wave, at one CTA an SM, in clusters of C: the SMs of an
+# H100 SXM's GPCs hold 30 clusters of four (tools/l2_stream_bench.cu, which
+# asks cudaOccupancyMaxActiveClusters), 66 of two
+CLUSTER_SLOTS = {1: 132, 2: 132, 4: 120}
+
+
+class MonarchPlan(NamedTuple):
+    """How a Monarch kernel tiles one shape: ``bm`` rows of N1 a CTA,
+    clusters of ``cluster`` consecutive N1 blocks sharing each x / W1 / W0i
+    tile by multicast, a ring of ``stages`` 16 KB tiles, phase 1 in slabs
+    of ``chunks`` 128-row chunk pairs, ``smem`` bytes of dynamic shared
+    memory, ``ctas`` CTAs."""
+    bm: int
+    cluster: int
+    stages: int
+    chunks: int
+    smem: int
+    ctas: int
+
+
+def monarch_smem(bm, stages, N2, conv):
+    """Dynamic shared memory of a front launch (``monarch_core.cuh::
+    smem_bytes``): alignment slack, the resident A_blk (and the conv's
+    F_blk^T), the ring, the B ring, the conv's epilogue slot, barriers."""
+    return (1024 + bm * N2 * 2 * (2 if conv else 1) + stages * _A_STAGE
+            + _SLOTS * bm * 64 * 2 + (128 * bm * 2 if conv else 0)
+            + _BAR_BYTES)
+
+
+def monarch_plan(B, N1, N2, conv=False, sms=SMS, smem_limit=SMEM_LIMIT):
+    """The tiling of ``monarch`` (``conv`` False) or ``monarch_conv``'s
+    front launch at (B, N1, N2), N1 % 64 == 0, N2 % 128 == 0: the largest
+    block (64, 32, 16 rows; the conv 32, 16) whose shared memory fits, with
+    at least three stages where any block has them; the most stages that
+    fit, up to six; the cluster (4, 2, 1, dividing N1 / bm) that runs the
+    grid in the fewest waves, the largest of those; a slab of all the chunk
+    pairs the accumulators hold (4 at bm 64, 8 below) where that divides
+    N2 / 128, else of one.
+
+    The waves: a CTA takes an SM (its shared memory), and clusters of four
+    hold 120 of an H100's 132 (``CLUSTER_SLOTS``), so at 256 or 512 CTAs
+    they cost a wave that clusters of two do not."""
+    fits = []
+    for bm in ((32, 16) if conv else (64, 32, 16)):
+        stages = max((s for s in range(2, _MAX_STAGES + 1)
+                      if monarch_smem(bm, s, N2, conv) <= smem_limit),
+                     default=0)
+        if stages:
+            fits.append((bm, stages))
+    if not fits:
+        raise ValueError(f"monarch_plan: N2 = {N2} leaves no block within "
+                         f"{smem_limit} bytes of shared memory")
+    if any(s >= 3 for _, s in fits):
+        fits = [(bm, s) for bm, s in fits if s >= 3]
+    bm, stages = fits[0]
+    ctas = B * N1 // bm
+    slots = {c: n * sms // SMS for c, n in CLUSTER_SLOTS.items()}
+    cluster = min((c for c in (4, 2, 1) if (N1 // bm) % c == 0),
+                  key=lambda c: (-(-ctas // slots[c]), -c))
+    slab = 4 if bm == 64 else 8
+    chunks = slab if (N2 // 128) % slab == 0 else 1
+    return MonarchPlan(bm, cluster, stages, chunks,
+                       monarch_smem(bm, stages, N2, conv), ctas)
+
+
+def monarch_conv_plan(B, N1, N2, sms=SMS, smem_limit=SMEM_LIMIT):
+    """How ``monarch_conv`` runs at (B, N1, N2): ``(front, None)``, one
+    front launch (phases 1-3 of each N1 block, ``monarch_plan(conv=True)``)
+    and the back GEMM; or ``(forward, inverse)``, two passes on the pass
+    kernel: F = bf16(bf16(monarch(x)) * filt) at (B, N1, N2), then
+    monarch(F) at (B, N2, N1).
+
+    The front holds A_blk and F_blk together, so its blocks are half the
+    pass's (32 rows at most) and its products half as wide; it wins only
+    where its grid fits one wave, and the passes need N1 % 128 == 0 and
+    N1 <= MONARCH_MAX_N2 (the second pass's N2)."""
+    front = monarch_plan(B, N1, N2, conv=True, sms=sms,
+                         smem_limit=smem_limit)
+    slots = CLUSTER_SLOTS[front.cluster] * sms // SMS
+    if N1 % 128 or N1 > MONARCH_MAX_N2 or front.ctas <= slots:
+        return front, None
+    return (monarch_plan(B, N1, N2, sms=sms, smem_limit=smem_limit),
+            monarch_plan(B, N2, N1, sms=sms, smem_limit=smem_limit))
+
+
+def monarch_l2_bytes(B, N1, N2, plan, conv=False, dtype_bytes=2):
+    """Bytes each launch of one call reads from L2 (every tile a CTA loads,
+    a multicast tile once a cluster): ``{"pass": ...}`` for ``monarch``
+    with ``plan``; for the conv, with ``plan`` from ``monarch_conv_plan``,
+    ``{"front": ..., "back": ...}`` or ``{"forward": ..., "inverse":
+    ...}``."""
+    e = dtype_bytes
+
+    def front_launch(N1, N2, p, conv, filt):
+        clusters = B * N1 // (p.bm * p.cluster)
+        shared = (N1 * N2 + N2 * N2 * (2 if conv else 1)) * e  # x, W1, W0i
+        slabs = N2 // 128 // p.chunks
+        own = (p.bm * N1 * slabs
+               + p.bm * N2 * (3 if conv else 2 if filt else 1)) * e
+        return clusters * shared + p.ctas * own
+
+    if not conv:
+        return {"pass": front_launch(N1, N2, plan, False, False)}
+    first, second = plan
+    if second is not None:
+        return {"forward": front_launch(N1, N2, first, False, True),
+                "inverse": front_launch(N2, N1, second, False, False)}
+    tiles = B * -(-N1 // _BACK_TILE) * (N2 // _BACK_TILE)
+    return {"front": front_launch(N1, N2, first, True, False),
+            "back": tiles * (min(N1, _BACK_TILE) + _BACK_TILE) * N1 * e}
 
 
 def _check_shapes(name, x, **factors):
@@ -60,10 +182,11 @@ def monarch(x, w0, tw, w1):
         return monarch_ref(x, w0, tw, w1)
     _check_card("monarch", N2, MONARCH_MAX_N2,
                 dict(x=x, w0=w0, tw=tw, w1=w1))
+    plan = monarch_plan(B, N1, N2)
     fn = rt.bind("monarch_fused", "monarch_bf16", _MONARCH_ARGS)
     z = torch.empty((B, N2, N1), dtype=x.dtype, device=x.device)
     rc = fn(x.data_ptr(), w0.data_ptr(), tw.data_ptr(), w1.data_ptr(),
-            z.data_ptr(), B, N1, N2, rt.stream_ptr(x))
+            z.data_ptr(), B, N1, N2, *plan[:4], rt.stream_ptr(x))
     rt.check_launch("monarch_fused", rc)
     rt.count_launch("monarch_fused")
     return z
@@ -74,7 +197,10 @@ def monarch_conv(x, w0, tw, w1, filt, w0i, twi, w1i):
     (B, N1, N2), with w0 (N1, N1), tw (N1, N2), w1 (N2, N2), filt (N2, N1),
     w0i (N2, N2), twi (N2, N1), w1i (N1, N1). On the card one call is one
     ``monarch_conv_fused`` launch count: its C entry runs two CUDA kernels
-    (the N1-block-local products, then the last product across blocks)."""
+    as ``monarch_conv_plan`` says (``conv_front_kernel``, the N1-block-local
+    products, then ``conv_back_kernel``, the last product across blocks;
+    or ``conv_forward_kernel`` and ``conv_inverse_kernel``, the two
+    passes)."""
     _check_shapes("monarch_conv", x, w0=(w0, ("N1", "N1")),
                   tw=(tw, ("N1", "N2")), w1=(w1, ("N2", "N2")),
                   filt=(filt, ("N2", "N1")), w0i=(w0i, ("N2", "N2")),
@@ -86,11 +212,13 @@ def monarch_conv(x, w0, tw, w1, filt, w0i, twi, w1i):
     _check_card("monarch_conv", N2, MONARCH_CONV_MAX_N2,
                 dict(x=x, w0=w0, tw=tw, w1=w1, filt=filt, w0i=w0i, twi=twi,
                      w1i=w1i))
+    first, second = monarch_conv_plan(B, N1, N2)
     fn = rt.bind("monarch_conv_fused", "monarch_conv_bf16", _CONV_ARGS)
     bm = torch.empty((B, N2, N1), dtype=x.dtype, device=x.device)
     z = torch.empty_like(x)
     rc = fn(*(t.data_ptr() for t in args), bm.data_ptr(), z.data_ptr(), B,
-            N1, N2, rt.stream_ptr(x))
+            N1, N2, *first[:4], *(second or (0, 0, 0, 0))[:4],
+            rt.stream_ptr(x))
     rt.check_launch("monarch_conv_fused", rc)
     rt.count_launch("monarch_conv_fused")
     return z
