@@ -306,12 +306,16 @@ MONARCH_PLAN_SHAPES = {
 
 def monarch_launches(name, B, N1, N2):
     """The CUDA kernels one call of Monarch library ``name`` launches at
-    (B, N1, N2), as [(kernel, plan or None, the launch's (B, N1, N2))]."""
-    from repro_torch.kernels.monarch_fft.ops import (monarch_conv_plan,
+    (B, N1, N2) on this card, as [(kernel, plan or None, the launch's (B,
+    N1, N2))]."""
+    from repro_torch.kernels.monarch_fft.ops import (card_limits,
+                                                     monarch_conv_plan,
                                                      monarch_plan)
+    sms, smem = card_limits(name, torch.cuda.current_device())
     if name == "monarch_fused":
-        return [("monarch_kernel", monarch_plan(B, N1, N2), (B, N1, N2))]
-    first, second = monarch_conv_plan(B, N1, N2)
+        return [("monarch_kernel", monarch_plan(B, N1, N2, smem),
+                 (B, N1, N2))]
+    first, second = monarch_conv_plan(B, N1, N2, sms, smem)
     if second is None:
         return [("conv_front_kernel", first, (B, N1, N2)),
                 ("conv_back_kernel", None, (B, N1, N2))]
@@ -322,9 +326,9 @@ def monarch_launches(name, B, N1, N2):
 def monarch_build_report(name, log):
     """The Monarch libraries' build report: one line per kernel
     instantiation (kernel, BM, the phase-1 slab: 1 or all the chunk pairs
-    the accumulators hold; the cluster is a launch setting), the conv's
-    back GEMM one line, failing as ``entry_build_report`` does, and also
-    where ``MONARCH_PLAN_SHAPES`` leave an instantiation unpicked. The
+    the accumulators hold), the conv's back GEMM one line, failing as
+    ``entry_build_report`` does, and also where ``MONARCH_PLAN_SHAPES``
+    leave an instantiation unpicked on this card. The
     shared memory is the library's own sum at the first of those shapes
     that picks the instantiation (the back GEMM's is fixed)."""
     from repro_torch.kernels import runtime as rt
@@ -340,10 +344,11 @@ def monarch_build_report(name, log):
             if p is None:
                 picked.setdefault((kernel,), (smem_fn(0, 0, 0, 0), None))
             else:
+                front = kernel == "conv_front_kernel"
                 picked.setdefault(
                     (kernel, str(p.bm), str(p.chunks)),
-                    (smem_fn(p.bm, p.stages, n2, kernel == "conv_front_kernel"),
-                     f"at {shape}: cluster {p.cluster}, {p.stages} stages"))
+                    (smem_fn(p.bm, p.stages, n2, front),
+                     f"at {shape}: {p.stages} stages"))
 
     def label(k):
         if len(k) == 1:
@@ -351,8 +356,9 @@ def monarch_build_report(name, log):
         return f"{name}[{k[0]} BM={k[1]} slab={k[2]}; {picked[k][1]}]"
 
     entry_build_report(
-        name, log, r"(monarch_kernel|conv_front_kernel|conv_forward_kernel|"
-                   r"conv_inverse_kernel)ILi(\d+)ELi(\d+)E|(conv_back_kernel)E",
+        name, log,
+        r"(monarch_kernel|conv_front_kernel|conv_forward_kernel|"
+        r"conv_inverse_kernel)ILi(\d+)ELi(\d+)E|(conv_back_kernel)E",
         sorted(picked), label, lambda k: picked[k][0])
 
 
@@ -899,7 +905,8 @@ def monarch_kernel_phase(dev):
     1M-point shape (16, 1024, 1024) bf16, each also row by row, beside the
     cuBLAS chain (``torch.matmul`` for each product, the twiddle, transpose
     and filter as tensor ops); then faults planted in the plain versions,
-    each of which the row check must catch."""
+    each of which the row check must catch; then the conv's two forms
+    (``monarch_conv_forms``)."""
     from repro_torch.kernels.monarch_fft import ref
     from repro_torch.kernels.monarch_fft.ops import (monarch, monarch_conv,
                                                      monarch_conv_flops_bytes,
@@ -924,14 +931,14 @@ def monarch_kernel_phase(dev):
         lambda: ref.monarch_ref(*m_args), lambda: lib_monarch(*m_args), nb,
         fl, flush, rel_tol=M.MAX_ABS_REL, row_tol=M.ROW_REL_L2)}
     monarch_rates("monarch_fused", rows["monarch_fused"],
-                  lambda: lib_monarch(*m_args), flush, m_args)
+                  lambda: lib_monarch(*m_args), flush)
     fl, nb = monarch_conv_flops_bytes(B, N1, N2)
     rows["monarch_conv_fused"] = kernel_row(
         "monarch_conv_fused", lambda: monarch_conv(*args),
         lambda: ref.monarch_conv_ref(*args), lib_conv, nb, fl, flush,
         rel_tol=M.MAX_ABS_REL, row_tol=M.ROW_REL_L2)
     monarch_rates("monarch_conv_fused", rows["monarch_conv_fused"], lib_conv,
-                  flush, args)
+                  flush)
     want = {"monarch": ref.monarch_ref(*m_args),
             "monarch_conv": ref.monarch_conv_ref(*args)}
     for label, (fn, planted) in monarch_faults(m_args, c_args).items():
@@ -942,61 +949,89 @@ def monarch_kernel_phase(dev):
         if not m_err > M.ROW_REL_L2:
             raise AssertionError(f"{fn}: the row check misses a planted "
                                  f"{label}")
-    del m_args, c_args, args, want, flush
+    del m_args, c_args, args, want
+    monarch_conv_forms(dev, flush)
     return rows
 
 
-def monarch_rates(name, row, chain, flush, args):
-    """A Monarch row's TFLOP/s, share of its bound and L2 reads a call
-    (``ops.monarch_l2_bytes`` of its plans at ``MONARCH``'s shape), beside
-    the cuBLAS chain's time read-flushed too; then the kernel's time with
-    every launch's cluster set to each size that divides its N1 / bm (the
-    C entry called directly, so no launch is counted): what the plans'
-    choice costs or saves. Added to ``row``."""
-    from repro_torch.kernels import runtime as rt
+def monarch_rates(name, row, chain, flush):
+    """A Monarch row's TFLOP/s and share of its bound, beside the cuBLAS
+    chain's time read-flushed too (measured, added to ``row``); logged with
+    the plans at ``MONARCH``'s shape and the L2 reads ``ops.monarch_l2_bytes``
+    models for them (a model of the plan, not a measurement)."""
     from repro_torch.kernels.monarch_fft import ops
     conv = name == "monarch_conv_fused"
     B, N1, N2 = MONARCH["shape"]
     launches = monarch_launches(name, B, N1, N2)
-    plans = [p for _, p, _ in launches if p is not None]
-    row["plans"] = {k: p._asdict() for k, p, _ in launches if p is not None}
-    row["l2_bytes"] = ops.monarch_l2_bytes(
-        B, N1, N2, ops.monarch_conv_plan(B, N1, N2) if conv else plans[0],
-        conv=conv)
+    plan = (ops.monarch_conv_plan(B, N1, N2, *ops.card_limits(
+        name, torch.cuda.current_device())) if conv else launches[0][1])
+    l2 = ops.monarch_l2_bytes(B, N1, N2, plan, conv=conv)
     row["tflops"] = row["flops"] / row["ms"] / 1e9
     row["library_ms_read_flushed"] = time_ms(chain, flush, 20, read=True)
-    fn = rt.bind(name, "monarch_conv_bf16" if conv else "monarch_bf16",
-                 ops._CONV_ARGS if conv else ops._MONARCH_ARGS)
-    outs = [torch.empty((B, N2, N1), dtype=torch.bfloat16,
-                        device=args[0].device)]
-    if conv:
-        outs.append(torch.empty_like(args[0]))
-    row["cluster_ms"] = {}
-    for c in (4, 2, 1):
-        if any((shape[1] // p.bm) % c for _, p, shape in launches if p):
-            continue
-        ints = [v for p in plans for v in p._replace(cluster=c)[:4]]
-        if conv and len(plans) == 1:
-            ints += [0, 0, 0, 0]
-
-        def run():
-            rt.check_launch(name, fn(
-                *(t.data_ptr() for t in args), *(o.data_ptr() for o in outs),
-                B, N1, N2, *ints, rt.stream_ptr(args[0])))
-        row["cluster_ms"][c] = time_ms(run, flush, 20)
     _log(f"kernel {name}: {row['tflops']:.1f} TFLOP/s, "
-         f"{row['bound_ms'] / row['ms']:.3f} of the bound; L2 reads a call "
-         + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in
-                     row["l2_bytes"].items())
-         + "; " + ", ".join(f"{k} BM {p.bm} cluster {p.cluster} {p.stages} "
-                            f"stages slab {p.chunks}"
-                            for k, p, _ in launches if p)
+         f"{row['bound_ms'] / row['ms']:.3f} of the bound; "
+         + ", ".join(f"{k} BM {p.bm} {p.stages} stages slab {p.chunks}"
+                     for k, p, _ in launches if p)
+         + "; L2 reads a call modelled " + ", ".join(
+             f"{k} {v / 1e9:.3f} GB" for k, v in l2.items())
          + f"; kernel {row['ms']:.4f} ms (read-flushed "
          f"{row['ms_read_flushed']:.4f}) against the chain's "
          f"{row['library_ms']:.4f} ms (read-flushed "
-         f"{row['library_ms_read_flushed']:.4f}); in clusters of "
-         + ", ".join(f"{c}: {v:.4f} ms" for c, v in
-                     row["cluster_ms"].items()))
+         f"{row['library_ms_read_flushed']:.4f})")
+
+
+# Shapes at which both forms of the conv are timed: the showcase's two, and
+# one grid past one wave of its front launch (144 CTAs)
+MONARCH_FORM_SHAPES = ((16, 256, 256), (18, 256, 256), (16, 1024, 1024))
+
+
+def monarch_conv_forms(dev, flush):
+    """The conv in both its forms at ``MONARCH_FORM_SHAPES``: one front
+    launch and the back GEMM, and two passes, each through the C entry
+    (no launch counted), held to the plain version and timed; what
+    ``monarch_conv_plan``'s choice between them (the front where its grid
+    fits one wave) costs or saves. Returns {shape: {form: ms}}."""
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.kernels.monarch_fft import ops, ref
+    from repro_torch.launch import monarch_fftconv as M
+    name = "monarch_conv_fused"
+    fn = rt.bind(name, "monarch_conv_bf16", ops._CONV_ARGS)
+    sms, smem = ops.card_limits(name, torch.cuda.current_device())
+    out = {}
+    for B, N1, N2 in MONARCH_FORM_SHAPES:
+        m_args, c_args = M.make_inputs(B, N1, N2, dev, MONARCH["seed"])
+        args = m_args + c_args
+        want = ref.monarch_conv_ref(*args)
+        scratch = torch.empty((B, N2, N1), dtype=torch.bfloat16, device=dev)
+        z = torch.empty_like(args[0])
+        forms = {"front+back": (ops.monarch_plan(B, N1, N2, smem, conv=True),
+                                None),
+                 "two passes": (ops.monarch_plan(B, N1, N2, smem),
+                                ops.monarch_plan(B, N2, N1, smem))}
+        picked = ops.monarch_conv_plan(B, N1, N2, sms, smem)
+        out[(B, N1, N2)] = {}
+        for form, (first, second) in forms.items():
+            def run():
+                rt.check_launch(name, fn(
+                    *(t.data_ptr() for t in args), scratch.data_ptr(),
+                    z.data_ptr(), B, N1, N2, *first[:3],
+                    *(second or (0, 0, 0))[:3], rt.stream_ptr(z)))
+            run()
+            torch.cuda.synchronize()
+            err = float((z.float() - want.float()).abs().max())
+            tol = M.MAX_ABS_REL * max(1.0, float(want.float().abs().max()))
+            row = row_rel_l2(z, want)
+            if not (err <= tol and row <= M.ROW_REL_L2):
+                raise AssertionError(f"{name} {form} at {(B, N1, N2)}: max "
+                                     f"|err| {err} (tol {tol}), row "
+                                     f"relative L2 {row}")
+            out[(B, N1, N2)][form] = time_ms(run, flush, 20)
+        _log(f"kernel {name} at {(B, N1, N2)}: front+back "
+             f"{out[(B, N1, N2)]['front+back']:.4f} ms "
+             f"({forms['front+back'][0].ctas} front CTAs on {sms} SMs), two "
+             f"passes {out[(B, N1, N2)]['two passes']:.4f} ms; the plan "
+             f"takes {'two passes' if picked[1] else 'front+back'}")
+    return out
 
 
 def monarch_phase(dev):

@@ -1,11 +1,9 @@
 // Hopper (sm_90a) primitives for the port's warp-specialised kernels, as
-// inline PTX: mbarriers with phase-parity waits (and arrivals on a peer
-// CTA's barrier in a thread-block cluster), named and cluster barriers, 2-D
-// and 4-D TMA tile loads (2-D also multicast to the CTAs of a cluster) and
-// 4-D stores, stmatrix, warpgroup MMA (wgmma) with its shared-memory matrix
-// descriptor and fences, setmaxnreg, and the grid dependency controls of
-// programmatic dependent launch. Compile for sm_90a: wgmma and setmaxnreg
-// exist only there.
+// inline PTX: mbarriers with phase-parity waits, named barriers, 2-D and 4-D
+// TMA tile loads and 4-D stores, stmatrix, warpgroup MMA (wgmma) with its
+// shared-memory matrix descriptor and fences, setmaxnreg, and the grid
+// dependency controls of programmatic dependent launch. Compile for sm_90a:
+// wgmma and setmaxnreg exist only there.
 #pragma once
 
 #include "common.cuh"
@@ -54,36 +52,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
   } while (!done);
 }
 
-// arrive on the barrier at shared-memory offset ``bar`` of the cluster's
-// CTA ``rank`` (this CTA's own rank included). The default release at CTA
-// scope: enough where what it releases was read by wgmma or TMA, whose
-// completion the arriving thread has waited for; a cluster-scope release
-// fences every arrival and slows a multicast ring several times over.
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
-                                                    unsigned rank) {
-  asm volatile(
-      "{\n.reg .b32 ra;\n"
-      "mapa.shared::cluster.u32 ra, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n"
-      ::"r"(bar), "r"(rank) : "memory");
-}
-
-// ------------------------------------------------------------- clusters
-__device__ __forceinline__ unsigned cluster_ctarank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// every thread of every CTA of the cluster: what each wrote to shared
-// memory (its barriers' initialisation included) is visible to the others
-// after it, and no CTA leaves while a peer may still reach into it
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // named barrier ``id`` (1-15; 0 is __syncthreads) over ``n`` threads
 __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
@@ -103,21 +71,6 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(map), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// One box of a 2-D tensor map at (c0, c1) into shared-memory offset dst of
-// every CTA of the cluster whose rank has its bit set in ``mask``; each
-// destination's barrier at offset bar receives the box's bytes.
-__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
-                                                      const void* map,
-                                                      uint32_t bar, int c0,
-                                                      int c1,
-                                                      uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n"
-      ::"r"(dst), "l"(map), "r"(bar), "r"(c0), "r"(c1), "h"(mask)
       : "memory");
 }
 

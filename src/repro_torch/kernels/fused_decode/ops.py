@@ -45,11 +45,6 @@ _QKV_PLAN_FIELDS = ("B", "D", "Hq", "Hkv", "dh", "rot2", "NL", "TW", "k0",
 
 
 @functools.lru_cache(maxsize=None)
-def device_sms(index: int) -> int:
-    """Streaming multiprocessors of CUDA device ``index``."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 @functools.lru_cache(maxsize=16)
 def _inv_freq(dh: int, theta: float, rope_frac: float, device: str):
     return torch.as_tensor(rope_inv_freq(dh, theta, rope_frac), device=device)
@@ -92,7 +87,7 @@ def qkv_rope_paged(x, norm_scale, wq, wk, wv, pos, *, theta=10000.0):
     v = torch.empty_like(k)
     if B == 0:
         return q, k, v
-    sms, stream = device_sms(x.device.index), rt.stream_ptr(x)
+    sms, stream = rt.device_sms(x.device.index), rt.stream_ptr(x)
     for b0, b1 in _lane_slices(B):
         nbytes, plan = _qkv_layout(b1 - b0, D, Hq, Hkv, dh, inv.shape[0],
                                    True, sms)
@@ -353,7 +348,7 @@ def oproj_ffn_swiglu(x, attn_out, w_o, norm_scale, w_gate, w_up, w_down):
     out = torch.empty_like(x)
     if B == 0:
         return out
-    sms, stream = device_sms(x.device.index), rt.stream_ptr(x)
+    sms, stream = rt.device_sms(x.device.index), rt.stream_ptr(x)
     for b0, b1 in _lane_slices(B):
         nbytes, plan = _ffn_layout(b1 - b0, D, HD, F, sms)
         ws = _workspace(x, stream, nbytes)
@@ -395,7 +390,7 @@ def qkv_rope(x, norm_scale, w_qkv, pos: int, *, n_q, n_kv, dh, theta=10000.0,
     out = torch.empty((Ht, B, dh), dtype=x.dtype, device=x.device)
     if B == 0:
         return out
-    sms, stream = device_sms(x.device.index), rt.stream_ptr(x)
+    sms, stream = rt.device_sms(x.device.index), rt.stream_ptr(x)
     for b0, b1 in _lane_slices(B):
         nbytes, plan = _qkv_layout(b1 - b0, D, n_q, n_kv, dh, inv.shape[0],
                                    False, sms)
@@ -434,7 +429,7 @@ def ffn_swiglu(x, norm_scale, w_gate, w_up, w_down, *, residual=True):
     out = torch.empty_like(x)
     if B == 0:
         return out
-    sms, stream = device_sms(x.device.index), rt.stream_ptr(x)
+    sms, stream = rt.device_sms(x.device.index), rt.stream_ptr(x)
     for b0, b1 in _lane_slices(B):
         nbytes, plan = _ffn_layout(b1 - b0, D, 0, F, sms)
         ws = _workspace(x, stream, nbytes)

@@ -14,14 +14,11 @@
 // warpgroups and a producer warpgroup per (batch row, block of BM rows of
 // N1): A_blk = (W0[blk] . x[b]) (*) tw[blk] on wgmma from a TMA ring, kept
 // in shared memory as phase 2's K-major operand, then Z[b][:, blk] = W1 .
-// A_blk^T by 128-row chunk pairs, stored from the accumulators. Clusters
-// of C consecutive blocks of a row share each x[b] and W1 tile by TMA
-// multicast. At (16, 1024, 1024) the plan is BM 64, C 2, a slab of 4
-// chunk pairs (W0[blk] read twice), 5 stages: 256 CTAs in two waves,
-// 0.638 GB read from L2 a call (x[b] and W1 once a cluster, 4 MiB; W0[blk]
-// twice and tw[blk] once a CTA, 384 KiB; 0.369 GB at C 4, which takes a
-// third wave), where a CTA reading x[b] and W1 for itself reads 1.14 GB;
-// ops.py::monarch_l2_bytes counts it for any plan.
+// A_blk^T by 128-row chunk pairs, stored from the accumulators. At (16,
+// 1024, 1024) the plan is BM 64, a slab of 4 chunk pairs (W0[blk] read
+// twice), 5 stages: 256 CTAs in two waves, each reading x[b] and W1 (4
+// MiB) and its W0[blk] twice and tw[blk] once (384 KiB), 1.17 GB from L2 a
+// call (ops.py::monarch_l2_bytes models it for any plan).
 #include "monarch_core.cuh"
 
 using namespace repro;
@@ -32,45 +29,44 @@ namespace {
 template <int BM, int R>
 __global__ void __launch_bounds__(THREADS, 1)
 monarch_kernel(const __grid_constant__ Maps mp, bf16* __restrict__ z, int N1,
-               int N2, int C, int S) {
-  front<false, BM, R>(mp, z, N1, N2, C, S);
+               int N2, int S) {
+  front<false, BM, R>(mp, z, N1, N2, S);
 }
 
 template <int BM, int R>
-int launch(const Maps& mp, bf16* z, int B, int N1, int N2, int C, int S,
+int launch(const Maps& mp, bf16* z, int B, int N1, int N2, int S,
            cudaStream_t s) {
-  return launch_cluster(monarch_kernel<BM, R>, dim3(N1 / BM, B), C,
-                        smem_bytes(BM, S, N2, false), s, mp, z, N1, N2, C, S);
+  return launch_smem(monarch_kernel<BM, R>, dim3(N1 / BM, B),
+                     smem_bytes(BM, S, N2, false), s, mp, z, N1, N2, S);
 }
 
 }  // namespace
 
 // x (B, N1, N2), w0 (N1, N1), tw (N1, N2), w1 (N2, N2) -> z (B, N2, N1),
-// all bf16, contiguous; the plan (bm, cluster, stages, chunks) is
+// all bf16, contiguous; the plan (bm, stages, chunks) is
 // ops.py::monarch_plan's for this shape.
 extern "C" int monarch_bf16(const void* x, const void* w0, const void* tw,
                             const void* w1, void* z, int B, int N1, int N2,
-                            int bm, int cluster, int stages, int chunks,
-                            void* stream) {
-  if (B < 1 || !plan_ok(N1, N2, bm, cluster, stages, chunks, false))
+                            int bm, int stages, int chunks, void* stream) {
+  if (B < 1 || !plan_ok(N1, N2, bm, stages, chunks, false))
     return static_cast<int>(cudaErrorInvalidValue);
   Maps mp;
   if (!front_maps(&mp, x, w0, tw, w1, nullptr, nullptr, nullptr, B, N1, N2,
-                  bm, cluster))
+                  bm))
     return static_cast<int>(cudaErrorInvalidValue);
   auto Z = static_cast<bf16*>(z);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool slab = chunks > 1;
   switch (bm) {
     case 64:
-      return slab ? launch<64, 4>(mp, Z, B, N1, N2, cluster, stages, s)
-                  : launch<64, 1>(mp, Z, B, N1, N2, cluster, stages, s);
+      return slab ? launch<64, 4>(mp, Z, B, N1, N2, stages, s)
+                  : launch<64, 1>(mp, Z, B, N1, N2, stages, s);
     case 32:
-      return slab ? launch<32, 8>(mp, Z, B, N1, N2, cluster, stages, s)
-                  : launch<32, 1>(mp, Z, B, N1, N2, cluster, stages, s);
+      return slab ? launch<32, 8>(mp, Z, B, N1, N2, stages, s)
+                  : launch<32, 1>(mp, Z, B, N1, N2, stages, s);
     default:
-      return slab ? launch<16, 8>(mp, Z, B, N1, N2, cluster, stages, s)
-                  : launch<16, 1>(mp, Z, B, N1, N2, cluster, stages, s);
+      return slab ? launch<16, 8>(mp, Z, B, N1, N2, stages, s)
+                  : launch<16, 1>(mp, Z, B, N1, N2, stages, s);
   }
 }
 
@@ -78,5 +74,9 @@ extern "C" int monarch_bf16(const void* x, const void* w0, const void* tw,
 extern "C" int monarch_smem_bytes(int bm, int stages, int N2) {
   return smem_bytes(bm, stages, N2, false);
 }
+
+// The opt-in dynamic shared memory a block may have on the current device,
+// in bytes: what ops.py::monarch_plan fits a plan into
+extern "C" int monarch_smem_limit() { return smem_limit(); }
 
 REPRO_EXPORT_ERROR_STRING

@@ -23,27 +23,26 @@
 //    1M-point shape): conv_forward_kernel is monarch.cu's pass with the
 //    filter in its epilogue, F = bf16(bf16(W1 . A^T) (*) filt) written to
 //    device memory (B, N2, N1); conv_inverse_kernel is the pass again on F
-//    with W0i, twi, W1i, which writes Z. Each runs 64-row blocks in
-//    clusters of two at (16, 1024, 1024) (5 stages; 0.671 and 0.638 GB
-//    read from L2 a call).
-//  * One front launch, then a GEMM (small grids, N1 % 128 == 64, N1 past
-//    5888): conv_front_kernel runs the three products that are local to a
-//    block of BM rows of N1 (monarch_core.cuh, phases 1-3): A_blk, then
-//    F_blk = bf16(bf16(W1 . A_blk^T) (*) filt[:, blk]) kept K-major for
-//    phase 3, then Bm[:, blk] = bf16((W0i . F_blk) (*) twi[:, blk]),
-//    written to device memory as Bm (B, N2, N1). conv_back_kernel
-//    contracts across every block: Z[b] = W1i . Bm[b]^T, a TMA / wgmma
-//    GEMM with both operands K-major (Bm's rows are the product's columns:
-//    the transpose again an access pattern), 128 x 128 tiles, a 3-stage
-//    ring of 32 KB, two CTAs an SM. Holding A_blk and F_blk together caps
-//    the front's blocks at 32 rows, so its products are half as wide and
-//    it reads each streamed byte half as often as a pass: at (16, 1024,
-//    1024) it would take 512 CTAs in four waves and 1.745 GB of L2 reads
-//    (3.36 GB with every CTA reading x[b], W1 and W0i for itself), and
-//    the back GEMM 0.537 GB.
+//    with W0i, twi, W1i, which writes Z. Each runs 64-row blocks at (16,
+//    1024, 1024) (5 stages; 1.21 and 1.17 GB read from L2 a call, as
+//    modelled).
+//  * One front launch, then a GEMM (a grid within one wave, N1 % 128 ==
+//    64, N1 past 5888): conv_front_kernel runs the three products that
+//    are local to a block of BM rows of N1 (monarch_core.cuh, phases
+//    1-3): A_blk, then F_blk = bf16(bf16(W1 . A_blk^T) (*) filt[:, blk])
+//    kept K-major for phase 3, then Bm[:, blk] = bf16((W0i . F_blk) (*)
+//    twi[:, blk]), written to device memory as Bm (B, N2, N1).
+//    conv_back_kernel contracts across every block: Z[b] = W1i . Bm[b]^T,
+//    a TMA / wgmma GEMM with both operands K-major (Bm's rows are the
+//    product's columns: the transpose again an access pattern), 128 x 128
+//    tiles, a 3-stage ring of 32 KB, two CTAs an SM. Holding A_blk and
+//    F_blk together caps the front's blocks at 32 rows, so its products
+//    are half as wide and it reads each streamed byte half as often as a
+//    pass: at (16, 1024, 1024) it would take 512 CTAs in four waves and
+//    3.36 GB of L2 reads, and the back GEMM 0.537 GB.
 // The intermediate (F or Bm) costs 2 * B * N1 * N2 * 2 bytes of device
 // traffic (64 MB at the 1M-point shape, 0.019 ms at 3.35 TB/s).
-// ops.py::monarch_l2_bytes counts each launch's L2 reads for any plan.
+// ops.py::monarch_l2_bytes models each launch's L2 reads for any plan.
 #include "monarch_core.cuh"
 
 using namespace repro;
@@ -54,8 +53,8 @@ namespace {
 template <int BM, int R>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_front_kernel(const __grid_constant__ Maps mp, bf16* __restrict__ bm,
-                  int N1, int N2, int C, int S) {
-  front<true, BM, R>(mp, bm, N1, N2, C, S);
+                  int N1, int N2, int S) {
+  front<true, BM, R>(mp, bm, N1, N2, S);
 }
 
 // The two passes: F = bf16(bf16(monarch(x)) * filt) (B, N2, N1), then Z =
@@ -63,15 +62,15 @@ conv_front_kernel(const __grid_constant__ Maps mp, bf16* __restrict__ bm,
 template <int BM, int R>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_forward_kernel(const __grid_constant__ Maps mp, bf16* __restrict__ f,
-                    int N1, int N2, int C, int S) {
-  front<false, BM, R>(mp, f, N1, N2, C, S, true);
+                    int N1, int N2, int S) {
+  front<false, BM, R>(mp, f, N1, N2, S, true);
 }
 
 template <int BM, int R>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_inverse_kernel(const __grid_constant__ Maps mp, bf16* __restrict__ z,
-                    int N1, int N2, int C, int S) {
-  front<false, BM, R>(mp, z, N1, N2, C, S);
+                    int N1, int N2, int S) {
+  front<false, BM, R>(mp, z, N1, N2, S);
 }
 
 constexpr int BACK_STAGES = 3;
@@ -160,41 +159,41 @@ conv_back_kernel(const __grid_constant__ CUtensorMap mw1i,
 }
 
 template <int BM, int R>
-int launch_front(const Maps& mp, bf16* bm, int B, int N1, int N2, int C,
-                 int S, cudaStream_t s) {
-  return launch_cluster(conv_front_kernel<BM, R>, dim3(N1 / BM, B), C,
-                        smem_bytes(BM, S, N2, true), s, mp, bm, N1, N2, C, S);
+int launch_front(const Maps& mp, bf16* bm, int B, int N1, int N2, int S,
+                 cudaStream_t s) {
+  return launch_smem(conv_front_kernel<BM, R>, dim3(N1 / BM, B),
+                     smem_bytes(BM, S, N2, true), s, mp, bm, N1, N2, S);
 }
 
 // One of the two passes at (B, N1, N2) with its plan
 template <bool FORWARD, int BM, int R>
-int launch_pass(const Maps& mp, bf16* out, int B, int N1, int N2, int C,
-                int S, cudaStream_t s) {
+int launch_pass(const Maps& mp, bf16* out, int B, int N1, int N2, int S,
+                cudaStream_t s) {
   const int smem = smem_bytes(BM, S, N2, false);
   if constexpr (FORWARD)
-    return launch_cluster(conv_forward_kernel<BM, R>, dim3(N1 / BM, B), C,
-                          smem, s, mp, out, N1, N2, C, S);
+    return launch_smem(conv_forward_kernel<BM, R>, dim3(N1 / BM, B), smem, s,
+                       mp, out, N1, N2, S);
   else
-    return launch_cluster(conv_inverse_kernel<BM, R>, dim3(N1 / BM, B), C,
-                          smem, s, mp, out, N1, N2, C, S);
+    return launch_smem(conv_inverse_kernel<BM, R>, dim3(N1 / BM, B), smem, s,
+                       mp, out, N1, N2, S);
 }
 
 template <bool FORWARD>
 int launch_pass(const Maps& mp, bf16* out, int B, int N1, int N2, int bm,
-                int C, int S, int chunks, cudaStream_t s) {
+                int S, int chunks, cudaStream_t s) {
   const bool slab = chunks > 1;
   switch (bm) {
     case 64:
-      return slab ? launch_pass<FORWARD, 64, 4>(mp, out, B, N1, N2, C, S, s)
-                  : launch_pass<FORWARD, 64, 1>(mp, out, B, N1, N2, C, S, s);
+      return slab ? launch_pass<FORWARD, 64, 4>(mp, out, B, N1, N2, S, s)
+                  : launch_pass<FORWARD, 64, 1>(mp, out, B, N1, N2, S, s);
     case 32:
-      return slab ? launch_pass<FORWARD, 32, 8>(mp, out, B, N1, N2, C, S, s)
-                  : launch_pass<FORWARD, 32, 1>(mp, out, B, N1, N2, C, S, s);
+      return slab ? launch_pass<FORWARD, 32, 8>(mp, out, B, N1, N2, S, s)
+                  : launch_pass<FORWARD, 32, 1>(mp, out, B, N1, N2, S, s);
     default:
       // the forward pass's N2 (<= MONARCH_CONV_MAX_N2) always fits 32 rows
       if (FORWARD) return static_cast<int>(cudaErrorInvalidValue);
-      return slab ? launch_pass<false, 16, 8>(mp, out, B, N1, N2, C, S, s)
-                  : launch_pass<false, 16, 1>(mp, out, B, N1, N2, C, S, s);
+      return slab ? launch_pass<false, 16, 8>(mp, out, B, N1, N2, S, s)
+                  : launch_pass<false, 16, 1>(mp, out, B, N1, N2, S, s);
   }
 }
 
@@ -204,57 +203,54 @@ int launch_pass(const Maps& mp, bf16* out, int B, int N1, int N2, int bm,
 // w0i (N2, N2), twi (N2, N1), w1i (N1, N1) -> z (B, N1, N2), all bf16,
 // contiguous; bm is scratch of B * N2 * N1 bf16. The plan is
 // ops.py::monarch_conv_plan's for this shape: with bm2 == 0, one front
-// launch (bm_rows, cluster, stages, chunks; conv_front_kernel, phases 1-3,
-// writing Bm to the scratch), then conv_back_kernel; else two passes,
+// launch (bm_rows, stages, chunks; conv_front_kernel, phases 1-3, writing
+// Bm to the scratch), then conv_back_kernel; else two passes,
 // conv_forward_kernel at (B, N1, N2) with the first plan writing F to the
-// scratch, then conv_inverse_kernel at (B, N2, N1) with the second
-// (bm2, cluster2, stages2, chunks2). Both on the given stream.
+// scratch, then conv_inverse_kernel at (B, N2, N1) with the second (bm2,
+// stages2, chunks2). Both on the given stream.
 extern "C" int monarch_conv_bf16(const void* x, const void* w0,
                                  const void* tw, const void* w1,
                                  const void* filt, const void* w0i,
                                  const void* twi, const void* w1i, void* bm,
                                  void* z, int B, int N1, int N2, int bm_rows,
-                                 int cluster, int stages, int chunks, int bm2,
-                                 int cluster2, int stages2, int chunks2,
-                                 void* stream) {
+                                 int stages, int chunks, int bm2, int stages2,
+                                 int chunks2, void* stream) {
   auto Bm = static_cast<bf16*>(bm);
   auto Z = static_cast<bf16*>(z);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (bm2 != 0) {
     if (N1 % MC || bm_rows == 16 ||
-        !plan_ok(N1, N2, bm_rows, cluster, stages, chunks, false) ||
-        !plan_ok(N2, N1, bm2, cluster2, stages2, chunks2, false))
+        !plan_ok(N1, N2, bm_rows, stages, chunks, false) ||
+        !plan_ok(N2, N1, bm2, stages2, chunks2, false))
       return static_cast<int>(cudaErrorInvalidValue);
     Maps fwd, inv;
     if (!front_maps(&fwd, x, w0, tw, w1, filt, nullptr, nullptr, B, N1, N2,
-                    bm_rows, cluster) ||
+                    bm_rows) ||
         !front_maps(&inv, bm, w0i, twi, w1i, nullptr, nullptr, nullptr, B,
-                    N2, N1, bm2, cluster2))
+                    N2, N1, bm2))
       return static_cast<int>(cudaErrorInvalidValue);
-    const int rc = launch_pass<true>(fwd, Bm, B, N1, N2, bm_rows, cluster,
-                                     stages, chunks, s);
+    const int rc =
+        launch_pass<true>(fwd, Bm, B, N1, N2, bm_rows, stages, chunks, s);
     if (rc != 0) return rc;
-    return launch_pass<false>(inv, Z, B, N2, N1, bm2, cluster2, stages2,
-                              chunks2, s);
+    return launch_pass<false>(inv, Z, B, N2, N1, bm2, stages2, chunks2, s);
   }
-  if (!plan_ok(N1, N2, bm_rows, cluster, stages, chunks, true))
+  if (!plan_ok(N1, N2, bm_rows, stages, chunks, true))
     return static_cast<int>(cudaErrorInvalidValue);
   Maps mp;
   CUtensorMap mw1i, mbm;
-  if (!front_maps(&mp, x, w0, tw, w1, filt, w0i, twi, B, N1, N2, bm_rows,
-                  cluster) ||
+  if (!front_maps(&mp, x, w0, tw, w1, filt, w0i, twi, B, N1, N2, bm_rows) ||
       !map_2d_bf16(&mw1i, w1i, N1, N1, uint64_t(N1) * 2, 64, MC) ||
       !map_2d_bf16(&mbm, bm, N1, uint64_t(B) * N2, uint64_t(N1) * 2, 64, MC))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool slab = chunks > 1;
   int rc;
   if (bm_rows == 32)
-    rc = slab ? launch_front<32, 8>(mp, Bm, B, N1, N2, cluster, stages, s)
-              : launch_front<32, 1>(mp, Bm, B, N1, N2, cluster, stages, s);
+    rc = slab ? launch_front<32, 8>(mp, Bm, B, N1, N2, stages, s)
+              : launch_front<32, 1>(mp, Bm, B, N1, N2, stages, s);
   else
-    rc = slab ? launch_front<16, 8>(mp, Bm, B, N1, N2, cluster, stages, s)
-              : launch_front<16, 1>(mp, Bm, B, N1, N2, cluster, stages, s);
+    rc = slab ? launch_front<16, 8>(mp, Bm, B, N1, N2, stages, s)
+              : launch_front<16, 1>(mp, Bm, B, N1, N2, stages, s);
   if (rc != 0) return rc;
   const cudaError_t e = cudaFuncSetAttribute(
       conv_back_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -272,5 +268,9 @@ extern "C" int monarch_conv_smem_bytes(int bm_rows, int stages, int N2,
   return bm_rows == 0 ? BACK_SMEM
                       : smem_bytes(bm_rows, stages, N2, front != 0);
 }
+
+// The opt-in dynamic shared memory a block may have on the current device,
+// in bytes: what ops.py::monarch_plan fits a plan into
+extern "C" int monarch_smem_limit() { return smem_limit(); }
 
 REPRO_EXPORT_ERROR_STRING

@@ -23,8 +23,8 @@
 //  * Phase 2 reads W1 (A, K-major) and A_blk (B, K-major, resident). The
 //    conv's epilogue writes F_blk^T in the same panel layout for phase 3,
 //    which reads W0i (A) and F_blk^T (B) the same way.
-// No intermediate reaches device memory but the conv's Bm (next to
-// monarch_conv.cu's second launch).
+// No intermediate reaches device memory but the one the conv's second
+// launch reads (monarch_conv.cu: F or Bm).
 //
 // The streams. Two producer threads (their warpgroup gives its registers
 // to the two consumer warpgroups, setmaxnreg) feed mbarrier-guarded TMA
@@ -49,27 +49,18 @@
 // of them, 128 f32 registers a thread at most): W0[blk] is read once per
 // slab, once in all at the shapes that matter.
 //
-// Clusters. The CTAs of C consecutive N1 blocks of one batch row may form a
-// thread-block cluster (C = 4, 2 or 1, dividing N1 / BM). They read the
-// same x[b], W1 and W0i, so each A tile is read from L2 once per cluster:
-// every CTA loads 1 / C of its rows and multicasts them to all C (TMA
-// .multicast::cluster), and an A stage is free only when the consumers of
-// all C CTAs released it (one arrival a warpgroup on each CTA's empty
-// barrier). W0[blk], the twiddles and the filter tiles differ per block
-// and are loaded by each CTA alone.
-//
-// What bounds it on an H100 (PERF.md): per SM, not L2's bandwidth. A
+// What bounds it on an H100 (PERF.md): the operand stream into each SM. A
 // product at N = BM reuses each streamed byte BM times, so the tensor
 // cores want ~112 GB/s an SM at BM 64 (twice that at 32), more than a ring
-// of this shape takes in (tools/l2_stream_bench.cu: 107-115 GB/s an SM in
-// clusters of 2 or 4, with nothing computed); and wgmma's shared-memory
-// reads at N = BM (each 64-row product reads its A tile and the resident
-// B again) nearly fill the SM's shared-memory bandwidth. A CTA takes about
-// as long in clusters of 1, 2 or 4; clusters of four hold only 120 of the
-// 132 SMs a wave, so ops.py::monarch_plan takes the cluster with the
-// fewest waves.
+// of this shape takes in from L2 with nothing computed
+// (tools/l2_stream_bench.cu); and wgmma's shared-memory reads at N = BM
+// (each 64-row product reads its A tile and the resident B again) nearly
+// fill the SM's shared-memory bandwidth. Neighbouring blocks read the same
+// x[b], W1 and W0i, but sharing those tiles across a thread-block cluster
+// by TMA multicast halved the L2 reads and made no launch faster, so every
+// CTA loads its own.
 //
-// ops.py::monarch_plan picks BM, C, the stage count and the slab per shape
+// ops.py::monarch_plan picks BM, the stage count and the slab per shape
 // (the kernel receives them and checks them against smem_bytes): shared
 // memory holds the resident intermediates (BM x N2 each), the rings and
 // the barriers.
@@ -78,9 +69,7 @@
 // the CTA (run new work under a timeout); the TMA boxes' 128-byte swizzle
 // must match the wgmma descriptors and the epilogue's stmatrix addresses
 // (finite, wrong numbers otherwise: the card tests hold both kernels to
-// their plain versions at every (BM, C, slab) the plan picks); a peer's
-// multicast or arrival into a CTA that has left is undefined, so every
-// thread of a cluster passes a cluster barrier before leaving; a loop over
+// their plain versions at every (BM, slab) the plan picks); a loop over
 // the phases that carries the accumulators makes ptxas serialise the
 // wgmmas (C7515), so it is unrolled, and chip_smoke.py fails on that
 // warning and on a spill. Each call initialises its barriers anew, and no
@@ -110,7 +99,6 @@ constexpr int MAX_STAGES = 8;
 // full and empty barriers: the A ring's, the B ring's, the twiddle ring's,
 // the conv's epilogue slot's
 constexpr int BAR_BYTES = 8 * 2 * (MAX_STAGES + 2 * SLOTS + 1);
-constexpr int MAX_CLUSTER = 4;
 constexpr uint32_t HI = desc_hi(8 * 128, 128);   // 8-row groups of 128 B
 
 // The slab's chunk pairs where the accumulators cover more than one: 128
@@ -139,16 +127,12 @@ inline int smem_limit() {
 }
 
 // A plan (ops.py::monarch_plan) the kernels take: BM 64 / 32 / 16 (the
-// conv 32 / 16), C dividing N1 / BM, 2..MAX_STAGES stages, a slab of 1 or
-// max_chunks(BM) chunk pairs dividing N2 / 128, its shared memory within
-// the device's limit.
-inline bool plan_ok(int N1, int N2, int bm, int cluster, int stages,
-                    int chunks, bool conv) {
+// conv 32 / 16), 2..MAX_STAGES stages, a slab of 1 or max_chunks(BM) chunk
+// pairs dividing N2 / 128, its shared memory within the device's limit.
+inline bool plan_ok(int N1, int N2, int bm, int stages, int chunks,
+                    bool conv) {
   if (!(bm == 32 || bm == 16 || (bm == 64 && !conv))) return false;
   if (N1 < 64 || N1 % 64 || N2 < MC || N2 % MC) return false;
-  if (cluster < 1 || cluster > MAX_CLUSTER || (cluster & (cluster - 1)) ||
-      (N1 / bm) % cluster)
-    return false;
   if (stages < 2 || stages > MAX_STAGES) return false;
   if (!(chunks == 1 || chunks == max_chunks(bm)) || (N2 / MC) % chunks)
     return false;
@@ -171,10 +155,10 @@ struct Pos {
   }
 };
 
-// The tensor maps of the front kernels. x (B N1, N2) in boxes of 64 x
-// 64 / C rows (a CTA's slice of a multicast tile); W0 (N1, N1) and tw (N1,
-// N2) in boxes of 64 x BM; W1 and W0i (N2, N2) in boxes of 64 x 128 / C;
-// filt and twi (N2, N1) unswizzled in boxes of BM x 128.
+// The tensor maps of the front kernels. x (B N1, N2) in boxes of 64 x 64;
+// W0 (N1, N1) and tw (N1, N2) in boxes of 64 x BM; W1 and W0i (N2, N2) in
+// boxes of 64 x 128; filt and twi (N2, N1) unswizzled in boxes of BM x
+// 128.
 struct Maps {
   CUtensorMap x, w0, tw, w1, filt, w0i, twi;
 };
@@ -278,11 +262,11 @@ __device__ __forceinline__ void store_rows(const float (&acc)[BN / 2],
 // The front kernel's body: the pass (CONV false: phases 1-2, out = Z (B,
 // N2, N1); with `filtered`, Z = bf16(bf16(Z) * filt), the conv's forward
 // pass) or the conv's one-front launch (phases 1-3, out = Bm (B, N2, N1)).
-// Grid (N1 / BM, B), clusters of C along x, THREADS threads, smem_bytes(BM,
-// S, N2, CONV) of dynamic shared memory. R: the slab's chunk pairs.
+// Grid (N1 / BM, B), THREADS threads, smem_bytes(BM, S, N2, CONV) of
+// dynamic shared memory. R: the slab's chunk pairs.
 template <bool CONV, int BM, int R>
 __device__ __forceinline__ void front(const Maps& mp, bf16* __restrict__ out,
-                                      int N1, int N2, int C, int S,
+                                      int N1, int N2, int S,
                                       bool filtered = false) {
   constexpr int BN = BM;
   constexpr int PANEL = BM * KD * 2;       // a 64-column panel of BM rows
@@ -309,17 +293,15 @@ __device__ __forceinline__ void front(const Maps& mp, bf16* __restrict__ out,
   const uint32_t empty_e = full_e + 8;
 
   const int r0 = blockIdx.x * BM, b = blockIdx.y;
-  const unsigned rank = cluster_ctarank();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int NP = N2 / MC, KT1 = N1 / KD, KT2 = N2 / KD;
 
   if (threadIdx.x == 0) {
     // a tile read by wgmma is released once a warpgroup (its completion is
-    // the warpgroup's): to each CTA of the cluster for an A stage; a tile
-    // read by every consumer thread, once each warp
+    // the warpgroup's); a tile read by every consumer thread, once each warp
     for (int s = 0; s < S; ++s) {
       mbar_init(full_a(s), 1);
-      mbar_init(empty_a(s), C * 2);
+      mbar_init(empty_a(s), 2);
     }
     for (int s = 0; s < SLOTS; ++s) {
       mbar_init(full_b(s), 1);
@@ -331,37 +313,23 @@ __device__ __forceinline__ void front(const Maps& mp, bf16* __restrict__ out,
     mbar_init(empty_e, CONSUMERS / 32);
     mbar_fence_init();
   }
-  // a peer's multicast may land, and its consumers arrive, only once this
-  // CTA's barriers are initialised
-  if (C > 1)
-    cluster_sync();
-  else
-    __syncthreads();
+  __syncthreads();
 
   if (warp >= CONSUMERS / 32) {
     // ------------------------------------------------------------ producer
     setmaxnreg_dec<PRODUCER_REGS>();
     if (warp == CONSUMERS / 32 && lane == 0) {
       // the A ring: x[b] by (slab, k-step, chunk pair), then W1 (and W0i)
-      // by (chunk pair, k-step); each CTA loads its 1 / C of a tile's rows
+      // by (chunk pair, k-step)
       tma_prefetch_map(&mp.x);
       tma_prefetch_map(&mp.w1);
       if (CONV) tma_prefetch_map(&mp.w0i);
-      const uint16_t mask = static_cast<uint16_t>((1u << C) - 1);
-      const int xrows = KD / C, wrows = MC / C;   // this CTA's slice
       Pos a;
-      // the next A stage, once free in every CTA of the cluster, expecting
-      // the whole tile: the slices of all C CTAs land in each
+      // the next A stage, once free, expecting the whole tile
       auto a_stage = [&]() {
         mbar_wait(empty_a(a.s), a.p ^ 1);
         mbar_expect_tx(full_a(a.s), A_STAGE);
         return ring + a.s * A_STAGE;
-      };
-      auto load = [&](uint32_t dst, const CUtensorMap* m, int c0, int c1) {
-        if (C > 1)
-          tma_load_2d_multicast(dst, m, full_a(a.s), c0, c1, mask);
-        else
-          tma_load_2d(dst, m, full_a(a.s), c0, c1);
       };
       // (the loops stay rolled: the producer keeps PRODUCER_REGS)
 #pragma unroll 1
@@ -373,8 +341,8 @@ __device__ __forceinline__ void front(const Maps& mp, bf16* __restrict__ out,
             const uint32_t st = a_stage();
             const int n0 = (slab * R + r) * MC;
             for (int w = 0; w < 2; ++w)
-              load(st + w * HALF + rank * xrows * 128, &mp.x, n0 + 64 * w,
-                   b * N1 + kt * KD + rank * xrows);
+              tma_load_2d(st + w * HALF, &mp.x, full_a(a.s), n0 + 64 * w,
+                          b * N1 + kt * KD);
             a.next(S);
           }
 #pragma unroll 1
@@ -384,8 +352,8 @@ __device__ __forceinline__ void front(const Maps& mp, bf16* __restrict__ out,
 #pragma unroll 1
           for (int kt = 0; kt < KT2; ++kt) {
             const uint32_t st = a_stage();
-            load(st + rank * wrows * 128, ph == 0 ? &mp.w1 : &mp.w0i,
-                 kt * KD, p * MC + rank * wrows);
+            tma_load_2d(st, ph == 0 ? &mp.w1 : &mp.w0i, full_a(a.s), kt * KD,
+                        p * MC);
             a.next(S);
           }
     } else if (warp == CONSUMERS / 32 + 1 && lane == 0) {
@@ -438,25 +406,16 @@ __device__ __forceinline__ void front(const Maps& mp, bf16* __restrict__ out,
         }
       }
     }
-    __syncwarp();
-    // no CTA leaves while a peer may still multicast into it or arrive on
-    // its barriers (here and at the consumers' end: no code after the two
-    // branches, whose register budgets differ)
-    if (C > 1) cluster_sync();
   } else {
     // ----------------------------------------------------------- consumers
     setmaxnreg_inc<CONSUMER_REGS>();
     const int wg = warp >> 2, wi = warp & 3;
     Pos a, bb, t;
     int ne = 0;
-    // an A stage goes back to every CTA of the cluster (warp q of each
-    // warpgroup arrives on CTA q's barrier), a B slot to this CTA, both once
-    // a warpgroup; a twiddle or epilogue slot once a warp
-    auto release_a = [&](int s) {
-      if (wi < C && lane == 0) mbar_arrive_cluster(empty_a(s), wi);
-    };
-    auto release_b = [&](int s) {
-      if (wi == 0 && lane == 0) mbar_arrive(empty_b(s));
+    // an A stage or a B slot goes back once a warpgroup, a twiddle or
+    // epilogue slot once a warp
+    auto release_wg = [&](uint32_t bar) {
+      if (wi == 0 && lane == 0) mbar_arrive(bar);
     };
     auto release = [&](uint32_t bar) {
       if (lane == 0) mbar_arrive(bar);
@@ -491,8 +450,8 @@ __device__ __forceinline__ void front(const Maps& mp, bf16* __restrict__ out,
                             kt > 0 || kk > 0);
           wgmma_commit();
           wgmma_wait<0>();
-          release_a(a.s);
-          if (r == R - 1) release_b(cur_b);
+          release_wg(empty_a(a.s));
+          if (r == R - 1) release_wg(empty_b(cur_b));
           a.next(S);
         }
       }
@@ -532,7 +491,7 @@ __device__ __forceinline__ void front(const Maps& mp, bf16* __restrict__ out,
                          kt > 0 || kk > 0);
           wgmma_commit();
           wgmma_wait<0>();
-          release_a(a.s);
+          release_wg(empty_a(a.s));
           a.next(S);
         }
         fence_regs(acc[0]);
@@ -566,31 +525,18 @@ __device__ __forceinline__ void front(const Maps& mp, bf16* __restrict__ out,
         named_sync(1, CONSUMERS);
       }
     }
-    if (C > 1) cluster_sync();
   }
 }
 
-// Launches kernel k on grid (N1 / BM, B) in clusters of C along x
+// Launches front kernel k on grid (N1 / BM, B) with smem bytes of dynamic
+// shared memory
 template <class... Args>
-int launch_cluster(void (*k)(Args...), dim3 grid, int C, int smem,
-                   cudaStream_t s, Args... args) {
-  cudaError_t e = cudaFuncSetAttribute(
+int launch_smem(void (*k)(Args...), dim3 grid, int smem, cudaStream_t s,
+                Args... args) {
+  const cudaError_t e = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = static_cast<unsigned>(C);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, k, args...);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  k<<<grid, THREADS, smem, s>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -599,17 +545,17 @@ int launch_cluster(void (*k)(Args...), dim3 grid, int C, int smem,
 inline bool front_maps(Maps* mp, const void* x, const void* w0,
                        const void* tw, const void* w1, const void* filt,
                        const void* w0i, const void* twi, int B, int N1,
-                       int N2, int bm, int C) {
+                       int N2, int bm) {
   const uint64_t r1 = uint64_t(N1) * 2, r2 = uint64_t(N2) * 2;
-  bool ok = map_2d_bf16(&mp->x, x, N2, uint64_t(B) * N1, r2, 64, KD / C) &&
+  bool ok = map_2d_bf16(&mp->x, x, N2, uint64_t(B) * N1, r2, 64, KD) &&
             map_2d_bf16(&mp->w0, w0, N1, N1, r1, 64, bm) &&
             map_2d_bf16(&mp->tw, tw, N2, N1, r2, 64, bm) &&
-            map_2d_bf16(&mp->w1, w1, N2, N2, r2, 64, MC / C);
+            map_2d_bf16(&mp->w1, w1, N2, N2, r2, 64, MC);
   mp->filt = mp->w0i = mp->twi = mp->w1;
   if (filt != nullptr)
     ok = ok && map_2d_bf16(&mp->filt, filt, N1, N2, r1, bm, MC, false);
   if (w0i != nullptr)
-    ok = ok && map_2d_bf16(&mp->w0i, w0i, N2, N2, r2, 64, MC / C) &&
+    ok = ok && map_2d_bf16(&mp->w0i, w0i, N2, N2, r2, 64, MC) &&
          map_2d_bf16(&mp->twi, twi, N1, N2, r1, bm, MC, false);
   return ok;
 }

@@ -6,6 +6,7 @@ kernels, which take bf16 (the type Table I counts), or the call raises.
 The kernels' tiles come from ``monarch_plan``: there is no ``block_n1``."""
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -13,37 +14,28 @@ import torch
 from repro_torch.kernels import runtime as rt
 from repro_torch.kernels.monarch_fft.ref import monarch_conv_ref, monarch_ref
 
-_MONARCH_ARGS = [rt.P] * 5 + [rt.I] * 7 + [rt.P]
-_CONV_ARGS = [rt.P] * 10 + [rt.I] * 11 + [rt.P]
+_MONARCH_ARGS = [rt.P] * 5 + [rt.I] * 6 + [rt.P]
+_CONV_ARGS = [rt.P] * 10 + [rt.I] * 9 + [rt.P]
 # The largest N2 whose N1-block intermediates fit a block's 227 KB of
 # shared memory at the smallest block of 16 rows (monarch_plan)
 MONARCH_MAX_N2 = 5888
 MONARCH_CONV_MAX_N2 = 2304
 
-# The plan's arithmetic, as monarch_core.cuh does it: an H100's SMs and the
-# opt-in shared memory of one block; a ring stage of 128 rows x 64 k bf16;
-# the B ring's two slots, the conv's epilogue slot; the barriers.
-SMS = 132
-SMEM_LIMIT = 232448
+# The plan's arithmetic, as monarch_core.cuh does it: a ring stage of 128
+# rows x 64 k bf16; the B ring's two slots, the conv's epilogue slot; the
+# barriers.
 _A_STAGE = 128 * 64 * 2
 _SLOTS = 2
 _MAX_STAGES = 6          # the kernels take up to 8
 _BAR_BYTES = 8 * 2 * (8 + 2 * _SLOTS + 1)
 _BACK_TILE = 128         # conv_back_kernel's square output tile
-# CTAs of one wave, at one CTA an SM, in clusters of C: the SMs of an
-# H100 SXM's GPCs hold 30 clusters of four (tools/l2_stream_bench.cu, which
-# asks cudaOccupancyMaxActiveClusters), 66 of two
-CLUSTER_SLOTS = {1: 132, 2: 132, 4: 120}
 
 
 class MonarchPlan(NamedTuple):
-    """How a Monarch kernel tiles one shape: ``bm`` rows of N1 a CTA,
-    clusters of ``cluster`` consecutive N1 blocks sharing each x / W1 / W0i
-    tile by multicast, a ring of ``stages`` 16 KB tiles, phase 1 in slabs
-    of ``chunks`` 128-row chunk pairs, ``smem`` bytes of dynamic shared
-    memory, ``ctas`` CTAs."""
+    """How a Monarch kernel tiles one shape: ``bm`` rows of N1 a CTA, a
+    ring of ``stages`` 16 KB tiles, phase 1 in slabs of ``chunks`` 128-row
+    chunk pairs, ``smem`` bytes of dynamic shared memory, ``ctas`` CTAs."""
     bm: int
-    cluster: int
     stages: int
     chunks: int
     smem: int
@@ -59,19 +51,15 @@ def monarch_smem(bm, stages, N2, conv):
             + _BAR_BYTES)
 
 
-def monarch_plan(B, N1, N2, conv=False, sms=SMS, smem_limit=SMEM_LIMIT):
+def monarch_plan(B, N1, N2, smem_limit, conv=False):
     """The tiling of ``monarch`` (``conv`` False) or ``monarch_conv``'s
-    front launch at (B, N1, N2), N1 % 64 == 0, N2 % 128 == 0: the largest
-    block (64, 32, 16 rows; the conv 32, 16) whose shared memory fits, with
-    at least three stages where any block has them; the most stages that
-    fit, up to six; the cluster (4, 2, 1, dividing N1 / bm) that runs the
-    grid in the fewest waves, the largest of those; a slab of all the chunk
-    pairs the accumulators hold (4 at bm 64, 8 below) where that divides
-    N2 / 128, else of one.
-
-    The waves: a CTA takes an SM (its shared memory), and clusters of four
-    hold 120 of an H100's 132 (``CLUSTER_SLOTS``), so at 256 or 512 CTAs
-    they cost a wave that clusters of two do not."""
+    front launch at (B, N1, N2), N1 % 64 == 0, N2 % 128 == 0, on a card
+    whose blocks may have ``smem_limit`` bytes of dynamic shared memory:
+    the largest block (64, 32, 16 rows; the conv 32, 16) whose shared
+    memory fits, with at least three stages where any block has them; the
+    most stages that fit, up to six; a slab of all the chunk pairs the
+    accumulators hold (4 at bm 64, 8 below) where that divides N2 / 128,
+    else of one."""
     fits = []
     for bm in ((32, 16) if conv else (64, 32, 16)):
         stages = max((s for s in range(2, _MAX_STAGES + 1)
@@ -85,51 +73,48 @@ def monarch_plan(B, N1, N2, conv=False, sms=SMS, smem_limit=SMEM_LIMIT):
     if any(s >= 3 for _, s in fits):
         fits = [(bm, s) for bm, s in fits if s >= 3]
     bm, stages = fits[0]
-    ctas = B * N1 // bm
-    slots = {c: n * sms // SMS for c, n in CLUSTER_SLOTS.items()}
-    cluster = min((c for c in (4, 2, 1) if (N1 // bm) % c == 0),
-                  key=lambda c: (-(-ctas // slots[c]), -c))
     slab = 4 if bm == 64 else 8
     chunks = slab if (N2 // 128) % slab == 0 else 1
-    return MonarchPlan(bm, cluster, stages, chunks,
-                       monarch_smem(bm, stages, N2, conv), ctas)
+    return MonarchPlan(bm, stages, chunks,
+                       monarch_smem(bm, stages, N2, conv), B * N1 // bm)
 
 
-def monarch_conv_plan(B, N1, N2, sms=SMS, smem_limit=SMEM_LIMIT):
-    """How ``monarch_conv`` runs at (B, N1, N2): ``(front, None)``, one
-    front launch (phases 1-3 of each N1 block, ``monarch_plan(conv=True)``)
-    and the back GEMM; or ``(forward, inverse)``, two passes on the pass
+def monarch_conv_plan(B, N1, N2, sms, smem_limit):
+    """How ``monarch_conv`` runs at (B, N1, N2) on a card of ``sms`` SMs
+    (``smem_limit`` as in ``monarch_plan``): ``(front, None)``, one front
+    launch (phases 1-3 of each N1 block, ``monarch_plan(conv=True)``) and
+    the back GEMM; or ``(forward, inverse)``, two passes on the pass
     kernel: F = bf16(bf16(monarch(x)) * filt) at (B, N1, N2), then
     monarch(F) at (B, N2, N1).
 
     The front holds A_blk and F_blk together, so its blocks are half the
-    pass's (32 rows at most) and its products half as wide; it wins only
-    where its grid fits one wave, and the passes need N1 % 128 == 0 and
-    N1 <= MONARCH_MAX_N2 (the second pass's N2)."""
-    front = monarch_plan(B, N1, N2, conv=True, sms=sms,
-                         smem_limit=smem_limit)
-    slots = CLUSTER_SLOTS[front.cluster] * sms // SMS
-    if N1 % 128 or N1 > MONARCH_MAX_N2 or front.ctas <= slots:
+    pass's (32 rows at most) and its products half as wide; it is kept
+    where its grid fits one wave, one CTA an SM (PERF.md times both forms),
+    and where the passes cannot run: they need N1 % 128 == 0 and N1 <=
+    MONARCH_MAX_N2 (the second pass's N2)."""
+    front = monarch_plan(B, N1, N2, smem_limit, conv=True)
+    if N1 % 128 or N1 > MONARCH_MAX_N2 or front.ctas <= sms:
         return front, None
-    return (monarch_plan(B, N1, N2, sms=sms, smem_limit=smem_limit),
-            monarch_plan(B, N2, N1, sms=sms, smem_limit=smem_limit))
+    return (monarch_plan(B, N1, N2, smem_limit),
+            monarch_plan(B, N2, N1, smem_limit))
 
 
-def monarch_l2_bytes(B, N1, N2, plan, conv=False, dtype_bytes=2):
-    """Bytes each launch of one call reads from L2 (every tile a CTA loads,
-    a multicast tile once a cluster): ``{"pass": ...}`` for ``monarch``
-    with ``plan``; for the conv, with ``plan`` from ``monarch_conv_plan``,
+def monarch_l2_bytes(B, N1, N2, plan, conv=False):
+    """Bytes each launch of one call reads from L2, modelled from the plan:
+    every bf16 tile a CTA loads, once. ``{"pass": ...}`` for ``monarch`` with
+    ``plan``; for the conv, with ``plan`` from ``monarch_conv_plan``,
     ``{"front": ..., "back": ...}`` or ``{"forward": ..., "inverse":
     ...}``."""
-    e = dtype_bytes
+    e = 2
 
     def front_launch(N1, N2, p, conv, filt):
-        clusters = B * N1 // (p.bm * p.cluster)
-        shared = (N1 * N2 + N2 * N2 * (2 if conv else 1)) * e  # x, W1, W0i
+        # x[b], W1 (and W0i) whole; W0[blk] once a slab, tw[blk] (and the
+        # filter, twi) once
+        streamed = (N1 * N2 + N2 * N2 * (2 if conv else 1)) * e
         slabs = N2 // 128 // p.chunks
         own = (p.bm * N1 * slabs
                + p.bm * N2 * (3 if conv else 2 if filt else 1)) * e
-        return clusters * shared + p.ctas * own
+        return p.ctas * (streamed + own)
 
     if not conv:
         return {"pass": front_launch(N1, N2, plan, False, False)}
@@ -140,6 +125,16 @@ def monarch_l2_bytes(B, N1, N2, plan, conv=False, dtype_bytes=2):
     tiles = B * -(-N1 // _BACK_TILE) * (N2 // _BACK_TILE)
     return {"front": front_launch(N1, N2, first, True, False),
             "back": tiles * (min(N1, _BACK_TILE) + _BACK_TILE) * N1 * e}
+
+
+@functools.lru_cache(maxsize=16)
+def card_limits(name, index):
+    """(SMs, opt-in shared memory of a block in bytes) of CUDA device
+    ``index``, the latter as kernel library ``name`` reads it: what the
+    plans fit a launch into."""
+    smem_limit = rt.bind(name, "monarch_smem_limit", [])
+    with torch.cuda.device(index):
+        return rt.device_sms(index), smem_limit()
 
 
 def _check_shapes(name, x, **factors):
@@ -182,11 +177,12 @@ def monarch(x, w0, tw, w1):
         return monarch_ref(x, w0, tw, w1)
     _check_card("monarch", N2, MONARCH_MAX_N2,
                 dict(x=x, w0=w0, tw=tw, w1=w1))
-    plan = monarch_plan(B, N1, N2)
+    _, smem = card_limits("monarch_fused", x.device.index)
+    plan = monarch_plan(B, N1, N2, smem)
     fn = rt.bind("monarch_fused", "monarch_bf16", _MONARCH_ARGS)
     z = torch.empty((B, N2, N1), dtype=x.dtype, device=x.device)
     rc = fn(x.data_ptr(), w0.data_ptr(), tw.data_ptr(), w1.data_ptr(),
-            z.data_ptr(), B, N1, N2, *plan[:4], rt.stream_ptr(x))
+            z.data_ptr(), B, N1, N2, *plan[:3], rt.stream_ptr(x))
     rt.check_launch("monarch_fused", rc)
     rt.count_launch("monarch_fused")
     return z
@@ -212,13 +208,13 @@ def monarch_conv(x, w0, tw, w1, filt, w0i, twi, w1i):
     _check_card("monarch_conv", N2, MONARCH_CONV_MAX_N2,
                 dict(x=x, w0=w0, tw=tw, w1=w1, filt=filt, w0i=w0i, twi=twi,
                      w1i=w1i))
-    first, second = monarch_conv_plan(B, N1, N2)
+    first, second = monarch_conv_plan(
+        B, N1, N2, *card_limits("monarch_conv_fused", x.device.index))
     fn = rt.bind("monarch_conv_fused", "monarch_conv_bf16", _CONV_ARGS)
     bm = torch.empty((B, N2, N1), dtype=x.dtype, device=x.device)
     z = torch.empty_like(x)
     rc = fn(*(t.data_ptr() for t in args), bm.data_ptr(), z.data_ptr(), B,
-            N1, N2, *first[:4], *(second or (0, 0, 0, 0))[:4],
-            rt.stream_ptr(x))
+            N1, N2, *first[:3], *(second or (0, 0, 0))[:3], rt.stream_ptr(x))
     rt.check_launch("monarch_conv_fused", rc)
     rt.count_launch("monarch_conv_fused")
     return z

@@ -104,6 +104,11 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def device_sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 # ------------------------------------------------------------------- build
 def _nvcc() -> str:
     path = shutil.which("nvcc")

@@ -15,10 +15,10 @@ summation order and the roundings it flips: max |err| within 2^-7 of
 max(1, max |plain|), and every output row within 2^-8 relative L2.
 
 The kernels tile each shape as ``ops.monarch_plan`` and
-``ops.monarch_conv_plan`` say (rows of N1 a CTA, the cluster that shares
-its operand tiles, the phase-1 slab; for the conv also its one front
-launch or its two passes): the shapes below make the plans pick every
-combination they can, each checked here against the plans themselves.
+``ops.monarch_conv_plan`` say for the card (rows of N1 a CTA, the phase-1
+slab; for the conv also its one front launch or its two passes): on an
+H100 SXM the shapes below make the plans pick every combination they can,
+each checked here against the plans themselves.
 """
 import pytest
 import torch
@@ -26,8 +26,8 @@ import torch
 from repro_torch.kernels import runtime as rt
 from repro_torch.kernels.monarch_fft import ref
 from repro_torch.kernels.monarch_fft.ops import (MONARCH_CONV_MAX_N2,
-                                                 MONARCH_MAX_N2, monarch,
-                                                 monarch_conv,
+                                                 MONARCH_MAX_N2, card_limits,
+                                                 monarch, monarch_conv,
                                                  monarch_conv_plan,
                                                  monarch_plan)
 from repro_torch.launch.monarch_fftconv import (MAX_ABS_REL, ROW_REL_L2,
@@ -87,49 +87,50 @@ def test_monarch_conv_matches_plain(dev):
                ref.monarch_conv_ref(*args))
 
 
-# shape -> (bm, cluster, chunks) the plan picks: every block and slab
-# form of the pass; clusters of 4, 2 and 1; N1 / bm = 1, 2, 4 at the
-# grid's edge; the N2 limit
-PASS_PLANS = {(16, 1024, 1024): (64, 2, 4), (16, 256, 256): (64, 4, 1),
-              (132, 64, 128): (64, 1, 1), (66, 128, 256): (64, 2, 1),
-              (2, 128, 2048): (32, 4, 8), (1, 128, 1664): (32, 4, 1),
-              (1, 64, 4096): (16, 4, 8), (1, 64, MONARCH_MAX_N2): (16, 4, 1)}
+# shape -> (bm, chunks) the plan picks: every block and slab form of the
+# pass; N1 / bm = 1, 2, 4; one CTA for each of the 132 SMs; the N2 limit
+PASS_PLANS = {(16, 1024, 1024): (64, 4), (16, 256, 256): (64, 1),
+              (132, 64, 128): (64, 1), (66, 128, 256): (64, 1),
+              (2, 128, 2048): (32, 8), (1, 128, 1664): (32, 1),
+              (1, 64, 4096): (16, 8), (1, 64, MONARCH_MAX_N2): (16, 1)}
 # shape -> the conv's plans (monarch_conv_plan): the one front launch
-# (bm, cluster, chunks) and None, or the two passes'. Every block and slab
-# form of each of its kernels; N1 / bm = 32; N1 % 128 == 64 on a grid past
-# one wave (the front all the same); the second pass at N2 = N1 = 5888;
-# the conv's N2 limit
-CONV_PLANS = {(16, 1024, 1024): ((64, 2, 4), (64, 2, 4)),
-              (16, 256, 256): ((32, 2, 1), None),
-              (4, 1024, 1024): ((32, 2, 8), None),
-              (2, 128, 2048): ((16, 4, 8), None),
-              (1, 128, MONARCH_CONV_MAX_N2): ((16, 4, 1), None),
-              (16, 320, 256): ((32, 2, 1), None),
-              (16, 1024, 256): ((64, 2, 1), (64, 4, 4)),
-              (8, 512, 2048): ((32, 2, 8), (64, 2, 4)),
-              (8, 512, 2304): ((32, 2, 1), (64, 4, 4)),
-              (16, 640, 256): ((64, 2, 1), (64, 4, 1)),
-              (4, 2048, 256): ((64, 2, 1), (32, 4, 8)),
-              (4, 1664, 256): ((64, 2, 1), (32, 4, 1)),
-              (2, 4096, 256): ((64, 2, 1), (16, 4, 8)),
-              (2, 5888, 128): ((64, 4, 1), (16, 4, 1))}
+# (bm, chunks) and None, or the two passes'. Every block and slab form of
+# each of its kernels; N1 / bm = 32; N1 % 128 == 64 on a grid past one
+# wave (the front all the same); the second pass at N2 = N1 = 5888; the
+# conv's N2 limit
+CONV_PLANS = {(16, 1024, 1024): ((64, 4), (64, 4)),
+              (16, 256, 256): ((32, 1), None),
+              (4, 1024, 1024): ((32, 8), None),
+              (2, 128, 2048): ((16, 8), None),
+              (1, 128, MONARCH_CONV_MAX_N2): ((16, 1), None),
+              (16, 320, 256): ((32, 1), None),
+              (16, 1024, 256): ((64, 1), (64, 4)),
+              (8, 512, 2048): ((32, 8), (64, 4)),
+              (8, 512, 2304): ((32, 1), (64, 4)),
+              (16, 640, 256): ((64, 1), (64, 1)),
+              (4, 2048, 256): ((64, 1), (32, 8)),
+              (4, 1664, 256): ((64, 1), (32, 1)),
+              (2, 4096, 256): ((64, 1), (16, 8)),
+              (2, 5888, 128): ((64, 1), (16, 1))}
 
 
 def _form(p):
-    return None if p is None else (p.bm, p.cluster, p.chunks)
+    return None if p is None else (p.bm, p.chunks)
 
 
 def test_every_plan_matches_plain(dev):
-    """Each (bm, cluster, slab) the plans can pick, both showcase shapes
-    among them, against the plain versions."""
+    """Each (bm, slab) the plans can pick on this card, both showcase
+    shapes among them, against the plain versions."""
+    sms, smem = card_limits("monarch_conv_fused",
+                            torch.cuda.current_device())
     for (B, N1, N2), want in PASS_PLANS.items():
-        p = monarch_plan(B, N1, N2)
+        p = monarch_plan(B, N1, N2, smem)
         assert _form(p) == want, (B, N1, N2, p)
         m_args, _ = make_inputs(B, N1, N2, dev, seed=N1 + N2)
         _check(f"monarch {(B, N1, N2)} {p}", monarch(*m_args),
                ref.monarch_ref(*m_args))
     for (B, N1, N2), want in CONV_PLANS.items():
-        plans = monarch_conv_plan(B, N1, N2)
+        plans = monarch_conv_plan(B, N1, N2, sms, smem)
         assert tuple(map(_form, plans)) == want, (B, N1, N2, plans)
         m_args, c_args = make_inputs(B, N1, N2, dev, seed=N1 + N2)
         _check(f"monarch_conv {(B, N1, N2)} {plans}",

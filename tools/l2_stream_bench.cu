@@ -1,19 +1,13 @@
 // How fast TMA streams a buffer that stays resident in L2 into the shared
-// memory of every SM of one Hopper card, alone and with each tile shared by
-// a thread-block cluster through TMA multicast: the operand streams of the
+// memory of every SM of one Hopper card: the operand streams of the
 // Monarch kernels (src/repro_torch/kernels/monarch_fft/csrc/
 // monarch_core.cuh), with no arithmetic.
 //
 // Each CTA (one per SM) walks an 8 MiB bf16 buffer in tiles of 128 rows x
 // 64 columns (16 KB, 128-byte swizzle) through an mbarrier ring, four
-// times over. With clusters of C, each CTA loads 1 / C of every tile's rows
-// and multicasts them to the C CTAs, and a stage is free once the C CTAs'
-// consumers released it, as the kernels do. Prints, for C = 1, 2 and 4, the
-// bytes that land in shared memory per second over the card (delivered)
-// and the bytes read from L2 per second (delivered / C): with one consumer
-// warp and six stages, then as the kernels stream (two consumer
-// warpgroups, five stages); and how many CTAs a wave of clusters holds
-// (cudaOccupancyMaxActiveClusters). Build and run on the card, from the
+// times over. Prints the bytes read from L2 per second over the card: with
+// one consumer warp and six stages, then as the kernels stream (two
+// consumer warpgroups, five stages). Build and run on the card, from the
 // root of the repository:
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
@@ -36,45 +30,37 @@ constexpr int SMEM = 120 * 1024;
 
 // WARPS consumer warps (1, or 8: two warpgroups, as the Monarch kernels
 // have) wait on each stage; one warp of each warpgroup (the one warp)
-// releases it to the C CTAs of the cluster
+// releases it
 template <int WARPS>
 __global__ void __launch_bounds__(WARPS * 32 + 32, 1)
-stream(const __grid_constant__ CUtensorMap a, int C, int stages, int* sink) {
+stream(const __grid_constant__ CUtensorMap a, int stages, int* sink) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   const uint32_t bars = base + MAX_STAGES * TILE;
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (MAX_STAGES + s); };
-  const unsigned rank = cluster_ctarank();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   constexpr int RELEASERS = WARPS == 1 ? 1 : WARPS / 4;
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), C * RELEASERS);
+      mbar_init(empty(s), RELEASERS);
     }
     mbar_fence_init();
   }
-  cluster_sync();
-  // each CTA starts at its own tile (a cluster at its first CTA's), so the
-  // card does not stream one tile at a time
-  const int first = (blockIdx.x / C) * 37;
-  const int rows = 128 / C;
+  __syncthreads();
+  // each CTA starts at its own tile, so the card does not stream one tile
+  // at a time
+  const int first = blockIdx.x * 37;
   if (warp == WARPS) {
     if (lane == 0) {
       for (int i = 0; i < PASSES * TILES; ++i) {
         const int s = i % stages, t = (first + i) % TILES;
         mbar_wait(empty(s), ((i / stages) & 1) ^ 1);
         mbar_expect_tx(full(s), TILE);
-        const uint32_t dst = base + s * TILE + rank * rows * 128;
-        const int c0 = (t % (COLS / 64)) * 64;
-        const int c1 = (t / (COLS / 64)) * 128 + rank * rows;
-        if (C > 1)
-          tma_load_2d_multicast(dst, &a, full(s), c0, c1,
-                                static_cast<uint16_t>((1u << C) - 1));
-        else
-          tma_load_2d(dst, &a, full(s), c0, c1);
+        tma_load_2d(base + s * TILE, &a, full(s), (t % (COLS / 64)) * 64,
+                    (t / (COLS / 64)) * 128);
       }
     }
   } else {
@@ -85,12 +71,10 @@ stream(const __grid_constant__ CUtensorMap a, int C, int stages, int* sink) {
       acc += static_cast<volatile unsigned char*>(smem_raw)[(base - raw) +
                                                             s * TILE];
       __syncwarp();
-      if (warp % 4 == 0 && lane < C) mbar_arrive_cluster(empty(s), lane);
+      if (warp % 4 == 0 && lane == 0) mbar_arrive(empty(s));
     }
     if (acc == 12345) *sink = acc;
   }
-  __syncwarp();
-  cluster_sync();
 }
 
 }  // namespace
@@ -104,41 +88,22 @@ int main() {
   cudaMemset(buf, 1, bytes);
   int sms = 0;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
-  CUtensorMap map[3];
-  for (int i = 0; i < 3; ++i)
-    if (!map_2d_bf16(&map[i], buf, COLS, ROWS, COLS * 2, 64, 128 >> i)) {
-      printf("cuTensorMapEncodeTiled failed\n");
-      return 1;
-    }
+  CUtensorMap map;
+  if (!map_2d_bf16(&map, buf, COLS, ROWS, COLS * 2, 64, 128)) {
+    printf("cuTensorMapEncodeTiled failed\n");
+    return 1;
+  }
   cudaEvent_t t0, t1;
   cudaEventCreate(&t0);
   cudaEventCreate(&t1);
-  auto run = [&](auto kern, int warps, int C, int stages) {
+  auto run = [&](auto kern, int warps, int stages) {
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          SMEM);
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(sms / C * C);
-    cfg.blockDim = dim3(warps * 32 + 32);
-    cfg.dynamicSmemBytes = SMEM;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = C;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    // as many clusters as the card holds at once: one wave
-    int clusters = 0;
-    cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
-    const int ctas = (clusters > 0 && clusters * C < sms ? clusters * C
-                                                         : sms / C * C);
-    cfg.gridDim = dim3(ctas);
-    const CUtensorMap& m = map[C == 1 ? 0 : C == 2 ? 1 : 2];
     // mean of 10 runs after 2 warm-up runs; the buffer stays in L2
     float total = 0.f;
     for (int r = 0; r < 12; ++r) {
       cudaEventRecord(t0);
-      cudaLaunchKernelEx(&cfg, kern, m, C, stages, sink);
+      kern<<<sms, warps * 32 + 32, SMEM>>>(map, stages, sink);
       cudaEventRecord(t1);
       cudaEventSynchronize(t1);
       float ms = 0.f;
@@ -146,16 +111,14 @@ int main() {
       if (r >= 2) total += ms;
     }
     const double ms = total / 10;
-    const double delivered = double(ctas) * PASSES * TILES * TILE;
-    printf("cluster %d, %d consumer warp(s), %d stages: %d CTAs, %.0f B "
-           "delivered in %.4f ms = %.3f TB/s into shared memory, %.3f TB/s "
-           "read from L2 (%s)\n",
-           C, warps, stages, ctas, delivered, ms,
-           delivered / (ms * 1e-3) / 1e12, delivered / C / (ms * 1e-3) / 1e12,
+    const double bytes = double(sms) * PASSES * TILES * TILE;
+    printf("%d consumer warp(s), %d stages: %d CTAs, %.0f B read from L2 in "
+           "%.4f ms = %.3f TB/s (%s)\n",
+           warps, stages, sms, bytes, ms, bytes / (ms * 1e-3) / 1e12,
            cudaGetErrorString(cudaGetLastError()));
   };
-  for (int C : {1, 2, 4}) run(stream<1>, 1, C, 6);
+  run(stream<1>, 1, 6);
   // as the Monarch kernels stream: two consumer warpgroups, five stages
-  for (int C : {1, 2, 4}) run(stream<8>, 8, C, 5);
+  run(stream<8>, 8, 5);
   return 0;
 }
