@@ -50,7 +50,23 @@
    state; the run also prints what faults planted in one layer read against
    it. Then one step's device time by kernel, from the profiler, and in how
    many of its layers the o-proj pass started before ``decode_paged``
-   ended (programmatic launch).
+   ended (programmatic launch). TTFT p50 / p99 are read from the done
+   requests, beside the ``serve.ttft_s`` histogram's P² estimates.
+4b. Serve-modes phase on the same pinned experts: a fresh composition
+   (HBM cache of two) behind ``ServingEngine(scheduler="run_to_completion",
+   prefill_mode="sequential")`` with its own metrics registry, after
+   ``warmup()``, with tracing on, a watchdog sampling and the metrics
+   server on a free localhost port, serving the same 16 requests. Each
+   admission prefills its prompt alone (``flash_prefill`` once per layer:
+   32 x 16 launches) and every paged kernel launches once per layer per
+   decode round. Checks the outputs, a clean pool inside its HBM budget,
+   the lifecycle phases of every request against its wall time, no
+   watchdog anomaly, one ``/metrics`` scrape, a valid trace with one
+   request lane per request, and one prompt's first-token logits from the
+   sequential (kernel) and the packed (plain) prefill against each other
+   and against the f32 plain forward; prints tok/s, TTFT, the phases'
+   p50s, the prefill spans' share of the drain and ``flash_prefill``'s
+   device time a launch at 64-256-token prompts.
 5. Dense decode phase on one of those experts: ``prefill`` of 8 lanes x 2048
    tokens into a 4096-position cache (``flash_prefill`` once per layer), its
    first lane's last-token logits against the plain ``forward`` run in f32 a
@@ -1179,6 +1195,17 @@ def planted_faults(cfg):
     }
 
 
+def ttft_line(done, registry):
+    """TTFT p50 / p99 read exactly from the done requests, beside the
+    ``serve.ttft_s`` histogram's P² estimates."""
+    ttft = np.asarray([r.first_token_s - r.arrival_s for r in done])
+    h = registry.histogram("serve.ttft_s")
+    return (f"TTFT p50={np.percentile(ttft, 50):.4f}s "
+            f"p99={np.percentile(ttft, 99):.4f}s (serve.ttft_s P2: "
+            f"p50={h.quantile(0.5):.4f}s p99={h.quantile(0.99):.4f}s, "
+            f"count {h.count})")
+
+
 def serve_phase(cfg, dev):
     """The port's main path: the engine serving full-width experts."""
     from repro_torch.kernels import runtime as rt
@@ -1233,13 +1260,13 @@ def serve_phase(cfg, dev):
     cs = coe.cache.stats
     if cs.evictions < 1 or st.switches < 1:
         raise AssertionError(f"no evicting switch: {cs.as_dict()}")
-    ttft = np.asarray(engine.ttft_s)
     _log(f"serve: {len(done)} requests, {st.tokens_out} tokens in {wall:.3f}s "
          f"= {st.tokens_out / wall:.2f} tok/s; {n_tagged} tagged, "
          f"{len(done) - n_tagged} routed")
-    _log(f"serve: TTFT p50={np.percentile(ttft, 50):.4f}s "
-         f"p99={np.percentile(ttft, 99):.4f}s; {st.decode_rounds} decode "
-         f"rounds, occupancy {st.mean_occupancy:.3f}; switches={st.switches} "
+    _log(f"serve: {ttft_line(done, st.registry)}; {st.decode_rounds} decode "
+         f"rounds ({st.exec_s / st.decode_rounds * 1e3:.3f} ms a round, "
+         f"host wall with its argmax read), occupancy "
+         f"{st.mean_occupancy:.3f}; switches={st.switches} "
          f"evictions={cs.evictions} prefetch_hits={cs.prefetch_hits} "
          f"switch_stall_s={cs.switch_seconds:.4f} "
          f"(engine switch_s={st.switch_s:.4f}, prefill_s={st.prefill_s:.4f}, "
@@ -1320,7 +1347,252 @@ def serve_phase(cfg, dev):
     for r in rids:
         engine.pool.free(r)
     coe.cache.close()
-    return launches, coe.store, coe.expert_names()
+    return (launches, coe.store, coe.expert_names(),
+            st.exec_s / st.decode_rounds)
+
+
+def prefill_times(prefill, lengths, reps=3):
+    """For each prompt length S: the host wall of one warm ``prefill(S)``
+    (synchronized) and, from the profiler's kernel events, the device ms a
+    ``flash_prefill`` launch inside it takes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for S in lengths:
+        prefill(S)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            prefill(S)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / reps * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                prefill(S)
+            torch.cuda.synchronize()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and "prefill_kernel" in e.name]
+        out[S] = (wall_ms, float(np.mean(us)) / 1e3 if us else None, len(us))
+    return out
+
+
+def serve_modes_phase(cfg, dev, store, names, continuous_round_s):
+    """The engine's other modes at full width, on the serve phase's pinned
+    store: a fresh composition with an HBM cache of two experts behind
+    ``ServingEngine(scheduler="run_to_completion",
+    prefill_mode="sequential")`` with its own registry, ``warmup()``,
+    tracing on, a watchdog sampling and the metrics server on a free
+    localhost port; the serve phase's 16 requests. Each admission prefills
+    its prompt alone through ``prefill_kv`` (``flash_prefill`` once per
+    layer). Returns the launch counts of the drain."""
+    import urllib.request
+
+    from repro_torch.bridge import tree_map
+    from repro_torch.core import CompositionOfExperts, ExpertHandle, HashRouter
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import (FlightRecorder, MetricsRegistry, Watchdog,
+                                 serve_metrics, trace)
+    from repro_torch.obs.lifecycle import PHASES, phase_record
+    from repro_torch.obs.trace import Tracer, validate_chrome_trace
+    from repro_torch.serving import (PackedPrefillRunner, ServingEngine,
+                                     default_buckets)
+
+    s = SERVE
+    nL = cfg.n_layers
+    reg = MetricsRegistry()
+    coe = CompositionOfExperts(HashRouter(len(names)), None,
+                               int(s["hbm_experts"] * store.nbytes(names[0])),
+                               store=store, device=dev, registry=reg)
+    for n in names:
+        coe.register(ExpertHandle(n, cfg))        # already in the store
+    engine = ServingEngine(coe, cfg, max_len=s["max_len"],
+                           n_slots=s["n_slots"], block_size=s["block_size"],
+                           scheduler="run_to_completion",
+                           prefill_mode="sequential", device=dev,
+                           registry=reg)
+    t0 = time.perf_counter()
+    engine.warmup()
+    warm_s = time.perf_counter() - t0
+    if not engine.warmed or engine.pool.stats.blocks_in_use:
+        raise AssertionError("serve modes: warmup left the pool in use")
+    server = serve_metrics(reg, port=0, ready_check=lambda: engine.warmed,
+                           debug=engine.debug_providers())
+    wd = Watchdog([engine], registry=reg, interval_s=0.05,
+                  recorder=FlightRecorder())
+    old_tracer = trace.set_tracer(Tracer(buffer_size=1 << 18))
+    reqs, _ = make_requests(s["requests"], cfg.vocab_size, s["prompt_lens"],
+                            s["new_tokens"], names, s["tagged_fraction"],
+                            s["seed"])
+    try:
+        trace.enable()
+        wd.start()
+        torch.cuda.synchronize()
+        rt.reset_launches()
+        t0 = time.perf_counter()
+        for r in reqs:
+            engine.submit(r)
+        done = engine.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rt.launch_counts()
+        trace.disable()
+        wd.stop()
+        wd.check_now()                   # one pass on the drained engine
+        doc = trace.get_tracer().to_chrome_trace()
+        with urllib.request.urlopen(f"{server.url}/metrics",
+                                    timeout=10) as resp:
+            scrape = resp.read().decode()
+    finally:
+        trace.disable()
+        trace.set_tracer(old_tracer)
+        wd.stop()
+        server.stop()
+
+    st = engine.stats
+    if len(done) != s["requests"]:
+        raise AssertionError(f"serve modes: {len(done)} of {s['requests']} "
+                             "requests done")
+    for r in done:
+        if r.output is None or len(r.output) != s["new_tokens"]:
+            raise AssertionError(f"serve modes: request {r.rid}: output "
+                                 f"{r.output}")
+        if not ((r.output >= 0) & (r.output < cfg.vocab_size)).all():
+            raise AssertionError(f"serve modes: request {r.rid}: token out "
+                                 "of vocabulary")
+    problems = engine.pool.check_invariants()
+    if problems or engine.pool.stats.blocks_in_use:
+        raise AssertionError(f"serve modes: KV pool {problems}, "
+                             f"{engine.pool.stats.blocks_in_use} leaked")
+    if not engine.hbm_in_budget():
+        raise AssertionError("serve modes: HBM tier over budget")
+    want = {"flash_prefill": nL * s["requests"]}
+    want.update({k: nL * st.decode_rounds for k in PAGED_KERNELS})
+    check_launches("serve modes", launches, want)
+    worst = max(abs(sum(phase_record(r)["phases"][p] for p in PHASES)
+                    - (r.done_s - r.arrival_s)) for r in done)
+    if not worst <= 1e-6:
+        raise AssertionError(f"serve modes: lifecycle phases miss the wall "
+                             f"time by {worst} s")
+    snap = reg.snapshot()
+    anomalies = {k: v for k, v in snap.items() if k.startswith("obs.anomaly")}
+    if anomalies or wd.checks_run < 2:
+        raise AssertionError(f"serve modes: watchdog anomalies {anomalies} "
+                             f"in {wd.checks_run} checks")
+    for series in ("serve_ttft_s", "kv_blocks_in_use", "switch_hits"):
+        if series not in scrape:
+            raise AssertionError(f"serve modes: /metrics lacks {series}")
+    problems = validate_chrome_trace(doc)
+    evs = doc["traceEvents"]
+    lanes = [e["id"] for e in evs
+             if e["ph"] == "b" and e["name"] == "request"]
+    if problems or sorted(lanes) != sorted(r.rid for r in done):
+        raise AssertionError(f"serve modes: trace {problems[:3]}, request "
+                             f"lanes {sorted(lanes)}")
+    prefill_s = sum(e["dur"] for e in evs
+                    if e["ph"] == "X" and e["name"] == "prefill") / 1e6
+    n_out = sum(len(r.output) for r in done)
+    phases = "; ".join(f"{p} {snap[f'serve.phase_seconds:p50{{phase={p}}}']:.4f}"
+                       for p in PHASES)
+    _log(f"serve modes (run_to_completion, sequential prefill): "
+         f"{len(done)} requests, {n_out} tokens in {wall:.3f}s = "
+         f"{n_out / wall:.2f} tok/s; {ttft_line(done, reg)}; "
+         f"{st.decode_rounds} decode rounds, switches={st.switches}; "
+         f"warmup() {warm_s:.3f}s")
+    _log(f"serve modes: serve.phase_seconds p50: {phases} s; prefill spans "
+         f"{prefill_s:.3f}s = {prefill_s / wall:.3f} of the drain's wall; "
+         f"a decode round {st.exec_s / st.decode_rounds * 1e3:.3f} ms (host "
+         f"wall with its argmax read; continuous serve phase "
+         f"{continuous_round_s * 1e3:.3f} ms); watchdog {wd.checks_run} "
+         f"checks, no anomaly; /metrics scraped ({len(scrape)} bytes); "
+         f"trace valid, {len(lanes)} request lanes, {len(evs)} events")
+    _log(f"serve modes: launches {launches}")
+
+    # flash_prefill against its plain version at the serving shapes (B 1,
+    # 32 heads of 128, causal), row by row
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rs = np.random.RandomState(s["seed"])
+    for S in (1, 64, 160, 256):
+        q, k, v = (torch.as_tensor(rs.standard_normal((1, S, cfg.n_heads,
+                                                       cfg.head_dim)),
+                                   dtype=torch.float32,
+                                   device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        got = attention(q, k, v, causal=True)
+        row = row_rel_l2(got, attention_ref(q, k, v, causal=True))
+        if not (torch.isfinite(got.float()).all()
+                and row <= PREFILL_ROW_REL_L2):
+            raise AssertionError(f"serve modes: flash_prefill at (1, {S}) "
+                                 f"row relative L2 error {row}")
+        _log(f"serve modes: flash_prefill at (1, {S}, {cfg.n_heads}, "
+             f"{cfg.head_dim}): largest row relative L2 error {row:.3e} "
+             f"(tol {PREFILL_ROW_REL_L2:.3e})")
+
+    # one prompt's first-token logits: sequential prefill (flash_prefill),
+    # the same forward with plain attention, and the packed prefill (plain
+    # attention), each against the plain forward in f32 (one layer's
+    # weights upcast at a time), to the dense prefill's limit. On the H100
+    # the three bf16 paths read 3.2-3.5 % of the largest logit from the f32
+    # forward and 3.3 % from each other (a 236-token prompt): the kernel's
+    # path is no farther from f32 than the plain ones; the kernel itself is
+    # held row by row above. LOGIT_TOL_REL (1.8 %) is a decode step's limit,
+    # on a pool both sides share; a whole bf16 prefill does not meet it.
+    params = coe.cache.activate(names[0])
+    prompt = reqs[0].tokens
+    toks = torch.as_tensor(prompt[None], device=dev).long()
+    rt.reset_launches()
+    l_seq = engine.runner.prefill_kv(params, toks)[0]
+    torch.cuda.synchronize()
+    check_launches("serve modes prefill_kv", rt.launch_counts(),
+                   {"flash_prefill": nL})
+    with plain_prefill():
+        l_plain = engine.runner.prefill_kv(params, toks)[0]
+    packed = PackedPrefillRunner(cfg, buckets=default_buckets(s["max_len"]),
+                                 max_segments=s["n_slots"])
+    l_pack = packed(params, [prompt]).logits[0]
+    f32 = lambda tree: tree_map(lambda t: t.float(), tree)
+    with torch.no_grad(), plain_prefill():
+        h = T.embed_tokens(cfg, params, toks).float()
+        positions = torch.arange(len(prompt), device=dev)[None]
+        for i in range(nL):
+            h, _ = T._layer(cfg, f32(T.layer_params(params, i)), h, positions)
+        h = L.apply_norm(cfg, f32(params["final_norm"]), h[:, -1:])
+        l32 = (h @ params["lm_head"].float())[0, 0]
+    label = f"serve modes prefill of one {len(prompt)}-token prompt"
+    top = float(l32.float().abs().max())
+    for name, a, b in (("sequential (flash_prefill) vs sequential, plain "
+                        "attention", l_seq, l_plain),
+                       ("sequential (flash_prefill) vs packed (plain)",
+                        l_seq, l_pack)):
+        err = float((a.float() - b.float()).abs().max())
+        _log(f"{label}: {name}: max_abs_err={err:.4f} ({err / top:.4f} of "
+             f"|logits|max={top:.3f}), both bf16, a reading")
+    logits_check(f"{label}: sequential (flash_prefill) vs f32 plain forward",
+                 l_seq, l32, DENSE_PREFILL_LOGIT_TOL_REL)
+    logits_check(f"{label}: sequential, plain attention vs f32 plain "
+                 "forward", l_plain, l32, DENSE_PREFILL_LOGIT_TOL_REL)
+    logits_check(f"{label}: packed (plain) vs f32 plain forward",
+                 l_pack, l32, DENSE_PREFILL_LOGIT_TOL_REL)
+    del h, l32
+
+    # a warm sequential prefill's wall and flash_prefill's device time a
+    # launch at the serving prompt lengths
+    per = prefill_times(lambda S: engine.runner.prefill_kv(
+        params, torch.as_tensor(rs.randint(0, cfg.vocab_size, (1, S)),
+                                device=dev)), (64, 160, 256))
+    _log("serve modes: a warm prefill_kv (host wall, synchronized) and "
+         "flash_prefill's device ms a launch (B 1, 32 heads, dh 128, "
+         "causal): " + "; ".join(
+             f"S {S} prefill {wall:.2f} ms, flash_prefill "
+             + (f"{ms:.4f} ms ({n} launches)" if ms is not None
+                else "not measured (the profiler saw no kernel)")
+             for S, (wall, ms, n) in per.items()))
+    coe.cache.close()
+    return launches
 
 
 def busy_us(spans):
@@ -1578,7 +1850,7 @@ def generate_phase(cfg, dev, store, names):
     # the first call meets every plain op's first launch; the second runs
     # the same prompts on a warm process, its groups' experts partly resident
     for run in ("first", "second"):
-        cs0 = dict(vars(coe.cache.stats))
+        cs0 = coe.cache.stats.as_dict()
         torch.cuda.synchronize()
         rt.reset_launches()
         t0 = time.perf_counter()
@@ -1654,7 +1926,7 @@ def rg_phase(cfg, dev):
         0, cfg.vocab_size, (B, P)).astype(np.int32)
     first = None
     for run in ("first", "second"):
-        cs0 = dict(vars(coe.cache.stats))
+        cs0 = coe.cache.stats.as_dict()
         torch.cuda.synchronize()
         rt.reset_launches()
         t0 = time.perf_counter()
@@ -1755,17 +2027,22 @@ def main():
     for name in ("monarch_fused", "monarch_conv_fused"):
         rows[name]["launches"] = launches[name]
     torch.cuda.empty_cache()
-    launches, store, names = serve_phase(cfg, dev)
+    launches, store, names, round_s = serve_phase(cfg, dev)
     for name in PAGED_KERNELS:
         rows[name]["launches"] = launches[name]
     rows[FULL_PAGED_ROW]["launches"] = launches["decode_paged"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    modes_launches = serve_modes_phase(cfg, dev, store, names, round_s)
     gc.collect()
     torch.cuda.empty_cache()
     params = tree_map(lambda t: t.to(dev), store.get(names[0]))
     launches, prefill_launches = dense_decode_phase(cfg, dev, params)
     for name in DENSE_KERNELS:
         rows[name]["launches"] = launches[name]
-    rows["flash_prefill"]["launches"] = prefill_launches["flash_prefill"]
+    # the dense prefill's launches and the sequential serve drain's
+    rows["flash_prefill"]["launches"] = (prefill_launches["flash_prefill"]
+                                         + modes_launches["flash_prefill"])
     del params
     gc.collect()
     torch.cuda.empty_cache()

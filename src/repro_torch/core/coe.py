@@ -58,10 +58,13 @@ class CompositionOfExperts:
     def __init__(self, router, router_params, hbm_capacity_bytes: int,
                  kv_reserve_bytes: int = 0,
                  store: Optional[ExpertStore] = None,
-                 max_inflight_prefetch: int = 2, device=None):
+                 max_inflight_prefetch: int = 2, device=None,
+                 registry=None, obs_labels=None):
         """``kv_reserve_bytes`` carves a slice of the HBM tier out of the
         weight cache for the engine's paged KV pool (``self.hbm_budget``).
-        ``device`` defaults to the card and raises where there is none."""
+        ``device`` defaults to the card and raises where there is none.
+        ``registry``/``obs_labels`` publish the weight cache's ``switch.*``
+        and ``ledger.*`` series (a private registry when omitted)."""
         if not 0 <= kv_reserve_bytes < hbm_capacity_bytes:
             raise ValueError(
                 f"kv_reserve_bytes={kv_reserve_bytes} must be in "
@@ -78,7 +81,8 @@ class CompositionOfExperts:
             kv_bytes=kv_reserve_bytes)
         self.cache = HBMWeightCache(self.hbm_budget.weights_bytes,
                                     store=self.store, device=self.device,
-                                    max_inflight=max_inflight_prefetch)
+                                    max_inflight=max_inflight_prefetch,
+                                    registry=registry, labels=obs_labels)
 
     def register(self, handle: ExpertHandle):
         if handle.name in self.experts:

@@ -11,38 +11,57 @@ weights over the capacity tier (counterpart of
     The copy records an event; ``activate`` makes the consuming stream wait
     on it, so decode never reads half-copied weights. On the CPU, prefetch is
     a synchronous copy.
+
+Counters are a ``SwitchStats`` view over a metrics registry; every tier
+transfer lands in a ``TransferLedger`` on the same registry, and the loads
+record ``store_read`` / ``h2d`` / ``activate`` spans when tracing is on.
 """
 from __future__ import annotations
 
 import time
 from collections import OrderedDict
 from concurrent.futures import Future, ThreadPoolExecutor
-from dataclasses import asdict, dataclass
-from typing import Any, Optional
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.bridge import tree_bytes, tree_leaves, tree_map
 from repro_torch.core.memory_tiers import DGX_H100, MachineTiers
+from repro_torch.obs import trace
+from repro_torch.obs.ledger import TransferLedger
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.stats import StatsView, counter_field
 from repro_torch.store import ExpertStore
 
 
-@dataclass
-class SwitchStats:
-    hits: int = 0
-    misses: int = 0
-    prefetch_hits: int = 0
-    prefetch_failures: int = 0        # prefetch loads that raised; retried as miss
-    prefetches_issued: int = 0
-    prefetches_cancelled: int = 0
-    evictions: int = 0
-    bytes_copied_in: int = 0
-    bytes_copyback_elided: int = 0
-    switch_seconds: float = 0.0       # caller-side stall inside activate()
-    stall_failed_prefetch_seconds: float = 0.0  # ...waiting on a prefetch
-    # that then raised
-    store_read_seconds: float = 0.0
-    h2d_seconds: float = 0.0
+class SwitchStats(StatsView):
+    """Switching-cache counters as a view over the metrics registry
+    (``switch.*`` series, JAX's names). ``drops`` and ``bytes_copied_back``
+    stay 0 until dirty write-back and ``drop`` are ported: every entry is
+    read-only weights, whose copy-back is elided."""
+
+    PREFIX = "switch"
+    DERIVED = ("copy_seconds", "overlap_ratio")
+
+    hits = counter_field()
+    misses = counter_field()
+    prefetch_hits = counter_field()   # activates served by an in-flight prefetch
+    prefetch_failures = counter_field()  # prefetch loads that raised; retried as miss
+    prefetches_issued = counter_field()
+    prefetches_cancelled = counter_field()
+    evictions = counter_field()
+    drops = counter_field()
+    bytes_copied_in = counter_field()
+    bytes_copied_back = counter_field()
+    bytes_copyback_elided = counter_field()
+    switch_seconds = counter_field(0.0)  # caller-side stall inside activate()
+    stall_miss_seconds = counter_field(0.0)      # ...due to true misses
+    stall_prefetch_seconds = counter_field(0.0)  # ...due to prefetch consumes
+    stall_failed_prefetch_seconds = counter_field(0.0)  # ...waiting on a
+    # prefetch that then raised
+    store_read_seconds = counter_field(0.0)
+    h2d_seconds = counter_field(0.0)
 
     @property
     def copy_seconds(self) -> float:
@@ -55,10 +74,6 @@ class SwitchStats:
         if total <= 0:
             return 0.0
         return max(0.0, min(1.0, 1.0 - self.switch_seconds / total))
-
-    def as_dict(self):
-        return {**asdict(self), "copy_seconds": self.copy_seconds,
-                "overlap_ratio": self.overlap_ratio}
 
 
 @dataclass
@@ -75,7 +90,9 @@ class HBMWeightCache:
     ``ExpertStore`` capacity tier."""
 
     def __init__(self, capacity_bytes: int, store: ExpertStore, device,
-                 max_inflight: int = 2):
+                 max_inflight: int = 2,
+                 registry: Optional[MetricsRegistry] = None,
+                 labels: Optional[Dict[str, Any]] = None):
         self.capacity = int(capacity_bytes)
         self.store = store
         self.device = torch.device(device)
@@ -87,7 +104,12 @@ class HBMWeightCache:
         self._pool: Optional[ThreadPoolExecutor] = None
         self._copy_stream: Optional[torch.cuda.Stream] = None
         self._used = 0
-        self.stats = SwitchStats()
+        # the stats view and the tier-transfer ledger share one registry (a
+        # private one unless the caller publishes into a shared registry)
+        registry = registry if registry is not None else MetricsRegistry()
+        self.stats = SwitchStats(registry=registry, labels=labels)
+        self.ledger = TransferLedger(registry, labels)
+        self._hbm_used_gauge = registry.gauge("switch.hbm_used_bytes", labels)
 
     # -- internals -----------------------------------------------------
     def _executor(self) -> ThreadPoolExecutor:
@@ -98,23 +120,26 @@ class HBMWeightCache:
 
     def _load_job(self, expert_id: str) -> _Loaded:
         """Store read, then the host-to-device copy. On the card the copy
-        runs on the side stream and this thread waits for it, so the
-        ``h2d_s`` it reports is the copy's own time."""
+        runs on the side stream and this thread waits for it inside the
+        ``h2d`` span, so the span and the ``h2d_s`` it reports are the copy's
+        own time, not its launch's."""
         t0 = time.perf_counter()
-        host = self.store.get(expert_id)
+        with trace.span("store_read", cat="switch", expert=expert_id):
+            host = self.store.get(expert_id)
         t1 = time.perf_counter()
         ready = None
-        if self.device.type == "cuda":
-            if self._copy_stream is None:
-                self._copy_stream = torch.cuda.Stream(self.device)
-            with torch.cuda.stream(self._copy_stream):
-                dev = tree_map(lambda t: t.to(self.device, non_blocking=True),
-                               host)
-                ready = torch.cuda.Event()
-                ready.record(self._copy_stream)
-            ready.synchronize()
-        else:
-            dev = tree_map(lambda t: t.to(self.device), host)
+        with trace.span("h2d", cat="switch", expert=expert_id):
+            if self.device.type == "cuda":
+                if self._copy_stream is None:
+                    self._copy_stream = torch.cuda.Stream(self.device)
+                with torch.cuda.stream(self._copy_stream):
+                    dev = tree_map(
+                        lambda t: t.to(self.device, non_blocking=True), host)
+                    ready = torch.cuda.Event()
+                    ready.record(self._copy_stream)
+                ready.synchronize()
+            else:
+                dev = tree_map(lambda t: t.to(self.device), host)
         t2 = time.perf_counter()
         return _Loaded(dev, tree_bytes(host), t1 - t0, t2 - t1, ready)
 
@@ -122,8 +147,10 @@ class HBMWeightCache:
         name, _ = self._entries.popitem(last=False)      # LRU = oldest
         nb = self._nbytes.pop(name)
         self._used -= nb
+        self._hbm_used_gauge.set(self._used)
         self.stats.evictions += 1
         self.stats.bytes_copyback_elided += nb            # read-only weights
+        self.ledger.record("elided", nb, cause="read_only", expert=name)
 
     def _budget(self) -> int:
         return self.capacity - sum(self._reserved.values())
@@ -145,7 +172,12 @@ class HBMWeightCache:
             self._evict_one()
         return True
 
-    def _install(self, expert_id: str, loaded: _Loaded):
+    def _unreserve(self, expert_id: str):
+        need = self._reserved.pop(expert_id, None)
+        if need:
+            self.ledger.release(need)
+
+    def _install(self, expert_id: str, loaded: _Loaded, cause: str):
         self._make_room(loaded.nbytes)
         if loaded.ready is not None:
             # the consumer stream waits for the copy, and the allocator learns
@@ -157,9 +189,13 @@ class HBMWeightCache:
         self.stats.bytes_copied_in += loaded.nbytes
         self.stats.store_read_seconds += loaded.read_s
         self.stats.h2d_seconds += loaded.h2d_s
+        self.ledger.record("store_read", loaded.nbytes, loaded.read_s,
+                           cause=cause, expert=expert_id)
+        self.ledger.record("h2d", loaded.nbytes, loaded.h2d_s, cause=cause)
         self._entries[expert_id] = loaded.value
         self._nbytes[expert_id] = loaded.nbytes
         self._used += loaded.nbytes
+        self._hbm_used_gauge.set(self._used)
         return loaded.value
 
     # -- public API ------------------------------------------------------
@@ -184,30 +220,49 @@ class HBMWeightCache:
         prefetch -> wait for its unfinished tail; miss -> synchronous load.
         A prefetch whose store read or copy raised is counted in
         ``stats.prefetch_failures`` and reloaded inline as a miss. The stall
-        lands in ``stats.switch_seconds``."""
+        lands in ``stats.switch_seconds``, split by cause as JAX splits it
+        (a consumed prefetch, a true miss, the wait on a failed prefetch)."""
         if expert_id in self._entries:
             self._entries.move_to_end(expert_id)
             self.stats.hits += 1
             return self._entries[expert_id]
         t0 = time.perf_counter()
-        fut = self._inflight.pop(expert_id, None)
-        loaded = None
-        if fut is not None:
-            self._reserved.pop(expert_id, None)
-            try:
-                loaded = fut.result()
-                self.stats.hits += 1
-                self.stats.prefetch_hits += 1
-            except Exception:
-                # the wait on the doomed load is its own stall cause
-                self.stats.prefetch_failures += 1
-                self.stats.stall_failed_prefetch_seconds += (
-                    time.perf_counter() - t0)
-        if loaded is None:
-            self.stats.misses += 1
-            loaded = self._load_job(expert_id)
-        value = self._install(expert_id, loaded)
-        self.stats.switch_seconds += time.perf_counter() - t0
+        with trace.span("activate", cat="switch", expert=expert_id) as sp:
+            fut = self._inflight.pop(expert_id, None)
+            consumed_prefetch = False
+            failed_wait_s = 0.0      # time sunk into a prefetch that raised
+            loaded = None
+            if fut is not None:
+                self._unreserve(expert_id)
+                try:
+                    loaded = fut.result()
+                    consumed_prefetch = True
+                    self.stats.hits += 1
+                    self.stats.prefetch_hits += 1
+                except Exception:
+                    # the wait on the doomed load is its own stall cause
+                    failed_wait_s = time.perf_counter() - t0
+                    self.stats.prefetch_failures += 1
+                    self.stats.stall_failed_prefetch_seconds += failed_wait_s
+                    self.ledger.note_stall(failed_wait_s,
+                                           cause="failed_prefetch")
+                    trace.instant("prefetch_failed", cat="switch",
+                                  expert=expert_id)
+            if loaded is None:
+                self.stats.misses += 1
+                loaded = self._load_job(expert_id)
+            cause = "prefetch" if consumed_prefetch else (
+                "failed_prefetch" if failed_wait_s else "miss")
+            value = self._install(expert_id, loaded, cause)
+            dt = time.perf_counter() - t0
+            self.stats.switch_seconds += dt
+            if consumed_prefetch:
+                self.stats.stall_prefetch_seconds += dt
+                self.ledger.note_stall(dt, cause="prefetch")
+            else:
+                self.stats.stall_miss_seconds += dt - failed_wait_s
+                self.ledger.note_stall(dt - failed_wait_s, cause="miss")
+            sp.add(outcome=cause, nbytes=loaded.nbytes)
         return value
 
     def prefetch(self, expert_id: str) -> bool:
@@ -227,6 +282,7 @@ class HBMWeightCache:
         if not self._make_room(need, strict=False):
             return False
         self._reserved[expert_id] = need
+        self.ledger.reserve(need)
         if self.device.type == "cuda":
             fut = self._executor().submit(self._load_job, expert_id)
         else:
@@ -245,7 +301,7 @@ class HBMWeightCache:
         fut = self._inflight.pop(expert_id, None)
         if fut is None:
             return False
-        self._reserved.pop(expert_id, None)
+        self._unreserve(expert_id)
         fut.cancel()
         self.stats.prefetches_cancelled += 1
         return True

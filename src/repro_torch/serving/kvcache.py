@@ -10,31 +10,38 @@ Host path: ``open/append/gather/free``. Device path: the decode step
 scatters new K/V straight into ``self.k/self.v`` (in place) after
 ``reserve``, and the engine commits with ``advance``.
 
-Every allocated block carries a refcount, audited by ``check_invariants``.
-The prefix-sharing half of the JAX pool (``PrefixIndex``, adoption,
-``pin``/``unpin``, copy-on-write splits, reclaimers) is not ported yet
-(``ROADMAP.md``).
+Every allocated block carries a refcount, audited by ``check_invariants``
+(the watchdog samples it). The counters are a view over a metrics registry
+(``kv.*`` series, JAX's names). The prefix-sharing half of the JAX pool
+(``PrefixIndex``, adoption, ``pin``/``unpin``, copy-on-write splits, the
+reclaimer protocol) is not ported yet (``ROADMAP.md``): no block is ever
+shared, and nothing is reclaimable.
 """
 from __future__ import annotations
 
-from dataclasses import asdict, dataclass
-from typing import Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.stats import StatsView, counter_field, gauge_field
 
 
-@dataclass
-class PagedStats:
-    allocs: int = 0
-    frees: int = 0
-    blocks_in_use: int = 0
-    peak_blocks: int = 0
+class PagedStats(StatsView):
+    """KV-pool counters as a view over the metrics registry (``kv.*``).
+    ``shared_blocks`` and ``cow_splits`` stay 0 until prefix sharing is
+    ported."""
 
-    def as_dict(self):
-        return asdict(self)
+    PREFIX = "kv"
+
+    allocs = counter_field()
+    frees = counter_field()
+    blocks_in_use = gauge_field()
+    peak_blocks = gauge_field()
+    shared_blocks = gauge_field()
+    cow_splits = counter_field()
 
 
 def _itemsize(dtype: torch.dtype) -> int:
@@ -46,9 +53,12 @@ class PagedKVCache:
 
     def __init__(self, n_blocks: int, block_size: int, n_layers: int,
                  kv_heads: int, head_dim: int, dtype=torch.bfloat16,
-                 scratch: bool = False, device=None):
+                 scratch: bool = False, device=None,
+                 registry: Optional[MetricsRegistry] = None,
+                 labels: Optional[Dict[str, Any]] = None):
         """``device`` defaults to the card and raises where there is none;
-        pass ``"cpu"`` for a host pool."""
+        pass ``"cpu"`` for a host pool. ``registry``/``labels`` publish the
+        ``kv.*`` counters (a private registry when omitted)."""
         self.n_blocks = n_blocks
         self.block = block_size
         rows = n_blocks + (1 if scratch else 0)
@@ -64,7 +74,7 @@ class PagedKVCache:
         # (engine._DeviceTableCache) re-upload only when these move
         self.table_version = 0
         self.length_version = 0
-        self.stats = PagedStats()
+        self.stats = PagedStats(registry=registry, labels=labels)
 
     # -- sizing ------------------------------------------------------------
     @staticmethod
@@ -76,7 +86,10 @@ class PagedKVCache:
     @classmethod
     def for_budget(cls, budget_bytes: int, block_size: int, n_layers: int,
                    kv_heads: int, head_dim: int, dtype=torch.bfloat16,
-                   scratch: bool = False, device=None) -> "PagedKVCache":
+                   scratch: bool = False, device=None,
+                   registry: Optional[MetricsRegistry] = None,
+                   labels: Optional[Dict[str, Any]] = None
+                   ) -> "PagedKVCache":
         """Largest pool whose K+V arrays fit in ``budget_bytes``; the scratch
         row counts against the budget."""
         per = cls.block_bytes(block_size, n_layers, kv_heads, head_dim, dtype)
@@ -86,7 +99,8 @@ class PagedKVCache:
                 f"KV budget {budget_bytes} bytes < "
                 f"{'scratch + ' if scratch else ''}one block ({per} bytes)")
         return cls(n_blocks, block_size, n_layers, kv_heads, head_dim, dtype,
-                   scratch=scratch, device=device)
+                   scratch=scratch, device=device, registry=registry,
+                   labels=labels)
 
     # -- bookkeeping -------------------------------------------------------
     @property
@@ -100,6 +114,14 @@ class PagedKVCache:
     def capacity_bytes(self) -> int:
         """Bytes of the allocatable blocks (scratch row excluded)."""
         return self.n_blocks * self._per_block_bytes()
+
+    def bytes_in_use(self) -> int:
+        return self.stats.blocks_in_use * self._per_block_bytes()
+
+    def reclaimable_blocks(self) -> int:
+        """Blocks reclaimers could free on demand: none, since no reclaimer
+        (session retention, the prefix index) is ported."""
+        return 0
 
     def table(self, rid: int) -> List[int]:
         return list(self._tables[rid])
@@ -118,6 +140,9 @@ class PagedKVCache:
 
     def live_table_refs(self) -> int:
         return sum(len(t) for t in self._tables.values())
+
+    def open_rids(self) -> Tuple[int, ...]:
+        return tuple(self._tables)
 
     def check_invariants(self) -> List[str]:
         """Audit the refcount books; returns violations (empty = healthy)."""

@@ -197,6 +197,24 @@ class PackedPrefillRunner:
         return PackedPrefill(logits=logits, k=k, v=v, spans=spans,
                              bucket=bucket)
 
+    @torch.inference_mode()
+    def warmup(self, params, pool) -> None:
+        """Run every bucket's forward once on pad tokens and scatter its K/V
+        into the pool's scratch block (block 0 without one): the first
+        launches of each bucket shape are paid here, not by a request."""
+        scratch = pool.scratch_index if pool.scratch_index is not None else 0
+        dev = params["embed"]["tok"].device
+        for b in self.buckets:
+            toks = np.zeros((1, b), np.int64)
+            seg = np.full((1, b), self.max_segments, np.int64)
+            pos = np.arange(b, dtype=np.int64)[None]
+            last = np.zeros((self.max_segments,), np.int64)
+            logits, k, v = self._fn(params, *(torch.as_tensor(a, device=dev)
+                                              for a in (toks, seg, pos, last)))
+            self.scatter(pool, PackedPrefill(logits, k, v, [], b),
+                         np.full((b,), scratch, np.int64),
+                         np.zeros((b,), np.int64))
+
     def scatter_into(self, pool, res: PackedPrefill, rids: Sequence[int],
                      extra_tokens: Optional[Sequence[int]] = None) -> None:
         """Open each ``rid`` in ``pool``, reserve its span (plus
