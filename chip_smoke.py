@@ -18,8 +18,9 @@
    check must catch), the dense-cache kernels at length 4096 in a 4096-position
    cache (``ffn_swiglu`` in both forms); then the prefill kernels:
    ``flash_prefill`` at the expert's prefill (8 x 2048 tokens, 32 heads,
-   dh 128, causal) and at RecurrentGemma-9B's (4 x 3000 tokens, 16 q heads
-   on 1 kv head, dh 256, window 2048), ``lru_scan`` at (4, 3000, 4096) f32.
+   dh 128, causal), at the sequential prefill's (B 1, S 64 / 160 / 256) and
+   at RecurrentGemma-9B's (4 x 3000 tokens, 16 q heads on 1 kv head, dh
+   256, window 2048), ``lru_scan`` at (4, 3000, 4096) f32.
    Each kernel against its plain PyTorch version on the same inputs, timed
    with CUDA events (the 50 MB L2 flushed before every launch), beside the
    plain version and one PyTorch library call computing the same function
@@ -67,6 +68,30 @@
    and against the f32 plain forward; prints tok/s, TTFT, the phases'
    p50s, the prefill spans' share of the drain and ``flash_prefill``'s
    device time a launch at 64-256-token prompts.
+4c. Tenancy phase on two of the pinned experts (an HBM cache of both):
+   12 multi-turn sessions (70 % open with one of two 96-token system
+   prompts; 1-3 turns of 8-24 fresh tokens; 16 new tokens a turn) replayed
+   through a ``prefix_sharing=True`` engine and an unshared one, after a
+   primer that warms the prefix index; then the shared engine behind
+   ``StreamingFrontend`` with a paid and a free tenant. Checks every
+   request, prefix hits, each second turn adopting its history, the primed
+   blocks' bytes unchanged while decoding lanes share them, each paged
+   kernel once per layer per decode round and none inside a suffix
+   prefill, no block in use after ``release_shared()``, streamed tokens
+   equal to the outputs, and shared against unshared streams equal up to
+   bf16 near ties (the two chosen tokens' f32 logits within
+   ``DENSE_PREFILL_LOGIT_TOL_REL`` of the largest). Prints the share of
+   prompt tokens whose prefill was skipped, ``cow_splits``, TTFT p50 / p99
+   and tok/s of both engines.
+4d. Speculative phase: expert e0 the target, ``SpeculativeDecode`` with
+   gamma 4 on 8 requests of 64-256 prompt and 32 new tokens, with a
+   self-draft and with a 4-layer draft cut from e0: each paged kernel
+   launches gamma x the draft's layers a round (the verify is the plain
+   body), the draft pool ends clean, the streams equal the greedy drain's
+   up to decode near ties (``LOGIT_TOL_REL``); prints acceptance, tokens a
+   target call and tok/s against greedy. Then the standalone
+   ``SpeculativeDecoder`` at B 1 against dense greedy, with the dense
+   kernels' launches (once per draft layer a draft step).
 5. Dense decode phase on one of those experts: ``prefill`` of 8 lanes x 2048
    tokens into a 4096-position cache (``flash_prefill`` once per layer), its
    first lane's last-token logits against the plain ``forward`` run in f32 a
@@ -216,6 +241,21 @@ RG_LOGIT_TOL_REL = 0.044
 GEN = dict(prompts=8, prompt_len=128, new_tokens=16, hbm_experts=2.0, seed=3)
 # the Monarch kernels' rows at the paper's 1M-point shape, bf16
 MONARCH = dict(shape=(16, 1024, 1024), seed=7)
+# multi-turn sessions (JAX benchmarks/run.py::bench_sweep_tenancy's trace):
+# 12 sessions on two experts, 70 % opening with one of two 96-token system
+# prompts, 1-3 turns of 8-24 fresh user tokens, 16 new tokens a turn
+TENANCY = dict(sessions=12, shared_share=0.7, sys_len=96, user=(8, 24),
+               new_tokens=16, n_slots=8, block_size=16, max_len=512,
+               hbm_experts=2.0, seed=7)
+# speculative decoding with expert e0 the target: 8 requests of 64-256
+# prompt and 32 new tokens, gamma 4, a self-draft and a 4-layer draft cut
+# from e0; the standalone decoder at B 1 on a 128-token prompt
+SPEC = dict(requests=8, prompt_lens=(64, 256), new_tokens=32, gamma=4,
+            draft_layers=4, n_slots=8, block_size=16, max_len=512,
+            hbm_experts=2.0, decoder_prompt=128, seed=11)
+# flash_prefill at the sequential prefill's shape (B 1, the expert's heads)
+B1_PREFILL_LENGTHS = (64, 160, 256)
+B1_PREFILL_ROW = "flash_prefill[B=1,S=256]"
 
 
 def _log(msg):
@@ -860,6 +900,26 @@ def prefill_kernel_phase(cfg, rg_cfg, dev):
                                      f"planted {label}")
         del q, k, v, qt, kt, vt, want
         torch.cuda.empty_cache()
+    # the sequential prefill's shapes: one prompt at a time, the expert's 32
+    # heads; each length held row by row and timed beside the plain version
+    # and SDPA (is_causal); the table keeps the longest
+    Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for S in B1_PREFILL_LENGTHS:
+        q, k, v = (torch.randn((1, S, h, dh), generator=gen, device=dev)
+                   .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        r = kernel_row(
+            f"flash_prefill[B=1,S={S}]",
+            lambda: attention(q, k, v, causal=True),
+            lambda: attention_ref(q, k, v, causal=True),
+            lambda: Fn.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=Hq != Hkv),
+            prefill_attention_hbm_bytes(1, S, Hq, Hkv, dh),
+            prefill_attention_flops(1, S, Hq, dh), flush,
+            kernel="flash_prefill", row_tol=PREFILL_ROW_REL_L2)
+        if r["name"] == B1_PREFILL_ROW:
+            rows[B1_PREFILL_ROW] = r
+        del q, k, v, qt, kt, vt
     B, S, D = RG["prompts"], RG["prompt_len"], rg_cfg.d_rnn
     a = torch.rand((B, S, D), generator=gen, device=dev)
     b = torch.randn((B, S, D), generator=gen, device=dev)
@@ -1388,12 +1448,9 @@ def serve_modes_phase(cfg, dev, store, names, continuous_round_s):
     layer). Returns the launch counts of the drain."""
     import urllib.request
 
-    from repro_torch.bridge import tree_map
     from repro_torch.core import CompositionOfExperts, ExpertHandle, HashRouter
     from repro_torch.kernels import runtime as rt
     from repro_torch.launch.serve import make_requests
-    from repro_torch.models import layers as L
-    from repro_torch.models import transformer as T
     from repro_torch.obs import (FlightRecorder, MetricsRegistry, Watchdog,
                                  serve_metrics, trace)
     from repro_torch.obs.lifecycle import PHASES, phase_record
@@ -1554,14 +1611,7 @@ def serve_modes_phase(cfg, dev, store, names, continuous_round_s):
     packed = PackedPrefillRunner(cfg, buckets=default_buckets(s["max_len"]),
                                  max_segments=s["n_slots"])
     l_pack = packed(params, [prompt]).logits[0]
-    f32 = lambda tree: tree_map(lambda t: t.float(), tree)
-    with torch.no_grad(), plain_prefill():
-        h = T.embed_tokens(cfg, params, toks).float()
-        positions = torch.arange(len(prompt), device=dev)[None]
-        for i in range(nL):
-            h, _ = T._layer(cfg, f32(T.layer_params(params, i)), h, positions)
-        h = L.apply_norm(cfg, f32(params["final_norm"]), h[:, -1:])
-        l32 = (h @ params["lm_head"].float())[0, 0]
+    l32 = plain_logits_f32(cfg, params, prompt, dev)
     label = f"serve modes prefill of one {len(prompt)}-token prompt"
     top = float(l32.float().abs().max())
     for name, a, b in (("sequential (flash_prefill) vs sequential, plain "
@@ -1577,7 +1627,7 @@ def serve_modes_phase(cfg, dev, store, names, continuous_round_s):
                  "forward", l_plain, l32, DENSE_PREFILL_LOGIT_TOL_REL)
     logits_check(f"{label}: packed (plain) vs f32 plain forward",
                  l_pack, l32, DENSE_PREFILL_LOGIT_TOL_REL)
-    del h, l32
+    del l32
 
     # a warm sequential prefill's wall and flash_prefill's device time a
     # launch at the serving prompt lengths
@@ -1593,6 +1643,485 @@ def serve_modes_phase(cfg, dev, store, names, continuous_round_s):
              for S, (wall, ms, n) in per.items()))
     coe.cache.close()
     return launches
+
+
+def plain_logits_f32(cfg, params, tokens, dev):
+    """Last-position logits (V,) of the plain forward over ``tokens`` run in
+    f32 (the bf16 weights upcast one layer at a time, quadratic
+    attention)."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    f32 = lambda tree: tree_map(lambda t: t.float(), tree)
+    toks = torch.as_tensor(np.asarray(tokens)[None], device=dev).long()
+    with torch.no_grad(), plain_prefill():
+        h = T.embed_tokens(cfg, params, toks).float()
+        positions = torch.arange(toks.shape[1], device=dev)[None]
+        for i in range(cfg.n_layers):
+            h, _ = T._layer(cfg, f32(T.layer_params(params, i)), h, positions)
+        h = L.apply_norm(cfg, f32(params["final_norm"]), h[:, -1:])
+        return (h @ params["lm_head"].float())[0, 0]
+
+
+def divergence_check(label, cfg, dev, pairs, tol_rel):
+    """``pairs``: (rid, params, prompt, got, want) of two bf16 streams of the
+    same request. Where they part, the two chosen tokens' logits, recomputed
+    with the plain forward in f32 over the prompt and the common prefix,
+    must lie within ``tol_rel`` of the largest logit of each other (a near
+    tie that bf16 rounding may break either way). Prints every divergence;
+    returns how many requests diverged."""
+    n = 0
+    for rid, params, prompt, got, want in pairs:
+        diff = np.nonzero(np.asarray(got) != np.asarray(want))[0]
+        if not len(diff):
+            continue
+        n += 1
+        j = int(diff[0])
+        a, b = int(got[j]), int(want[j])
+        lg = plain_logits_f32(
+            cfg, params, np.concatenate([prompt, got[:j]]), dev)
+        gap, top = abs(float(lg[a] - lg[b])), float(lg.abs().max())
+        ok = gap <= tol_rel * top
+        _log(f"{label}: request {rid} parts at token {j} ({a} against {b}): "
+             f"f32 logits {float(lg[a]):.4f} / {float(lg[b]):.4f}, gap "
+             f"{gap / top:.4f} of |logits|max={top:.3f} (tol {tol_rel}) -> "
+             f"{'a near tie' if ok else 'OUTSIDE the tolerance'}")
+        if not ok:
+            raise AssertionError(f"{label}: request {rid} diverges at token "
+                                 f"{j} by {gap / top:.4f} > {tol_rel}")
+    return n
+
+
+def tenancy_trace(vocab):
+    """The sessions of the tenancy phase (JAX ``bench_sweep_tenancy``'s
+    shape): 70 % open with one of two system prompts, the rest with a
+    private prompt of the same length; 1-3 turns, cycling; each turn adds
+    fresh user tokens. Returns (system prompts, sessions)."""
+    t = TENANCY
+    rs = np.random.RandomState(t["seed"])
+    sys_prompts = [rs.randint(1, vocab, (t["sys_len"],)).astype(np.int32)
+                   for _ in range(2)]
+    n_shared = int(round(t["shared_share"] * t["sessions"]))
+    lo, hi = t["user"]
+    sessions = []
+    for s in range(t["sessions"]):
+        turns = 1 + s % 3
+        sessions.append({
+            "sid": f"s{s}", "expert": s % 2, "turns": turns,
+            "sys": (sys_prompts[s % 2] if s < n_shared else
+                    rs.randint(1, vocab, (t["sys_len"],)).astype(np.int32)),
+            "user": [rs.randint(1, vocab, (int(rs.randint(lo, hi + 1)),))
+                     .astype(np.int32) for _ in range(turns)]})
+    return sys_prompts, sessions
+
+
+def tenancy_replay(eng, names, sys_prompts, sessions, sharing, nL):
+    """A primer (one request per system prompt per expert, so the timed
+    waves meet a warm index), then the sessions wave by wave, each turn
+    re-sending the conversation so far. Checks the launch counts (each
+    paged kernel once per layer per decode round, none inside a suffix
+    prefill) and, under sharing, that the primed blocks keep their bytes
+    while decoding lanes share them. Returns the run's record."""
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.serving import Request
+
+    t = TENANCY
+    for j, sp in enumerate(sys_prompts):
+        for e in range(2):
+            eng.submit(Request(rid=900_000 + 2 * j + e, tokens=np.concatenate(
+                [sp, np.asarray([j + 1], np.int32)]), max_new_tokens=2,
+                expert=names[e]))
+    eng.drain()
+    hit0, cow0 = eng.stats.prefix_hit_tokens, eng.pool.stats.cow_splits
+    rounds0, prefill0 = eng.stats.decode_rounds, eng.stats.prefill_s
+    primed, seen = [], [0]
+    if sharing:
+        primed = sorted(e.block for e in eng.prefix_index._entries.values())
+        before = [(eng.pool.k[:, b].clone(), eng.pool.v[:, b].clone())
+                  for b in primed]
+        suffix = []
+        real = eng._prefill_suffix
+
+        def counted(*a, **k):
+            n0 = rt.launch_counts()
+            real(*a, **k)
+            n1 = rt.launch_counts()
+            suffix.append(sum(n1[x] - n0[x] for x in n1))
+        eng._prefill_suffix = counted
+
+    def sample(req, tok):
+        # on each emitted token: the most references a primed block holds
+        seen[0] = max([seen[0]] + [eng.pool.refcount(b) for b in primed])
+
+    history, reqs, prompts = {}, {}, {}
+    torch.cuda.synchronize()
+    rt.reset_launches()
+    t0 = time.perf_counter()
+    for w in range(max(s["turns"] for s in sessions)):
+        wave = []
+        for s in sessions:
+            if s["turns"] <= w:
+                continue
+            p = np.concatenate([history.get(s["sid"], s["sys"]),
+                                s["user"][w]])
+            rid = w * 1000 + int(s["sid"][1:])
+            wave.append((s, rid, p))
+            prompts[rid] = (p, s["expert"])
+            eng.submit(Request(rid=rid, tokens=p,
+                               max_new_tokens=t["new_tokens"],
+                               expert=names[s["expert"]],
+                               session_id=s["sid"] if sharing else None,
+                               on_token=sample))
+        done = {r.rid: r for r in eng.drain()}
+        for s, rid, p in wave:
+            reqs[rid] = done[rid]
+            history[s["sid"]] = np.concatenate(
+                [p, done[rid].output]).astype(np.int32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rt.launch_counts()
+    rounds = eng.stats.decode_rounds - rounds0
+    label = f"tenancy ({'shared' if sharing else 'unshared'})"
+    for r in reqs.values():
+        if r.output is None or len(r.output) != t["new_tokens"] or not (
+                (r.output >= 0) & (r.output < eng.cfg.vocab_size)).all():
+            raise AssertionError(f"{label}: request {r.rid}: {r.output}")
+    check_launches(label, launches, {k: nL * rounds for k in PAGED_KERNELS})
+    rec = dict(wall=wall, rounds=rounds, reqs=reqs, prompts=prompts,
+               prefill_s=eng.stats.prefill_s - prefill0,
+               launches=launches, hit=eng.stats.prefix_hit_tokens - hit0,
+               cow=eng.pool.stats.cow_splits - cow0,
+               prompt_tokens=sum(len(p) for p, _ in prompts.values()),
+               tokens=sum(len(r.output) for r in reqs.values()),
+               ttft=np.asarray([r.first_token_s - r.arrival_s
+                                for r in reqs.values()]))
+    if sharing:
+        eng._prefill_suffix = real
+        if rec["hit"] <= 0 or not suffix or any(suffix):
+            raise AssertionError(f"{label}: prefix hits {rec['hit']}, "
+                                 f"launches inside the suffix prefills "
+                                 f"{suffix}")
+        for s in sessions:
+            if s["turns"] < 2:
+                continue
+            i = int(s["sid"][1:])
+            r1, r2 = reqs[i], reqs[1000 + i]
+            if r2.prefix_hit_tokens < len(r1.tokens) + len(r1.output) - 1:
+                raise AssertionError(
+                    f"{label}: session {s['sid']}'s second turn adopted "
+                    f"{r2.prefix_hit_tokens} of {len(r1.tokens)} + "
+                    f"{len(r1.output)} tokens")
+        if seen[0] < 2:
+            raise AssertionError(f"{label}: no decoding lane shared a primed "
+                                 "block")
+        torch.cuda.synchronize()
+        for b, (k, v) in zip(primed, before):
+            if eng.pool.refcount(b) < 1 or not (
+                    torch.equal(eng.pool.k[:, b], k)
+                    and torch.equal(eng.pool.v[:, b], v)):
+                raise AssertionError(f"{label}: shared block {b} changed")
+        rec.update(primed=len(primed), most_refs=seen[0],
+                   sessions=eng.debug_sessions())
+        del before
+    return rec
+
+
+def tenancy_phase(cfg, dev, store, names):
+    """Multi-turn sessions at full width on the serve phase's pinned store
+    (two experts, an HBM cache of both): the trace replayed through a
+    ``prefix_sharing=True`` engine and an unshared one (8 slots, block 16,
+    packed admission, after ``warmup()``), then the shared engine once more
+    behind ``StreamingFrontend`` with two tenants' quotas. Returns the
+    shared drain's launch counts."""
+    import threading
+
+    from repro_torch.core import CompositionOfExperts, ExpertHandle, HashRouter
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.serving import (QuotaExceeded, ServingEngine,
+                                     StreamingFrontend, TenantQuota)
+
+    t = TENANCY
+    nL = cfg.n_layers
+    names = names[:2]
+    sys_prompts, sessions = tenancy_trace(cfg.vocab_size)
+
+    def engine(sharing):
+        coe = CompositionOfExperts(HashRouter(2), None,
+                                   int(t["hbm_experts"]
+                                       * store.nbytes(names[0])),
+                                   store=store, device=dev)
+        for n in names:
+            coe.register(ExpertHandle(n, cfg))
+        eng = ServingEngine(coe, cfg, max_len=t["max_len"],
+                            n_slots=t["n_slots"], block_size=t["block_size"],
+                            prefix_sharing=sharing, device=dev)
+        eng.warmup()
+        return coe, eng
+
+    coe, eng = engine(True)
+    shared = tenancy_replay(eng, names, sys_prompts, sessions, True, nL)
+    eng.release_shared()
+    problems = eng.pool.check_invariants()
+    if problems or eng.pool.stats.blocks_in_use:
+        raise AssertionError(f"tenancy (shared): KV pool {problems}, "
+                             f"{eng.pool.stats.blocks_in_use} leaked after "
+                             "release_shared()")
+
+    # the shared engine behind the front door: a paid tenant (up to n_slots
+    # at once, priority 1) and a free one (2 at once); every session's first
+    # turn, submitted together
+    quotas = {"paid": TenantQuota(max_concurrent=t["n_slots"]),
+              "free": TenantQuota(max_concurrent=2)}
+    rounds0 = eng.stats.decode_rounds
+    rt.reset_launches()
+    fe = StreamingFrontend(eng, quotas=quotas)
+    streams, rejected = [], 0
+    t0 = time.perf_counter()
+    try:
+        for i, s in enumerate(sessions):
+            tenant = "paid" if i % 2 == 0 else "free"
+            try:
+                streams.append(fe.submit(
+                    np.concatenate([s["sys"], s["user"][0]]),
+                    t["new_tokens"], tenant=tenant, session_id=f"fe{i}",
+                    priority=1 if tenant == "paid" else 0))
+            except QuotaExceeded:
+                rejected += 1
+        got = [[] for _ in streams]
+        readers = [threading.Thread(target=lambda st=st, out=out:
+                                    out.extend(st), daemon=True)
+                   for st, out in zip(streams, got)]
+        for r in readers:
+            r.start()
+        for r in readers:
+            r.join(timeout=300)
+        if any(r.is_alive() for r in readers) or not fe.join(timeout=300):
+            raise AssertionError("tenancy frontend: a stream did not end")
+    finally:
+        fe.close()
+    fe_wall = time.perf_counter() - t0
+    fe_rounds = eng.stats.decode_rounds - rounds0
+    check_launches("tenancy frontend", rt.launch_counts(),
+                   {k: nL * fe_rounds for k in PAGED_KERNELS})
+    for st, toks in zip(streams, got):
+        if toks != [int(x) for x in st.request.output] or \
+                len(toks) != t["new_tokens"]:
+            raise AssertionError(f"tenancy frontend: request "
+                                 f"{st.request.rid} streamed {toks}, output "
+                                 f"{st.request.output}")
+    if rejected < 1:
+        raise AssertionError("tenancy frontend: the free tenant's quota "
+                             "refused nothing")
+    eng.release_shared()
+    if eng.pool.stats.blocks_in_use or eng.pool.check_invariants():
+        raise AssertionError("tenancy frontend: the pool leaked")
+    fe_tokens, n_streams = sum(len(x) for x in got), len(streams)
+    coe.cache.close()
+    del coe, eng, fe, streams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    coe, eng = engine(False)
+    unshared = tenancy_replay(eng, names, sys_prompts, sessions, False, nL)
+    if eng.pool.stats.blocks_in_use or eng.pool.check_invariants():
+        raise AssertionError("tenancy (unshared): the pool leaked")
+    # shared against unshared: the same prompts must give the same tokens
+    # up to bf16 near ties; a session whose streams parted sends other
+    # prompts from its next turn on, which are not compared
+    params = {e: coe.cache.activate(names[e]) for e in (0, 1)}
+    pairs, skipped = [], 0
+    for rid, r in shared["reqs"].items():
+        p, e = shared["prompts"][rid]
+        if not np.array_equal(p, unshared["prompts"][rid][0]):
+            skipped += 1
+            continue
+        pairs.append((rid, params[e], p, r.output,
+                      unshared["reqs"][rid].output))
+    n_div = divergence_check("tenancy shared vs unshared", cfg, dev, pairs,
+                             DENSE_PREFILL_LOGIT_TOL_REL)
+    del params
+    coe.cache.close()
+
+    def line(rec, mode):
+        return (f"{mode}: {len(rec['reqs'])} requests, {rec['tokens']} "
+                f"tokens in {rec['wall']:.3f}s = "
+                f"{rec['tokens'] / rec['wall']:.2f} tok/s; TTFT "
+                f"p50={np.percentile(rec['ttft'], 50):.4f}s "
+                f"p99={np.percentile(rec['ttft'], 99):.4f}s; "
+                f"{rec['rounds']} decode rounds; admission prefills "
+                f"{rec['prefill_s']:.3f}s")
+    _log(f"tenancy: {t['sessions']} sessions, {len(shared['reqs'])} turns, "
+         f"{shared['prompt_tokens']} prompt tokens; " + line(shared, "shared")
+         + "; " + line(unshared, "unshared"))
+    _log(f"tenancy: prefill skipped for {shared['hit']} of "
+         f"{shared['prompt_tokens']} prompt tokens = "
+         f"{shared['hit'] / shared['prompt_tokens']:.3f}; cow_splits="
+         f"{shared['cow']}; {shared['primed']} primed blocks unchanged, "
+         f"shared by up to {shared['most_refs']} references while decoding; "
+         f"second turns adopted their history; launches "
+         f"{shared['launches']}, none inside a suffix prefill; "
+         f"release_shared() left no block in use")
+    _log(f"tenancy: retained at the end of the waves: "
+         f"{len(shared['sessions']['sessions'])} sessions, "
+         f"{shared['sessions']['bytes_retained'] / 2 ** 20:.1f} MiB, "
+         f"{shared['sessions']['evictions']} evictions")
+    _log(f"tenancy: shared against unshared: {len(pairs)} requests "
+         f"compared, {n_div} parted (each a near tie), {skipped} not "
+         f"compared (a session's earlier turn parted)")
+    _log(f"tenancy frontend: {n_streams} streams ({rejected} rejected "
+         f"at the door), {fe_tokens} tokens in {fe_wall:.3f}s = "
+         f"{fe_tokens / fe_wall:.2f} tok/s; streamed tokens equal the "
+         f"outputs; {fe_rounds} decode rounds")
+    return shared["launches"]
+
+
+def cut_layers(tree, n):
+    """The first ``n`` decoder layers of a dense tree, with its embedding,
+    final norm and unembedding (views, no copy)."""
+    from repro_torch.bridge import tree_map
+    return {**tree, "layers": tree_map(lambda t: t[:n], tree["layers"])}
+
+
+def speculative_phase(cfg, dev, store, names):
+    """``SpeculativeDecode`` on the engine at full width: expert e0 the
+    target (an HBM cache of two experts), gamma 4, 8 requests of 64-256
+    prompt and 32 new tokens, with a self-draft (e0 itself, another copy on
+    the card) and a 4-layer draft cut from e0; then the standalone
+    ``SpeculativeDecoder`` at B 1 against dense greedy. Returns the phase's
+    ``flash_prefill`` launches (the drafts' prefills and the decoder's, all
+    at B 1)."""
+    import dataclasses
+
+    from repro_torch.core import CompositionOfExperts, ExpertHandle, HashRouter
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import get_model
+    from repro_torch.serving import (ServingEngine, SpeculativeDecode,
+                                     SpeculativeDecoder)
+
+    sp = SPEC
+    nL, target = cfg.n_layers, names[0]
+    coe = CompositionOfExperts(HashRouter(1), None,
+                               int(sp["hbm_experts"] * store.nbytes(target)),
+                               store=store, device=dev)
+    coe.register(ExpertHandle(target, cfg))
+
+    def drain(policy):
+        eng = ServingEngine(coe, cfg, max_len=sp["max_len"],
+                            n_slots=sp["n_slots"],
+                            block_size=sp["block_size"], policy=policy,
+                            device=dev)
+        eng.warmup()
+        reqs, _ = make_requests(sp["requests"], cfg.vocab_size,
+                                sp["prompt_lens"], sp["new_tokens"],
+                                [target], 1.0, sp["seed"])
+        torch.cuda.synchronize()
+        rt.reset_launches()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        done = {r.rid: r for r in eng.drain()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rt.launch_counts()
+        if len(done) != sp["requests"] or any(
+                len(r.output) != sp["new_tokens"] for r in done.values()):
+            raise AssertionError("speculative: a request did not finish")
+        if eng.pool.stats.blocks_in_use or eng.pool.check_invariants():
+            raise AssertionError("speculative: the target pool leaked")
+        return eng, done, wall, launches
+
+    g_eng, greedy, g_wall, g_launches = drain(None)
+    check_launches("speculative phase greedy drain", g_launches,
+                   {k: nL * g_eng.stats.decode_rounds for k in PAGED_KERNELS})
+    g_tps = sp["requests"] * sp["new_tokens"] / g_wall
+    del g_eng
+    params = coe.cache.activate(target)
+    host = store.get(target)
+    prefill_launches = 0
+    for label, dcfg, tree in (
+            ("self-draft", cfg, host),
+            (f"{sp['draft_layers']}-layer draft",
+             dataclasses.replace(cfg, n_layers=sp["draft_layers"]),
+             cut_layers(host, sp["draft_layers"]))):
+        spec = SpeculativeDecode(dcfg, tree, gamma=sp["gamma"])
+        eng, done, wall, launches = drain(spec)
+        rounds = eng.stats.decode_rounds
+        want = {k: sp["gamma"] * dcfg.n_layers * rounds
+                for k in PAGED_KERNELS}
+        want["flash_prefill"] = dcfg.n_layers * sp["requests"]
+        check_launches(f"speculative ({label})", launches, want)
+        prefill_launches += launches["flash_prefill"]
+        st = spec.stats
+        if st.target_calls != rounds or st.draft_calls != sp["gamma"] * rounds:
+            raise AssertionError(f"speculative ({label}): {st}")
+        if spec.d_pool.stats.blocks_in_use or spec.d_pool.check_invariants():
+            raise AssertionError(f"speculative ({label}): the draft pool "
+                                 "leaked")
+        n_div = divergence_check(
+            f"speculative ({label}) vs greedy", cfg, dev,
+            [(rid, params, r.tokens, r.output, greedy[rid].output)
+             for rid, r in done.items()], LOGIT_TOL_REL)
+        tps = sp["requests"] * sp["new_tokens"] / wall
+        _log(f"speculative ({label}, gamma {sp['gamma']}): "
+             f"{sp['requests']} requests x {sp['new_tokens']} tokens in "
+             f"{wall:.3f}s = {tps:.2f} tok/s against greedy {g_tps:.2f} "
+             f"({tps / g_tps:.3f}x); acceptance "
+             f"{st.acceptance_rate:.3f}, {st.tokens_per_target_call:.3f} "
+             f"tokens a target call (all lanes), {rounds} rounds ({wall / rounds * 1e3:.3f}"
+             f" ms a round); {n_div} of {len(done)} streams part from "
+             f"greedy (near ties); launches {launches}; draft pool clean")
+        del spec, eng, done
+        gc.collect()
+        torch.cuda.empty_cache()
+    del host
+
+    # the standalone dense-cache decoder at B 1 against dense greedy
+    dcfg = dataclasses.replace(cfg, n_layers=sp["draft_layers"])
+    d_params = cut_layers(params, sp["draft_layers"])
+    P, n = sp["decoder_prompt"], sp["new_tokens"]
+    prompt = np.random.RandomState(sp["seed"]).randint(
+        0, cfg.vocab_size, (1, P)).astype(np.int32)
+    sd = SpeculativeDecoder(cfg, dcfg, gamma=sp["gamma"])
+    torch.cuda.synchronize()
+    rt.reset_launches()
+    t0 = time.perf_counter()
+    out = sd.generate(params, d_params, prompt, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rt.launch_counts()
+    want = {k: dcfg.n_layers * sd.stats.draft_calls for k in DENSE_KERNELS}
+    want["flash_prefill"] = nL + dcfg.n_layers
+    check_launches("speculative decoder", launches, want)
+    prefill_launches += launches["flash_prefill"]
+    model = get_model(cfg)
+    tt = torch.as_tensor(prompt, device=dev).long()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = model.prefill(params, {"tokens": tt}, P + n + 8)
+    tok = last.argmax(-1)
+    ref = [int(tok[0])]
+    for i in range(n - 1):
+        lg, cache = model.decode_step(params, cache, tok[:, None], P + i)
+        tok = lg.argmax(-1)
+        ref.append(int(tok[0]))
+    torch.cuda.synchronize()
+    g_wall = time.perf_counter() - t0
+    del cache
+    n_div = divergence_check("speculative decoder vs dense greedy", cfg, dev,
+                             [(0, params, prompt[0], out[0], np.asarray(ref))],
+                             LOGIT_TOL_REL)
+    st = sd.stats
+    _log(f"speculative decoder (B 1, {P}-token prompt, {n} tokens, "
+         f"{dcfg.n_layers}-layer draft, gamma {sp['gamma']}): {wall:.3f}s = "
+         f"{n / wall:.2f} tok/s against dense greedy {n / g_wall:.2f} "
+         f"(plain decode_step); acceptance {st.acceptance_rate:.3f}, "
+         f"{st.tokens_per_target_call:.3f} tokens a target call; "
+         f"{'parts from greedy (a near tie)' if n_div else 'equals greedy'}; "
+         f"launches {launches}")
+    del params, d_params
+    coe.cache.close()
+    return prefill_launches
 
 
 def busy_us(spans):
@@ -1726,18 +2255,11 @@ def dense_decode_phase(cfg, dev, params):
          f"{prefill_launches['flash_prefill']} "
          f"flash_prefill launches; w_qkv of {nL} layers built in "
          f"{time.perf_counter() - t0:.3f}s")
-    # the first lane's last-token logits against the plain forward in f32,
-    # upcasting one layer's weights at a time
-    with torch.no_grad(), plain_prefill():
-        h = T.embed_tokens(cfg, params, prompts[:1]).float()
-        positions = torch.arange(P, device=dev)[None]
-        for i in range(nL):
-            h, _ = T._layer(cfg, f32(T.layer_params(params, i)), h, positions)
-        h = L.apply_norm(cfg, f32(params["final_norm"]), h[:, -1:])
-        l32 = (h @ params["lm_head"].float())[:, 0]
+    # the first lane's last-token logits against the plain forward in f32
+    l32 = plain_logits_f32(cfg, params, prompts[0].cpu(), dev)[None]
     logits_check("dense prefill reference check: kernels vs f32 plain "
                  "forward", last[:1], l32, DENSE_PREFILL_LOGIT_TOL_REL)
-    del h, l32
+    del l32
     step_breakdown(lambda: T.prefill(cfg, params, prompts, d["max_len"]),
                    f"dense prefill ({B} x {P} tokens, {nL} layers)",
                    n_steps=3)
@@ -2036,13 +2558,21 @@ def main():
     modes_launches = serve_modes_phase(cfg, dev, store, names, round_s)
     gc.collect()
     torch.cuda.empty_cache()
+    tenancy_phase(cfg, dev, store, names)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_prefills = speculative_phase(cfg, dev, store, names)
+    gc.collect()
+    torch.cuda.empty_cache()
     params = tree_map(lambda t: t.to(dev), store.get(names[0]))
     launches, prefill_launches = dense_decode_phase(cfg, dev, params)
     for name in DENSE_KERNELS:
         rows[name]["launches"] = launches[name]
-    # the dense prefill's launches and the sequential serve drain's
-    rows["flash_prefill"]["launches"] = (prefill_launches["flash_prefill"]
-                                         + modes_launches["flash_prefill"])
+    # the dense prefill's launches; the B 1 prefills of the sequential serve
+    # drain and of the speculative phase
+    rows["flash_prefill"]["launches"] = prefill_launches["flash_prefill"]
+    rows[B1_PREFILL_ROW]["launches"] = (modes_launches["flash_prefill"]
+                                        + spec_prefills)
     del params
     gc.collect()
     torch.cuda.empty_cache()

@@ -13,7 +13,10 @@ Expert weights are random, drawn from ``--seed`` on the serving device.
 
 ``--scheduler run_to_completion`` serves one expert group to completion at a
 time (the paper's baseline); ``--prefill-mode sequential`` prefills each
-prompt at its own length (``flash_prefill`` on the card). The observability
+prompt at its own length (``flash_prefill`` on the card).
+``--prefix-sharing`` turns on copy-on-write prefix sharing and session
+retention; ``--shared-prefix N`` opens every prompt with the same N
+system-prompt tokens, the traffic it dedups. The observability
 plane (``repro_torch.obs``): ``--metrics-port`` serves the registry over
 HTTP (``/metrics``, ``/metrics.json``, ``/readyz``, which answers 503 until
 ``--warmup`` has run, and ``/debug/*``); ``--trace-out`` exports a
@@ -122,19 +125,27 @@ def build_coe(cfg, n_experts: int, hbm_experts: float, seed: int = 0,
 
 
 def make_requests(n: int, vocab_size: int, prompt_lens, new_tokens: int,
-                  expert_names, tagged_fraction: float, seed: int = 0):
+                  expert_names, tagged_fraction: float, seed: int = 0,
+                  shared_prefix: int = 0):
     """``n`` requests with prompt lengths drawn from ``prompt_lens`` =
     (low, high) inclusive; the first ``tagged_fraction`` of them are tagged
-    round-robin over the experts, the rest routed at submit."""
+    round-robin over the experts, the rest routed at submit. With
+    ``shared_prefix`` N every prompt opens with the same N tokens (at least
+    one of its own follows)."""
     from repro_torch.serving import Request
 
     rs = np.random.RandomState(seed)
+    shared = (np.random.RandomState(seed + 1).randint(
+        0, vocab_size, (shared_prefix,)).astype(np.int32)
+        if shared_prefix else np.zeros((0,), np.int32))
     n_tagged = int(n * tagged_fraction)
     lo, hi = prompt_lens
     reqs = []
     for i in range(n):
         S = int(rs.randint(lo, hi + 1))
-        toks = rs.randint(0, vocab_size, (S,)).astype(np.int32)
+        toks = np.concatenate([
+            shared, rs.randint(0, vocab_size, (max(1, S - len(shared)),))
+            .astype(np.int32)])
         tag = expert_names[i % len(expert_names)] if i < n_tagged else None
         reqs.append(Request(rid=i, tokens=toks, max_new_tokens=new_tokens,
                             expert=tag))
@@ -154,6 +165,7 @@ def _serve(args, cfg, server, ready):
                            n_slots=args.n_slots, block_size=args.block_size,
                            scheduler=args.scheduler,
                            prefill_mode=args.prefill_mode,
+                           prefix_sharing=args.prefix_sharing,
                            device=args.device, registry=reg)
     wd = _wire_obs(args, server, ready, engine.debug_providers(), [engine])
     try:
@@ -164,7 +176,8 @@ def _serve(args, cfg, server, ready):
         reqs, n_tagged = make_requests(args.requests, cfg.vocab_size,
                                        args.prompt_len, args.new_tokens,
                                        coe.expert_names(),
-                                       args.tagged_fraction, args.seed)
+                                       args.tagged_fraction, args.seed,
+                                       args.shared_prefix)
         t0 = time.perf_counter()
         for r in reqs:
             engine.submit(r)
@@ -186,6 +199,12 @@ def _serve(args, cfg, server, ready):
     print(f"tier ledger: overlap={coe.cache.ledger.overlap_ratio:.2f} "
           f"store_read={coe.cache.ledger.bytes_moved('store_read')}B "
           f"h2d={coe.cache.ledger.bytes_moved('h2d')}B")
+    if args.prefix_sharing:
+        print(f"prefix sharing: {st.prefix_hit_tokens} prompt tokens "
+              f"adopted from shared KV, "
+              f"{engine.pool.stats.cow_splits} COW splits, "
+              f"{len(engine.prefix_index)} indexed blocks")
+        engine.release_shared()
     print(f"kv pool: {engine.pool.stats.as_dict()} "
           f"leaked={engine.pool.stats.blocks_in_use}")
     if wd is not None:
@@ -219,6 +238,15 @@ def main(argv=None):
                     help="'packed' admits through bucketed packed forwards; "
                     "'sequential' prefills each prompt at its own length "
                     "(flash_prefill on the card)")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="copy-on-write prefix sharing + session retention: "
+                    "shared prompt prefixes prefill once and later requests "
+                    "adopt the KV blocks read-only (serving/kvcache.py "
+                    "PrefixIndex)")
+    ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
+                    help="open every generated prompt with the same N "
+                    "system-prompt tokens (the workload --prefix-sharing "
+                    "dedups)")
     ap.add_argument("--warmup", action="store_true",
                     help="pay the hot path's first launches before traffic "
                     "(flips /readyz from 503 to 200)")

@@ -6,13 +6,17 @@
     packages line up): contiguous ``pool[tables]`` gather + masked softmax.
     It is the correctness reference of the fused path; the parity tests
     pass it in as an object, serving never selects it.
-  * ``FusedPagedBackend`` — per decoder layer, the three hand-written
-    kernels: ``qkv_rope_paged`` -> K/V scatter -> ``decode_paged`` ->
-    ``oproj_ffn_swiglu``. On CPU tensors the wrappers run their plain
-    versions, which is how the CPU tests drive this path.
+  * ``FusedPagedBackend`` — a single-token step (g = 1: greedy decode and
+    the speculative draft loop) runs per decoder layer the three
+    hand-written kernels: ``qkv_rope_paged`` -> K/V scatter ->
+    ``decode_paged`` -> ``oproj_ffn_swiglu``. A multi-token step (g > 1:
+    a prefix hit's suffix prefill, the speculative verify) runs the plain
+    body, chosen by ``g``, as JAX's ``extend_fn`` does: no Pallas kernel
+    computes a g > 1 step, so JAX's TPU build runs it in XLA too. It is a
+    route by shape, never a fallback taken when a kernel fails. On CPU
+    tensors the wrappers run their plain versions, which is how the CPU
+    tests drive this path.
 
-Only single-token steps (g = 1, greedy decode) are ported; the g > 1
-speculative verify step waits for the speculative slice (``ROADMAP.md``).
 Both bodies update the pools in place and return them.
 """
 from __future__ import annotations
@@ -25,15 +29,22 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 
-def _scatter_rows(lengths, active, tables, block: int, scratch_row: int):
-    """Pool row and offset of each lane's new token: its table entry at
-    ``lengths // block`` (clamped to the table), or the scratch row when the
-    lane is inactive."""
+def _scatter_rows(positions, active, tables, block: int, scratch_row: int):
+    """Pool row and offset of each new token, positions (B, g): the lane's
+    table entry at ``positions // block`` (the index clamped to the table),
+    or the scratch row when the lane is inactive or the position lies past
+    the table. JAX's body clamps such a position onto the last table entry;
+    where that entry is a real block (a full table) the clamped write would
+    land on a committed position, so the port sends it to scratch. Every
+    position a caller commits lies inside its reserved blocks, where both
+    agree. Returns (rows, offsets), each (B, g)."""
     maxb = tables.shape[1]
-    blk_idx = torch.clamp(lengths.long() // block, max=maxb - 1)
-    rows = torch.gather(tables.long(), 1, blk_idx[:, None])[:, 0]
-    rows = torch.where(active, rows, torch.full_like(rows, scratch_row))
-    return rows, lengths.long() % block
+    pos = positions.long()
+    blk = pos // block
+    rows = torch.gather(tables.long(), 1, torch.clamp(blk, max=maxb - 1))
+    keep = active[:, None] & (blk < maxb)
+    rows = torch.where(keep, rows, torch.full_like(rows, scratch_row))
+    return rows, pos % block
 
 
 # ----------------------------------------------------------------------
@@ -43,31 +54,34 @@ def _scatter_rows(lengths, active, tables, block: int, scratch_row: int):
 @torch.inference_mode()
 def xla_paged_extend(cfg: ModelConfig, params, pk, pv, tables, lengths,
                      active, tokens, scratch_row: int):
-    """Single-token extend step against the paged pool (plain reference).
+    """g-token extend step against the paged pool (plain reference).
 
     pk/pv   (L, rows, block, Hkv, dh) pools (rows include scratch), updated
             in place
     tables  (B, maxb) int32 block tables padded with the scratch row
     lengths (B,) int32 tokens already cached per slot
     active  (B,) bool — inactive lanes scatter their garbage K/V to scratch
-    tokens  (B, 1) int inputs at positions ``lengths``
-    Returns (logits (B,1,V), pk, pv)."""
+    tokens  (B, g) int inputs at positions ``lengths .. lengths + g - 1``
+    Query j of a lane attends the positions ``<= lengths + j``. A lane
+    whose real input is shorter than g (a short suffix) computes garbage
+    past it, written past its committed length: inside its reserved blocks
+    (overwritten before anything attends it) or to scratch.
+    Returns (logits (B,g,V), pk, pv)."""
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
 
     B, g = tokens.shape
-    if g != 1:
-        raise NotImplementedError("multi-token verify steps are not ported yet")
     block = pk.shape[2]
     maxb = tables.shape[1]
     S = maxb * block
     Hq, dh = cfg.n_heads, cfg.head_dim
-    h = T.embed_tokens(cfg, params, tokens.long())               # (B,1,D)
-    positions = lengths.long()[:, None]                           # (B,1)
-    rows, off = _scatter_rows(lengths, active, tables, block, scratch_row)
+    h = T.embed_tokens(cfg, params, tokens.long())               # (B,g,D)
+    positions = (lengths.long()[:, None]
+                 + torch.arange(g, device=pk.device)[None])       # (B,g)
+    rows, off = _scatter_rows(positions, active, tables, block, scratch_row)
     tl = tables.long()
     kpos = torch.arange(S, device=pk.device)
-    mask = kpos[None, :] <= positions                             # (B,S)
+    mask = kpos[None, None, :] <= positions[:, :, None]           # (B,g,S)
     for i in range(cfg.n_layers):
         lp = T.layer_params(params, i)
         p = lp["attn"]
@@ -77,19 +91,19 @@ def xla_paged_extend(cfg: ModelConfig, params, pk, pv, tables, lengths,
         v = torch.einsum("bsd,dhk->bshk", hn, p["wv"])
         q = L.apply_rope(cfg, q, positions)
         k = L.apply_rope(cfg, k, positions)
-        pk[i, rows, off] = k[:, 0].to(pk.dtype)
-        pv[i, rows, off] = v[:, 0].to(pv.dtype)
+        pk[i, rows, off] = k.to(pk.dtype)
+        pv[i, rows, off] = v.to(pv.dtype)
         kc = pk[i][tl].reshape(B, S, *pk.shape[3:])               # (B,S,Hkv,dh)
         vc = pv[i][tl].reshape(B, S, *pv.shape[3:])
         Hkv = kc.shape[2]
-        qg = q.reshape(B, Hkv, Hq // Hkv, dh)
-        s = torch.einsum("bhgd,bshd->bhgs", qg.float(), kc.float()) \
+        qg = q.reshape(B, g, Hkv, Hq // Hkv, dh)
+        s = torch.einsum("bqhgd,bshd->bhgqs", qg.float(), kc.float()) \
             / math.sqrt(dh)
-        s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+        s = s.masked_fill(~mask[:, None, None], float("-inf"))
         pa = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhgs,bshd->bhgd", pa.to(vc.dtype).float(),
+        o = torch.einsum("bhgqs,bshd->bqhgd", pa.to(vc.dtype).float(),
                          vc.float())
-        o = o.reshape(B, 1, Hq, dh).to(h.dtype)
+        o = o.reshape(B, g, Hq, dh).to(h.dtype)
         h = h + torch.einsum("bshk,hkd->bsd", o, p["wo"])
         h = T._mlp(cfg, lp["mlp_norm"], lp["mlp"], h)
     h = L.apply_norm(cfg, params["final_norm"], h)
@@ -121,7 +135,9 @@ def fused_paged_extend(cfg: ModelConfig, params, pk, pv, tables, lengths,
     Hq, dh, D = cfg.n_heads, cfg.head_dim, cfg.d_model
     h = T.embed_tokens(cfg, params, tokens[:, 0].long())          # (B, D)
     pos = lengths.to(torch.int32)
-    rows, off = _scatter_rows(lengths, active, tables, block, scratch_row)
+    rows, off = _scatter_rows(lengths[:, None], active, tables, block,
+                              scratch_row)
+    rows, off = rows[:, 0], off[:, 0]
     tables = tables.to(torch.int32).contiguous()
     len1 = (pos + 1).contiguous()
     for i in range(cfg.n_layers):
@@ -279,7 +295,8 @@ class XlaPagedBackend(PagedBackend):
 
 
 class FusedPagedBackend(PagedBackend):
-    """The hand-written kernels' step (see module docstring)."""
+    """The hand-written kernels' step at g = 1; the plain body at g > 1,
+    chosen by the step's shape, as JAX's does (see module docstring)."""
 
     name = "fused"
 
@@ -304,8 +321,9 @@ class FusedPagedBackend(PagedBackend):
 
     def extend(self, params, pk, pv, tables, lengths, active, tokens,
                scratch_row: int):
-        return fused_paged_extend(self.cfg, params, pk, pv, tables, lengths,
-                                  active, tokens, scratch_row)
+        body = xla_paged_extend if tokens.shape[1] > 1 else fused_paged_extend
+        return body(self.cfg, params, pk, pv, tables, lengths, active, tokens,
+                    scratch_row)
 
 
 def make_backend(backend: Optional[PagedBackend],

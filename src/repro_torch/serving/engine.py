@@ -10,7 +10,9 @@
     is chosen preferring experts whose weights are ready in the
     ``HBMWeightCache``; an aging counter admits any request stuck behind
     that preference;
-  * next-expert prefetch overlaps the weight copy with decode (paper Fig 9).
+  * next-expert prefetch overlaps the weight copy with decode (paper Fig 9);
+  * decode policy is pluggable on the same slot machinery: ``GreedyDecode``
+    (one token a round) or ``SpeculativeDecode`` (draft-verify, §VI-B).
 
 ``scheduler="run_to_completion"`` is the paper's baseline: admit one expert
 group, decode until every request of it completes, then the next group.
@@ -19,14 +21,16 @@ attention, as JAX's); ``"sequential"`` prefills each prompt at its own
 length through ``PagedDecodeRunner.prefill_kv``, whose attention is the
 ``flash_prefill`` kernel on the card.
 
-Ported here: both schedulers, both prefill modes, ``warmup()``,
-``GreedyDecode``, decoding through the hand-written kernels
-(``FusedPagedBackend``), and the observability plane (``repro_torch.obs``):
-registry-backed ``ServeStats``, the ``serve.ttft_s`` / ``serve.tpot_s``
-histograms, the lifecycle and SLO trackers, spans, instants, one async
-trace lane per request and flight-recorder events. Not ported yet
-(``ROADMAP.md``): prefix sharing, sessions, ``SpeculativeDecode`` and
-disaggregated prefill handoffs.
+``prefix_sharing=True`` adds the tenancy half: a ``PrefixIndex`` dedups
+prompt prefixes across requests on copy-on-write block refcounts, a
+``SessionManager`` keeps finished turns' KV for the session's next turn,
+and a hit prefills only its suffix, through the g > 1 paged extend (the
+plain body, as JAX's runs in XLA). Decoding runs through the hand-written
+kernels (``FusedPagedBackend``), and the observability plane
+(``repro_torch.obs``) is wired through: registry-backed ``ServeStats``, the
+``serve.ttft_s`` / ``serve.tpot_s`` histograms, the lifecycle and SLO
+trackers, spans, one async trace lane per request and flight-recorder
+events. Disaggregated prefill handoffs are not ported yet (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.bridge import tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.coe import CompositionOfExperts
 from repro_torch.obs import flightrec, trace
@@ -45,10 +50,13 @@ from repro_torch.obs.lifecycle import LifecycleTracker
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.slo import SLOTracker
 from repro_torch.obs.stats import StatsView, counter_field
-from repro_torch.serving.backends import PagedBackend, PagedDecodeRunner
-from repro_torch.serving.kvcache import PagedKVCache
-from repro_torch.serving.prefill import (PackedPrefillRunner, default_buckets,
-                                         plan_packs)
+from repro_torch.serving.backends import (PagedBackend, PagedDecodeRunner,
+                                         make_runner)
+from repro_torch.serving.kvcache import PagedKVCache, PrefixIndex
+from repro_torch.serving.prefill import (PackedPrefillRunner, bucket_for,
+                                         default_buckets, plan_packs)
+from repro_torch.serving.sessions import SessionManager
+from repro_torch.serving.speculative import SpecStats
 
 
 # the JAX engine's scheduling defaults: decode rounds an expert keeps the
@@ -69,14 +77,17 @@ class Request:
     done_s: Optional[float] = None
     output: Optional[np.ndarray] = None
     skipped: int = 0                    # admission passes survived unadmitted
-    # tenancy: per-tenant accounting, priority and SLO deadlines
-    # (``obs.slo``), streaming callbacks run on the engine's thread
+    # tenancy: multi-turn session id (retained KV adopted across turns),
+    # per-tenant accounting, priority and SLO deadlines (``obs.slo``),
+    # streaming callbacks run on the engine's thread
+    session_id: Optional[str] = None
     tenant: str = "default"
     priority: int = 0
     slo_ttft_s: Optional[float] = None
     slo_tpot_s: Optional[float] = None  # mean inter-token deadline
     on_token: Optional[Callable[["Request", int], None]] = None
     on_done: Optional[Callable[["Request"], None]] = None
+    prefix_hit_tokens: int = 0          # prompt tokens adopted, not prefilled
     # lifecycle stamps and attribution (``obs.lifecycle``): route_s is the
     # router forward's cost, switch_stall_s the activation time this
     # request's admission paid
@@ -107,8 +118,7 @@ class _Slot:
 
 class ServeStats(StatsView):
     """Engine counters as a view over the metrics registry (``serve.*``
-    series, JAX's names). ``prefix_hit_tokens`` stays 0 until prefix
-    sharing is ported."""
+    series, JAX's names)."""
 
     PREFIX = "serve"
     DERIVED = ("tokens_per_second", "mean_occupancy")
@@ -119,7 +129,7 @@ class ServeStats(StatsView):
     decode_rounds = counter_field()
     switches = counter_field()
     starvation_overrides = counter_field()
-    prefix_hit_tokens = counter_field()
+    prefix_hit_tokens = counter_field()  # prompt tokens served from shared KV
     occupancy_sum = counter_field(0.0)  # sum of active_slots/n_slots a round
     route_s = counter_field(0.0)
     switch_s = counter_field(0.0)
@@ -200,6 +210,107 @@ class GreedyDecode:
         return {int(i): [int(nxt[i])] for i in np.nonzero(active)[0]}
 
 
+class SpeculativeDecode:
+    """Draft-verify decode (paper §VI-B) on the paged slot machinery.
+
+    A small draft proposes ``gamma`` tokens a slot, one g = 1 extend at a
+    time (the engine's backend: the three paged kernels on the card); the
+    target verifies all of them in ONE g = gamma extend (the plain body);
+    the longest matching prefix plus one corrected token is emitted, so the
+    streams equal ``GreedyDecode``'s token for token. The draft keeps its
+    own paged pool (same block count, draft-sized blocks, a scratch row),
+    its tables mirroring the target's slots. The draft pool and weights come
+    on top of the engine's HBM budget; count them when planning one."""
+
+    name = "speculative"
+
+    def __init__(self, draft_cfg: ModelConfig, draft_host_params,
+                 gamma: int = 4):
+        self.draft_cfg = draft_cfg
+        self.gamma = gamma
+        self.reserve_slack = gamma
+        self._draft_host = draft_host_params
+        self.stats = SpecStats()
+
+    def bind(self, engine: "ServingEngine"):
+        if self.draft_cfg.vocab_size != engine.cfg.vocab_size:
+            raise ValueError("draft/target vocab mismatch")
+        self.engine = engine
+        self.d_params = tree_map(lambda t: t.to(engine.device),
+                                 self._draft_host)
+        self.d_pool = PagedKVCache(
+            engine.pool.n_blocks, engine.block,
+            self.draft_cfg.n_layers, self.draft_cfg.n_kv_heads,
+            self.draft_cfg.head_dim, dtype=engine.pool.k.dtype, scratch=True,
+            device=engine.device)
+        # the draft inherits the engine's backend: on a fused deployment its
+        # single-token loop, the speculative hot path, runs on the kernels
+        self.d_runner = make_runner(
+            self.draft_cfg, self.d_pool.scratch_index,
+            backend=type(engine.runner.backend)(self.draft_cfg))
+        self._d_dev = _DeviceTableCache(self.d_pool, engine.max_blocks,
+                                        engine._empty_table)
+
+    def on_admit(self, slot_idx: int, req: Request, params):
+        # the draft prefills the same prompt into its own pool
+        self.d_pool.open(req.rid)
+        _, k, v = self.d_runner.prefill_kv(
+            self.d_params, torch.as_tensor(req.tokens[None],
+                                           device=self.engine.device).long())
+        self.d_pool.append(req.rid, k, v)
+        self.d_pool.reserve(req.rid, req.max_new_tokens + self.gamma)
+
+    def on_free(self, rid: int):
+        self.d_pool.free(rid)
+
+    def round(self, params, active: np.ndarray) -> Dict[int, List[int]]:
+        eng = self.engine
+        B, g = eng.n_slots, self.gamma
+        rows = np.nonzero(active)[0]
+        cur = np.zeros((B, 1), np.int64)
+        for i in rows:
+            # both pools were reserved at admission, gamma slack included
+            cur[i, 0] = eng.slots[i].last_token
+        cur = torch.as_tensor(cur, device=eng.device)
+        tables, lengths = eng._device_tables()
+        dact = eng._device_active(active)
+        d_tables = self._d_dev.tables(eng._slot_rids())
+
+        # --- the draft proposes gamma tokens, one extend each
+        d_in, props = cur, []
+        for t in range(g):
+            lg, dk, dv = self.d_runner.extend(
+                self.d_params, self.d_pool.k, self.d_pool.v, d_tables,
+                lengths + t, dact, d_in)
+            self.d_pool.k, self.d_pool.v = dk, dv
+            d_in = torch.argmax(lg[:, -1], dim=-1)[:, None]
+            props.append(d_in)
+            self.stats.draft_calls += 1
+        props = torch.cat(props, dim=1)                          # (B,g)
+
+        # --- the target verifies all gamma in one extend
+        prop_inputs = torch.cat([cur, props[:, :-1]], dim=1)     # (B,g)
+        t_lg, pk, pv = eng.runner.extend(params, eng.pool.k, eng.pool.v,
+                                         tables, lengths, dact, prop_inputs)
+        eng.pool.k, eng.pool.v = pk, pv
+        self.stats.target_calls += 1
+        t_next = torch.argmax(t_lg, dim=-1).cpu().numpy()       # (B,g)
+        props = props.cpu().numpy()
+
+        emits: Dict[int, List[int]] = {}
+        for i in rows:
+            match = props[i] == t_next[i]
+            prefix = 0
+            while prefix < g and match[prefix]:
+                prefix += 1
+            self.stats.proposed += g
+            self.stats.accepted += prefix
+            e = min(prefix + 1, g, eng.slots[i].remaining)
+            emits[int(i)] = [int(x) for x in t_next[i, :e]]
+            self.d_pool.advance(eng.slots[i].req.rid, e)
+        return emits
+
+
 class ServingEngine:
     """Continuous-batching scheduler over the paged KV pool.
 
@@ -209,9 +320,11 @@ class ServingEngine:
     recycle completed slots. ``drain()`` loops until idle.
     ``device`` defaults to the card and must be the composition's device.
     Decode runs through the fused kernels unless ``backend`` passes another
-    ``PagedBackend`` object (the parity tests pass the reference).
-    ``registry``/``obs_labels`` publish the engine's and its pool's series
-    (a private registry when omitted).
+    ``PagedBackend`` object (the parity tests pass the reference);
+    ``policy`` is ``GreedyDecode()`` unless given. ``prefix_sharing``
+    turns on the prefix index and session retention (``session_max_bytes``
+    caps the retained pages). ``registry``/``obs_labels`` publish the
+    engine's and its pool's series (a private registry when omitted).
     """
 
     def __init__(self, coe: CompositionOfExperts, cfg: ModelConfig, *,
@@ -219,6 +332,9 @@ class ServingEngine:
                  scheduler: str = "continuous",
                  backend: Optional[PagedBackend] = None,
                  prefill_mode: str = "packed",
+                 policy=None,
+                 prefix_sharing: bool = False,
+                 session_max_bytes: Optional[int] = None,
                  kv_dtype=torch.bfloat16,
                  device=None,
                  registry: Optional[MetricsRegistry] = None,
@@ -239,12 +355,18 @@ class ServingEngine:
         self.scheduler = scheduler
         self.switch_quantum = SWITCH_QUANTUM
         self.starvation_limit = STARVATION_LIMIT
-        self.policy = GreedyDecode()
+        self.policy = policy or GreedyDecode()
         self.max_blocks = -(-(max_len + self.policy.reserve_slack)
                             // block_size)
         # the budget's KV carve, else every slot holds a full-length request
+        # (+ scratch). Under sharing the index and retained sessions hold
+        # blocks between requests, so the pool gets twice the slots' blocks:
+        # retention lives in the slack and is reclaimed when admission
+        # needs it
+        slot_blocks = self.n_slots * self.max_blocks
+        pool_blocks = slot_blocks * (2 if prefix_sharing else 1) + 1
         kv_budget_bytes = coe.hbm_budget.kv_bytes or (
-            (self.n_slots * self.max_blocks + 1) * PagedKVCache.block_bytes(
+            pool_blocks * PagedKVCache.block_bytes(
                 block_size, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
                 kv_dtype))
         # one registry backs ServeStats and the pool's PagedStats
@@ -267,6 +389,24 @@ class ServingEngine:
             PackedPrefillRunner(cfg, buckets=default_buckets(max_len),
                                 max_segments=n_slots)
             if prefill_mode == "packed" else None)
+        # prefix sharing and session retention: both hold pool blocks
+        # speculatively and give them back through the reclaimer protocol;
+        # sessions reclaim first (one conversation is cheaper to lose than a
+        # prefix many share)
+        self.prefix_sharing = prefix_sharing
+        if prefix_sharing:
+            self.sessions: Optional[SessionManager] = SessionManager(
+                self.pool, ledger=coe.cache.ledger,
+                max_bytes=session_max_bytes)
+            self.prefix_index: Optional[PrefixIndex] = PrefixIndex(self.pool)
+            self.pool.add_reclaimer(self.sessions)
+            self.pool.add_reclaimer(self.prefix_index)
+            # a hit's suffix prefill runs the paged extend at these widths
+            self._suffix_buckets: Tuple[int, ...] = tuple(
+                default_buckets(max_len))
+        else:
+            self.sessions = None
+            self.prefix_index = None
         # TTFT (arrival -> first token) and TPOT (mean inter-token seconds
         # after the first) as P2 streaming histograms
         self._ttft_hist = self._registry.histogram("serve.ttft_s",
@@ -360,11 +500,12 @@ class ServingEngine:
     def warmup(self, expert: Optional[str] = None) -> None:
         """Pay the hot path's first-launch costs before traffic arrives
         (what JAX's warmup spends on compiling): every packed-prefill bucket
-        once with its pool scatter (packed mode), and one all-inactive
-        ``(n_slots, 1)`` extend. Every expert shares the backbone, so one
-        expert's weights cover the composition. What it writes lands in the
-        pool's scratch block only; it synchronizes the card, then sets
-        ``warmed``."""
+        once with its pool scatter (packed mode), one all-inactive
+        ``(n_slots, 1)`` extend and, under prefix sharing, one all-inactive
+        extend at each suffix bucket's width. Every expert shares the
+        backbone, so one expert's weights cover the composition. What it
+        writes lands in the pool's scratch block only; it synchronizes the
+        card, then sets ``warmed``."""
         names = self.coe.expert_names()
         if not names:
             raise RuntimeError("warmup: no experts registered")
@@ -387,6 +528,14 @@ class ServingEngine:
                 toks)
             self.pool.k, self.pool.v = pk, pv
             torch.argmax(logits[:, -1], dim=-1).cpu()
+            if self.prefix_sharing:
+                for g in self._suffix_buckets:
+                    toks = torch.zeros((n, g), dtype=torch.long,
+                                       device=self.device)
+                    logits, pk, pv = self.runner.extend(
+                        params, self.pool.k, self.pool.v, tables, lengths,
+                        active, toks)
+                    self.pool.k, self.pool.v = pk, pv
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         self.warmed = True
@@ -396,6 +545,19 @@ class ServingEngine:
         need = (len(req.tokens) + req.max_new_tokens
                 + self.policy.reserve_slack)
         return -(-need // self.block)
+
+    def _planned_blocks(self, req: Request) -> int:
+        # +1 under sharing: adopting a shared partial tail can split it into
+        # one fresh block beyond the request's own need
+        return self._blocks_for(req) + (1 if self.prefix_sharing else 0)
+
+    def _avail_blocks(self) -> int:
+        # retained sessions and indexed prefixes give blocks back under
+        # pressure; gating on the free list alone would wedge admission
+        n = self.pool.free_blocks
+        if self.prefix_sharing:
+            n += self.pool.reclaimable_blocks()
+        return n
 
     def _any_active(self) -> bool:
         return any(s is not None for s in self.slots)
@@ -464,24 +626,30 @@ class ServingEngine:
                                      if r.expert == self._active_expert
                                      and r not in starving]
         # KV backpressure stops admission, but an otherwise idle engine
-        # always admits one request
+        # always admits one request (under sharing the reclaimable estimate
+        # can undercount a cascade reclaim)
         admitted: List[Request] = []
         if self.prefill_runner is None:
             for r in candidates:
                 if not free:
                     break
-                if (self._blocks_for(r) > self.pool.free_blocks
+                if (self._planned_blocks(r) > self._avail_blocks()
                         and (admitted or self._any_active())):
                     break
-                self._prefill_into_slot(free.pop(0), r, done)
+                m = self._match_prefix(r)
+                if m is not None:
+                    self._prefill_suffix([(r, m[0], m[1])],
+                                         self._activate_for(r), free, done)
+                else:
+                    self._prefill_into_slot(free.pop(0), r, done)
                 admitted.append(r)
         else:
             planned = 0
             for r in candidates:
                 if len(admitted) >= len(free):
                     break
-                need = self._blocks_for(r)
-                if (planned + need > self.pool.free_blocks
+                need = self._planned_blocks(r)
+                if (planned + need > self._avail_blocks()
                         and (admitted or self._any_active())):
                     break
                 admitted.append(r)
@@ -495,6 +663,20 @@ class ServingEngine:
                     r.skipped += 1
         self.queue = [r for r in self.queue if r not in admitted]
 
+    def _activate_for(self, req: Request):
+        """One sequential admission's weights: its expert activated (the
+        stall charged to it), the decoding expert re-activated after it,
+        since a starving admission may have evicted that one."""
+        t0 = time.perf_counter()
+        params = self.coe.cache.activate(req.expert)
+        if (req.expert != self._active_expert
+                and self._active_expert is not None):
+            self._params = self.coe.cache.activate(self._active_expert)
+        dt = time.perf_counter() - t0
+        self.stats.switch_s += dt
+        req.switch_stall_s += dt
+        return params
+
     def _prefill_into_slot(self, slot_idx: int, req: Request,
                            done: List[Request]):
         """Sequential admission: one prefill at the prompt's own length
@@ -504,15 +686,7 @@ class ServingEngine:
                       expert=req.expert, slot=slot_idx)
         flightrec.record("admit", rid=req.rid, expert=req.expert,
                          slot=slot_idx, **self._obs_labels)
-        t0 = time.perf_counter()
-        params = self.coe.cache.activate(req.expert)
-        if (req.expert != self._active_expert
-                and self._active_expert is not None):
-            # a starving admission may have evicted the decoding expert
-            self._params = self.coe.cache.activate(self._active_expert)
-        dt = time.perf_counter() - t0
-        self.stats.switch_s += dt
-        req.switch_stall_s += dt
+        params = self._activate_for(req)
         t0 = time.perf_counter()
         S = len(req.tokens)
         with trace.span("prefill", cat="engine", request_id=req.rid,
@@ -556,9 +730,23 @@ class ServingEngine:
             for r in rs:                 # activation stall split pro rata
                 r.switch_stall_s += dt / len(rs)
             foreign |= expert != self._active_expert
-            for idx in plan_packs([len(r.tokens) for r in rs], pr.buckets,
-                                  pr.max_segments):
-                self._prefill_chunk([rs[i] for i in idx], params, free, done)
+            # prefix hits prefill only their suffix (one extend per
+            # n_slots-sized chunk); misses take the packed buckets
+            hits: List[Tuple[Request, List[int], int]] = []
+            misses: List[Request] = []
+            for r in rs:
+                m = self._match_prefix(r)
+                if m is not None:
+                    hits.append((r, m[0], m[1]))
+                else:
+                    misses.append(r)
+            for c in range(0, len(hits), self.n_slots):
+                self._prefill_suffix(hits[c:c + self.n_slots], params, free,
+                                     done)
+            for idx in plan_packs([len(r.tokens) for r in misses],
+                                  pr.buckets, pr.max_segments):
+                self._prefill_chunk([misses[i] for i in idx], params, free,
+                                    done)
         if foreign and self._active_expert is not None:
             # a starving admission may have evicted the decoding expert
             t0 = time.perf_counter()
@@ -595,6 +783,84 @@ class ServingEngine:
             **self._obs_labels, "bucket": res.bucket}).inc(len(reqs))
         for i, r in enumerate(reqs):
             self._slot_ready(free.pop(0), r, int(firsts[i]), params, done)
+
+    def _match_prefix(
+            self, req: Request) -> Optional[Tuple[List[int], int]]:
+        """Longest reusable KV prefix for this request: its session's
+        retained pages first (the whole previous conversation), then the
+        cross-request prefix index. Returns PINNED ``(blocks, n_tokens)``
+        (``_prefill_suffix`` adopts, then unpins) or ``None``."""
+        if not self.prefix_sharing:
+            return None
+        if len(req.tokens) < 2:
+            return None      # nothing shareable: >= 1 suffix token must run
+        if req.session_id is not None:
+            m = self.sessions.adopt(req.session_id, req.expert, req.tokens)
+            if m is not None:
+                return m
+        return self.prefix_index.match(req.expert, req.tokens)
+
+    def _prefill_suffix(self,
+                        items: List[Tuple[Request, List[int], int]],
+                        params, free: List[int], done: List[Request]):
+        """Admit prefix hits by prefilling only their un-shared suffixes:
+        each request is seated read-only on its adopted blocks (``reserve``
+        splits a shared tail) and the suffixes run through one paged extend
+        at the smallest suffix bucket covering the longest, the g > 1 plain
+        body. ``items``: up to ``n_slots`` ``(req, blocks, n_adopted)`` of
+        ONE expert, blocks pinned by ``_match_prefix``. A lane's positions
+        past its suffix compute garbage, written past its committed length:
+        inside its reserved blocks, where decode overwrites before it ever
+        attends, or to the scratch row."""
+        t0 = time.perf_counter()
+        lanes: List[Tuple[Request, int, int]] = []
+        for req, blocks, n in items:
+            if req.admit_s is None:
+                req.admit_s = t0
+            flightrec.record("admit", rid=req.rid, expert=req.expert,
+                             prefix_hit=n, **self._obs_labels)
+            self.pool.open(req.rid, adopt=blocks, adopt_len=n)
+            self.pool.unpin(blocks)
+            si = len(req.tokens) - n
+            # the whole remaining budget up front, as the full prefills do
+            self.pool.reserve(req.rid, si + req.max_new_tokens
+                              + self.policy.reserve_slack)
+            lanes.append((req, n, si))
+        g = bucket_for(max(si for _, _, si in lanes), self._suffix_buckets)
+        toks = np.zeros((self.n_slots, g), np.int64)
+        lengths = np.zeros((self.n_slots,), np.int32)
+        tables = np.stack([self._empty_table] * self.n_slots)
+        active = np.zeros((self.n_slots,), bool)
+        for i, (req, n, si) in enumerate(lanes):
+            toks[i, :si] = req.tokens[n:]
+            lengths[i] = n
+            tables[i] = self.pool.padded_table(req.rid, self.max_blocks)
+            active[i] = True
+        dev = self.device
+        with trace.span("prefill_suffix", cat="engine",
+                        request_ids=",".join(str(r.rid)
+                                             for r, _, _ in lanes),
+                        expert=lanes[0][0].expert,
+                        shared_tokens=sum(n for _, n, _ in lanes),
+                        **{"prefill.bucket": g,
+                           "prefill.packed": len(lanes)}):
+            logits, pk, pv = self.runner.extend(
+                params, self.pool.k, self.pool.v,
+                torch.as_tensor(tables, device=dev),
+                torch.as_tensor(lengths, device=dev),
+                torch.as_tensor(active, device=dev),
+                torch.as_tensor(toks, device=dev))
+            self.pool.k, self.pool.v = pk, pv
+            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        self.stats.prefill_s += time.perf_counter() - t0
+        self._registry.counter("serve.prefill_bucket", labels={
+            **self._obs_labels, "bucket": g}).inc(len(lanes))
+        for i, (req, n, si) in enumerate(lanes):
+            self.pool.advance(req.rid, si)
+            req.prefix_hit_tokens = n
+            self.stats.prefix_hit_tokens += n
+            self._slot_ready(free.pop(0), req, int(nxt[i, si - 1]),
+                             params, done)
 
     def _slot_ready(self, slot_idx: int, req: Request, first: int, params,
                     done: List[Request]):
@@ -672,11 +938,14 @@ class ServingEngine:
         now = time.perf_counter()
         for i, toks in emits.items():
             slot = self.slots[i]
-            self.pool.advance(slot.req.rid, len(toks))
+            n = len(toks)
+            if n == 0:
+                continue
+            self.pool.advance(slot.req.rid, n)
             slot.generated.extend(toks)
             slot.last_token = toks[-1]
             slot.req.last_token_s = now
-            self.stats.tokens_out += len(toks)
+            self.stats.tokens_out += n
             if slot.req.on_token is not None:
                 for t in toks:
                     slot.req.on_token(slot.req, int(t))
@@ -692,13 +961,28 @@ class ServingEngine:
         req.output = np.asarray(slot.generated[: req.max_new_tokens], np.int32)
         req.done_s = time.perf_counter()
         req.last_token_s = req.done_s
-        self.pool.free(req.rid)
+        if self.prefix_sharing:
+            # the pool holds KV for every committed position (the last
+            # emitted token's KV was never written), so index or retain
+            # exactly that much of prompt + output
+            seq = np.concatenate(
+                [req.tokens, req.output])[: self.pool.length(req.rid)]
+            self.prefix_index.insert(req.expert, seq,
+                                     self.pool.table(req.rid))
+            if req.session_id is not None:
+                # retention takes the rid over; the next turn adopts it
+                self.sessions.retain(req.session_id, req.rid, req.expert,
+                                     seq)
+            else:
+                self.pool.free(req.rid)
+        else:
+            self.pool.free(req.rid)
         self.policy.on_free(req.rid)
         if req.on_done is not None:
             req.on_done(req)
         trace.async_end("request", id=req.rid, cat="engine",
                         tokens_out=len(req.output), latency_s=req.latency_s)
-        if len(req.output) > 1:
+        if len(req.output) > 1 and req.first_token_s is not None:
             self._tpot_hist.observe((req.done_s - req.first_token_s)
                                     / (len(req.output) - 1))
         self.lifecycle.complete(req)
@@ -707,12 +991,21 @@ class ServingEngine:
                          tokens_out=len(req.output), **self._obs_labels)
         done.append(req)
 
-    # -- accounting and debug snapshots -----------------------------------
+    # -- tenancy accounting and debug snapshots ---------------------------
+    def release_shared(self) -> None:
+        """Drop every retained session and indexed prefix, with their pool
+        references. After a drain this leaves ``blocks_in_use == 0``."""
+        if self.sessions is not None:
+            self.sessions.evict_all()
+        if self.prefix_index is not None:
+            self.prefix_index.clear()
+
     def hbm_in_budget(self) -> bool:
         """Weights + live KV inside this engine's HBM tier right now: the
         weight cache within its capacity and, when the budget carves a KV
         share, the pool within that carve and both tiers' live bytes within
-        the total. Reads host bookkeeping only."""
+        the total. Retained session pages and indexed prefixes count as live
+        KV. Reads host bookkeeping only."""
         cache = self.coe.cache
         if cache.used_bytes > cache.capacity:
             return False
@@ -760,8 +1053,17 @@ class ServingEngine:
                 "invariant_violations": p.check_invariants()}
 
     def debug_sessions(self) -> Dict[str, Any]:
-        """Retained-session table: empty, sessions are not ported."""
-        return {"sessions": [], "bytes_retained": 0}
+        """Retained-session table (empty when sessions are off)."""
+        if self.sessions is None:
+            return {"sessions": [], "bytes_retained": 0}
+        sm = self.sessions
+        return {"bytes_retained": sm.bytes_retained(),
+                "max_bytes": sm.max_bytes,
+                "evictions": sm.evictions,
+                "sessions": [
+                    {"sid": sid, "rid": s.rid, "expert": s.expert,
+                     "tokens": int(len(s.tokens)), "last_use": s.last_use}
+                    for sid, s in sm._sessions.items()]}
 
     def debug_providers(self) -> Dict[str, Any]:
         """Name -> zero-arg snapshot function, for the metrics httpd's
