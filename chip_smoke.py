@@ -16,7 +16,10 @@
    row to both its plain versions, the masked softmax and its own chunked
    arithmetic, with two chunk faults planted in the latter that the row
    check must catch), the dense-cache kernels at length 4096 in a 4096-position
-   cache (``ffn_swiglu`` in both forms); then the prefill kernels:
+   cache (``ffn_swiglu`` in both forms), the node's three kernels at one
+   rank's shapes of the expert at TP 2 (``decode_paged`` at 16 heads,
+   ``qkv_rope_paged`` at 16 / 16 heads, ``ffn_swiglu(residual=False)`` at
+   F 5504); then the prefill kernels:
    ``flash_prefill`` at the expert's prefill (8 x 2048 tokens, 32 heads,
    dh 128, causal), at the sequential prefill's (B 1, S 64 / 160 / 256) and
    at RecurrentGemma-9B's (4 x 3000 tokens, 16 q heads on 1 kv head, dh
@@ -103,6 +106,28 @@
    experts (their pinned store, an HBM cache of two) with an ``LMRouter`` on
    the expert backbone: 8 prompts of 128 tokens, 16 new tokens each; the
    router and every group's prefill through ``flash_prefill``.
+6b. Node phase: ``RDUNode`` over the same three experts (their pinned
+   store), a 2 x 2 topology of sockets sharing the card, each group's HBM
+   share one expert and a 2.2 GB KV carve, the fused backend, the serve
+   phase's 16 requests; then one prefill group and one decode group
+   (disaggregated). Every request finishes, no pool leaks, the budgets hold
+   after every step, each of ``qkv_rope_paged``, ``decode_paged`` and
+   ``ffn_swiglu(residual=False)`` launches 2 ranks x 32 layers x decode
+   rounds (nothing else), the decode group runs no prefill forward, and
+   the streams equal the single-device engine's (and the disaggregated the
+   colocated's) up to prefill near ties (``DENSE_PREFILL_LOGIT_TOL_REL``).
+   Prints tok/s, TTFT p50 / p99, each group's decode rounds, ms a round
+   and switches.
+6c. Expert-tier phase: two experts written to a ``MmapFileStore`` in a
+   temporary directory (removed at the end) and quantized into an
+   ``Int8BlockQuantizedStore(64)`` on the card, each behind an engine whose
+   HBM cache holds one expert: the lazy and eager mmap drains' streams
+   equal the pinned store's, the int8 drain's equal a pinned store's of the
+   dequantized trees, exactly; prints each switch's ``store_read`` and
+   ``h2d`` seconds, ``stored_bytes / nbytes`` and the dequantization time.
+   Then a dirty 64 MiB mutable entry evicted, reactivated and dropped must
+   write back its exact bytes (``bytes_copied_back``, the ``writeback``
+   ledger edge).
 7. RecurrentGemma phase, after the experts' store is released:
    recurrentgemma-9b at full width and depth (38 layers, 10.4 G parameters,
    bf16) as the one expert of a ``CompositionOfExperts(HashRouter(1))`` on
@@ -253,6 +278,15 @@ TENANCY = dict(sessions=12, shared_share=0.7, sys_len=96, user=(8, 24),
 SPEC = dict(requests=8, prompt_lens=(64, 256), new_tokens=32, gamma=4,
             draft_layers=4, n_slots=8, block_size=16, max_len=512,
             hbm_experts=2.0, decoder_prompt=128, seed=11)
+# the node: a 2 x 2 topology of sockets sharing the card, each group's HBM
+# share one expert's weights and a KV carve of 2.2 GB (262 blocks of 16)
+NODE = dict(tp=2, groups=2, hbm_experts=1.0, kv_reserve=2_200_000_000)
+# the expert tier: two experts behind an HBM cache of one; 8 requests of
+# 64-256 prompt and 32 new tokens, tagged alternately; int8 blocks of 64; a
+# 64 MiB f32 mutable state for the write-back check
+TIER = dict(experts=2, requests=8, prompt_lens=(64, 256), new_tokens=32,
+            n_slots=8, block_size=16, max_len=512, int8_block=64,
+            state_mb=64, seed=13)
 # flash_prefill at the sequential prefill's shape (B 1, the expert's heads)
 B1_PREFILL_LENGTHS = (64, 160, 256)
 B1_PREFILL_ROW = "flash_prefill[B=1,S=256]"
@@ -827,6 +861,112 @@ def dense_kernel_phase(cfg, dev, B=8):
          f"(tol {tol:.3e})")
     del flush
     return rows
+
+
+# the node's kernel rows: one rank's shapes of the 7B expert at TP 2
+NODE_ROWS = {"decode_paged": "decode_paged[tp=2,heads=16]",
+             "qkv_rope_paged": "qkv_rope_paged[tp=2,heads=16/16]",
+             "ffn_swiglu[residual=False]": "ffn_swiglu[residual=False,F=5504]"}
+# the kernels the node's fused TP body launches, each once a rank and layer
+NODE_KERNELS = ("qkv_rope_paged", "decode_paged",
+                "ffn_swiglu[residual=False]")
+
+
+def node_kernel_phase(cfg, dev, B=8, tp=2):
+    """The three kernels of the node's fused TP body at one rank's shapes of
+    the expert at TP ``tp``, against their plain versions: ``decode_paged``
+    and ``qkv_rope_paged`` at the rank's heads (ragged lanes 1..512, as the
+    serve rows), ``ffn_swiglu(residual=False)`` at the rank's FFN shard."""
+    import dataclasses
+
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.flash_attention.ops import decode_paged
+    from repro_torch.kernels.flash_attention.ref import decode_paged_ref
+    from repro_torch.kernels.fused_decode.ops import (ffn_swiglu,
+                                                      qkv_rope_paged)
+    from repro_torch.kernels.fused_decode.ref import (ffn_swiglu_ref,
+                                                      qkv_rope_paged_ref,
+                                                      rope_inv_freq)
+    from repro_torch.serving.backends import (dense_kernel_flops,
+                                              dense_kernel_hbm_bytes,
+                                              kernel_flops, kernel_hbm_bytes)
+
+    shard = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
+                                n_kv_heads=cfg.n_kv_heads // tp,
+                                d_ff=cfg.d_ff // tp)
+    bf = torch.bfloat16
+    D, Hq, Hkv, dh, F = (shard.d_model, shard.n_heads, shard.n_kv_heads,
+                         shard.head_dim, shard.d_ff)
+    block, maxb = SERVE["block_size"], SERVE["max_len"] // SERVE["block_size"]
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    rows = B * maxb + 1
+    x = rnd(B, D)
+    q = rnd(B, Hq, dh)
+    kp, vp = rnd(rows, block, Hkv, dh), rnd(rows, block, Hkv, dh)
+    perm = torch.randperm(rows - 1, generator=gen, device=dev)
+    tables = perm[:B * maxb].reshape(B, maxb).to(torch.int32)
+    tables[3] = rows - 1
+    len1_host = [1, 15, 16, 1, 17, 255, 300, 512]
+    len1 = torch.tensor(len1_host, dtype=torch.int32, device=dev)
+    pos = len1 - 1
+    scale = (1.0 + 0.1 * rnd(D).float()).to(bf)
+    wq, wk, wv = (rnd(D, Hq, dh, scale=D ** -0.5),
+                  rnd(D, Hkv, dh, scale=D ** -0.5),
+                  rnd(D, Hkv, dh, scale=D ** -0.5))
+    wg, wu = rnd(D, F, scale=D ** -0.5), rnd(D, F, scale=D ** -0.5)
+    wd = rnd(F, D, scale=F ** -0.5)
+    inv = torch.as_tensor(rope_inv_freq(dh, cfg.rope_theta), device=dev)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+
+    def lib_decode():
+        S = maxb * block
+        kc = kp[tables.long()].reshape(B, S, Hkv, dh).transpose(1, 2)
+        vc = vp[tables.long()].reshape(B, S, Hkv, dh).transpose(1, 2)
+        mask = (torch.arange(S, device=dev)[None, :] < len1[:, None])
+        return Fn.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, attn_mask=mask[:, None, None, :],
+            enable_gqa=Hq != Hkv)
+
+    def lib_qkv():
+        xn = (Fn.rms_norm(x.float(), (D,), eps=1e-6) * scale.float()).to(bf)
+        return [torch.matmul(xn, w.reshape(D, -1)) for w in (wq, wk, wv)]
+
+    def lib_ffn():
+        xn = Fn.rms_norm(x, (D,), weight=scale, eps=1e-6)
+        return (Fn.silu(xn @ wg) * (xn @ wu)) @ wd
+
+    ffn_args = (x, scale, wg, wu, wd)
+    nbytes = kernel_hbm_bytes(shard, B, len1_host, maxb)
+    flops = kernel_flops(shard, B, len1_host)
+    out = {
+        NODE_ROWS["decode_paged"]: kernel_row(
+            NODE_ROWS["decode_paged"],
+            lambda: decode_paged(q, kp, vp, tables, len1),
+            lambda: decode_paged_ref(q, kp, vp, tables, len1), lib_decode,
+            nbytes["decode_paged"], flops["decode_paged"], flush,
+            kernel="decode_paged", row_tol=DECODE_ROW_REL_L2),
+        NODE_ROWS["qkv_rope_paged"]: kernel_row(
+            NODE_ROWS["qkv_rope_paged"],
+            lambda: qkv_rope_paged(x, scale, wq, wk, wv, pos,
+                                   theta=cfg.rope_theta),
+            lambda: qkv_rope_paged_ref(x, scale, wq, wk, wv, pos, inv),
+            lib_qkv, nbytes["qkv_rope_paged"], flops["qkv_rope_paged"],
+            flush, kernel="qkv_rope_paged", row_tol=STREAM_ROW_REL_L2),
+        NODE_ROWS["ffn_swiglu[residual=False]"]: kernel_row(
+            NODE_ROWS["ffn_swiglu[residual=False]"],
+            lambda: ffn_swiglu(*ffn_args, residual=False),
+            lambda: ffn_swiglu_ref(*ffn_args, residual=False), lib_ffn,
+            dense_kernel_hbm_bytes(shard, B, 1)["ffn_swiglu"],
+            dense_kernel_flops(shard, B, 1)["ffn_swiglu"], flush,
+            kernel="ffn_swiglu", row_tol=STREAM_ROW_REL_L2),
+    }
+    del flush
+    return out
 
 
 def prefill_kernel_phase(cfg, rg_cfg, dev):
@@ -1408,7 +1548,7 @@ def serve_phase(cfg, dev):
         engine.pool.free(r)
     coe.cache.close()
     return (launches, coe.store, coe.expert_names(),
-            st.exec_s / st.decode_rounds)
+            st.exec_s / st.decode_rounds, {r.rid: r for r in done})
 
 
 def prefill_times(prefill, lengths, reps=3):
@@ -2406,6 +2546,343 @@ def generate_phase(cfg, dev, store, names):
     coe.cache.close()
 
 
+def _node_drain(node, cfg, label, nL):
+    """Submit the serve phase's trace to ``node`` and drain it, checking the
+    HBM budgets after every step, every request's output, clean pools and
+    the fused TP body's launches (each of its kernels ``tp`` x layers x
+    decode rounds, nothing else). Returns (done by rid, wall, launches)."""
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.launch.serve import make_requests
+
+    s = SERVE
+    reqs, _ = make_requests(s["requests"], cfg.vocab_size, s["prompt_lens"],
+                            s["new_tokens"], node.expert_names(),
+                            s["tagged_fraction"], s["seed"])
+    torch.cuda.synchronize()
+    rt.reset_launches()
+    t0 = time.perf_counter()
+    for r in reqs:
+        node.submit(r)
+    done = []
+    while node.has_work:
+        done.extend(node.step())
+        if not node.hbm_within_budget():
+            raise AssertionError(f"{label}: a group left its HBM budget")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rt.launch_counts()
+    if len(done) != s["requests"]:
+        raise AssertionError(f"{label}: {len(done)} of {s['requests']} done")
+    for r in done:
+        if r.output is None or len(r.output) != s["new_tokens"]:
+            raise AssertionError(f"{label}: request {r.rid}: {r.output}")
+    pools = ([gs.engine.pool for gs in node.groups]
+             + [w.pool for w in node.workers])
+    for pool in pools:
+        if pool.stats.blocks_in_use or pool.check_invariants():
+            raise AssertionError(f"{label}: a pool leaked")
+    rounds = sum(gs.engine.stats.decode_rounds for gs in node.groups)
+    check_launches(label, launches,
+                   {k: node.topology.tp * nL * rounds for k in NODE_KERNELS})
+    st = node.stats()
+    ttft = np.asarray([r.first_token_s - r.arrival_s for r in done])
+    per = "; ".join(
+        f"group {g['gid']}: {g['requests']} requests, {g['decode_rounds']} "
+        f"rounds of {gs.engine.stats.exec_s / max(g['decode_rounds'], 1) * 1e3:.3f}"
+        f" ms, switches={g['switches']} misses={g['cache_misses']}"
+        for g, gs in zip(st.per_group, node.groups))
+    pre = "".join(f"; prefill group {g['gid']}: {g['prefilled']} prefilled, "
+                  f"misses={g['cache_misses']}" for g in st.prefill_groups)
+    _log(f"{label}: {len(done)} requests, {st.tokens_out} tokens in "
+         f"{wall:.3f}s = {st.tokens_out / wall:.2f} tok/s; TTFT "
+         f"p50={np.percentile(ttft, 50):.4f}s p99={np.percentile(ttft, 99):.4f}"
+         f"s; {per}{pre}; budgets held at every step; launches "
+         f"{ {k: launches[k] for k in NODE_KERNELS} } = "
+         f"{node.topology.tp} ranks x {nL} layers x {rounds} rounds")
+    return {r.rid: r for r in done}, wall, launches
+
+
+def tp_step_breakdown(cfg, dev, gs, B):
+    """Where one fused TP step of group ``gs`` goes: ``B`` lanes of 1-119
+    prompt tokens prefilled into its pool (one inactive lane), then the
+    step's host wall and device time by kernel (``step_breakdown``)."""
+    eng = gs.engine
+    name = gs.coe.cache.expert_ids()[-1]
+    params = gs.coe.cache.activate(name)
+    rs = np.random.RandomState(1)
+    prompts = [rs.randint(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+               for n in rs.randint(1, 120, size=B)]
+    rids = list(range(20_000, 20_000 + B))
+    for i in range(0, B, 4):
+        chunk = rids[i:i + 4]
+        res = eng.prefill_runner(params, prompts[i:i + 4])
+        eng.prefill_runner.scatter_into(eng.pool, res, chunk,
+                                        extra_tokens=[1] * len(chunk))
+    tables = torch.as_tensor(np.stack([eng.pool.padded_table(
+        r, eng.max_blocks) for r in rids]), device=dev)
+    lengths = torch.as_tensor([eng.pool.length(r) for r in rids],
+                              dtype=torch.int32, device=dev)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    active[3] = False
+    toks = torch.as_tensor(rs.randint(0, cfg.vocab_size, (B, 1)), device=dev)
+    step_breakdown(lambda: eng.runner.extend(params, eng.pool.k, eng.pool.v,
+                                             tables, lengths, active, toks),
+                   f"node TP step ({B} lanes, {eng.runner.tp} ranks x "
+                   f"{cfg.n_layers} layers)")
+    for r in rids:
+        eng.pool.free(r)
+
+
+def node_phase(cfg, dev, store, names, serve_out):
+    """``RDUNode`` at full width on the serve phase's pinned store: a 2 x 2
+    topology (four sockets sharing the card), each group's HBM share one
+    expert and a KV carve, the fused backend, the serve phase's 16-request
+    trace. Colocated, then with one prefill group and one decode group.
+    Streams against the single-device engine's (``serve_out``) and the
+    disaggregated against the colocated, up to prefill near ties. Returns
+    the colocated drain's launch counts."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.core import HashRouter
+    from repro_torch.node import RDUNode, make_node_topology
+
+    n, nL = NODE, cfg.n_layers
+    t_phase = time.perf_counter()
+    nbytes = store.nbytes(names[0])
+
+    def build(prefill_groups):
+        node = RDUNode(make_node_topology(n["tp"], n["groups"]), cfg,
+                       HashRouter(len(names)), None,
+                       group_hbm_bytes=int(n["hbm_experts"] * nbytes
+                                           + n["kv_reserve"]),
+                       group_kv_reserve_bytes=n["kv_reserve"], store=store,
+                       prefill_groups=prefill_groups,
+                       n_slots=SERVE["n_slots"],
+                       block_size=SERVE["block_size"],
+                       max_len=SERVE["max_len"])
+        for name in names:
+            node.register_expert(name, None)     # already in the store
+        return node
+
+    node = build(0)
+    co, co_wall, launches = _node_drain(node, cfg, "node 2x2 colocated", nL)
+    tp_step_breakdown(cfg, dev, node.groups[0], SERVE["n_slots"])
+    node.close()
+    del node
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    node = build(1)
+    prefills = []
+    for gs in node.groups:                  # a decode group never prefills
+        for obj, attr in ((gs.engine.prefill_runner, "_fn"),
+                          (gs.engine.runner, "prefill_kv")):
+            real = getattr(obj, attr)
+            setattr(obj, attr, lambda *a, real=real, **k:
+                    prefills.append(1) or real(*a, **k))
+    dis, dis_wall, _ = _node_drain(node, cfg, "node 2x2 disaggregated "
+                                   "(1 prefill group, 1 decode group)", nL)
+    handoffs = sum(m.value for m in node.registry.metrics()
+                   if m.name == "node.kv_handoffs")
+    hbytes = sum(m.value for m in node.registry.metrics()
+                 if m.name == "node.kv_handoff_bytes")
+    node.close()
+    del node
+    gc.collect()
+    torch.cuda.empty_cache()
+    if prefills or handoffs != SERVE["requests"]:
+        raise AssertionError(f"node disaggregated: {len(prefills)} prefill "
+                             f"forwards in a decode group, {handoffs} "
+                             "handoffs")
+
+    def compare(label, got, want):
+        by_expert = {}
+        for rid, r in got.items():
+            if r.expert != want[rid].expert:
+                raise AssertionError(f"{label}: request {rid} on "
+                                     f"{r.expert}, not {want[rid].expert}")
+            by_expert.setdefault(r.expert, []).append(rid)
+        n_div = 0
+        for name, rids in by_expert.items():
+            if all(np.array_equal(got[i].output, want[i].output)
+                   for i in rids):
+                continue
+            params = tree_map(lambda t: t.to(dev), store.get(name))
+            n_div += divergence_check(
+                label, cfg, dev, [(i, params, got[i].tokens, got[i].output,
+                                   want[i].output) for i in rids],
+                DENSE_PREFILL_LOGIT_TOL_REL)
+            del params
+            torch.cuda.empty_cache()
+        return n_div
+
+    n1 = compare("node colocated vs single device", co, serve_out)
+    n2 = compare("node disaggregated vs colocated", dis, co)
+    _log(f"node: streams against the single-device engine's: "
+         f"{len(co)} compared, {n1} parted (each a near tie); "
+         f"disaggregated against colocated: {n2} parted (each a near tie); "
+         f"{int(handoffs)} handoffs of {hbytes / 2 ** 20:.1f} MiB, no "
+         f"prefill forward in the decode group; phase "
+         f"{time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
+def tier_phase(cfg, dev, store, names):
+    """The expert tier at full width: two of the serve phase's experts in a
+    ``MmapFileStore`` (under a temporary directory, removed at the end) and
+    in an ``Int8BlockQuantizedStore``, each behind an engine whose HBM
+    cache holds one expert, so every switch is a load. Streams must equal
+    a host-store drain over the same bytes (the pinned store; the int8
+    store's dequantized trees); then a dirty mutable entry's write-back.
+    Frees the two experts from ``store`` once quantized."""
+    import shutil
+    import tempfile
+
+    from repro_torch.bridge import tree_map
+    from repro_torch.core import (CompositionOfExperts, ExpertHandle,
+                                  HashRouter, HBMWeightCache)
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serving import ServingEngine
+    from repro_torch.store import (HostMemoryStore, Int8BlockQuantizedStore,
+                                   MmapFileStore)
+
+    t = TIER
+    t_phase = time.perf_counter()
+    names = names[:t["experts"]]
+    nbytes = store.nbytes(names[0])
+
+    def drain(st, label):
+        coe = CompositionOfExperts(HashRouter(len(names)), None, nbytes,
+                                   store=st, device=dev)
+        for name in names:
+            coe.register(ExpertHandle(name, cfg))
+        loads = []
+        real = coe.cache._load_job
+
+        def timed(expert_id):
+            ld = real(expert_id)
+            loads.append((expert_id, ld.read_s, ld.h2d_s))
+            return ld
+        coe.cache._load_job = timed
+        eng = ServingEngine(coe, cfg, max_len=t["max_len"],
+                            n_slots=t["n_slots"], block_size=t["block_size"],
+                            device=dev)
+        reqs, _ = make_requests(t["requests"], cfg.vocab_size,
+                                t["prompt_lens"], t["new_tokens"], names,
+                                1.0, t["seed"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        done = eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cs = coe.cache.stats
+        if (len(done) != t["requests"] or eng.pool.stats.blocks_in_use
+                or any(len(r.output) != t["new_tokens"] for r in done)):
+            raise AssertionError(f"tier {label}: drain incomplete or leaked")
+        if cs.misses + cs.prefetch_hits != len(loads) or len(loads) < 2:
+            raise AssertionError(f"tier {label}: {len(loads)} loads, "
+                                 f"{cs.as_dict()}")
+        _log(f"tier {label}: {len(done)} requests in {wall:.3f}s, "
+             f"{cs.misses} misses, {cs.prefetch_hits} consumed prefetches; "
+             + "; ".join(f"{e} store_read {r:.3f}s h2d {h:.3f}s"
+                         for e, r, h in loads))
+        coe.cache.close()
+        del coe, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {r.rid: r.output for r in done}
+
+    def same(label, got, want):
+        bad = [rid for rid in want if not np.array_equal(got[rid], want[rid])]
+        if bad:
+            raise AssertionError(f"tier {label}: streams differ in {bad}")
+
+    # --- mmap: the same bytes on disk, read lazily and eagerly
+    tmp = tempfile.mkdtemp(prefix="expert_tier_")
+    try:
+        t0 = time.perf_counter()
+        mm = MmapFileStore(tmp)
+        for name in names:
+            mm.put(name, store.get(name))
+        put_s = time.perf_counter() - t0
+        _log(f"tier mmap: wrote {mm.total_stored_bytes() / 1e9:.2f} GB in "
+             f"{put_s:.2f}s ({shutil.disk_usage(tmp).free / 1e9:.1f} GB "
+             "left on the disk)")
+        ref = drain(store, "host (pinned)")
+        same("mmap lazy", drain(MmapFileStore(tmp), "mmap lazy"), ref)
+        same("mmap eager", drain(MmapFileStore(tmp, eager=True),
+                                 "mmap eager"), ref)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # --- int8 blocks, quantized on the card, dequantized on the host
+    q = Int8BlockQuantizedStore(t["int8_block"])
+    for name in names:
+        q.put(name, tree_map(lambda x: x.to(dev), store.get(name)))
+        torch.cuda.empty_cache()
+    for name in names:
+        store.delete(name)                  # the pinned copies go
+    gc.collect()
+    deq, dq_s = HostMemoryStore(), []
+    for name in names:
+        t0 = time.perf_counter()
+        tree = q.get(name)
+        dq_s.append(time.perf_counter() - t0)
+        deq.put(name, tree)
+        del tree
+    _log(f"tier int8 (block {t['int8_block']}): stored_bytes / nbytes = "
+         f"{q.stored_bytes(names[0])} / {q.nbytes(names[0])} = "
+         f"{q.stored_bytes(names[0]) / q.nbytes(names[0]):.4f}; dequantization "
+         f"on the host {', '.join(f'{x:.2f}s' for x in dq_s)} an expert")
+    ref8 = drain(deq, "int8 reference (host store of int8_store.get)")
+    del deq
+    gc.collect()
+    same("int8", drain(q, "int8"), ref8)
+    del q
+    gc.collect()
+
+    # --- a dirty mutable entry: evicted, then dropped, written back exactly
+    tmp = tempfile.mkdtemp(prefix="expert_tier_state_")
+    try:
+        gen = torch.Generator(device=dev).manual_seed(t["seed"])
+        ms = MmapFileStore(tmp)
+        for k in ("s0", "s1"):
+            ms.put(k, {"m": torch.randn(t["state_mb"] * 2 ** 18,
+                                        generator=gen, device=dev)})
+        nb = ms.nbytes("s0")
+        cache = HBMWeightCache(nb, ms, dev)
+        x = cache.activate("s0", read_only=False)
+        x["m"].add_(1.0)
+        want = x["m"].cpu()
+        cache.mark_dirty("s0")
+        cache.activate("s1")                 # evicts s0: written back
+        ok1 = (cache.stats.bytes_copied_back == nb
+               and torch.equal(ms.get("s0")["m"], want))
+        y = cache.activate("s0", read_only=False)   # evicts s1: elided
+        y["m"].mul_(2.0)
+        want = y["m"].cpu()
+        cache.mark_dirty("s0")
+        cache.drop("s0")
+        st, led = cache.stats, cache.ledger
+        ok2 = (st.drops == 1 and st.bytes_copied_back == 2 * nb
+               and led.bytes_moved("writeback") == 2 * nb
+               and led.bytes_moved("elided") == nb
+               and torch.equal(ms.get("s0")["m"], want))
+        if not (ok1 and ok2):
+            raise AssertionError(f"tier write-back: {st.as_dict()}, "
+                                 f"{led.as_dict()}")
+        _log(f"tier write-back: a dirty {nb / 2 ** 20:.0f} MiB entry evicted "
+             f"then dropped wrote back {st.bytes_copied_back} bytes "
+             f"(writeback edge {led.bytes_moved('writeback')} B in "
+             f"{led.seconds('writeback'):.3f}s, elided "
+             f"{led.bytes_moved('elided')} B), re-read exactly; phase "
+             f"{time.perf_counter() - t_phase:.1f}s")
+        cache.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def rg_phase(cfg, dev):
     """recurrentgemma-9b at full width and depth behind
     ``CompositionOfExperts.generate``: random bf16 weights from a fixed seed
@@ -2542,6 +3019,7 @@ def main():
     rg_cfg = get_config("recurrentgemma-9b")
     rows = kernel_phase(cfg, dev)
     rows.update(dense_kernel_phase(cfg, dev))
+    rows.update(node_kernel_phase(cfg, dev))
     rows.update(prefill_kernel_phase(cfg, rg_cfg, dev))
     rows.update(monarch_kernel_phase(dev))
     torch.cuda.empty_cache()
@@ -2549,7 +3027,7 @@ def main():
     for name in ("monarch_fused", "monarch_conv_fused"):
         rows[name]["launches"] = launches[name]
     torch.cuda.empty_cache()
-    launches, store, names, round_s = serve_phase(cfg, dev)
+    launches, store, names, round_s, serve_out = serve_phase(cfg, dev)
     for name in PAGED_KERNELS:
         rows[name]["launches"] = launches[name]
     rows[FULL_PAGED_ROW]["launches"] = launches["decode_paged"]
@@ -2577,6 +3055,16 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     generate_phase(cfg, dev, store, names)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = node_phase(cfg, dev, store, names, serve_out)
+    for kernel, row in NODE_ROWS.items():
+        rows[row]["launches"] = launches[kernel]
+    del serve_out
+    store.delete(names[2])               # the tier phase takes two experts
+    gc.collect()
+    torch.cuda.empty_cache()
+    tier_phase(cfg, dev, store, names)
     del store
     gc.collect()
     torch.cuda.empty_cache()

@@ -18,16 +18,21 @@ import torch
 
 
 def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every leaf of a nested-dict tree."""
+    """Apply ``fn`` to every leaf of a tree of nested dicts and lists (a
+    tuple is a leaf: the rglru cache spec's ``(shape, dtype)``)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
 def tree_leaves(tree):
     if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
         out = []
-        for v in tree.values():
+        for v in tree:
             out.extend(tree_leaves(v))
         return out
     return [tree]

@@ -1,7 +1,7 @@
 """Config registry of the port: ``get_config(arch_id)``."""
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig, reduced
+from repro_torch.configs.base import ModelConfig, pad_for_tp, reduced
 from repro_torch.configs.recurrentgemma_9b import CONFIG as _recurrentgemma_9b
 from repro_torch.configs.samba_coe_expert import CONFIG as _samba_coe_expert
 
@@ -17,4 +17,4 @@ def get_config(name: str) -> ModelConfig:
     return CONFIGS[key]
 
 
-__all__ = ["ModelConfig", "reduced", "CONFIGS", "get_config"]
+__all__ = ["ModelConfig", "pad_for_tp", "reduced", "CONFIGS", "get_config"]

@@ -40,6 +40,37 @@ class ModelConfig:
     d_rnn: int = 0
     conv_width: int = 4
 
+    # the dims before ``pad_for_tp`` (0 = never padded)
+    orig_n_heads: int = 0
+    orig_n_kv_heads: int = 0
+    orig_vocab_size: int = 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def pad_for_tp(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """``cfg`` with the dims a ``tp``-way group shards made divisible by
+    ``tp`` (``repro.configs.base.pad_for_tp``'s rule for the ported
+    families): q heads always; kv heads only where there are at least
+    ``tp`` of them (fewer replicate, cheaper than inflating the KV); the
+    vocab. The original dims are recorded in ``orig_*``."""
+    upd = {}
+    if cfg.orig_n_heads == 0:
+        upd["orig_n_heads"] = cfg.n_heads
+        upd["orig_n_kv_heads"] = cfg.n_kv_heads
+        upd["orig_vocab_size"] = cfg.vocab_size
+    if cfg.n_heads % tp:
+        upd["n_heads"] = _round_up(cfg.n_heads, tp)
+    if cfg.n_kv_heads >= tp and cfg.n_kv_heads % tp:
+        upd["n_kv_heads"] = _round_up(cfg.n_kv_heads, tp)
+    if cfg.vocab_size % tp:
+        upd["vocab_size"] = _round_up(cfg.vocab_size, tp)
+    if not upd:
+        return cfg
+    return replace(cfg, **upd)
+
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Tiny same-family config for CPU tests (the dense and rglru branches

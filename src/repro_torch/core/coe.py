@@ -59,12 +59,16 @@ class CompositionOfExperts:
                  kv_reserve_bytes: int = 0,
                  store: Optional[ExpertStore] = None,
                  max_inflight_prefetch: int = 2, device=None,
-                 registry=None, obs_labels=None):
+                 registry=None, obs_labels=None, sharding=None):
         """``kv_reserve_bytes`` carves a slice of the HBM tier out of the
         weight cache for the engine's paged KV pool (``self.hbm_budget``).
+        ``store`` is the capacity tier holding every expert (``store``:
+        host memory by default, mmap files or int8 blocks past it).
         ``device`` defaults to the card and raises where there is none.
         ``registry``/``obs_labels`` publish the weight cache's ``switch.*``
-        and ``ledger.*`` series (a private registry when omitted)."""
+        and ``ledger.*`` series (a private registry when omitted).
+        ``sharding`` is the weight cache's placement callable (see
+        ``core.switching``)."""
         if not 0 <= kv_reserve_bytes < hbm_capacity_bytes:
             raise ValueError(
                 f"kv_reserve_bytes={kv_reserve_bytes} must be in "
@@ -82,7 +86,8 @@ class CompositionOfExperts:
         self.cache = HBMWeightCache(self.hbm_budget.weights_bytes,
                                     store=self.store, device=self.device,
                                     max_inflight=max_inflight_prefetch,
-                                    registry=registry, labels=obs_labels)
+                                    registry=registry, labels=obs_labels,
+                                    sharding=sharding)
 
     def register(self, handle: ExpertHandle):
         if handle.name in self.experts:
@@ -101,9 +106,13 @@ class CompositionOfExperts:
         self._models[handle.name] = get_model(handle.cfg)
 
     def memory_contract(self, name: str) -> Dict[str, int]:
+        """Ahead-of-time footprint (paper: each compiled model states the
+        HBM and DDR space it needs). ``ddr_bytes`` is what the capacity tier
+        actually holds: below ``hbm_bytes`` for the int8 store."""
         h = self.experts[name]
-        return {"hbm_bytes": h.nbytes,
-                "ddr_bytes": self.store.stored_bytes(name)}
+        ddr = (self.store.stored_bytes(name) if self.store.contains(name)
+               else h.nbytes)
+        return {"hbm_bytes": h.nbytes, "ddr_bytes": ddr}
 
     def expert_names(self) -> List[str]:
         return list(self.experts.keys())

@@ -1,6 +1,10 @@
 """Memory tiers and the serving-time HBM split (own copies of
-``repro.core.memory_tiers.MachineTiers``, its ``DGX_H100`` preset,
-``HBMBudget`` and ``plan_hbm_budget``)."""
+``repro.core.memory_tiers.MachineTiers``, its presets and ``MACHINES``
+table, ``HBMBudget`` and ``plan_hbm_budget``).
+
+The presets are the analytic model's published constants (paper Table II
+and the DGX specifications it cites), not measurements of the port; the
+port's node plans against ``DGX_H100``."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -29,7 +33,30 @@ class MachineTiers:
     hbm_efficiency: float = 0.85
 
 
-# published figures of a DGX H100 node, as the JAX package states them
+# --- presets (paper Table II, DGX figures from the paper's §VI-C sources),
+# as the JAX package states them
+SN40L_NODE = MachineTiers(
+    name="sn40l",
+    sram=MemoryTier("sram", int(0.52 * GiB), 400e12),
+    hbm=MemoryTier("hbm", 64 * GiB, 1.8e12),
+    capacity=MemoryTier("ddr", int(1.5 * 1024) * GiB, 200 * GBps),
+    copy_bw_node=1e12,             # >1 TB/s aggregate DDR->HBM (paper §VI-C)
+    sockets_per_node=8,
+    peak_flops_bf16=638e12,
+    hbm_efficiency=0.85,           # paper §VI-B
+)
+
+DGX_A100 = MachineTiers(
+    name="dgx-a100",
+    sram=MemoryTier("sram", int(0.04 * GiB), 200e12),
+    hbm=MemoryTier("hbm", 80 * GiB, 2.0e12),
+    capacity=MemoryTier("host", 2048 * GiB, 200 * GBps),
+    copy_bw_node=32 * GBps,        # host->GPU PCIe (paper: 32 GB/s)
+    sockets_per_node=8,
+    peak_flops_bf16=312e12,
+    hbm_efficiency=0.45,           # paper §VI-B: "rarely exceed 50%"
+)
+
 DGX_H100 = MachineTiers(
     name="dgx-h100",
     sram=MemoryTier("sram", int(0.05 * GiB), 400e12),
@@ -40,6 +67,19 @@ DGX_H100 = MachineTiers(
     peak_flops_bf16=989e12,
     hbm_efficiency=0.5,
 )
+
+TPU_V5E_NODE = MachineTiers(
+    name="tpu-v5e",
+    sram=MemoryTier("vmem", 128 * 1024 ** 2, 400e12),
+    hbm=MemoryTier("hbm", 16 * GiB, 819 * GBps),
+    capacity=MemoryTier("host", 512 * GiB, 200 * GBps),
+    copy_bw_node=8 * 32 * GBps,    # 8 chips/host x PCIe-class DMA
+    sockets_per_node=8,
+    peak_flops_bf16=197e12,
+    hbm_efficiency=0.8,
+)
+
+MACHINES = {m.name: m for m in (SN40L_NODE, DGX_A100, DGX_H100, TPU_V5E_NODE)}
 
 
 @dataclass(frozen=True)

@@ -3,7 +3,9 @@ weights over the capacity tier (counterpart of
 ``repro.core.switching.HBMWeightCache``).
 
   * LRU eviction when the tier's capacity is hit; read-only weights skip any
-    copy-back;
+    copy-back, while an entry activated with ``read_only=False`` and marked
+    dirty (``mark_dirty``) is written back to the store (or the
+    ``writeback=`` callable) when it is evicted or dropped (``drop``);
   * in-flight reservations: a prefetch reserves its expert's bytes up front,
     so concurrent loads can never over-commit the tier;
   * prefetch: the store read and the host-to-device copy run on a background
@@ -12,9 +14,19 @@ weights over the capacity tier (counterpart of
     on it, so decode never reads half-copied weights. On the CPU, prefetch is
     a synchronous copy.
 
+``fetch=`` builds the cache over a bare ``fetch(name) -> host tree``
+callable instead of a store (read-only; it cannot size an expert without
+fetching it, so a prefetch reserves nothing up front). ``sharding=`` is the
+counterpart of JAX's ``NamedSharding`` tree: a placement callable that turns
+the host tree the store returns into the tree the group's runner uses (the
+tensor-parallel runner's ``place_params``: one tree of per-rank shards a
+rank); it runs on the copy stream and does the host-to-device copy itself.
+``gather=`` is its inverse, used only to write back a dirty placed entry.
+
 Counters are a ``SwitchStats`` view over a metrics registry; every tier
 transfer lands in a ``TransferLedger`` on the same registry, and the loads
-record ``store_read`` / ``h2d`` / ``activate`` spans when tracing is on.
+record ``store_read`` / ``h2d`` / ``activate`` / ``writeback`` spans when
+tracing is on.
 """
 from __future__ import annotations
 
@@ -22,7 +34,7 @@ import time
 from collections import OrderedDict
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -37,9 +49,7 @@ from repro_torch.store import ExpertStore
 
 class SwitchStats(StatsView):
     """Switching-cache counters as a view over the metrics registry
-    (``switch.*`` series, JAX's names). ``drops`` and ``bytes_copied_back``
-    stay 0 until dirty write-back and ``drop`` are ported: every entry is
-    read-only weights, whose copy-back is elided."""
+    (``switch.*`` series, JAX's names)."""
 
     PREFIX = "switch"
     DERIVED = ("copy_seconds", "overlap_ratio")
@@ -51,7 +61,7 @@ class SwitchStats(StatsView):
     prefetches_issued = counter_field()
     prefetches_cancelled = counter_field()
     evictions = counter_field()
-    drops = counter_field()
+    drops = counter_field()           # explicit drop() retirements
     bytes_copied_in = counter_field()
     bytes_copied_back = counter_field()
     bytes_copyback_elided = counter_field()
@@ -77,6 +87,14 @@ class SwitchStats(StatsView):
 
 
 @dataclass
+class _Entry:
+    value: Any                        # device tree (placed, with sharding=)
+    nbytes: int
+    read_only: bool
+    dirty: bool = False
+
+
+@dataclass
 class _Loaded:
     value: Any                        # device tree
     nbytes: int
@@ -85,20 +103,69 @@ class _Loaded:
     ready: Optional[torch.cuda.Event]  # recorded on the copy stream
 
 
+class _CallableStore(ExpertStore):
+    """A bare ``fetch(expert_id) -> host tree`` callable as a read-only
+    store (the ``fetch=`` constructor)."""
+
+    cheap_nbytes = False     # sizing requires a full fetch
+
+    def __init__(self, fetch: Callable[[str], Any]):
+        super().__init__()
+        self._fetch = fetch
+
+    def put(self, name, tree):
+        raise NotImplementedError("fetch-callable store is read-only")
+
+    def get(self, name):
+        self._note_read(0)           # size unknown until fetched
+        return self._fetch(name)
+
+    def contains(self, name):
+        return True                  # the callable decides; assume yes
+
+    def delete(self, name):
+        raise NotImplementedError("fetch-callable store is read-only")
+
+    def keys(self):
+        return []
+
+    def nbytes(self, name):
+        return tree_bytes(self.get(name))
+
+
 class HBMWeightCache:
     """LRU cache of expert parameter trees in device memory, backed by an
-    ``ExpertStore`` capacity tier."""
+    ``ExpertStore`` capacity tier (or a ``fetch`` callable). Dirty mutable
+    entries are written back on eviction or ``drop``; read-only entries
+    elide the copy-back (the paper's elision)."""
 
-    def __init__(self, capacity_bytes: int, store: ExpertStore, device,
+    def __init__(self, capacity_bytes: int,
+                 store: Optional[ExpertStore] = None,
+                 device=None,
                  max_inflight: int = 2,
                  registry: Optional[MetricsRegistry] = None,
-                 labels: Optional[Dict[str, Any]] = None):
+                 labels: Optional[Dict[str, Any]] = None, *,
+                 fetch: Optional[Callable[[str], Any]] = None,
+                 writeback: Optional[Callable[[str, Any], None]] = None,
+                 sharding: Optional[Callable[[Any], Any]] = None,
+                 gather: Optional[Callable[[Any], Any]] = None):
+        if (store is None) == (fetch is None):
+            raise ValueError("pass exactly one of store= or fetch=")
+        if device is None:
+            raise ValueError("HBMWeightCache needs a device")
         self.capacity = int(capacity_bytes)
-        self.store = store
+        self.store = store if store is not None else _CallableStore(fetch)
+        if writeback is not None:
+            self.writeback = writeback
+        elif store is not None:
+            self.writeback = store.put
+        else:
+            self.writeback = None
         self.device = torch.device(device)
+        self.sharding = sharding
+        self.gather = gather
         self.max_inflight = max(1, int(max_inflight))
-        self._entries: "OrderedDict[str, Any]" = OrderedDict()
-        self._nbytes: dict = {}
+        self._entries: "OrderedDict[str, _Entry]" = OrderedDict()
         self._inflight: "OrderedDict[str, Future]" = OrderedDict()
         self._reserved: dict = {}
         self._pool: Optional[ThreadPoolExecutor] = None
@@ -133,24 +200,52 @@ class HBMWeightCache:
                 if self._copy_stream is None:
                     self._copy_stream = torch.cuda.Stream(self.device)
                 with torch.cuda.stream(self._copy_stream):
-                    dev = tree_map(
-                        lambda t: t.to(self.device, non_blocking=True), host)
+                    dev = self._put_device(host, non_blocking=True)
                     ready = torch.cuda.Event()
                     ready.record(self._copy_stream)
                 ready.synchronize()
             else:
-                dev = tree_map(lambda t: t.to(self.device), host)
+                dev = self._put_device(host)
         t2 = time.perf_counter()
         return _Loaded(dev, tree_bytes(host), t1 - t0, t2 - t1, ready)
 
-    def _evict_one(self):
-        name, _ = self._entries.popitem(last=False)      # LRU = oldest
-        nb = self._nbytes.pop(name)
-        self._used -= nb
+    def _put_device(self, host, non_blocking: bool = False):
+        if self.sharding is not None:
+            return self.sharding(host)
+        return tree_map(lambda t: t.to(self.device,
+                                       non_blocking=non_blocking), host)
+
+    def _retire(self, name: str, entry: _Entry):
+        """Account one entry leaving HBM (eviction or drop): write dirty
+        mutable state back (device -> host, then the store's ``put`` or the
+        ``writeback`` callable), elide the copy for read-only weights."""
+        self._used -= entry.nbytes
         self._hbm_used_gauge.set(self._used)
+        if entry.dirty and not entry.read_only and self.writeback is not None:
+            t0 = time.perf_counter()
+            with trace.span("writeback", cat="switch", expert=name):
+                value = entry.value
+                if self.sharding is not None:
+                    if self.gather is None:
+                        raise RuntimeError(
+                            f"expert {name}: a dirty placed entry needs "
+                            "gather= to write it back")
+                    value = self.gather(value)
+                self.writeback(name, tree_map(
+                    lambda t: t.detach().to("cpu", copy=True), value))
+            self.stats.bytes_copied_back += entry.nbytes
+            self.ledger.record("writeback", entry.nbytes,
+                               time.perf_counter() - t0, cause="dirty",
+                               expert=name)
+        else:
+            self.stats.bytes_copyback_elided += entry.nbytes
+            self.ledger.record("elided", entry.nbytes, cause="read_only",
+                               expert=name)
+
+    def _evict_one(self):
+        name, entry = self._entries.popitem(last=False)   # LRU = oldest
         self.stats.evictions += 1
-        self.stats.bytes_copyback_elided += nb            # read-only weights
-        self.ledger.record("elided", nb, cause="read_only", expert=name)
+        self._retire(name, entry)
 
     def _budget(self) -> int:
         return self.capacity - sum(self._reserved.values())
@@ -177,7 +272,8 @@ class HBMWeightCache:
         if need:
             self.ledger.release(need)
 
-    def _install(self, expert_id: str, loaded: _Loaded, cause: str):
+    def _install(self, expert_id: str, loaded: _Loaded, cause: str,
+                 read_only: bool):
         self._make_room(loaded.nbytes)
         if loaded.ready is not None:
             # the consumer stream waits for the copy, and the allocator learns
@@ -192,8 +288,8 @@ class HBMWeightCache:
         self.ledger.record("store_read", loaded.nbytes, loaded.read_s,
                            cause=cause, expert=expert_id)
         self.ledger.record("h2d", loaded.nbytes, loaded.h2d_s, cause=cause)
-        self._entries[expert_id] = loaded.value
-        self._nbytes[expert_id] = loaded.nbytes
+        self._entries[expert_id] = _Entry(loaded.value, loaded.nbytes,
+                                          read_only)
         self._used += loaded.nbytes
         self._hbm_used_gauge.set(self._used)
         return loaded.value
@@ -215,9 +311,14 @@ class HBMWeightCache:
     def used_bytes(self) -> int:
         return self._used
 
-    def activate(self, expert_id: str):
+    def inflight(self, expert_id: str) -> bool:
+        return expert_id in self._inflight
+
+    def activate(self, expert_id: str, *, read_only: bool = True):
         """The device tree of an expert. Resident -> no stall; in-flight
         prefetch -> wait for its unfinished tail; miss -> synchronous load.
+        ``read_only=False`` installs a mutable entry, which ``mark_dirty``
+        then marks for write-back.
         A prefetch whose store read or copy raised is counted in
         ``stats.prefetch_failures`` and reloaded inline as a miss. The stall
         lands in ``stats.switch_seconds``, split by cause as JAX splits it
@@ -225,7 +326,7 @@ class HBMWeightCache:
         if expert_id in self._entries:
             self._entries.move_to_end(expert_id)
             self.stats.hits += 1
-            return self._entries[expert_id]
+            return self._entries[expert_id].value
         t0 = time.perf_counter()
         with trace.span("activate", cat="switch", expert=expert_id) as sp:
             fut = self._inflight.pop(expert_id, None)
@@ -253,7 +354,7 @@ class HBMWeightCache:
                 loaded = self._load_job(expert_id)
             cause = "prefetch" if consumed_prefetch else (
                 "failed_prefetch" if failed_wait_s else "miss")
-            value = self._install(expert_id, loaded, cause)
+            value = self._install(expert_id, loaded, cause, read_only)
             dt = time.perf_counter() - t0
             self.stats.switch_seconds += dt
             if consumed_prefetch:
@@ -265,24 +366,28 @@ class HBMWeightCache:
             sp.add(outcome=cause, nbytes=loaded.nbytes)
         return value
 
-    def prefetch(self, expert_id: str) -> bool:
+    def prefetch(self, expert_id: str, *, read_only: bool = True) -> bool:
         """Start loading a predicted-next expert; True if a load started.
         On the card the load runs on the background thread and this call
         never blocks; on the CPU it is a synchronous copy. An expert the store
         cannot size is skipped (False); a load that raises is left in its
-        future for ``activate`` to retry."""
+        future for ``activate`` to retry. ``read_only`` is advisory, as in
+        JAX: the ``activate`` that consumes the load sets the entry's flag.
+        A store that cannot size an expert without reading it
+        (``cheap_nbytes`` False, the ``fetch=`` path) gets no reservation."""
         if expert_id in self._entries or expert_id in self._inflight:
             return False
         while len(self._inflight) >= self.max_inflight:
             self.cancel(next(iter(self._inflight)))   # oldest prediction loses
-        try:
-            need = self.store.nbytes(expert_id)
-        except Exception:
-            return False                        # unknown expert
-        if not self._make_room(need, strict=False):
-            return False
-        self._reserved[expert_id] = need
-        self.ledger.reserve(need)
+        if self.store.cheap_nbytes:
+            try:
+                need = self.store.nbytes(expert_id)
+            except Exception:
+                return False                    # unknown expert
+            if not self._make_room(need, strict=False):
+                return False
+            self._reserved[expert_id] = need
+            self.ledger.reserve(need)
         if self.device.type == "cuda":
             fut = self._executor().submit(self._load_job, expert_id)
         else:
@@ -305,6 +410,22 @@ class HBMWeightCache:
         fut.cancel()
         self.stats.prefetches_cancelled += 1
         return True
+
+    def mark_dirty(self, expert_id: str):
+        self._entries[expert_id].dirty = True
+
+    def drop(self, expert_id: str):
+        """Retire an expert explicitly: cancel any in-flight prefetch and,
+        for a resident entry, write back dirty mutable state before releasing
+        its HBM (the same books as an eviction)."""
+        self.cancel(expert_id)
+        if expert_id in self._entries:
+            entry = self._entries.pop(expert_id)
+            self.stats.drops += 1
+            self._retire(expert_id, entry)
+
+    def expert_ids(self):
+        return list(self._entries.keys())
 
     def close(self):
         """Cancel pending prefetches and stop the background thread."""

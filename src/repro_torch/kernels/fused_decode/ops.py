@@ -438,7 +438,9 @@ def ffn_swiglu(x, norm_scale, w_gate, w_up, w_down, *, residual=True):
                 out.data_ptr() + 2 * b0 * D, ws.data_ptr(),
                 ctypes.addressof(plan), int(bool(residual)), stream)
         rt.check_launch("ffn_swiglu", rc)
-    rt.count_launch("ffn_swiglu")
+    # the partial form is counted on its own: the node's TP body launches it
+    rt.count_launch("ffn_swiglu" if residual else
+                    "ffn_swiglu[residual=False]")
     return out
 
 

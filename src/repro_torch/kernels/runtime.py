@@ -50,7 +50,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, ctypes._CFuncPtr] = {}
-_launches: Dict[str, int] = {name: 0 for name in SOURCES}
+# launch-count names besides the libraries': a form of a kernel counted on
+# its own (the tensor-parallel partial of ffn_swiglu, launched only by the
+# node's fused TP body)
+FORMS = ("ffn_swiglu[residual=False]",)
+_launches: Dict[str, int] = {name: 0 for name in (*SOURCES, *FORMS)}
 
 
 # ---------------------------------------------------------------- launches

@@ -16,7 +16,13 @@ time (the paper's baseline); ``--prefill-mode sequential`` prefills each
 prompt at its own length (``flash_prefill`` on the card).
 ``--prefix-sharing`` turns on copy-on-write prefix sharing and session
 retention; ``--shared-prefix N`` opens every prompt with the same N
-system-prompt tokens, the traffic it dedups. The observability
+system-prompt tokens, the traffic it dedups. ``--store`` picks the capacity
+tier (``host``, ``mmap:DIR``, ``int8[:BLOCK]``). ``--node-shape TPxG`` serves
+through an ``RDUNode`` of G tensor-parallel groups of TP sockets, all
+sharing the one device (``--n-slots`` split over the groups; a group's HBM
+share is ``--hbm-experts`` experts, 0.8 of one carved out for its KV);
+``--prefill-groups N`` gives the first N groups to prefill (disaggregated
+serving). The observability
 plane (``repro_torch.obs``): ``--metrics-port`` serves the registry over
 HTTP (``/metrics``, ``/metrics.json``, ``/readyz``, which answers 503 until
 ``--warmup`` has run, and ``/debug/*``); ``--trace-out`` exports a
@@ -107,17 +113,18 @@ def build_experts(cfg, n_experts: int, seed: int = 0, device=None):
 
 
 def build_coe(cfg, n_experts: int, hbm_experts: float, seed: int = 0,
-              device=None, registry=None):
+              device=None, registry=None, store=None):
     """Composition of ``n_experts`` experts with an HBM tier of
-    ``hbm_experts`` experts' bytes; ``registry`` publishes the weight
-    cache's series. Returns ``(coe, nbytes)``."""
+    ``hbm_experts`` experts' bytes, on ``store`` (pinned host memory when
+    None); ``registry`` publishes the weight cache's series. Returns
+    ``(coe, nbytes)``."""
     from repro_torch.core import CompositionOfExperts, ExpertHandle, HashRouter
 
     experts, nbytes = build_experts(cfg, n_experts, seed, device)
     coe = CompositionOfExperts(
         HashRouter(n_experts), None,
         hbm_capacity_bytes=int(max(1.0, hbm_experts) * nbytes), device=device,
-        registry=registry)
+        registry=registry, store=store)
     for name, tree, domain in experts:
         coe.register(ExpertHandle(name, cfg, tree, domain=domain))
         del tree
@@ -152,15 +159,83 @@ def make_requests(n: int, vocab_size: int, prompt_lens, new_tokens: int,
     return reqs, n_tagged
 
 
+def _serve_node(args, cfg, server, ready):
+    """``--node-shape TPxG``: the same traffic through an ``RDUNode``."""
+    from repro_torch.core import HashRouter
+    from repro_torch.node import (RDUNode, ensure_emulated_sockets,
+                                  make_node_topology)
+    from repro_torch.obs import get_registry
+    from repro_torch.store import make_store
+
+    tp, n_groups = (int(x) for x in args.node_shape.split("x"))
+    topo = make_node_topology(tp, n_groups, devices=ensure_emulated_sockets(
+        tp * n_groups, args.device))
+    experts, nbytes = build_experts(cfg, args.n_experts, args.seed,
+                                    args.device)
+    node = RDUNode(topo, cfg, HashRouter(args.n_experts), None,
+                   group_hbm_bytes=int(max(1.0, args.hbm_experts) * nbytes),
+                   group_kv_reserve_bytes=int(0.8 * nbytes),
+                   store=make_store(args.store),
+                   n_slots=max(1, args.n_slots // n_groups),
+                   block_size=args.block_size, max_len=args.max_len,
+                   scheduler=args.scheduler, prefill_mode=args.prefill_mode,
+                   prefix_sharing=args.prefix_sharing,
+                   prefill_groups=args.prefill_groups,
+                   registry=get_registry())
+    for name, tree, domain in experts:
+        node.register_expert(name, tree, domain=domain)
+        del tree
+    placement = node.plan()
+    wd = _wire_obs(args, server, ready, node.debug_providers(),
+                   node.engines())
+    try:
+        if args.warmup:
+            node.warmup()
+        reqs, n_tagged = make_requests(args.requests, cfg.vocab_size,
+                                       args.prompt_len, args.new_tokens,
+                                       node.expert_names(),
+                                       args.tagged_fraction, args.seed,
+                                       args.shared_prefix)
+        t0 = time.perf_counter()
+        for r in reqs:
+            node.submit(r)
+        done = node.drain()
+        wall = time.perf_counter() - t0
+    finally:
+        if wd is not None:
+            wd.stop()
+    st = node.stats()
+    print(f"[node {topo.name}] served {len(done)} requests in {wall:.2f}s "
+          f"({st.tokens_out} tokens, {st.tokens_per_second(wall):.1f} tok/s);"
+          f" {n_tagged} caller-tagged, {len(done) - n_tagged} router-routed")
+    print(f"route={st.route_s:.3f}s switch_stall={st.switch_stall_s:.3f}s "
+          f"imbalance={st.imbalance:.2f} "
+          f"spilled_experts={len(placement.spilled)}")
+    for g in st.per_group:
+        print(f"  group {g['gid']} (tp={g['tp']}): {g['requests']} req / "
+              f"{g['tokens_out']} tok, occupancy {g['occupancy']:.2f}, "
+              f"{g['switches']} switches, cache h/m "
+              f"{g['cache_hits']}/{g['cache_misses']}")
+    for g in st.prefill_groups:
+        print(f"  prefill group {g['gid']} (tp={g['tp']}): {g['prefilled']} "
+              f"prefilled, cache h/m {g['cache_hits']}/{g['cache_misses']}")
+    leaked = sum(gs.engine.pool.stats.blocks_in_use for gs in node.groups)
+    print(f"kv pools: leaked={leaked}")
+    node.close()
+    return node, done
+
+
 def _serve(args, cfg, server, ready):
     from repro_torch.obs import get_registry
     from repro_torch.serving import ServingEngine
+    from repro_torch.store import make_store
 
     # every engine, pool, cache and ledger series goes to the process
     # default registry: what --metrics-port serves
     reg = get_registry()
     coe, nbytes = build_coe(cfg, args.n_experts, args.hbm_experts, args.seed,
-                            args.device, registry=reg)
+                            args.device, registry=reg,
+                            store=make_store(args.store))
     engine = ServingEngine(coe, cfg, max_len=args.max_len,
                            n_slots=args.n_slots, block_size=args.block_size,
                            scheduler=args.scheduler,
@@ -247,6 +322,17 @@ def main(argv=None):
                     help="open every generated prompt with the same N "
                     "system-prompt tokens (the workload --prefix-sharing "
                     "dedups)")
+    ap.add_argument("--store", default="host", metavar="SPEC",
+                    help="the capacity tier: 'host' (pinned host memory), "
+                    "'mmap:DIR' (a raw file and a manifest an expert) or "
+                    "'int8[:BLOCK]' (int8 absmax blocks, dequantized at "
+                    "each load)")
+    ap.add_argument("--node-shape", default=None, metavar="TPxG",
+                    help="serve through a node of G tensor-parallel groups "
+                    "of TP sockets (e.g. 2x2) sharing the device")
+    ap.add_argument("--prefill-groups", type=int, default=0, metavar="N",
+                    help="with --node-shape: the first N groups prefill "
+                    "only and hand the KV to the decode groups")
     ap.add_argument("--warmup", action="store_true",
                     help="pay the hot path's first launches before traffic "
                     "(flips /readyz from 503 to 200)")
@@ -268,7 +354,7 @@ def main(argv=None):
                     metavar="S", help="watchdog sampling interval")
     args = ap.parse_args(argv)
 
-    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs import get_config, pad_for_tp, reduced
     from repro_torch.obs import get_registry, serve_metrics, trace
 
     install_flight_dump_signal(args.flight_out)
@@ -287,6 +373,9 @@ def main(argv=None):
     if args.reduced:
         cfg = reduced(cfg)
     try:
+        if args.node_shape:
+            cfg = pad_for_tp(cfg, int(args.node_shape.split("x")[0]))
+            return _serve_node(args, cfg, server, ready)
         return _serve(args, cfg, server, ready)
     finally:
         if args.trace_out:

@@ -10,6 +10,7 @@ from repro_torch.serving.frontend import (QuotaExceeded, StreamingFrontend,
                                           TenantQuota, TokenStream)
 from repro_torch.serving.kvcache import PagedKVCache, PagedStats, PrefixIndex
 from repro_torch.serving.prefill import (PackedPrefill, PackedPrefillRunner,
+                                         PrefillHandoff,
                                          bucket_for, default_buckets,
                                          plan_packs)
 from repro_torch.serving.sessions import SessionManager
@@ -22,6 +23,7 @@ __all__ = ["FusedPagedBackend", "PagedBackend", "PagedDecodeRunner",
            "xla_paged_extend", "GreedyDecode", "Request", "ServeStats",
            "ServingEngine", "SpeculativeDecode", "PagedKVCache", "PagedStats",
            "PrefixIndex", "PackedPrefill", "PackedPrefillRunner",
+           "PrefillHandoff",
            "bucket_for", "default_buckets", "plan_packs", "SessionManager",
            "SpecStats", "SpeculativeDecoder", "extend_step",
            "StreamingFrontend", "TenantQuota", "TokenStream",

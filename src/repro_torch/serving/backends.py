@@ -356,6 +356,12 @@ class PagedDecodeRunner:
     def backend_name(self) -> str:
         return self.backend.name
 
+    def packed_prefill_runner(self, buckets, max_segments: int):
+        """The engine's packed-prefill runner for this runner's params."""
+        from repro_torch.serving.prefill import PackedPrefillRunner
+        return PackedPrefillRunner(self.cfg, buckets=buckets,
+                                   max_segments=max_segments)
+
     @torch.inference_mode()
     def prefill_kv(self, params, tokens):
         """tokens (1,S) -> (last logits (V,), k, v each (L,S,Hkv,dh))."""

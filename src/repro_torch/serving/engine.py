@@ -30,7 +30,10 @@ kernels (``FusedPagedBackend``), and the observability plane
 (``repro_torch.obs``) is wired through: registry-backed ``ServeStats``, the
 ``serve.ttft_s`` / ``serve.tpot_s`` histograms, the lifecycle and SLO
 trackers, spans, one async trace lane per request and flight-recorder
-events. Disaggregated prefill handoffs are not ported yet (``ROADMAP.md``).
+events. A request that carries a ``PrefillHandoff`` (its prompt prefilled
+by a disaggregated prefill group, ``node.execution.PrefillWorker``) is
+adopted into a slot without a forward. ``runner_factory`` builds the
+runner instead of ``PagedDecodeRunner`` (the node's tensor-parallel one).
 """
 from __future__ import annotations
 
@@ -53,7 +56,8 @@ from repro_torch.obs.stats import StatsView, counter_field
 from repro_torch.serving.backends import (PagedBackend, PagedDecodeRunner,
                                          make_runner)
 from repro_torch.serving.kvcache import PagedKVCache, PrefixIndex
-from repro_torch.serving.prefill import (PackedPrefillRunner, bucket_for,
+from repro_torch.serving.prefill import (PackedPrefillRunner,
+                                         PrefillHandoff, bucket_for,
                                          default_buckets, plan_packs)
 from repro_torch.serving.sessions import SessionManager
 from repro_torch.serving.speculative import SpecStats
@@ -72,6 +76,9 @@ class Request:
     max_new_tokens: int
     arrival_s: float = field(default_factory=time.perf_counter)
     expert: Optional[str] = None        # routed at submit when None
+    # prefill state computed off-engine (a disaggregated prefill group);
+    # admission adopts it into a slot instead of running a prefill
+    handoff: Optional[PrefillHandoff] = None
     prefill_done_s: Optional[float] = None
     first_token_s: Optional[float] = None
     done_s: Optional[float] = None
@@ -321,7 +328,10 @@ class ServingEngine:
     ``device`` defaults to the card and must be the composition's device.
     Decode runs through the fused kernels unless ``backend`` passes another
     ``PagedBackend`` object (the parity tests pass the reference);
-    ``policy`` is ``GreedyDecode()`` unless given. ``prefix_sharing``
+    ``policy`` is ``GreedyDecode()`` unless given. ``runner_factory(cfg,
+    scratch_row, backend=...)`` builds the runner in place of
+    ``PagedDecodeRunner`` (the node's tensor-parallel runner needs the
+    pool's scratch row). ``prefix_sharing``
     turns on the prefix index and session retention (``session_max_bytes``
     caps the retained pages). ``registry``/``obs_labels`` publish the
     engine's and its pool's series (a private registry when omitted).
@@ -331,6 +341,8 @@ class ServingEngine:
                  max_len: int = 4096, n_slots: int = 8, block_size: int = 16,
                  scheduler: str = "continuous",
                  backend: Optional[PagedBackend] = None,
+                 runner_factory: Optional[Callable[..., PagedDecodeRunner]]
+                 = None,
                  prefill_mode: str = "packed",
                  policy=None,
                  prefix_sharing: bool = False,
@@ -379,15 +391,15 @@ class ServingEngine:
             registry=self._registry, labels=self._obs_labels)
         self._empty_table = np.full((self.max_blocks,),
                                     self.pool.scratch_index, np.int32)
-        self.runner = PagedDecodeRunner(cfg, self.pool.scratch_index,
-                                        backend=backend)
+        factory = runner_factory or PagedDecodeRunner
+        self.runner = factory(cfg, self.pool.scratch_index, backend=backend)
         self._dev_tables = _DeviceTableCache(self.pool, self.max_blocks,
                                              self._empty_table)
         self._active_cache: Optional[Tuple[np.ndarray, torch.Tensor]] = None
         self.prefill_mode = prefill_mode
         self.prefill_runner: Optional[PackedPrefillRunner] = (
-            PackedPrefillRunner(cfg, buckets=default_buckets(max_len),
-                                max_segments=n_slots)
+            self.runner.packed_prefill_runner(default_buckets(max_len),
+                                              n_slots)
             if prefill_mode == "packed" else None)
         # prefix sharing and session retention: both hold pool blocks
         # speculatively and give them back through the reclaimer protocol;
@@ -636,8 +648,10 @@ class ServingEngine:
                 if (self._planned_blocks(r) > self._avail_blocks()
                         and (admitted or self._any_active())):
                     break
-                m = self._match_prefix(r)
-                if m is not None:
+                m = self._match_prefix(r)      # None for a handoff
+                if r.handoff is not None:
+                    self._adopt_into_slot(free.pop(0), r, done)
+                elif m is not None:
                     self._prefill_suffix([(r, m[0], m[1])],
                                          self._activate_for(r), free, done)
                 else:
@@ -711,15 +725,19 @@ class ServingEngine:
 
     def _admit_packed(self, reqs: List[Request], free: List[int],
                       done: List[Request]):
-        """Group this step's admits by expert (selection order kept) and run
-        one packed prefill per bucket-capacity chunk."""
+        """Adopt handed-off prefills first (no forward), then group the rest
+        of this step's admits by expert (selection order kept) and run one
+        packed prefill per bucket-capacity chunk."""
         now = time.perf_counter()
         for r in reqs:
             if r.admit_s is None:
                 r.admit_s = now
         groups: Dict[str, List[Request]] = {}
         for r in reqs:
-            groups.setdefault(r.expert, []).append(r)
+            if r.handoff is not None:
+                self._adopt_into_slot(free.pop(0), r, done)
+            else:
+                groups.setdefault(r.expert, []).append(r)
         foreign = False
         pr = self.prefill_runner
         for expert, rs in groups.items():
@@ -790,7 +808,7 @@ class ServingEngine:
         retained pages first (the whole previous conversation), then the
         cross-request prefix index. Returns PINNED ``(blocks, n_tokens)``
         (``_prefill_suffix`` adopts, then unpins) or ``None``."""
-        if not self.prefix_sharing:
+        if not self.prefix_sharing or req.handoff is not None:
             return None
         if len(req.tokens) < 2:
             return None      # nothing shareable: >= 1 suffix token must run
@@ -861,6 +879,33 @@ class ServingEngine:
             self.stats.prefix_hit_tokens += n
             self._slot_ready(free.pop(0), req, int(nxt[i, si - 1]),
                              params, done)
+
+    def _adopt_into_slot(self, slot_idx: int, req: Request,
+                         done: List[Request]):
+        """Seat a request whose prompt a disaggregated prefill group already
+        ran: append the handed-off K/V into this engine's pool and reserve
+        its output budget. No forward runs and no expert is activated: the
+        handoff carries the first token."""
+        trace.instant("admit", cat="engine", request_id=req.rid,
+                      expert=req.expert, slot=slot_idx, handoff=1)
+        h = req.handoff
+        t0 = time.perf_counter()
+        if req.admit_s is None:
+            req.admit_s = t0
+        flightrec.record("handoff", rid=req.rid, expert=req.expert,
+                         slot=slot_idx, kv_bytes=h.nbytes(),
+                         **self._obs_labels)
+        with trace.span("adopt_handoff", cat="engine", request_id=req.rid,
+                        expert=req.expert, prompt_tokens=len(req.tokens),
+                        kv_bytes=h.nbytes()):
+            self.pool.open(req.rid)
+            self.pool.append(req.rid, h.k.to(self.device),
+                             h.v.to(self.device))
+            self.pool.reserve(req.rid,
+                              req.max_new_tokens + self.policy.reserve_slack)
+        self.stats.prefill_s += time.perf_counter() - t0
+        req.handoff = None                   # the blocks landed: drop the copy
+        self._slot_ready(slot_idx, req, h.first_token, None, done)
 
     def _slot_ready(self, slot_idx: int, req: Request, first: int, params,
                     done: List[Request]):

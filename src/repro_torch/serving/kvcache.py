@@ -58,7 +58,15 @@ def _itemsize(dtype: torch.dtype) -> int:
 
 
 class PagedKVCache:
-    """Block-paged K/V pool. Layout: (L, rows, block, kv_heads, head_dim)."""
+    """Block-paged K/V pool. Layout: (L, rows, block, kv_heads, head_dim).
+
+    ``shard_heads(n)`` stores the pool head-sharded for a tensor-parallel
+    group of ``n`` ranks: physically ``(n, L, rows, block, kv_heads / n,
+    head_dim)``, rank-major, so each rank's pool (``head_shard(k, r)``) is
+    one contiguous array, as each socket holds its own KV shard. ``k`` and
+    ``v`` are then the 6-D views ``(L, rows, block, n, kv_heads / n,
+    head_dim)`` of that storage; every method here takes and returns K/V in
+    the 5-D layout either way."""
 
     def __init__(self, n_blocks: int, block_size: int, n_layers: int,
                  kv_heads: int, head_dim: int, dtype=torch.bfloat16,
@@ -70,6 +78,9 @@ class PagedKVCache:
         ``kv.*`` counters (a private registry when omitted)."""
         self.n_blocks = n_blocks
         self.block = block_size
+        self.kv_heads = kv_heads
+        self.head_dim = head_dim
+        self.head_shards = 1
         rows = n_blocks + (1 if scratch else 0)
         self.k = torch.zeros((n_layers, rows, block_size, kv_heads, head_dim),
                              dtype=dtype, device=resolve_device(device))
@@ -120,8 +131,33 @@ class PagedKVCache:
         return len(self._free)
 
     def _per_block_bytes(self) -> int:
-        L, _, blk, H, dh = self.k.shape
-        return self.block_bytes(blk, L, H, dh, self.k.dtype)
+        return self.block_bytes(self.block, self.k.shape[0], self.kv_heads,
+                                self.head_dim, self.k.dtype)
+
+    def shard_heads(self, n: int) -> None:
+        """Store the (still empty) pool head-sharded over ``n`` ranks (see
+        the class docstring); ``n`` must divide the kv heads."""
+        if self._tables:
+            raise RuntimeError("shard_heads: the pool holds requests")
+        if self.kv_heads % n:
+            raise ValueError(f"{n} ranks do not divide {self.kv_heads} kv "
+                             "heads")
+        L, rows = self.k.shape[:2]
+        shape = (n, L, rows, self.block, self.kv_heads // n, self.head_dim)
+        dev, dt = self.k.device, self.k.dtype
+        self.k = self.v = None
+        self.k = torch.zeros(shape, dtype=dt, device=dev).permute(
+            1, 2, 3, 0, 4, 5)
+        self.v = torch.zeros(shape, dtype=dt, device=dev).permute(
+            1, 2, 3, 0, 4, 5)
+        self.head_shards = n
+
+    def write(self, rows, offs, k_new, v_new) -> None:
+        """Land K/V (L, n, kv_heads, head_dim) at pool ``rows`` / ``offs``
+        (each (n,), on the pool's device), in place."""
+        shape = tuple(k_new.shape[:2]) + tuple(self.k.shape[3:])
+        self.k[:, rows, offs] = k_new.reshape(shape).to(self.k.dtype)
+        self.v[:, rows, offs] = v_new.reshape(shape).to(self.v.dtype)
 
     def capacity_bytes(self) -> int:
         """Bytes of the allocatable blocks (scratch row excluded)."""
@@ -337,10 +373,8 @@ class PagedKVCache:
         toks = np.arange(start, start + n)
         blks = np.asarray(self._tables[rid], np.int64)[toks // self.block]
         offs = toks % self.block
-        idx = (torch.as_tensor(blks, device=self.k.device),
-               torch.as_tensor(offs, device=self.k.device))
-        self.k[:, idx[0], idx[1]] = k_new.to(self.k.dtype)
-        self.v[:, idx[0], idx[1]] = v_new.to(self.v.dtype)
+        self.write(torch.as_tensor(blks, device=self.k.device),
+                   torch.as_tensor(offs, device=self.k.device), k_new, v_new)
         self._lengths[rid] = start + n
         self.length_version += 1
 
@@ -348,9 +382,9 @@ class PagedKVCache:
         """Contiguous (L, len, kv_heads, head_dim) copies for attention."""
         tbl = torch.as_tensor(self._tables[rid], dtype=torch.long,
                               device=self.k.device)
-        L = self.k.shape[0]
-        k = self.k[:, tbl].reshape(L, -1, *self.k.shape[3:])
-        v = self.v[:, tbl].reshape(L, -1, *self.v.shape[3:])
+        shape = (self.k.shape[0], -1, self.kv_heads, self.head_dim)
+        k = self.k[:, tbl].reshape(shape)
+        v = self.v[:, tbl].reshape(shape)
         n = self._lengths[rid]
         return k[:, :n], v[:, :n]
 
@@ -364,6 +398,12 @@ class PagedKVCache:
         self.length_version += 1
         for blk in tbl:
             self._decref(blk)
+
+
+def head_shard(pool_tensor, r: int):
+    """Rank ``r``'s contiguous ``(L, rows, block, kv_heads / n, head_dim)``
+    pool of a head-sharded pool's ``k`` or ``v`` (``shard_heads``)."""
+    return pool_tensor.permute(3, 0, 1, 2, 4, 5)[r]
 
 
 # ----------------------------------------------------------------------

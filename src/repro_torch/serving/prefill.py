@@ -18,6 +18,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.bridge import tree_leaves
 from repro_torch.configs.base import ModelConfig
 
 
@@ -139,12 +140,35 @@ class PackedPrefill:
     bucket: int
 
 
+@dataclass
+class PrefillHandoff:
+    """Prefill state computed off-engine (a disaggregated prefill group) and
+    attached to a ``Request`` before it reaches a decode engine: the first
+    sampled token and the prompt's K/V, gathered contiguous from the
+    prefill group's paged pool. The decode engine adopts it into a slot
+    (``append`` + ``reserve``) instead of running its own prefill."""
+    first_token: int
+    k: torch.Tensor                      # (L, S, Hkv, dh)
+    v: torch.Tensor                      # (L, S, Hkv, dh)
+
+    def nbytes(self) -> int:
+        return (self.k.numel() * self.k.element_size()
+                + self.v.numel() * self.v.element_size())
+
+
+def params_device(params) -> torch.device:
+    """The device a parameter tree lies on (its first leaf's)."""
+    return tree_leaves(params)[0].device
+
+
 class PackedPrefillRunner:
     """Bucketed packed prefill for one backbone config, shared by every
-    expert of the composition."""
+    expert of the composition. ``forward`` replaces the single-device
+    packed forward (``packed_prefill_fn``) with one of the same signature:
+    the tensor-parallel group's (``node.execution``)."""
 
     def __init__(self, cfg: ModelConfig, *, buckets: Sequence[int],
-                 max_segments: int = 8):
+                 max_segments: int = 8, forward=None):
         if cfg.family != "dense":
             raise ValueError("packed prefill supports the dense family only")
         if cfg.sliding_window:
@@ -156,7 +180,7 @@ class PackedPrefillRunner:
         self.cfg = cfg
         self.buckets = tuple(int(b) for b in buckets)
         self.max_segments = int(max_segments)
-        self._fn = packed_prefill_fn(cfg)
+        self._fn = forward if forward is not None else packed_prefill_fn(cfg)
 
     def pack(self, prompts: Sequence[np.ndarray]):
         """Packed host arrays for one call: tokens, segment ids (pad =
@@ -191,7 +215,7 @@ class PackedPrefillRunner:
     def __call__(self, params, prompts: Sequence[np.ndarray]) -> PackedPrefill:
         """Run one packed prefill over ``prompts`` (1-D int token arrays)."""
         toks, seg, pos, last, spans, bucket = self.pack(prompts)
-        dev = params["embed"]["tok"].device
+        dev = params_device(params)
         logits, k, v = self._fn(params, *(torch.as_tensor(a, device=dev)
                                           for a in (toks, seg, pos, last)))
         return PackedPrefill(logits=logits, k=k, v=v, spans=spans,
@@ -203,7 +227,7 @@ class PackedPrefillRunner:
         into the pool's scratch block (block 0 without one): the first
         launches of each bucket shape are paid here, not by a request."""
         scratch = pool.scratch_index if pool.scratch_index is not None else 0
-        dev = params["embed"]["tok"].device
+        dev = params_device(params)
         for b in self.buckets:
             toks = np.zeros((1, b), np.int64)
             seg = np.full((1, b), self.max_segments, np.int64)
@@ -242,7 +266,5 @@ class PackedPrefillRunner:
         are (bucket,) — the pool row/offset of every packed position; pad
         positions must point at the scratch block. Pad positions that share
         the scratch block overwrite each other there; nothing reads them."""
-        r = torch.as_tensor(rows, device=pool.k.device)
-        o = torch.as_tensor(offs, device=pool.k.device)
-        pool.k[:, r, o] = res.k.to(pool.k.dtype)
-        pool.v[:, r, o] = res.v.to(pool.v.dtype)
+        pool.write(torch.as_tensor(rows, device=pool.k.device),
+                   torch.as_tensor(offs, device=pool.k.device), res.k, res.v)

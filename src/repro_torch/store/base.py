@@ -1,21 +1,32 @@
 """Capacity-tier expert store (counterpart of ``repro.store.base``).
 
-The paper's third tier holds every expert of the composition; the HBM tier
-(``core.switching.HBMWeightCache``) caches the active few. ``put`` persists
-one expert's tree of tensors, ``get`` reads it back, ``nbytes`` is its size
-as loaded into device memory.
+The paper's third tier (a terabyte-class DDR per socket, §III-B, §V-B) holds
+every expert of the composition; the HBM tier
+(``core.switching.HBMWeightCache``) caches the active few. The contract the
+cache and the composition program against:
 
-``HostMemoryStore`` keeps the trees in page-locked (pinned) host memory
-whenever a card is present, so the host-to-device copy of a prefetch runs
-asynchronously on a side stream. The mmap and int8 stores are not ported yet
-(``ROADMAP.md``).
+  * ``put(name, tree)``    — persist one expert's tree of tensors;
+  * ``get(name)``          — read it back as a tree of CPU tensors;
+  * ``nbytes(name)``       — bytes as loaded into device memory (the cache's
+    accounting unit: the dequantized size for the int8 store);
+  * ``stored_bytes(name)`` — bytes the store occupies on the capacity tier
+    (below ``nbytes`` for the int8 store: the paper's lever of hosting more
+    experts than the tier naively fits).
+
+Backends: ``HostMemoryStore`` (here: host memory, page-locked when a card is
+present, so a prefetch's host-to-device copy runs asynchronously),
+``store.disk.MmapFileStore`` (one raw file and a JSON manifest per expert,
+JAX's on-disk format, memory-mapped reads) and
+``store.quantized.Int8BlockQuantizedStore`` (int8 absmax blocks, dequantized
+on the host at ``get``). ``get`` is safe to call from the prefetch thread;
+``put`` and ``delete`` run on the caller's thread.
 """
 from __future__ import annotations
 
 import abc
 import threading
 from dataclasses import asdict, dataclass
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
 
@@ -33,8 +44,17 @@ class StoreStats:
         return asdict(self)
 
 
+def host_tree_bytes(tree) -> int:
+    """Logical bytes of a tree of tensors."""
+    return tree_bytes(tree)
+
+
 class ExpertStore(abc.ABC):
     """One expert-per-key store over trees of host tensors."""
+
+    # True when nbytes() answers from metadata without reading the tree: the
+    # cache pre-reserves HBM for a prefetch only from such stores
+    cheap_nbytes = True
 
     def __init__(self):
         self.stats = StoreStats()
@@ -60,11 +80,28 @@ class ExpertStore(abc.ABC):
     def contains(self, name: str) -> bool: ...
 
     @abc.abstractmethod
-    def nbytes(self, name: str) -> int: ...
+    def delete(self, name: str) -> None: ...
+
+    @abc.abstractmethod
+    def keys(self) -> List[str]: ...
+
+    @abc.abstractmethod
+    def nbytes(self, name: str) -> int:
+        """Bytes of the tree as ``get`` returns it (device-side size)."""
 
     def stored_bytes(self, name: str) -> int:
         """Bytes occupied on the capacity tier; defaults to ``nbytes``."""
         return self.nbytes(name)
+
+    # -- conveniences shared by every backend ---------------------------
+    def total_stored_bytes(self) -> int:
+        return sum(self.stored_bytes(n) for n in self.keys())
+
+    def __contains__(self, name: str) -> bool:
+        return self.contains(name)
+
+    def __len__(self) -> int:
+        return len(self.keys())
 
 
 def _host_copy(t: torch.Tensor) -> torch.Tensor:
@@ -97,6 +134,13 @@ class HostMemoryStore(ExpertStore):
 
     def contains(self, name):
         return name in self._trees
+
+    def delete(self, name):
+        del self._trees[name]
+        del self._nbytes[name]
+
+    def keys(self):
+        return list(self._trees.keys())
 
     def nbytes(self, name):
         return self._nbytes[name]
