@@ -23,7 +23,12 @@
    ``flash_prefill`` at the expert's prefill (8 x 2048 tokens, 32 heads,
    dh 128, causal), at the sequential prefill's (B 1, S 64 / 160 / 256) and
    at RecurrentGemma-9B's (4 x 3000 tokens, 16 q heads on 1 kv head, dh
-   256, window 2048), ``lru_scan`` at (4, 3000, 4096) f32.
+   256, window 2048), ``lru_scan`` at (4, 3000, 4096) f32; then the dense
+   variants' shapes: granite-8b's three paged kernels (32 q on 8 kv heads,
+   F 14336), ``qkv_rope_paged`` rotating half of each head at chatglm3-6b's
+   widths (two faults planted in its plain version: RoPE dropped, the whole
+   head rotated) and ``flash_prefill`` at 8 x 2048 tokens, dh 128, at G 5,
+   12 and 16.
    Each kernel against its plain PyTorch version on the same inputs, timed
    with CUDA events (the 50 MB L2 flushed before every launch), beside the
    plain version and one PyTorch library call computing the same function
@@ -128,6 +133,19 @@
    Then a dirty 64 MiB mutable entry evicted, reactivated and dropped must
    write back its exact bytes (``bytes_copied_back``, the ``writeback``
    ledger edge).
+6d. Variants phase, after the experts' store is released, one config at
+   a time, each released before the next: granite-8b at full width and
+   depth (36 layers, 16.5 GB bf16) as one expert behind the default
+   (fused) engine, the serve phase's 16 requests: each paged kernel once
+   per layer per decode round, one step's logits against the plain body in
+   f32 (``GRANITE_LOGIT_TOL_REL``) with four faults planted in one layer,
+   the step's device time by kernel; then chatglm3-6b, starcoder2-3b,
+   qwen2-vl-2b (all layers) and qwen2.5-32b (8 of its 64 layers, full
+   width), which the kernels refuse, behind an engine that names the plain
+   body (``XlaPagedBackend``) with sequential prefill: 8 requests of
+   64-256 prompt and 16 new tokens, ``flash_prefill`` once per layer a
+   prompt at each config's G, and one prompt's prefill logits against the
+   plain forward in f32 (``VARIANT_PREFILL_LOGIT_TOL_REL``).
 7. RecurrentGemma phase, after the experts' store is released:
    recurrentgemma-9b at full width and depth (38 layers, 10.4 G parameters,
    bf16) as the one expert of a ``CompositionOfExperts(HashRouter(1))`` on
@@ -290,6 +308,49 @@ TIER = dict(experts=2, requests=8, prompt_lens=(64, 256), new_tokens=32,
 # flash_prefill at the sequential prefill's shape (B 1, the expert's heads)
 B1_PREFILL_LENGTHS = (64, 160, 256)
 B1_PREFILL_ROW = "flash_prefill[B=1,S=256]"
+# The dense variants, one expert each, after the expert tier: granite-8b on
+# the fused kernels (the serve phase's 16 requests), the four the kernels
+# refuse on the plain paged body with sequential prefill (flash_prefill on
+# every prompt): 8 requests of 64-256 prompt and 16 new tokens.
+VARIANTS = dict(requests=8, prompt_lens=(64, 256), new_tokens=16, n_slots=8,
+                block_size=16, max_len=512, seed=17)
+# the plain-body configs and the layers each runs (None: all of them):
+# qwen2.5-32b is 65.5 GB of bf16 weights whole; 8 of its 64 layers, at full
+# width, keep the pinned host copy, the card's cache and the phase's time
+# in bounds
+PLAIN_VARIANTS = {"chatglm3-6b": None, "starcoder2-3b": None,
+                  "qwen2-vl-2b": None, "qwen2.5-32b": 8}
+# granite-8b's fused decode step against the plain body in f32, set as the
+# serve phase's limit was: the first H100 run read 0.0987 max-abs (1.75 %
+# relative L2) at a largest logit of 5.747, i.e. 1.72 % of it; the limit
+# is 1.25x that. Faults planted in one of the 36 layers read 2.3-3.6 % of
+# it (a skipped FFN 36 %), just above.
+GRANITE_LOGIT_TOL_REL = 0.0215
+# each plain-body variant's prefill (flash_prefill and the bf16 plain
+# body) last-token logits against the plain forward in f32: 1.25x what the
+# first H100 run read, of the largest logit (a 175-token prompt): 3.48 %,
+# 0.96 %, 1.48 % and 1.98 % (8 layers). The tied heads' logits are large
+# (|logits|max 350-400): the token table is drawn at unit scale.
+VARIANT_PREFILL_LOGIT_TOL_REL = {"chatglm3-6b": 0.0435,
+                                 "starcoder2-3b": 0.0120,
+                                 "qwen2-vl-2b": 0.0185, "qwen2.5-32b": 0.0248}
+# the kernel-table rows at the variants' shapes: granite-8b's paged step;
+# qkv_rope_paged rotating half of each head at chatglm3-6b's widths (its
+# biases aside; its launches are those of the partial rotation's own count,
+# which no served path makes); flash_prefill at each plain-body variant's
+# GQA group at the sequential prefill's shapes (B 1, S 64 / 160 / 256), the
+# table keeping S 256, and at the dense phase's 8 x 2048 tokens (a check at
+# length, logged but no row of the table: no path runs that shape)
+GRANITE_ROWS = {"decode_paged": "decode_paged[granite-8b,G=4]",
+                "qkv_rope_paged": "qkv_rope_paged[granite-8b,heads=32/8]",
+                "oproj_ffn_swiglu": "oproj_ffn_swiglu[granite-8b,F=14336]"}
+ROPE_FRAC_ROW = "qkv_rope_paged[chatglm3-6b,rope_frac=0.5]"
+PARTIAL_ROPE = "qkv_rope_paged[partial_rope]"    # its launch-count name
+VARIANT_PREFILL_ROWS = {
+    "qwen2.5-32b": "flash_prefill[qwen2.5-32b,G=5,B=1,S=256]",
+    "qwen2-vl-2b": "flash_prefill[qwen2-vl-2b,G=6,B=1,S=256]",
+    "starcoder2-3b": "flash_prefill[starcoder2-3b,G=12,B=1,S=256]",
+    "chatglm3-6b": "flash_prefill[chatglm3-6b,G=16,B=1,S=256]"}
 
 
 def _log(msg):
@@ -664,97 +725,158 @@ def split_faults_caught(name, got, q, kp, vp, tables, len1):
                                  f"fault ({fault})")
 
 
-def kernel_phase(cfg, dev, B=8):
-    """Each kernel against its plain version at the config's widths."""
-    import torch.nn.functional as Fn
-
-    from repro_torch.kernels.flash_attention.ops import decode_paged
-    from repro_torch.kernels.flash_attention.ref import decode_paged_ref
-    from repro_torch.kernels.fused_decode.ops import (oproj_ffn_swiglu,
-                                                      qkv_rope_paged)
-    from repro_torch.kernels.fused_decode.ref import (oproj_ffn_swiglu_ref,
-                                                      qkv_rope_paged_ref,
-                                                      rope_inv_freq)
-    from repro_torch.serving.backends import kernel_flops, kernel_hbm_bytes
-
+def paged_inputs(cfg, dev, B=8, seed=1):
+    """The paged kernels' inputs at ``cfg``'s widths, bf16: B lanes at
+    ragged positions 1..512 straddling blocks, one inactive lane (its table
+    all scratch), weights scaled by 1 / sqrt(fan-in)."""
+    from types import SimpleNamespace
     bf = torch.bfloat16
     D, Hq, Hkv, dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                          cfg.head_dim, cfg.d_ff)
     block, maxb = SERVE["block_size"], SERVE["max_len"] // SERVE["block_size"]
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
 
     rows = B * maxb + 1
-    x = rnd(B, D)
-    q = rnd(B, Hq, dh)
-    kp, vp = rnd(rows, block, Hkv, dh), rnd(rows, block, Hkv, dh)
-    perm = torch.randperm(rows - 1, generator=gen, device=dev)
-    tables = perm[:B * maxb].reshape(B, maxb).to(torch.int32)
-    tables[3] = rows - 1                               # inactive lane
-    len1_host = [1, 15, 16, 1, 17, 255, 300, 512]
-    len1 = torch.tensor(len1_host, dtype=torch.int32, device=dev)
-    pos = len1 - 1
-    scale = (1.0 + 0.1 * rnd(D).float()).to(bf)
-    wq, wk, wv = (rnd(D, Hq, dh, scale=D ** -0.5), rnd(D, Hkv, dh, scale=D ** -0.5),
-                  rnd(D, Hkv, dh, scale=D ** -0.5))
-    attn = rnd(B, Hq * dh)
-    wo = rnd(Hq * dh, D, scale=(Hq * dh) ** -0.5)
-    wg, wu = rnd(D, F, scale=D ** -0.5), rnd(D, F, scale=D ** -0.5)
-    wd = rnd(F, D, scale=F ** -0.5)
-    inv = torch.as_tensor(rope_inv_freq(dh, cfg.rope_theta), device=dev)
-    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    t = SimpleNamespace(B=B, block=block, maxb=maxb, x=rnd(B, D),
+                        q=rnd(B, Hq, dh), kp=rnd(rows, block, Hkv, dh),
+                        vp=rnd(rows, block, Hkv, dh))
+    t.perm = torch.randperm(rows - 1, generator=gen, device=dev)
+    t.tables = t.perm[:B * maxb].reshape(B, maxb).to(torch.int32)
+    t.tables[3] = rows - 1                               # inactive lane
+    t.len1_host = [1, 15, 16, 1, 17, 255, 300, 512]
+    t.len1 = torch.tensor(t.len1_host, dtype=torch.int32, device=dev)
+    t.pos = t.len1 - 1
+    t.scale = (1.0 + 0.1 * rnd(D).float()).to(bf)
+    t.wq, t.wk, t.wv = (rnd(D, Hq, dh, scale=D ** -0.5),
+                        rnd(D, Hkv, dh, scale=D ** -0.5),
+                        rnd(D, Hkv, dh, scale=D ** -0.5))
+    t.attn = rnd(B, Hq * dh)
+    t.wo = rnd(Hq * dh, D, scale=(Hq * dh) ** -0.5)
+    t.wg, t.wu = rnd(D, F, scale=D ** -0.5), rnd(D, F, scale=D ** -0.5)
+    t.wd = rnd(F, D, scale=F ** -0.5)
+    return t
 
-    def lib_decode(tables, len1):
-        S = maxb * block
-        kc = kp[tables.long()].reshape(B, S, Hkv, dh).transpose(1, 2)
-        vc = vp[tables.long()].reshape(B, S, Hkv, dh).transpose(1, 2)
-        mask = (torch.arange(S, device=dev)[None, :] < len1[:, None])
-        return Fn.scaled_dot_product_attention(
-            q[:, :, None], kc, vc, attn_mask=mask[:, None, None, :],
-            enable_gqa=Hq != Hkv)
+
+def paged_cases(cfg, t, rope_frac=1.0):
+    """``{kernel: (kernel call, plain version, library call)}`` of the
+    paged step's kernels (and the TP body's ``ffn_swiglu(residual=False)``)
+    on ``paged_inputs``' ``t``, ``qkv_rope_paged`` rotating ``rope_frac``
+    of a head."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.flash_attention.ops import decode_paged
+    from repro_torch.kernels.flash_attention.ref import decode_paged_ref
+    from repro_torch.kernels.fused_decode.ops import (ffn_swiglu,
+                                                      oproj_ffn_swiglu,
+                                                      qkv_rope_paged)
+    from repro_torch.kernels.fused_decode.ref import (ffn_swiglu_ref,
+                                                      oproj_ffn_swiglu_ref,
+                                                      qkv_rope_paged_ref,
+                                                      rope_inv_freq)
+    bf = torch.bfloat16
+    B, D, Hq, Hkv, dh = (t.B, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.head_dim)
+    inv = torch.as_tensor(rope_inv_freq(dh, cfg.rope_theta, rope_frac),
+                          device=t.x.device)
+    qkv = (t.x, t.scale, t.wq, t.wk, t.wv)
+    ffn = (t.x, t.scale, t.wg, t.wu, t.wd)
+    epi = (t.x, t.attn, t.wo, t.scale, t.wg, t.wu, t.wd)
 
     def lib_qkv():
-        xn = (Fn.rms_norm(x.float(), (D,), eps=1e-6) * scale.float()).to(bf)
-        return [torch.matmul(xn, w.reshape(D, -1)) for w in (wq, wk, wv)]
+        xn = (Fn.rms_norm(t.x.float(), (D,), eps=1e-6)
+              * t.scale.float()).to(bf)
+        return [torch.matmul(xn, w.reshape(D, -1)) for w in qkv[2:]]
 
     def lib_epilogue():
-        y = x + attn @ wo
-        yn = Fn.rms_norm(y, (D,), weight=scale, eps=1e-6)
-        return y + (Fn.silu(yn @ wg) * (yn @ wu)) @ wd
+        y = t.x + t.attn @ t.wo
+        yn = Fn.rms_norm(y, (D,), weight=t.scale, eps=1e-6)
+        return y + (Fn.silu(yn @ t.wg) * (yn @ t.wu)) @ t.wd
 
-    cases = {
-        "decode_paged": (lambda: decode_paged(q, kp, vp, tables, len1),
-                         lambda: decode_paged_ref(q, kp, vp, tables, len1),
-                         lambda: lib_decode(tables, len1)),
-        "qkv_rope_paged": (lambda: qkv_rope_paged(x, scale, wq, wk, wv, pos,
-                                                  theta=cfg.rope_theta),
-                           lambda: qkv_rope_paged_ref(x, scale, wq, wk, wv,
-                                                      pos, inv),
-                           lib_qkv),
-        "oproj_ffn_swiglu": (lambda: oproj_ffn_swiglu(x, attn, wo, scale, wg,
-                                                      wu, wd),
-                             lambda: oproj_ffn_swiglu_ref(x, attn, wo, scale,
-                                                          wg, wu, wd),
+    def lib_ffn():
+        xn = Fn.rms_norm(t.x, (D,), weight=t.scale, eps=1e-6)
+        return (Fn.silu(xn @ t.wg) * (xn @ t.wu)) @ t.wd
+
+    return {
+        "decode_paged": (
+            lambda: decode_paged(t.q, t.kp, t.vp, t.tables, t.len1),
+            lambda: decode_paged_ref(t.q, t.kp, t.vp, t.tables, t.len1),
+            lambda: lib_decode_paged(t, t.tables, t.len1)),
+        "qkv_rope_paged": (
+            lambda: qkv_rope_paged(*qkv, t.pos, theta=cfg.rope_theta,
+                                   rope_frac=rope_frac),
+            lambda: qkv_rope_paged_ref(*qkv, t.pos, inv), lib_qkv),
+        "oproj_ffn_swiglu": (lambda: oproj_ffn_swiglu(*epi),
+                             lambda: oproj_ffn_swiglu_ref(*epi),
                              lib_epilogue),
+        "ffn_swiglu[residual=False]": (
+            lambda: ffn_swiglu(*ffn, residual=False),
+            lambda: ffn_swiglu_ref(*ffn, residual=False), lib_ffn),
     }
-    nbytes = kernel_hbm_bytes(cfg, B, len1_host, maxb)
-    flops = kernel_flops(cfg, B, len1_host)
-    rows_out = {name: kernel_row(name, *fns, nbytes[name], flops[name], flush,
-                                 row_tol=DECODE_ROW_REL_L2
-                                 if name == "decode_paged"
-                                 else STREAM_ROW_REL_L2)
-                for name, fns in cases.items()}
-    split_faults_caught("decode_paged", decode_paged(q, kp, vp, tables, len1),
-                        q, kp, vp, tables, len1)
+
+
+def lib_decode_paged(t, tables, len1):
+    """SDPA over the lanes' gathered blocks of ``paged_inputs``' pool,
+    masked to ``len1``: the one library call beside ``decode_paged``."""
+    import torch.nn.functional as Fn
+    B, Hq, dh = t.q.shape
+    Hkv, S = t.kp.shape[2], t.maxb * t.block
+    kc = t.kp[tables.long()].reshape(B, S, Hkv, dh).transpose(1, 2)
+    vc = t.vp[tables.long()].reshape(B, S, Hkv, dh).transpose(1, 2)
+    mask = (torch.arange(S, device=t.q.device)[None, :] < len1[:, None])
+    return Fn.scaled_dot_product_attention(
+        t.q[:, :, None], kc, vc, attn_mask=mask[:, None, None, :],
+        enable_gqa=Hq != Hkv)
+
+
+def paged_rows(cfg, dev, names, seed, rope_frac=1.0):
+    """Kernel rows of the paged kernels at ``cfg``'s widths: ``names`` maps
+    each kernel of ``paged_cases`` to its row's name. Returns (rows, the
+    inputs, the cases)."""
+    from repro_torch.serving.backends import (dense_kernel_flops,
+                                              dense_kernel_hbm_bytes,
+                                              kernel_flops, kernel_hbm_bytes)
+    t = paged_inputs(cfg, dev, seed=seed)
+    cases = paged_cases(cfg, t, rope_frac)
+    nbytes = kernel_hbm_bytes(cfg, t.B, t.len1_host, t.maxb)
+    flops = kernel_flops(cfg, t.B, t.len1_host)
+    partial = "ffn_swiglu[residual=False]"
+    nbytes[partial] = dense_kernel_hbm_bytes(cfg, t.B, 1)["ffn_swiglu"]
+    flops[partial] = dense_kernel_flops(cfg, t.B, 1)["ffn_swiglu"]
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = {row: kernel_row(row, *cases[k], nbytes[k], flops[k], flush,
+                            kernel=k.split("[")[0],
+                            row_tol=DECODE_ROW_REL_L2 if k == "decode_paged"
+                            else STREAM_ROW_REL_L2)
+            for k, row in names.items()}
+    del flush
+    return rows, t, cases
+
+
+def kernel_phase(cfg, dev, B=8):
+    """Each kernel against its plain version at the config's widths."""
+    from repro_torch.kernels.flash_attention.ops import decode_paged
+    from repro_torch.kernels.flash_attention.ref import decode_paged_ref
+    from repro_torch.kernels.fused_decode.ref import (qkv_rope_paged_ref,
+                                                      rope_inv_freq)
+    from repro_torch.serving.backends import kernel_flops, kernel_hbm_bytes
+
+    rows_out, t, cases = paged_rows(cfg, dev, {k: k for k in PAGED_KERNELS},
+                                    seed=1)
+    q, kp, vp, maxb, block = t.q, t.kp, t.vp, t.maxb, t.block
+    split_faults_caught("decode_paged",
+                        decode_paged(q, kp, vp, t.tables, t.len1),
+                        q, kp, vp, t.tables, t.len1)
     # every lane at 512 positions, on rows of its own
-    full = perm[:B * maxb].reshape(B, maxb).to(torch.int32)
+    full = t.perm[:B * maxb].reshape(B, maxb).to(torch.int32)
     len1_full = torch.full((B,), maxb * block, dtype=torch.int32, device=dev)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
     rows_out[FULL_PAGED_ROW] = kernel_row(
         FULL_PAGED_ROW, lambda: decode_paged(q, kp, vp, full, len1_full),
         lambda: decode_paged_ref(q, kp, vp, full, len1_full),
-        lambda: lib_decode(full, len1_full),
+        lambda: lib_decode_paged(t, full, len1_full),
         kernel_hbm_bytes(cfg, B, [maxb * block] * B, maxb)["decode_paged"],
         kernel_flops(cfg, B, [maxb * block] * B)["decode_paged"], flush,
         kernel="decode_paged", row_tol=DECODE_ROW_REL_L2)
@@ -763,9 +885,11 @@ def kernel_phase(cfg, dev, B=8):
                         full, len1_full)
     for name in ("qkv_rope_paged", "oproj_ffn_swiglu"):
         pass_times(name, rows_out[name], cases[name][0], flush)
+    inv = torch.as_tensor(rope_inv_freq(cfg.head_dim, cfg.rope_theta),
+                          device=dev)
     got = cases["qkv_rope_paged"][0]()
     rope_fault_caught("qkv_rope_paged", got, qkv_rope_paged_ref(
-        x, scale, wq, wk, wv, torch.zeros_like(pos), inv))
+        t.x, t.scale, t.wq, t.wk, t.wv, torch.zeros_like(t.pos), inv))
     del flush
     return rows_out
 
@@ -872,101 +996,74 @@ NODE_KERNELS = ("qkv_rope_paged", "decode_paged",
                 "ffn_swiglu[residual=False]")
 
 
-def node_kernel_phase(cfg, dev, B=8, tp=2):
+def node_kernel_phase(cfg, dev, tp=2):
     """The three kernels of the node's fused TP body at one rank's shapes of
     the expert at TP ``tp``, against their plain versions: ``decode_paged``
     and ``qkv_rope_paged`` at the rank's heads (ragged lanes 1..512, as the
     serve rows), ``ffn_swiglu(residual=False)`` at the rank's FFN shard."""
     import dataclasses
-
-    import torch.nn.functional as Fn
-
-    from repro_torch.kernels.flash_attention.ops import decode_paged
-    from repro_torch.kernels.flash_attention.ref import decode_paged_ref
-    from repro_torch.kernels.fused_decode.ops import (ffn_swiglu,
-                                                      qkv_rope_paged)
-    from repro_torch.kernels.fused_decode.ref import (ffn_swiglu_ref,
-                                                      qkv_rope_paged_ref,
-                                                      rope_inv_freq)
-    from repro_torch.serving.backends import (dense_kernel_flops,
-                                              dense_kernel_hbm_bytes,
-                                              kernel_flops, kernel_hbm_bytes)
-
     shard = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
                                 n_kv_heads=cfg.n_kv_heads // tp,
                                 d_ff=cfg.d_ff // tp)
-    bf = torch.bfloat16
-    D, Hq, Hkv, dh, F = (shard.d_model, shard.n_heads, shard.n_kv_heads,
-                         shard.head_dim, shard.d_ff)
-    block, maxb = SERVE["block_size"], SERVE["max_len"] // SERVE["block_size"]
-    gen = torch.Generator(device=dev).manual_seed(6)
+    return paged_rows(shard, dev, NODE_ROWS, seed=6)[0]
 
-    def rnd(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
 
-    rows = B * maxb + 1
-    x = rnd(B, D)
-    q = rnd(B, Hq, dh)
-    kp, vp = rnd(rows, block, Hkv, dh), rnd(rows, block, Hkv, dh)
-    perm = torch.randperm(rows - 1, generator=gen, device=dev)
-    tables = perm[:B * maxb].reshape(B, maxb).to(torch.int32)
-    tables[3] = rows - 1
-    len1_host = [1, 15, 16, 1, 17, 255, 300, 512]
-    len1 = torch.tensor(len1_host, dtype=torch.int32, device=dev)
-    pos = len1 - 1
-    scale = (1.0 + 0.1 * rnd(D).float()).to(bf)
-    wq, wk, wv = (rnd(D, Hq, dh, scale=D ** -0.5),
-                  rnd(D, Hkv, dh, scale=D ** -0.5),
-                  rnd(D, Hkv, dh, scale=D ** -0.5))
-    wg, wu = rnd(D, F, scale=D ** -0.5), rnd(D, F, scale=D ** -0.5)
-    wd = rnd(F, D, scale=F ** -0.5)
-    inv = torch.as_tensor(rope_inv_freq(dh, cfg.rope_theta), device=dev)
-    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+def prefill_row(row, c, B, S, window, gen, flush):
+    """``flash_prefill`` at ``c``'s heads on (B, S) random bf16 q / k / v,
+    causal (and ``window`` > 0: local), against its plain version row by
+    row, beside SDPA; off-by-one masks planted in the plain version must
+    fail the row check. Returns the kernel-table row."""
+    import torch.nn.functional as Fn
 
-    def lib_decode():
-        S = maxb * block
-        kc = kp[tables.long()].reshape(B, S, Hkv, dh).transpose(1, 2)
-        vc = vp[tables.long()].reshape(B, S, Hkv, dh).transpose(1, 2)
-        mask = (torch.arange(S, device=dev)[None, :] < len1[:, None])
-        return Fn.scaled_dot_product_attention(
-            q[:, :, None], kc, vc, attn_mask=mask[:, None, None, :],
-            enable_gqa=Hq != Hkv)
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.layers import naive_attention
+    from repro_torch.serving.backends import (prefill_attention_flops,
+                                              prefill_attention_hbm_bytes)
+    dev = flush.device
+    Hq, Hkv, dh = c.n_heads, c.n_kv_heads, c.head_dim
+    q, k, v = (torch.randn((B, S, h, dh), generator=gen, device=dev)
+               .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window:
+        i = torch.arange(S, device=dev)
+        band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
 
-    def lib_qkv():
-        xn = (Fn.rms_norm(x.float(), (D,), eps=1e-6) * scale.float()).to(bf)
-        return [torch.matmul(xn, w.reshape(D, -1)) for w in (wq, wk, wv)]
-
-    def lib_ffn():
-        xn = Fn.rms_norm(x, (D,), weight=scale, eps=1e-6)
-        return (Fn.silu(xn @ wg) * (xn @ wu)) @ wd
-
-    ffn_args = (x, scale, wg, wu, wd)
-    nbytes = kernel_hbm_bytes(shard, B, len1_host, maxb)
-    flops = kernel_flops(shard, B, len1_host)
-    out = {
-        NODE_ROWS["decode_paged"]: kernel_row(
-            NODE_ROWS["decode_paged"],
-            lambda: decode_paged(q, kp, vp, tables, len1),
-            lambda: decode_paged_ref(q, kp, vp, tables, len1), lib_decode,
-            nbytes["decode_paged"], flops["decode_paged"], flush,
-            kernel="decode_paged", row_tol=DECODE_ROW_REL_L2),
-        NODE_ROWS["qkv_rope_paged"]: kernel_row(
-            NODE_ROWS["qkv_rope_paged"],
-            lambda: qkv_rope_paged(x, scale, wq, wk, wv, pos,
-                                   theta=cfg.rope_theta),
-            lambda: qkv_rope_paged_ref(x, scale, wq, wk, wv, pos, inv),
-            lib_qkv, nbytes["qkv_rope_paged"], flops["qkv_rope_paged"],
-            flush, kernel="qkv_rope_paged", row_tol=STREAM_ROW_REL_L2),
-        NODE_ROWS["ffn_swiglu[residual=False]"]: kernel_row(
-            NODE_ROWS["ffn_swiglu[residual=False]"],
-            lambda: ffn_swiglu(*ffn_args, residual=False),
-            lambda: ffn_swiglu_ref(*ffn_args, residual=False), lib_ffn,
-            dense_kernel_hbm_bytes(shard, B, 1)["ffn_swiglu"],
-            dense_kernel_flops(shard, B, 1)["ffn_swiglu"], flush,
-            kernel="ffn_swiglu", row_tol=STREAM_ROW_REL_L2),
-    }
-    del flush
-    return out
+        def lib():
+            return Fn.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, enable_gqa=Hq != Hkv)
+    else:
+        def lib():
+            return Fn.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=Hq != Hkv)
+    r = kernel_row(
+        row, lambda: attention(q, k, v, causal=True, window=window),
+        lambda: attention_ref(q, k, v, causal=True, window=window), lib,
+        prefill_attention_hbm_bytes(B, S, Hq, Hkv, dh),
+        prefill_attention_flops(B, S, Hq, dh, window), flush,
+        kernel="flash_prefill", row_tol=PREFILL_ROW_REL_L2)
+    _log(f"kernel {row}: {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s, "
+         f"{r['bound_ms'] / r['ms']:.3f} of the bound; SDPA "
+         f"{r['library_ms']:.4f} ms ({r['library_ms'] / r['ms']:.3f}x "
+         "the kernel's time)")
+    # off-by-one masks, planted in the plain version: each must fail the
+    # row check against the true plain output
+    want = attention_ref(q, k, v, causal=True, window=window)
+    mutants = {"causal edge +1": dict(window=window, q_offset=1)}
+    if window:
+        mutants["window edge +1"] = dict(window=window + 1)
+        mutants["window edge -1"] = dict(window=window - 1)
+    for label, kw in mutants.items():
+        m_err = row_rel_l2(naive_attention(q, k, v, causal=True, **kw), want)
+        _log(f"kernel {row}: planted {label}: row relative L2 error "
+             f"{m_err:.3e} "
+             f"{'caught' if m_err > PREFILL_ROW_REL_L2 else 'NOT caught'}")
+        if not m_err > PREFILL_ROW_REL_L2:
+            raise AssertionError(f"{row}: the row check misses a planted "
+                                 f"{label}")
+    del q, k, v, qt, kt, vt, want
+    torch.cuda.empty_cache()
+    return r
 
 
 def prefill_kernel_phase(cfg, rg_cfg, dev):
@@ -982,64 +1079,19 @@ def prefill_kernel_phase(cfg, rg_cfg, dev):
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.lru_scan.ops import lru_scan
     from repro_torch.kernels.lru_scan.ref import lru_scan_ref
-    from repro_torch.models.layers import naive_attention
     from repro_torch.serving.backends import (lru_scan_hbm_bytes,
                                               prefill_attention_flops,
                                               prefill_attention_hbm_bytes)
 
     gen = torch.Generator(device=dev).manual_seed(6)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
-    rows = {}
-    shapes = {
-        "flash_prefill": (cfg, DENSE["lanes"], DENSE["prompt_len"], 0),
-        RG_PREFILL_ROW: (rg_cfg, RG["prompts"], RG["prompt_len"],
-                         rg_cfg.sliding_window),
+    rows = {
+        "flash_prefill": prefill_row("flash_prefill", cfg, DENSE["lanes"],
+                                     DENSE["prompt_len"], 0, gen, flush),
+        RG_PREFILL_ROW: prefill_row(RG_PREFILL_ROW, rg_cfg, RG["prompts"],
+                                    RG["prompt_len"], rg_cfg.sliding_window,
+                                    gen, flush),
     }
-    for row, (c, B, S, window) in shapes.items():
-        Hq, Hkv, dh = c.n_heads, c.n_kv_heads, c.head_dim
-        q, k, v = (torch.randn((B, S, h, dh), generator=gen, device=dev)
-                   .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if window:
-            i = torch.arange(S, device=dev)
-            band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
-
-            def lib():
-                return Fn.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=band, enable_gqa=Hq != Hkv)
-        else:
-            def lib():
-                return Fn.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=Hq != Hkv)
-        rows[row] = kernel_row(
-            row, lambda: attention(q, k, v, causal=True, window=window),
-            lambda: attention_ref(q, k, v, causal=True, window=window), lib,
-            prefill_attention_hbm_bytes(B, S, Hq, Hkv, dh),
-            prefill_attention_flops(B, S, Hq, dh, window), flush,
-            kernel="flash_prefill", row_tol=PREFILL_ROW_REL_L2)
-        r = rows[row]
-        _log(f"kernel {row}: {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s, "
-             f"{r['bound_ms'] / r['ms']:.3f} of the bound; SDPA "
-             f"{r['library_ms']:.4f} ms ({r['library_ms'] / r['ms']:.3f}x "
-             "the kernel's time)")
-        # off-by-one masks, planted in the plain version: each must fail
-        # the row check against the true plain output
-        want = attention_ref(q, k, v, causal=True, window=window)
-        mutants = {"causal edge +1": dict(window=window, q_offset=1)}
-        if window:
-            mutants["window edge +1"] = dict(window=window + 1)
-            mutants["window edge -1"] = dict(window=window - 1)
-        for label, kw in mutants.items():
-            m_err = row_rel_l2(naive_attention(q, k, v, causal=True, **kw),
-                               want)
-            _log(f"kernel {row}: planted {label}: row relative L2 error "
-                 f"{m_err:.3e} "
-                 f"{'caught' if m_err > PREFILL_ROW_REL_L2 else 'NOT caught'}")
-            if not m_err > PREFILL_ROW_REL_L2:
-                raise AssertionError(f"{row}: the row check misses a "
-                                     f"planted {label}")
-        del q, k, v, qt, kt, vt, want
-        torch.cuda.empty_cache()
     # the sequential prefill's shapes: one prompt at a time, the expert's 32
     # heads; each length held row by row and timed beside the plain version
     # and SDPA (is_causal); the table keeps the longest
@@ -1396,21 +1448,122 @@ def planted_faults(cfg):
 
 
 def ttft_line(done, registry):
-    """TTFT p50 / p99 read exactly from the done requests, beside the
+    """TTFT p50 / p95 / p99 read exactly from the done requests, beside the
     ``serve.ttft_s`` histogram's P² estimates."""
     ttft = np.asarray([r.first_token_s - r.arrival_s for r in done])
     h = registry.histogram("serve.ttft_s")
     return (f"TTFT p50={np.percentile(ttft, 50):.4f}s "
+            f"p95={np.percentile(ttft, 95):.4f}s "
             f"p99={np.percentile(ttft, 99):.4f}s (serve.ttft_s P2: "
             f"p50={h.quantile(0.5):.4f}s p99={h.quantile(0.99):.4f}s, "
             f"count {h.count})")
+
+
+def served_ok(label, done, n, new_tokens, cfg, engine):
+    """Every one of the ``n`` requests done with ``new_tokens`` tokens in
+    the vocabulary, and the engine's KV pool consistent and empty."""
+    if len(done) != n:
+        raise AssertionError(f"{label}: {len(done)} of {n} requests done")
+    for r in done:
+        if r.output is None or len(r.output) != new_tokens:
+            raise AssertionError(f"{label}: request {r.rid}: output "
+                                 f"{r.output}")
+        if not ((r.output >= 0) & (r.output < cfg.vocab_size)).all():
+            raise AssertionError(f"{label}: request {r.rid}: token out of "
+                                 "vocabulary")
+    problems = engine.pool.check_invariants()
+    if problems or engine.pool.stats.blocks_in_use:
+        raise AssertionError(f"{label}: KV pool: {problems}, "
+                             f"{engine.pool.stats.blocks_in_use} leaked")
+
+
+def fused_step_check(label, cfg, dev, engine, params, tol_rel):
+    """One decode step of ``engine``'s fused runner against the plain
+    reference body run in f32 on the same pool state (the same bf16
+    weights and pool, upcast): its slots prefilled with random prompts of
+    1-119 tokens, one lane inactive. Max |fused - f32| within ``tol_rel`` of
+    the largest logit; where the two argmaxes differ, the f32 logits of
+    both tokens within it of each other (a near tie). Then each fault of
+    ``planted_faults``, planted in one layer, must exceed the limit. Returns (the step on clones of
+    the pool, for timing; the prefilled request ids)."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.serving import xla_paged_extend
+    n_slots = engine.n_slots
+    rs = np.random.RandomState(1)
+    prompts = [rs.randint(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+               for n in rs.randint(1, 120, size=n_slots)]
+    rids = list(range(10_000, 10_000 + n_slots))
+    for i in range(0, len(prompts), 4):
+        chunk = rids[i:i + 4]
+        res = engine.prefill_runner(params, prompts[i:i + 4])
+        engine.prefill_runner.scatter_into(engine.pool, res, chunk,
+                                           extra_tokens=[1] * len(chunk))
+    tables = torch.as_tensor(np.stack([engine.pool.padded_table(
+        r, engine.max_blocks) for r in rids]), device=dev)
+    lengths = torch.as_tensor([engine.pool.length(r) for r in rids],
+                              dtype=torch.int32, device=dev)
+    active = torch.ones(n_slots, dtype=torch.bool, device=dev)
+    active[3] = False
+    toks = torch.as_tensor(rs.randint(0, cfg.vocab_size, (n_slots, 1)),
+                           device=dev)
+    scratch = engine.pool.scratch_index
+    state = (engine.pool.k, engine.pool.v)
+
+    def fused_step():
+        return engine.runner.extend(params, *(t.clone() for t in state),
+                                    tables, lengths, active, toks)[0]
+
+    lf = fused_step()
+    lr, _, _ = xla_paged_extend(cfg, params, *(t.clone() for t in state),
+                                tables, lengths, active, toks, scratch)
+    # the same plain body in f32, the check's reference
+    l32, _, _ = xla_paged_extend(cfg, tree_map(lambda t: t.float(), params),
+                                 *(t.float() for t in state), tables, lengths,
+                                 active, toks, scratch)
+    lf, lr, l32 = (t[active].float()[:, 0] for t in (lf, lr, l32))
+    if not torch.isfinite(lf).all():
+        raise AssertionError(f"{label}: fused logits not finite")
+    top = float(l32.abs().max())
+    tol = tol_rel * top
+
+    def gap(logits, ref):
+        return (float((logits - ref).abs().max()),
+                float((logits - ref).norm() / ref.norm()))
+
+    err, rel = gap(lf, l32)
+    a, b = lf.argmax(-1), l32.argmax(-1)
+    ties = (l32.gather(1, b[:, None]) - l32.gather(1, a[:, None])).abs()
+    _log(f"{label} reference check: fused vs f32 plain body max_abs_err="
+         f"{err:.4f} (tol {tol:.4f}, {err / top:.4f} of |logits|max="
+         f"{top:.3f}) rel_l2={rel:.5f} argmax_agree="
+         f"{float((a == b).float().mean()):.3f} (largest f32 gap where they "
+         f"differ {float(ties.max()) / top:.4f}); bf16 plain body vs f32: "
+         "max_abs_err=%.4f rel_l2=%.5f" % gap(lr, l32))
+    if not (err <= tol and float(ties.max()) <= tol):
+        raise AssertionError(f"{label}: fused vs f32 reference logits differ "
+                             f"by {err} > {tol}, or an argmax that is no "
+                             "near tie")
+    for fault, (name, fn) in planted_faults(cfg).items():
+        with fault_planted(name, fn):
+            lx = fused_step()[active].float()[:, 0]
+        f_err, f_rel = gap(lx, l32)
+        _log(f"{label}: planted fault {fault} (layer {FAULT_LAYER}): "
+             f"max_abs_err={f_err:.4f} rel_l2={f_rel:.5f} -> "
+             f"{'caught' if f_err > tol else 'NOT caught'} at tol {tol:.4f}")
+        if not f_err > tol:
+            raise AssertionError(f"{label}: the step check misses a fault "
+                                 f"planted in one layer ({fault})")
+    del l32
+    kc, vc = (t.clone() for t in state)
+    return (lambda: engine.runner.extend(params, kc, vc, tables, lengths,
+                                         active, toks)), rids
 
 
 def serve_phase(cfg, dev):
     """The port's main path: the engine serving full-width experts."""
     from repro_torch.kernels import runtime as rt
     from repro_torch.launch.serve import build_coe, make_requests
-    from repro_torch.serving import ServingEngine, xla_paged_extend
+    from repro_torch.serving import ServingEngine
 
     s = SERVE
     t0 = time.perf_counter()
@@ -1439,24 +1592,11 @@ def serve_phase(cfg, dev):
     peak = torch.cuda.max_memory_allocated()
 
     st = engine.stats
-    if len(done) != s["requests"]:
-        raise AssertionError(f"{len(done)} of {s['requests']} requests done")
-    for r in done:
-        if r.output is None or len(r.output) != s["new_tokens"]:
-            raise AssertionError(f"request {r.rid}: output {r.output}")
-        if not ((r.output >= 0) & (r.output < cfg.vocab_size)).all():
-            raise AssertionError(f"request {r.rid}: token out of vocabulary")
-    problems = engine.pool.check_invariants()
-    if problems or engine.pool.stats.blocks_in_use:
-        raise AssertionError(f"KV pool: {problems}, "
-                             f"{engine.pool.stats.blocks_in_use} leaked")
-    want = cfg.n_layers * st.decode_rounds
-    for name, n in launches.items():
-        if name in PAGED_KERNELS and n != want or \
-                name not in PAGED_KERNELS and n != 0:
-            raise AssertionError(f"{name}: {n} launches, expected {want} "
-                                 f"({cfg.n_layers} layers x "
-                                 f"{st.decode_rounds} decode rounds)")
+    served_ok("serve", done, s["requests"], s["new_tokens"], cfg, engine)
+    check_launches(f"serve ({cfg.n_layers} layers x {st.decode_rounds} "
+                   "decode rounds)", launches,
+                   {k: cfg.n_layers * st.decode_rounds
+                    for k in PAGED_KERNELS})
     cs = coe.cache.stats
     if cs.evictions < 1 or st.switches < 1:
         raise AssertionError(f"no evicting switch: {cs.as_dict()}")
@@ -1474,76 +1614,15 @@ def serve_phase(cfg, dev):
     _log(f"serve: peak device memory {peak / 2 ** 30:.2f} GiB; launches "
          f"{launches}")
 
-    # one decode step, fused kernels vs the plain reference, same pool state
-    rs = np.random.RandomState(1)
     params = coe.cache.activate(coe.expert_names()[0])
-    prompts = [rs.randint(0, cfg.vocab_size, (int(n),)).astype(np.int32)
-               for n in rs.randint(1, 120, size=s["n_slots"])]
-    rids = list(range(10_000, 10_000 + s["n_slots"]))
-    for i in range(0, len(prompts), 4):
-        chunk = rids[i:i + 4]
-        res = engine.prefill_runner(params, prompts[i:i + 4])
-        engine.prefill_runner.scatter_into(engine.pool, res, chunk,
-                                           extra_tokens=[1] * len(chunk))
-    tables = torch.as_tensor(np.stack([engine.pool.padded_table(
-        r, engine.max_blocks) for r in rids]), device=dev)
-    lengths = torch.as_tensor([engine.pool.length(r) for r in rids],
-                              dtype=torch.int32, device=dev)
-    active = torch.ones(s["n_slots"], dtype=torch.bool, device=dev)
-    active[3] = False
-    toks = torch.as_tensor(rs.randint(0, cfg.vocab_size, (s["n_slots"], 1)),
-                           device=dev)
-    scratch = engine.pool.scratch_index
-    state = (engine.pool.k, engine.pool.v)
-
-    def fused_step():
-        return engine.runner.extend(params, *(t.clone() for t in state),
-                                    tables, lengths, active, toks)[0]
-
-    lf = fused_step()
-    lr, _, _ = xla_paged_extend(cfg, params, *(t.clone() for t in state),
-                                tables, lengths, active, toks, scratch)
-    # the same plain body in f32, the check's reference
-    from repro_torch.bridge import tree_map
-    l32, _, _ = xla_paged_extend(cfg, tree_map(lambda t: t.float(), params),
-                                 *(t.float() for t in state), tables, lengths,
-                                 active, toks, scratch)
-    lf, lr, l32 = (t[active].float() for t in (lf, lr, l32))
-    if not torch.isfinite(lf).all():
-        raise AssertionError("fused logits not finite")
-    tol = LOGIT_TOL_REL * float(l32.abs().max())
-
-    def gap(logits, ref):
-        return (float((logits - ref).abs().max()),
-                float((logits - ref).norm() / ref.norm()))
-
-    err, rel = gap(lf, l32)
-    agree = float((lf.argmax(-1) == l32.argmax(-1)).float().mean())
-    _log(f"reference check: fused vs f32 plain body max_abs_err={err:.4f} "
-         f"(tol {tol:.4f}) rel_l2={rel:.5f} argmax_agree={agree:.3f} "
-         f"|logits|max={float(l32.abs().max()):.3f}; bf16 plain body vs f32: "
-         "max_abs_err=%.4f rel_l2=%.5f" % gap(lr, l32))
-    if not err <= tol:
-        raise AssertionError(f"fused vs f32 reference logits differ by {err} "
-                             f"> {tol}")
-    for fault, (name, fn) in planted_faults(cfg).items():
-        with fault_planted(name, fn):
-            lx = fused_step()[active].float()
-        f_err, f_rel = gap(lx, l32)
-        _log(f"planted fault {fault} (layer {FAULT_LAYER}): max_abs_err="
-             f"{f_err:.4f} rel_l2={f_rel:.5f} -> "
-             f"{'caught' if f_err > tol else 'NOT caught'} at tol {tol:.4f}")
-    del l32
-
+    step, rids = fused_step_check("serve", cfg, dev, engine, params,
+                                  LOGIT_TOL_REL)
     # where one decode step's time goes: host wall per step without the
     # profiler, device time per kernel name with it
-    kc, vc = (t.clone() for t in state)
-    step = lambda: engine.runner.extend(params, kc, vc, tables, lengths,
-                                        active, toks)
     label = f"decode step ({s['n_slots']} lanes, {cfg.n_layers} layers)"
     step_breakdown(step, label)
     step_under(step, label, ("decode_split_kernel", "OprojPass"))
-    del kc, vc
+    del step
     for r in rids:
         engine.pool.free(r)
     coe.cache.close()
@@ -1800,7 +1879,8 @@ def plain_logits_f32(cfg, params, tokens, dev):
         for i in range(cfg.n_layers):
             h, _ = T._layer(cfg, f32(T.layer_params(params, i)), h, positions)
         h = L.apply_norm(cfg, f32(params["final_norm"]), h[:, -1:])
-        return (h @ params["lm_head"].float())[0, 0]
+        head = {k: params[k] for k in ("embed", "lm_head") if k in params}
+        return T.unembed(cfg, f32(head), h)[0, 0]
 
 
 def divergence_check(label, cfg, dev, pairs, tol_rel):
@@ -3001,6 +3081,206 @@ def rg_phase(cfg, dev):
     return first
 
 
+def variant_kernel_phase(dev):
+    """The kernels at the dense variants' shapes against their plain
+    versions: granite-8b's three paged kernels (32 q on 8 kv heads, F
+    14336); ``qkv_rope_paged`` at chatglm3-6b's widths rotating half of
+    each head, with two faults planted in its plain version (RoPE dropped,
+    the whole head rotated) that its row check must catch; ``flash_prefill``
+    with dh 128 at each plain-body variant's G (5, 6, 12, 16), at B 1 and S
+    64 / 160 / 256 and at 8 x 2048 tokens, each with off-by-one masks
+    planted in its plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.fused_decode.ref import (qkv_rope_paged_ref,
+                                                      rope_inv_freq)
+    rows = paged_rows(get_config("granite-8b"), dev, GRANITE_ROWS,
+                      seed=8)[0]
+    glm = get_config("chatglm3-6b")
+    frac_rows, t, cases = paged_rows(glm, dev,
+                                     {"qkv_rope_paged": ROPE_FRAC_ROW},
+                                     seed=9, rope_frac=glm.rope_fraction)
+    rows.update(frac_rows)
+    got = cases["qkv_rope_paged"][0]()
+    args = (t.x, t.scale, t.wq, t.wk, t.wv)
+    for fault, pos, frac in (("rope_dropped", torch.zeros_like(t.pos),
+                              glm.rope_fraction),
+                             ("whole_head_rotated", t.pos, 1.0)):
+        inv = torch.as_tensor(rope_inv_freq(glm.head_dim, glm.rope_theta,
+                                            frac), device=dev)
+        want = qkv_rope_paged_ref(*args, pos, inv)
+        err = max(row_rel_l2(g, w) for g, w in zip(got, want))
+        caught = err > STREAM_ROW_REL_L2
+        _log(f"kernel {ROPE_FRAC_ROW}: planted fault {fault} (in the plain "
+             f"version) reads a row relative L2 error of {err:.3e} -> "
+             f"{'caught' if caught else 'NOT caught'} at "
+             f"{STREAM_ROW_REL_L2:.3e}")
+        if not caught:
+            raise AssertionError(f"{ROPE_FRAC_ROW}: the row check missed a "
+                                 f"planted fault ({fault})")
+    del t, cases, got
+    gen = torch.Generator(device=dev).manual_seed(10)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    for arch, row in VARIANT_PREFILL_ROWS.items():
+        c, B, S = get_config(arch), DENSE["lanes"], DENSE["prompt_len"]
+        G = c.n_heads // c.n_kv_heads
+        prefill_row(f"flash_prefill[{arch},G={G},B={B},S={S}]", c, B, S, 0,
+                    gen, flush)
+        for S in B1_PREFILL_LENGTHS:
+            r = prefill_row(f"flash_prefill[{arch},G={G},B=1,S={S}]", c, 1,
+                            S, 0, gen, flush)
+            if r["name"] == row:
+                rows[row] = r
+    del flush
+    return rows
+
+
+def drain(engine, reqs):
+    """Submit ``reqs``, drain, synchronize: (done, wall seconds, the
+    kernels' launch counts over the drain)."""
+    from repro_torch.kernels import runtime as rt
+    torch.cuda.synchronize()
+    rt.reset_launches()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    done = engine.drain()
+    torch.cuda.synchronize()
+    return done, time.perf_counter() - t0, rt.launch_counts()
+
+
+def variant_expert(cfg, dev, seed):
+    """A composition of one random expert of ``cfg`` (made on the card from
+    ``seed``, kept in pinned host memory) with an HBM cache of one."""
+    from repro_torch.launch.serve import build_coe
+    t0 = time.perf_counter()
+    coe, nbytes = build_coe(cfg, 1, 1.0, seed, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"variants: {cfg.name}: {cfg.n_layers} layers, D {cfg.d_model}, "
+         f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads of {cfg.head_dim}, F "
+         f"{cfg.d_ff}, vocab {cfg.vocab_size}; {nbytes / 1e9:.2f} GB bf16 "
+         f"made and moved to pinned host memory in "
+         f"{time.perf_counter() - t0:.1f}s")
+    return coe
+
+
+def granite_phase(cfg, dev):
+    """granite-8b at full width and depth on the fused kernels: the serve
+    phase's 16 requests through the default engine at one expert (each
+    paged kernel once per layer per decode round, nothing else), then one
+    decode step's logits against the plain body in f32 and what faults
+    planted in one layer read, and one step's device time by kernel.
+    Returns the drain's launch counts."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serving import ServingEngine
+    s = SERVE
+    coe = variant_expert(cfg, dev, s["seed"])
+    engine = ServingEngine(coe, cfg, max_len=s["max_len"],
+                           n_slots=s["n_slots"], block_size=s["block_size"],
+                           device=dev)
+    reqs, _ = make_requests(s["requests"], cfg.vocab_size, s["prompt_lens"],
+                            s["new_tokens"], coe.expert_names(),
+                            s["tagged_fraction"], s["seed"])
+    done, wall, launches = drain(engine, reqs)
+    st = engine.stats
+    label = f"variants: {cfg.name} (fused)"
+    served_ok(label, done, s["requests"], s["new_tokens"], cfg, engine)
+    check_launches(f"{label} ({cfg.n_layers} layers x {st.decode_rounds} "
+                   "decode rounds)", launches,
+                   {k: cfg.n_layers * st.decode_rounds
+                    for k in PAGED_KERNELS})
+    _log(f"{label}: {len(done)} requests, {st.tokens_out} tokens in "
+         f"{wall:.3f}s = {st.tokens_out / wall:.2f} tok/s; "
+         f"{ttft_line(done, st.registry)}; {st.decode_rounds} decode rounds "
+         f"({st.exec_s / st.decode_rounds * 1e3:.3f} ms a round, host wall "
+         f"with its argmax read); launches {launches}")
+    params = coe.cache.activate(coe.expert_names()[0])
+    step, rids = fused_step_check(label, cfg, dev, engine, params,
+                                  GRANITE_LOGIT_TOL_REL)
+    step_breakdown(step, f"{cfg.name} decode step ({s['n_slots']} lanes, "
+                         f"{cfg.n_layers} layers)")
+    del step, params
+    for r in rids:
+        engine.pool.free(r)
+    coe.cache.close()
+    return launches
+
+
+def plain_variant_phase(cfg, dev, tol_rel):
+    """A dense variant the kernels refuse, on the plain paged body it is
+    served on (``XlaPagedBackend``, named by the caller), with sequential
+    prefill: ``VARIANTS``' requests, ``flash_prefill`` once per layer a
+    prompt and no other kernel; then one prompt's prefill (``prefill_kv``,
+    ``flash_prefill``) last-token logits against the plain forward in f32.
+    Returns the drain's launch counts."""
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serving import ServingEngine, XlaPagedBackend
+    v = VARIANTS
+    coe = variant_expert(cfg, dev, v["seed"])
+    engine = ServingEngine(coe, cfg, backend=XlaPagedBackend(cfg),
+                           prefill_mode="sequential", max_len=v["max_len"],
+                           n_slots=v["n_slots"], block_size=v["block_size"],
+                           device=dev)
+    reqs, _ = make_requests(v["requests"], cfg.vocab_size, v["prompt_lens"],
+                            v["new_tokens"], coe.expert_names(), 1.0,
+                            v["seed"])
+    done, wall, launches = drain(engine, reqs)
+    st = engine.stats
+    label = f"variants: {cfg.name} (plain body, sequential prefill)"
+    served_ok(label, done, v["requests"], v["new_tokens"], cfg, engine)
+    check_launches(label, launches,
+                   {"flash_prefill": cfg.n_layers * v["requests"]})
+    G = cfg.n_heads // cfg.n_kv_heads
+    _log(f"{label}: {len(done)} requests, {st.tokens_out} tokens in "
+         f"{wall:.3f}s = {st.tokens_out / wall:.2f} tok/s; "
+         f"{ttft_line(done, st.registry)}; prefill_s={st.prefill_s:.3f} "
+         f"{st.decode_rounds} decode rounds "
+         f"({st.exec_s / st.decode_rounds * 1e3:.3f} ms a round); "
+         f"flash_prefill at G {G}, dh {cfg.head_dim}: "
+         f"{launches['flash_prefill']} launches")
+    params = coe.cache.activate(coe.expert_names()[0])
+    prompt = reqs[0].tokens
+    rt.reset_launches()
+    last = engine.runner.prefill_kv(
+        params, torch.as_tensor(prompt[None], device=dev).long())[0]
+    torch.cuda.synchronize()
+    check_launches(f"{label} prefill_kv", rt.launch_counts(),
+                   {"flash_prefill": cfg.n_layers})
+    logits_check(f"{label}: prefill of one {len(prompt)}-token prompt "
+                 "(flash_prefill) vs f32 plain forward", last,
+                 plain_logits_f32(cfg, params, prompt, dev), tol_rel)
+    del params, last
+    coe.cache.close()
+    return launches
+
+
+def variants_phase(dev):
+    """Each dense variant in turn, its expert released before the next:
+    granite-8b on the fused kernels, then the four the kernels refuse on
+    the plain body (qwen2.5-32b cut in depth). Returns ``{arch: launch
+    counts}``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    out = {"granite-8b": granite_phase(get_config("granite-8b"), dev)}
+    for arch, layers in PLAIN_VARIANTS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        if layers is not None:
+            _log(f"variants: {arch} cut to {layers} of its {cfg.n_layers} "
+                 "layers, at full width")
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        out[arch] = plain_variant_phase(cfg, dev,
+                                        VARIANT_PREFILL_LOGIT_TOL_REL[arch])
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"variants: phase {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available; this run needs one "
@@ -3021,6 +3301,7 @@ def main():
     rows.update(dense_kernel_phase(cfg, dev))
     rows.update(node_kernel_phase(cfg, dev))
     rows.update(prefill_kernel_phase(cfg, rg_cfg, dev))
+    rows.update(variant_kernel_phase(dev))
     rows.update(monarch_kernel_phase(dev))
     torch.cuda.empty_cache()
     launches = monarch_phase(dev)
@@ -3068,6 +3349,13 @@ def main():
     del store
     gc.collect()
     torch.cuda.empty_cache()
+    launches = variants_phase(dev)
+    for kernel, row in GRANITE_ROWS.items():
+        rows[row]["launches"] = launches["granite-8b"][kernel]
+    rows[ROPE_FRAC_ROW]["launches"] = sum(
+        n[PARTIAL_ROPE] for n in launches.values())
+    for arch, row in VARIANT_PREFILL_ROWS.items():
+        rows[row]["launches"] = launches[arch]["flash_prefill"]
     launches = rg_phase(rg_cfg, dev)
     rows[RG_PREFILL_ROW]["launches"] = launches["flash_prefill"]
     rows["lru_scan"]["launches"] = launches["lru_scan"]

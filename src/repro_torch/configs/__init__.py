@@ -2,11 +2,17 @@
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, pad_for_tp, reduced
+from repro_torch.configs.chatglm3_6b import CONFIG as _chatglm3_6b
+from repro_torch.configs.granite_8b import CONFIG as _granite_8b
+from repro_torch.configs.qwen2_5_32b import CONFIG as _qwen2_5_32b
+from repro_torch.configs.qwen2_vl_2b import CONFIG as _qwen2_vl_2b
 from repro_torch.configs.recurrentgemma_9b import CONFIG as _recurrentgemma_9b
 from repro_torch.configs.samba_coe_expert import CONFIG as _samba_coe_expert
+from repro_torch.configs.starcoder2_3b import CONFIG as _starcoder2_3b
 
-CONFIGS = {"samba-coe-expert-7b": _samba_coe_expert,
-           "recurrentgemma-9b": _recurrentgemma_9b}
+CONFIGS = {c.name: c for c in (_samba_coe_expert, _granite_8b, _qwen2_5_32b,
+                               _chatglm3_6b, _starcoder2_3b, _qwen2_vl_2b,
+                               _recurrentgemma_9b)}
 
 
 def get_config(name: str) -> ModelConfig:

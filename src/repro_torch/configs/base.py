@@ -1,8 +1,8 @@
 """Model configuration: the subset of ``repro.configs.base`` that the
 ported families (dense, rglru) read.
 
-Only the fields those families read are kept; the other families are not
-ported yet (``ROADMAP.md`` Queue 1).
+Only the fields those families read are kept; the other families (MoE,
+MLA, xLSTM, encoder-decoder) are not ported yet (``ROADMAP.md`` Queue 1).
 """
 from __future__ import annotations
 
@@ -22,15 +22,17 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
 
-    norm: str = "rms"                 # only 'rms' is ported
-    act: str = "swiglu"               # 'swiglu' | 'geglu'  ('gelu' not ported)
+    norm: str = "rms"                 # 'rms' | 'ln'
+    act: str = "swiglu"               # 'swiglu' | 'gelu' | 'geglu'
     qkv_bias: bool = False
     attn_out_bias: bool = False
     mlp_bias: bool = False
     tie_embeddings: bool = False
 
-    rope_style: str = "full"          # only 'full' is ported
+    rope_style: str = "full"          # 'full' | 'partial' | 'mrope' | 'none'
     rope_theta: float = 10000.0
+    rope_fraction: float = 1.0        # 'partial': fraction of head_dim rotated
+    mrope_sections: Tuple[int, ...] = ()   # qwen2-vl: (t, h, w) half-dim sections
 
     sliding_window: int = 0           # >0: local attention (rglru)
     n_experts: int = 0
@@ -74,7 +76,7 @@ def pad_for_tp(cfg: ModelConfig, tp: int) -> ModelConfig:
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Tiny same-family config for CPU tests (the dense and rglru branches
-    of ``repro.configs.base.reduced``)."""
+    of ``repro.configs.base.reduced``, including its RoPE branches)."""
     upd = dict(
         n_layers=min(cfg.n_layers, 4),
         d_model=128,
@@ -89,4 +91,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         upd["d_rnn"] = 128
     if cfg.sliding_window:
         upd["sliding_window"] = 32
+    if cfg.mrope_sections:
+        upd["mrope_sections"] = (4, 6, 6)   # sums to half of head_dim 32
+    if cfg.rope_fraction < 1.0:
+        upd["rope_fraction"] = 0.5
     return replace(cfg, name=cfg.name + "-reduced", **upd)

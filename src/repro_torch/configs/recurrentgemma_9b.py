@@ -15,6 +15,7 @@ CONFIG = ModelConfig(
     act="geglu",
     rope_style="full",
     rope_theta=10000.0,
+    rope_fraction=0.5,        # as JAX's copy; 'full' RoPE never reads it
     sliding_window=2048,      # local attention window
     block_pattern=("rec", "rec", "attn"),
     d_rnn=4096,

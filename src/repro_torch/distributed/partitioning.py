@@ -11,6 +11,12 @@ None (replicated). The rules are JAX's:
     always (the configs are padded by ``configs.pad_for_tp``), kv heads and
     the vocab only where ``tp`` divides them;
   * anything else replicates.
+
+The dense variants' leaves follow from their axes, as in JAX: ``bq`` /
+``bk`` / ``bv`` shard with their heads, ``bi_gate`` / ``bi_up`` / ``bi``
+with the FFN hidden dim, the output biases ``bo`` (``embed``) and the
+LayerNorm's ``bias`` replicate, and a tied model's ``embed.tok`` is its
+vocab-sharded head.
 """
 from __future__ import annotations
 

@@ -6,7 +6,9 @@
 //
 // Computes qkv_pass.cuh's projection against the native wq (D, Hq, dh),
 // wk / wv (D, Hkv, dh) layouts (three tensor maps, no concatenated
-// weight), rotating q and k by each lane's own position pos[b]. Outputs q
+// weight), rotating q and k by each lane's own position pos[b]. With
+// rope_frac < 1 only the first rot = 2 * rot2 elements of a head rotate
+// (the plan's rot2, inv_freq's length), the rest pass through. Outputs q
 // (B, Hq, dh), k / v (B, Hkv, dh) in x's type.
 //
 // Bound: device-memory bytes, D * (Hq + 2 Hkv) * dh weight elements read

@@ -44,7 +44,6 @@ _QKV_PLAN_FIELDS = ("B", "D", "Hq", "Hkv", "dh", "rot2", "NL", "TW", "k0",
                     "v0", "cols", "ctas", "maxs", "ss", "img", "part", "cnt")
 
 
-@functools.lru_cache(maxsize=None)
 @functools.lru_cache(maxsize=16)
 def _inv_freq(dh: int, theta: float, rope_frac: float, device: str):
     return torch.as_tensor(rope_inv_freq(dh, theta, rope_frac), device=device)
@@ -57,21 +56,24 @@ def _check_bf16(name, **tensors):
                             "bf16")
 
 
-def qkv_rope_paged(x, norm_scale, wq, wk, wv, pos, *, theta=10000.0):
+def qkv_rope_paged(x, norm_scale, wq, wk, wv, pos, *, theta=10000.0,
+                   rope_frac=1.0):
     """RMSNorm + QKV + per-lane RoPE for the paged decode step.
 
     x (B,D); wq (D,Hq,dh), wk/wv (D,Hkv,dh) — the native attention layout;
     pos (B,) int32 per-lane positions. Returns q (B,Hq,dh), k, v (B,Hkv,dh)
-    in x.dtype, with RoPE on q and k. On the card this is two launches of
-    the hand-written kernel (see its source) per 16 lanes, with scratch in
-    a workspace kept per device and stream (``_workspace``)."""
+    in x.dtype, with RoPE on q and k over the first ``int(dh * rope_frac)``
+    (even) elements of a head, the rest passed through. On the card this is
+    two launches of the hand-written kernel (see its source) per 16 lanes,
+    with scratch in a workspace kept per device and stream
+    (``_workspace``)."""
     B, D = x.shape
     _, Hq, dh = wq.shape
     Hkv = wk.shape[1]
     if wq.shape[0] != D or wk.shape != (D, Hkv, dh) or wv.shape != wk.shape:
         raise ValueError("qkv_rope_paged: weight shapes do not match x")
     if not rt.on_card(x, norm_scale, wq, wk, wv, pos):
-        inv = _inv_freq(dh, float(theta), 1.0, "cpu")
+        inv = _inv_freq(dh, float(theta), float(rope_frac), "cpu")
         return qkv_rope_paged_ref(x, norm_scale, wq, wk, wv, pos, inv)
     _check_bf16("qkv_rope_paged", x=x, norm_scale=norm_scale, wq=wq, wk=wk,
                 wv=wv)
@@ -81,7 +83,7 @@ def qkv_rope_paged(x, norm_scale, wq, wk, wv, pos, *, theta=10000.0):
     rt.check_contiguous("qkv_rope_paged", x=x, norm_scale=norm_scale, wq=wq,
                         wk=wk, wv=wv, pos=pos)
     fn = rt.bind("qkv_rope_paged", "qkv_rope_paged_bf16", _QKV_ARGS)
-    inv = _inv_freq(dh, float(theta), 1.0, str(x.device))
+    inv = _inv_freq(dh, float(theta), float(rope_frac), str(x.device))
     q = torch.empty((B, Hq, dh), dtype=x.dtype, device=x.device)
     k = torch.empty((B, Hkv, dh), dtype=x.dtype, device=x.device)
     v = torch.empty_like(k)
@@ -100,7 +102,9 @@ def qkv_rope_paged(x, norm_scale, wq, wk, wv, pos, *, theta=10000.0):
                 v.data_ptr() + 2 * b0 * Hkv * dh, ws.data_ptr(),
                 ctypes.addressof(plan), stream)
         rt.check_launch("qkv_rope_paged", rc)
-    rt.count_launch("qkv_rope_paged")
+    # the partial rotation is counted on its own: no serving path asks for it
+    rt.count_launch("qkv_rope_paged" if inv.shape[0] * 2 == dh else
+                    "qkv_rope_paged[partial_rope]")
     return q, k, v
 
 

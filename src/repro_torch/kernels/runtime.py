@@ -52,8 +52,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, ctypes._CFuncPtr] = {}
 # launch-count names besides the libraries': a form of a kernel counted on
 # its own (the tensor-parallel partial of ffn_swiglu, launched only by the
-# node's fused TP body)
-FORMS = ("ffn_swiglu[residual=False]",)
+# node's fused TP body; qkv_rope_paged rotating part of each head, which no
+# serving path asks for)
+FORMS = ("ffn_swiglu[residual=False]", "qkv_rope_paged[partial_rope]")
 _launches: Dict[str, int] = {name: 0 for name in (*SOURCES, *FORMS)}
 
 

@@ -10,6 +10,11 @@ kernels. For example, on one H100:
         --hbm-experts 2 --requests 16 --new-tokens 32
 
 Expert weights are random, drawn from ``--seed`` on the serving device.
+``--arch`` names any dense config of the port (``configs.CONFIGS``). The
+default ``--backend fused`` decodes on the kernels, which refuse a
+LayerNorm, GELU, partial or m-RoPE and biases (``chatglm3-6b``,
+``starcoder2-3b``, ``qwen2-vl-2b``, ``qwen2.5-32b``); ``--backend xla``
+decodes those on the plain paged body, as JAX's driver does.
 
 ``--scheduler run_to_completion`` serves one expert group to completion at a
 time (the paper's baseline); ``--prefill-mode sequential`` prefills each
@@ -159,6 +164,13 @@ def make_requests(n: int, vocab_size: int, prompt_lens, new_tokens: int,
     return reqs, n_tagged
 
 
+def _backend(args, cfg):
+    """``--backend``: None (the engine's default, the kernels) or the plain
+    body as an object."""
+    from repro_torch.serving import XlaPagedBackend
+    return XlaPagedBackend(cfg) if args.backend == "xla" else None
+
+
 def _serve_node(args, cfg, server, ready):
     """``--node-shape TPxG``: the same traffic through an ``RDUNode``."""
     from repro_torch.core import HashRouter
@@ -181,7 +193,7 @@ def _serve_node(args, cfg, server, ready):
                    scheduler=args.scheduler, prefill_mode=args.prefill_mode,
                    prefix_sharing=args.prefix_sharing,
                    prefill_groups=args.prefill_groups,
-                   registry=get_registry())
+                   backend=_backend(args, cfg), registry=get_registry())
     for name, tree, domain in experts:
         node.register_expert(name, tree, domain=domain)
         del tree
@@ -241,7 +253,8 @@ def _serve(args, cfg, server, ready):
                            scheduler=args.scheduler,
                            prefill_mode=args.prefill_mode,
                            prefix_sharing=args.prefix_sharing,
-                           device=args.device, registry=reg)
+                           backend=_backend(args, cfg), device=args.device,
+                           registry=reg)
     wd = _wire_obs(args, server, ready, engine.debug_providers(), [engine])
     try:
         if args.warmup:
@@ -291,7 +304,15 @@ def _serve(args, cfg, server, ready):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--arch", default="samba-coe-expert-7b")
+    from repro_torch.configs import CONFIGS
+    ap.add_argument("--arch", default="samba-coe-expert-7b",
+                    choices=sorted(n for n, c in CONFIGS.items()
+                                   if c.family == "dense"))
+    ap.add_argument("--backend", default="fused", choices=["fused", "xla"],
+                    help="decode-step backend (serving/backends.py): "
+                         "'fused' the kernels (dense RMSNorm/SwiGLU/full-"
+                         "RoPE configs without biases), 'xla' the plain "
+                         "paged body (every dense config)")
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config (CPU smoke runs)")
     ap.add_argument("--n-experts", type=int, default=3)

@@ -1,7 +1,8 @@
 """Shared layers of the dense and rglru families (counterpart of
-``repro.models.layers``): RMSNorm, full RoPE, attention (the quadratic
-oracle and the ``flash_prefill`` kernel's entry), single-token attention
-against a dense cache, and the SwiGLU / GeGLU FFN."""
+``repro.models.layers``): RMSNorm and LayerNorm, full / partial / m-RoPE,
+attention (the quadratic oracle and the ``flash_prefill`` kernel's entry),
+single-token attention against a dense cache, and the SwiGLU / GeGLU /
+GELU FFN with its optional biases."""
 from __future__ import annotations
 
 import math
@@ -19,16 +20,29 @@ def rms_norm(x, scale, eps=1e-6):
     return (xf * torch.rsqrt(var + eps)).to(dt) * scale
 
 
+def layer_norm(x, scale, bias, eps=1e-5):
+    """Statistics in f32, normalised values cast back to x's type before
+    the affine, as the JAX function does."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(dt) * scale + bias
+
+
 def apply_norm(cfg: ModelConfig, p, x):
-    if cfg.norm != "rms":
-        raise NotImplementedError(
-            f"norm={cfg.norm!r} is not ported yet (ROADMAP.md Queue 1)")
-    return rms_norm(x, p["scale"])
+    if cfg.norm == "rms":
+        return rms_norm(x, p["scale"])
+    return layer_norm(x, p["scale"], p["bias"])
 
 
 def norm_specs(cfg: ModelConfig, d=None):
     from repro_torch.models.common import spec
-    return {"scale": spec((d or cfg.d_model,), ("embed",), init="ones")}
+    d = d or cfg.d_model
+    out = {"scale": spec((d,), ("embed",), init="ones")}
+    if cfg.norm == "ln":
+        out["bias"] = spec((d,), ("embed",), init="zeros")
+    return out
 
 
 def _rope_angles(positions, rot_dim, theta):
@@ -47,16 +61,36 @@ def _rotate_half(x, cos, sin):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+def rope_dim(cfg: ModelConfig, dh: int) -> int:
+    """The rotated elements of a head: all of it, or ``int(dh *
+    rope_fraction)`` for partial RoPE, rounded down to even."""
+    rot = int(dh * cfg.rope_fraction) if cfg.rope_style == "partial" else dh
+    return rot - rot % 2
+
+
 def apply_rope(cfg: ModelConfig, x, positions):
-    """x (B, S, H, dh), positions (B, S) int. Full-style RoPE only."""
+    """x (B, S, H, dh), positions (B, S) int, or (3, B, S) for m-RoPE (2-D
+    positions serve all three sections: text-only input). Only the first
+    ``rope_dim`` elements of a head rotate; m-RoPE takes each section's
+    frequencies from its own position stream."""
     if cfg.rope_style == "none":
         return x
-    if cfg.rope_style != "full":
-        raise NotImplementedError(
-            f"rope_style={cfg.rope_style!r} is not ported yet (ROADMAP.md)")
     dt = x.dtype
-    rot = x.shape[-1] - x.shape[-1] % 2
-    cos, sin = _rope_angles(positions, rot, cfg.rope_theta)
+    rot = rope_dim(cfg, x.shape[-1])
+    if cfg.rope_style == "mrope":
+        if positions.dim() == 2:
+            positions = positions[None].expand(3, *positions.shape)
+        cos, sin = _rope_angles(positions, rot, cfg.rope_theta)  # (3,B,S,r/2)
+        secs = cfg.mrope_sections
+        if sum(secs) != rot // 2:
+            raise ValueError(f"mrope_sections {secs} must sum to {rot // 2}")
+        bounds = np.cumsum((0,) + tuple(secs))
+        cos = torch.cat([cos[i, ..., bounds[i]:bounds[i + 1]]
+                         for i in range(3)], dim=-1)
+        sin = torch.cat([sin[i, ..., bounds[i]:bounds[i + 1]]
+                         for i in range(3)], dim=-1)
+    else:
+        cos, sin = _rope_angles(positions, rot, cfg.rope_theta)
     cos, sin = cos[..., None, :], sin[..., None, :]          # (B,S,1,rot/2)
     xr = _rotate_half(x[..., :rot].float(), cos, sin).to(dt)
     if rot == x.shape[-1]:
@@ -111,20 +145,48 @@ def decode_attention(q, k_cache, v_cache, valid_mask):
     return o.reshape(B, 1, Hq, dv).to(q.dtype)
 
 
+def _gated(cfg: ModelConfig) -> bool:
+    return cfg.act in ("swiglu", "geglu")
+
+
 def ffn_specs(cfg: ModelConfig, d_ff=None):
     from repro_torch.models.common import spec
     D, F = cfg.d_model, d_ff or cfg.d_ff
-    return {"wi_gate": spec((D, F), ("embed", "ffn")),
-            "wi_up": spec((D, F), ("embed", "ffn")),
-            "wo": spec((F, D), ("ffn", "embed"))}
+    if _gated(cfg):
+        p = {"wi_gate": spec((D, F), ("embed", "ffn")),
+             "wi_up": spec((D, F), ("embed", "ffn"))}
+    else:
+        p = {"wi": spec((D, F), ("embed", "ffn"))}
+    p["wo"] = spec((F, D), ("ffn", "embed"))
+    if cfg.mlp_bias:
+        for k in (("bi_gate", "bi_up") if _gated(cfg) else ("bi",)):
+            p[k] = spec((F,), ("ffn",), init="zeros")
+        p["bo"] = spec((D,), ("embed",), init="zeros")
+    return p
+
+
+def act(cfg: ModelConfig, x):
+    """SiLU for SwiGLU; GELU's tanh form (JAX's ``approximate=True``) for
+    GeGLU and the plain GELU MLP."""
+    if cfg.act == "swiglu":
+        return torch.nn.functional.silu(x)
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def ffn_hidden(cfg: ModelConfig, p, x):
+    """The FFN's hidden activation before the down projection: act(gate) *
+    up, or act(x @ wi) for the non-gated MLP, with the input biases."""
+    bias = cfg.mlp_bias
+    if _gated(cfg):
+        g = x @ p["wi_gate"]
+        u = x @ p["wi_up"]
+        if bias:
+            g, u = g + p["bi_gate"], u + p["bi_up"]
+        return act(cfg, g) * u
+    h = x @ p["wi"]
+    return act(cfg, h + p["bi"] if bias else h)
 
 
 def ffn_apply(cfg: ModelConfig, p, x):
-    if cfg.act not in ("swiglu", "geglu") or cfg.mlp_bias:
-        raise NotImplementedError(
-            f"act={cfg.act!r}, mlp_bias={cfg.mlp_bias} is not ported yet")
-    g = x @ p["wi_gate"]
-    u = x @ p["wi_up"]
-    act = torch.nn.functional.silu(g) if cfg.act == "swiglu" else \
-        torch.nn.functional.gelu(g, approximate="tanh")
-    return (act * u) @ p["wo"]
+    y = ffn_hidden(cfg, p, x) @ p["wo"]
+    return y + p["bo"] if cfg.mlp_bias else y

@@ -6,7 +6,11 @@ as the JAX scan emits them.
 Serving with a dense cache: ``prefill`` fills a ``(L,B,max_len,Hkv,dh)``
 bf16 cache ``{"k","v"}`` and ``decode_step`` extends it by one token at a
 position shared by the batch, writing the cache in place (JAX returns a new
-one). Sliding-window configs are not ported (``ROADMAP.md`` Queue 1)."""
+one). Sliding-window configs are not ported (``ROADMAP.md`` Queue 1).
+
+The dense variants' branches follow JAX's: QKV and output biases, tied
+embeddings (the token table as the head), LayerNorm, GELU and the RoPE
+styles (``layers``), and a vision stub's ``patch_embeds``."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -21,14 +25,14 @@ from repro_torch.models.common import spec
 def _check_dense(cfg: ModelConfig):
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue 1)")
-    if cfg.qkv_bias or cfg.attn_out_bias or cfg.tie_embeddings:
-        raise NotImplementedError("biases / tied embeddings are not ported yet")
+            f"family {cfg.family!r} is not ported yet: this module runs the "
+            "dense family; MoE, MLA, xLSTM and encoder-decoder follow "
+            "(ROADMAP.md Queue 1)")
 
 
 def _attn_specs(cfg: ModelConfig):
     D, Hq, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
+    p = {
         "norm": L.norm_specs(cfg),
         "wq": spec((D, Hq, dh), ("embed", "q_heads", "head_dim")),
         "wk": spec((D, Hkv, dh), ("embed", "kv_heads", "head_dim")),
@@ -36,6 +40,13 @@ def _attn_specs(cfg: ModelConfig):
         "wo": spec((Hq, dh, D), ("q_heads", "head_dim", "embed"),
                    fan_in_axes=(0, 1)),
     }
+    if cfg.qkv_bias:
+        p["bq"] = spec((Hq, dh), ("q_heads", "head_dim"), init="zeros")
+        p["bk"] = spec((Hkv, dh), ("kv_heads", "head_dim"), init="zeros")
+        p["bv"] = spec((Hkv, dh), ("kv_heads", "head_dim"), init="zeros")
+    if cfg.attn_out_bias:
+        p["bo"] = spec((D,), ("embed",), init="zeros")
+    return p
 
 
 def _stack(tree, n):
@@ -49,13 +60,15 @@ def param_specs(cfg: ModelConfig):
     _check_dense(cfg)
     layer = {"attn": _attn_specs(cfg), "mlp_norm": L.norm_specs(cfg),
              "mlp": L.ffn_specs(cfg)}
-    return {
+    p = {
         "embed": {"tok": spec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
                               fan_in_axes=())},
         "final_norm": L.norm_specs(cfg),
         "layers": _stack(layer, cfg.n_layers),
-        "lm_head": spec((cfg.d_model, cfg.vocab_size), ("embed", "vocab")),
     }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = spec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+    return p
 
 
 def layer_params(params, i: int) -> Dict[str, Any]:
@@ -66,16 +79,30 @@ def layer_params(params, i: int) -> Dict[str, Any]:
     return take(params["layers"])
 
 
+def qkv_proj(cfg, p, hn, positions):
+    """q (B,S,Hq,dh), k, v (B,S,Hkv,dh) of the normed input ``hn``: the
+    projections with the QKV biases, then RoPE on q and k. Also serves a
+    rank's shard of the heads (the biases shard with them)."""
+    q = torch.einsum("bsd,dhk->bshk", hn, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", hn, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", hn, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return L.apply_rope(cfg, q, positions), L.apply_rope(cfg, k, positions), v
+
+
+def attn_out(cfg, p, o):
+    """The attention block's output projection of o (B,S,Hq,dh), with its
+    bias."""
+    y = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return y + p["bo"] if cfg.attn_out_bias else y
+
+
 def _dense_attn(cfg, p, x, positions):
     h = L.apply_norm(cfg, p["norm"], x)
-    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
-    q = L.apply_rope(cfg, q, positions)
-    k = L.apply_rope(cfg, k, positions)
+    q, k, v = qkv_proj(cfg, p, h, positions)
     o = L.attention(q, k, v, window=cfg.sliding_window)
-    y = torch.einsum("bshk,hkd->bsd", o, p["wo"])
-    return x + y, (k, v)
+    return x + attn_out(cfg, p, o), (k, v)
 
 
 def _mlp(cfg, p_norm, p_mlp, x):
@@ -93,17 +120,26 @@ def embed_tokens(cfg, params, tokens):
 
 
 def unembed(cfg, params, h):
+    """Logits of h (..., D): the head, or the token table where the
+    embeddings are tied."""
+    if cfg.tie_embeddings:
+        return h @ params["embed"]["tok"].t()
     return h @ params["lm_head"]
 
 
 def forward(cfg: ModelConfig, params, batch, *, return_cache: bool = False,
             last_only: bool = False):
     """tokens (B,S) -> logits (B,S,V) (or (B,1,V) with ``last_only``); with
-    ``return_cache`` also ``[(k, v)]`` with k/v ``(L,B,S,Hkv,dh)``."""
+    ``return_cache`` also ``[(k, v)]`` with k/v ``(L,B,S,Hkv,dh)``. A
+    vision config's ``batch["patch_embeds"]`` (B,P,D) replace the first P
+    token embeddings (the frontend is a stub, as in JAX)."""
     _check_dense(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = embed_tokens(cfg, params, tokens)
+    if "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(h.dtype)
+        h = torch.cat([pe, h[:, pe.shape[1]:]], dim=1)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     ks, vs = [], []
     for i in range(cfg.n_layers):
@@ -165,15 +201,11 @@ def _decode_dense_layer(cfg, lp, hh, kc, vc, idx, posv, valid):
     layer's caches kc/vc (B,S,Hkv,dh) at ``idx``, in place."""
     p = lp["attn"]
     hn = L.apply_norm(cfg, p["norm"], hh)
-    q = torch.einsum("bsd,dhk->bshk", hn, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", hn, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", hn, p["wv"])
-    q = L.apply_rope(cfg, q, posv)
-    k = L.apply_rope(cfg, k, posv)
+    q, k, v = qkv_proj(cfg, p, hn, posv)
     kc[:, idx] = k[:, 0]
     vc[:, idx] = v[:, 0]
     o = L.decode_attention(q, kc, vc, valid)
-    hh = hh + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    hh = hh + attn_out(cfg, p, o)
     return _mlp(cfg, lp["mlp_norm"], lp["mlp"], hh), (kc, vc)
 
 

@@ -34,7 +34,10 @@ rank's pool shard, ``decode_paged``, the o-projection partial as a
 ``torch.matmul`` (JAX leaves it to XLA too), then reduction #1,
 ``ffn_swiglu(residual=False)`` at the rank's FFN shard and reduction #2.
 Prefill (packed and sequential) runs the same per-rank layer with the
-reductions where JAX lets GSPMD partition the forward.
+reductions where JAX lets GSPMD partition the forward. A dense variant's
+QKV and FFN input biases are sharded with their heads and hidden dim and
+added locally; its output biases are replicated and added once, after the
+reduction; a tied head is each rank's vocab slice of the token table.
 
 ``PrefillWorker`` is a socket group dedicated to prefill (disaggregated
 serving); ``make_group_engine`` builds a group's decode engine.
@@ -112,41 +115,48 @@ class _TPLayout:
 
     def unembed(self, ranks, h) -> torch.Tensor:
         """Logits; vocab-sharded: each rank's columns, concatenated (the
-        JAX body returns them vocab-local; here the controller holds all)."""
+        JAX body returns them vocab-local; here the controller holds all).
+        A tied head is each rank's slice of the token table."""
         from repro_torch.models import layers as L
+        from repro_torch.models import transformer as T
         h = L.apply_norm(self.cfg, ranks[0]["final_norm"], h)
         if not self.vocab_sharded:
-            return h @ ranks[0]["lm_head"]
-        return torch.cat([h @ p["lm_head"] for p in ranks], dim=-1)
+            return T.unembed(self.cfg, ranks[0], h)
+        return torch.cat([T.unembed(self.cfg, p, h) for p in ranks], dim=-1)
 
     def ffn(self, lps, h) -> torch.Tensor:
-        """``h`` plus the FFN, its hidden dim split over the ranks:
-        reduction #2 (plain)."""
+        """``h`` plus the FFN, its hidden dim split over the ranks (the
+        input biases with it): reduction #2 (plain), then the replicated
+        output bias, added once."""
         from repro_torch.models import layers as L
-        hn = L.apply_norm(self.cfg, lps[0]["mlp_norm"], h)
-        return h + _reduce([L.ffn_apply(self.cfg, lp["mlp"], hn)
-                            for lp in lps])
+        cfg = self.cfg
+        hn = L.apply_norm(cfg, lps[0]["mlp_norm"], h)
+        y = _reduce([L.ffn_hidden(cfg, lp["mlp"], hn) @ lp["mlp"]["wo"]
+                     for lp in lps])
+        return h + (y + lps[0]["mlp"]["bo"] if cfg.mlp_bias else y)
 
     def attention_layer(self, lps, h, positions, attend):
         """``h`` plus the attention block, its heads split over the ranks:
-        rank ``r`` projects its q / k / v heads, ``attend(r, q, k, v)``
-        returns its (B, S, Hq_local, dh) output, and the o-projection
-        partials are reduction #1. Returns (h, [(k, v) per rank])."""
+        rank ``r`` projects its q / k / v heads (adding its shard of the
+        QKV biases), ``attend(r, q, k, v)`` returns its (B, S, Hq_local,
+        dh) output, and the o-projection partials are reduction #1, to
+        which the replicated output bias is added once. Returns (h, [(k,
+        v) per rank])."""
         from repro_torch.models import layers as L
+        from repro_torch.models import transformer as T
         cfg = self.cfg
         parts, kvs = [], []
         for r, lp in enumerate(lps):
             p = lp["attn"]
             hn = L.apply_norm(cfg, p["norm"], h)
-            q = torch.einsum("bsd,dhk->bshk", hn, p["wq"])
-            k = torch.einsum("bsd,dhk->bshk", hn, p["wk"])
-            v = torch.einsum("bsd,dhk->bshk", hn, p["wv"])
-            q = L.apply_rope(cfg, q, positions)
-            k = L.apply_rope(cfg, k, positions)
+            q, k, v = T.qkv_proj(cfg, p, hn, positions)
             o = attend(r, q, k, v).to(h.dtype)
             parts.append(torch.einsum("bshk,hkd->bsd", o, p["wo"]))
             kvs.append((k, v))
-        return h + _reduce(parts), kvs
+        y = _reduce(parts)
+        if cfg.attn_out_bias:
+            y = y + lps[0]["attn"]["bo"]
+        return h + y, kvs
 
     def select(self, r: int, k, v):
         """K/V at rank ``r``'s q heads where the kv heads replicate (each

@@ -4,8 +4,11 @@
   * ``XlaPagedBackend`` — the plain PyTorch counterpart of the JAX package's
     XLA reference body (``xla_paged_extend``; the names are kept so the two
     packages line up): contiguous ``pool[tables]`` gather + masked softmax.
-    It is the correctness reference of the fused path; the parity tests
-    pass it in as an object, serving never selects it.
+    It is the correctness reference of the fused path, and the body of the
+    dense variants the kernels refuse (``kernel_refusals``: a LayerNorm,
+    GELU, partial or m-RoPE, biases), as in JAX. Only a caller selects it
+    (``backend=XlaPagedBackend(cfg)``, ``launch/serve.py --backend
+    xla``); serving never picks it by itself.
   * ``FusedPagedBackend`` — a single-token step (g = 1: greedy decode and
     the speculative draft loop) runs per decoder layer the three
     hand-written kernels: ``qkv_rope_paged`` -> K/V scatter ->
@@ -22,11 +25,12 @@ Both bodies update the pools in place and return them.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import rope_dim
 
 
 def _scatter_rows(positions, active, tables, block: int, scratch_row: int):
@@ -86,11 +90,7 @@ def xla_paged_extend(cfg: ModelConfig, params, pk, pv, tables, lengths,
         lp = T.layer_params(params, i)
         p = lp["attn"]
         hn = L.apply_norm(cfg, p["norm"], h)
-        q = torch.einsum("bsd,dhk->bshk", hn, p["wq"])
-        k = torch.einsum("bsd,dhk->bshk", hn, p["wk"])
-        v = torch.einsum("bsd,dhk->bshk", hn, p["wv"])
-        q = L.apply_rope(cfg, q, positions)
-        k = L.apply_rope(cfg, k, positions)
+        q, k, v = T.qkv_proj(cfg, p, hn, positions)
         pk[i, rows, off] = k.to(pk.dtype)
         pv[i, rows, off] = v.to(pv.dtype)
         kc = pk[i][tl].reshape(B, S, *pk.shape[3:])               # (B,S,Hkv,dh)
@@ -104,7 +104,7 @@ def xla_paged_extend(cfg: ModelConfig, params, pk, pv, tables, lengths,
         o = torch.einsum("bhgqs,bshd->bqhgd", pa.to(vc.dtype).float(),
                          vc.float())
         o = o.reshape(B, g, Hq, dh).to(h.dtype)
-        h = h + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+        h = h + T.attn_out(cfg, p, o)
         h = T._mlp(cfg, lp["mlp_norm"], lp["mlp"], h)
     h = L.apply_norm(cfg, params["final_norm"], h)
     return T.unembed(cfg, params, h), pk, pv
@@ -171,7 +171,7 @@ def kernel_hbm_bytes(cfg: ModelConfig, batch: int, len1: Sequence[int],
     Hq, Hkv, dh, D, F = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                          cfg.d_model, cfg.d_ff)
     H = Hq + 2 * Hkv
-    rot = dh - dh % 2
+    rot = rope_dim(cfg, dh)
     qkv = (B * D * _BF16 + D * _BF16 + B * _I32 + rot // 2 * _F32
            + D * H * dh * _BF16 + B * H * dh * _BF16)
     kv_tokens = int(sum(int(n) for n in len1))
@@ -209,7 +209,7 @@ def dense_kernel_hbm_bytes(cfg: ModelConfig, batch: int,
     Hq, Hkv, dh, D, F = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                          cfg.d_model, cfg.d_ff)
     H = Hq + 2 * Hkv
-    rot = dh - dh % 2
+    rot = rope_dim(cfg, dh)
     qkv = (B * D * _BF16 + D * _BF16 + rot // 2 * _F32
            + D * H * dh * _BF16 + H * B * dh * _BF16)
     attn = (2 * B * Hq * dh * _BF16                   # q in + o out
@@ -284,7 +284,8 @@ class PagedBackend:
 
 class XlaPagedBackend(PagedBackend):
     """The plain PyTorch reference step. Serving never picks it by itself:
-    a caller that wants it (a parity test) passes the object in."""
+    a caller that wants it (a parity test, or a dense variant the kernels
+    refuse) passes the object in."""
 
     name = "xla"
 
@@ -292,6 +293,24 @@ class XlaPagedBackend(PagedBackend):
                scratch_row: int):
         return xla_paged_extend(self.cfg, params, pk, pv, tables, lengths,
                                 active, tokens, scratch_row)
+
+
+def kernel_refusals(cfg: ModelConfig) -> List[str]:
+    """What of ``cfg`` the decode kernels do not compute (JAX's
+    ``FusedPagedBackend`` refuses the same): empty for a dense
+    RMSNorm / SwiGLU / full-RoPE config without biases."""
+    out = []
+    if cfg.n_experts > 0:
+        out.append("MoE FFN")
+    if cfg.norm != "rms":
+        out.append(f"norm={cfg.norm!r}")
+    if cfg.act != "swiglu":
+        out.append(f"act={cfg.act!r}")
+    if cfg.rope_style != "full":
+        out.append(f"rope_style={cfg.rope_style!r}")
+    if cfg.qkv_bias or cfg.attn_out_bias or cfg.mlp_bias:
+        out.append("attention/MLP biases")
+    return out
 
 
 class FusedPagedBackend(PagedBackend):
@@ -302,22 +321,13 @@ class FusedPagedBackend(PagedBackend):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__(cfg)
-        unsupported = []
-        if cfg.n_experts > 0:
-            unsupported.append("MoE FFN")
-        if cfg.norm != "rms":
-            unsupported.append(f"norm={cfg.norm!r}")
-        if cfg.act != "swiglu":
-            unsupported.append(f"act={cfg.act!r}")
-        if cfg.rope_style != "full":
-            unsupported.append(f"rope_style={cfg.rope_style!r}")
-        if cfg.qkv_bias or cfg.attn_out_bias or cfg.mlp_bias:
-            unsupported.append("attention/MLP biases")
+        unsupported = kernel_refusals(cfg)
         if unsupported:
             raise ValueError(
                 "the fused kernels serve the dense RMSNorm/SwiGLU/full-RoPE "
                 f"decoder family only; {cfg.name!r} needs "
-                f"{', '.join(unsupported)}, which the port does not serve yet")
+                f"{', '.join(unsupported)}: pass backend=XlaPagedBackend(cfg)"
+                " (launch/serve.py --backend xla)")
 
     def extend(self, params, pk, pv, tables, lengths, active, tokens,
                scratch_row: int):

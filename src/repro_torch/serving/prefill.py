@@ -100,14 +100,9 @@ def packed_prefill_fn(cfg: ModelConfig):
 
     def _attn(p, x, seg, pos):
         h = L.apply_norm(cfg, p["norm"], x)
-        q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
-        k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
-        v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
-        q = L.apply_rope(cfg, q, pos)
-        k = L.apply_rope(cfg, k, pos)
+        q, k, v = T.qkv_proj(cfg, p, h, pos)
         o = packed_attention(q, k, v, seg)
-        y = torch.einsum("bshk,hkd->bsd", o, p["wo"])
-        return x + y, (k, v)
+        return x + T.attn_out(cfg, p, o), (k, v)
 
     def forward(params, tokens, seg, pos, last_idx):
         h = T.embed_tokens(cfg, params, tokens)

@@ -13,6 +13,10 @@ each draft step is ``decode_step``'s arithmetic composed from
 ``decoder_layer_step`` (the kernels ``qkv_rope``, ``flash_decode`` and
 ``ffn_swiglu``; their plain versions on the CPU); the verify runs
 ``layers.naive_attention`` at ``q_offset=pos``, plain, as JAX's runs in XLA.
+A draft the kernels do not compute (``backends.kernel_refusals``: biases, a
+LayerNorm, GELU, a RoPE variant) is refused unless the caller passes
+``draft_kernels=False``: its steps are then the model's plain
+``decode_step``, JAX's draft body.
 """
 from __future__ import annotations
 
@@ -42,17 +46,13 @@ def extend_step(cfg: ModelConfig, params, cache, tokens, pos: int):
         lp = T.layer_params(params, i)
         p = lp["attn"]
         hn = L.apply_norm(cfg, p["norm"], h)
-        q = torch.einsum("bsd,dhk->bshk", hn, p["wq"])
-        k = torch.einsum("bsd,dhk->bshk", hn, p["wk"])
-        v = torch.einsum("bsd,dhk->bshk", hn, p["wv"])
-        q = L.apply_rope(cfg, q, positions)
-        k = L.apply_rope(cfg, k, positions)
+        q, k, v = T.qkv_proj(cfg, p, hn, positions)
         kc, vc = cache["k"][i], cache["v"][i]
         kc[:, pos:pos + g] = k.to(kc.dtype)
         vc[:, pos:pos + g] = v.to(vc.dtype)
         # verify attention: g queries at offset pos against the whole cache
         o = L.naive_attention(q, kc, vc, causal=True, q_offset=pos)
-        h = h + torch.einsum("bshk,hkd->bsd", o.to(h.dtype), p["wo"])
+        h = h + T.attn_out(cfg, p, o.to(h.dtype))
         h = T._mlp(cfg, lp["mlp_norm"], lp["mlp"], h)
     h = L.apply_norm(cfg, params["final_norm"], h)
     return T.unembed(cfg, params, h), cache
@@ -62,11 +62,14 @@ def extend_step(cfg: ModelConfig, params, cache, tokens, pos: int):
 def draft_step(cfg: ModelConfig, params, layers, cache, tokens, pos: int):
     """One greedy decode step of the draft: ``decode_step``'s arithmetic as
     ``decoder_layer_step`` per layer (``layers`` from ``layer_step_params``,
-    built once). tokens (B,1) at the host int ``pos``; the cache is written
-    in place. Returns (logits (B,V), cache)."""
+    built once), or, with ``layers`` None, the model's plain
+    ``decode_step``. tokens (B,1) at the host int ``pos``; the cache is
+    written in place. Returns (logits (B,V), cache)."""
     from repro_torch.kernels.fused_decode.ops import decoder_layer_step
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
+    if layers is None:
+        return T.decode_step(cfg, params, cache, tokens.long(), pos)
     kw = dict(n_q=cfg.n_heads, n_kv=cfg.n_kv_heads, dh=cfg.head_dim,
               theta=cfg.rope_theta)
     h = T.embed_tokens(cfg, params, tokens[:, 0].long())
@@ -97,8 +100,16 @@ class SpeculativeDecoder:
     """Greedy speculative decoding: draft proposes, target verifies."""
 
     def __init__(self, target_cfg: ModelConfig, draft_cfg: ModelConfig,
-                 gamma: int = 4):
+                 gamma: int = 4, draft_kernels: bool = True):
+        from repro_torch.serving.backends import kernel_refusals
         assert target_cfg.vocab_size == draft_cfg.vocab_size
+        refused = kernel_refusals(draft_cfg)
+        if draft_kernels and refused:
+            raise ValueError(
+                f"the decode kernels do not compute the draft "
+                f"{draft_cfg.name!r} ({', '.join(refused)}): pass "
+                "draft_kernels=False for the plain decode_step")
+        self.draft_kernels = draft_kernels
         self.t_cfg, self.d_cfg = target_cfg, draft_cfg
         self.t_model = get_model(target_cfg)
         self.d_model = get_model(draft_cfg)
@@ -117,8 +128,9 @@ class SpeculativeDecoder:
         t_last, t_cache = self.t_model.prefill(t_params, {"tokens": jp},
                                                max_len)
         _, d_cache = self.d_model.prefill(d_params, {"tokens": jp}, max_len)
-        d_layers = [layer_step_params(d_params, i)
-                    for i in range(self.d_cfg.n_layers)]
+        d_layers = ([layer_step_params(d_params, i)
+                     for i in range(self.d_cfg.n_layers)]
+                    if self.draft_kernels else None)
         out = np.zeros((B, n_tokens), np.int32)
         cur = torch.argmax(t_last, -1)                     # token at pos S
         out[:, 0] = cur.cpu().numpy()

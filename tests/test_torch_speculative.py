@@ -13,10 +13,10 @@ the same f32 target and draft weights (JAX init through ``bridge``):
     whatever the weights and its ``decode_step`` refuses an f32 token into
     it, so, as ``test_torch_coe_generate.py`` does, both packages'
     ``cache_spec`` is patched (in this test only) to give the cache the
-    weights' type, f32.
-
-The reduced samba-coe-expert-7b is the target in both parts: the port has
-no granite-8b config yet."""
+    weights' type, f32; the reduced expert as the target, and JAX's own
+    cases (``tests/test_speculative.py``) with the reduced granite-8b as
+    the target: a 2-layer draft of d_ff 128 and a self-draft, the drafts'
+    steps on the dense kernels' route (their plain versions here)."""
 import dataclasses
 
 import jax
@@ -211,5 +211,36 @@ def test_standalone_decoder_matches_jax_and_dense_greedy(models,
         ref = _dense_greedy(get_model(cfg), to_torch(trees[0]), prompt, n)
         np.testing.assert_array_equal(got, ref)
         if own:                              # a self-draft accepts all
+            assert sd.stats.acceptance_rate == 1.0
+            assert sd.stats.tokens_per_target_call > 2.0
+
+
+def test_standalone_decoder_granite_target_matches_jax(monkeypatch):
+    """JAX's ``test_speculative_equals_greedy`` and
+    ``test_speculative_self_draft_full_acceptance`` on the reduced
+    granite-8b (GQA 4 / 2), both packages on the same f32 weights."""
+    _patch_cache_f32(monkeypatch)
+    jt, t = jax_reduced(jax_get_config("granite-8b")), \
+        reduced(get_config("granite-8b"))
+    jd, d = (dataclasses.replace(c, n_layers=2, d_ff=128) for c in (jt, t))
+    rng = jax.random.PRNGKey(0)
+    tp = _f32(jax_get_model(jt).init(rng))
+    dp = _f32(jax_get_model(jd).init(jax.random.fold_in(rng, 7)))
+    for prompt, n, gamma, own in (
+            (np.random.RandomState(0).randint(0, t.vocab_size, (2, 16)),
+             10, 3, False),
+            (np.random.RandomState(1).randint(0, t.vocab_size, (1, 12)),
+             9, 4, True)):
+        prompt = prompt.astype(np.int32)
+        jdraft, draft, dtree = (jt, t, tp) if own else (jd, d, dp)
+        jsd = JaxSpecDecoder(jt, jdraft, gamma=gamma)
+        want = jsd.generate(tp, dtree, prompt, n)
+        sd = SpeculativeDecoder(t, draft, gamma=gamma)
+        got = sd.generate(to_torch(tp), to_torch(dtree), prompt, n)
+        np.testing.assert_array_equal(got, want)
+        assert dataclasses.asdict(sd.stats) == dataclasses.asdict(jsd.stats)
+        np.testing.assert_array_equal(
+            got, _dense_greedy(get_model(t), to_torch(tp), prompt, n))
+        if own:
             assert sd.stats.acceptance_rate == 1.0
             assert sd.stats.tokens_per_target_call > 2.0
