@@ -28,7 +28,8 @@
    F 14336), ``qkv_rope_paged`` rotating half of each head at chatglm3-6b's
    widths (two faults planted in its plain version: RoPE dropped, the whole
    head rotated) and ``flash_prefill`` at 8 x 2048 tokens, dh 128, at G 5,
-   12 and 16.
+   12 and 16; then ``flash_prefill`` at Mixtral-8x7B's generate prefill (2
+   x 4608 tokens, 32 q on 8 kv heads, dh 128, window 4096).
    Each kernel against its plain PyTorch version on the same inputs, timed
    with CUDA events (the 50 MB L2 flushed before every launch), beside the
    plain version and one PyTorch library call computing the same function
@@ -146,6 +147,19 @@
    64-256 prompt and 16 new tokens, ``flash_prefill`` once per layer a
    prompt at each config's G, and one prompt's prefill logits against the
    plain forward in f32 (``VARIANT_PREFILL_LOGIT_TOL_REL``).
+6e. Mixtral phase: Mixtral-8x7B cut to 8 of its 32 layers at full width
+   (23.7 GB bf16), one expert made on the card and kept in pinned host
+   memory, an HBM cache of one. ``generate`` on 2 prompts of 4608 tokens
+   past the 4096-position window (the ring wraps), 16 new tokens:
+   ``flash_prefill`` once per layer; the prefill's logits against the
+   plain f32 forward over both rows on the bf16 path's routing (the same
+   capacity drops), every token that routes apart a near tie of the f32
+   gates (``MIXTRAL_ROUTE_TIE_TOL_REL``); one decode step past the wrap
+   against the teacher-forced windowed f32 forward at capacity_factor
+   16. Then, at window 0, ``VARIANTS``' 8 requests on the plain paged
+   body with sequential prefill (``flash_prefill`` 8 x 8 launches, no
+   other kernel), one prompt's ``prefill_kv`` logits against the f32
+   forward on its routing, and a paged step's device time and idle share.
 7. RecurrentGemma phase, after the experts' store is released:
    recurrentgemma-9b at full width and depth (38 layers, 10.4 G parameters,
    bf16) as the one expert of a ``CompositionOfExperts(HashRouter(1))`` on
@@ -351,6 +365,39 @@ VARIANT_PREFILL_ROWS = {
     "qwen2-vl-2b": "flash_prefill[qwen2-vl-2b,G=6,B=1,S=256]",
     "starcoder2-3b": "flash_prefill[starcoder2-3b,G=12,B=1,S=256]",
     "chatglm3-6b": "flash_prefill[chatglm3-6b,G=16,B=1,S=256]"}
+# Mixtral-8x7B (moe): 8 of its 32 layers at full width (D 4096, 32 q on 8
+# kv heads of 128, 8 experts top-2 of F 14336, vocab 32000), 23.7 GB of
+# bf16 where the whole model is 93.4 GB. generate runs 2 prompts of 4608
+# tokens past the 4096-position window (the ring wraps at 4096) and 16 new
+# tokens; the paged engine, at window 0 (both packages' paged runners
+# refuse a window; every position of its requests lies inside 4096, so the
+# attention is the same), VARIANTS' 8 requests with sequential prefill.
+MIXTRAL = dict(layers=8, prompts=2, prompt_len=4608, new_tokens=16, seed=19)
+MIXTRAL_ROW = "flash_prefill[mixtral-8x7b,G=4,B=2,S=4608,window=4096]"
+# generate's prefill (flash_prefill at window 4096, the bf16 MoE at cf
+# 1.25) last-token logits, both rows, against the plain forward in f32
+# over the same two rows (T 9216 in both, so the same capacity) on the
+# bf16 path's routing (``routes_forced``: a near-tie flip moves which
+# assignments an expert drops, most often the last token's: the first H100
+# run's paged prefill read 0.3236 of the largest logit on the reference's
+# own routing, its last token dropped at layer 7 in f32 only, and 0.0114
+# on the bf16 path's); one decode step past the wrap against the
+# teacher-forced windowed forward in f32, on a copy at capacity_factor 16
+# (a step counts 2 tokens, a forward 4609 a row: with no drops each
+# token's FFN is its own, as JAX's tests/test_arch_smoke.py holds the
+# ring); the paged engine's prefill_kv of one prompt against the f32
+# forward on its routing. Each limit is 1.25x the first H100 reading, of
+# the largest logit: 0.0117, 0.0103 and 0.0114.
+MIXTRAL_PREFILL_LOGIT_TOL_REL = 0.0146
+MIXTRAL_STEP_LOGIT_TOL_REL = 0.0129
+MIXTRAL_PAGED_LOGIT_TOL_REL = 0.0143
+# where the bf16 path and its f32 reference (on the bf16 path's routing)
+# pick different experts for a token, the f32 gate of the reference's last
+# chosen expert against the f32 gate of the expert the bf16 path took
+# instead: their gap, of the token's largest gate, is a near tie within
+# this limit, 1.25x the first H100 reading (0.0320, layer 7 of the
+# generate prefill; 0.0087 in the paged prefill)
+MIXTRAL_ROUTE_TIE_TOL_REL = 0.040
 
 
 def _log(msg):
@@ -1868,11 +1915,20 @@ def plain_logits_f32(cfg, params, tokens, dev):
     """Last-position logits (V,) of the plain forward over ``tokens`` run in
     f32 (the bf16 weights upcast one layer at a time, quadratic
     attention)."""
+    return plain_last_logits_f32(cfg, params, np.asarray(tokens)[None],
+                                 dev)[0]
+
+
+def plain_last_logits_f32(cfg, params, tokens, dev):
+    """Last-position logits (B, V) of the plain forward over ``tokens`` (B,
+    S) in one batch, run in f32 (the bf16 weights upcast one layer at a
+    time, quadratic attention; an MoE layer's capacity counts the B * S
+    tokens)."""
     from repro_torch.bridge import tree_map
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     f32 = lambda tree: tree_map(lambda t: t.float(), tree)
-    toks = torch.as_tensor(np.asarray(tokens)[None], device=dev).long()
+    toks = torch.as_tensor(np.asarray(tokens), device=dev).long()
     with torch.no_grad(), plain_prefill():
         h = T.embed_tokens(cfg, params, toks).float()
         positions = torch.arange(toks.shape[1], device=dev)[None]
@@ -1880,7 +1936,139 @@ def plain_logits_f32(cfg, params, tokens, dev):
             h, _ = T._layer(cfg, f32(T.layer_params(params, i)), h, positions)
         h = L.apply_norm(cfg, f32(params["final_norm"]), h[:, -1:])
         head = {k: params[k] for k in ("embed", "lm_head") if k in params}
-        return T.unembed(cfg, f32(head), h)[0, 0]
+        return T.unembed(cfg, f32(head), h)[:, 0]
+
+
+@contextlib.contextmanager
+def routes_recorded():
+    """Within the block, every MoE routing (``layers.moe_route``, one call a
+    layer) appends its (router logits (T, E) f32, chosen experts (T, K))
+    to the list the block receives. Nothing in the port is edited."""
+    from repro_torch.models import layers as L
+    real, calls = L.moe_route, []
+
+    def recording(cfg, router, xt):
+        out = real(cfg, router, xt)
+        calls.append((out[0].float(), out[2]))
+        return out
+    L.moe_route = recording
+    try:
+        yield calls
+    finally:
+        L.moe_route = real
+
+
+@contextlib.contextmanager
+def routes_forced(routes):
+    """Within the block, the i-th MoE routing takes the experts of
+    ``routes[i]`` (a bf16 path's, from ``routes_recorded``), weighted by
+    its own f32 gates over them (renormalised, scaled, as
+    ``layers.moe_route`` does), so an f32 reference makes the bf16 path's
+    choices and hence its capacity drops: a routing flip at a near tie
+    moves which assignments an expert drops past its capacity, most often
+    the last tokens', whose logits the checks read. Its own unforced
+    choices are appended to the list the block receives, one a layer,
+    for ``route_ties``. Nothing in the port is edited."""
+    from repro_torch.models import layers as L
+    real, own, it = L.moe_route, [], iter(routes)
+
+    def forced(cfg, router, xt):
+        logits, _, top = real(cfg, router, xt)
+        own.append((logits.float(), top))
+        _, top16 = next(it)
+        w = torch.softmax(logits, dim=-1).gather(1, top16)
+        if cfg.family == "moe":
+            w = w / w.sum(-1, keepdim=True)
+        return logits, w * cfg.routed_scale, top16
+    L.moe_route = forced
+    try:
+        yield own
+    finally:
+        L.moe_route = real
+
+
+def dropped(cfg, top):
+    """(T, K) bool: which of the (token, choice) assignments ``top`` (T, K)
+    an MoE layer drops past its experts' capacity (``layers.moe_apply``'s
+    rule)."""
+    from repro_torch.models import layers as L
+    order, _, rank = L.moe_dispatch(cfg, top)
+    out = torch.empty_like(rank, dtype=torch.bool)
+    out[order] = rank >= L.moe_capacity(cfg, top.shape[0])
+    return out.reshape(top.shape)
+
+
+def unforced_reading(label, cfg, got, last, ref_fn, last_rows):
+    """What the f32 reference reads on its own routing (no limit: its
+    drops may differ from the bf16 path's, see ``routes_forced``): the
+    logits' max-abs error of the largest, and the assignments of the
+    tokens at ``last_rows`` each path drops, layer by layer."""
+    with routes_recorded() as own:
+        ref = ref_fn()
+    got_d = [int(dropped(cfg, top)[last_rows].sum()) for _, top in got]
+    own_d = [int(dropped(cfg, top)[last_rows].sum()) for _, top in own]
+    top = float(ref.float().abs().max())
+    err = float((last.float() - ref.float()).abs().max())
+    _log(f"{label}: the f32 reference on its own routing (no limit) reads "
+         f"max_abs_err={err:.4f}, {err / top:.4f} of |logits|max={top:.3f};"
+         f" the last tokens' assignments dropped by layer: bf16 {got_d}, "
+         f"f32 {own_d}")
+
+
+def route_ties(label, got, ref, tol_rel, rows=None, cfg=None):
+    """``got`` / ``ref``: one (router logits, experts) a layer from
+    ``routes_recorded``, of a bf16 path and its f32 reference (``rows``
+    picks the reference's tokens that match ``got``'s). Where the two route
+    a token to different experts, the reference's f32 gates of its last
+    chosen expert and of the expert the bf16 path took instead must lie
+    within ``tol_rel`` of the token's largest gate (a near tie that bf16
+    rounding may break either way). Prints how many tokens of each layer
+    part and the widest gap and, given the ``cfg``, how many assignments
+    the bf16 path dropped past each expert's capacity; returns the gap."""
+    from repro_torch.models import layers as L
+    if len(got) != len(ref):
+        raise AssertionError(f"{label}: {len(got)} routings against "
+                             f"{len(ref)}")
+    parts, worst, where = [], 0.0, None
+    for layer, ((_, top16), (lg32, top32)) in enumerate(zip(got, ref)):
+        if rows is not None:
+            lg32, top32 = lg32[rows], top32[rows]
+        differ = (top16.sort(-1).values != top32.sort(-1).values).any(-1)
+        parts.append(int(differ.sum()))
+        if not parts[-1]:
+            continue
+        g32 = torch.softmax(lg32[differ], dim=-1)
+        t16, t32 = top16[differ], top32[differ]
+        last = g32.gather(1, t32).min(-1).values
+        taken = (t16[:, :, None] != t32[:, None, :]).all(-1)   # not in ref
+        alt = torch.where(taken, g32.gather(1, t16),
+                          torch.zeros_like(last)[:, None]).max(-1).values
+        gap = (last - alt) / g32.max(-1).values
+        i = int(gap.argmax())
+        if float(gap[i]) >= worst:
+            worst = float(gap[i])
+            where = (layer, float(last[i]), float(alt[i]))
+    total = len(got[0][1]) if got else 0
+    msg = (f"{label}: routing parts from the f32 reference in "
+           f"{sum(parts)} of {total} x {len(got)} (token, layer)s "
+           f"(by layer {parts})")
+    if cfg is not None and got:
+        drops = [int(dropped(cfg, top).sum()) for _, top in got]
+        msg += (f"; the bf16 path dropped {drops} assignments (C "
+                f"{L.moe_capacity(cfg, total)})")
+    if where is not None:
+        ok = worst <= tol_rel
+        msg += (f"; widest: layer {where[0]}, f32 gates {where[1]:.4f} / "
+                f"{where[2]:.4f}, gap {worst:.4f} of the token's largest "
+                f"gate (tol {tol_rel}) -> "
+                f"{'a near tie' if ok else 'OUTSIDE the tolerance'}")
+        _log(msg)
+        if not ok:
+            raise AssertionError(f"{label}: a token routes apart by "
+                                 f"{worst:.4f} > {tol_rel}")
+    else:
+        _log(msg)
+    return worst
 
 
 def divergence_check(label, cfg, dev, pairs, tol_rel):
@@ -3281,6 +3469,257 @@ def variants_phase(dev):
     return out
 
 
+def mixtral_kernel_row(dev):
+    """``flash_prefill`` at Mixtral's generate prefill: B 2, S 4608, 32 q on
+    8 kv heads of 128, window 4096 (a band past the window), against its
+    plain version row by row with its off-by-one masks planted, beside SDPA
+    with the band mask."""
+    from repro_torch.configs import get_config
+    m = MIXTRAL
+    gen = torch.Generator(device=dev).manual_seed(m["seed"])
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    c = get_config("mixtral-8x7b")
+    row = prefill_row(MIXTRAL_ROW, c, m["prompts"], m["prompt_len"],
+                      c.sliding_window, gen, flush)
+    del flush
+    torch.cuda.empty_cache()
+    return {MIXTRAL_ROW: row}
+
+
+def mixtral_generate(cfg, dev, coe):
+    """Mixtral behind ``CompositionOfExperts.generate`` past its window,
+    then the prefill and the decode alone (timed), the prefill's logits
+    against the plain f32 forward over the same two rows, and one decode
+    step past the ring's wrap against the teacher-forced windowed forward
+    (both at capacity_factor 16). Returns generate's launch counts."""
+    import dataclasses
+
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.models import get_model
+    m = MIXTRAL
+    P, n_new, B = m["prompt_len"], m["new_tokens"], m["prompts"]
+    W = cfg.sliding_window
+    toks = np.random.RandomState(m["seed"]).randint(
+        0, cfg.vocab_size, (B, P + 1)).astype(np.int32)
+    torch.cuda.synchronize()
+    rt.reset_launches()
+    t0 = time.perf_counter()
+    res = coe.generate(toks[:, :P], n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rt.launch_counts()
+    check_launches("mixtral generate", launches,
+                   {"flash_prefill": cfg.n_layers})
+    if res.tokens.shape != (B, n_new):
+        raise AssertionError(f"mixtral generate: tokens {res.tokens.shape}")
+    if not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
+        raise AssertionError("mixtral generate: token out of vocabulary")
+    _log(f"mixtral generate: {B} prompts x {P} tokens (window {W}) -> "
+         f"{res.tokens.size} tokens in {wall:.3f}s = "
+         f"{res.tokens.size / wall:.2f} tok/s; switch_s="
+         f"{res.switch_seconds:.4f} exec_s={res.exec_seconds:.4f}; launches "
+         f"flash_prefill={launches['flash_prefill']}")
+
+    model = get_model(cfg)
+    params = coe.cache.activate(cfg.name)
+    tt = torch.as_tensor(toks[:, :P], device=dev).long()
+    with routes_recorded() as got:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = model.prefill(params, {"tokens": tt}, P + n_new)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    ring = cache["k"].shape[2]
+    ring_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    if ring != W:
+        raise AssertionError(f"mixtral: ring of {ring} positions, not {W}")
+    tok = last.argmax(-1)
+    t0 = time.perf_counter()
+    for t in range(n_new - 1):
+        lg, cache = model.decode_step(params, cache, tok[:, None], P + t)
+        tok = lg.argmax(-1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    _log(f"mixtral: prefill of {B} x {P} tokens in {prefill_s:.3f}s "
+         f"({B * P / prefill_s:.0f} tok/s); {n_new - 1} decode steps past "
+         f"the wrap in {decode_s:.3f}s = {decode_s / (n_new - 1) * 1e3:.2f} "
+         f"ms a step, {B * (n_new - 1) / decode_s:.2f} tok/s; ring "
+         f"{ring} positions, {ring_bytes / 1e6:.1f} MB (k + v, "
+         f"{cfg.n_layers} layers)")
+    step_breakdown(lambda: model.decode_step(params, cache, tok[:, None],
+                                             P + n_new - 1),
+                   f"mixtral decode step ({B} lanes, {cfg.n_layers} layers)")
+    del cache
+    with routes_forced(got) as ref:
+        l32 = plain_last_logits_f32(cfg, params, toks[:, :P], dev)
+    logits_check("mixtral prefill (flash_prefill, bf16 MoE at cf "
+                 f"{cfg.capacity_factor}) vs f32 plain forward on its "
+                 "routing, both rows", last, l32,
+                 MIXTRAL_PREFILL_LOGIT_TOL_REL)
+    route_ties("mixtral prefill", got, ref, MIXTRAL_ROUTE_TIE_TOL_REL,
+               cfg=cfg)
+    unforced_reading("mixtral prefill", cfg, got, last,
+                     lambda: plain_last_logits_f32(cfg, params, toks[:, :P],
+                                                   dev),
+                     [P - 1, 2 * P - 1])
+    del got, ref, l32
+
+    # one step past the wrap against the teacher-forced windowed forward,
+    # at capacity_factor 16: no assignment drops in either, so the step
+    # (T 2) and the forward (T 4609 a row) compute the same function
+    c16 = dataclasses.replace(cfg, capacity_factor=16.0)
+    m16 = get_model(c16)
+    _, cache = m16.prefill(params, {"tokens": tt}, P + 1)
+    nxt = torch.as_tensor(toks[:, P:], device=dev).long()
+    with routes_recorded() as got:
+        lg, cache = m16.decode_step(params, cache, nxt, P)
+    refs, ref_lg = [], []
+    for b in range(B):
+        with routes_recorded() as r:
+            ref_lg.append(plain_last_logits_f32(c16, params, toks[b:b + 1],
+                                                dev))
+        refs.append(r)
+    ref = [(torch.cat([r[i][0][-1:] for r in refs]),
+            torch.cat([r[i][1][-1:] for r in refs]))
+           for i in range(cfg.n_layers)]
+    logits_check(f"mixtral decode step at position {P} (ring index "
+                 f"{P % W}, cf 16) vs f32 teacher-forced windowed forward",
+                 lg, torch.cat(ref_lg), MIXTRAL_STEP_LOGIT_TOL_REL)
+    route_ties("mixtral decode step", got, ref, MIXTRAL_ROUTE_TIE_TOL_REL,
+               cfg=c16)
+    del cache, params, got, ref, refs
+    return launches
+
+
+def mixtral_paged(cfg, dev, store, name):
+    """Mixtral at window 0 on the plain paged body (``XlaPagedBackend``,
+    named by the caller, as JAX's ``backend="xla"``) with sequential
+    prefill and the default capacity: ``VARIANTS``' requests,
+    ``flash_prefill`` once per layer a prompt and no other kernel; one
+    prompt's ``prefill_kv`` logits against the plain f32 forward; one
+    paged step's device time and idle share."""
+    from repro_torch.core import CompositionOfExperts, ExpertHandle, HashRouter
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serving import ServingEngine, XlaPagedBackend
+    v = VARIANTS
+    coe = CompositionOfExperts(HashRouter(1), None, store.nbytes(name),
+                               store=store, device=dev)
+    coe.register(ExpertHandle(name, cfg))           # already in the store
+    engine = ServingEngine(coe, cfg, backend=XlaPagedBackend(cfg),
+                           prefill_mode="sequential", max_len=v["max_len"],
+                           n_slots=v["n_slots"], block_size=v["block_size"],
+                           device=dev)
+    reqs, _ = make_requests(v["requests"], cfg.vocab_size, v["prompt_lens"],
+                            v["new_tokens"], coe.expert_names(), 1.0,
+                            v["seed"])
+    done, wall, launches = drain(engine, reqs)
+    st = engine.stats
+    label = (f"mixtral paged (plain body, sequential prefill, window 0, cf "
+             f"{cfg.capacity_factor})")
+    served_ok(label, done, v["requests"], v["new_tokens"], cfg, engine)
+    check_launches(label, launches,
+                   {"flash_prefill": cfg.n_layers * v["requests"]})
+    _log(f"{label}: {len(done)} requests, {st.tokens_out} tokens in "
+         f"{wall:.3f}s = {st.tokens_out / wall:.2f} tok/s; "
+         f"{ttft_line(done, st.registry)}; prefill_s={st.prefill_s:.3f} "
+         f"{st.decode_rounds} decode rounds "
+         f"({st.exec_s / st.decode_rounds * 1e3:.3f} ms a round); "
+         f"flash_prefill launches {launches['flash_prefill']}")
+    params = coe.cache.activate(name)
+    prompt = reqs[0].tokens
+    rt.reset_launches()
+    with routes_recorded() as got:
+        last = engine.runner.prefill_kv(
+            params, torch.as_tensor(prompt[None], device=dev).long())[0]
+    torch.cuda.synchronize()
+    check_launches(f"{label} prefill_kv", rt.launch_counts(),
+                   {"flash_prefill": cfg.n_layers})
+    with routes_forced(got) as ref:
+        l32 = plain_logits_f32(cfg, params, prompt, dev)
+    logits_check(f"{label}: prefill of one {len(prompt)}-token prompt "
+                 "(flash_prefill) vs f32 plain forward on its routing",
+                 last, l32, MIXTRAL_PAGED_LOGIT_TOL_REL)
+    route_ties(f"{label} prefill", got, ref, MIXTRAL_ROUTE_TIE_TOL_REL,
+               cfg=cfg)
+    unforced_reading(f"{label} prefill", cfg, got, last,
+                     lambda: plain_logits_f32(cfg, params, prompt, dev),
+                     [len(prompt) - 1])
+    # one paged step of 8 lanes, each holding one of the requests' prompts
+    pool, rids = engine.pool, list(range(20_000, 20_000 + v["n_slots"]))
+    for rid, r in zip(rids, reqs):
+        _, k, vv = engine.runner.prefill_kv(
+            params, torch.as_tensor(r.tokens[None], device=dev).long())
+        pool.open(rid)
+        pool.append(rid, k, vv)
+        pool.reserve(rid, 1)
+    tables = torch.as_tensor(np.stack([pool.padded_table(
+        r, engine.max_blocks) for r in rids]), device=dev)
+    lengths = torch.as_tensor([pool.length(r) for r in rids],
+                              dtype=torch.int32, device=dev)
+    active = torch.ones(len(rids), dtype=torch.bool, device=dev)
+    toks = torch.as_tensor([[int(r.tokens[-1])] for r in reqs[:len(rids)]],
+                           device=dev)
+    kc, vc = pool.k.clone(), pool.v.clone()
+    step_breakdown(lambda: engine.runner.extend(params, kc, vc, tables,
+                                                lengths, active, toks),
+                   f"mixtral paged step ({len(rids)} lanes, "
+                   f"{cfg.n_layers} layers, plain body)")
+    del kc, vc, params, last, l32
+    for r in rids:
+        pool.free(r)
+    coe.cache.close()
+    return launches
+
+
+def mixtral_phase(dev):
+    """Mixtral-8x7B cut to 8 of its 32 layers at full width: one expert made
+    on the card from a seed and kept in pinned host memory, behind
+    ``generate`` (window 4096, HBM cache of one expert), then on the paged
+    engine at window 0. Releases the expert at the end. Returns
+    generate's launch counts."""
+    import dataclasses
+
+    from repro_torch.bridge import tree_bytes
+    from repro_torch.configs import get_config
+    from repro_torch.core import CompositionOfExperts, ExpertHandle, HashRouter
+    from repro_torch.models import get_model
+    from repro_torch.store import HostMemoryStore
+    m = MIXTRAL
+    full = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(full, n_layers=m["layers"])
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(m["seed"]), dev)
+    nbytes = tree_bytes(params)
+    store = HostMemoryStore()
+    coe = CompositionOfExperts(HashRouter(1), None, nbytes, store=store,
+                               device=dev)
+    coe.register(ExpertHandle(cfg.name, cfg, params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"mixtral: {full.name} cut to {cfg.n_layers} of its "
+         f"{full.n_layers} layers, at full width: D {cfg.d_model}, "
+         f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads of {cfg.head_dim}, "
+         f"{cfg.n_experts} experts top-{cfg.top_k} of F {cfg.moe_d_ff}, "
+         f"vocab {cfg.vocab_size}, window {cfg.sliding_window}; "
+         f"{nbytes / 1e9:.2f} GB bf16 made and moved to pinned host memory "
+         f"in {time.perf_counter() - t0:.1f}s")
+    launches = mixtral_generate(cfg, dev, coe)
+    coe.cache.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixtral_paged(dataclasses.replace(cfg, sliding_window=0), dev, store,
+                  cfg.name)
+    store.delete(cfg.name)
+    del store, coe
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"mixtral: phase {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available; this run needs one "
@@ -3302,6 +3741,7 @@ def main():
     rows.update(node_kernel_phase(cfg, dev))
     rows.update(prefill_kernel_phase(cfg, rg_cfg, dev))
     rows.update(variant_kernel_phase(dev))
+    rows.update(mixtral_kernel_row(dev))
     rows.update(monarch_kernel_phase(dev))
     torch.cuda.empty_cache()
     launches = monarch_phase(dev)
@@ -3356,6 +3796,8 @@ def main():
         n[PARTIAL_ROPE] for n in launches.values())
     for arch, row in VARIANT_PREFILL_ROWS.items():
         rows[row]["launches"] = launches[arch]["flash_prefill"]
+    launches = mixtral_phase(dev)
+    rows[MIXTRAL_ROW]["launches"] = launches["flash_prefill"]
     launches = rg_phase(rg_cfg, dev)
     rows[RG_PREFILL_ROW]["launches"] = launches["flash_prefill"]
     rows["lru_scan"]["launches"] = launches["lru_scan"]

@@ -1,8 +1,11 @@
 """Model configuration: the subset of ``repro.configs.base`` that the
-ported families (dense, rglru) read.
+ported families (dense, moe, rglru) read.
 
-Only the fields those families read are kept; the other families (MoE,
-MLA, xLSTM, encoder-decoder) are not ported yet (``ROADMAP.md`` Queue 1).
+Only the fields those families read are kept; the other families (MLA,
+xLSTM, encoder-decoder) are not ported yet (``ROADMAP.md`` Queue 1). The
+MoE fields are JAX's, ``first_dense_layers`` included (DeepSeek's, refused
+by the port's transformer until MLA follows). The expert capacity is
+``capacity_factor``: the port has no run-time override of it.
 """
 from __future__ import annotations
 
@@ -34,8 +37,16 @@ class ModelConfig:
     rope_fraction: float = 1.0        # 'partial': fraction of head_dim rotated
     mrope_sections: Tuple[int, ...] = ()   # qwen2-vl: (t, h, w) half-dim sections
 
-    sliding_window: int = 0           # >0: local attention (rglru)
+    sliding_window: int = 0           # >0: local attention (mixtral, rglru)
+
+    # --- MoE (mixtral) ---
     n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0                 # per-expert hidden
+    first_dense_layers: int = 0       # deepseek: first k layers dense FFN
+    routed_scale: float = 1.0
+    capacity_factor: float = 1.25
 
     # --- hybrid (recurrentgemma) ---
     block_pattern: Tuple[str, ...] = ()   # e.g. ('rec', 'rec', 'attn')
@@ -75,8 +86,9 @@ def pad_for_tp(cfg: ModelConfig, tp: int) -> ModelConfig:
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
-    """Tiny same-family config for CPU tests (the dense and rglru branches
-    of ``repro.configs.base.reduced``, including its RoPE branches)."""
+    """Tiny same-family config for CPU tests (the dense, MoE and rglru
+    branches of ``repro.configs.base.reduced``, including its RoPE
+    branches)."""
     upd = dict(
         n_layers=min(cfg.n_layers, 4),
         d_model=128,
@@ -89,6 +101,12 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.block_pattern:
         upd["n_layers"] = len(cfg.block_pattern)  # one full pattern group
         upd["d_rnn"] = 128
+    if cfg.n_experts:
+        upd["n_experts"] = min(cfg.n_experts, 4)
+        upd["top_k"] = min(cfg.top_k, 2)
+        upd["moe_d_ff"] = 64
+        upd["first_dense_layers"] = min(cfg.first_dense_layers, 1)
+        upd["n_shared_experts"] = min(cfg.n_shared_experts, 1)
     if cfg.sliding_window:
         upd["sliding_window"] = 32
     if cfg.mrope_sections:

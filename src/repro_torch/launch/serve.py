@@ -10,11 +10,13 @@ kernels. For example, on one H100:
         --hbm-experts 2 --requests 16 --new-tokens 32
 
 Expert weights are random, drawn from ``--seed`` on the serving device.
-``--arch`` names any dense config of the port (``configs.CONFIGS``). The
-default ``--backend fused`` decodes on the kernels, which refuse a
-LayerNorm, GELU, partial or m-RoPE and biases (``chatglm3-6b``,
+``--arch`` names any dense or moe config of the port (``configs.CONFIGS``).
+The default ``--backend fused`` decodes on the kernels, which refuse an MoE
+FFN, a LayerNorm, GELU, partial or m-RoPE and biases (``chatglm3-6b``,
 ``starcoder2-3b``, ``qwen2-vl-2b``, ``qwen2.5-32b``); ``--backend xla``
 decodes those on the plain paged body, as JAX's driver does.
+``mixtral-8x7b`` is refused on both, as JAX's runner refuses it: paged
+serving takes no sliding window (its 4096 positions).
 
 ``--scheduler run_to_completion`` serves one expert group to completion at a
 time (the paper's baseline); ``--prefill-mode sequential`` prefills each
@@ -307,12 +309,13 @@ def main(argv=None):
     from repro_torch.configs import CONFIGS
     ap.add_argument("--arch", default="samba-coe-expert-7b",
                     choices=sorted(n for n, c in CONFIGS.items()
-                                   if c.family == "dense"))
+                                   if c.family in ("dense", "moe")))
     ap.add_argument("--backend", default="fused", choices=["fused", "xla"],
                     help="decode-step backend (serving/backends.py): "
                          "'fused' the kernels (dense RMSNorm/SwiGLU/full-"
                          "RoPE configs without biases), 'xla' the plain "
-                         "paged body (every dense config)")
+                         "paged body (every dense and MoE config without "
+                         "a sliding window)")
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config (CPU smoke runs)")
     ap.add_argument("--n-experts", type=int, default=3)

@@ -1,8 +1,9 @@
-"""Shared layers of the dense and rglru families (counterpart of
+"""Shared layers of the dense, moe and rglru families (counterpart of
 ``repro.models.layers``): RMSNorm and LayerNorm, full / partial / m-RoPE,
 attention (the quadratic oracle and the ``flash_prefill`` kernel's entry),
-single-token attention against a dense cache, and the SwiGLU / GeGLU /
-GELU FFN with its optional biases."""
+single-token attention against a dense cache, the SwiGLU / GeGLU / GELU
+FFN with its optional biases, and the routed MoE FFN (top-k with capacity
+drops and an optional shared expert)."""
 from __future__ import annotations
 
 import math
@@ -190,3 +191,108 @@ def ffn_hidden(cfg: ModelConfig, p, x):
 def ffn_apply(cfg: ModelConfig, p, x):
     y = ffn_hidden(cfg, p, x) @ p["wo"]
     return y + p["bo"] if cfg.mlp_bias else y
+
+
+# ----------------------------------------------------------------------
+# MoE (sort-based dispatch, as the JAX package's ``moe_apply``)
+# ----------------------------------------------------------------------
+
+def moe_specs(cfg: ModelConfig):
+    """An f32 router ``(D, E)``, the experts' SwiGLU weights stacked on a
+    leading expert axis (fan-in the D or F axis), and, with
+    ``n_shared_experts``, one shared FFN of ``moe_d_ff * n_shared`` hidden
+    units."""
+    from repro_torch.models.common import spec
+    D, F, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    p = {
+        "router": spec((D, E), ("embed", "experts_r"), dtype=torch.float32),
+        "experts": {
+            "wi_gate": spec((E, D, F), ("experts", "embed", "expert_ffn"),
+                            fan_in_axes=(1,)),
+            "wi_up": spec((E, D, F), ("experts", "embed", "expert_ffn"),
+                          fan_in_axes=(1,)),
+            "wo": spec((E, F, D), ("experts", "expert_ffn", "embed"),
+                       fan_in_axes=(1,)),
+        },
+    }
+    if cfg.n_shared_experts:
+        Fs = cfg.moe_d_ff * cfg.n_shared_experts
+        p["shared"] = {"wi_gate": spec((D, Fs), ("embed", "ffn")),
+                       "wi_up": spec((D, Fs), ("embed", "ffn")),
+                       "wo": spec((Fs, D), ("ffn", "embed"))}
+    return p
+
+
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Slots an expert holds for ``n_tokens`` tokens: JAX's ``max(1,
+    ceil(T * K / E * capacity_factor))`` (the same float expression), at
+    most T: an expert takes a token at most once, so slots past T stay
+    empty and are never read back (the output is the same)."""
+    E, K = cfg.n_experts, cfg.top_k
+    C = max(1, int(math.ceil(n_tokens * K / E * cfg.capacity_factor)))
+    return min(C, n_tokens)
+
+
+def moe_route(cfg: ModelConfig, router, xt):
+    """xt (T, D) -> (router logits (T, E) f32, combine weights (T, K) f32,
+    experts (T, K)): softmax over the f32 logits, top-k, renormalised over
+    the top-k for Mixtral (``family == "moe"``), times ``routed_scale``."""
+    logits = xt.float() @ router
+    gates = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(gates, cfg.top_k, dim=-1)
+    if cfg.family == "moe":
+        topw = topw / topw.sum(-1, keepdim=True)
+    return logits, topw * cfg.routed_scale, topi
+
+
+def moe_dispatch(cfg: ModelConfig, topi):
+    """The (token, choice) assignments of ``topi`` (T, K), flattened token
+    by token and sorted stably by expert: (order, each one's expert, its
+    rank within the expert). An assignment whose rank reaches
+    ``moe_capacity(cfg, T)`` is dropped."""
+    eid = topi.reshape(-1)
+    order = torch.argsort(eid, stable=True)
+    eid_s = eid[order]
+    # per-expert counts by a scatter (bincount would read its maximum back
+    # to the host on the card)
+    counts = torch.zeros(cfg.n_experts, dtype=eid_s.dtype,
+                         device=eid.device).scatter_add_(
+        0, eid_s, torch.ones_like(eid_s))
+    starts = torch.cumsum(counts, 0) - counts
+    return order, eid_s, torch.arange(len(eid), device=eid.device) \
+        - starts[eid_s]
+
+
+def moe_apply(cfg: ModelConfig, p, x):
+    """x (B, S, D) -> (B, S, D). The (token, choice) assignments, sorted
+    stably by expert, take the expert's slots in that order; past its
+    capacity (``moe_capacity`` of all B * S tokens) an assignment is
+    dropped (slot C collects them, zeroed). Each expert's SwiGLU runs on
+    its (C, D) slots; the outputs, each cast with its combine weight to
+    the activations' type and multiplied, are summed per token in f32,
+    then cast. A shared expert's FFN is added after the cast, as JAX's
+    does."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    xt = x.reshape(T, D)
+    _, topw, topi = moe_route(cfg, p["router"], xt)
+    C = moe_capacity(cfg, T)
+    order, eid_s, pos = moe_dispatch(cfg, topi)
+    tid_s, w_s = order // K, topw.reshape(T * K)[order]
+    keep = pos < C
+    pos_c = torch.where(keep, pos, torch.full_like(pos, C))
+    xe = x.new_zeros((E, C + 1, D))
+    xe[eid_s, pos_c] = torch.where(keep[:, None], xt[tid_s],
+                                   torch.zeros((), dtype=x.dtype,
+                                               device=x.device))
+    xe = xe[:, :C]
+    ye = ffn_hidden(cfg, p["experts"], xe) @ p["experts"]["wo"]   # (E,C,D)
+    yc = ye[eid_s, torch.clamp(pos_c, max=C - 1)]
+    yc = yc * (w_s * keep.to(w_s.dtype))[:, None].to(yc.dtype)
+    out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    out.index_add_(0, tid_s, yc.float())
+    out = out.to(x.dtype)
+    if cfg.n_shared_experts:
+        out = out + ffn_apply(cfg, p["shared"], xt)
+    return out.reshape(B, S, D)

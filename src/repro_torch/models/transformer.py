@@ -1,12 +1,16 @@
-"""Dense decoder-only transformer (counterpart of the dense branch of
-``repro.models.transformer``). Layer params are stacked on a leading L axis
-and iterated with a Python loop; the per-layer K/V are returned stacked,
-as the JAX scan emits them.
+"""Decoder-only transformer, the dense and moe families (counterpart of
+those branches of ``repro.models.transformer``). Layer params are stacked
+on a leading L axis and iterated with a Python loop; the per-layer K/V are
+returned stacked, as the JAX scan emits them. A config with ``n_experts``
+gives every layer the routed MoE FFN (``layers.moe_apply``) in place of the
+dense one; ``_mlp`` is the one seam every plain body calls.
 
 Serving with a dense cache: ``prefill`` fills a ``(L,B,max_len,Hkv,dh)``
 bf16 cache ``{"k","v"}`` and ``decode_step`` extends it by one token at a
 position shared by the batch, writing the cache in place (JAX returns a new
-one). Sliding-window configs are not ported (``ROADMAP.md`` Queue 1).
+one). Under a sliding window W the cache is a ring of ``min(max_len, W)``
+positions: position p lives at index ``p % W``; a prefill longer than W
+keeps its last W positions, rolled into place.
 
 The dense variants' branches follow JAX's: QKV and output biases, tied
 embeddings (the token table as the head), LayerNorm, GELU and the RoPE
@@ -23,11 +27,15 @@ from repro_torch.models.common import spec
 
 
 def _check_dense(cfg: ModelConfig):
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: this module runs the "
-            "dense family; MoE, MLA, xLSTM and encoder-decoder follow "
-            "(ROADMAP.md Queue 1)")
+            "dense and moe families; MLA (mla_moe), xLSTM and "
+            "encoder-decoder follow (ROADMAP.md Queue 1)")
+    if cfg.first_dense_layers:
+        raise NotImplementedError(
+            "first_dense_layers (DeepSeek's dense head layers) comes with "
+            "the MLA family (ROADMAP.md Queue 1)")
 
 
 def _attn_specs(cfg: ModelConfig):
@@ -59,7 +67,8 @@ def _stack(tree, n):
 def param_specs(cfg: ModelConfig):
     _check_dense(cfg)
     layer = {"attn": _attn_specs(cfg), "mlp_norm": L.norm_specs(cfg),
-             "mlp": L.ffn_specs(cfg)}
+             "mlp": L.moe_specs(cfg) if cfg.n_experts > 0
+             else L.ffn_specs(cfg)}
     p = {
         "embed": {"tok": spec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
                               fan_in_axes=())},
@@ -106,7 +115,11 @@ def _dense_attn(cfg, p, x, positions):
 
 
 def _mlp(cfg, p_norm, p_mlp, x):
+    """x plus the layer's FFN: the routed MoE where the config has experts
+    (its capacity counts every token of x), else the dense one."""
     h = L.apply_norm(cfg, p_norm, x)
+    if cfg.n_experts > 0:
+        return x + L.moe_apply(cfg, p_mlp, h)
     return x + L.ffn_apply(cfg, p_mlp, h)
 
 
@@ -157,17 +170,12 @@ def forward(cfg: ModelConfig, params, batch, *, return_cache: bool = False,
 
 # ---------------------------- serving --------------------------------
 
-def _check_no_window(cfg: ModelConfig):
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            "the dense cache's sliding-window ring buffer is not ported yet "
-            "(ROADMAP.md Queue 1)")
-
-
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int):
-    """``{name: (shape, dtype)}`` of the decode cache."""
+    """``{name: (shape, dtype)}`` of the decode cache: ``min(max_len, W)``
+    positions under a sliding window W (the ring)."""
     _check_dense(cfg)
-    _check_no_window(cfg)
+    if cfg.sliding_window:
+        max_len = min(max_len, cfg.sliding_window)
     sh = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": (sh, torch.bfloat16), "v": (sh, torch.bfloat16)}
 
@@ -181,17 +189,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
 def prefill(cfg: ModelConfig, params, tokens, max_len: int):
     """Run the full forward over tokens (B,S); return (last-token logits
     (B,V), cache filled to S). Each layer's K/V go straight into the cache,
-    so no stacked copy of all layers is held beside it. (``no_grad``, not
+    so no stacked copy of all layers is held beside it. Under a window W
+    with S > W the cache keeps the last W positions, rolled by ``(S - W) %
+    W`` so that position p sits at ``p % W`` (a ring of W positions, as
+    JAX's prefill returns it whatever ``max_len``). (``no_grad``, not
     ``inference_mode``: the cache is written in place afterwards.)"""
     _check_dense(cfg)
     B, S = tokens.shape
-    cache = init_cache(cfg, B, max_len, tokens.device)
+    W = cfg.sliding_window
+    ring = bool(W) and S > W
+    cache = init_cache(cfg, B, W if ring else max_len, tokens.device)
     h = embed_tokens(cfg, params, tokens)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     for i in range(cfg.n_layers):
         h, (k, v) = _layer(cfg, layer_params(params, i), h, positions)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
+        if ring:
+            k, v = (torch.roll(t[:, S - W:], (S - W) % W, dims=1)
+                    for t in (k, v))
+        cache["k"][i, :, :k.shape[1]] = k
+        cache["v"][i, :, :v.shape[1]] = v
     h = L.apply_norm(cfg, params["final_norm"], h[:, -1:])
     return unembed(cfg, params, h)[:, -1], cache
 
@@ -212,19 +228,21 @@ def _decode_dense_layer(cfg, lp, hh, kc, vc, idx, posv, valid):
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
     """tokens (B,1) int, ``pos`` host int (next position index, shared by
-    the batch). Returns (logits (B,V), cache), the cache updated in place."""
+    the batch). Returns (logits (B,V), cache), the cache updated in place:
+    at index ``pos``, or ``pos % S`` in a windowed ring of S positions,
+    where the token attends the ``min(pos + 1, S)`` filled entries."""
     _check_dense(cfg)
-    _check_no_window(cfg)
     B = tokens.shape[0]
     S = cache["k"].shape[2]
     pos = int(pos)
     dev = tokens.device
     h = embed_tokens(cfg, params, tokens)
     posv = torch.full((B, 1), pos, dtype=torch.long, device=dev)
+    idx = pos % S if cfg.sliding_window else pos
     valid = (torch.arange(S, device=dev) < min(pos + 1, S))[None].expand(B, S)
     for i in range(cfg.n_layers):
         h, _ = _decode_dense_layer(cfg, layer_params(params, i), h,
-                                   cache["k"][i], cache["v"][i], pos, posv,
+                                   cache["k"][i], cache["v"][i], idx, posv,
                                    valid)
     h = L.apply_norm(cfg, params["final_norm"], h)
     return unembed(cfg, params, h)[:, 0], cache

@@ -5,8 +5,8 @@
     XLA reference body (``xla_paged_extend``; the names are kept so the two
     packages line up): contiguous ``pool[tables]`` gather + masked softmax.
     It is the correctness reference of the fused path, and the body of the
-    dense variants the kernels refuse (``kernel_refusals``: a LayerNorm,
-    GELU, partial or m-RoPE, biases), as in JAX. Only a caller selects it
+    configs the kernels refuse (``kernel_refusals``: an MoE FFN, a
+    LayerNorm, GELU, partial or m-RoPE, biases), as in JAX. Only a caller selects it
     (``backend=XlaPagedBackend(cfg)``, ``launch/serve.py --backend
     xla``); serving never picks it by itself.
   * ``FusedPagedBackend`` — a single-token step (g = 1: greedy decode and
@@ -354,10 +354,12 @@ class PagedDecodeRunner:
 
     def __init__(self, cfg: ModelConfig, scratch_row: int,
                  backend: Optional[PagedBackend] = None):
-        if cfg.family != "dense":
-            raise ValueError("paged serving supports the dense family only")
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError("paged serving supports dense/moe families only")
         if cfg.sliding_window:
             raise ValueError("paged serving does not support sliding windows")
+        if cfg.first_dense_layers:
+            raise ValueError("paged serving: first_dense_layers unsupported")
         self.cfg = cfg
         self.scratch_row = scratch_row
         self.backend = make_backend(backend, cfg)

@@ -93,8 +93,10 @@ def packed_attention(q, k, v, seg):
 
 def packed_prefill_fn(cfg: ModelConfig):
     """``f(params, tokens (1,S), seg (1,S), pos (1,S), last_idx (P,)) ->
-    (logits (P,V), k (L,S,Hkv,dh), v (L,S,Hkv,dh))``: the dense layer math of
-    ``models.transformer`` with the segment mask and explicit positions."""
+    (logits (P,V), k (L,S,Hkv,dh), v (L,S,Hkv,dh))``: the layer math of
+    ``models.transformer`` with the segment mask and explicit positions. An
+    MoE FFN's capacity counts every position of the bucket, pads included,
+    as JAX's does."""
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
 
@@ -164,10 +166,12 @@ class PackedPrefillRunner:
 
     def __init__(self, cfg: ModelConfig, *, buckets: Sequence[int],
                  max_segments: int = 8, forward=None):
-        if cfg.family != "dense":
-            raise ValueError("packed prefill supports the dense family only")
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError("packed prefill supports dense/moe families only")
         if cfg.sliding_window:
             raise ValueError("packed prefill does not support sliding windows")
+        if cfg.first_dense_layers:
+            raise ValueError("packed prefill: first_dense_layers unsupported")
         if not buckets or list(buckets) != sorted(set(buckets)):
             raise ValueError("buckets must be strictly increasing")
         if max_segments < 1:

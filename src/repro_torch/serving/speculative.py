@@ -33,13 +33,27 @@ from repro_torch.models import get_model
 def extend_step(cfg: ModelConfig, params, cache, tokens, pos: int):
     """Multi-token cache-attending step: tokens (B,g) at positions
     ``pos .. pos+g-1`` (a host int shared by the batch), written into the
-    dense cache in place. Returns (logits (B,g,V), cache). Dense family."""
+    dense cache in place. Returns (logits (B,g,V), cache). Dense and moe
+    families (an MoE verify's capacity counts the B * g tokens).
+
+    Under a sliding window the cache is a ring of S positions and the step
+    writes at ``pos % S``, as JAX's does; it is the identity while ``pos +
+    g <= S``. A verify that would wrap the ring is refused: JAX's clamps
+    its write there (``dynamic_update_slice``) and attends ring indices as
+    positions, which is no window attention."""
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
-    if cfg.family != "dense":
-        raise NotImplementedError("speculative verify: dense family only")
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError("speculative verify: dense/moe only")
     B, g = tokens.shape
     pos = int(pos)
+    S = cache["k"].shape[2]
+    if cfg.sliding_window and pos + g > S:
+        raise ValueError(
+            f"speculative verify of {g} tokens at position {pos} would wrap "
+            f"the {S}-position window ring; the verify attends ring indices "
+            "as positions, so it stops at the ring's end (ROADMAP.md, "
+            "Differences from JAX)")
     h = T.embed_tokens(cfg, params, tokens.long())
     positions = (pos + torch.arange(g, device=h.device))[None].expand(B, g)
     for i in range(cfg.n_layers):
