@@ -28,8 +28,9 @@
    F 14336), ``qkv_rope_paged`` rotating half of each head at chatglm3-6b's
    widths (two faults planted in its plain version: RoPE dropped, the whole
    head rotated) and ``flash_prefill`` at 8 x 2048 tokens, dh 128, at G 5,
-   12 and 16; then ``flash_prefill`` at Mixtral-8x7B's generate prefill (2
-   x 4608 tokens, 32 q on 8 kv heads, dh 128, window 4096).
+   12 and 16; then ``flash_prefill`` at Mixtral-8x7B's heads (32 q on 8 kv
+   heads, dh 128) at its generate prefill (2 x 4608 tokens, window 4096)
+   and at its paged drain's (B 1, S 64 / 160 / 256, causal).
    Each kernel against its plain PyTorch version on the same inputs, timed
    with CUDA events (the 50 MB L2 flushed before every launch), beside the
    plain version and one PyTorch library call computing the same function
@@ -154,12 +155,16 @@
    ``flash_prefill`` once per layer; the prefill's logits against the
    plain f32 forward over both rows on the bf16 path's routing (the same
    capacity drops), every token that routes apart a near tie of the f32
-   gates (``MIXTRAL_ROUTE_TIE_TOL_REL``); one decode step past the wrap
+   gates (``MIXTRAL_ROUTE_TIE_TOL_REL``), the router's logits the f32
+   product on the path's own hidden states (``MIXTRAL_ROUTER_TOL_REL``);
+   one decode step past the wrap
    against the teacher-forced windowed f32 forward at capacity_factor
    16. Then, at window 0, ``VARIANTS``' 8 requests on the plain paged
    body with sequential prefill (``flash_prefill`` 8 x 8 launches, no
    other kernel), one prompt's ``prefill_kv`` logits against the f32
-   forward on its routing, and a paged step's device time and idle share.
+   forward on its routing, a router planted in bf16 that one of that
+   prompt's checks must catch, and a paged step's device time and idle
+   share.
 7. RecurrentGemma phase, after the experts' store is released:
    recurrentgemma-9b at full width and depth (38 layers, 10.4 G parameters,
    bf16) as the one expert of a ``CompositionOfExperts(HashRouter(1))`` on
@@ -374,6 +379,9 @@ VARIANT_PREFILL_ROWS = {
 # attention is the same), VARIANTS' 8 requests with sequential prefill.
 MIXTRAL = dict(layers=8, prompts=2, prompt_len=4608, new_tokens=16, seed=19)
 MIXTRAL_ROW = "flash_prefill[mixtral-8x7b,G=4,B=2,S=4608,window=4096]"
+# flash_prefill at the paged drain's sequential prefill (B 1, causal, G 4),
+# each of B1_PREFILL_LENGTHS held, the table keeping S 256
+MIXTRAL_B1_ROW = "flash_prefill[mixtral-8x7b,G=4,B=1,S=256]"
 # generate's prefill (flash_prefill at window 4096, the bf16 MoE at cf
 # 1.25) last-token logits, both rows, against the plain forward in f32
 # over the same two rows (T 9216 in both, so the same capacity) on the
@@ -398,6 +406,13 @@ MIXTRAL_PAGED_LOGIT_TOL_REL = 0.0143
 # this limit, 1.25x the first H100 reading (0.0320, layer 7 of the
 # generate prefill; 0.0087 in the paged prefill)
 MIXTRAL_ROUTE_TIE_TOL_REL = 0.040
+# the bf16 path's router logits against ``xt.float() @ router`` in f32 on
+# the same hidden states, of their largest, layer by layer: the config
+# states an f32 router, so the two are the same product. A router planted
+# in bf16 (``router_in_bf16``) must exceed this; the forced reference
+# would take the choices it flips as its own, and route_ties reads only
+# how near a tie each flip was.
+MIXTRAL_ROUTER_TOL_REL = 1e-4
 
 
 def _log(msg):
@@ -1942,14 +1957,19 @@ def plain_last_logits_f32(cfg, params, tokens, dev):
 @contextlib.contextmanager
 def routes_recorded():
     """Within the block, every MoE routing (``layers.moe_route``, one call a
-    layer) appends its (router logits (T, E) f32, chosen experts (T, K))
-    to the list the block receives. Nothing in the port is edited."""
+    layer) appends its (router logits (T, E) f32, chosen experts (T, K),
+    the logits' max-abs gap to ``xt.float() @ router`` in f32 over the
+    same hidden states, of that product's largest, a 0-d tensor) to the
+    list the block receives, for ``router_check``. Nothing in the port is
+    edited."""
     from repro_torch.models import layers as L
     real, calls = L.moe_route, []
 
     def recording(cfg, router, xt):
         out = real(cfg, router, xt)
-        calls.append((out[0].float(), out[2]))
+        lg, f32 = out[0].float(), xt.float() @ router.float()
+        calls.append((lg, out[2],
+                      (lg - f32).abs().max() / f32.abs().max()))
         return out
     L.moe_route = recording
     try:
@@ -1975,7 +1995,7 @@ def routes_forced(routes):
     def forced(cfg, router, xt):
         logits, _, top = real(cfg, router, xt)
         own.append((logits.float(), top))
-        _, top16 = next(it)
+        top16 = next(it)[1]
         w = torch.softmax(logits, dim=-1).gather(1, top16)
         if cfg.family == "moe":
             w = w / w.sum(-1, keepdim=True)
@@ -1998,28 +2018,59 @@ def dropped(cfg, top):
     return out.reshape(top.shape)
 
 
-def unforced_reading(label, cfg, got, last, ref_fn, last_rows):
-    """What the f32 reference reads on its own routing (no limit: its
-    drops may differ from the bf16 path's, see ``routes_forced``): the
-    logits' max-abs error of the largest, and the assignments of the
-    tokens at ``last_rows`` each path drops, layer by layer."""
-    with routes_recorded() as own:
-        ref = ref_fn()
-    got_d = [int(dropped(cfg, top)[last_rows].sum()) for _, top in got]
-    own_d = [int(dropped(cfg, top)[last_rows].sum()) for _, top in own]
-    top = float(ref.float().abs().max())
-    err = float((last.float() - ref.float()).abs().max())
-    _log(f"{label}: the f32 reference on its own routing (no limit) reads "
-         f"max_abs_err={err:.4f}, {err / top:.4f} of |logits|max={top:.3f};"
-         f" the last tokens' assignments dropped by layer: bf16 {got_d}, "
-         f"f32 {own_d}")
+@contextlib.contextmanager
+def router_in_bf16():
+    """Within the block, ``layers.moe_route`` computes its router logits in
+    bf16 (the hidden states and the router cast), the rest as it does: a
+    planted fault for ``router_check``. Nothing in the port is edited."""
+    from repro_torch.models import layers as L
+    real = L.moe_route
+
+    def bf16(cfg, router, xt):
+        logits = (xt.to(torch.bfloat16) @ router.to(torch.bfloat16)).float()
+        topw, topi = torch.topk(torch.softmax(logits, dim=-1), cfg.top_k,
+                                dim=-1)
+        if cfg.family == "moe":
+            topw = topw / topw.sum(-1, keepdim=True)
+        return logits, topw * cfg.routed_scale, topi
+    L.moe_route = bf16
+    try:
+        yield
+    finally:
+        L.moe_route = real
 
 
-def route_ties(label, got, ref, tol_rel, rows=None, cfg=None):
-    """``got`` / ``ref``: one (router logits, experts) a layer from
-    ``routes_recorded``, of a bf16 path and its f32 reference (``rows``
-    picks the reference's tokens that match ``got``'s). Where the two route
-    a token to different experts, the reference's f32 gates of its last
+def router_check(label, got, tol_rel):
+    """``got``: one routing a layer from ``routes_recorded``. Each layer's
+    router logits within ``tol_rel`` (of the largest) of the f32 product
+    on its own hidden states; prints the widest reading and returns it."""
+    gaps = [float(g[2]) for g in got]
+    worst = max(gaps)
+    ok = worst <= tol_rel
+    _log(f"{label}: router logits vs the f32 product on the same hidden "
+         f"states: widest {worst:.3e} of the largest (layer "
+         f"{gaps.index(worst)}; tol {tol_rel:.0e}) -> "
+         f"{'f32' if ok else 'OUTSIDE the tolerance'}")
+    if not ok:
+        raise AssertionError(f"{label}: router logits part from f32 by "
+                             f"{worst:.3e} > {tol_rel:.0e}")
+    return worst
+
+
+def raised(fn):
+    """Whether ``fn()`` raises an AssertionError (a check that catches a
+    planted fault)."""
+    try:
+        fn()
+    except AssertionError:
+        return True
+    return False
+
+
+def route_ties(label, got, ref, tol_rel, cfg=None):
+    """``got`` / ``ref``: one (router logits, experts, ...) a layer from
+    ``routes_recorded``, of a bf16 path and its f32 reference. Where the two
+    route a token to different experts, the reference's f32 gates of its last
     chosen expert and of the expert the bf16 path took instead must lie
     within ``tol_rel`` of the token's largest gate (a near tie that bf16
     rounding may break either way). Prints how many tokens of each layer
@@ -2030,9 +2081,8 @@ def route_ties(label, got, ref, tol_rel, rows=None, cfg=None):
         raise AssertionError(f"{label}: {len(got)} routings against "
                              f"{len(ref)}")
     parts, worst, where = [], 0.0, None
-    for layer, ((_, top16), (lg32, top32)) in enumerate(zip(got, ref)):
-        if rows is not None:
-            lg32, top32 = lg32[rows], top32[rows]
+    for layer, (g, r) in enumerate(zip(got, ref)):
+        top16, (lg32, top32) = g[1], r[:2]
         differ = (top16.sort(-1).values != top32.sort(-1).values).any(-1)
         parts.append(int(differ.sum()))
         if not parts[-1]:
@@ -2053,7 +2103,7 @@ def route_ties(label, got, ref, tol_rel, rows=None, cfg=None):
            f"{sum(parts)} of {total} x {len(got)} (token, layer)s "
            f"(by layer {parts})")
     if cfg is not None and got:
-        drops = [int(dropped(cfg, top).sum()) for _, top in got]
+        drops = [int(dropped(cfg, g[1]).sum()) for g in got]
         msg += (f"; the bf16 path dropped {drops} assignments (C "
                 f"{L.moe_capacity(cfg, total)})")
     if where is not None:
@@ -3470,20 +3520,27 @@ def variants_phase(dev):
 
 
 def mixtral_kernel_row(dev):
-    """``flash_prefill`` at Mixtral's generate prefill: B 2, S 4608, 32 q on
-    8 kv heads of 128, window 4096 (a band past the window), against its
-    plain version row by row with its off-by-one masks planted, beside SDPA
-    with the band mask."""
+    """``flash_prefill`` at Mixtral's heads (32 q on 8 kv heads of 128)
+    against its plain version row by row with its off-by-one masks
+    planted: at generate's prefill (B 2, S 4608, window 4096: a band past
+    the window), beside SDPA with the band mask, and at the paged drain's
+    sequential prefill (B 1, S 64 / 160 / 256, causal), beside SDPA."""
     from repro_torch.configs import get_config
     m = MIXTRAL
     gen = torch.Generator(device=dev).manual_seed(m["seed"])
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
     c = get_config("mixtral-8x7b")
-    row = prefill_row(MIXTRAL_ROW, c, m["prompts"], m["prompt_len"],
-                      c.sliding_window, gen, flush)
+    rows = {MIXTRAL_ROW: prefill_row(MIXTRAL_ROW, c, m["prompts"],
+                                     m["prompt_len"], c.sliding_window, gen,
+                                     flush)}
+    for S in B1_PREFILL_LENGTHS:
+        r = prefill_row(f"flash_prefill[mixtral-8x7b,G=4,B=1,S={S}]", c, 1,
+                        S, 0, gen, flush)
+        if r["name"] == MIXTRAL_B1_ROW:
+            rows[MIXTRAL_B1_ROW] = r
     del flush
     torch.cuda.empty_cache()
-    return {MIXTRAL_ROW: row}
+    return rows
 
 
 def mixtral_generate(cfg, dev, coe):
@@ -3556,12 +3613,9 @@ def mixtral_generate(cfg, dev, coe):
                  f"{cfg.capacity_factor}) vs f32 plain forward on its "
                  "routing, both rows", last, l32,
                  MIXTRAL_PREFILL_LOGIT_TOL_REL)
+    router_check("mixtral prefill", got, MIXTRAL_ROUTER_TOL_REL)
     route_ties("mixtral prefill", got, ref, MIXTRAL_ROUTE_TIE_TOL_REL,
                cfg=cfg)
-    unforced_reading("mixtral prefill", cfg, got, last,
-                     lambda: plain_last_logits_f32(cfg, params, toks[:, :P],
-                                                   dev),
-                     [P - 1, 2 * P - 1])
     del got, ref, l32
 
     # one step past the wrap against the teacher-forced windowed forward,
@@ -3585,6 +3639,7 @@ def mixtral_generate(cfg, dev, coe):
     logits_check(f"mixtral decode step at position {P} (ring index "
                  f"{P % W}, cf 16) vs f32 teacher-forced windowed forward",
                  lg, torch.cat(ref_lg), MIXTRAL_STEP_LOGIT_TOL_REL)
+    router_check("mixtral decode step", got, MIXTRAL_ROUTER_TOL_REL)
     route_ties("mixtral decode step", got, ref, MIXTRAL_ROUTE_TIE_TOL_REL,
                cfg=c16)
     del cache, params, got, ref, refs
@@ -3640,11 +3695,32 @@ def mixtral_paged(cfg, dev, store, name):
     logits_check(f"{label}: prefill of one {len(prompt)}-token prompt "
                  "(flash_prefill) vs f32 plain forward on its routing",
                  last, l32, MIXTRAL_PAGED_LOGIT_TOL_REL)
+    router_check(f"{label} prefill", got, MIXTRAL_ROUTER_TOL_REL)
     route_ties(f"{label} prefill", got, ref, MIXTRAL_ROUTE_TIE_TOL_REL,
                cfg=cfg)
-    unforced_reading(f"{label} prefill", cfg, got, last,
-                     lambda: plain_logits_f32(cfg, params, prompt, dev),
-                     [len(prompt) - 1])
+    prefill_launches = launches["flash_prefill"] \
+        + rt.launch_counts()["flash_prefill"]
+    # a planted fault: the router's logits in bf16. The f32 reference,
+    # forced to the faulty routing, takes its flips as its own; each check
+    # reads it, and one of them must fail
+    with router_in_bf16(), routes_recorded() as got_f:
+        last_f = engine.runner.prefill_kv(
+            params, torch.as_tensor(prompt[None], device=dev).long())[0]
+    with routes_forced(got_f) as ref_f:
+        l32_f = plain_logits_f32(cfg, params, prompt, dev)
+    fault = f"{label}: planted bf16 router"
+    caught = {
+        "router_check": raised(lambda: router_check(
+            fault, got_f, MIXTRAL_ROUTER_TOL_REL)),
+        "route_ties": raised(lambda: route_ties(
+            fault, got_f, ref_f, MIXTRAL_ROUTE_TIE_TOL_REL, cfg=cfg)),
+        "logits_check": raised(lambda: logits_check(
+            fault, last_f, l32_f, MIXTRAL_PAGED_LOGIT_TOL_REL))}
+    _log(f"{fault}: caught by {[k for k, v in caught.items() if v]} of "
+         f"{list(caught)}")
+    if not any(caught.values()):
+        raise AssertionError(f"{fault}: no check catches it")
+    del got_f, ref_f, last_f, l32_f
     # one paged step of 8 lanes, each holding one of the requests' prompts
     pool, rids = engine.pool, list(range(20_000, 20_000 + v["n_slots"]))
     for rid, r in zip(rids, reqs):
@@ -3669,7 +3745,7 @@ def mixtral_paged(cfg, dev, store, name):
     for r in rids:
         pool.free(r)
     coe.cache.close()
-    return launches
+    return prefill_launches
 
 
 def mixtral_phase(dev):
@@ -3710,14 +3786,14 @@ def mixtral_phase(dev):
     coe.cache.close()
     gc.collect()
     torch.cuda.empty_cache()
-    mixtral_paged(dataclasses.replace(cfg, sliding_window=0), dev, store,
-                  cfg.name)
+    paged = mixtral_paged(dataclasses.replace(cfg, sliding_window=0), dev,
+                          store, cfg.name)
     store.delete(cfg.name)
     del store, coe
     gc.collect()
     torch.cuda.empty_cache()
     _log(f"mixtral: phase {time.perf_counter() - t0:.1f}s")
-    return launches
+    return launches["flash_prefill"], paged
 
 
 def main():
@@ -3796,8 +3872,8 @@ def main():
         n[PARTIAL_ROPE] for n in launches.values())
     for arch, row in VARIANT_PREFILL_ROWS.items():
         rows[row]["launches"] = launches[arch]["flash_prefill"]
-    launches = mixtral_phase(dev)
-    rows[MIXTRAL_ROW]["launches"] = launches["flash_prefill"]
+    rows[MIXTRAL_ROW]["launches"], rows[MIXTRAL_B1_ROW]["launches"] = \
+        mixtral_phase(dev)
     launches = rg_phase(rg_cfg, dev)
     rows[RG_PREFILL_ROW]["launches"] = launches["flash_prefill"]
     rows["lru_scan"]["launches"] = launches["lru_scan"]
