@@ -30,7 +30,11 @@
    head rotated) and ``flash_prefill`` at 8 x 2048 tokens, dh 128, at G 5,
    12 and 16; then ``flash_prefill`` at Mixtral-8x7B's heads (32 q on 8 kv
    heads, dh 128) at its generate prefill (2 x 4608 tokens, window 4096)
-   and at its paged drain's (B 1, S 64 / 160 / 256, causal).
+   and at its paged drain's (B 1, S 64 / 160 / 256, causal); then
+   ``flash_prefill`` at DeepSeek-V2-Lite's MLA prefill (4 x 2048 tokens,
+   16 heads, q / k of 192, v of 128, causal), with the scale of v's width
+   planted in its plain version besides the causal edge, and the kernels
+   SDPA runs for it named.
    Each kernel against its plain PyTorch version on the same inputs, timed
    with CUDA events (the 50 MB L2 flushed before every launch), beside the
    plain version and one PyTorch library call computing the same function
@@ -165,6 +169,19 @@
    forward on its routing, a router planted in bf16 that one of that
    prompt's checks must catch, and a paged step's device time and idle
    share.
+6f. DeepSeek phase: deepseek-v2-lite-16b (MLA: latent KV cache, absorbed
+   decode; a dense head layer, then 26 layers of 64 experts top-6 and 2
+   shared) at full width and depth (27 layers, 31.4 GB bf16), one expert
+   made on the card and kept in pinned host memory, an HBM cache of one.
+   ``generate`` on 4 prompts of 2048 tokens, 32 new: ``flash_prefill``
+   once per layer (dk 192, dv 128) and no other kernel. The prefill's
+   logits against the plain f32 forward over the same four rows on the
+   bf16 path's routing, its attention at the model's own inputs against
+   the plain version row by row in every layer, the router's logits the
+   f32 product; one absorbed decode step against the teacher-forced f32
+   forward over S + 1 at capacity_factor 16; a planted fault (the
+   prefill's kernel at scale 1/sqrt(dv)) that a check must catch; the
+   latent cache's bytes and a decode step's device time and idle share.
 7. RecurrentGemma phase, after the experts' store is released:
    recurrentgemma-9b at full width and depth (38 layers, 10.4 G parameters,
    bf16) as the one expert of a ``CompositionOfExperts(HashRouter(1))`` on
@@ -413,6 +430,35 @@ MIXTRAL_ROUTE_TIE_TOL_REL = 0.040
 # would take the choices it flips as its own, and route_ties reads only
 # how near a tie each flip was.
 MIXTRAL_ROUTER_TOL_REL = 1e-4
+# DeepSeek-V2-Lite (mla_moe) at full width and depth: 27 layers (a dense
+# head layer of F 10944, then 26 of 64 experts top-6 of F 1408 and 2
+# shared), D 2048, 16 heads, MLA with kv_lora_rank 512, q / k of 192 (128
+# nope + 64 rope), v of 128; 31.4 GB of bf16. generate runs 4 prompts of
+# 2048 tokens and 32 new tokens.
+DEEPSEEK = dict(prompts=4, prompt_len=2048, new_tokens=32, seed=23)
+DEEPSEEK_ROW = "flash_prefill[deepseek-v2-lite,dk=192,dv=128,B=4,S=2048]"
+# generate's prefill (flash_prefill at dk 192, dv 128; the bf16 MoE at cf
+# 1.25, C 960 of T 8192) last-token logits, all four rows, against the
+# plain forward in f32 over the same rows on the bf16 path's routing
+# (``routes_forced``); one absorbed decode step against the teacher-forced
+# f32 forward over S + 1 (K / V expanded), at capacity_factor 16 (a step
+# counts 4 tokens, C 1 at cf 1.25: it drops, and the forward would not).
+# Each limit is 1.25x the first H100 reading, of the largest logit: 0.0247
+# and 0.0462 (the step: bf16 rounds the absorbed q and the latent context,
+# and 10 of its 104 (token, layer)s route apart at near ties). A fault in
+# the prefill's attention sits inside that noise end to end (the kernel
+# planted at scale 1/sqrt(dv) read 0.0230): random weights attend almost
+# uniformly over 2048 positions, and attention is a small part of the
+# residual stream. So the phase also holds each layer's attention, at the
+# model's own inputs, to the plain version row by row (PREFILL_ROW_REL_L2:
+# 0.0055 read, the planted scale 0.0999).
+DEEPSEEK_PREFILL_LOGIT_TOL_REL = 0.0309
+DEEPSEEK_STEP_LOGIT_TOL_REL = 0.0578
+# a routing flip of the bf16 path against its f32 reference (route_ties)
+# within this share of the token's largest gate: 1.25x the first H100
+# reading (0.0628, layer 25 of the prefill, where 18,684 of 212,992 (token,
+# layer)s part: top-6 of 64 gates of ~0.05 leaves many near ties)
+DEEPSEEK_ROUTE_TIE_TOL_REL = 0.0785
 
 
 def _log(msg):
@@ -450,12 +496,13 @@ def time_ms(fn, flush, reps, read=False):
 
 def build_kernels():
     from repro_torch.kernels import runtime as rt
+    from repro_torch.kernels.flash_attention.ops import PREFILL_WIDTHS
     t0 = time.perf_counter()
     logs = rt.build()
     _log(f"built {len(logs)} kernel libraries in "
          f"{time.perf_counter() - t0:.1f}s (sm_90a)")
     prefill_smem = rt.bind("flash_prefill", "flash_prefill_smem_bytes",
-                           [rt.I])
+                           [rt.I, rt.I])
     passes = ("OprojPass", "GateUpPass", "DownPass")
     lanes = ("8", "16")
     for name, log in logs.items():
@@ -470,10 +517,11 @@ def build_kernels():
                 lambda k: paged_smem(int(k[0]), int(k[1])))
         elif name == "flash_prefill":
             entry_build_report(
-                name, log, r"prefill_kernelILi(\d+)E",
-                [(str(dh),) for dh in (32, 64, 128, 256)],
-                lambda k: f"flash_prefill[dh={k[0]}]",
-                lambda k: prefill_smem(int(k[0])))
+                name, log, r"prefill_kernelILi(\d+)ELi(\d+)E",
+                [(str(dk), str(dv)) for dk, dv in PREFILL_WIDTHS],
+                lambda k: f"flash_prefill[dh={k[0]}]" if k[0] == k[1]
+                else f"flash_prefill[dk={k[0]} dv={k[1]}]",
+                lambda k: prefill_smem(int(k[0]), int(k[1])))
         elif name in ("oproj_ffn_swiglu", "ffn_swiglu"):
             stream_smem = rt.bind(name, "stream_smem_bytes", [rt.I, rt.I])
             first = ("OprojPass" if name == "oproj_ffn_swiglu"
@@ -1070,11 +1118,34 @@ def node_kernel_phase(cfg, dev, tp=2):
     return paged_rows(shard, dev, NODE_ROWS, seed=6)[0]
 
 
+def kernels_of(fn, n=3):
+    """The CUDA kernels ``n`` calls of ``fn`` run, by name, from the
+    profiler's device events (host and device activity traced, as
+    ``step_breakdown`` traces them: a trace of device activity alone came
+    back empty on one H100 run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0})
+
+
 def prefill_row(row, c, B, S, window, gen, flush):
     """``flash_prefill`` at ``c``'s heads on (B, S) random bf16 q / k / v,
     causal (and ``window`` > 0: local), against its plain version row by
     row, beside SDPA; off-by-one masks planted in the plain version must
-    fail the row check. Returns the kernel-table row."""
+    fail the row check, and at MLA's widths (q / k of nope + rope, v of
+    ``v_head_dim``) the scale of v's width in place of k's. Returns the
+    kernel-table row."""
+    import math
+
     import torch.nn.functional as Fn
 
     from repro_torch.kernels.flash_attention.ops import attention
@@ -1083,9 +1154,13 @@ def prefill_row(row, c, B, S, window, gen, flush):
     from repro_torch.serving.backends import (prefill_attention_flops,
                                               prefill_attention_hbm_bytes)
     dev = flush.device
-    Hq, Hkv, dh = c.n_heads, c.n_kv_heads, c.head_dim
-    q, k, v = (torch.randn((B, S, h, dh), generator=gen, device=dev)
-               .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    Hq, Hkv = c.n_heads, c.n_kv_heads
+    dk = dv = c.head_dim
+    if c.family == "mla_moe":
+        dk, dv = c.qk_nope_dim + c.qk_rope_dim, c.v_head_dim
+    q, k, v = (torch.randn((B, S, h, d), generator=gen, device=dev)
+               .to(torch.bfloat16) for h, d in ((Hq, dk), (Hkv, dk),
+                                                (Hkv, dv)))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if window:
         i = torch.arange(S, device=dev)
@@ -1101,22 +1176,30 @@ def prefill_row(row, c, B, S, window, gen, flush):
     r = kernel_row(
         row, lambda: attention(q, k, v, causal=True, window=window),
         lambda: attention_ref(q, k, v, causal=True, window=window), lib,
-        prefill_attention_hbm_bytes(B, S, Hq, Hkv, dh),
-        prefill_attention_flops(B, S, Hq, dh, window), flush,
+        prefill_attention_hbm_bytes(B, S, Hq, Hkv, dk, dv),
+        prefill_attention_flops(B, S, Hq, dk, window, dv), flush,
         kernel="flash_prefill", row_tol=PREFILL_ROW_REL_L2)
     _log(f"kernel {row}: {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s, "
          f"{r['bound_ms'] / r['ms']:.3f} of the bound; SDPA "
          f"{r['library_ms']:.4f} ms ({r['library_ms'] / r['ms']:.3f}x "
          "the kernel's time)")
+    if dk != dv:
+        r["library_kernels"] = kernels_of(lib)
+        _log(f"kernel {row}: SDPA at dk {dk}, dv {dv} runs "
+             f"{r['library_kernels']}")
     # off-by-one masks, planted in the plain version: each must fail the
     # row check against the true plain output
     want = attention_ref(q, k, v, causal=True, window=window)
-    mutants = {"causal edge +1": dict(window=window, q_offset=1)}
+    mutants = {"causal edge +1": (q, dict(window=window, q_offset=1))}
     if window:
-        mutants["window edge +1"] = dict(window=window + 1)
-        mutants["window edge -1"] = dict(window=window - 1)
-    for label, kw in mutants.items():
-        m_err = row_rel_l2(naive_attention(q, k, v, causal=True, **kw), want)
+        mutants["window edge +1"] = (q, dict(window=window + 1))
+        mutants["window edge -1"] = (q, dict(window=window - 1))
+    if dk != dv:
+        mutants["scale 1/sqrt(dv)"] = (q.float() * math.sqrt(dk / dv),
+                                       dict(window=window))
+    for label, (qm, kw) in mutants.items():
+        m_err = row_rel_l2(naive_attention(qm, k, v, causal=True, **kw),
+                           want)
         _log(f"kernel {row}: planted {label}: row relative L2 error "
              f"{m_err:.3e} "
              f"{'caught' if m_err > PREFILL_ROW_REL_L2 else 'NOT caught'}")
@@ -1938,7 +2021,8 @@ def plain_last_logits_f32(cfg, params, tokens, dev):
     """Last-position logits (B, V) of the plain forward over ``tokens`` (B,
     S) in one batch, run in f32 (the bf16 weights upcast one layer at a
     time, quadratic attention; an MoE layer's capacity counts the B * S
-    tokens)."""
+    tokens; DeepSeek's dense head layers first, MLA expanded as the
+    prefill runs it)."""
     from repro_torch.bridge import tree_map
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
@@ -1946,9 +2030,10 @@ def plain_last_logits_f32(cfg, params, tokens, dev):
     toks = torch.as_tensor(np.asarray(tokens), device=dev).long()
     with torch.no_grad(), plain_prefill():
         h = T.embed_tokens(cfg, params, toks).float()
-        positions = torch.arange(toks.shape[1], device=dev)[None]
-        for i in range(cfg.n_layers):
-            h, _ = T._layer(cfg, f32(T.layer_params(params, i)), h, positions)
+        positions = torch.arange(toks.shape[1], device=dev)[None].expand(
+            toks.shape)
+        for _, _, lp, moe in T.layers_in_order(cfg, params):
+            h, _ = T._layer(cfg, f32(lp), h, positions, moe)
         h = L.apply_norm(cfg, f32(params["final_norm"]), h[:, -1:])
         head = {k: params[k] for k in ("embed", "lm_head") if k in params}
         return T.unembed(cfg, f32(head), h)[:, 0]
@@ -3796,6 +3881,255 @@ def mixtral_phase(dev):
     return launches["flash_prefill"], paged
 
 
+def deepseek_kernel_row(dev):
+    """``flash_prefill`` at DeepSeek-V2-Lite's MLA prefill (B 4, S 2048, 16
+    q on 16 kv heads, q / k of 192, v of 128, causal) against its plain
+    version row by row, beside SDPA (is_causal), with the causal edge and
+    the scale 1/sqrt(dv) planted in the plain version."""
+    from repro_torch.configs import get_config
+    d = DEEPSEEK
+    gen = torch.Generator(device=dev).manual_seed(d["seed"])
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    r = prefill_row(DEEPSEEK_ROW, get_config("deepseek-v2-lite-16b"),
+                    d["prompts"], d["prompt_len"], 0, gen, flush)
+    del flush
+    torch.cuda.empty_cache()
+    return {DEEPSEEK_ROW: r}
+
+
+@contextlib.contextmanager
+def attention_checked():
+    """Within the block, every prefill attention (``layers.attention``,
+    one call a layer) is also computed by the plain version on the same
+    inputs, and the largest row relative L2 error of the call's output
+    against it is appended to the list the block receives. Nothing in the
+    port is edited."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import layers as L
+    real, errs = L.attention, []
+
+    def checked(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        errs.append(row_rel_l2(out, attention_ref(q, k, v, **kw)))
+        return out
+    L.attention = checked
+    try:
+        yield errs
+    finally:
+        L.attention = real
+
+
+@contextlib.contextmanager
+def prefill_scale_planted(dk, dv):
+    """Within the block, the prefill's attention runs the kernel at scale
+    1/sqrt(dv) in place of 1/sqrt(dk) (q multiplied by sqrt(dk / dv) on its
+    way in): a planted fault. Nothing in the port is edited."""
+    import math
+
+    from repro_torch.models import layers as L
+    real = L.attention
+    L.attention = lambda q, k, v, **kw: real(q * math.sqrt(dk / dv), k, v,
+                                             **kw)
+    try:
+        yield
+    finally:
+        L.attention = real
+
+
+def attention_check(label, errs, tol=PREFILL_ROW_REL_L2):
+    """``errs``: one reading a layer from ``attention_checked``. Each
+    within ``tol``; prints the widest."""
+    worst = max(errs)
+    _log(f"{label}: prefill attention at the model's inputs vs the plain "
+         f"version, {len(errs)} layers: widest row relative L2 error "
+         f"{worst:.3e} (layer {errs.index(worst)}; tol {tol:.3e})")
+    if not worst <= tol:
+        raise AssertionError(f"{label}: a layer's attention parts from the "
+                             f"plain version by {worst:.3e} > {tol:.3e}")
+
+
+def deepseek_generate(cfg, dev, coe):
+    """DeepSeek behind ``CompositionOfExperts.generate``, then the prefill
+    and the decode alone (timed), the prefill's logits against the plain
+    f32 forward over the same rows and its attention layer by layer
+    against the plain version, one absorbed decode step against the
+    teacher-forced f32 forward (at capacity_factor 16), and the prefill's
+    kernel planted at scale 1/sqrt(dv). Returns generate's launch
+    counts."""
+    import dataclasses
+
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.models import get_model
+    d = DEEPSEEK
+    P, n_new, B = d["prompt_len"], d["new_tokens"], d["prompts"]
+    toks = np.random.RandomState(d["seed"]).randint(
+        0, cfg.vocab_size, (B, P + 1)).astype(np.int32)
+    torch.cuda.synchronize()
+    rt.reset_launches()
+    t0 = time.perf_counter()
+    res = coe.generate(toks[:, :P], n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rt.launch_counts()
+    check_launches("deepseek generate", launches,
+                   {"flash_prefill": cfg.n_layers})
+    if res.tokens.shape != (B, n_new):
+        raise AssertionError(f"deepseek generate: tokens {res.tokens.shape}")
+    if not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
+        raise AssertionError("deepseek generate: token out of vocabulary")
+    _log(f"deepseek generate: {B} prompts x {P} tokens -> "
+         f"{res.tokens.size} tokens in {wall:.3f}s = "
+         f"{res.tokens.size / wall:.2f} tok/s; switch_s="
+         f"{res.switch_seconds:.4f} exec_s={res.exec_seconds:.4f}; launches "
+         f"flash_prefill={launches['flash_prefill']}, no other kernel")
+
+    model = get_model(cfg)
+    params = coe.cache.activate(cfg.name)
+    tt = torch.as_tensor(toks[:, :P], device=dev).long()
+    with routes_recorded() as got:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = model.prefill(params, {"tokens": tt}, P + n_new)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    tok = last.argmax(-1)
+    t0 = time.perf_counter()
+    for t in range(n_new - 1):
+        lg, cache = model.decode_step(params, cache, tok[:, None], P + t)
+        tok = lg.argmax(-1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    _log(f"deepseek: prefill of {B} x {P} tokens in {prefill_s:.3f}s "
+         f"({B * P / prefill_s:.0f} tok/s); {n_new - 1} absorbed decode "
+         f"steps in {decode_s:.3f}s = {decode_s / (n_new - 1) * 1e3:.2f} ms "
+         f"a step, {B * (n_new - 1) / decode_s:.2f} tok/s; latent cache "
+         f"{cache_bytes / 1e9:.4f} GB (c_kv {cfg.kv_lora_rank} + k_rope "
+         f"{cfg.qk_rope_dim} a position, {cfg.n_layers} layers, "
+         f"{B} x {P + n_new} positions)")
+    step_breakdown(lambda: model.decode_step(params, cache, tok[:, None],
+                                             P + n_new - 1),
+                   f"deepseek decode step ({B} lanes, {cfg.n_layers} "
+                   "layers)")
+    del cache
+    with routes_forced(got) as ref:
+        l32 = plain_last_logits_f32(cfg, params, toks[:, :P], dev)
+    label = (f"deepseek prefill (flash_prefill at dk 192, dv 128; bf16 MoE "
+             f"at cf {cfg.capacity_factor}) vs f32 plain forward on its "
+             "routing, all rows")
+    logits_check(label, last, l32, DEEPSEEK_PREFILL_LOGIT_TOL_REL)
+    router_check("deepseek prefill", got, MIXTRAL_ROUTER_TOL_REL)
+    route_ties("deepseek prefill", got, ref, DEEPSEEK_ROUTE_TIE_TOL_REL,
+               cfg=cfg)
+    with attention_checked() as errs:
+        model.prefill(params, {"tokens": tt}, P)
+    attention_check("deepseek prefill", errs)
+    # a planted fault: the prefill's kernel at scale 1/sqrt(dv); the f32
+    # reference, forced to the faulty path's routing, stays unplanted
+    dk, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    with prefill_scale_planted(dk, dv), routes_recorded() as got_f:
+        last_f, _ = model.prefill(params, {"tokens": tt}, P)
+    with routes_forced(got_f):
+        l32_f = plain_last_logits_f32(cfg, params, toks[:, :P], dev)
+    with prefill_scale_planted(dk, dv), attention_checked() as errs_f:
+        model.prefill(params, {"tokens": tt}, P)
+    fault = "deepseek prefill: planted scale 1/sqrt(dv)"
+    caught = {
+        "logits_check": raised(lambda: logits_check(
+            fault, last_f, l32_f, DEEPSEEK_PREFILL_LOGIT_TOL_REL)),
+        "attention_check": raised(lambda: attention_check(fault, errs_f))}
+    _log(f"{fault}: caught by {[k for k, v in caught.items() if v]} of "
+         f"{list(caught)}")
+    if not any(caught.values()):
+        raise AssertionError(f"{fault}: no check catches it")
+    del got, ref, l32, got_f, last_f, l32_f
+
+    # one absorbed step against the teacher-forced f32 forward over S + 1,
+    # at capacity_factor 16: no assignment drops in either, so the step
+    # (T 4) and the forward (T 2049 a row) compute the same function
+    c16 = dataclasses.replace(cfg, capacity_factor=16.0)
+    m16 = get_model(c16)
+    _, cache = m16.prefill(params, {"tokens": tt}, P + 1)
+    nxt = torch.as_tensor(toks[:, P:], device=dev).long()
+    with routes_recorded() as got:
+        lg, cache = m16.decode_step(params, cache, nxt, P)
+    del cache
+    refs, ref_lg = [], []
+    for b in range(B):
+        with routes_recorded() as r:
+            ref_lg.append(plain_last_logits_f32(c16, params, toks[b:b + 1],
+                                                dev))
+        refs.append(r)
+    ref = [(torch.cat([r[i][0][-1:] for r in refs]),
+            torch.cat([r[i][1][-1:] for r in refs]))
+           for i in range(len(got))]
+    logits_check(f"deepseek absorbed decode step at position {P} (cf 16) "
+                 "vs f32 teacher-forced expanded forward", lg,
+                 torch.cat(ref_lg), DEEPSEEK_STEP_LOGIT_TOL_REL)
+    router_check("deepseek decode step", got, MIXTRAL_ROUTER_TOL_REL)
+    route_ties("deepseek decode step", got, ref, DEEPSEEK_ROUTE_TIE_TOL_REL,
+               cfg=c16)
+    del params, got, ref, refs
+    return launches
+
+
+def release_pinned():
+    """Hand the pinned host blocks that PyTorch's caching host allocator
+    keeps after their tensors are freed back to the system. It rounds each
+    pinned allocation up to a power of two and keeps it for reuse, so the
+    earlier phases' experts hold host memory past their release, and
+    DeepSeek's 31.4 GB take 55.5 GB of blocks (its three stacked expert
+    weights, 9.6 GB each, 16 GiB blocks). Returns whether this PyTorch
+    offers the call."""
+    gc.collect()
+    fn = getattr(torch._C, "_host_emptyCache", None)
+    if fn is not None:
+        fn()
+    return fn is not None
+
+
+def deepseek_phase(dev):
+    """DeepSeek-V2-Lite at full width and depth: one expert made on the
+    card from a seed and kept in pinned host memory, behind ``generate``
+    (an HBM cache of one expert). Releases the expert at the end. Returns
+    generate's ``flash_prefill`` launches."""
+    from repro_torch.bridge import tree_bytes
+    from repro_torch.configs import get_config
+    from repro_torch.core import CompositionOfExperts, ExpertHandle, HashRouter
+    from repro_torch.models import get_model
+    from repro_torch.store import HostMemoryStore
+    cfg = get_config("deepseek-v2-lite-16b")
+    if not release_pinned():
+        _log("deepseek: this PyTorch cannot release cached pinned blocks")
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(DEEPSEEK["seed"]), dev)
+    nbytes = tree_bytes(params)
+    store = HostMemoryStore()
+    coe = CompositionOfExperts(HashRouter(1), None, nbytes, store=store,
+                               device=dev)
+    coe.register(ExpertHandle(cfg.name, cfg, params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"deepseek: {cfg.name} at full width and depth: {cfg.n_layers} "
+         f"layers ({cfg.first_dense_layers} dense of F {cfg.d_ff}, then "
+         f"{cfg.n_experts} experts top-{cfg.top_k} of F {cfg.moe_d_ff} and "
+         f"{cfg.n_shared_experts} shared), D {cfg.d_model}, {cfg.n_heads} "
+         f"heads, MLA rank {cfg.kv_lora_rank}, q / k "
+         f"{cfg.qk_nope_dim}+{cfg.qk_rope_dim}, v {cfg.v_head_dim}, vocab "
+         f"{cfg.vocab_size}; {nbytes / 1e9:.2f} GB bf16 made and moved to "
+         f"pinned host memory in {time.perf_counter() - t0:.1f}s")
+    launches = deepseek_generate(cfg, dev, coe)
+    coe.cache.close()
+    store.delete(cfg.name)
+    del store, coe
+    release_pinned()
+    torch.cuda.empty_cache()
+    _log(f"deepseek: phase {time.perf_counter() - t0:.1f}s")
+    return launches["flash_prefill"]
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available; this run needs one "
@@ -3818,6 +4152,7 @@ def main():
     rows.update(prefill_kernel_phase(cfg, rg_cfg, dev))
     rows.update(variant_kernel_phase(dev))
     rows.update(mixtral_kernel_row(dev))
+    rows.update(deepseek_kernel_row(dev))
     rows.update(monarch_kernel_phase(dev))
     torch.cuda.empty_cache()
     launches = monarch_phase(dev)
@@ -3874,6 +4209,7 @@ def main():
         rows[row]["launches"] = launches[arch]["flash_prefill"]
     rows[MIXTRAL_ROW]["launches"], rows[MIXTRAL_B1_ROW]["launches"] = \
         mixtral_phase(dev)
+    rows[DEEPSEEK_ROW]["launches"] = deepseek_phase(dev)
     launches = rg_phase(rg_cfg, dev)
     rows[RG_PREFILL_ROW]["launches"] = launches["flash_prefill"]
     rows["lru_scan"]["launches"] = launches["lru_scan"]

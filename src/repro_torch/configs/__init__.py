@@ -3,6 +3,7 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, pad_for_tp, reduced
 from repro_torch.configs.chatglm3_6b import CONFIG as _chatglm3_6b
+from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as _deepseek
 from repro_torch.configs.granite_8b import CONFIG as _granite_8b
 from repro_torch.configs.mixtral_8x7b import CONFIG as _mixtral_8x7b
 from repro_torch.configs.qwen2_5_32b import CONFIG as _qwen2_5_32b
@@ -13,7 +14,7 @@ from repro_torch.configs.starcoder2_3b import CONFIG as _starcoder2_3b
 
 CONFIGS = {c.name: c for c in (_samba_coe_expert, _granite_8b, _qwen2_5_32b,
                                _chatglm3_6b, _starcoder2_3b, _qwen2_vl_2b,
-                               _mixtral_8x7b, _recurrentgemma_9b)}
+                               _mixtral_8x7b, _deepseek, _recurrentgemma_9b)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -1,10 +1,10 @@
 """Model configuration: the subset of ``repro.configs.base`` that the
-ported families (dense, moe, rglru) read.
+ported families (dense, moe, mla_moe, rglru) read.
 
-Only the fields those families read are kept; the other families (MLA,
-xLSTM, encoder-decoder) are not ported yet (``ROADMAP.md`` Queue 1). The
-MoE fields are JAX's, ``first_dense_layers`` included (DeepSeek's, refused
-by the port's transformer until MLA follows). The expert capacity is
+Only the fields those families read are kept; the other families (xLSTM,
+encoder-decoder) are not ported yet (``ROADMAP.md`` Queue 1). The MoE
+fields are JAX's, ``first_dense_layers`` included (DeepSeek's dense head
+layers), and so are the MLA fields. The expert capacity is
 ``capacity_factor``: the port has no run-time override of it.
 """
 from __future__ import annotations
@@ -48,6 +48,13 @@ class ModelConfig:
     routed_scale: float = 1.0
     capacity_factor: float = 1.25
 
+    # --- MLA (deepseek) ---
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+
     # --- hybrid (recurrentgemma) ---
     block_pattern: Tuple[str, ...] = ()   # e.g. ('rec', 'rec', 'attn')
     d_rnn: int = 0
@@ -57,6 +64,12 @@ class ModelConfig:
     orig_n_heads: int = 0
     orig_n_kv_heads: int = 0
     orig_vocab_size: int = 0
+
+    @property
+    def q_dim(self) -> int:
+        if self.family == "mla_moe":
+            return self.n_heads * (self.qk_nope_dim + self.qk_rope_dim)
+        return self.n_heads * self.head_dim
 
 
 def _round_up(x: int, m: int) -> int:
@@ -86,7 +99,7 @@ def pad_for_tp(cfg: ModelConfig, tp: int) -> ModelConfig:
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
-    """Tiny same-family config for CPU tests (the dense, MoE and rglru
+    """Tiny same-family config for CPU tests (the dense, MoE, MLA and rglru
     branches of ``repro.configs.base.reduced``, including its RoPE
     branches)."""
     upd = dict(
@@ -107,6 +120,12 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         upd["moe_d_ff"] = 64
         upd["first_dense_layers"] = min(cfg.first_dense_layers, 1)
         upd["n_shared_experts"] = min(cfg.n_shared_experts, 1)
+    if cfg.family == "mla_moe":
+        upd["kv_lora_rank"] = 64
+        upd["qk_nope_dim"] = 32
+        upd["qk_rope_dim"] = 16
+        upd["v_head_dim"] = 32
+        upd["head_dim"] = 32
     if cfg.sliding_window:
         upd["sliding_window"] = 32
     if cfg.mrope_sections:

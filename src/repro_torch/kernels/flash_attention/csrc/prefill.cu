@@ -4,22 +4,27 @@
 // Replaces: src/repro/kernels/flash_attention/kernel.py::flash_prefill
 // (_prefill_kernel), reached through flash_attention/ops.py::attention.
 //
-// Computes o (B, S, Hq, dh) = softmax(mask(q k^T * scale)) v for bf16
-// q (B, S, Hq, dh) and k / v (B, S, Hkv, dh), q head h reading kv head
-// h / (Hq / Hkv). Query i attends key j where j <= i (causal) and
-// i - j < window (window > 0). All four tensors are read and written
-// through TMA tensor maps built from their (batch, position, head) strides;
-// head_dim is contiguous. Any S >= 1: the Pallas kernel asserts
+// Computes o (B, S, Hq, dv) = softmax(mask(q k^T * scale)) v for bf16
+// q (B, S, Hq, dk), k (B, S, Hkv, dk) and v (B, S, Hkv, dv), q head h
+// reading kv head h / (Hq / Hkv). Query i attends key j where j <= i
+// (causal) and i - j < window (window > 0). (dk, dv) is (d, d) for d in
+// 32/64/128/256, or MLA's (192, 128) (DeepSeek-V2: q / k of qk_nope 128 +
+// qk_rope 64, v of 128; JAX's MLA prefill is XLA attention, which takes
+// any dv). All four tensors are read and written through TMA tensor maps
+// built from their (batch, position, head) strides; the head widths are
+// contiguous. Any S >= 1: the Pallas kernel asserts
 // S % 128 == 0, here the maps' position extent is S itself, so TMA fills
 // the rows past S with zeros on a load, drops them on a store, and nothing
 // past S is ever read or written.
 //
-// Bound: tensor-core operations. 4 * B * Hq * dh * pairs flops, pairs =
-// sum_i min(i + 1, W) (W = S without a window), against 2 * B * S *
-// (2 Hq + 2 Hkv) * dh bytes: at the 7B widths (B 8, S 2048, 32 heads,
-// dh 128, causal) 2.75e11 flops and 537 MB, 0.278 ms at 989 TFLOP/s; at
-// RecurrentGemma's (B 4, S 3000, 16 q heads on 1 kv head, dh 256, window
-// 2048) 2.65e11 flops and 209 MB, 0.268 ms.
+// Bound: tensor-core operations. 2 * B * Hq * (dk + dv) * pairs flops,
+// pairs = sum_i min(i + 1, W) (W = S without a window), against 2 * B * S
+// * (Hq dk + Hkv dk + Hkv dv + Hq dv) bytes: at the 7B widths (B 8, S
+// 2048, 32 heads, dh 128, causal) 2.75e11 flops and 537 MB, 0.278 ms at
+// 989 TFLOP/s; at RecurrentGemma's (B 4, S 3000, 16 q heads on 1 kv head,
+// dh 256, window 2048) 2.65e11 flops and 209 MB, 0.268 ms; at
+// DeepSeek-V2-Lite's (B 4, S 2048, 16 heads, dk 192, dv 128, causal)
+// 8.59e10 flops and 168 MB, 0.0869 ms.
 //
 // Design: FlashAttention-3's warp-specialised shape. A CTA of 384 threads
 // per (batch, q head, pair of 128-row q tiles): two consumer warpgroups of
@@ -42,15 +47,23 @@
 //    bit). Tile t's q k^T and tile t - 1's p v are in flight together, and
 //    t's softmax runs under t - 1's p v; o is rescaled only where a row's
 //    maximum moved.
-//  * Two q tiles per CTA at dh <= 128, each with its own Q buffer: the
-//    heavy causal tile n_qt - 1 - x, then its light mirror x, so every CTA
-//    walks n_qt + 1 key tiles and the second tile's loads run under the
-//    first one's tail. One q tile, heaviest first, at dh 256.
+//  * Two q tiles per CTA where their Q buffers fit beside the ring (all
+//    but dk 256), each with its own Q buffer: the heavy causal tile n_qt -
+//    1 - x, then its light mirror x, so every CTA walks n_qt + 1 key tiles
+//    and the second tile's loads run under the first one's tail. One q
+//    tile, heaviest first, at dk 256.
 //  * Epilogue: o is staged in the warpgroup's own rows of its Q buffer
-//    (swizzled as the O map's box) and written by one TMA store per panel.
-//  * BN = 128 keys per tile at dh <= 128, 64 at dh 256 (o takes 128 f32
-//    registers per consumer thread there). Shared memory: 2 x 32 KB of Q +
-//    a 128 KB K/V ring at dh 128; 64 KB + 128 KB at dh 256.
+//    (swizzled as the O map's box; dv <= dk) and written by one TMA store
+//    per panel.
+//  * BN = 128 keys per tile, 64 at dk 256 (o takes 128 f32 registers per
+//    consumer thread there) and at dk 192. Shared memory: 2 x 32 KB of Q +
+//    a 128 KB K/V ring at dh 128; 64 KB + 128 KB at dh 256; 2 x 48 KB + an
+//    80 KB ring (K 24 KB, V 16 KB a stage) at (192, 128). At (192, 128)
+//    the registers are at most dh 128's (o is dv wide; q k^T reads its 12
+//    k-steps from shared memory). BN 128 there leaves room for one q tile
+//    only (209 KB); on the H100 it ran 0.6 % behind BN 64 with two
+//    (tools/prefill_timing.py, -DPREFILL_MLA_BN=128: 0.1803 / 0.1798
+//    against 0.1788 / 0.1793 ms at B 4, S 2048, 16 heads, alternated).
 // Measured on the H100 and left out: ping-pong turns between the two
 // consumer warpgroups (no gain over the overlap above), and running the
 // causal diagonal tile at half width for warpgroup 0 (the branch makes
@@ -63,7 +76,9 @@
 //    must agree (128-byte rows of 64 elements; 64-byte rows at dh 32), and
 //    so must the epilogue's staging. A mismatch gives finite, wrong
 //    numbers: the card tests and chip_smoke.py hold the kernel to its
-//    plain version row by row, at every dh.
+//    plain version row by row, at every (dk, dv). A row is cut into
+//    panels of 64 elements, three of them at dk 192: every panel offset
+//    is a multiple of the panel's bytes, never a power-of-two mask.
 //  * A wrong mbarrier phase hangs the CTA. No timeout guards the waits: a
 //    trap on that path makes ptxas ignore setmaxnreg (spills at dh 128 and
 //    256); run new work under a timeout.
@@ -95,20 +110,34 @@ constexpr int CONSUMER_REGS = 240;
 constexpr int STAGES = 2;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int DH>
+constexpr int SMEM_MAX = 232448;          // a CTA's opt-in limit, sm_90
+#ifndef PREFILL_MLA_BN
+#define PREFILL_MLA_BN 64                 // keys per tile at dk 192
+#endif
+
+// q / k rows of DK elements, v / o rows of DV (DV <= DK: o is staged in
+// the Q buffer)
+template <int DK, int DV>
 struct Tile {
-  static constexpr int BN = DH == 256 ? 64 : 128;     // keys per tile
-  static constexpr int PW = DH < 64 ? DH : 64;        // elements per panel row
+  static_assert(DV <= DK && DK % 64 == DV % 64, "one panel width");
+  static constexpr int BN =                           // keys per tile
+      DK == 256 ? 64 : DK == 192 ? PREFILL_MLA_BN : 128;
+  static constexpr int PW = DK < 64 ? DK : 64;        // elements per panel row
   static constexpr int SW = PW * 2;                   // swizzle bytes
-  static constexpr int NP = DH / PW;                  // panels per row
+  static constexpr int NPK = DK / PW;                 // panels per q / k row
+  static constexpr int NPV = DV / PW;                 // panels per v / o row
+  static constexpr int Q_BYTES = BM * DK * 2;
+  static constexpr int K_BYTES = BN * DK * 2;         // one stage
+  static constexpr int V_BYTES = BN * DV * 2;
+  static constexpr int RING = STAGES * (K_BYTES + V_BYTES);
   // q tiles per CTA, each with a Q buffer of its own: a heavy causal tile
   // and its light mirror (equal work in every CTA), the second one's loads
-  // under the first one's tail; one at dh 256, where two do not fit
-  static constexpr int ITEMS = DH == 256 ? 1 : 2;
-  static constexpr int Q_BYTES = BM * DH * 2;
-  static constexpr int KV_BYTES = BN * DH * 2;        // K or V, one stage
-  static constexpr int SMEM =
-      1024 + ITEMS * Q_BYTES + 2 * STAGES * KV_BYTES + 128;
+  // under the first one's tail; one where two do not fit (dk 256, and dk
+  // 192 at BN 128)
+  static constexpr int ITEMS =
+      1024 + 2 * Q_BYTES + RING + 128 <= SMEM_MAX ? 2 : 1;
+  static constexpr int SMEM = 1024 + ITEMS * Q_BYTES + RING + 128;
+  static_assert(SMEM <= SMEM_MAX, "shared memory");
 };
 
 struct Args {
@@ -122,23 +151,23 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-template <int DH>
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 prefill_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                const __grid_constant__ CUtensorMap to, const Args p) {
-  using T = Tile<DH>;
+  using T = Tile<DK, DV>;
   constexpr int BN = T::BN, SW = T::SW, PW = T::PW;
   extern __shared__ unsigned char smem_raw[];
   // 1024-byte aligned tiles: the swizzle pattern follows address bits
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t k_s = base + T::ITEMS * T::Q_BYTES;      // [STAGES] tiles
-  const uint32_t v_s = k_s + STAGES * T::KV_BYTES;        // [STAGES] tiles
+  const uint32_t v_s = k_s + STAGES * T::K_BYTES;         // [STAGES] tiles
   auto q_s = [&](int j) { return base + j * T::Q_BYTES; };
   // mbarriers: per stage K full, V full, K empty, V empty; then each q
   // tile's Q full
-  const uint32_t bars = v_s + STAGES * T::KV_BYTES;
+  const uint32_t bars = v_s + STAGES * T::V_BYTES;
   enum { K_FULL, V_FULL, K_EMPTY, V_EMPTY };
   auto bar = [&](int kind, int s) { return bars + 8 * (kind * STAGES + s); };
   auto q_full = [&](int j) { return bars + 8 * (4 * STAGES + j); };
@@ -185,22 +214,21 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
       int n = 0;
       for (int j = 0; j < items; ++j) {
         mbar_expect_tx(q_full(j), T::Q_BYTES);
-        for (int c = 0; c < T::NP; ++c)
+        for (int c = 0; c < T::NPK; ++c)
           tma_load_4d(q_s(j) + c * BM * SW, &tq, q_full(j), c * PW, h,
                       q0_of(j), b);
         for (int t = t_lo_of(j); t < t_hi_of(j); ++t, ++n) {
           const int s = stage(n);
-          const uint32_t off = s * T::KV_BYTES;
           mbar_wait(bar(K_EMPTY, s), parity(n) ^ 1);
-          mbar_expect_tx(bar(K_FULL, s), T::KV_BYTES);
-          for (int c = 0; c < T::NP; ++c)
-            tma_load_4d(k_s + off + c * BN * SW, &tk, bar(K_FULL, s), c * PW,
-                        hk, t * BN, b);
+          mbar_expect_tx(bar(K_FULL, s), T::K_BYTES);
+          for (int c = 0; c < T::NPK; ++c)
+            tma_load_4d(k_s + s * T::K_BYTES + c * BN * SW, &tk,
+                        bar(K_FULL, s), c * PW, hk, t * BN, b);
           mbar_wait(bar(V_EMPTY, s), parity(n) ^ 1);
-          mbar_expect_tx(bar(V_FULL, s), T::KV_BYTES);
-          for (int c = 0; c < T::NP; ++c)
-            tma_load_4d(v_s + off + c * BN * SW, &tv, bar(V_FULL, s), c * PW,
-                        hk, t * BN, b);
+          mbar_expect_tx(bar(V_FULL, s), T::V_BYTES);
+          for (int c = 0; c < T::NPV; ++c)
+            tma_load_4d(v_s + s * T::V_BYTES + c * BN * SW, &tv,
+                        bar(V_FULL, s), c * PW, hk, t * BN, b);
         }
       }
     }
@@ -216,7 +244,7 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
       if (lane == 0) mbar_arrive(bar(kind, stage(n)));
     };
 
-    float o[DH / 2];
+    float o[DV / 2];
     float m[2], l[2];
     float sc[BN / 2];            // scores, then p, of the newest tile
     unsigned pa[BN / 16][4];     // p of the tile in the p v product
@@ -230,11 +258,11 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
     auto issue_qk = [&](int n) {
       mbar_wait(bar(K_FULL, stage(n)), parity(n));
       const uint32_t qd = opaque(q_lo);
-      const uint32_t kd = desc_lo(k_s + stage(n) * T::KV_BYTES, 16);
+      const uint32_t kd = desc_lo(k_s + stage(n) * T::K_BYTES, 16);
       fence_regs(sc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
+      for (int kk = 0; kk < DK / 16; ++kk) {
         const int c = kk / (PW / 16), off = (kk % (PW / 16)) * 32;
         wgmma_ss<BN>(sc, make_desc(qd + ((c * BM * SW + off) >> 4), HI),
                      make_desc(kd + ((c * BN * SW + off) >> 4), HI), kk);
@@ -244,12 +272,12 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
     // o += p v, issued: p's A fragments from pa, v read MN-major
     auto issue_pv = [&](int n) {
       mbar_wait(bar(V_FULL, stage(n)), parity(n));
-      const uint32_t vd = desc_lo(v_s + stage(n) * T::KV_BYTES, BN * SW);
+      const uint32_t vd = desc_lo(v_s + stage(n) * T::V_BYTES, BN * SW);
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs_tb<DH>(o, pa[kk],
+        wgmma_rs_tb<DV>(o, pa[kk],
                         make_desc(vd + ((kk * 16 * SW) >> 4), HI), 1);
       wgmma_commit();
     };
@@ -323,7 +351,7 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
       row[1] = r0 + wrow + 8;
       q_lo = desc_lo(q_s(j) + wg * 64 * SW, 16);
 #pragma unroll
-      for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+      for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
       m[0] = m[1] = -INFINITY;
       l[0] = l[1] = 0.f;
 
@@ -353,7 +381,7 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
         // maximum
         if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-          for (int i = 0; i < DH / 8; ++i) {
+          for (int i = 0; i < DV / 8; ++i) {
             o[4 * i] *= alpha[0];
             o[4 * i + 1] *= alpha[0];
             o[4 * i + 2] *= alpha[1];
@@ -368,7 +396,7 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
       release(V_EMPTY, n);
       ++n;
 
-      // normalise; stage the warpgroup's 64 x DH tile in its own rows of
+      // normalise; stage the warpgroup's 64 x DV tile in its own rows of
       // the Q tile (no longer read), swizzled as the O map's box, and store
       // it with TMA, which drops the rows past S. 16-byte chunk c of row r
       // lies at chunk c ^ (r % 8) (128-byte rows) or c ^ (r / 2 % 4)
@@ -383,7 +411,7 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
         const int r = wrow + 8 * hr;
         const int swz = SW == 128 ? (r & 7) : ((r >> 1) & 3);
 #pragma unroll
-        for (int i = 0; i < DH / 8; ++i) {
+        for (int i = 0; i < DV / 8; ++i) {
           const int c = i / (PW / 8), chunk = i % (PW / 8);
           st_shared_u32(o_s + c * BM * SW + r * SW + ((chunk ^ swz) << 4) +
                             tig * 4,
@@ -394,7 +422,7 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
       fence_async_shared();
       named_sync(1 + wg, 128);
       if ((threadIdx.x & 127) == 0) {
-        for (int c = 0; c < T::NP; ++c)
+        for (int c = 0; c < T::NPV; ++c)
           tma_store_4d(&to, o_s + c * BM * SW, c * PW, h, r0, b);
         tma_store_commit();
       }
@@ -424,23 +452,23 @@ bool encode(CUtensorMap* map, const void* ptr, int dh, int H, int S, int B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DH>
+template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o,
            const Args& a, int B, int Hq, int Hkv, const long long (&st)[12],
            cudaStream_t stream) {
-  using T = Tile<DH>;
+  using T = Tile<DK, DV>;
   CUtensorMap tq, tk, tv, to;
-  if (!encode(&tq, q, DH, Hq, a.S, B, st[2], st[1], st[0], T::PW, BM) ||
-      !encode(&tk, k, DH, Hkv, a.S, B, st[5], st[4], st[3], T::PW, T::BN) ||
-      !encode(&tv, v, DH, Hkv, a.S, B, st[8], st[7], st[6], T::PW, T::BN) ||
-      !encode(&to, o, DH, Hq, a.S, B, st[11], st[10], st[9], T::PW, 64))
+  if (!encode(&tq, q, DK, Hq, a.S, B, st[2], st[1], st[0], T::PW, BM) ||
+      !encode(&tk, k, DK, Hkv, a.S, B, st[5], st[4], st[3], T::PW, T::BN) ||
+      !encode(&tv, v, DV, Hkv, a.S, B, st[8], st[7], st[6], T::PW, T::BN) ||
+      !encode(&to, o, DV, Hq, a.S, B, st[11], st[10], st[9], T::PW, 64))
     return static_cast<int>(cudaErrorInvalidValue);
   // setmaxnreg.inc waits for the registers the producer warpgroup gives
   // back: refuse a build whose entry count would leave the consumers
   // waiting
   static const int regs = [] {
     cudaFuncAttributes fa;
-    return cudaFuncGetAttributes(&fa, prefill_kernel<DH>) == cudaSuccess
+    return cudaFuncGetAttributes(&fa, prefill_kernel<DK, DV>) == cudaSuccess
                ? fa.numRegs : 0;
   }();
   if ((regs - PRODUCER_REGS) * 128 < (CONSUMER_REGS - regs) * 32 * CONSUMER_WARPS)
@@ -448,12 +476,13 @@ int launch(const void* q, const void* k, const void* v, void* o,
   // above 48 KB of dynamic shared memory only after this opt-in (set on
   // every launch: it is per device and costs no device time)
   const cudaError_t e = cudaFuncSetAttribute(
-      prefill_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      prefill_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       T::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_qt = (a.S + BM - 1) / BM;
   const dim3 grid((n_qt + T::ITEMS - 1) / T::ITEMS, Hq, B);
-  prefill_kernel<DH><<<grid, THREADS, T::SMEM, stream>>>(tq, tk, tv, to, a);
+  prefill_kernel<DK, DV><<<grid, THREADS, T::SMEM, stream>>>(tq, tk, tv, to,
+                                                             a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -461,32 +490,41 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 extern "C" int flash_prefill_bf16(
     const void* q, const void* k, const void* v, void* o, int B, int S,
-    int Hq, int Hkv, int dh, int causal, int window, int sqb, int sqs,
-    int sqh, int skb, int sks, int skh, int svb, int svs, int svh, int sob,
-    int sos, int soh, float scale, void* stream) {
+    int Hq, int Hkv, int dk, int dv, int causal, int window, int sqb,
+    int sqs, int sqh, int skb, int sks, int skh, int svb, int svs, int svh,
+    int sob, int sos, int soh, float scale, void* stream) {
   if (S < 1 || Hkv < 1 || Hq % Hkv) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{S, Hq / Hkv, causal, window, scale};
   const long long st[12] = {sqb, sqs, sqh, skb, sks, skh,
                             svb, svs, svh, sob, sos, soh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 32: return launch<32>(q, k, v, o, a, B, Hq, Hkv, st, s);
-    case 64: return launch<64>(q, k, v, o, a, B, Hq, Hkv, st, s);
-    case 128: return launch<128>(q, k, v, o, a, B, Hq, Hkv, st, s);
-    case 256: return launch<256>(q, k, v, o, a, B, Hq, Hkv, st, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (dk == dv) {
+    switch (dk) {
+      case 32: return launch<32, 32>(q, k, v, o, a, B, Hq, Hkv, st, s);
+      case 64: return launch<64, 64>(q, k, v, o, a, B, Hq, Hkv, st, s);
+      case 128: return launch<128, 128>(q, k, v, o, a, B, Hq, Hkv, st, s);
+      case 256: return launch<256, 256>(q, k, v, o, a, B, Hq, Hkv, st, s);
+    }
+  } else if (dk == 192 && dv == 128) {
+    return launch<192, 128>(q, k, v, o, a, B, Hq, Hkv, st, s);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// the dynamic shared memory one CTA takes at head_dim dh (0 for another)
-extern "C" int flash_prefill_smem_bytes(int dh) {
-  switch (dh) {
-    case 32: return Tile<32>::SMEM;
-    case 64: return Tile<64>::SMEM;
-    case 128: return Tile<128>::SMEM;
-    case 256: return Tile<256>::SMEM;
-    default: return 0;
+// the dynamic shared memory one CTA takes at head widths (dk, dv) (0 for
+// widths the kernel is not instantiated for)
+extern "C" int flash_prefill_smem_bytes(int dk, int dv) {
+  if (dk == dv) {
+    switch (dk) {
+      case 32: return Tile<32, 32>::SMEM;
+      case 64: return Tile<64, 64>::SMEM;
+      case 128: return Tile<128, 128>::SMEM;
+      case 256: return Tile<256, 256>::SMEM;
+    }
+  } else if (dk == 192 && dv == 128) {
+    return Tile<192, 128>::SMEM;
   }
+  return 0;
 }
 
 REPRO_EXPORT_ERROR_STRING

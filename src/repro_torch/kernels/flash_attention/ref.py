@@ -13,7 +13,8 @@ from repro_torch.models.layers import decode_attention, naive_attention
 
 
 def attention_ref(q, k, v, *, causal=True, window=0):
-    """q (B,S,Hq,dh), k/v (B,S,Hkv,dh) -> (B,S,Hq,dh)."""
+    """q (B,S,Hq,dk), k (B,S,Hkv,dk), v (B,S,Hkv,dv) -> (B,S,Hq,dv), scale
+    1/sqrt(dk)."""
     return naive_attention(q, k, v, causal=causal, window=window)
 
 

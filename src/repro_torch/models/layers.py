@@ -100,9 +100,10 @@ def apply_rope(cfg: ModelConfig, x, positions):
 
 
 def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0):
-    """Oracle quadratic attention. q (B,Sq,Hq,dh), k/v (B,Sk,Hkv,dh); scores
-    and softmax in f32, probabilities cast to v's dtype for the value
-    product (as the JAX oracle does)."""
+    """Oracle quadratic attention. q (B,Sq,Hq,dh), k (B,Sk,Hkv,dh), v
+    (B,Sk,Hkv,dv) -> (B,Sq,Hq,dv); scores and softmax in f32 (scale
+    1/sqrt(dh)), probabilities cast to v's dtype for the value product (as
+    the JAX oracle does)."""
     B, Sq, Hq, dh = q.shape
     _, Sk, Hkv, dv = v.shape
     G = Hq // Hkv
@@ -123,9 +124,10 @@ def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0):
 
 
 def attention(q, k, v, *, causal=True, window=0):
-    """Prefill / forward attention, q (B,S,Hq,dh), k/v (B,S,Hkv,dh): the
-    ``flash_prefill`` kernel on the card, its plain version (the quadratic
-    oracle) on the CPU."""
+    """Prefill / forward attention, q/k (B,S,Hq|Hkv,dk), v (B,S,Hkv,dv) ->
+    (B,S,Hq,dv), scale 1/sqrt(dk): the ``flash_prefill`` kernel on the card
+    (dk = dv, or MLA's 192 / 128), its plain version (the quadratic oracle)
+    on the CPU."""
     from repro_torch.kernels.flash_attention import ops
     return ops.attention(q, k, v, causal=causal, window=window)
 

@@ -1,5 +1,6 @@
 """Uniform model API (counterpart of ``repro.models.registry``) for the
-ported families: dense and moe (``transformer``) and rglru (``rglru``).
+ported families: dense, moe and mla_moe (``transformer``) and rglru
+(``rglru``).
 
     model = get_model(cfg)
     params = model.init(generator, device)
@@ -17,7 +18,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common, rglru, transformer
 
-_FAMILIES = {"dense": transformer, "moe": transformer, "rglru": rglru}
+_FAMILIES = {"dense": transformer, "moe": transformer,
+             "mla_moe": transformer, "rglru": rglru}
 
 
 @dataclass

@@ -1,9 +1,12 @@
-"""Decoder-only transformer, the dense and moe families (counterpart of
-those branches of ``repro.models.transformer``). Layer params are stacked
-on a leading L axis and iterated with a Python loop; the per-layer K/V are
+"""Decoder-only transformer, the dense, moe and mla_moe families
+(counterpart of ``repro.models.transformer``). Layer params are stacked on
+a leading L axis and iterated with a Python loop; the per-layer K/V are
 returned stacked, as the JAX scan emits them. A config with ``n_experts``
-gives every layer the routed MoE FFN (``layers.moe_apply``) in place of the
-dense one; ``_mlp`` is the one seam every plain body calls.
+gives every layer of the ``layers`` stack the routed MoE FFN
+(``layers.moe_apply``) in place of the dense one; ``first_dense_layers``
+(DeepSeek's dense head layers) puts that many dense-FFN layers in a stack
+of their own, ``dense_layers``, run first (``layer_stacks``). ``_mlp`` is
+the one seam every plain body calls.
 
 Serving with a dense cache: ``prefill`` fills a ``(L,B,max_len,Hkv,dh)``
 bf16 cache ``{"k","v"}`` and ``decode_step`` extends it by one token at a
@@ -12,11 +15,21 @@ one). Under a sliding window W the cache is a ring of ``min(max_len, W)``
 positions: position p lives at index ``p % W``; a prefill longer than W
 keeps its last W positions, rolled into place.
 
+MLA (``mla_moe``, DeepSeek-V2): the prefill expands the compressed KV
+``c_kv`` (``kv_lora_rank`` wide) into per-head K of ``qk_nope_dim +
+qk_rope_dim`` and V of ``v_head_dim`` and attends with ``layers.attention``
+(on the card ``flash_prefill`` at dk 192, dv 128); the cache holds only
+``c_kv`` and the shared rotated ``k_rope`` a position (``{"ckv",
+"krope"}``, and ``{"ckv0", "krope0"}`` for the dense head layers), and a
+decode step attends in the latent space with W_UK and W_UV absorbed
+(``_mla_attn_decode``), never re-expanding K/V.
+
 The dense variants' branches follow JAX's: QKV and output biases, tied
 embeddings (the token table as the head), LayerNorm, GELU and the RoPE
 styles (``layers``), and a vision stub's ``patch_embeds``."""
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
@@ -26,20 +39,39 @@ from repro_torch.models import layers as L
 from repro_torch.models.common import spec
 
 
-def _check_dense(cfg: ModelConfig):
-    if cfg.family not in ("dense", "moe"):
+def _check_ported(cfg: ModelConfig):
+    if cfg.family not in ("dense", "moe", "mla_moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: this module runs the "
-            "dense and moe families; MLA (mla_moe), xLSTM and "
-            "encoder-decoder follow (ROADMAP.md Queue 1)")
-    if cfg.first_dense_layers:
+            "dense, moe and mla_moe families; xLSTM and encoder-decoder "
+            "follow (ROADMAP.md Queue 1)")
+
+
+def _check_cache(cfg: ModelConfig):
+    """The dense K/V cache holds the ``layers`` stack only, as JAX's does:
+    dense head layers have a cache only in the MLA family."""
+    _check_ported(cfg)
+    if cfg.first_dense_layers and cfg.family != "mla_moe":
         raise NotImplementedError(
-            "first_dense_layers (DeepSeek's dense head layers) comes with "
-            "the MLA family (ROADMAP.md Queue 1)")
+            "first_dense_layers outside MLA: the dense K/V cache holds the "
+            "stacked layers only (as JAX's cache_spec)")
 
 
 def _attn_specs(cfg: ModelConfig):
     D, Hq, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cfg.family == "mla_moe":
+        lora, nope, dv = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.v_head_dim
+        return {
+            "norm": L.norm_specs(cfg),
+            "wq": spec((D, Hq, nope + cfg.qk_rope_dim),
+                       ("embed", "q_heads", "head_dim")),
+            "w_dkv": spec((D, lora + cfg.qk_rope_dim), ("embed", "kv_lora")),
+            "kv_norm": {"scale": spec((lora,), ("kv_lora",), init="ones")},
+            "w_uk": spec((lora, Hq, nope), ("kv_lora", "q_heads", "head_dim")),
+            "w_uv": spec((lora, Hq, dv), ("kv_lora", "q_heads", "head_dim")),
+            "wo": spec((Hq, dv, D), ("q_heads", "head_dim", "embed"),
+                       fan_in_axes=(0, 1)),
+        }
     p = {
         "norm": L.norm_specs(cfg),
         "wq": spec((D, Hq, dh), ("embed", "q_heads", "head_dim")),
@@ -64,28 +96,47 @@ def _stack(tree, n):
                          fan_in_axes=tuple(a + 1 for a in tree.fan_in_axes))
 
 
+def layer_stacks(cfg: ModelConfig):
+    """``[(stack, layers, moe)]`` in the order the model runs them: the
+    dense head layers (``first_dense_layers``, a dense FFN) as
+    ``dense_layers``, then ``layers`` (the MoE FFN where the config has
+    experts)."""
+    stacks = [("dense_layers", cfg.first_dense_layers, False)] \
+        if cfg.first_dense_layers else []
+    return stacks + [("layers", cfg.n_layers - cfg.first_dense_layers,
+                      cfg.n_experts > 0)]
+
+
 def param_specs(cfg: ModelConfig):
-    _check_dense(cfg)
-    layer = {"attn": _attn_specs(cfg), "mlp_norm": L.norm_specs(cfg),
-             "mlp": L.moe_specs(cfg) if cfg.n_experts > 0
-             else L.ffn_specs(cfg)}
+    _check_ported(cfg)
     p = {
         "embed": {"tok": spec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
                               fan_in_axes=())},
         "final_norm": L.norm_specs(cfg),
-        "layers": _stack(layer, cfg.n_layers),
     }
+    for stack, n, moe in layer_stacks(cfg):
+        p[stack] = _stack({"attn": _attn_specs(cfg),
+                           "mlp_norm": L.norm_specs(cfg),
+                           "mlp": L.moe_specs(cfg) if moe
+                           else L.ffn_specs(cfg)}, n)
     if not cfg.tie_embeddings:
         p["lm_head"] = spec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
     return p
 
 
-def layer_params(params, i: int) -> Dict[str, Any]:
-    """Layer ``i``'s slice of the stacked ``params['layers']`` tree (views)."""
+def layer_params(params, i: int, stack: str = "layers") -> Dict[str, Any]:
+    """Layer ``i``'s slice of the stacked ``params[stack]`` tree (views)."""
     def take(t):
         return {k: take(v) for k, v in t.items()} if isinstance(t, dict) \
             else t[i]
-    return take(params["layers"])
+    return take(params[stack])
+
+
+def layers_in_order(cfg: ModelConfig, params):
+    """``(stack, i, layer params, moe)`` of every layer, in order."""
+    for stack, n, moe in layer_stacks(cfg):
+        for i in range(n):
+            yield stack, i, layer_params(params, i, stack), moe
 
 
 def qkv_proj(cfg, p, hn, positions):
@@ -114,18 +165,79 @@ def _dense_attn(cfg, p, x, positions):
     return x + attn_out(cfg, p, o), (k, v)
 
 
-def _mlp(cfg, p_norm, p_mlp, x):
-    """x plus the layer's FFN: the routed MoE where the config has experts
-    (its capacity counts every token of x), else the dense one."""
+def _mla_attn(cfg, p, x, positions):
+    """Prefill / forward MLA: the compressed KV expanded to per-head K
+    (nope + rope) and V, attended by ``layers.attention`` at dk = nope +
+    rope, dv = ``v_head_dim`` (scale 1/sqrt(dk)). Returns (x + y, (c_kv
+    (B,S,lora), k_rope (B,S,rope))), the layer's cache entries."""
+    B, S, _ = x.shape
+    nope, rope, lora = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+    h = L.apply_norm(cfg, p["norm"], x)
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+    q_rope = L.apply_rope(cfg, q[..., nope:], positions)
+    ckv_full = h @ p["w_dkv"]                                  # (B,S,lora+rope)
+    c_kv = L.rms_norm(ckv_full[..., :lora], p["kv_norm"]["scale"])
+    k_rope = L.apply_rope(cfg, ckv_full[..., None, lora:], positions)
+    k_nope = torch.einsum("bsc,chk->bshk", c_kv, p["w_uk"])
+    # q, k and v whole (B,S,H,d) tensors: the kernel reads each through a
+    # TMA map of its strides, a head's values contiguous
+    v = torch.einsum("bsc,chv->bshv", c_kv, p["w_uv"]).contiguous()
+    k = torch.cat([k_nope, k_rope.expand(B, S, cfg.n_heads, rope)], dim=-1)
+    q = torch.cat([q[..., :nope], q_rope], dim=-1)
+    o = L.attention(q, k, v)
+    y = torch.einsum("bshv,hvd->bsd", o, p["wo"])
+    return x + y, (c_kv, k_rope[:, :, 0])
+
+
+def _mla_attn_decode(cfg, p, x, ckv_cache, krope_cache, pos: int):
+    """Absorbed MLA decode of x (B,1,D) at host position ``pos``: writes
+    this token's c_kv and k_rope into the layer's caches (B,S,lora) /
+    (B,S,rope) at ``pos``, in place, and attends their first ``pos + 1``
+    entries (JAX masks the rest of S: the same function) in the latent
+    space: q_nope through W_UK, scores in f32 (bf16 products summed in f32,
+    JAX's ``preferred_element_type``), probabilities cast to the cache's
+    type for the latent value product, then W_UV and the output
+    projection."""
+    B = x.shape[0]
+    nope, lora = cfg.qk_nope_dim, cfg.kv_lora_rank
+    h = L.apply_norm(cfg, p["norm"], x)                        # (B,1,D)
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+    posv = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    q_rope = L.apply_rope(cfg, q[..., nope:], posv)
+    ckv_full = h[:, 0] @ p["w_dkv"]                            # (B,lora+rope)
+    ckv_cache[:, pos] = L.rms_norm(ckv_full[:, :lora], p["kv_norm"]["scale"])
+    krope_cache[:, pos] = L.apply_rope(cfg, ckv_full[:, None, None, lora:],
+                                       posv)[:, 0, 0]
+    ckv, kr = ckv_cache[:, :pos + 1], krope_cache[:, :pos + 1]
+    q_c = torch.einsum("bihn,chn->bihc", q[..., :nope], p["w_uk"])
+    s = torch.einsum("bihc,bsc->bhs", q_c.float(), ckv.float())
+    s = s + torch.einsum("bihr,bsr->bhs", q_rope.float(), kr.float())
+    pattn = torch.softmax(s / math.sqrt(nope + cfg.qk_rope_dim), dim=-1)
+    ctx_c = torch.einsum("bhs,bsc->bhc", pattn.to(ckv.dtype), ckv)
+    ctx = torch.einsum("bhc,chv->bhv", ctx_c, p["w_uv"])
+    return x + torch.einsum("bhv,hvd->bd", ctx, p["wo"])[:, None]
+
+
+def _mlp(cfg, p_norm, p_mlp, x, moe=None):
+    """x plus the layer's FFN: the routed MoE where ``moe`` (by default,
+    where the config has experts; its capacity counts every token of x),
+    else the dense one."""
     h = L.apply_norm(cfg, p_norm, x)
-    if cfg.n_experts > 0:
+    if moe is None:
+        moe = cfg.n_experts > 0
+    if moe:
         return x + L.moe_apply(cfg, p_mlp, h)
     return x + L.ffn_apply(cfg, p_mlp, h)
 
 
-def _layer(cfg, lp, x, positions):
-    x, kv = _dense_attn(cfg, lp["attn"], x, positions)
-    return _mlp(cfg, lp["mlp_norm"], lp["mlp"], x), kv
+def _layer(cfg, lp, x, positions, moe=None):
+    """One layer over a prompt: (x out, the layer's cache entries: (k, v),
+    or MLA's (c_kv, k_rope))."""
+    if cfg.family == "mla_moe":
+        x, kv = _mla_attn(cfg, lp["attn"], x, positions)
+    else:
+        x, kv = _dense_attn(cfg, lp["attn"], x, positions)
+    return _mlp(cfg, lp["mlp_norm"], lp["mlp"], x, moe), kv
 
 
 def embed_tokens(cfg, params, tokens):
@@ -143,10 +255,12 @@ def unembed(cfg, params, h):
 def forward(cfg: ModelConfig, params, batch, *, return_cache: bool = False,
             last_only: bool = False):
     """tokens (B,S) -> logits (B,S,V) (or (B,1,V) with ``last_only``); with
-    ``return_cache`` also ``[(k, v)]`` with k/v ``(L,B,S,Hkv,dh)``. A
-    vision config's ``batch["patch_embeds"]`` (B,P,D) replace the first P
-    token embeddings (the frontend is a stub, as in JAX)."""
-    _check_dense(cfg)
+    ``return_cache`` also one pair a layer stack (``layer_stacks``), as
+    JAX's: ``(k, v)`` with k/v ``(L,B,S,Hkv,dh)``, or MLA's ``(c_kv,
+    k_rope)`` ``(L,B,S,lora)`` / ``(L,B,S,rope)``. A vision config's
+    ``batch["patch_embeds"]`` (B,P,D) replace the first P token embeddings
+    (the frontend is a stub, as in JAX)."""
+    _check_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = embed_tokens(cfg, params, tokens)
@@ -154,28 +268,48 @@ def forward(cfg: ModelConfig, params, batch, *, return_cache: bool = False,
         pe = batch["patch_embeds"].to(h.dtype)
         h = torch.cat([pe, h[:, pe.shape[1]:]], dim=1)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        h, (k, v) = _layer(cfg, layer_params(params, i), h, positions)
-        ks.append(k)
-        vs.append(v)
+    caches: Dict[str, list] = {}
+    for stack, _, lp, moe in layers_in_order(cfg, params):
+        h, kv = _layer(cfg, lp, h, positions, moe)
+        if return_cache:
+            caches.setdefault(stack, []).append(kv)
     h = L.apply_norm(cfg, params["final_norm"], h)
     if last_only:
         h = h[:, -1:]
     logits = unembed(cfg, params, h)
     if return_cache:
-        return logits, [(torch.stack(ks), torch.stack(vs))]
+        return logits, [tuple(torch.stack(t) for t in zip(*kvs))
+                        for kvs in caches.values()]
     return logits
 
 
 # ---------------------------- serving --------------------------------
 
+def _cache_keys(cfg: ModelConfig, stack: str):
+    """The cache entries of a layer stack: ``("k", "v")``, or MLA's
+    ``("ckv", "krope")`` (``"ckv0"``, ``"krope0"`` for the dense head
+    layers)."""
+    if cfg.family == "mla_moe":
+        sfx = "0" if stack == "dense_layers" else ""
+        return "ckv" + sfx, "krope" + sfx
+    return "k", "v"
+
+
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int):
-    """``{name: (shape, dtype)}`` of the decode cache: ``min(max_len, W)``
-    positions under a sliding window W (the ring)."""
-    _check_dense(cfg)
+    """``{name: (shape, dtype)}`` of the decode cache, bf16:
+    ``(L,B,max_len,Hkv,dh)`` K and V, ``min(max_len, W)`` positions under
+    a sliding window W (the ring); for MLA ``(L,B,max_len,kv_lora_rank)``
+    c_kv and ``(L,B,max_len,qk_rope_dim)`` k_rope a layer stack."""
+    _check_cache(cfg)
     if cfg.sliding_window:
         max_len = min(max_len, cfg.sliding_window)
+    if cfg.family == "mla_moe":
+        out = {}
+        for stack, n, _ in layer_stacks(cfg):
+            kc, kr = _cache_keys(cfg, stack)
+            out[kc] = ((n, batch, max_len, cfg.kv_lora_rank), torch.bfloat16)
+            out[kr] = ((n, batch, max_len, cfg.qk_rope_dim), torch.bfloat16)
+        return out
     sh = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": (sh, torch.bfloat16), "v": (sh, torch.bfloat16)}
 
@@ -188,26 +322,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params, tokens, max_len: int):
     """Run the full forward over tokens (B,S); return (last-token logits
-    (B,V), cache filled to S). Each layer's K/V go straight into the cache,
-    so no stacked copy of all layers is held beside it. Under a window W
-    with S > W the cache keeps the last W positions, rolled by ``(S - W) %
-    W`` so that position p sits at ``p % W`` (a ring of W positions, as
-    JAX's prefill returns it whatever ``max_len``). (``no_grad``, not
-    ``inference_mode``: the cache is written in place afterwards.)"""
-    _check_dense(cfg)
+    (B,V), cache filled to S). Each layer's cache entries (K/V, or MLA's
+    c_kv / k_rope) go straight into the cache, so no stacked copy of all
+    layers is held beside it. Under a window W with S > W the cache keeps
+    the last W positions, rolled by ``(S - W) % W`` so that position p
+    sits at ``p % W`` (a ring of W positions, as JAX's prefill returns it
+    whatever ``max_len``). (``no_grad``, not ``inference_mode``: the cache
+    is written in place afterwards.)"""
+    _check_cache(cfg)
     B, S = tokens.shape
     W = cfg.sliding_window
     ring = bool(W) and S > W
     cache = init_cache(cfg, B, W if ring else max_len, tokens.device)
     h = embed_tokens(cfg, params, tokens)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    for i in range(cfg.n_layers):
-        h, (k, v) = _layer(cfg, layer_params(params, i), h, positions)
+    for stack, i, lp, moe in layers_in_order(cfg, params):
+        h, (a, b) = _layer(cfg, lp, h, positions, moe)
         if ring:
-            k, v = (torch.roll(t[:, S - W:], (S - W) % W, dims=1)
-                    for t in (k, v))
-        cache["k"][i, :, :k.shape[1]] = k
-        cache["v"][i, :, :v.shape[1]] = v
+            a, b = (torch.roll(t[:, S - W:], (S - W) % W, dims=1)
+                    for t in (a, b))
+        ka, kb = _cache_keys(cfg, stack)
+        cache[ka][i, :, :a.shape[1]] = a
+        cache[kb][i, :, :b.shape[1]] = b
     h = L.apply_norm(cfg, params["final_norm"], h[:, -1:])
     return unembed(cfg, params, h)[:, -1], cache
 
@@ -230,19 +366,28 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
     """tokens (B,1) int, ``pos`` host int (next position index, shared by
     the batch). Returns (logits (B,V), cache), the cache updated in place:
     at index ``pos``, or ``pos % S`` in a windowed ring of S positions,
-    where the token attends the ``min(pos + 1, S)`` filled entries."""
-    _check_dense(cfg)
+    where the token attends the ``min(pos + 1, S)`` filled entries; MLA
+    attends the first ``pos + 1`` entries of its latent cache."""
+    _check_cache(cfg)
     B = tokens.shape[0]
-    S = cache["k"].shape[2]
     pos = int(pos)
     dev = tokens.device
     h = embed_tokens(cfg, params, tokens)
-    posv = torch.full((B, 1), pos, dtype=torch.long, device=dev)
-    idx = pos % S if cfg.sliding_window else pos
-    valid = (torch.arange(S, device=dev) < min(pos + 1, S))[None].expand(B, S)
-    for i in range(cfg.n_layers):
-        h, _ = _decode_dense_layer(cfg, layer_params(params, i), h,
-                                   cache["k"][i], cache["v"][i], idx, posv,
-                                   valid)
+    if cfg.family == "mla_moe":
+        for stack, i, lp, moe in layers_in_order(cfg, params):
+            kc, kr = _cache_keys(cfg, stack)
+            h = _mla_attn_decode(cfg, lp["attn"], h, cache[kc][i],
+                                 cache[kr][i], pos)
+            h = _mlp(cfg, lp["mlp_norm"], lp["mlp"], h, moe)
+    else:
+        S = cache["k"].shape[2]
+        posv = torch.full((B, 1), pos, dtype=torch.long, device=dev)
+        idx = pos % S if cfg.sliding_window else pos
+        valid = (torch.arange(S, device=dev)
+                 < min(pos + 1, S))[None].expand(B, S)
+        for i in range(cfg.n_layers):
+            h, _ = _decode_dense_layer(cfg, layer_params(params, i), h,
+                                       cache["k"][i], cache["v"][i], idx,
+                                       posv, valid)
     h = L.apply_norm(cfg, params["final_norm"], h)
     return unembed(cfg, params, h)[:, 0], cache

@@ -238,17 +238,22 @@ def attention_pairs(seq: int, window: int = 0) -> int:
 
 
 def prefill_attention_flops(batch: int, seq: int, n_q: int, dh: int,
-                            window: int = 0) -> int:
-    """Arithmetic of one causal ``flash_prefill`` call: q k^T and p v, 2 per
-    multiply-add, over the attended pairs only."""
-    return 4 * batch * n_q * dh * attention_pairs(seq, window)
+                            window: int = 0, dv: Optional[int] = None) -> int:
+    """Arithmetic of one causal ``flash_prefill`` call: q k^T (width dh)
+    and p v (width ``dv``, by default dh), 2 per multiply-add, over the
+    attended pairs only."""
+    dv = dh if dv is None else dv
+    return 2 * batch * n_q * (dh + dv) * attention_pairs(seq, window)
 
 
 def prefill_attention_hbm_bytes(batch: int, seq: int, n_q: int, n_kv: int,
-                                dh: int) -> int:
-    """Device-memory bytes of one ``flash_prefill`` call: q, k and v read
-    once and o written once, bf16."""
-    return _BF16 * batch * seq * (2 * n_q + 2 * n_kv) * dh
+                                dh: int, dv: Optional[int] = None) -> int:
+    """Device-memory bytes of one ``flash_prefill`` call: q, k (width dh)
+    and v (width ``dv``, by default dh) read once and o (width dv) written
+    once, bf16."""
+    dv = dh if dv is None else dv
+    return _BF16 * batch * seq * (n_q * dh + n_kv * dh + n_kv * dv
+                                  + n_q * dv)
 
 
 def lru_scan_hbm_bytes(batch: int, seq: int, d: int) -> int:

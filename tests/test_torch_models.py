@@ -119,4 +119,4 @@ def test_other_families_raise_naming_roadmap(cfgs):
     import dataclasses
     _, cfg = cfgs
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model(dataclasses.replace(cfg, family="mla_moe"))
+        get_model(dataclasses.replace(cfg, family="xlstm"))
