@@ -454,11 +454,48 @@ DEEPSEEK_ROW = "flash_prefill[deepseek-v2-lite,dk=192,dv=128,B=4,S=2048]"
 # 0.0055 read, the planted scale 0.0999).
 DEEPSEEK_PREFILL_LOGIT_TOL_REL = 0.0309
 DEEPSEEK_STEP_LOGIT_TOL_REL = 0.0578
+# The step's logits cannot see a fault in its attention either, so the
+# phase holds each layer's absorbed latent context (``_mla_decode_context``,
+# the per-head (B, H, dv) before W_O) at the model's inputs against the f32
+# expanded form over the same positions (``mla_context_expanded``: K / V
+# expanded per head from c_kv, as the prefill attends), row by row, at the
+# prefill attention's limit: the first H100 reading was 0.0036 (the bf16
+# absorbed q, probabilities and latent context), the scores planted at
+# 1/sqrt(nope) 0.058, which the step's logits did not catch (0.0458).
+DEEPSEEK_CTX_ROW_REL_L2 = PREFILL_ROW_REL_L2
 # a routing flip of the bf16 path against its f32 reference (route_ties)
 # within this share of the token's largest gate: 1.25x the first H100
 # reading (0.0628, layer 25 of the prefill, where 18,684 of 212,992 (token,
 # layer)s part: top-6 of 64 gates of ~0.05 leaves many near ties)
 DEEPSEEK_ROUTE_TIE_TOL_REL = 0.0785
+
+
+def prefill_widths(c):
+    """(dk, dv) of config ``c``'s prefill attention: its head_dim twice,
+    or MLA's q / k of nope + rope and v of ``v_head_dim``."""
+    if c.family == "mla_moe":
+        return c.qk_nope_dim + c.qk_rope_dim, c.v_head_dim
+    return c.head_dim, c.head_dim
+
+
+def prefill_shapes():
+    """(config name, B, S, windowed) of every ``flash_prefill`` shape the
+    kernel phases hold against the plain version, causal, local at the
+    config's window where ``windowed``; ``tools/prefill_timing.py`` times
+    them."""
+    def b1(arch):
+        return [(arch, 1, S, False) for S in B1_PREFILL_LENGTHS]
+    lanes, prompt = DENSE["lanes"], DENSE["prompt_len"]
+    out = [("samba-coe-expert-7b", lanes, prompt, False),
+           ("recurrentgemma-9b", RG["prompts"], RG["prompt_len"], True)]
+    out += b1("samba-coe-expert-7b")
+    for arch in VARIANT_PREFILL_ROWS:
+        out += [(arch, lanes, prompt, False)] + b1(arch)
+    out += [("mixtral-8x7b", MIXTRAL["prompts"], MIXTRAL["prompt_len"],
+             True)] + b1("mixtral-8x7b")
+    out.append(("deepseek-v2-lite-16b", DEEPSEEK["prompts"],
+                DEEPSEEK["prompt_len"], False))
+    return out
 
 
 def _log(msg):
@@ -1155,9 +1192,7 @@ def prefill_row(row, c, B, S, window, gen, flush):
                                               prefill_attention_hbm_bytes)
     dev = flush.device
     Hq, Hkv = c.n_heads, c.n_kv_heads
-    dk = dv = c.head_dim
-    if c.family == "mla_moe":
-        dk, dv = c.qk_nope_dim + c.qk_rope_dim, c.v_head_dim
+    dk, dv = prefill_widths(c)
     q, k, v = (torch.randn((B, S, h, d), generator=gen, device=dev)
                .to(torch.bfloat16) for h, d in ((Hq, dk), (Hkv, dk),
                                                 (Hkv, dv)))
@@ -3936,16 +3971,85 @@ def prefill_scale_planted(dk, dv):
         L.attention = real
 
 
-def attention_check(label, errs, tol=PREFILL_ROW_REL_L2):
-    """``errs``: one reading a layer from ``attention_checked``. Each
-    within ``tol``; prints the widest."""
+def attention_check(label, errs, tol=PREFILL_ROW_REL_L2,
+                    what="prefill attention at the model's inputs vs the "
+                    "plain version"):
+    """``errs``: one reading a layer from ``attention_checked`` (or
+    ``decode_context_checked``, ``what`` saying so). Each within ``tol``;
+    prints the widest."""
     worst = max(errs)
-    _log(f"{label}: prefill attention at the model's inputs vs the plain "
-         f"version, {len(errs)} layers: widest row relative L2 error "
-         f"{worst:.3e} (layer {errs.index(worst)}; tol {tol:.3e})")
+    _log(f"{label}: {what}, {len(errs)} layers: widest row relative L2 "
+         f"error {worst:.3e} (layer {errs.index(worst)}; tol {tol:.3e})")
     if not worst <= tol:
-        raise AssertionError(f"{label}: a layer's attention parts from the "
-                             f"plain version by {worst:.3e} > {tol:.3e}")
+        raise AssertionError(f"{label}: a layer's attention parts from its "
+                             f"reference by {worst:.3e} > {tol:.3e}")
+
+
+def mla_context_expanded(cfg, p, h, ckv_cache, krope_cache, pos):
+    """The per-head context (B,H,dv) of the normed h (B,1,D) at ``pos``,
+    in f32 and in the expanded form ``_mla_attn`` attends: K (nope + rope)
+    and V per head from the latent entries, over the layer caches' first
+    ``pos`` entries and this token's c_kv and k_rope, computed here (the
+    absorbed step's own write is not read)."""
+    import math
+
+    from repro_torch.models import layers as L
+    nope, rope, lora = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+    hf = h[:, 0].float()                                       # (B,D)
+    posv = torch.full((hf.shape[0], 1), pos, dtype=torch.long,
+                      device=h.device)
+    q = torch.einsum("bd,dhk->bhk", hf, p["wq"].float())
+    q_rope = L.apply_rope(cfg, q[:, None, :, nope:], posv)[:, 0]
+    ckv_full = hf @ p["w_dkv"].float()
+    c_new = L.rms_norm(ckv_full[:, :lora], p["kv_norm"]["scale"].float())
+    kr_new = L.apply_rope(cfg, ckv_full[:, None, None, lora:], posv)[:, 0, 0]
+    c = torch.cat([ckv_cache[:, :pos].float(), c_new[:, None]], 1)
+    kr = torch.cat([krope_cache[:, :pos].float(), kr_new[:, None]], 1)
+    k_nope = torch.einsum("bsc,chk->bshk", c, p["w_uk"].float())
+    v = torch.einsum("bsc,chv->bshv", c, p["w_uv"].float())
+    s = (torch.einsum("bhk,bshk->bhs", q[..., :nope], k_nope)
+         + torch.einsum("bhr,bsr->bhs", q_rope, kr))
+    w = torch.softmax(s / math.sqrt(nope + rope), dim=-1)
+    return torch.einsum("bhs,bshv->bhv", w, v)
+
+
+@contextlib.contextmanager
+def decode_context_checked():
+    """Within the block, every absorbed MLA decode (``_mla_decode_context``,
+    one call a layer) is also computed by ``mla_context_expanded`` on the
+    same inputs, and the largest row relative L2 error of its per-head
+    context against that is appended to the list the block receives.
+    Nothing in the port is edited."""
+    from repro_torch.models import transformer as T
+    real, errs = T._mla_decode_context, []
+
+    def checked(cfg, p, h, ckv_cache, krope_cache, pos):
+        out = real(cfg, p, h, ckv_cache, krope_cache, pos)
+        errs.append(row_rel_l2(out, mla_context_expanded(
+            cfg, p, h, ckv_cache, krope_cache, pos)))
+        return out
+    T._mla_decode_context = checked
+    try:
+        yield errs
+    finally:
+        T._mla_decode_context = real
+
+
+@contextlib.contextmanager
+def decode_scale_planted(dk, nope):
+    """Within the block, the absorbed decode scores at 1/sqrt(nope) in
+    place of 1/sqrt(dk) (W_Q multiplied by sqrt(dk / nope) on its way in):
+    a planted fault. Nothing in the port is edited."""
+    import math
+
+    from repro_torch.models import transformer as T
+    real, c = T._mla_decode_context, math.sqrt(dk / nope)
+    T._mla_decode_context = lambda cfg, p, *a: real(
+        cfg, {**p, "wq": p["wq"] * c}, *a)
+    try:
+        yield
+    finally:
+        T._mla_decode_context = real
 
 
 def deepseek_generate(cfg, dev, coe):
@@ -4051,8 +4155,13 @@ def deepseek_generate(cfg, dev, coe):
     m16 = get_model(c16)
     _, cache = m16.prefill(params, {"tokens": tt}, P + 1)
     nxt = torch.as_tensor(toks[:, P:], device=dev).long()
-    with routes_recorded() as got:
+    with routes_recorded() as got, decode_context_checked() as errs:
         lg, cache = m16.decode_step(params, cache, nxt, P)
+    # a planted fault: the absorbed scores at 1/sqrt(nope), the step run
+    # again on the same cache (each layer rewrites its entry at P)
+    with decode_scale_planted(dk, cfg.qk_nope_dim), \
+            decode_context_checked() as errs_f:
+        lg_f, cache = m16.decode_step(params, cache, nxt, P)
     del cache
     refs, ref_lg = [], []
     for b in range(B):
@@ -4069,7 +4178,21 @@ def deepseek_generate(cfg, dev, coe):
     router_check("deepseek decode step", got, MIXTRAL_ROUTER_TOL_REL)
     route_ties("deepseek decode step", got, ref, DEEPSEEK_ROUTE_TIE_TOL_REL,
                cfg=c16)
-    del params, got, ref, refs
+    what = ("absorbed latent context at the model's inputs vs the f32 "
+            "expanded form")
+    attention_check("deepseek decode step", errs, DEEPSEEK_CTX_ROW_REL_L2,
+                    what)
+    fault = "deepseek decode step: planted scale 1/sqrt(nope)"
+    caught = {
+        "logits_check": raised(lambda: logits_check(
+            fault, lg_f, torch.cat(ref_lg), DEEPSEEK_STEP_LOGIT_TOL_REL)),
+        "context_check": raised(lambda: attention_check(
+            fault, errs_f, DEEPSEEK_CTX_ROW_REL_L2, what))}
+    _log(f"{fault}: caught by {[k for k, v in caught.items() if v]} of "
+         f"{list(caught)}")
+    if not caught["context_check"]:
+        raise AssertionError(f"{fault}: the context check misses it")
+    del params, got, ref, refs, lg_f
     return launches
 
 

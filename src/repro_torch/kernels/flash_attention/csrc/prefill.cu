@@ -62,7 +62,7 @@
 //    the registers are at most dh 128's (o is dv wide; q k^T reads its 12
 //    k-steps from shared memory). BN 128 there leaves room for one q tile
 //    only (209 KB); on the H100 it ran 0.6 % behind BN 64 with two
-//    (tools/prefill_timing.py, -DPREFILL_MLA_BN=128: 0.1803 / 0.1798
+//    (tools/prefill_timing.py, BN set to 128 here: 0.1803 / 0.1798
 //    against 0.1788 / 0.1793 ms at B 4, S 2048, 16 heads, alternated).
 // Measured on the H100 and left out: ping-pong turns between the two
 // consumer warpgroups (no gain over the overlap above), and running the
@@ -111,9 +111,6 @@ constexpr int STAGES = 2;
 constexpr float LOG2E = 1.4426950408889634f;
 
 constexpr int SMEM_MAX = 232448;          // a CTA's opt-in limit, sm_90
-#ifndef PREFILL_MLA_BN
-#define PREFILL_MLA_BN 64                 // keys per tile at dk 192
-#endif
 
 // q / k rows of DK elements, v / o rows of DV (DV <= DK: o is staged in
 // the Q buffer)
@@ -121,7 +118,7 @@ template <int DK, int DV>
 struct Tile {
   static_assert(DV <= DK && DK % 64 == DV % 64, "one panel width");
   static constexpr int BN =                           // keys per tile
-      DK == 256 ? 64 : DK == 192 ? PREFILL_MLA_BN : 128;
+      DK == 256 || DK == 192 ? 64 : 128;
   static constexpr int PW = DK < 64 ? DK : 64;        // elements per panel row
   static constexpr int SW = PW * 2;                   // swizzle bytes
   static constexpr int NPK = DK / PW;                 // panels per q / k row

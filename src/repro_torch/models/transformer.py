@@ -190,19 +190,26 @@ def _mla_attn(cfg, p, x, positions):
 
 
 def _mla_attn_decode(cfg, p, x, ckv_cache, krope_cache, pos: int):
-    """Absorbed MLA decode of x (B,1,D) at host position ``pos``: writes
+    """Absorbed MLA decode of x (B,1,D) at host position ``pos``: x plus
+    the output projection of ``_mla_decode_context`` of its norm."""
+    h = L.apply_norm(cfg, p["norm"], x)                        # (B,1,D)
+    ctx = _mla_decode_context(cfg, p, h, ckv_cache, krope_cache, pos)
+    return x + torch.einsum("bhv,hvd->bd", ctx, p["wo"])[:, None]
+
+
+def _mla_decode_context(cfg, p, h, ckv_cache, krope_cache, pos: int):
+    """The absorbed attention of the normed h (B,1,D) at ``pos``: writes
     this token's c_kv and k_rope into the layer's caches (B,S,lora) /
     (B,S,rope) at ``pos``, in place, and attends their first ``pos + 1``
     entries (JAX masks the rest of S: the same function) in the latent
     space: q_nope through W_UK, scores in f32 (bf16 products summed in f32,
     JAX's ``preferred_element_type``), probabilities cast to the cache's
-    type for the latent value product, then W_UV and the output
-    projection."""
-    B = x.shape[0]
+    type for the latent value product, then W_UV. Returns the per-head
+    context (B,H,dv) before the output projection."""
+    B = h.shape[0]
     nope, lora = cfg.qk_nope_dim, cfg.kv_lora_rank
-    h = L.apply_norm(cfg, p["norm"], x)                        # (B,1,D)
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
-    posv = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    posv = torch.full((B, 1), pos, dtype=torch.long, device=h.device)
     q_rope = L.apply_rope(cfg, q[..., nope:], posv)
     ckv_full = h[:, 0] @ p["w_dkv"]                            # (B,lora+rope)
     ckv_cache[:, pos] = L.rms_norm(ckv_full[:, :lora], p["kv_norm"]["scale"])
@@ -214,8 +221,7 @@ def _mla_attn_decode(cfg, p, x, ckv_cache, krope_cache, pos: int):
     s = s + torch.einsum("bihr,bsr->bhs", q_rope.float(), kr.float())
     pattn = torch.softmax(s / math.sqrt(nope + cfg.qk_rope_dim), dim=-1)
     ctx_c = torch.einsum("bhs,bsc->bhc", pattn.to(ckv.dtype), ckv)
-    ctx = torch.einsum("bhc,chv->bhv", ctx_c, p["w_uv"])
-    return x + torch.einsum("bhv,hvd->bd", ctx, p["wo"])[:, None]
+    return torch.einsum("bhc,chv->bhv", ctx_c, p["w_uv"])
 
 
 def _mlp(cfg, p_norm, p_mlp, x, moe=None):

@@ -19,7 +19,10 @@ Both packages get JAX's init through numpy (``bridge.to_torch``), in f32:
     within atol 1e-4 after every step; the absorbed step against the
     expanded teacher-forced forward, at ``capacity_factor`` 16 (a step and
     a forward count different tokens, so only a capacity that drops
-    nothing gives both the same FFN), within 1e-4 of the largest logit;
+    nothing gives both the same FFN), within 1e-4 of the largest logit,
+    and ``chip_smoke.py``'s per-layer check of the step's latent context
+    against the expanded form within 1e-5, a planted scale above its
+    limit;
   * ``CompositionOfExperts.generate`` over two MLA experts: tokens, expert
     indices and cache counts equal to JAX's;
   * the serving runners refuse the family with JAX's words.
@@ -29,6 +32,8 @@ token into it), so where a case decodes both packages' ``cache_spec`` is
 patched to f32 in this process only, as ``test_torch_coe_generate.py``
 does."""
 import dataclasses
+import importlib.util
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -100,6 +105,16 @@ def _flat(tree, prefix=""):
             out.update(_flat(v, f"{prefix}/{k}" if prefix else k))
         return out
     return {prefix: tree}
+
+
+def _chip_smoke():
+    """The repository's ``chip_smoke.py`` as a module (it imports torch and
+    numpy only; nothing runs on import)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _close(got, want, atol=ATOL, msg=""):
@@ -248,6 +263,18 @@ def test_absorbed_step_matches_the_expanded_forward(params, monkeypatch):
     assert err <= ATOL * float(full.abs().max()), err
     # the entries past the step stay empty
     assert not cache["ckv"][:, :, 31:].any()
+    # chip_smoke.py's per-layer check of the step, run here in f32: each
+    # layer's latent context within 1e-5 (row relative L2) of the expanded
+    # form, and the scores planted at 1/sqrt(nope) above the card's limit
+    smoke = _chip_smoke()
+    with smoke.decode_context_checked() as errs:
+        T.decode_step(cfg, tp, cache, toks[:, 30:31], 30)
+    assert len(errs) == cfg.n_layers and max(errs) <= LAYER_ATOL, errs
+    with smoke.decode_scale_planted(cfg.qk_nope_dim + cfg.qk_rope_dim,
+                                    cfg.qk_nope_dim), \
+            smoke.decode_context_checked() as errs:
+        T.decode_step(cfg, tp, cache, toks[:, 30:31], 30)
+    assert min(errs) > smoke.DEEPSEEK_CTX_ROW_REL_L2, errs
 
 
 def test_generate_over_two_mla_experts_matches_jax(monkeypatch):

@@ -1,31 +1,19 @@
-"""Time the port's ``flash_prefill`` at the shapes of ``chip_smoke.py``'s
-prefill rows, on one card, for comparing two trees of the repository or
-two builds of one tree:
+"""Time the port's ``flash_prefill`` at the shapes ``chip_smoke.py``'s
+kernel phases hold it to (``chip_smoke.prefill_shapes``), on one card, for
+comparing two trees of the repository in one call:
 
     python tools/prefill_timing.py --src build/parent/src --label parent
     python tools/prefill_timing.py --src src --label tree
-    python tools/prefill_timing.py --src src --define PREFILL_MLA_BN=64 \\
-        --only mla --label bn64
 
-``--src`` is the ``src`` directory of the tree under test (its
-``repro_torch`` is imported from there and builds its kernels into its own
-``build/``); ``--define NAME=VALUE`` adds ``-DNAME=VALUE`` to that tree's
-``nvcc`` flags (a separate build directory: the flags are part of its
-hash). The rows, random bf16 q / k / v from seed 0, causal:
-
-  5      B 8, S 2048, 32 heads, dh 128 (the 7B expert's dense prefill)
-  5'     B 4, S 3000, 16 q on 1 kv head, dh 256, window 2048 (RG)
-  5''    B 1, S 64 / 160 / 256, 32 heads, dh 128 (sequential prefill)
-  5''''  B 1, S 256, dh 128, G 5 / 6 / 12 / 16 (40/8, 12/2, 24/2, 32/2)
-  5M     B 2, S 4608, 32 q on 8 kv heads, dh 128, window 4096 (Mixtral)
-  5M'    B 1, S 64 / 160 / 256, 32 q on 8 kv heads, dh 128
-  mla    B 4, S 2048, 16 heads, dk 192, dv 128 (DeepSeek-V2-Lite; only a
-         tree whose kernel takes dv != dk)
-
-Each is held against the plain version (largest row relative L2 error
-within 2^-6) and timed as ``chip_smoke.py`` times a row: the mean of
-``--reps`` launches, each after a 128 MB write flushed the L2, behind a
-spin kernel. One JSON line a row: its name, ms, the row error, the card
+``--src`` is the ``src`` directory of the tree under test: its
+``repro_torch`` (kernel, configs) is imported from there and builds its
+kernels into its own ``build/``; the shapes are this tree's. A shape whose
+config or widths the tree under test does not have is reported as
+skipped. Each shape, random bf16 q / k / v from seed 0, causal, is held
+against the plain version (largest row relative L2 error within 2^-6) and
+timed as ``chip_smoke.py`` times a row (``chip_smoke.time_ms``: the mean
+of ``--reps`` launches, each after a 128 MB write flushed the L2, behind a
+spin kernel). One JSON line a shape: its name, ms, the row error, the card
 and its power limit. A first JSON line gives each kernel instantiation's
 ``-Xptxas -v`` report and a digest of its SASS (``cuobjdump -sass``, with
 addresses and encodings left out), so two trees' builds of an unchanged
@@ -38,41 +26,7 @@ import os
 import subprocess
 import sys
 
-ROWS = [
-    ("5", 8, 2048, 32, 32, 128, 128, 0),
-    ("5'", 4, 3000, 16, 1, 256, 256, 2048),
-    ("5''[S=64]", 1, 64, 32, 32, 128, 128, 0),
-    ("5''[S=160]", 1, 160, 32, 32, 128, 128, 0),
-    ("5''[S=256]", 1, 256, 32, 32, 128, 128, 0),
-    ("5''''[G=5]", 1, 256, 40, 8, 128, 128, 0),
-    ("5''''[G=6]", 1, 256, 12, 2, 128, 128, 0),
-    ("5''''[G=12]", 1, 256, 24, 2, 128, 128, 0),
-    ("5''''[G=16]", 1, 256, 32, 2, 128, 128, 0),
-    ("5M", 2, 4608, 32, 8, 128, 128, 4096),
-    ("5M'[S=64]", 1, 64, 32, 8, 128, 128, 0),
-    ("5M'[S=160]", 1, 160, 32, 8, 128, 128, 0),
-    ("5M'[S=256]", 1, 256, 32, 8, 128, 128, 0),
-    ("mla", 4, 2048, 16, 16, 192, 128, 0),
-]
-
-
-def time_ms(fn, flush, reps):
-    import torch
-    fn()
-    fn()
-    torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(reps):
-        torch.cuda._sleep(2_000_000)
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def instantiations(lib, log):
@@ -108,24 +62,25 @@ def instantiations(lib, log):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--src", default="src")
-    ap.add_argument("--define", action="append", default=[])
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--only", nargs="*", default=None,
-                    help="row names (by prefix) to time; all by default")
+                    help="shape names (by prefix) to time; all by default")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--label", default=None)
     args = ap.parse_args(argv)
+    sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.abspath(args.src))
 
     import torch
 
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
     from repro_torch.kernels import runtime as rt
     from repro_torch.kernels.flash_attention.ops import attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     if not torch.cuda.is_available():
         sys.exit("prefill_timing: needs a CUDA card")
-    rt.NVCC_FLAGS = rt.NVCC_FLAGS + tuple(f"-D{d}" for d in args.define)
     log = rt.build(["flash_prefill"])["flash_prefill"]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -136,12 +91,21 @@ def main(argv=None):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
-    for name, B, S, Hq, Hkv, dk, dv, window in ROWS:
+    for arch, B, S, windowed in cs.prefill_shapes():
+        name = f"{arch},B={B},S={S}" + (",windowed" if windowed else "")
         if args.only and not any(name.startswith(o) for o in args.only):
             continue
+        try:
+            c = get_config(arch)
+        except KeyError as e:            # a tree without this config
+            print(json.dumps({"label": args.label, "row": name,
+                              "skipped": str(e)}), flush=True)
+            continue
+        window = c.sliding_window if windowed else 0
+        dk, dv = cs.prefill_widths(c)
         q, k = (torch.randn((B, S, h, dk), generator=gen, device=dev)
-                .to(torch.bfloat16) for h in (Hq, Hkv))
-        v = torch.randn((B, S, Hkv, dv), generator=gen,
+                .to(torch.bfloat16) for h in (c.n_heads, c.n_kv_heads))
+        v = torch.randn((B, S, c.n_kv_heads, dv), generator=gen,
                         device=dev).to(torch.bfloat16)
         try:
             got = attention(q, k, v, causal=True, window=window)
@@ -150,15 +114,13 @@ def main(argv=None):
                               "skipped": str(e)}), flush=True)
             continue
         want = attention_ref(q, k, v, causal=True, window=window)
-        err = float(((got.float() - want.float()).norm(dim=-1)
-                     / want.float().norm(dim=-1).clamp_min(1e-30)).max())
+        err = cs.row_rel_l2(got, want)
         if not err <= 2.0 ** -6:
             raise AssertionError(f"{name}: row relative L2 error {err}")
-        ms = time_ms(lambda: attention(q, k, v, causal=True, window=window),
-                     flush, args.reps)
+        ms = cs.time_ms(lambda: attention(q, k, v, causal=True,
+                                          window=window), flush, args.reps)
         print(json.dumps({"label": args.label, "row": name, "ms": ms,
-                          "row_rel_l2": err, "defines": args.define,
-                          "card": card}), flush=True)
+                          "row_rel_l2": err, "card": card}), flush=True)
         del q, k, v, got, want
         torch.cuda.empty_cache()
 
