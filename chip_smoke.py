@@ -34,7 +34,11 @@
    ``flash_prefill`` at DeepSeek-V2-Lite's MLA prefill (4 x 2048 tokens,
    16 heads, q / k of 192, v of 128, causal), with the scale of v's width
    planted in its plain version besides the causal edge, and the kernels
-   SDPA runs for it named.
+   SDPA runs for it named; then ``flash_prefill`` not causal at
+   Whisper-small's three attention shapes (8 lanes, 12 heads of 64): the
+   encoder's 1500 frames, and the cross-attention of 448 and of 4 decoder
+   tokens over them (Sk apart from Sq), each with the keys past the last
+   whole 64-key tile dropped in its plain version.
    Each kernel against its plain PyTorch version on the same inputs, timed
    with CUDA events (the 50 MB L2 flushed before every launch), beside the
    plain version and one PyTorch library call computing the same function
@@ -182,6 +186,29 @@
    forward over S + 1 at capacity_factor 16; a planted fault (the
    prefill's kernel at scale 1/sqrt(dv)) that a check must catch; the
    latent cache's bytes and a decode step's device time and idle share.
+6g. Whisper phase: whisper-small at full width and depth (12 + 12
+   layers, 0.48 GB bf16) through the model API: 8 lanes of 1500 seeded
+   frame embeddings, a 4-token prompt, ``prefill`` (``flash_prefill`` 36
+   times: 12 encoder, 12 decoder self, 12 cross at Sq 4) and 59 greedy
+   ``decode_step``s (no kernel: plain attention, as JAX's XLA); then a
+   teacher-forced ``forward`` over 448 target tokens (36 launches, the
+   cross-attention at Sq 448). The prefill's and the steps' logits
+   against the f32 plain forward over the tokens fed back, the forward's
+   against its f32 plain forward; each attention at the model's inputs
+   against the plain version row by row; the cross-attention's keys cut
+   at 1472 of 1500 (planted) caught there. Prints encode ms, prefill s,
+   tok/s and a step's host wall against device busy.
+6h. xLSTM phase: xlstm-1.3b at full width and depth (48 blocks, 3.97 GB
+   bf16) as the one expert of ``CompositionOfExperts(HashRouter(1))``:
+   ``generate`` on 4 prompts of 2048 tokens, 32 new (no kernel: JAX
+   computes both recurrences in XLA); every block of the prefill and of
+   one decode step, at the model's inputs, against the same block in f32
+   (random weights make the 48 blocks chaotic, so the end-to-end logits
+   against the f32 forward over the prompt and the tokens fed back are
+   printed as readings only); one mLSTM layer's chunkwise pass against
+   its step recurrence at full width in f32 (S 512). Prints the recurrent
+   state's bytes a lane, prefill s, tok/s and a step's host wall against
+   device busy.
 7. RecurrentGemma phase, after the experts' store is released:
    recurrentgemma-9b at full width and depth (38 layers, 10.4 G parameters,
    bf16) as the one expert of a ``CompositionOfExperts(HashRouter(1))`` on
@@ -468,6 +495,53 @@ DEEPSEEK_CTX_ROW_REL_L2 = PREFILL_ROW_REL_L2
 # reading (0.0628, layer 25 of the prefill, where 18,684 of 212,992 (token,
 # layer)s part: top-6 of 64 gates of ~0.05 leaves many near ties)
 DEEPSEEK_ROUTE_TIE_TOL_REL = 0.0785
+# Whisper-small (encdec) at full width and depth: 12 encoder and 12
+# decoder layers, D 768, 12 heads of 64, vocab 51865, 0.48 GB of bf16; the
+# audio frontend a stub (1500 seeded frame embeddings a lane). 8 lanes, a
+# 4-token decoder prompt, 60 greedy tokens (prefill, then decode_step);
+# then a teacher-forced forward over 448 target tokens (Whisper's longest).
+WHISPER = dict(lanes=8, prompt_len=4, new_tokens=60, target_len=448,
+               seed=29)
+# flash_prefill at Whisper's three attention shapes: the encoder's
+# self-attention (not causal, S 1500), the cross-attention of the
+# teacher-forced forward (Sq 448 over Sk 1500) and of the prefill (Sq 4)
+WHISPER_ROWS = {"enc": "flash_prefill[whisper-small,B=8,S=1500,not causal]",
+                "cross": "flash_prefill[whisper-small,B=8,Sq=448,Sk=1500]",
+                "cross4": "flash_prefill[whisper-small,B=8,Sq=4,Sk=1500]"}
+# The prefill's last logits, the 59 decode steps' and the teacher-forced
+# forward's over 448 tokens (kernels, bf16) against the plain forward in f32
+# (the same bf16 weights upcast) on the same tokens, of the largest logit
+# (the tied head's logits reach 330-370): 1.25x the first H100 reading,
+# 0.0047, 0.0056 and 0.0053. A fault in one attention hides under these (the
+# keys cut at 1472 move one cross-attention by 0.019 a row), so each
+# attention is also held at the model's inputs (attention_checked).
+WHISPER_PREFILL_LOGIT_TOL_REL = 0.0059
+WHISPER_STEP_LOGIT_TOL_REL = 0.0070
+WHISPER_FORWARD_LOGIT_TOL_REL = 0.0066
+# xLSTM-1.3B at full width and depth: 48 blocks (6 groups of 7 mLSTM and 1
+# sLSTM), D 2048, 4 mLSTM heads of 1024, vocab 50304, 3.97 GB of bf16, the
+# one expert of CompositionOfExperts(HashRouter(1)); generate on 4 prompts
+# of 2048 tokens, 32 new. The chunkwise-against-step check: one mLSTM layer
+# at full width in f32, S 512 (two chunks of 256).
+XLSTM = dict(prompts=4, prompt_len=2048, new_tokens=32, check_len=512,
+             seed=31)
+# With random weights the 48 blocks amplify a perturbation ~1.17x each
+# (CPU trials at D 512: 1e-3 at the input reads 0.029 after 16 blocks), so
+# the bf16 path's end-to-end logits part from the f32 forward by tens of
+# per cent of the largest (0.44 on the first H100 run) and no end-to-end
+# limit could see a fault: the phase prints those readings and holds each
+# block instead. Every block's update (y - x) and new state (mLSTM C and n;
+# sLSTM h, c, n, m), at the model's own bf16 inputs and state, against the
+# same block in f32 (weights, input and state upcast): relative L2 over the
+# whole tensor, in the prefill and in one decode step; 1.25x the widest
+# first H100 reading (an mLSTM update in the decode step, 0.0220; the
+# states read at most 0.0079).
+XLSTM_BLOCK_TOL_REL = 0.0276
+# The chunkwise mLSTM against the step recurrence, both f32 from the same
+# inputs: the largest row relative L2 error of h and the relative L2 error
+# of the final C (JAX's tests/test_substrate.py holds the pair at rtol
+# 1e-3 at dh 16).
+XLSTM_CHUNK_REL_TOL = 1e-3
 
 
 def prefill_widths(c):
@@ -553,11 +627,14 @@ def build_kernels():
                 lambda k: f"decode_paged[dh={k[0]} G={k[1]}]",
                 lambda k: paged_smem(int(k[0]), int(k[1])))
         elif name == "flash_prefill":
+            # each (dk, dv) twice: causal / windowed (b0), FULL (b1)
             entry_build_report(
-                name, log, r"prefill_kernelILi(\d+)ELi(\d+)E",
-                [(str(dk), str(dv)) for dk, dv in PREFILL_WIDTHS],
-                lambda k: f"flash_prefill[dh={k[0]}]" if k[0] == k[1]
-                else f"flash_prefill[dk={k[0]} dv={k[1]}]",
+                name, log, r"prefill_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                [(str(dk), str(dv), full) for dk, dv in PREFILL_WIDTHS
+                 for full in "01"],
+                lambda k: (f"flash_prefill[dh={k[0]}" if k[0] == k[1]
+                           else f"flash_prefill[dk={k[0]} dv={k[1]}")
+                + (" full]" if k[2] == "1" else "]"),
                 lambda k: prefill_smem(int(k[0]), int(k[1])))
         elif name in ("oproj_ffn_swiglu", "ffn_swiglu"):
             stream_smem = rt.bind(name, "stream_smem_bytes", [rt.I, rt.I])
@@ -4253,6 +4330,501 @@ def deepseek_phase(dev):
     return launches["flash_prefill"]
 
 
+def attention_cost(B, Sq, Sk, Hq, Hkv, dk, dv):
+    """(bytes, flops) of one ``flash_prefill`` call that is neither causal
+    nor windowed: q and o (Sq rows), k and v (Sk rows) moved once in bf16;
+    q k^T and p v over all Sq x Sk pairs, 2 per multiply-add."""
+    nbytes = 2 * B * (Sq * Hq * (dk + dv) + Sk * Hkv * (dk + dv))
+    return nbytes, 2 * B * Hq * (dk + dv) * Sq * Sk
+
+
+def whisper_row(row, c, B, Sq, Sk, gen, flush):
+    """``flash_prefill`` at Whisper's heads on random bf16 q (B, Sq) and k
+    / v (B, Sk), not causal, against its plain version row by row, beside
+    SDPA; the keys past the last whole 64-key tile dropped in the plain
+    version (the tail fault) must fail the row check. Returns the
+    kernel-table row."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    dev = flush.device
+    H, dh = c.n_heads, c.head_dim
+    q = torch.randn((B, Sq, H, dh), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((B, Sk, H, dh), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    nbytes, flops = attention_cost(B, Sq, Sk, H, H, dh, dh)
+    r = kernel_row(
+        row, lambda: attention(q, k, v, causal=False),
+        lambda: attention_ref(q, k, v, causal=False),
+        lambda: Fn.scaled_dot_product_attention(qt, kt, vt), nbytes, flops,
+        flush, kernel="flash_prefill", row_tol=PREFILL_ROW_REL_L2)
+    _log(f"kernel {row}: {flops / r['ms'] / 1e9:.1f} TFLOP/s, "
+         f"{r['bound_ms'] / r['ms']:.3f} of the bound; SDPA "
+         f"{r['library_ms']:.4f} ms ({r['library_ms'] / r['ms']:.3f}x "
+         "the kernel's time)")
+    cut = Sk // 64 * 64
+    m_err = row_rel_l2(attention_ref(q, k[:, :cut], v[:, :cut],
+                                     causal=False),
+                       attention_ref(q, k, v, causal=False))
+    _log(f"kernel {row}: planted keys cut at {cut} of {Sk}: row relative "
+         f"L2 error {m_err:.3e} "
+         f"{'caught' if m_err > PREFILL_ROW_REL_L2 else 'NOT caught'}")
+    if not m_err > PREFILL_ROW_REL_L2:
+        raise AssertionError(f"{row}: the row check misses the keys cut "
+                             f"at {cut}")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return r
+
+
+def whisper_kernel_rows(dev):
+    """``flash_prefill`` at Whisper-small's three attention shapes (8
+    lanes, 12 heads of 64): the encoder (S 1500), the teacher-forced
+    cross-attention (Sq 448, Sk 1500) and the prefill's (Sq 4)."""
+    from repro_torch.configs import get_config
+    w, c = WHISPER, get_config("whisper-small")
+    gen = torch.Generator(device=dev).manual_seed(w["seed"])
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    B, Se = w["lanes"], c.encoder_seq
+    rows = {WHISPER_ROWS[key]: whisper_row(WHISPER_ROWS[key], c, B, Sq, Se,
+                                           gen, flush)
+            for key, Sq in (("enc", Se), ("cross", w["target_len"]),
+                            ("cross4", w["prompt_len"]))}
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def attention_shapes():
+    """Within the block, every prefill attention (``layers.attention``)
+    appends its (Sq, Sk, causal) to the list the block receives. Nothing
+    in the port is edited."""
+    from repro_torch.models import layers as L
+    real, shapes = L.attention, []
+
+    def recorded(q, k, v, **kw):
+        shapes.append((q.shape[1], k.shape[1], bool(kw.get("causal", True))))
+        return real(q, k, v, **kw)
+    L.attention = recorded
+    try:
+        yield shapes
+    finally:
+        L.attention = real
+
+
+@contextlib.contextmanager
+def cross_tail_planted(cut):
+    """Within the block, every cross-attention (a ``layers.attention`` call
+    whose keys outnumber or fall short of its queries) attends only its
+    first ``cut`` keys: a planted fault. Nothing in the port is edited."""
+    from repro_torch.models import layers as L
+    real = L.attention
+
+    def planted(q, k, v, **kw):
+        if k.shape[1] != q.shape[1]:
+            k, v = k[:, :cut], v[:, :cut]
+        return real(q, k, v, **kw)
+    L.attention = planted
+    try:
+        yield
+    finally:
+        L.attention = real
+
+
+def whisper_greedy(model, params, batch, n_new):
+    """``prefill`` of ``batch`` (frames and a decoder prompt), then ``n_new
+    - 1`` greedy ``decode_step``s. Returns (the logits of each chosen
+    token (B, n_new, V): the prefill's last, then each step's; the tokens
+    (B, n_new))."""
+    B, P = batch["tokens"].shape
+    last, cache = model.prefill(params, batch, P + n_new)
+    tok = last.argmax(-1)
+    logits, toks = [last], [tok]
+    for t in range(n_new - 1):
+        lg, cache = model.decode_step(params, cache, tok[:, None], P + t)
+        tok = lg.argmax(-1)
+        logits.append(lg)
+        toks.append(tok)
+    return torch.stack(logits, 1), torch.stack(toks, 1)
+
+
+def plain_f32_forward(cfg, params, batch):
+    """The family's ``forward`` in f32: the bf16 weights upcast, prefill
+    attention the quadratic oracle."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.models import get_model
+    with torch.no_grad(), plain_prefill():
+        return get_model(cfg).forward(
+            tree_map(lambda t: t.float(), params), batch)
+
+
+def whisper_phase(dev):
+    """Whisper-small at full width and depth through the model API: 8
+    lanes of 1500 seeded frame embeddings, a 4-token prompt, ``prefill``
+    (``flash_prefill`` once per attention: 12 encoder, 12 decoder self, 12
+    cross at Sq 4) and 59 greedy ``decode_step``s (plain attention, as
+    JAX's XLA: no kernel); then a teacher-forced ``forward`` over 448
+    target tokens (36 more: the cross-attention at Sq 448). Checks the
+    prefill's and the steps' logits against the f32 plain forward over the
+    tokens fed back, the forward's against its f32 plain forward, each
+    attention at the model's inputs against the plain version in both,
+    and the cross-attention's keys cut at 1472 of 1500 (planted) caught
+    there. Returns {row name: launches}."""
+    from repro_torch.bridge import tree_bytes
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.models import encdec as E
+    from repro_torch.models import get_model
+    w = WHISPER
+    cfg = get_config("whisper-small")
+    model = get_model(cfg)
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(w["seed"])
+    params = model.init(gen, dev)
+    B, P, n_new, Se = w["lanes"], w["prompt_len"], w["new_tokens"], \
+        cfg.encoder_seq
+    enc = torch.randn((B, Se, cfg.d_model), generator=gen, device=dev)
+    rs = np.random.RandomState(w["seed"])
+    prompt = torch.as_tensor(rs.randint(0, cfg.vocab_size, (B, P)),
+                             device=dev).long()
+    target = torch.as_tensor(rs.randint(0, cfg.vocab_size,
+                                        (B, w["target_len"])),
+                             device=dev).long()
+    batch = {"enc_embeds": enc, "tokens": prompt}
+    _log(f"whisper: {cfg.name} at full width and depth: "
+         f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers, D "
+         f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, vocab "
+         f"{cfg.vocab_size}; {tree_bytes(params) / 1e9:.3f} GB bf16; {B} "
+         f"lanes of {Se} frame embeddings (the frontend a stub)")
+    whisper_greedy(model, params, batch, 2)            # warm-up
+    torch.cuda.synchronize()
+
+    # the main path: prefill and greedy steps, launches counted
+    rt.reset_launches()
+    with attention_shapes() as shapes:
+        t0 = time.perf_counter()
+        steps, out = whisper_greedy(model, params, batch, n_new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = rt.launch_counts()
+    n_attn = cfg.n_encoder_layers + 2 * cfg.n_layers
+    check_launches("whisper prefill + decode", launches,
+                   {"flash_prefill": n_attn})
+    if len(shapes) != n_attn:
+        raise AssertionError(f"whisper: {len(shapes)} attention calls")
+    if out.shape != (B, n_new) or not ((out >= 0)
+                                       & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"whisper: tokens {tuple(out.shape)} or out of "
+                             "vocabulary")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(5):
+        E.encode(cfg, params, enc)
+    ev[1].record()
+    torch.cuda.synchronize()
+    enc_ms = ev[0].elapsed_time(ev[1]) / 5
+    t0 = time.perf_counter()
+    _, cache = model.prefill(params, batch, P + n_new)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    _log(f"whisper: encode {enc_ms:.3f} ms ({B} x {Se} frames, device "
+         f"time); prefill {prefill_s:.4f}s; prefill + {n_new - 1} decode "
+         f"steps {wall:.3f}s = {B * n_new / wall:.2f} tok/s; launches "
+         f"flash_prefill={launches['flash_prefill']} (encoder "
+         f"{cfg.n_encoder_layers}, decoder self {cfg.n_layers}, cross "
+         f"{cfg.n_layers}), no other kernel")
+    tok = out[:, -1:]
+    step_breakdown(lambda: model.decode_step(params, cache, tok, P + n_new
+                                             - 1),
+                   f"whisper decode step ({B} lanes, {cfg.n_layers} decoder "
+                   f"layers, cross over {Se} frames)")
+    del cache
+
+    # the prefill and the steps against the f32 plain forward over the
+    # prompt and the tokens fed back
+    ref = plain_f32_forward(cfg, params, {
+        "enc_embeds": enc, "tokens": torch.cat([prompt, out[:, :-1]], 1)})
+    logits_check("whisper prefill (flash_prefill) vs f32 plain forward, "
+                 "last prompt position", steps[:, 0], ref[:, P - 1],
+                 WHISPER_PREFILL_LOGIT_TOL_REL)
+    logits_check(f"whisper {n_new - 1} decode steps vs f32 teacher-forced "
+                 "plain forward", steps[:, 1:], ref[:, P:],
+                 WHISPER_STEP_LOGIT_TOL_REL)
+    del ref, steps
+    with attention_checked() as errs:
+        model.prefill(params, batch, P + n_new)
+    attention_check("whisper prefill", errs)
+    cut = Se // 64 * 64
+    fault = f"whisper prefill: planted cross-attention keys cut at {cut}"
+    with cross_tail_planted(cut), attention_checked() as errs_f:
+        model.prefill(params, batch, P + n_new)
+    if not raised(lambda: attention_check(fault, errs_f)):
+        raise AssertionError(f"{fault}: the attention check misses it")
+    _log(f"{fault}: caught by the attention check")
+
+    # the teacher-forced forward over Whisper's longest target
+    tb = {"enc_embeds": enc, "tokens": target}
+    model.forward(params, tb)
+    torch.cuda.synchronize()
+    rt.reset_launches()
+    with attention_shapes() as f_shapes:
+        t0 = time.perf_counter()
+        lg = model.forward(params, tb)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    f_launches = rt.launch_counts()
+    check_launches("whisper teacher-forced forward", f_launches,
+                   {"flash_prefill": n_attn})
+    _log(f"whisper: teacher-forced forward over {B} x {w['target_len']} "
+         f"tokens in {fwd_s:.4f}s; launches "
+         f"flash_prefill={f_launches['flash_prefill']}")
+    logits_check(f"whisper teacher-forced forward ({w['target_len']} "
+                 "tokens) vs f32 plain forward, every position", lg,
+                 plain_f32_forward(cfg, params, tb),
+                 WHISPER_FORWARD_LOGIT_TOL_REL)
+    del lg
+    with attention_checked() as errs:
+        model.forward(params, tb)
+    attention_check("whisper teacher-forced forward", errs)
+    shapes = shapes + f_shapes
+    counts = {WHISPER_ROWS["enc"]: shapes.count((Se, Se, False)),
+              WHISPER_ROWS["cross"]: shapes.count((w["target_len"], Se,
+                                                   False)),
+              WHISPER_ROWS["cross4"]: shapes.count((P, Se, False))}
+    del params, enc
+    torch.cuda.empty_cache()
+    _log(f"whisper: phase {time.perf_counter() - t_phase:.1f}s; row "
+         f"launches {counts}")
+    return counts
+
+
+def rel_l2(got, want):
+    """||got - want|| / ||want|| over the whole tensor."""
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+@contextlib.contextmanager
+def xlstm_blocks_checked():
+    """Within the block, every xLSTM block (``xlstm.mlstm_block``,
+    ``xlstm.slstm_apply``; one call a block) is also computed in f32 on the
+    same input and state (weights upcast), and its (kind, the update's
+    relative L2 error, the new state's widest relative L2 error) is
+    appended to the list the block receives. Nothing in the port is
+    edited."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.models import xlstm as X
+    real, errs = (X.mlstm_block, X.slstm_apply), []
+    up = lambda t: None if t is None else tree_map(lambda a: a.float(), t)
+
+    def checked(kind, fn):
+        def run(cfg, p, x, state=None):
+            y, st = fn(cfg, p, x, state)
+            y32, st32 = fn(cfg, up(p), x.float(), up(state))
+            errs.append((kind, rel_l2(y - x, y32 - x.float()),
+                         max(rel_l2(st[k], st32[k]) for k in st
+                             if k != "conv")))
+            return y, st
+        return run
+    X.mlstm_block = checked("mlstm", real[0])
+    X.slstm_apply = checked("slstm", real[1])
+    try:
+        yield errs
+    finally:
+        X.mlstm_block, X.slstm_apply = real
+
+
+def blocks_check(label, errs, tol=XLSTM_BLOCK_TOL_REL):
+    """``errs`` from ``xlstm_blocks_checked``: each within ``tol``; prints
+    the widest of each kind."""
+    for kind in ("mlstm", "slstm"):
+        e = [(u, s_) for k, u, s_ in errs if k == kind]
+        _log(f"{label}: {len(e)} {kind} blocks vs f32 at the model's inputs: "
+             f"widest update relative L2 {max(u for u, _ in e):.3e}, widest "
+             f"state {max(s_ for _, s_ in e):.3e} (tol {tol:.3e})")
+    worst = max(max(u, s_) for _, u, s_ in errs)
+    if not worst <= tol:
+        raise AssertionError(f"{label}: a block parts from its f32 "
+                             f"reference by {worst:.3e} > {tol:.3e}")
+
+
+def mlstm_chunk_check(cfg, dev):
+    """One mLSTM layer's chunkwise pass at full width in f32 (S 512 in two
+    chunks of 256) against the step recurrence over the same inputs (JAX's
+    tests/test_substrate.py::test_mlstm_chunkwise_matches_step on the
+    card): random q / k / v, input-gate logits N(0, 0.25), forget gates
+    log-sigmoids of N(0, 1)."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.models import xlstm as X
+    _, _, H, dh, _ = X._dims(cfg)
+    B, S = XLSTM["prompts"], XLSTM["check_len"]
+    gen = torch.Generator(device=dev).manual_seed(XLSTM["seed"])
+    q, k, v = (torch.randn((B, S, H, dh), generator=gen, device=dev)
+               for _ in range(3))
+    il = torch.randn((B, S, H), generator=gen, device=dev) * 0.5
+    fl = Fn.logsigmoid(torch.randn((B, S, H), generator=gen, device=dev))
+    with torch.no_grad():
+        hc, st_c = X.mlstm_chunkwise(q, k, v, il, fl)
+        st = {"C": torch.zeros((B, H, dh, dh), device=dev),
+              "n": torch.zeros((B, H, dh), device=dev)}
+        hs = []
+        for t in range(S):
+            h, st = X.mlstm_step(q[:, t], k[:, t], v[:, t], il[:, t],
+                                 fl[:, t], st)
+            hs.append(h)
+        hs = torch.stack(hs, 1)
+    h_err = row_rel_l2(hc, hs)
+    c_err = float((st_c["C"] - st["C"]).norm() / st["C"].norm())
+    _log(f"xlstm: mLSTM chunkwise (S {S}, chunk {min(256, S)}) vs step "
+         f"recurrence at full width (B {B}, {H} heads of {dh}), f32: h "
+         f"largest row relative L2 {h_err:.3e}, final C relative L2 "
+         f"{c_err:.3e} (tol {XLSTM_CHUNK_REL_TOL:.0e})")
+    if not (h_err <= XLSTM_CHUNK_REL_TOL and c_err <= XLSTM_CHUNK_REL_TOL):
+        raise AssertionError("xlstm: the chunkwise mLSTM parts from the "
+                             "step recurrence")
+
+
+def xlstm_phase(dev):
+    """xLSTM-1.3B at full width and depth as the one expert of
+    ``CompositionOfExperts(HashRouter(1))`` (a pinned host store, an HBM
+    cache of one): ``generate`` on 4 prompts of 2048 tokens, 32 new (no
+    kernel: JAX computes both recurrences in XLA); then the prefill and
+    the decode alone, timed; every block of the prefill and of one decode
+    step against the same block in f32 at the model's inputs; the
+    end-to-end logits against the f32 forward over the prompt and, from
+    its state, the tokens fed back as one chunk, printed as readings; the
+    chunkwise mLSTM against the step recurrence at full width."""
+    from repro_torch.bridge import tree_bytes, tree_leaves, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.core import CompositionOfExperts, ExpertHandle, HashRouter
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    from repro_torch.models import xlstm as X
+    from repro_torch.store import HostMemoryStore
+    x = XLSTM
+    cfg = get_config("xlstm-1.3b")
+    model = get_model(cfg)
+    G, n_m = X._group_counts(cfg)
+    t_phase = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(x["seed"]),
+                        dev)
+    nbytes = tree_bytes(params)
+    coe = CompositionOfExperts(HashRouter(1), None, nbytes,
+                               store=HostMemoryStore(), device=dev)
+    coe.register(ExpertHandle(cfg.name, cfg, params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"xlstm: {cfg.name} at full width and depth: {cfg.n_layers} blocks "
+         f"({G} groups of {n_m} mLSTM + 1 sLSTM), D {cfg.d_model}, "
+         f"{cfg.n_heads} mLSTM heads of {X._dims(cfg)[3]}, vocab "
+         f"{cfg.vocab_size}; {nbytes / 1e9:.3f} GB bf16 made and moved to "
+         f"pinned host memory in {time.perf_counter() - t_phase:.1f}s")
+    P, n_new, B = x["prompt_len"], x["new_tokens"], x["prompts"]
+    toks = np.random.RandomState(x["seed"]).randint(
+        0, cfg.vocab_size, (B, P)).astype(np.int32)
+    torch.cuda.synchronize()
+    rt.reset_launches()
+    t0 = time.perf_counter()
+    res = coe.generate(toks, n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_launches("xlstm generate", rt.launch_counts(), {})
+    if res.tokens.shape != (B, n_new) or not (
+            (res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"xlstm generate: tokens {res.tokens.shape} or "
+                             "out of vocabulary")
+    _log(f"xlstm generate: {B} prompts x {P} tokens -> {res.tokens.size} "
+         f"tokens in {wall:.3f}s = {res.tokens.size / wall:.2f} tok/s; "
+         f"switch_s={res.switch_seconds:.4f} exec_s={res.exec_seconds:.4f}; "
+         "no kernel launched")
+
+    # the prefill and the decode alone, on the resident weights
+    params = coe.cache.activate(cfg.name)
+    tt = torch.as_tensor(toks, device=dev).long()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, st = model.prefill(params, {"tokens": tt}, P + n_new)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    lane_bytes = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(st)) / B
+    c_bytes = st["mlstm"]["C"][:, :, 0].numel() * 4
+    tok = last.argmax(-1)
+    logits, fed = [last], []
+    t0 = time.perf_counter()
+    for t in range(n_new - 1):
+        fed.append(tok)
+        lg, st = model.decode_step(params, st, tok[:, None], P + t)
+        tok = lg.argmax(-1)
+        logits.append(lg)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if not torch.equal(torch.stack(fed + [tok], 1).cpu(),
+                       torch.as_tensor(res.tokens)):
+        _log("xlstm: the timed decode's tokens differ from generate's (a "
+             "near tie)")
+    _log(f"xlstm: prefill of {B} x {P} tokens in {prefill_s:.3f}s "
+         f"({B * P / prefill_s:.0f} tok/s); {n_new - 1} decode steps in "
+         f"{decode_s:.3f}s = {decode_s / (n_new - 1) * 1e3:.2f} ms a step, "
+         f"{B * (n_new - 1) / decode_s:.2f} tok/s; recurrent state "
+         f"{lane_bytes / 1e9:.4f} GB a lane (mLSTM C {c_bytes / 1e9:.4f} "
+         "GB), whatever the prompt length")
+    step_breakdown(lambda: model.decode_step(params, st, tok[:, None],
+                                             P + n_new - 1),
+                   f"xlstm decode step ({B} lanes, {cfg.n_layers} blocks)")
+    del st
+
+    # each block at the model's inputs against f32: over the prompt, then
+    # in one decode step from the prompt's state
+    with xlstm_blocks_checked() as errs:
+        _, st = model.prefill(params, {"tokens": tt}, P + n_new)
+    blocks_check("xlstm prefill", errs)
+    with xlstm_blocks_checked() as errs:
+        model.decode_step(params, st, fed[0][:, None], P)
+    blocks_check("xlstm decode step", errs)
+    del st
+
+    # the end-to-end readings (no limit: see XLSTM_BLOCK_TOL_REL): the f32
+    # forward over the prompt, then over the tokens fed back as one chunk
+    # from the prompt's state
+    p32 = tree_map(lambda t: t.float(), params)
+    with torch.no_grad():
+        ref_last, st32 = X.forward(cfg, p32, {"tokens": tt}, last_only=True,
+                                   return_states=True)
+        h = p32["embed"]["tok"][torch.stack(fed, 1)]
+        for g in range(G):
+            h, _ = X._group_apply(cfg, X._take(p32["groups"], g), h,
+                                  X._take(st32, g))
+        h = L.apply_norm(cfg, p32["final_norm"], h)
+        ref_steps = h @ p32["lm_head"]
+    del p32, st32, h
+    logits = torch.stack(logits, 1).float()
+    for what, got, ref in (
+            ("prefill vs f32 forward, last prompt position", logits[:, 0],
+             ref_last[:, -1]),
+            (f"{n_new - 1} decode steps vs f32 teacher-forced forward (one "
+             "chunk from the prompt's state)", logits[:, 1:], ref_steps)):
+        ref = ref.float()
+        _log(f"xlstm {what} (a reading): max_abs_err "
+             f"{float((got - ref).abs().max()):.4f} of |logits|max "
+             f"{float(ref.abs().max()):.3f}, rel_l2 {rel_l2(got, ref):.4f}, "
+             f"argmax_agree "
+             f"{float((got.argmax(-1) == ref.argmax(-1)).float().mean()):.3f}")
+    del logits, ref_last, ref_steps, params
+    coe.cache.close()
+    torch.cuda.empty_cache()
+    mlstm_chunk_check(cfg, dev)
+    torch.cuda.empty_cache()
+    _log(f"xlstm: phase {time.perf_counter() - t_phase:.1f}s")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available; this run needs one "
@@ -4276,6 +4848,7 @@ def main():
     rows.update(variant_kernel_phase(dev))
     rows.update(mixtral_kernel_row(dev))
     rows.update(deepseek_kernel_row(dev))
+    rows.update(whisper_kernel_rows(dev))
     rows.update(monarch_kernel_phase(dev))
     torch.cuda.empty_cache()
     launches = monarch_phase(dev)
@@ -4333,6 +4906,9 @@ def main():
     rows[MIXTRAL_ROW]["launches"], rows[MIXTRAL_B1_ROW]["launches"] = \
         mixtral_phase(dev)
     rows[DEEPSEEK_ROW]["launches"] = deepseek_phase(dev)
+    for row, n in whisper_phase(dev).items():
+        rows[row]["launches"] = n
+    xlstm_phase(dev)
     launches = rg_phase(rg_cfg, dev)
     rows[RG_PREFILL_ROW]["launches"] = launches["flash_prefill"]
     rows["lru_scan"]["launches"] = launches["lru_scan"]

@@ -11,17 +11,20 @@ from repro_torch.configs.qwen2_vl_2b import CONFIG as _qwen2_vl_2b
 from repro_torch.configs.recurrentgemma_9b import CONFIG as _recurrentgemma_9b
 from repro_torch.configs.samba_coe_expert import CONFIG as _samba_coe_expert
 from repro_torch.configs.starcoder2_3b import CONFIG as _starcoder2_3b
+from repro_torch.configs.whisper_small import CONFIG as _whisper_small
+from repro_torch.configs.xlstm_1_3b import CONFIG as _xlstm_1_3b
 
 CONFIGS = {c.name: c for c in (_samba_coe_expert, _granite_8b, _qwen2_5_32b,
                                _chatglm3_6b, _starcoder2_3b, _qwen2_vl_2b,
-                               _mixtral_8x7b, _deepseek, _recurrentgemma_9b)}
+                               _mixtral_8x7b, _deepseek, _recurrentgemma_9b,
+                               _whisper_small, _xlstm_1_3b)}
 
 
 def get_config(name: str) -> ModelConfig:
     key = name.replace("_", "-").lower()
     if key not in CONFIGS:
-        raise KeyError(f"unknown arch {name!r}; the port has {sorted(CONFIGS)} "
-                       "(see ROADMAP.md for the families still to port)")
+        raise KeyError(f"unknown arch {name!r}; the port has "
+                       f"{sorted(CONFIGS)}")
     return CONFIGS[key]
 
 

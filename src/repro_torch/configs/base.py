@@ -1,11 +1,12 @@
 """Model configuration: the subset of ``repro.configs.base`` that the
-ported families (dense, moe, mla_moe, rglru) read.
+port's families (dense, moe, mla_moe, encdec, rglru, xlstm) read.
 
-Only the fields those families read are kept; the other families (xLSTM,
-encoder-decoder) are not ported yet (``ROADMAP.md`` Queue 1). The MoE
-fields are JAX's, ``first_dense_layers`` included (DeepSeek's dense head
-layers), and so are the MLA fields. The expert capacity is
-``capacity_factor``: the port has no run-time override of it.
+Every family of the JAX package is ported; only the fields the families
+read are kept (JAX's ``attn_chunk``, ``attn_logit_softcap`` and ``dtype``
+steer its XLA lowering, which the port does not have). The MoE fields are
+JAX's, ``first_dense_layers`` included (DeepSeek's dense head layers), and
+so are the MLA, encoder-decoder (Whisper) and xLSTM fields. The expert
+capacity is ``capacity_factor``: the port has no run-time override of it.
 """
 from __future__ import annotations
 
@@ -55,10 +56,22 @@ class ModelConfig:
     qk_rope_dim: int = 0
     v_head_dim: int = 0
 
+    # --- enc-dec (whisper) ---
+    n_encoder_layers: int = 0
+    encoder_seq: int = 0              # precomputed frame embeddings length
+
     # --- hybrid (recurrentgemma) ---
     block_pattern: Tuple[str, ...] = ()   # e.g. ('rec', 'rec', 'attn')
     d_rnn: int = 0
     conv_width: int = 4
+
+    # --- xlstm ---
+    slstm_every: int = 0              # every Nth block is sLSTM (0 = none)
+    mlstm_proj_factor: float = 2.0
+    slstm_heads: int = 4
+
+    # --- modality frontend stub ---
+    frontend: str = "none"            # 'none' | 'vision' | 'audio'
 
     # the dims before ``pad_for_tp`` (0 = never padded)
     orig_n_heads: int = 0
@@ -71,6 +84,10 @@ class ModelConfig:
             return self.n_heads * (self.qk_nope_dim + self.qk_rope_dim)
         return self.n_heads * self.head_dim
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "xlstm"
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -78,19 +95,21 @@ def _round_up(x: int, m: int) -> int:
 
 def pad_for_tp(cfg: ModelConfig, tp: int) -> ModelConfig:
     """``cfg`` with the dims a ``tp``-way group shards made divisible by
-    ``tp`` (``repro.configs.base.pad_for_tp``'s rule for the ported
-    families): q heads always; kv heads only where there are at least
-    ``tp`` of them (fewer replicate, cheaper than inflating the KV); the
-    vocab. The original dims are recorded in ``orig_*``."""
+    ``tp`` (``repro.configs.base.pad_for_tp``'s rule): q heads always;
+    kv heads only where there are at least ``tp`` of them (fewer
+    replicate, cheaper than inflating the KV); neither for xLSTM, which
+    shards its value width; the vocab. The original dims are recorded in
+    ``orig_*``."""
     upd = {}
     if cfg.orig_n_heads == 0:
         upd["orig_n_heads"] = cfg.n_heads
         upd["orig_n_kv_heads"] = cfg.n_kv_heads
         upd["orig_vocab_size"] = cfg.vocab_size
-    if cfg.n_heads % tp:
-        upd["n_heads"] = _round_up(cfg.n_heads, tp)
-    if cfg.n_kv_heads >= tp and cfg.n_kv_heads % tp:
-        upd["n_kv_heads"] = _round_up(cfg.n_kv_heads, tp)
+    if cfg.family != "xlstm":
+        if cfg.n_heads % tp:
+            upd["n_heads"] = _round_up(cfg.n_heads, tp)
+        if cfg.n_kv_heads >= tp and cfg.n_kv_heads % tp:
+            upd["n_kv_heads"] = _round_up(cfg.n_kv_heads, tp)
     if cfg.vocab_size % tp:
         upd["vocab_size"] = _round_up(cfg.vocab_size, tp)
     if not upd:
@@ -99,9 +118,8 @@ def pad_for_tp(cfg: ModelConfig, tp: int) -> ModelConfig:
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
-    """Tiny same-family config for CPU tests (the dense, MoE, MLA and rglru
-    branches of ``repro.configs.base.reduced``, including its RoPE
-    branches)."""
+    """Tiny same-family config for CPU tests (``repro.configs.base.reduced``
+    branch for branch, ``attn_chunk`` aside)."""
     upd = dict(
         n_layers=min(cfg.n_layers, 4),
         d_model=128,
@@ -126,8 +144,19 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         upd["qk_rope_dim"] = 16
         upd["v_head_dim"] = 32
         upd["head_dim"] = 32
+    if cfg.family == "encdec":
+        upd["n_encoder_layers"] = 2
+        upd["n_layers"] = 2
+        upd["encoder_seq"] = 32
     if cfg.sliding_window:
         upd["sliding_window"] = 32
+    if cfg.family == "xlstm":
+        upd["n_layers"] = 4
+        upd["slstm_every"] = 4
+        upd["n_heads"] = 2
+        upd["n_kv_heads"] = 2
+        upd["head_dim"] = 0   # derived in the model
+        upd["d_ff"] = 0
     if cfg.mrope_sections:
         upd["mrope_sections"] = (4, 6, 6)   # sums to half of head_dim 32
     if cfg.rope_fraction < 1.0:

@@ -1,30 +1,37 @@
-// Causal / sliding-window GQA flash attention over a whole prompt, for
-// Hopper (sm_90a).
+// Causal / sliding-window / full GQA flash attention over a whole prompt,
+// for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py::flash_prefill
 // (_prefill_kernel), reached through flash_attention/ops.py::attention.
 //
-// Computes o (B, S, Hq, dv) = softmax(mask(q k^T * scale)) v for bf16
-// q (B, S, Hq, dk), k (B, S, Hkv, dk) and v (B, S, Hkv, dv), q head h
+// Computes o (B, Sq, Hq, dv) = softmax(mask(q k^T * scale)) v for bf16
+// q (B, Sq, Hq, dk), k (B, Sk, Hkv, dk) and v (B, Sk, Hkv, dv), q head h
 // reading kv head h / (Hq / Hkv). Query i attends key j where j <= i
-// (causal) and i - j < window (window > 0). (dk, dv) is (d, d) for d in
-// 32/64/128/256, or MLA's (192, 128) (DeepSeek-V2: q / k of qk_nope 128 +
-// qk_rope 64, v of 128; JAX's MLA prefill is XLA attention, which takes
-// any dv). All four tensors are read and written through TMA tensor maps
-// built from their (batch, position, head) strides; the head widths are
-// contiguous. Any S >= 1: the Pallas kernel asserts
-// S % 128 == 0, here the maps' position extent is S itself, so TMA fills
-// the rows past S with zeros on a load, drops them on a store, and nothing
-// past S is ever read or written.
+// (causal) and i - j < window (window > 0); Sk differs from Sq only in a
+// call with neither (cross-attention: Whisper's decoder over its 1500
+// encoder frames), where every query attends all Sk keys. (dk, dv) is
+// (d, d) for d in 32/64/128/256, or MLA's (192, 128) (DeepSeek-V2: q / k
+// of qk_nope 128 + qk_rope 64, v of 128; JAX's MLA prefill is XLA
+// attention, which takes any dv). All four tensors are read and written
+// through TMA tensor maps built from their (batch, position, head)
+// strides; the head widths are contiguous. Any Sq, Sk >= 1: the Pallas
+// kernel asserts S % 128 == 0, here each map's position extent is its own
+// length (Sq for q and o, Sk for k and v), so TMA fills the rows past it
+// with zeros on a load, drops them on a store, and nothing past it is ever
+// read or written; keys past Sk are masked (Sk 1500 leaves 92 live keys
+// in the last 128-key tile at dh 64).
 //
 // Bound: tensor-core operations. 2 * B * Hq * (dk + dv) * pairs flops,
-// pairs = sum_i min(i + 1, W) (W = S without a window), against 2 * B * S
-// * (Hq dk + Hkv dk + Hkv dv + Hq dv) bytes: at the 7B widths (B 8, S
-// 2048, 32 heads, dh 128, causal) 2.75e11 flops and 537 MB, 0.278 ms at
-// 989 TFLOP/s; at RecurrentGemma's (B 4, S 3000, 16 q heads on 1 kv head,
-// dh 256, window 2048) 2.65e11 flops and 209 MB, 0.268 ms; at
-// DeepSeek-V2-Lite's (B 4, S 2048, 16 heads, dk 192, dv 128, causal)
-// 8.59e10 flops and 168 MB, 0.0869 ms.
+// pairs = sum_i min(i + 1, W) (W = S without a window; Sq * Sk when not
+// causal), against 2 * B * (Sq Hq (dk + dv) + Sk Hkv (dk + dv)) bytes: at
+// the 7B widths (B 8, S 2048, 32 heads, dh 128, causal) 2.75e11 flops and
+// 537 MB, 0.278 ms at 989 TFLOP/s; at RecurrentGemma's (B 4, S 3000, 16 q
+// heads on 1 kv head, dh 256, window 2048) 2.65e11 flops and 209 MB, 0.268
+// ms; at DeepSeek-V2-Lite's (B 4, S 2048, 16 heads, dk 192, dv 128,
+// causal) 8.59e10 flops and 168 MB, 0.0869 ms; at Whisper-small's encoder
+// (B 8, S 1500, 12 heads, dh 64, not causal) 5.53e10 flops and 73.7 MB,
+// 0.0559 ms; its cross-attention at Sq 448, Sk 1500 1.65e10 flops and
+// 47.9 MB, 0.0167 ms, and at Sq 4 37.0 MB, bound by bytes at 0.0110 ms.
 //
 // Design: FlashAttention-3's warp-specialised shape. A CTA of 384 threads
 // per (batch, q head, pair of 128-row q tiles): two consumer warpgroups of
@@ -34,12 +41,12 @@
 // consumers' to 240.
 //  * Producer: the Q tile by one TMA load, then the K and V tiles of its
 //    band [lo, hi) -- the Pallas kernel's bounds (causal: keys up to the
-//    tile's last row; window: from its first row's window start) -- into a
-//    2-stage ring. K and V each have a full mbarrier (TMA bytes) and an
-//    empty one (the 8 consumer warps) per stage, so a K slot refills as
-//    soon as its q k^T is done.
+//    tile's last row; window: from its first row's window start; else all
+//    Sk keys) -- into a 2-stage ring. K and V each have a full mbarrier
+//    (TMA bytes) and an empty one (the 8 consumer warps) per stage, so a K
+//    slot refills as soon as its q k^T is done.
 //  * Consumers: s = q k^T by wgmma.m64nBNk16, both operands in shared
-//    memory, K-major; scaled in f32; the causal / window / S mask only on
+//    memory, K-major; scaled in f32; the causal / window / Sk mask only on
 //    tiles that cross an edge; the online softmax in registers (the wgmma
 //    accumulator gives each thread rows g and g + 8 of its warp's 16, as
 //    mma.sync does, so the quad shuffles carry over); p rounded to bf16 is
@@ -51,7 +58,12 @@
 //    but dk 256), each with its own Q buffer: the heavy causal tile n_qt -
 //    1 - x, then its light mirror x, so every CTA walks n_qt + 1 key tiles
 //    and the second tile's loads run under the first one's tail. One q
-//    tile, heaviest first, at dk 256.
+//    tile, heaviest first, at dk 256. A call with neither a causal mask
+//    nor a window runs the FULL instantiation: one q tile a CTA (every
+//    tile walks all ceil(Sk / BN) key tiles, so pairs balance nothing and
+//    halve the CTAs: Whisper's cross-attention at Sq 448 is 384 CTAs
+//    against 192), no mask but the key tail; the causal / windowed
+//    instantiation's code is the square kernel's as it was.
 //  * Epilogue: o is staged in the warpgroup's own rows of its Q buffer
 //    (swizzled as the O map's box; dv <= dk) and written by one TMA store
 //    per panel.
@@ -137,9 +149,13 @@ struct Tile {
   static_assert(SMEM <= SMEM_MAX, "shared memory");
 };
 
+// S is the key length, and the query length too unless the instantiation
+// is FULL; Sq (read only by FULL) follows scale, so the other fields keep
+// their places
 struct Args {
   int S, G, causal, window;
   float scale;
+  int Sq;
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -148,7 +164,12 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-template <int DK, int DV>
+// FULL: a call with neither a causal mask nor a window (Whisper's encoder
+// and its cross-attention, where Sq may differ from S). Every q tile walks
+// all key tiles, one q tile a CTA (the mirror pairing balances only a
+// causal band); the only mask is the key tail. The other instantiation is
+// the square causal / windowed kernel, its code unchanged by FULL.
+template <int DK, int DV, bool FULL>
 __global__ void __launch_bounds__(THREADS, 1)
 prefill_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
@@ -173,15 +194,15 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
   const int h = blockIdx.y, b = blockIdx.z, hk = h / p.G;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // this CTA's q tiles: n_qt - 1 - x, then x if that is another one
-  const int n_qt = (S + BM - 1) / BM, x = blockIdx.x;
-  const int items = (T::ITEMS == 2 && x < n_qt - 1 - x) ? 2 : 1;
+  const int n_qt = ((FULL ? p.Sq : S) + BM - 1) / BM, x = blockIdx.x;
+  const int items = (!FULL && T::ITEMS == 2 && x < n_qt - 1 - x) ? 2 : 1;
   auto q0_of = [&](int j) { return (j == 0 ? n_qt - 1 - x : x) * BM; };
   // the band of keys any row of q tile j attends: tiles [t_lo, t_hi)
   auto t_lo_of = [&](int j) {
-    return (p.window ? max(q0_of(j) - p.window + 1, 0) : 0) / BN;
+    return (!FULL && p.window ? max(q0_of(j) - p.window + 1, 0) : 0) / BN;
   };
   auto t_hi_of = [&](int j) {
-    return ((p.causal ? min(q0_of(j) + BM, S) : S) + BN - 1) / BN;
+    return ((!FULL && p.causal ? min(q0_of(j) + BM, S) : S) + BN - 1) / BN;
   };
   // the n-th K/V tile the CTA walks lies in stage n % STAGES, in that
   // stage's use number n / STAGES, whose parity its barrier waits take
@@ -286,15 +307,15 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
     auto softmax = [&](int t) {
       const int k0 = t * BN;
       // mask only the tiles that cross the diagonal, window or S
-      if ((p.causal && k0 + BN - 1 > r0) ||
-          (p.window && r0 + 63 - k0 >= p.window) || k0 + BN > S) {
+      if ((!FULL && p.causal && k0 + BN - 1 > r0) ||
+          (!FULL && p.window && r0 + 63 - k0 >= p.window) || k0 + BN > S) {
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int r = row[e >> 1], c = k0 + j * 8 + tig * 2 + (e & 1);
-            if (c >= S || (p.causal && c > r) ||
-                (p.window && r - c >= p.window))
+            if (c >= S || (!FULL && p.causal && c > r) ||
+                (!FULL && p.window && r - c >= p.window))
               sc[4 * j + e] = -INFINITY;
           }
       }
@@ -395,7 +416,7 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
 
       // normalise; stage the warpgroup's 64 x DV tile in its own rows of
       // the Q tile (no longer read), swizzled as the O map's box, and store
-      // it with TMA, which drops the rows past S. 16-byte chunk c of row r
+      // it with TMA, which drops the rows past Sq. 16-byte chunk c of row r
       // lies at chunk c ^ (r % 8) (128-byte rows) or c ^ (r / 2 % 4)
       // (64-byte rows).
       const uint32_t o_s = q_s(j) + wg * 64 * SW;
@@ -430,7 +451,8 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
 
 // A (B, S, H, dh) bf16 tensor as the 4-D map (dh, H, S, B), strides in
 // elements; boxes of (pw, 1, rows, 1), swizzled to pw * 2 bytes. The
-// position extent is the logical S: rows past it load as zeros.
+// position extent is the tensor's own length S: rows past it load as
+// zeros.
 bool encode(CUtensorMap* map, const void* ptr, int dh, int H, int S, int B,
             long long sh, long long ss, long long sb, int pw, int rows) {
   const EncodeTiled fn = encode_tiled();
@@ -449,23 +471,24 @@ bool encode(CUtensorMap* map, const void* ptr, int dh, int H, int S, int B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DK, int DV>
+template <int DK, int DV, bool FULL>
 int launch(const void* q, const void* k, const void* v, void* o,
            const Args& a, int B, int Hq, int Hkv, const long long (&st)[12],
            cudaStream_t stream) {
   using T = Tile<DK, DV>;
   CUtensorMap tq, tk, tv, to;
-  if (!encode(&tq, q, DK, Hq, a.S, B, st[2], st[1], st[0], T::PW, BM) ||
+  if (!encode(&tq, q, DK, Hq, a.Sq, B, st[2], st[1], st[0], T::PW, BM) ||
       !encode(&tk, k, DK, Hkv, a.S, B, st[5], st[4], st[3], T::PW, T::BN) ||
       !encode(&tv, v, DV, Hkv, a.S, B, st[8], st[7], st[6], T::PW, T::BN) ||
-      !encode(&to, o, DV, Hq, a.S, B, st[11], st[10], st[9], T::PW, 64))
+      !encode(&to, o, DV, Hq, a.Sq, B, st[11], st[10], st[9], T::PW, 64))
     return static_cast<int>(cudaErrorInvalidValue);
   // setmaxnreg.inc waits for the registers the producer warpgroup gives
   // back: refuse a build whose entry count would leave the consumers
   // waiting
   static const int regs = [] {
     cudaFuncAttributes fa;
-    return cudaFuncGetAttributes(&fa, prefill_kernel<DK, DV>) == cudaSuccess
+    return cudaFuncGetAttributes(&fa, prefill_kernel<DK, DV, FULL>) ==
+                   cudaSuccess
                ? fa.numRegs : 0;
   }();
   if ((regs - PRODUCER_REGS) * 128 < (CONSUMER_REGS - regs) * 32 * CONSUMER_WARPS)
@@ -473,37 +496,49 @@ int launch(const void* q, const void* k, const void* v, void* o,
   // above 48 KB of dynamic shared memory only after this opt-in (set on
   // every launch: it is per device and costs no device time)
   const cudaError_t e = cudaFuncSetAttribute(
-      prefill_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::SMEM);
+      prefill_kernel<DK, DV, FULL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_qt = (a.S + BM - 1) / BM;
-  const dim3 grid((n_qt + T::ITEMS - 1) / T::ITEMS, Hq, B);
-  prefill_kernel<DK, DV><<<grid, THREADS, T::SMEM, stream>>>(tq, tk, tv, to,
-                                                             a);
+  const int n_qt = (a.Sq + BM - 1) / BM;
+  const int per_cta = FULL ? 1 : T::ITEMS;
+  const dim3 grid((n_qt + per_cta - 1) / per_cta, Hq, B);
+  prefill_kernel<DK, DV, FULL><<<grid, THREADS, T::SMEM, stream>>>(
+      tq, tk, tv, to, a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DK, int DV>
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             const Args& a, int B, int Hq, int Hkv,
+             const long long (&st)[12], cudaStream_t s) {
+  return a.causal || a.window
+             ? launch<DK, DV, false>(q, k, v, o, a, B, Hq, Hkv, st, s)
+             : launch<DK, DV, true>(q, k, v, o, a, B, Hq, Hkv, st, s);
 }
 
 }  // namespace
 
 extern "C" int flash_prefill_bf16(
-    const void* q, const void* k, const void* v, void* o, int B, int S,
-    int Hq, int Hkv, int dk, int dv, int causal, int window, int sqb,
+    const void* q, const void* k, const void* v, void* o, int B, int Sq,
+    int Sk, int Hq, int Hkv, int dk, int dv, int causal, int window, int sqb,
     int sqs, int sqh, int skb, int sks, int skh, int svb, int svs, int svh,
     int sob, int sos, int soh, float scale, void* stream) {
-  if (S < 1 || Hkv < 1 || Hq % Hkv) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{S, Hq / Hkv, causal, window, scale};
+  if (Sq < 1 || Sk < 1 || Hkv < 1 || Hq % Hkv ||
+      (Sk != Sq && (causal || window)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{Sk, Hq / Hkv, causal, window, scale, Sq};
   const long long st[12] = {sqb, sqs, sqh, skb, sks, skh,
                             svb, svs, svh, sob, sos, soh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dk == dv) {
     switch (dk) {
-      case 32: return launch<32, 32>(q, k, v, o, a, B, Hq, Hkv, st, s);
-      case 64: return launch<64, 64>(q, k, v, o, a, B, Hq, Hkv, st, s);
-      case 128: return launch<128, 128>(q, k, v, o, a, B, Hq, Hkv, st, s);
-      case 256: return launch<256, 256>(q, k, v, o, a, B, Hq, Hkv, st, s);
+      case 32: return dispatch<32, 32>(q, k, v, o, a, B, Hq, Hkv, st, s);
+      case 64: return dispatch<64, 64>(q, k, v, o, a, B, Hq, Hkv, st, s);
+      case 128: return dispatch<128, 128>(q, k, v, o, a, B, Hq, Hkv, st, s);
+      case 256: return dispatch<256, 256>(q, k, v, o, a, B, Hq, Hkv, st, s);
     }
   } else if (dk == 192 && dv == 128) {
-    return launch<192, 128>(q, k, v, o, a, B, Hq, Hkv, st, s);
+    return dispatch<192, 128>(q, k, v, o, a, B, Hq, Hkv, st, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

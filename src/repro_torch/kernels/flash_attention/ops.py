@@ -14,7 +14,7 @@ from repro_torch.kernels.flash_attention.ref import (attention_ref,
 
 _ARGS = [rt.P] * 8 + [rt.I] * 6 + [rt.F, rt.P]
 _DENSE_ARGS = [rt.P] * 4 + [rt.I] * 6 + [rt.F, rt.P]
-_PREFILL_ARGS = [rt.P] * 4 + [rt.I] * 20 + [rt.F, rt.P]
+_PREFILL_ARGS = [rt.P] * 4 + [rt.I] * 21 + [rt.F, rt.P]
 # the (dk, dv) head widths flash_prefill is instantiated for
 PREFILL_WIDTHS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
 
@@ -154,23 +154,30 @@ def _row_strides(name, **tensors):
 
 
 def attention(q, k, v, *, causal=True, window=0):
-    """Causal / sliding-window GQA attention over a whole prompt:
-    q (B,S,Hq,dk), k (B,S,Hkv,dk), v (B,S,Hkv,dv) -> (B,S,Hq,dv), scores
-    scaled by 1/sqrt(dk). Query i attends key j where ``j <= i`` (causal)
-    and ``i - j < window`` (window > 0). Any S >= 1; the BSHD tensors are
-    read by their strides, so a slice of a larger buffer is taken as it is.
+    """GQA attention over a whole prompt: q (B,Sq,Hq,dk), k (B,Sk,Hkv,dk),
+    v (B,Sk,Hkv,dv) -> (B,Sq,Hq,dv), scores scaled by 1/sqrt(dk). Query i
+    attends key j where ``j <= i`` (causal) and ``i - j < window`` (window >
+    0); with neither, every key. Sk may differ from Sq only then
+    (cross-attention); any other call with Sk != Sq raises ``ValueError``,
+    on the CPU as on the card. Any Sq, Sk >= 1; the BSHD tensors are read
+    by their strides, so a slice of a larger buffer is taken as it is.
 
     CPU tensors take the plain version, in any float dtype and widths; CUDA
     tensors launch the ``flash_prefill`` kernel, which takes bf16 and the
     (dk, dv) of ``PREFILL_WIDTHS``: dk = dv in 32/64/128/256, or MLA's
     (192, 128)."""
-    B, S, Hq, dk = q.shape
-    if k.shape[:2] != (B, S) or k.shape[3] != dk or v.shape[:3] != k.shape[:3] \
+    B, Sq, Hq, dk = q.shape
+    Sk = k.shape[1]
+    if k.shape[0] != B or k.shape[3] != dk or v.shape[:3] != k.shape[:3] \
             or Hq % k.shape[2]:
         raise ValueError(f"attention: q {tuple(q.shape)} does not match "
                          f"k {tuple(k.shape)} / v {tuple(v.shape)}")
     if window < 0:
         raise ValueError(f"attention: window {window} < 0")
+    if Sk != Sq and (causal or window):
+        raise ValueError(f"attention: {Sk} keys for {Sq} queries is taken "
+                         "only without a causal mask or a window "
+                         f"(causal={causal}, window={window})")
     if not rt.on_card(q, k, v):
         return attention_ref(q, k, v, causal=causal, window=window)
     Hkv, dv = k.shape[2], v.shape[3]
@@ -182,10 +189,10 @@ def attention(q, k, v, *, causal=True, window=0):
                          f"{PREFILL_WIDTHS}, got ({dk}, {dv})")
     strides = _row_strides("attention", q=q, k=k, v=v)
     fn = rt.bind("flash_prefill", "flash_prefill_bf16", _PREFILL_ARGS)
-    out = torch.empty((B, S, Hq, dv), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Sq, Hq, dv), dtype=q.dtype, device=q.device)
     strides += out.stride()[:3]
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            Hq, Hkv, dk, dv, int(causal), int(window), *strides,
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Sk, Hq, Hkv, dk, dv, int(causal), int(window), *strides,
             1.0 / math.sqrt(dk), rt.stream_ptr(q))
     rt.check_launch("flash_prefill", rc)
     rt.count_launch("flash_prefill")

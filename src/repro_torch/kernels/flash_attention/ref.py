@@ -13,8 +13,8 @@ from repro_torch.models.layers import decode_attention, naive_attention
 
 
 def attention_ref(q, k, v, *, causal=True, window=0):
-    """q (B,S,Hq,dk), k (B,S,Hkv,dk), v (B,S,Hkv,dv) -> (B,S,Hq,dv), scale
-    1/sqrt(dk)."""
+    """q (B,Sq,Hq,dk), k (B,Sk,Hkv,dk), v (B,Sk,Hkv,dv) -> (B,Sq,Hq,dv),
+    scale 1/sqrt(dk); Sk != Sq only without a causal mask or a window."""
     return naive_attention(q, k, v, causal=causal, window=window)
 
 

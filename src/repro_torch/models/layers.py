@@ -1,4 +1,4 @@
-"""Shared layers of the dense, moe and rglru families (counterpart of
+"""Shared layers of the model families (counterpart of
 ``repro.models.layers``): RMSNorm and LayerNorm, full / partial / m-RoPE,
 attention (the quadratic oracle and the ``flash_prefill`` kernel's entry),
 single-token attention against a dense cache, the SwiGLU / GeGLU / GELU
@@ -124,10 +124,11 @@ def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0):
 
 
 def attention(q, k, v, *, causal=True, window=0):
-    """Prefill / forward attention, q/k (B,S,Hq|Hkv,dk), v (B,S,Hkv,dv) ->
-    (B,S,Hq,dv), scale 1/sqrt(dk): the ``flash_prefill`` kernel on the card
-    (dk = dv, or MLA's 192 / 128), its plain version (the quadratic oracle)
-    on the CPU."""
+    """Prefill / forward attention, q (B,Sq,Hq,dk), k (B,Sk,Hkv,dk), v
+    (B,Sk,Hkv,dv) -> (B,Sq,Hq,dv), scale 1/sqrt(dk); Sk != Sq only for a
+    call that is neither causal nor windowed (cross-attention): the
+    ``flash_prefill`` kernel on the card (dk = dv, or MLA's 192 / 128), its
+    plain version (the quadratic oracle) on the CPU."""
     from repro_torch.kernels.flash_attention import ops
     return ops.attention(q, k, v, causal=causal, window=window)
 

@@ -1,12 +1,16 @@
-"""Uniform model API (counterpart of ``repro.models.registry``) for the
-ported families: dense, moe and mla_moe (``transformer``) and rglru
-(``rglru``).
+"""Uniform model API (counterpart of ``repro.models.registry``) for every
+family: dense, moe and mla_moe (``transformer``), encdec (``encdec``),
+rglru (``rglru``) and xlstm (``xlstm``).
 
     model = get_model(cfg)
     params = model.init(generator, device)
     logits = model.forward(params, {"tokens": tokens})
     last, cache = model.prefill(params, {"tokens": tokens}, max_len)
     logits, cache = model.decode_step(params, cache, tokens, pos)
+
+The encoder-decoder's batch also carries ``enc_embeds`` (B, encoder_seq,
+D), and its ``prefill`` receives the whole batch, as JAX's does; the
+other families' receive its tokens.
 """
 from __future__ import annotations
 
@@ -16,10 +20,11 @@ from types import ModuleType
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, rglru, transformer
+from repro_torch.models import common, encdec, rglru, transformer, xlstm
 
 _FAMILIES = {"dense": transformer, "moe": transformer,
-             "mla_moe": transformer, "rglru": rglru}
+             "mla_moe": transformer, "encdec": encdec, "rglru": rglru,
+             "xlstm": xlstm}
 
 
 @dataclass
@@ -37,6 +42,8 @@ class Model:
         return self.impl.forward(self.cfg, params, batch, last_only=last_only)
 
     def prefill(self, params, batch, max_len):
+        if self.cfg.family == "encdec":
+            return self.impl.prefill(self.cfg, params, batch, max_len)
         return self.impl.prefill(self.cfg, params, batch["tokens"], max_len)
 
     def decode_step(self, params, cache, tokens, pos):
@@ -51,7 +58,5 @@ class Model:
 
 def get_model(cfg: ModelConfig) -> Model:
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; see ROADMAP.md "
-            "Queue 1 for the order in which the families follow")
+        raise KeyError(f"unknown family {cfg.family!r}")
     return Model(cfg, _FAMILIES[cfg.family])

@@ -41,10 +41,9 @@ from repro_torch.models.common import spec
 
 def _check_ported(cfg: ModelConfig):
     if cfg.family not in ("dense", "moe", "mla_moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: this module runs the "
-            "dense, moe and mla_moe families; xLSTM and encoder-decoder "
-            "follow (ROADMAP.md Queue 1)")
+        raise ValueError(
+            f"family {cfg.family!r}: this module runs the dense, moe and "
+            "mla_moe families (models.get_model picks each family's module)")
 
 
 def _check_cache(cfg: ModelConfig):

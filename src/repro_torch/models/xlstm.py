@@ -1,0 +1,406 @@
+"""xLSTM family (counterpart of ``repro.models.xlstm``): mLSTM blocks
+(chunkwise-parallel) and sLSTM blocks (sequential).
+
+48 blocks = 6 groups of (7 mLSTM + 1 sLSTM) for xlstm-1.3b
+(``slstm_every`` 8), the groups stacked on a leading G axis and the mLSTM
+blocks of a group on a second one, iterated with Python loops. The mLSTM
+matrix-memory recurrence is computed chunkwise over chunks of
+``min(256, S)`` positions (S must be a multiple of it): quadratic with
+decay weights inside a chunk, the carried (C, n) state across chunks; a
+decode step is the single-step recurrence. Input-gate logits are clipped
+to [-10, 10] instead of carrying the max-stabiliser through the chunkwise
+path; forget gates are log-sigmoids, so no exponent of a kept term
+overflows. The sLSTM keeps the exact max-stabiliser.
+
+Numerics follow JAX's default (``PerfOptions.mlstm_bf16`` off): the
+chunkwise mLSTM computes in f32, and JAX's rounding points are kept where
+its code has them: the gate logits are a product plus a bias in the
+weights' type, cast to f32 after the add; a step's ``k ⊗ v`` and
+``q / sqrt(dh)`` stay in the inputs' type; the sLSTM's ``x_t W + h R + b``
+is summed in the weights' type with ``h`` rounded to bf16; the per-head
+RMS norm casts to bf16; the sLSTM's output is cast to the input's type
+before the residual. Where JAX's einsum promotes a bf16 operand against
+an f32 one, the port casts it up first (``_ein``).
+
+No Pallas kernel computes either recurrence in JAX (both are XLA), so
+both stay plain PyTorch here.
+
+The state keeps JAX's layout: ``{"mlstm": {"C" (G,n_m,B,H,dh,dh) f32,
+"n" (G,n_m,B,H,dh) f32, "conv" (G,n_m,B,cw-1,Di)}, "slstm": {"h", "c",
+"n", "m"} (G,B,D) f32}``; its size does not depend on the sequence.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.bridge import tree_map
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.common import spec
+from repro_torch.models.rglru import _take, causal_conv
+from repro_torch.models.transformer import _stack
+
+_CHUNK = 256
+_ILOG_CLIP = 10.0
+
+
+def _dims(cfg: ModelConfig):
+    D = cfg.d_model
+    Di = int(cfg.mlstm_proj_factor * D)
+    H = cfg.n_heads
+    dh = Di // H
+    Fs = ((4 * D // 3) // 128) * 128      # sLSTM post-FFN hidden
+    return D, Di, H, dh, Fs
+
+
+def _ein(eq, *xs):
+    """``torch.einsum`` with JAX's type promotion: every operand cast to
+    their common type first."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return torch.einsum(eq, *(x.to(dt) for x in xs))
+
+
+# ----------------------------------------------------------------------
+# specs
+# ----------------------------------------------------------------------
+
+def _mlstm_specs(cfg: ModelConfig):
+    D, Di, H, dh, _ = _dims(cfg)
+    cw = cfg.conv_width
+    return {
+        "norm": L.norm_specs(cfg),
+        "w_up": spec((D, Di), ("embed", "mlstm_v")),
+        "w_z": spec((D, Di), ("embed", "mlstm_v")),
+        "conv_w": spec((cw, Di), ("conv", "mlstm_v"), fan_in_axes=(0,)),
+        "conv_b": spec((Di,), ("mlstm_v",), init="zeros"),
+        "wq": spec((H, dh, dh), ("heads", "head_in", "mlstm_vh"),
+                   fan_in_axes=(1,)),
+        "wk": spec((H, dh, dh), ("heads", "head_in", "mlstm_vh"),
+                   fan_in_axes=(1,)),
+        "wv": spec((H, dh, dh), ("heads", "head_in", "mlstm_vh"),
+                   fan_in_axes=(1,)),
+        "w_i": spec((Di, H), ("mlstm_v", "heads")),
+        "b_i": spec((H,), ("heads",), init="zeros"),
+        "w_f": spec((Di, H), ("mlstm_v", "heads")),
+        "b_f": spec((H,), ("heads",), init="ones"),
+        "gn": spec((Di,), ("mlstm_v",), init="ones"),
+        "w_down": spec((Di, D), ("mlstm_v", "embed")),
+    }
+
+
+def _slstm_specs(cfg: ModelConfig):
+    D, _, _, _, Fs = _dims(cfg)
+    H = cfg.slstm_heads
+    dh = D // H
+    gates = {}
+    for g in ("z", "i", "f", "o"):
+        gates[f"w_{g}"] = spec((D, D), ("embed", "slstm_d"))
+        gates[f"r_{g}"] = spec((H, dh, dh), ("heads", "head_in", "slstm_dh"),
+                               fan_in_axes=(1,))
+        gates[f"b_{g}"] = spec((D,), ("slstm_d",), init="zeros")
+    return {
+        "norm": L.norm_specs(cfg),
+        **gates,
+        "ffn_norm": L.norm_specs(cfg),
+        "w_up": spec((D, Fs), ("embed", "ffn")),
+        "w_dn": spec((Fs, D), ("ffn", "embed")),
+    }
+
+
+def _group_counts(cfg: ModelConfig):
+    """(groups, mLSTM blocks a group)."""
+    per = cfg.slstm_every
+    if cfg.family != "xlstm" or per < 1 or cfg.n_layers % per:
+        raise ValueError(f"{cfg.name!r}: an xlstm config's n_layers "
+                         f"({cfg.n_layers}) must divide into groups of "
+                         f"slstm_every ({per}) blocks")
+    return cfg.n_layers // per, per - 1
+
+
+def param_specs(cfg: ModelConfig):
+    G, n_m = _group_counts(cfg)
+    group = {"mlstm": _stack(_mlstm_specs(cfg), n_m),
+             "slstm": _slstm_specs(cfg)}
+    return {
+        "embed": {"tok": spec((cfg.vocab_size, cfg.d_model),
+                              ("vocab", "embed"), fan_in_axes=())},
+        "groups": _stack(group, G),
+        "final_norm": L.norm_specs(cfg),
+        "lm_head": spec((cfg.d_model, cfg.vocab_size), ("embed", "vocab")),
+    }
+
+
+# ----------------------------------------------------------------------
+# mLSTM
+# ----------------------------------------------------------------------
+
+def _mh_rms(x, scale):
+    """Per-head RMS norm in f32: x (B,S,H,dh), scale (H*dh,); then the
+    scale, then bf16."""
+    B, S, H, dh = x.shape
+    y = L.rms_norm(x.float(), torch.ones((dh,), dtype=torch.float32,
+                                         device=x.device))
+    return (y.reshape(B, S, H * dh) * scale).to(torch.bfloat16)
+
+
+def mlstm_chunkwise(q, k, v, ilog, flog, state=None, chunk=_CHUNK):
+    """q, k, v (B,S,H,dh); ilog / flog (B,S,H) f32 (flog <= 0). state:
+    {'C': (B,H,dh,dh) f32, 'n': (B,H,dh) f32} or None (zeros). S must be a
+    multiple of ``min(chunk, S)``. Computes in f32. Returns (h (B,S,H,dh)
+    f32, new state)."""
+    B, S, H, dh = q.shape
+    c = min(chunk, S)
+    if S % c:
+        raise ValueError(f"mlstm_chunkwise: S = {S} must be a multiple of "
+                         f"min({chunk}, S) = {c} (the chunk length)")
+    nc = S // c
+    scale = 1.0 / math.sqrt(dh)
+    qf = (q.float() * scale).reshape(B, nc, c, H, dh)
+    kf = k.float().reshape(B, nc, c, H, dh)
+    vf = v.float().reshape(B, nc, c, H, dh)
+    il = ilog.reshape(B, nc, c, H)
+    fl = flog.reshape(B, nc, c, H)
+    dev = q.device
+    if state is None:
+        C = torch.zeros((B, H, dh, dh), dtype=torch.float32, device=dev)
+        n = torch.zeros((B, H, dh), dtype=torch.float32, device=dev)
+    else:
+        C, n = state["C"], state["n"]
+    tri = torch.ones((c, c), dtype=torch.bool, device=dev).tril()
+    hs = []
+    for ci in range(nc):
+        qc, kc, vc, ic, fc = qf[:, ci], kf[:, ci], vf[:, ci], il[:, ci], \
+            fl[:, ci]
+        cum = torch.cumsum(fc, dim=1)                   # inclusive log f
+        # inter-chunk: h_t += exp(cum_t) q_t C, n_t += exp(cum_t) n
+        dec_t = torch.exp(cum)                          # (B,c,H)
+        h_inter = torch.einsum("bthd,bhde->bthe", qc, C) * dec_t[..., None]
+        n_inter = n[:, None] * dec_t[..., None]
+        # intra-chunk decay w_tj = exp(cum_t - cum_j + il_j), j <= t: above
+        # the diagonal the exponent may overflow, so the mask selects
+        g = ic - cum                                    # (B,c,H)
+        wmat = torch.where(tri[None, :, :, None],
+                           torch.exp(cum[:, :, None] + g[:, None, :]), 0.0)
+        s = torch.einsum("bthd,bjhd->btjh", qc, kc) * wmat
+        h_intra = torch.einsum("btjh,bjhd->bthd", s, vc)
+        n_intra = torch.einsum("btjh,bjhd->bthd", wmat, kc)
+        den = torch.einsum("bthd,bthd->bth", qc, n_inter + n_intra).abs()
+        hs.append((h_inter + h_intra) / torch.clamp_min(den, 1.0)[..., None])
+        # the state past the chunk
+        last = cum[:, -1]                               # (B,H)
+        wj = torch.exp(last[:, None] + g)               # (B,c,H)
+        C = C * torch.exp(last)[..., None, None] + torch.einsum(
+            "bjhd,bjhe->bhde", kc * wj[..., None], vc)
+        n = n * torch.exp(last)[..., None] + torch.einsum(
+            "bjh,bjhd->bhd", wj, kc)
+    h = torch.stack(hs, dim=1).reshape(B, S, H, dh)
+    return h, {"C": C, "n": n}
+
+
+def mlstm_step(q, k, v, ilog, flog, state):
+    """One decode step. q, k, v (B,H,dh); gates (B,H) f32. ``k ⊗ v`` and
+    ``q / sqrt(dh)`` stay in the inputs' type; the state is f32."""
+    f = torch.exp(flog)[..., None]
+    i = torch.exp(ilog)[..., None]
+    C = state["C"] * f[..., None] + i[..., None] * (k[..., :, None]
+                                                    * v[..., None, :])
+    n = state["n"] * f + i * k
+    dh = q.shape[-1]
+    # JAX takes the Python scale as a weak type: rounded to q's type first
+    qs = q * torch.tensor(1.0 / math.sqrt(dh), dtype=q.dtype, device=q.device)
+    h = _ein("bhd,bhde->bhe", qs, C)
+    den = _ein("bhd,bhd->bh", qs, n).abs()
+    h = h / torch.clamp_min(den, 1.0)[..., None]
+    return h, {"C": C, "n": n}
+
+
+def mlstm_block(cfg: ModelConfig, p, x, state=None):
+    """x (B,S,D); state {'C','n','conv'} or None. Returns (y, new state):
+    chunkwise over a sequence (from the state where one is given), the
+    step recurrence for one token after a state."""
+    B, S, D = x.shape
+    _, Di, H, dh, _ = _dims(cfg)
+    h = L.apply_norm(cfg, p["norm"], x)
+    u = h @ p["w_up"]                                   # (B,S,Di)
+    z = h @ p["w_z"]
+    conv_state = state["conv"] if state is not None else None
+    cpre, new_conv = causal_conv(u, p["conv_w"], p["conv_b"], conv_state)
+    cact = F.silu(cpre)
+    ch = cact.reshape(B, S, H, dh)
+    uh = u.reshape(B, S, H, dh)
+    q = _ein("bshd,hde->bshe", ch, p["wq"])
+    k = _ein("bshd,hde->bshe", ch, p["wk"])
+    v = _ein("bshd,hde->bshe", uh, p["wv"])
+    ilog = torch.clamp((cact @ p["w_i"] + p["b_i"]).float(), -_ILOG_CLIP,
+                       _ILOG_CLIP)
+    flog = F.logsigmoid((cact @ p["w_f"] + p["b_f"]).float())
+    if state is None or S > 1:
+        st = None if state is None else {"C": state["C"], "n": state["n"]}
+        hs, new_st = mlstm_chunkwise(q, k, v, ilog, flog, st)
+    else:
+        hs, new_st = mlstm_step(q[:, 0], k[:, 0], v[:, 0], ilog[:, 0],
+                                flog[:, 0], {"C": state["C"],
+                                             "n": state["n"]})
+        hs = hs[:, None]
+    hn = _mh_rms(hs, p["gn"])                           # (B,S,Di)
+    out = (hn * F.silu(z)) @ p["w_down"]
+    return x + out, {"C": new_st["C"], "n": new_st["n"], "conv": new_conv}
+
+
+# ----------------------------------------------------------------------
+# sLSTM
+# ----------------------------------------------------------------------
+
+def _gate_weights(p):
+    """The four gates' input weights side by side (D, 4D), recurrent
+    weights (H, dh, 4 dh) and biases (4, D), in z, i, f, o order."""
+    H, dh, _ = p["r_z"].shape
+    gs = ("z", "i", "f", "o")
+    w = torch.stack([p[f"w_{g}"] for g in gs], dim=1)        # (D,4,D)
+    r = torch.stack([p[f"r_{g}"] for g in gs], dim=2)        # (H,dh,4,dh)
+    b = torch.stack([p[f"b_{g}"] for g in gs])               # (4,D)
+    return w.reshape(w.shape[0], -1), r.reshape(H, dh, 4 * dh), b
+
+
+def _slstm_rec(r, b, h_prev, xw_t):
+    """The four gates' pre-activations (B,4,D) f32 of one step, from
+    ``_gate_weights``' r and b: ``xw_t`` (B,4,D) is the input's product
+    with the gates' weights, h_prev (B,D) is rounded to bf16 for the
+    recurrent product; the sum ``x W + h R + b`` is taken in the weights'
+    type, then cast to f32."""
+    H, dh, _ = r.shape
+    B, D = h_prev.shape
+    hh = h_prev.reshape(B, H, dh).to(torch.bfloat16)
+    rec = _ein("bhd,hde->bhe", hh, r)                   # (B,H,4dh)
+    rec = rec.reshape(B, H, 4, dh).transpose(1, 2).reshape(B, 4, D)
+    return (xw_t + rec + b).float()
+
+
+def slstm_apply(cfg: ModelConfig, p, x, state=None):
+    """Sequential sLSTM with the exact max-stabiliser, then its GELU
+    post-FFN. x (B,S,D); state {'h','c','n','m'} (B,D) f32 or None
+    (zeros, n = 1e-6). The input's products with the gate weights are
+    taken for all S at once (the same rounding a step's would have), the
+    recurrence one position at a time. Returns (y, new state)."""
+    B, S, D = x.shape
+    xn = L.apply_norm(cfg, p["norm"], x)
+    if state is None:
+        z = torch.zeros((B, D), dtype=torch.float32, device=x.device)
+        state = {"h": z, "c": z, "n": z + 1e-6, "m": z}
+    w, r, b = _gate_weights(p)
+    xw = (xn @ w).reshape(B, S, 4, D)
+    st, hs = state, []
+    for t in range(S):
+        o = _slstm_rec(r, b, st["h"], xw[:, t])
+        zt = torch.tanh(o[:, 0])
+        logi = torch.clamp(o[:, 1], -_ILOG_CLIP, _ILOG_CLIP)
+        logf = F.logsigmoid(o[:, 2])
+        m_new = torch.maximum(logf + st["m"], logi)
+        i_s = torch.exp(logi - m_new)
+        f_s = torch.exp(logf + st["m"] - m_new)
+        c = f_s * st["c"] + i_s * zt
+        n = f_s * st["n"] + i_s
+        h = torch.sigmoid(o[:, 3]) * c / torch.clamp_min(n, 1e-6)
+        st = {"h": h, "c": c, "n": n, "m": m_new}
+        hs.append(h)
+    out = x + torch.stack(hs, dim=1).to(x.dtype)
+    hn = L.apply_norm(cfg, p["ffn_norm"], out)
+    out = out + F.gelu(hn @ p["w_up"], approximate="tanh") @ p["w_dn"]
+    return out, st
+
+
+# ----------------------------------------------------------------------
+# model API
+# ----------------------------------------------------------------------
+
+def _stack_trees(trees):
+    """The leaves of same-shaped trees stacked on a new leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _group_apply(cfg: ModelConfig, gp, x, states=None):
+    """One group: its mLSTM blocks, then its sLSTM. ``states`` the group's
+    slice of the state tree, or None. Returns (x, the group's new
+    states)."""
+    n_m = gp["mlstm"]["w_i"].shape[0]
+    new_m = []
+    for i in range(n_m):
+        st = None if states is None else _take(states["mlstm"], i)
+        x, ns = mlstm_block(cfg, _take(gp["mlstm"], i), x, st)
+        new_m.append(ns)
+    s_st = None if states is None else states["slstm"]
+    x, s_new = slstm_apply(cfg, gp["slstm"], x, s_st)
+    return x, {"mlstm": _stack_trees(new_m), "slstm": s_new}
+
+
+def forward(cfg: ModelConfig, params, batch, *, last_only=False,
+            return_states=False):
+    """tokens (B,S) -> logits (B,S,V) (or (B,1,V) with ``last_only``);
+    with ``return_states`` also the state tree after the last position.
+    S must be a multiple of ``min(256, S)``."""
+    G, _ = _group_counts(cfg)
+    h = params["embed"]["tok"][batch["tokens"]]
+    states = []
+    for g in range(G):
+        h, st = _group_apply(cfg, _take(params["groups"], g), h)
+        states.append(st)
+    h = L.apply_norm(cfg, params["final_norm"], h)
+    if last_only:
+        h = h[:, -1:]
+    logits = h @ params["lm_head"]
+    if return_states:
+        return logits, _stack_trees(states)
+    return logits
+
+
+def cache_spec(cfg: ModelConfig, batch: int, max_len: int):
+    """The state tree's ``(shape, dtype)`` leaves (``max_len`` is not
+    read: the state does not grow)."""
+    G, n_m = _group_counts(cfg)
+    D, Di, H, dh, _ = _dims(cfg)
+    cw = cfg.conv_width
+    f32 = torch.float32
+    return {
+        "mlstm": {"C": ((G, n_m, batch, H, dh, dh), f32),
+                  "n": ((G, n_m, batch, H, dh), f32),
+                  "conv": ((G, n_m, batch, cw - 1, Di), torch.bfloat16)},
+        "slstm": {k: ((G, batch, D), f32) for k in ("h", "c", "n", "m")},
+    }
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+    """Zeros, the sLSTM normaliser n at 1e-6."""
+    c = tree_map(lambda s: torch.zeros(s[0], dtype=s[1], device=device),
+                 cache_spec(cfg, batch, max_len))
+    c["slstm"]["n"] += 1e-6
+    return c
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params, tokens, max_len: int):
+    """tokens (B,S) -> (last-token logits (B,V), the state tree)."""
+    logits, states = forward(cfg, params, {"tokens": tokens}, last_only=True,
+                             return_states=True)
+    return logits[:, -1], states
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
+    """tokens (B,1) -> (logits (B,V), the new state tree). ``pos`` is not
+    read: the recurrence carries the position."""
+    G, _ = _group_counts(cfg)
+    h = params["embed"]["tok"][tokens]
+    states = []
+    for g in range(G):
+        h, st = _group_apply(cfg, _take(params["groups"], g), h,
+                             _take(cache, g))
+        states.append(st)
+    h = L.apply_norm(cfg, params["final_norm"], h)
+    return (h @ params["lm_head"])[:, 0], _stack_trees(states)

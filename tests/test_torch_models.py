@@ -115,8 +115,16 @@ def test_layers_match_jax(cfgs):
         atol=1e-5, rtol=0)
 
 
-def test_other_families_raise_naming_roadmap(cfgs):
+def test_unknown_family_raises_key_error_naming_it(cfgs):
+    """Every family of the JAX package is ported; a family neither package
+    knows raises ``KeyError`` naming it, as JAX's registry does."""
     import dataclasses
-    _, cfg = cfgs
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model(dataclasses.replace(cfg, family="xlstm"))
+
+    from repro.models.registry import get_model as jax_get_model
+    jcfg, cfg = cfgs
+    for family in ("dense", "moe", "mla_moe", "encdec", "rglru", "xlstm"):
+        assert get_model(dataclasses.replace(cfg, family=family)).impl \
+            is not None
+    for fn, c in ((get_model, cfg), (jax_get_model, jcfg)):
+        with pytest.raises(KeyError, match="'mamba'"):
+            fn(dataclasses.replace(c, family="mamba"))

@@ -29,10 +29,20 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# prefill_kernel<DK>, <DK, DV> or <DK, DV, FULL> in a mangled name
+_ENTRY = r"prefill_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?"
+
+
+def _key(m):
+    return f"{m.group(1)},{m.group(2) or m.group(1)}" + (
+        ",full" if m.group(3) == "1" else "")
+
+
 def instantiations(lib, log):
     """{"dk,dv": {"ptxas": [...], "sass": sha256}} of every
     ``prefill_kernel`` instantiation in library ``lib`` (a tree that
-    instantiates one width per kernel reads as dk = dv)."""
+    instantiates one width per kernel reads as dk = dv; a FULL
+    instantiation, neither causal nor windowed, as "dk,dv,full")."""
     import hashlib
     import re
     import shutil
@@ -40,8 +50,8 @@ def instantiations(lib, log):
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(r"prefill_kernelILi(\d+)E(?:Li(\d+)E)?", m.group(1))
-            key = f"{k.group(1)},{k.group(2) or k.group(1)}" if k else None
+            k = re.search(_ENTRY, m.group(1))
+            key = _key(k) if k else None
         elif key is not None and ("spill" in ln or "Used" in ln):
             out.setdefault(key, {"ptxas": []})["ptxas"].append(
                 ln.split("info    :")[-1].strip())
@@ -50,12 +60,12 @@ def instantiations(lib, log):
                           text=True).stdout
     parts = re.split(r"\n\s*Function : (\S+)\n", sass)
     for name, body in zip(parts[1::2], parts[2::2]):
-        k = re.search(r"prefill_kernelILi(\d+)E(?:Li(\d+)E)?", name)
+        k = re.search(_ENTRY, name)
         if not k:
             continue
         body = re.sub(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/", "", body)
         text = "\n".join(ln.strip() for ln in body.splitlines() if ln.strip())
-        out.setdefault(f"{k.group(1)},{k.group(2) or k.group(1)}", {})[
+        out.setdefault(_key(k), {})[
             "sass"] = hashlib.sha256(text.encode()).hexdigest()[:16]
     return out
 
