@@ -201,14 +201,17 @@
 6h. xLSTM phase: xlstm-1.3b at full width and depth (48 blocks, 3.97 GB
    bf16) as the one expert of ``CompositionOfExperts(HashRouter(1))``:
    ``generate`` on 4 prompts of 2048 tokens, 32 new (no kernel: JAX
-   computes both recurrences in XLA); every block of the prefill and of
-   one decode step, at the model's inputs, against the same block in f32
-   (random weights make the 48 blocks chaotic, so the end-to-end logits
-   against the f32 forward over the prompt and the tokens fed back are
-   printed as readings only); one mLSTM layer's chunkwise pass against
-   its step recurrence at full width in f32 (S 512). Prints the recurrent
-   state's bytes a lane, prefill s, tok/s and a step's host wall against
-   device busy.
+   computes both recurrences in XLA), its prefill timed apart. Random
+   weights make the 48 blocks chaotic, so each block is held at the
+   model's inputs instead of the end-to-end logits: the prefill again,
+   every block against the same block in f32 and every chunkwise mLSTM
+   core against its parallel form in f64 (512 positions); 31 decode
+   steps from its state, every block teacher-forced (the block in f32
+   over the steps' inputs as one chunk from its state before them). A
+   fault is planted for each check and must fail it: the first block's
+   core in bf16; the conv window and the sLSTM state not carried. Prints
+   the recurrent state's bytes a lane, prefill s, tok/s and a step's
+   host wall against device busy.
 7. RecurrentGemma phase, after the experts' store is released:
    recurrentgemma-9b at full width and depth (38 layers, 10.4 G parameters,
    bf16) as the one expert of a ``CompositionOfExperts(HashRouter(1))`` on
@@ -227,6 +230,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -521,26 +525,41 @@ WHISPER_FORWARD_LOGIT_TOL_REL = 0.0066
 # xLSTM-1.3B at full width and depth: 48 blocks (6 groups of 7 mLSTM and 1
 # sLSTM), D 2048, 4 mLSTM heads of 1024, vocab 50304, 3.97 GB of bf16, the
 # one expert of CompositionOfExperts(HashRouter(1)); generate on 4 prompts
-# of 2048 tokens, 32 new. The chunkwise-against-step check: one mLSTM layer
-# at full width in f32, S 512 (two chunks of 256).
+# of 2048 tokens, 32 new. The chunkwise-against-step check: every mLSTM
+# core of the prefill over its first 512 positions (two chunks of 256).
 XLSTM = dict(prompts=4, prompt_len=2048, new_tokens=32, check_len=512,
              seed=31)
 # With random weights the 48 blocks amplify a perturbation ~1.17x each
 # (CPU trials at D 512: 1e-3 at the input reads 0.029 after 16 blocks), so
 # the bf16 path's end-to-end logits part from the f32 forward by tens of
 # per cent of the largest (0.44 on the first H100 run) and no end-to-end
-# limit could see a fault: the phase prints those readings and holds each
-# block instead. Every block's update (y - x) and new state (mLSTM C and n;
-# sLSTM h, c, n, m), at the model's own bf16 inputs and state, against the
-# same block in f32 (weights, input and state upcast): relative L2 over the
-# whole tensor, in the prefill and in one decode step; 1.25x the widest
-# first H100 reading (an mLSTM update in the decode step, 0.0220; the
-# states read at most 0.0079).
+# limit could see a fault: each block is held instead, at the model's own
+# bf16 inputs and state. In the prefill, every block's update (y - x) and
+# new state (mLSTM C and n; sLSTM h, c, n, m) against the same block in
+# f32 (weights, input and state upcast): relative L2 over the whole
+# tensor; 1.25x the widest first H100 reading (0.0220; the states read at
+# most 0.0079). This reference cannot see the chunkwise core's precision
+# (it differs from the model by q / k / v's bf16 rounding already: the
+# first block with its core's products in bf16 reads 0.0117, inside the
+# 0.0165 the blocks read), so each core is also held against its f64
+# parallel form (XLSTM_CHUNK_REL_TOL).
 XLSTM_BLOCK_TOL_REL = 0.0276
-# The chunkwise mLSTM against the step recurrence, both f32 from the same
-# inputs: the largest row relative L2 error of h and the relative L2 error
-# of the final C (JAX's tests/test_substrate.py holds the pair at rtol
-# 1e-3 at dh 16).
+# Each block's outputs over the 31 decode steps and its state after them,
+# at the model's inputs, against the same block in f32 run over the steps'
+# inputs as one chunk from its state before them (the blocks
+# teacher-forced: the state carried from the prefill and from step to step
+# is held at full width): 1.25x the first H100 reading (an mLSTM update,
+# 0.01656; sLSTM 0.01524, states <= 0.0073). The planted carry faults
+# (the conv window, the sLSTM state dropped) read 1.26 and 0.38.
+XLSTM_TF_TOL_REL = 0.0207
+# Each chunkwise mLSTM pass of the prefill, at the model's own q / k / v
+# and gates, over its first check_len positions (two chunks of 256)
+# against its parallel form in f64 from the same inputs: h's largest row
+# relative L2 error and C's relative L2 error (JAX's tests/test_substrate.py
+# holds the chunkwise pass against the step recurrence at rtol 1e-3, as
+# here; the teacher-forced check holds the model's steps against the
+# chunkwise pass). The H100 reads 2.6e-5 / 3.9e-6, the first block's core
+# planted in bf16 (autocast) 9.9e-3.
 XLSTM_CHUNK_REL_TOL = 1e-3
 
 
@@ -4608,103 +4627,246 @@ def rel_l2(got, want):
     return float((g - w).norm() / w.norm().clamp_min(1e-30))
 
 
+# the xLSTM functions the checks tap (``xlstm_patched``)
+XLSTM_FNS = ("mlstm_block", "slstm_apply", "mlstm_chunkwise")
+
+
 @contextlib.contextmanager
-def xlstm_blocks_checked():
-    """Within the block, every xLSTM block (``xlstm.mlstm_block``,
-    ``xlstm.slstm_apply``; one call a block) is also computed in f32 on the
-    same input and state (weights upcast), and its (kind, the update's
-    relative L2 error, the new state's widest relative L2 error) is
-    appended to the list the block receives. Nothing in the port is
-    edited."""
-    from repro_torch.bridge import tree_map
+def xlstm_patched(wrap):
+    """Within the block, each of ``XLSTM_FNS`` in ``models/xlstm.py`` is
+    ``wrap(name, real)`` (the model looks them up on every call); the
+    real ones are back after it. Nothing in the port is edited."""
     from repro_torch.models import xlstm as X
-    real, errs = (X.mlstm_block, X.slstm_apply), []
-    up = lambda t: None if t is None else tree_map(lambda a: a.float(), t)
-
-    def checked(kind, fn):
-        def run(cfg, p, x, state=None):
-            y, st = fn(cfg, p, x, state)
-            y32, st32 = fn(cfg, up(p), x.float(), up(state))
-            errs.append((kind, rel_l2(y - x, y32 - x.float()),
-                         max(rel_l2(st[k], st32[k]) for k in st
-                             if k != "conv")))
-            return y, st
-        return run
-    X.mlstm_block = checked("mlstm", real[0])
-    X.slstm_apply = checked("slstm", real[1])
+    real = {n: getattr(X, n) for n in XLSTM_FNS}
+    for n, f in real.items():
+        setattr(X, n, wrap(n, f))
     try:
-        yield errs
+        yield
     finally:
-        X.mlstm_block, X.slstm_apply = real
+        for n, f in real.items():
+            setattr(X, n, f)
 
 
-def blocks_check(label, errs, tol=XLSTM_BLOCK_TOL_REL):
-    """``errs`` from ``xlstm_blocks_checked``: each within ``tol``; prints
-    the widest of each kind."""
-    for kind in ("mlstm", "slstm"):
+def _f32(t):
+    from repro_torch.bridge import tree_map
+    return None if t is None else tree_map(lambda a: a.float(), t)
+
+
+def _state_err(st, st32):
+    """The widest relative L2 error over a block's new state (the conv
+    window aside: it is the input's last positions, held by the update)."""
+    return max(rel_l2(st[k], st32[k]) for k in st if k != "conv")
+
+
+def mlstm_parallel64(q, k, v, ilog, flog, state):
+    """The mLSTM over every position of q / k / v (B,S,H,dh) from
+    ``state`` (None: zeros) in its parallel form, in f64, the plain
+    version of the chunkwise pass: (h (B,S,H,dh), C after the last
+    position). With F the cumulative log forget gates and q scaled by
+    1/sqrt(dh): C_t = e^{F_t} C_0 + sum_{j<=t} e^{F_t - F_j + i_j} k_j v_j^T,
+    n_t likewise, h_t = q_t C_t / max(|q_t . n_t|, 1)."""
+    B, S, H, dh = q.shape
+    qd = q.double() / math.sqrt(dh)
+    kd, vd = k.double(), v.double()
+    F = torch.cumsum(flog.double(), 1)                     # (B,S,H)
+    g = ilog.double() - F
+    tri = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    w = torch.where(tri[None, :, :, None],
+                    torch.exp(F[:, :, None] + g[:, None]), 0.0)
+    s = torch.einsum("bthd,bjhd->btjh", qd, kd) * w
+    num = torch.einsum("btjh,bjhe->bthe", s, vd)
+    den = s.sum(2)
+    wS = torch.exp(F[:, -1:] + g)                          # (B,S,H)
+    C = torch.einsum("bjh,bjhd,bjhe->bhde", wS, kd, vd)
+    if state is not None:
+        dec = torch.exp(F)
+        num = num + dec[..., None] * torch.einsum(
+            "bthd,bhde->bthe", qd, state["C"].double())
+        den = den + dec * torch.einsum("bthd,bhd->bth", qd,
+                                       state["n"].double())
+        C = C + torch.exp(F[:, -1])[..., None, None] * state["C"].double()
+    return num / torch.clamp_min(den.abs(), 1.0)[..., None], C
+
+
+@contextlib.contextmanager
+def xlstm_blocks_checked(faults=None):
+    """Within the block, the model's xLSTM blocks are held at their own
+    inputs, one entry a call appended to the list the block receives:
+    each block (``mlstm_block``, ``slstm_apply``) against the same block
+    in f32 on the same input and state, weights upcast: (kind, the
+    update's relative L2 error, the new state's widest); each chunkwise
+    mLSTM pass (``mlstm_chunkwise``, f32 by the config) over its first
+    ``XLSTM["check_len"]`` positions against its parallel form in f64
+    (``mlstm_parallel64``) from the same q / k / v, gates and state:
+    ("core", h's largest row relative L2 error, C's relative L2 error).
+    The f32 block references cannot see the core's precision (they
+    differ from the model by the bf16 rounding of q / k / v already),
+    the f64 core can. ``faults`` maps a name of ``XLSTM_FNS`` to a
+    stand-in ``fault(real, *args)`` run in the model's place, never in a
+    reference's, to plant a fault that these checks must catch."""
+    faults, errs, in_ref = faults or {}, [], [False]
+    n_chk = XLSTM["check_len"]
+
+    def wrap(name, real):
+        def run(*a):
+            if in_ref[0]:
+                return real(*a)
+            fn = (lambda *b: faults[name](real, *b)) if name in faults \
+                else real
+            out = fn(*a)
+            in_ref[0] = True
+            try:
+                if name == "mlstm_chunkwise":
+                    q, k, v, il, fl = a[:5]
+                    st0 = a[5] if len(a) > 5 else None
+                    n = min(q.shape[1], n_chk)
+                    cut = [t[:, :n] for t in (q, k, v, il, fl)]
+                    hs, C = mlstm_parallel64(*cut, st0)
+                    _, st_c = out if n == q.shape[1] else fn(*cut, st0)
+                    errs.append(("core", row_rel_l2(out[0][:, :n], hs),
+                                 rel_l2(st_c["C"], C)))
+                else:
+                    cfg, p, x = a[:3]
+                    y, st = out
+                    y32, st32 = real(cfg, _f32(p), x.float(),
+                                     _f32(a[3] if len(a) > 3 else None))
+                    errs.append((name.split("_")[0],
+                                 rel_l2(y - x, y32 - x.float()),
+                                 _state_err(st, st32)))
+            finally:
+                in_ref[0] = False
+            return out
+        return run
+    with xlstm_patched(wrap):
+        yield errs
+
+
+def blocks_check(label, errs, tol=XLSTM_BLOCK_TOL_REL,
+                 core_tol=XLSTM_CHUNK_REL_TOL):
+    """``errs`` from ``xlstm_blocks_checked`` or
+    ``xlstm_teacher_forced``: each block within ``tol``, each chunkwise
+    core within ``core_tol``; prints the widest of each kind."""
+    worst = 0.0
+    for kind in ("mlstm", "slstm", "core"):
         e = [(u, s_) for k, u, s_ in errs if k == kind]
-        _log(f"{label}: {len(e)} {kind} blocks vs f32 at the model's inputs: "
-             f"widest update relative L2 {max(u for u, _ in e):.3e}, widest "
-             f"state {max(s_ for _, s_ in e):.3e} (tol {tol:.3e})")
-    worst = max(max(u, s_) for _, u, s_ in errs)
-    if not worst <= tol:
-        raise AssertionError(f"{label}: a block parts from its f32 "
-                             f"reference by {worst:.3e} > {tol:.3e}")
+        if not e:
+            continue
+        t = core_tol if kind == "core" else tol
+        what = ("chunkwise cores vs their f64 parallel form: widest h row "
+                "relative L2 {:.3e}, widest C {:.3e}") if kind == "core" \
+            else (kind + " blocks vs f32: widest update relative L2 "
+                  "{:.3e}, widest state {:.3e}")
+        _log(f"{label}: {len(e)} " + what.format(max(u for u, _ in e),
+                                                max(s_ for _, s_ in e))
+             + f" (tol {t:.3e})")
+        worst = max(worst, max(max(u, s_) for u, s_ in e) / t)
+    if not worst <= 1.0:
+        raise AssertionError(f"{label}: a block parts from its reference "
+                             f"by {worst:.2f}x its limit")
 
 
-def mlstm_chunk_check(cfg, dev):
-    """One mLSTM layer's chunkwise pass at full width in f32 (S 512 in two
-    chunks of 256) against the step recurrence over the same inputs (JAX's
-    tests/test_substrate.py::test_mlstm_chunkwise_matches_step on the
-    card): random q / k / v, input-gate logits N(0, 0.25), forget gates
-    log-sigmoids of N(0, 1)."""
-    import torch.nn.functional as Fn
+def expect_caught(label, check):
+    """A fault planted in the model's run must fail ``check``."""
+    try:
+        check()
+    except AssertionError as e:
+        _log(f"{label}: caught ({e})")
+        return
+    raise AssertionError(f"{label}: the check missed a planted fault")
 
+
+def xlstm_decode_tapped(model, params, st, tok, pos, n_steps, faults=None):
+    """``n_steps`` greedy decode steps from state ``st`` and token ``tok``
+    at ``pos``, every block call tapped: ``faults`` as in
+    ``xlstm_blocks_checked`` (blocks only). Returns (the logits of each
+    step, the tokens fed, the taps: per call [kind, params, input, state
+    before (the first step's only), output, state after (the last
+    step's only)])."""
+    faults, taps, logits, fed = faults or {}, [], [], []
+
+    def wrap(name, real):
+        if name == "mlstm_chunkwise":
+            return real
+
+        def run(cfg, p, x, state):
+            y, new = (faults[name](real, cfg, p, x, state) if name in faults
+                      else real(cfg, p, x, state))
+            taps.append([name.split("_")[0], p, x, state, y, new])
+            return y, new
+        return run
+    with xlstm_patched(wrap), torch.no_grad():
+        for t in range(n_steps):
+            n0 = len(taps)
+            fed.append(tok)
+            lg, st = model.decode_step(params, st, tok[:, None], pos + t)
+            tok = lg.argmax(-1)
+            logits.append(lg)
+            if t:
+                # keep the first step's states before and the last's after
+                for r, prev in zip(taps[n0:], taps[2 * n0 - len(taps):n0]):
+                    r[3], prev[5] = None, None
+    return logits, fed, taps
+
+
+def xlstm_teacher_forced(cfg, taps, n_steps):
+    """Each block's outputs over the decode steps tapped by
+    ``xlstm_decode_tapped`` and its state after the last, against the same
+    block in f32 (weights upcast) run over the steps' inputs as one chunk
+    from its state before the first step: the blocks teacher-forced at the
+    model's inputs, so a state carried wrongly from step to step, or from
+    the prefill into the steps, shows at full width. (kind, the updates'
+    relative L2 error, the final state's widest) a block."""
     from repro_torch.models import xlstm as X
-    _, _, H, dh, _ = X._dims(cfg)
-    B, S = XLSTM["prompts"], XLSTM["check_len"]
-    gen = torch.Generator(device=dev).manual_seed(XLSTM["seed"])
-    q, k, v = (torch.randn((B, S, H, dh), generator=gen, device=dev)
-               for _ in range(3))
-    il = torch.randn((B, S, H), generator=gen, device=dev) * 0.5
-    fl = Fn.logsigmoid(torch.randn((B, S, H), generator=gen, device=dev))
+    nb = len(taps) // n_steps
+    if nb * n_steps != len(taps):
+        raise AssertionError(f"xlstm: {len(taps)} block calls in {n_steps} "
+                             "decode steps")
+    errs = []
     with torch.no_grad():
-        hc, st_c = X.mlstm_chunkwise(q, k, v, il, fl)
-        st = {"C": torch.zeros((B, H, dh, dh), device=dev),
-              "n": torch.zeros((B, H, dh), device=dev)}
-        hs = []
-        for t in range(S):
-            h, st = X.mlstm_step(q[:, t], k[:, t], v[:, t], il[:, t],
-                                 fl[:, t], st)
-            hs.append(h)
-        hs = torch.stack(hs, 1)
-    h_err = row_rel_l2(hc, hs)
-    c_err = float((st_c["C"] - st["C"]).norm() / st["C"].norm())
-    _log(f"xlstm: mLSTM chunkwise (S {S}, chunk {min(256, S)}) vs step "
-         f"recurrence at full width (B {B}, {H} heads of {dh}), f32: h "
-         f"largest row relative L2 {h_err:.3e}, final C relative L2 "
-         f"{c_err:.3e} (tol {XLSTM_CHUNK_REL_TOL:.0e})")
-    if not (h_err <= XLSTM_CHUNK_REL_TOL and c_err <= XLSTM_CHUNK_REL_TOL):
-        raise AssertionError("xlstm: the chunkwise mLSTM parts from the "
-                             "step recurrence")
+        for i in range(nb):
+            rs = taps[i::nb]
+            kind, p, st0 = rs[0][0], rs[0][1], rs[0][3]
+            xs = torch.cat([r[2] for r in rs], 1)
+            ys = torch.cat([r[4] for r in rs], 1)
+            fn = X.mlstm_block if kind == "mlstm" else X.slstm_apply
+            y32, st32 = fn(cfg, _f32(p), xs.float(), _f32(st0))
+            errs.append((kind, rel_l2(ys - xs, y32 - xs.float()),
+                         _state_err(rs[-1][5], st32)))
+    return errs
+
+
+def _chunkwise_autocast(real, *a):
+    """A planted fault: the chunkwise mLSTM's products in bf16 (under
+    autocast), although the config computes it in f32."""
+    with torch.autocast(a[0].device.type, dtype=torch.bfloat16):
+        h, st = real(*a)
+    return h.float(), {k: v.float() for k, v in st.items()}
+
+
+# planted in the decode steps: the conv window and the sLSTM state not
+# carried from step to step
+XLSTM_CARRY_FAULTS = {
+    "mlstm_block": lambda real, cfg, p, x, s: real(
+        cfg, p, x, {**s, "conv": torch.zeros_like(s["conv"])}),
+    "slstm_apply": lambda real, cfg, p, x, s: real(cfg, p, x, None),
+}
 
 
 def xlstm_phase(dev):
     """xLSTM-1.3B at full width and depth as the one expert of
     ``CompositionOfExperts(HashRouter(1))`` (a pinned host store, an HBM
     cache of one): ``generate`` on 4 prompts of 2048 tokens, 32 new (no
-    kernel: JAX computes both recurrences in XLA); then the prefill and
-    the decode alone, timed; every block of the prefill and of one decode
-    step against the same block in f32 at the model's inputs; the
-    end-to-end logits against the f32 forward over the prompt and, from
-    its state, the tokens fed back as one chunk, printed as readings; the
-    chunkwise mLSTM against the step recurrence at full width."""
-    from repro_torch.bridge import tree_bytes, tree_leaves, tree_map
+    kernel: JAX computes both recurrences in XLA), timed, its prefill
+    apart; the prefill again with every block and chunkwise core checked
+    at the model's inputs (``xlstm_blocks_checked``), then 31 decode steps
+    from its state, every block teacher-forced (``xlstm_teacher_forced``);
+    a fault planted for each check (the first block's core in bf16; the
+    conv window and the sLSTM state not carried) must fail it."""
+    from repro_torch.bridge import tree_bytes, tree_leaves
     from repro_torch.configs import get_config
     from repro_torch.core import CompositionOfExperts, ExpertHandle, HashRouter
     from repro_torch.kernels import runtime as rt
     from repro_torch.models import get_model
-    from repro_torch.models import layers as L
     from repro_torch.models import xlstm as X
     from repro_torch.store import HostMemoryStore
     x = XLSTM
@@ -4729,10 +4891,24 @@ def xlstm_phase(dev):
     P, n_new, B = x["prompt_len"], x["new_tokens"], x["prompts"]
     toks = np.random.RandomState(x["seed"]).randint(
         0, cfg.vocab_size, (B, P)).astype(np.int32)
+    # generate's own run, its prefill timed apart (to the logits' argmax)
+    emodel, real_prefill, pre_s = coe._models[cfg.name], None, []
+
+    def timed_prefill(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_prefill(*a, **kw)
+        torch.cuda.synchronize()
+        pre_s.append(time.perf_counter() - t0)
+        return out
+    real_prefill, emodel.prefill = emodel.prefill, timed_prefill
     torch.cuda.synchronize()
     rt.reset_launches()
     t0 = time.perf_counter()
-    res = coe.generate(toks, n_new)
+    try:
+        res = coe.generate(toks, n_new)
+    finally:
+        del emodel.prefill
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check_launches("xlstm generate", rt.launch_counts(), {})
@@ -4740,87 +4916,78 @@ def xlstm_phase(dev):
             (res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
         raise AssertionError(f"xlstm generate: tokens {res.tokens.shape} or "
                              "out of vocabulary")
+    decode_s = res.exec_seconds - pre_s[0]
     _log(f"xlstm generate: {B} prompts x {P} tokens -> {res.tokens.size} "
          f"tokens in {wall:.3f}s = {res.tokens.size / wall:.2f} tok/s; "
-         f"switch_s={res.switch_seconds:.4f} exec_s={res.exec_seconds:.4f}; "
-         "no kernel launched")
+         f"switch_s={res.switch_seconds:.4f} exec_s={res.exec_seconds:.4f}: "
+         f"prefill {pre_s[0]:.3f}s ({B * P / pre_s[0]:.0f} tok/s), "
+         f"{n_new - 1} decode steps {decode_s:.3f}s = "
+         f"{decode_s / (n_new - 1) * 1e3:.2f} ms a step, "
+         f"{B * (n_new - 1) / decode_s:.2f} tok/s; no kernel launched")
 
-    # the prefill and the decode alone, on the resident weights
+    # the prefill with every block and chunkwise core checked at the
+    # model's inputs
     params = coe.cache.activate(cfg.name)
     tt = torch.as_tensor(toks, device=dev).long()
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    last, st = model.prefill(params, {"tokens": tt}, P + n_new)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
+    with xlstm_blocks_checked() as errs:
+        last, st = model.prefill(params, {"tokens": tt}, P + n_new)
+    if [k for k, _, _ in errs] != (["core", "mlstm"] * n_m + ["slstm"]) * G:
+        raise AssertionError("xlstm prefill: the checks saw other calls "
+                             "than the model's 48 blocks")
+    blocks_check("xlstm prefill", errs)
+    del errs
     lane_bytes = sum(t.numel() * t.element_size()
                      for t in tree_leaves(st)) / B
     c_bytes = st["mlstm"]["C"][:, :, 0].numel() * 4
-    tok = last.argmax(-1)
-    logits, fed = [last], []
-    t0 = time.perf_counter()
-    for t in range(n_new - 1):
-        fed.append(tok)
-        lg, st = model.decode_step(params, st, tok[:, None], P + t)
-        tok = lg.argmax(-1)
-        logits.append(lg)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    if not torch.equal(torch.stack(fed + [tok], 1).cpu(),
-                       torch.as_tensor(res.tokens)):
-        _log("xlstm: the timed decode's tokens differ from generate's (a "
-             "near tie)")
-    _log(f"xlstm: prefill of {B} x {P} tokens in {prefill_s:.3f}s "
-         f"({B * P / prefill_s:.0f} tok/s); {n_new - 1} decode steps in "
-         f"{decode_s:.3f}s = {decode_s / (n_new - 1) * 1e3:.2f} ms a step, "
-         f"{B * (n_new - 1) / decode_s:.2f} tok/s; recurrent state "
-         f"{lane_bytes / 1e9:.4f} GB a lane (mLSTM C {c_bytes / 1e9:.4f} "
-         "GB), whatever the prompt length")
-    step_breakdown(lambda: model.decode_step(params, st, tok[:, None],
-                                             P + n_new - 1),
-                   f"xlstm decode step ({B} lanes, {cfg.n_layers} blocks)")
-    del st
-
-    # each block at the model's inputs against f32: over the prompt, then
-    # in one decode step from the prompt's state
-    with xlstm_blocks_checked() as errs:
-        _, st = model.prefill(params, {"tokens": tt}, P + n_new)
-    blocks_check("xlstm prefill", errs)
-    with xlstm_blocks_checked() as errs:
-        model.decode_step(params, st, fed[0][:, None], P)
-    blocks_check("xlstm decode step", errs)
-    del st
-
-    # the end-to-end readings (no limit: see XLSTM_BLOCK_TOL_REL): the f32
-    # forward over the prompt, then over the tokens fed back as one chunk
-    # from the prompt's state
-    p32 = tree_map(lambda t: t.float(), params)
+    _log(f"xlstm: recurrent state {lane_bytes / 1e9:.4f} GB a lane (mLSTM "
+         f"C {c_bytes / 1e9:.4f} GB), whatever the prompt length")
     with torch.no_grad():
-        ref_last, st32 = X.forward(cfg, p32, {"tokens": tt}, last_only=True,
-                                   return_states=True)
-        h = p32["embed"]["tok"][torch.stack(fed, 1)]
-        for g in range(G):
-            h, _ = X._group_apply(cfg, X._take(p32["groups"], g), h,
-                                  X._take(st32, g))
-        h = L.apply_norm(cfg, p32["final_norm"], h)
-        ref_steps = h @ p32["lm_head"]
-    del p32, st32, h
-    logits = torch.stack(logits, 1).float()
-    for what, got, ref in (
-            ("prefill vs f32 forward, last prompt position", logits[:, 0],
-             ref_last[:, -1]),
-            (f"{n_new - 1} decode steps vs f32 teacher-forced forward (one "
-             "chunk from the prompt's state)", logits[:, 1:], ref_steps)):
-        ref = ref.float()
-        _log(f"xlstm {what} (a reading): max_abs_err "
-             f"{float((got - ref).abs().max()):.4f} of |logits|max "
-             f"{float(ref.abs().max()):.3f}, rel_l2 {rel_l2(got, ref):.4f}, "
-             f"argmax_agree "
-             f"{float((got.argmax(-1) == ref.argmax(-1)).float().mean()):.3f}")
-    del logits, ref_last, ref_steps, params
+        x0 = params["embed"]["tok"][tt]
+        p0 = X._take(X._take(params["groups"], 0)["mlstm"], 0)
+
+        def first_block_bf16_core():
+            with xlstm_blocks_checked(
+                    {"mlstm_chunkwise": _chunkwise_autocast}) as errs:
+                X.mlstm_block(cfg, p0, x0)
+            blocks_check("xlstm planted: block 0's core in bf16", errs)
+        expect_caught("xlstm planted: block 0's core in bf16",
+                      first_block_bf16_core)
+        del x0
+    _log(f"xlstm: the prefill's checks {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+
+    # the decode steps from the prefill's state, each block teacher-forced
+    logits, fed, taps = xlstm_decode_tapped(model, params, st,
+                                            last.argmax(-1), P, n_new - 1)
+    if not torch.equal(torch.stack(fed + [logits[-1].argmax(-1)], 1).cpu(),
+                       torch.as_tensor(res.tokens)):
+        _log("xlstm: the checked decode's tokens differ from generate's (a "
+             "near tie)")
+    blocks_check(f"xlstm {n_new - 1} decode steps teacher-forced",
+                 xlstm_teacher_forced(cfg, taps, n_new - 1),
+                 tol=XLSTM_TF_TOL_REL)
+    del taps, logits
+    n_f = 4
+    _, _, taps = xlstm_decode_tapped(model, params, st, last.argmax(-1), P,
+                                     n_f, XLSTM_CARRY_FAULTS)
+    errs = xlstm_teacher_forced(cfg, taps, n_f)
+    for kind in ("mlstm", "slstm"):
+        expect_caught(
+            f"xlstm planted: the {kind} state not carried ({n_f} steps)",
+            lambda: blocks_check(f"xlstm planted {kind}",
+                                 [e for e in errs if e[0] == kind],
+                                 tol=XLSTM_TF_TOL_REL))
+    del taps, errs
+    _log(f"xlstm: the decode steps' checks {time.perf_counter() - t0:.1f}s")
+    tok = last.argmax(-1)
+    t0 = time.perf_counter()
+    step_breakdown(lambda: model.decode_step(params, st, tok[:, None], P),
+                   f"xlstm decode step ({B} lanes, {cfg.n_layers} blocks)",
+                   n_steps=3)
+    _log(f"xlstm: the step's breakdown {time.perf_counter() - t0:.1f}s")
+    del st, params
     coe.cache.close()
-    torch.cuda.empty_cache()
-    mlstm_chunk_check(cfg, dev)
     torch.cuda.empty_cache()
     _log(f"xlstm: phase {time.perf_counter() - t_phase:.1f}s")
 

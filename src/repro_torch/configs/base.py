@@ -70,9 +70,6 @@ class ModelConfig:
     mlstm_proj_factor: float = 2.0
     slstm_heads: int = 4
 
-    # --- modality frontend stub ---
-    frontend: str = "none"            # 'none' | 'vision' | 'audio'
-
     # the dims before ``pad_for_tp`` (0 = never padded)
     orig_n_heads: int = 0
     orig_n_kv_heads: int = 0
@@ -83,10 +80,6 @@ class ModelConfig:
         if self.family == "mla_moe":
             return self.n_heads * (self.qk_nope_dim + self.qk_rope_dim)
         return self.n_heads * self.head_dim
-
-    @property
-    def attention_free(self) -> bool:
-        return self.family == "xlstm"
 
 
 def _round_up(x: int, m: int) -> int:

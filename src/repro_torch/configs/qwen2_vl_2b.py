@@ -19,5 +19,4 @@ CONFIG = ModelConfig(
     rope_style="mrope",
     rope_theta=1_000_000.0,
     mrope_sections=(16, 24, 24),   # temporal/height/width half-dim sections
-    frontend="vision",
 )

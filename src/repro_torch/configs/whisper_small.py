@@ -22,6 +22,5 @@ CONFIG = ModelConfig(
     attn_out_bias=True,
     rope_style="none",        # learned absolute positions
     encoder_seq=1500,
-    frontend="audio",
     tie_embeddings=True,
 )

@@ -133,7 +133,6 @@ def test_configs_specs_and_caches_match_jax():
                                          get_config(ARCH))
         for f in fields:
             assert getattr(cfg, f) == getattr(jcfg, f), (red, f)
-        assert cfg.attention_free == jcfg.attention_free is False
         specs = _flat(get_model(cfg).param_specs())
         jspecs = {"/".join(str(p.key) for p in path): s
                   for path, s in jax.tree_util.tree_flatten_with_path(
