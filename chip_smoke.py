@@ -205,9 +205,10 @@
    weights make the 48 blocks chaotic, so each block is held at the
    model's inputs instead of the end-to-end logits: the prefill again,
    every block against the same block in f32 and every chunkwise mLSTM
-   core against its parallel form in f64 (512 positions); 31 decode
-   steps from its state, every block teacher-forced (the block in f32
-   over the steps' inputs as one chunk from its state before them). A
+   core against its parallel form in f64 (512 positions), the first also
+   against the step recurrence in f32; 31 decode steps from its state,
+   every block teacher-forced (the block in f32 over the steps' inputs
+   as one chunk from its state before them). A
    fault is planted for each check and must fail it: the first block's
    core in bf16; the conv window and the sLSTM state not carried. Prints
    the recurrent state's bytes a lane, prefill s, tok/s and a step's
@@ -558,8 +559,9 @@ XLSTM_TF_TOL_REL = 0.0207
 # relative L2 error and C's relative L2 error (JAX's tests/test_substrate.py
 # holds the chunkwise pass against the step recurrence at rtol 1e-3, as
 # here; the teacher-forced check holds the model's steps against the
-# chunkwise pass). The H100 reads 2.6e-5 / 3.9e-6, the first block's core
-# planted in bf16 (autocast) 9.9e-3.
+# chunkwise pass); the first core also against the f32 step recurrence
+# itself. The H100 reads 2.6e-5 / 3.9e-6 (the step recurrence 1.07e-4 /
+# 3.8e-6), the first block's core planted in bf16 (autocast) 9.9e-3.
 XLSTM_CHUNK_REL_TOL = 1e-3
 
 
@@ -4688,6 +4690,23 @@ def mlstm_parallel64(q, k, v, ilog, flog, state):
     return num / torch.clamp_min(den.abs(), 1.0)[..., None], C
 
 
+def mlstm_recurrence(q, k, v, ilog, flog, state):
+    """The mLSTM step recurrence (``xlstm.mlstm_step``) in f32 over every
+    position of q / k / v (B,S,H,dh) from ``state`` (None: zeros):
+    (h (B,S,H,dh), the state after the last position)."""
+    from repro_torch.models import xlstm as X
+    B, S, H, dh = q.shape
+    st = state if state is not None else {
+        "C": torch.zeros((B, H, dh, dh), device=q.device),
+        "n": torch.zeros((B, H, dh), device=q.device)}
+    hs = []
+    for t in range(S):
+        h, st = X.mlstm_step(q[:, t].float(), k[:, t].float(),
+                             v[:, t].float(), ilog[:, t], flog[:, t], st)
+        hs.append(h)
+    return torch.stack(hs, 1), st
+
+
 @contextlib.contextmanager
 def xlstm_blocks_checked(faults=None):
     """Within the block, the model's xLSTM blocks are held at their own
@@ -4698,10 +4717,12 @@ def xlstm_blocks_checked(faults=None):
     mLSTM pass (``mlstm_chunkwise``, f32 by the config) over its first
     ``XLSTM["check_len"]`` positions against its parallel form in f64
     (``mlstm_parallel64``) from the same q / k / v, gates and state:
-    ("core", h's largest row relative L2 error, C's relative L2 error).
-    The f32 block references cannot see the core's precision (they
-    differ from the model by the bf16 rounding of q / k / v already),
-    the f64 core can. ``faults`` maps a name of ``XLSTM_FNS`` to a
+    ("core", h's largest row relative L2 error, C's relative L2 error);
+    the first of them also against the step recurrence in f32 ("step",
+    JAX's tests/test_substrate.py chunkwise-against-step check at the
+    model's inputs). The f32 block references cannot see the core's
+    precision (they differ from the model by the bf16 rounding of q / k /
+    v already), these two can. ``faults`` maps a name of ``XLSTM_FNS`` to a
     stand-in ``fault(real, *args)`` run in the model's place, never in a
     reference's, to plant a fault that these checks must catch."""
     faults, errs, in_ref = faults or {}, [], [False]
@@ -4725,6 +4746,11 @@ def xlstm_blocks_checked(faults=None):
                     _, st_c = out if n == q.shape[1] else fn(*cut, st0)
                     errs.append(("core", row_rel_l2(out[0][:, :n], hs),
                                  rel_l2(st_c["C"], C)))
+                    if not any(e[0] == "step" for e in errs):
+                        hs, st = mlstm_recurrence(*cut, st0)
+                        errs.append(("step",
+                                     row_rel_l2(out[0][:, :n], hs),
+                                     rel_l2(st_c["C"], st["C"])))
                 else:
                     cfg, p, x = a[:3]
                     y, st = out
@@ -4745,15 +4771,18 @@ def blocks_check(label, errs, tol=XLSTM_BLOCK_TOL_REL,
                  core_tol=XLSTM_CHUNK_REL_TOL):
     """``errs`` from ``xlstm_blocks_checked`` or
     ``xlstm_teacher_forced``: each block within ``tol``, each chunkwise
-    core within ``core_tol``; prints the widest of each kind."""
+    core (against either reference) within ``core_tol``; prints the
+    widest of each kind."""
     worst = 0.0
-    for kind in ("mlstm", "slstm", "core"):
+    whats = {"core": "chunkwise cores vs their f64 parallel form",
+             "step": "chunkwise core vs the f32 step recurrence"}
+    for kind in ("mlstm", "slstm", "core", "step"):
         e = [(u, s_) for k, u, s_ in errs if k == kind]
         if not e:
             continue
-        t = core_tol if kind == "core" else tol
-        what = ("chunkwise cores vs their f64 parallel form: widest h row "
-                "relative L2 {:.3e}, widest C {:.3e}") if kind == "core" \
+        t = core_tol if kind in whats else tol
+        what = (whats[kind] + ": widest h row relative L2 {:.3e}, widest "
+                "C {:.3e}") if kind in whats \
             else (kind + " blocks vs f32: widest update relative L2 "
                   "{:.3e}, widest state {:.3e}")
         _log(f"{label}: {len(e)} " + what.format(max(u for u, _ in e),
@@ -4932,7 +4961,9 @@ def xlstm_phase(dev):
     t0 = time.perf_counter()
     with xlstm_blocks_checked() as errs:
         last, st = model.prefill(params, {"tokens": tt}, P + n_new)
-    if [k for k, _, _ in errs] != (["core", "mlstm"] * n_m + ["slstm"]) * G:
+    kinds = [k for k, _, _ in errs]
+    if [kinds.count(k) for k in ("core", "step", "mlstm", "slstm")] != [
+            G * n_m, 1, G * n_m, G]:
         raise AssertionError("xlstm prefill: the checks saw other calls "
                              "than the model's 48 blocks")
     blocks_check("xlstm prefill", errs)
