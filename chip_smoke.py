@@ -560,8 +560,8 @@ XLSTM_TF_TOL_REL = 0.0207
 # holds the chunkwise pass against the step recurrence at rtol 1e-3, as
 # here; the teacher-forced check holds the model's steps against the
 # chunkwise pass); the first core also against the f32 step recurrence
-# itself. The H100 reads 2.6e-5 / 3.9e-6 (the step recurrence 1.07e-4 /
-# 3.8e-6), the first block's core planted in bf16 (autocast) 9.9e-3.
+# itself. The H100 reads 2.6e-5 / 3.9e-6 (the step recurrence 1.0e-5 /
+# 2.5e-6), the first block's core planted in bf16 (autocast) 9.9e-3.
 XLSTM_CHUNK_REL_TOL = 1e-3
 
 
