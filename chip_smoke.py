@@ -213,6 +213,25 @@
    core in bf16; the conv window and the sLSTM state not carried. Prints
    the recurrent state's bytes a lane, prefill s, tok/s and a step's
    host wall against device busy.
+6i. Training phase: samba-coe-expert-7b at full width cut to 8 of its 32
+   layers (1.881 B params; AdamW's 12 bytes a parameter put the whole
+   model past the card), 6 steps of the port's train step on one
+   repeated SyntheticLM batch of 4 x 2048, remat on: each step launches
+   the LSE form of ``flash_prefill`` twice a layer and
+   ``flash_prefill_bwd`` once a layer, and nothing else. The first loss
+   against the plain f32 forward, every leaf's gradient finite and
+   non-zero, the loss falling, each layer's attention backward at the
+   model's inputs (tapped from ``FlashAttention``) against
+   ``attention_bwd_ref`` in f32, with two faults planted in the reference
+   (the diagonal tile's causal mask skipped, di taken as 0) that the check
+   must catch; then a checkpoint of one full-width layer's state (5.57 GB)
+   written to a temporary directory, restored bit-equal, and two steps
+   from it against two from the live state. Prints step seconds,
+   tokens/s, peak memory, AdamW's ms, the device's idle share and the
+   model flops' share of 989 TFLOP/s. The kernel rows before it hold
+   ``flash_prefill_bwd`` at that shape and at Mixtral's (G 4, window 4096,
+   B 2 x 4608) and the LSE form against its plain version, beside SDPA's
+   backward and forward.
 7. RecurrentGemma phase, after the experts' store is released:
    recurrentgemma-9b at full width and depth (38 layers, 10.4 G parameters,
    bf16) as the one expert of a ``CompositionOfExperts(HashRouter(1))`` on
@@ -280,6 +299,11 @@ KERNELS = {
         replaces="src/repro/kernels/fused_decode/kernel.py:202"),
     "flash_prefill": dict(
         source="src/repro_torch/kernels/flash_attention/csrc/prefill.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:81"),
+    # the backward of flash_prefill's forward (JAX's XLA derives it from
+    # layers.attention; no Pallas kernel of its own)
+    "flash_prefill_bwd": dict(
+        source="src/repro_torch/kernels/flash_attention/csrc/prefill_bwd.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:81"),
     "lru_scan": dict(
         source="src/repro_torch/kernels/lru_scan/csrc/lru_scan.cu",
@@ -563,6 +587,38 @@ XLSTM_TF_TOL_REL = 0.0207
 # itself. The H100 reads 2.6e-5 / 3.9e-6 (the step recurrence 1.0e-5 /
 # 2.5e-6), the first block's core planted in bf16 (autocast) 9.9e-3.
 XLSTM_CHUNK_REL_TOL = 1e-3
+# Training: samba-coe-expert-7b at full width cut to 8 of its 32 layers
+# (AdamW holds 12 bytes a parameter: the 6.739 B params need 80.9 GB before
+# an activation; 8 layers are 1.881 B params, 22.6 GB of state), one
+# repeated SyntheticLM batch of 4 x 2048, remat on, 6 steps at
+# launch/train.py's schedule (warmup max(2, steps // 10), decay steps, lr
+# 3e-4). The checkpoint round trip cuts the same width to 1 layer (0.464 B
+# params, a 5.57 GB write).
+TRAIN = dict(arch="samba-coe-expert-7b", layers=8, batch=4, seq=2048,
+             steps=6, lr=3e-4, seed=29, ckpt_layers=1, ckpt_steps=2)
+# Each layer's attention backward at the model's inputs (q, k, v, dO
+# tapped from FlashAttention in the first step) against attention_bwd_ref
+# in f32: the relative L2 error of dq, dk and dv, the largest over the 8
+# layers. The kernel rounds p and ds to bf16 for its products and its
+# outputs to bf16 (the outputs' rounding alone reads ~1.6e-3). The H100
+# read 2.40e-3-2.435e-3 in the 8 layers under a provisional 2^-6; the
+# limit is 1.25x the largest. The kernel rows hold random inputs to it too
+# (2.46e-3). Planted in the reference, each must read above it: the causal
+# mask skipped on each 64-row diagonal tile (read 1.008), and di taken as
+# 0 (0.429).
+TRAIN_BWD_REL_L2 = 3.05e-3
+# The first step's loss (bf16, kernels) against the plain forward in f32
+# (the same bf16 weights upcast, quadratic attention) on the same batch,
+# relative: the H100 read 9.46e-6 (random weights keep the logits near
+# uniform, so the loss sits near ln 32000 in both); the limit is 1.25x.
+TRAIN_LOSS_TOL_REL = 1.2e-5
+# The loss two steps after a checkpoint round trip against the
+# uninterrupted run's, relative: the restored state is bit-equal, the
+# forward deterministic, but the embedding's backward sums with atomics.
+TRAIN_RESUME_TOL_REL = 1e-3
+TRAIN_BWD_ROW = "flash_prefill_bwd[B=4,S=2048,G=1,causal]"
+TRAIN_BWD_GQA_ROW = "flash_prefill_bwd[mixtral-8x7b,G=4,B=2,S=4608,window=4096]"
+TRAIN_LSE_ROW = "flash_prefill[lse,B=4,S=2048]"
 
 
 def prefill_widths(c):
@@ -628,7 +684,8 @@ def time_ms(fn, flush, reps, read=False):
 
 def build_kernels():
     from repro_torch.kernels import runtime as rt
-    from repro_torch.kernels.flash_attention.ops import PREFILL_WIDTHS
+    from repro_torch.kernels.flash_attention.ops import (BWD_WIDTHS,
+                                                         PREFILL_WIDTHS)
     t0 = time.perf_counter()
     logs = rt.build()
     _log(f"built {len(logs)} kernel libraries in "
@@ -648,15 +705,27 @@ def build_kernels():
                 lambda k: f"decode_paged[dh={k[0]} G={k[1]}]",
                 lambda k: paged_smem(int(k[0]), int(k[1])))
         elif name == "flash_prefill":
-            # each (dk, dv) twice: causal / windowed (b0), FULL (b1)
+            # each (dk, dv) twice: causal / windowed (b0), FULL (b1); the
+            # LSE form (the training forward) at d 32 / 64 / 128
             entry_build_report(
-                name, log, r"prefill_kernelILi(\d+)ELi(\d+)ELb([01])E",
-                [(str(dk), str(dv), full) for dk, dv in PREFILL_WIDTHS
-                 for full in "01"],
+                name, log,
+                r"prefill_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E",
+                [(str(dk), str(dv), full, "0") for dk, dv in PREFILL_WIDTHS
+                 for full in "01"]
+                + [(str(d), str(d), "0", "1") for d in BWD_WIDTHS],
                 lambda k: (f"flash_prefill[dh={k[0]}" if k[0] == k[1]
                            else f"flash_prefill[dk={k[0]} dv={k[1]}")
-                + (" full]" if k[2] == "1" else "]"),
+                + (" full]" if k[2] == "1" else
+                   " lse]" if k[3] == "1" else "]"),
                 lambda k: prefill_smem(int(k[0]), int(k[1])))
+        elif name == "flash_prefill_bwd":
+            bwd_smem = rt.bind(name, "flash_prefill_bwd_smem_bytes", [rt.I])
+            entry_build_report(
+                name, log, r"(di_kernel|dkdv_kernel|dq_kernel)ILi(\d+)E",
+                [(kn, str(d)) for kn in ("di_kernel", "dkdv_kernel",
+                                         "dq_kernel") for d in BWD_WIDTHS],
+                lambda k: f"flash_prefill_bwd[{k[0]} d={k[1]}]",
+                lambda k: 0 if k[0] == "di_kernel" else bwd_smem(int(k[1])))
         elif name in ("oproj_ffn_swiglu", "ffn_swiglu"):
             stream_smem = rt.bind(name, "stream_smem_bytes", [rt.I, rt.I])
             first = ("OprojPass" if name == "oproj_ffn_swiglu"
@@ -5023,6 +5092,428 @@ def xlstm_phase(dev):
     _log(f"xlstm: phase {time.perf_counter() - t_phase:.1f}s")
 
 
+def bwd_cost(B, S, Hq, Hkv, d, window=0):
+    """(bytes, flops) of one ``flash_prefill_bwd`` call, causal (and
+    ``window`` > 0: local): q, k, v, o, do and lse read once, dq, dk, dv
+    written once (bf16; lse f32); the five products s, dp, dv, dq, dk over
+    the attended pairs, 2 per multiply-add: 2 B Hq pairs (3 dk + 2 dv)."""
+    from repro_torch.serving.backends import attention_pairs
+    nbytes = 2 * B * S * d * (4 * Hq + 4 * Hkv) + 4 * B * Hq * S
+    return nbytes, 2 * B * Hq * attention_pairs(S, window) * 5 * d
+
+
+def bwd_row(row, B, S, Hq, Hkv, d, window, gen, flush):
+    """``flash_prefill_bwd`` on (B, S) random bf16 q / k / v / dO at Hq q
+    on Hkv kv heads, causal (and local at ``window``), o and lse from the
+    LSE forward: dq, dk, dv each within ``TRAIN_BWD_REL_L2`` (relative L2)
+    of ``attention_bwd_ref`` in f32; timed beside that plain version, the
+    one-call yardstick (autograd of SDPA: is_causal, or the band as a
+    mask; timing only) and the square forward. Returns the kernel-table
+    row."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.flash_attention.ops import (attention_bwd,
+                                                         attention_lse)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    dev = flush.device
+    q, do = (torch.randn((B, S, Hq, d), generator=gen, device=dev)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, d), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    o, lse = attention_lse(q, k, v, causal=True, window=window)
+    kern = lambda: attention_bwd(q, k, v, o, lse, do, causal=True,
+                                 window=window)
+    plain = lambda: attention_bwd_ref(q, k, v, do, causal=True,
+                                      window=window)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    errs = [rel_l2(g, w) for g, w in zip(got, want)]
+    del got, want
+    _log(f"kernel {row}: dq / dk / dv relative L2 "
+         + " / ".join(f"{e:.3e}" for e in errs)
+         + f" (tol {TRAIN_BWD_REL_L2:.3e})")
+    if not max(errs) <= TRAIN_BWD_REL_L2:
+        raise AssertionError(f"{row}: relative L2 {errs} > "
+                             f"{TRAIN_BWD_REL_L2}")
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    mask = None
+    if window:
+        i = torch.arange(S, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    out = Fn.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+        enable_gqa=Hq != Hkv)
+    dot = do.transpose(1, 2)
+    lib = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                      retain_graph=True)
+    nbytes, flops = bwd_cost(B, S, Hq, Hkv, d, window)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    r = dict(name=row, route="cuda", **KERNELS["flash_prefill_bwd"],
+             max_abs_err=None, rel_l2=errs, tol=TRAIN_BWD_REL_L2,
+             ms=time_ms(kern, flush, 20), plain_ms=time_ms(plain, flush, 3),
+             library_ms=time_ms(lib, flush, 10),
+             bound_ms=max(t_bytes, t_ops) * 1e3,
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             bytes=nbytes, flops=flops, launches=0)
+    got, want = kern(), plain()
+    r["max_abs_err"] = max(float((g.float() - w).abs().max())
+                           for g, w in zip(got, want))
+    del got, want, out, qt, kt, vt, mask
+    r["kernel_ms"] = r["ms"]
+    _log(f"kernel {row}: kernel={r['ms']:.4f}ms plain={r['plain_ms']:.4f}ms "
+         f"SDPA backward={r['library_ms']:.4f}ms bound={r['bound_ms']:.4f}ms "
+         f"({r['bound_by']}, {nbytes} B, {flops} flops); "
+         f"{flops / r['ms'] / 1e9:.1f} TFLOP/s, "
+         f"{r['bound_ms'] / r['ms']:.3f} of the bound, "
+         f"{r['library_ms'] / r['ms']:.3f}x SDPA's backward time")
+    del q, k, v, o, lse, do
+    torch.cuda.empty_cache()
+    return r
+
+
+def train_kernel_rows(dev):
+    """The training kernels at the training phase's shape (the 7B expert's
+    32 heads of 128, B 4, S 2048, causal): ``flash_prefill_bwd`` and the
+    LSE form of ``flash_prefill`` beside the plain instantiation; then the
+    backward at Mixtral's 5ᴹ shape (32 q on 8 kv heads, B 2, S 4608,
+    window 4096), where the GQA sum and the window edges run."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import (attention,
+                                                         attention_lse)
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+    from repro_torch.serving.backends import (prefill_attention_flops,
+                                              prefill_attention_hbm_bytes)
+    c, t = get_config(TRAIN["arch"]), TRAIN
+    gen = torch.Generator(device=dev).manual_seed(t["seed"])
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    B, S, H, d = t["batch"], t["seq"], c.n_heads, c.head_dim
+    rows = {TRAIN_BWD_ROW: bwd_row(TRAIN_BWD_ROW, B, S, H, c.n_kv_heads, d,
+                                   0, gen, flush)}
+    q, k, v = (torch.randn((B, S, H, d), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    r = kernel_row(
+        TRAIN_LSE_ROW, lambda: attention_lse(q, k, v, causal=True)[0],
+        lambda: attention_lse_ref(q, k, v, causal=True)[0],
+        lambda: Fn.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        prefill_attention_hbm_bytes(B, S, H, H, d) + 4 * B * H * S,
+        prefill_attention_flops(B, S, H, d), flush, kernel="flash_prefill",
+        row_tol=PREFILL_ROW_REL_L2)
+    lse = attention_lse(q, k, v, causal=True)[1]
+    lse_err = float((lse - attention_lse_ref(q, k, v, causal=True)[1])
+                    .abs().max())
+    if not lse_err <= 1e-3:
+        raise AssertionError(f"{TRAIN_LSE_ROW}: lse differs by {lse_err}")
+    with torch.no_grad():
+        r["square_ms"] = time_ms(lambda: attention(q, k, v, causal=True),
+                                 flush, 50)
+    _log(f"kernel {TRAIN_LSE_ROW}: lse max |kernel - plain| {lse_err:.3e} "
+         f"(tol 1e-3); the plain instantiation {r['square_ms']:.4f} ms: "
+         f"the LSE form {r['ms'] / r['square_ms']:.4f}x its time")
+    rows[TRAIN_LSE_ROW] = r
+    del q, k, v, qt, kt, vt, lse
+    m = get_config("mixtral-8x7b")
+    rows[TRAIN_BWD_GQA_ROW] = bwd_row(
+        TRAIN_BWD_GQA_ROW, MIXTRAL["prompts"], MIXTRAL["prompt_len"],
+        m.n_heads, m.n_kv_heads, m.head_dim, m.sliding_window, gen, flush)
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def bwd_taps():
+    """Within the block, every ``FlashAttention`` backward appends its (q,
+    k, v, dO, dq, dk, dv) (copies) to the list the block receives, in the
+    order the backward runs (the last layer first): the Function's
+    backward looks ``attention_bwd`` up in ``ops`` on every call. Nothing
+    in the port is edited."""
+    from repro_torch.kernels.flash_attention import ops
+    taps, real = [], ops.attention_bwd
+
+    def tapped(q, k, v, o, lse, do, **kw):
+        grads = real(q, k, v, o, lse, do, **kw)
+        taps.append(tuple(x.clone() for x in (q, k, v, do, *grads)))
+        return grads
+    ops.attention_bwd = tapped
+    try:
+        yield taps
+    finally:
+        ops.attention_bwd = real
+
+
+def bwd_faults_caught(q, k, v, do, got):
+    """The layer check against references with a fault planted: the causal
+    mask skipped on each 64-row diagonal tile, and di taken as 0. Each must
+    read above ``TRAIN_BWD_REL_L2``."""
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_masked,
+                                                         attention_mask)
+    S = q.shape[1]
+    i = torch.arange(S, device=q.device)
+    causal = attention_mask(S, S, causal=True, device=q.device)
+    faults = {
+        "diagonal tile unmasked": dict(
+            mask=causal | ((i[:, None] // 64) == (i[None, :] // 64))),
+        "di taken as 0": dict(mask=causal, di=torch.zeros(
+            q.shape[0], q.shape[2], S, device=q.device))}
+    for label, kw in faults.items():
+        want = attention_bwd_masked(q, k, v, do, **kw)
+        err = max(rel_l2(g, w) for g, w in zip(got, want))
+        del want
+        _log(f"train: planted {label}: relative L2 {err:.3e} "
+             f"{'caught' if err > TRAIN_BWD_REL_L2 else 'NOT caught'}")
+        if not err > TRAIN_BWD_REL_L2:
+            raise AssertionError(f"train: the backward check misses a "
+                                 f"planted {label}")
+
+
+def train_phase(dev):
+    """Training on one card: ``TRAIN``'s cut of the 7B expert through the
+    port's train step (``distributed.stepfn``: the forward with remat, its
+    attention the ``flash_prefill`` LSE form, twice a layer; the backward
+    ``flash_prefill_bwd``, once a layer; AdamW). Checks the first loss
+    against the plain f32 forward, every leaf's gradient finite and
+    non-zero, each layer's attention backward at the model's inputs, the
+    launch counts every step and the loss falling; then a checkpoint round
+    trip at ``ckpt_layers``. Returns the launch counts summed over the
+    steps."""
+    import dataclasses
+
+    from repro_torch.bridge import (tree_bytes, tree_items, tree_leaves,
+                                    tree_map)
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed import stepfn
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.models import get_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.serving.backends import attention_pairs
+    t0 = time.perf_counter()
+    t = TRAIN
+    full = get_config(t["arch"])
+    cfg = dataclasses.replace(full, n_layers=t["layers"])
+    model = get_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(t["seed"]), dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    B, S = t["batch"], t["seq"]
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                   global_batch=B, seed=t["seed"])) \
+        .batch_at(0)
+    batch = {k: torch.from_numpy(x).to(dev) for k, x in batch.items()}
+    # the first step's loss in f32: the same bf16 weights upcast, quadratic
+    # attention
+    with torch.no_grad(), plain_prefill():
+        p32 = tree_map(lambda x: x.float(), params)
+        loss32 = float(stepfn.softmax_xent(model.forward(p32, batch),
+                                           batch["targets"]))
+        del p32
+    torch.cuda.empty_cache()
+    opt_cfg = AdamWConfig(lr=t["lr"], warmup_steps=max(2, t["steps"] // 10),
+                          decay_steps=max(4, t["steps"]))
+    step_fn = stepfn.make_train_step(cfg, opt_cfg)
+    state = stepfn.init_train_state(params)
+    _log(f"train: {cfg.name} cut to {cfg.n_layers} of its {full.n_layers} "
+         f"layers at full width: {n_params / 1e9:.3f} B params, "
+         f"{tree_bytes(state) / 1e9:.2f} GB of state (params, mu, nu); "
+         f"batch {B} x {S}, remat, {t['steps']} steps")
+
+    # AdamW's device time by CUDA events, and on the first step every
+    # leaf's gradient checked before the update
+    real_update, adamw = stepfn.adamw_update, {}
+
+    def timed_update(ocfg, p, g, o):
+        if adamw.get("check"):
+            bad = [n for n, x in tree_items(g)
+                   if x is None or not bool(torch.isfinite(x).all())
+                   or not bool(x.ne(0).any())]
+            adamw["bad"] = bad
+            adamw["check"] = False
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = real_update(ocfg, p, g, o)
+        e1.record()
+        adamw["events"] = (e0, e1)
+        return out
+
+    losses, walls, adamw_ms, totals = [], [], [], {}
+    stepfn.adamw_update = timed_update
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for i in range(t["steps"]):
+            adamw["check"] = i == 0
+            rt.reset_launches()
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            if i == 0:
+                with bwd_taps() as taps:
+                    state, m = step_fn(state, batch)
+            elif i == t["steps"] - 1:
+                from torch.autograd import DeviceType
+                from torch.profiler import ProfilerActivity, profile
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    state, m = step_fn(state, batch)
+                    torch.cuda.synchronize()
+            else:
+                state, m = step_fn(state, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - ts)
+            adamw_ms.append(adamw["events"][0].elapsed_time(
+                adamw["events"][1]))
+            losses.append(loss)
+            n = rt.launch_counts()
+            check_launches(f"train step {i}", n, {
+                "flash_prefill[lse]": 2 * cfg.n_layers,
+                "flash_prefill_bwd": cfg.n_layers})
+            for key, val in n.items():
+                totals[key] = totals.get(key, 0) + val
+            _log(f"train step {i}: loss={loss:.4f} "
+                 f"gnorm={float(m['grad_norm']):.4f} lr={float(m['lr']):.3e}"
+                 f" {walls[-1]:.3f}s")
+    finally:
+        stepfn.adamw_update = real_update
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if adamw.get("bad"):
+        raise AssertionError(f"train: leaves without a finite non-zero "
+                             f"gradient: {adamw['bad']}")
+    _log(f"train: every one of {len(tree_leaves(params))} leaves has a "
+         "finite, non-zero gradient")
+    rel = abs(losses[0] - loss32) / abs(loss32)
+    _log(f"train: first loss {losses[0]:.6f} against the f32 forward "
+         f"{loss32:.6f}: {rel:.3e} relative (tol {TRAIN_LOSS_TOL_REL:.3e})")
+    if not rel <= TRAIN_LOSS_TOL_REL:
+        raise AssertionError(f"train: first loss {losses[0]} vs f32 "
+                             f"{loss32}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall: {losses}")
+    _log(f"train: loss {losses[0]:.4f} -> {losses[-1]:.4f} OK")
+    # where the time goes: warm steps (not the first, not the profiled)
+    wall = float(np.median(walls[1:-1]))
+    busy = busy_us(sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == DeviceType.CUDA)) / 1e6
+    flops = 6 * (n_params - cfg.vocab_size * cfg.d_model) * B * S \
+        + 3 * cfg.n_layers * 2 * B * cfg.n_heads * 2 * cfg.head_dim \
+        * attention_pairs(S)
+    _log(f"train: a step {wall:.4f} s (median of steps 1-{t['steps'] - 2}), "
+         f"{B * S / wall:.1f} tokens/s, peak memory {peak:.2f} GB, AdamW "
+         f"{np.median(adamw_ms):.2f} ms; device busy {busy:.4f} s of the "
+         f"profiled step (idle share {max(0.0, 1 - busy / wall):.3f} of a "
+         f"warm step); {flops:.3e} model flops a step: "
+         f"{flops / wall / BF16_FLOPS_PER_S:.3f} of 989 TFLOP/s")
+    del prof
+
+    # each layer's attention backward at the model's inputs
+    taps = taps[::-1]
+    if len(taps) != cfg.n_layers:
+        raise AssertionError(f"train: {len(taps)} backward taps")
+    errs = []
+    for li, (q, k, v, do, dq, dk, dv) in enumerate(taps):
+        want = attention_bwd_ref(q, k, v, do, causal=True)
+        errs.append([rel_l2(g, w) for g, w in zip((dq, dk, dv), want)])
+        del want
+    _log("train: attention backward at the model's inputs, dq / dk / dv "
+         "relative L2 by layer: " + "; ".join(
+             f"{i}: " + "/".join(f"{e:.2e}" for e in es)
+             for i, es in enumerate(errs))
+         + f" (tol {TRAIN_BWD_REL_L2:.3e}; largest "
+           f"{max(max(e) for e in errs):.3e})")
+    if not max(max(e) for e in errs) <= TRAIN_BWD_REL_L2:
+        raise AssertionError(f"train: a layer's attention backward is off "
+                             f"its reference: {errs}")
+    q, k, v, do, dq, dk, dv = taps[0]
+    del taps
+    bwd_faults_caught(q, k, v, do, (dq, dk, dv))
+    del q, k, v, do, dq, dk, dv, state, params, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    checkpoint_round_trip(full, batch, opt_cfg)
+    _log(f"train: phase {time.perf_counter() - t0:.1f}s")
+    return totals
+
+
+def _bits(x):
+    return x.detach().reshape(-1).view(torch.uint8)
+
+
+def checkpoint_round_trip(full, batch, opt_cfg):
+    """``TRAIN["ckpt_layers"]`` of the expert at full width, trained
+    ``ckpt_steps`` steps, saved to a temporary directory and restored into
+    a fresh tree on the card: every leaf bit-equal; two more steps from the
+    restore against two from the live state, the losses within
+    ``TRAIN_RESUME_TOL_REL``."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.bridge import tree_bytes, tree_leaves, tree_map
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import stepfn
+    from repro_torch.models import get_model
+    t = TRAIN
+    dev = batch["tokens"].device
+    cfg = dataclasses.replace(full, n_layers=t["ckpt_layers"])
+    params = get_model(cfg).init(torch.Generator(dev).manual_seed(t["seed"]),
+                                 dev)
+    step_fn = stepfn.make_train_step(cfg, opt_cfg)
+    state = stepfn.init_train_state(params)
+    for _ in range(t["ckpt_steps"]):
+        state, _ = step_fn(state, batch)
+    need = tree_bytes(state)
+    tmp = tempfile.mkdtemp(prefix="train_ckpt_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        if free < 1.5 * need:
+            raise RuntimeError(f"train: {free / 1e9:.1f} GB free under "
+                               f"{tmp}, the checkpoint needs "
+                               f"{need / 1e9:.2f} GB")
+        mgr = CheckpointManager(tmp, keep=1)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        mgr.save(t["ckpt_steps"], state)
+        write_s = time.perf_counter() - ts
+        like = tree_map(torch.empty_like, state)
+        ts = time.perf_counter()
+        restored, step = mgr.restore_state(like)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - ts
+        del like
+        diff = [i for i, (a, b) in enumerate(zip(tree_leaves(restored),
+                                                 tree_leaves(state)))
+                if a.dtype != b.dtype or a.device != b.device
+                or not torch.equal(_bits(a), _bits(b))]
+        if step != t["ckpt_steps"] or diff:
+            raise AssertionError(f"train: checkpoint restore at step {step}"
+                                 f" differs in leaves {diff}")
+        _log(f"train: checkpoint of {cfg.n_layers} layer(s) at full width, "
+             f"{need / 1e9:.2f} GB: written in {write_s:.1f} s, restored in "
+             f"{read_s:.1f} s, {len(tree_leaves(state))} leaves bit-equal")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    live, back = [], []
+    for _ in range(2):
+        state, m = step_fn(state, batch)
+        live.append(float(m["loss"]))
+    del state
+    for _ in range(2):
+        restored, m = step_fn(restored, batch)
+        back.append(float(m["loss"]))
+    rel = max(abs(a - b) / abs(a) for a, b in zip(live, back))
+    _log(f"train: resumed losses {back} against uninterrupted {live}: "
+         f"{rel:.3e} relative (tol {TRAIN_RESUME_TOL_REL:.0e})")
+    if not rel <= TRAIN_RESUME_TOL_REL:
+        raise AssertionError("train: the resumed run parts from the "
+                             "uninterrupted one")
+    del restored
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available; this run needs one "
@@ -5047,6 +5538,7 @@ def main():
     rows.update(mixtral_kernel_row(dev))
     rows.update(deepseek_kernel_row(dev))
     rows.update(whisper_kernel_rows(dev))
+    rows.update(train_kernel_rows(dev))
     rows.update(monarch_kernel_phase(dev))
     torch.cuda.empty_cache()
     launches = monarch_phase(dev)
@@ -5107,6 +5599,13 @@ def main():
     for row, n in whisper_phase(dev).items():
         rows[row]["launches"] = n
     xlstm_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = train_phase(dev)
+    rows[TRAIN_BWD_ROW]["launches"] = launches["flash_prefill_bwd"]
+    rows[TRAIN_LSE_ROW]["launches"] = launches["flash_prefill[lse]"]
+    gc.collect()
+    torch.cuda.empty_cache()
     launches = rg_phase(rg_cfg, dev)
     rows[RG_PREFILL_ROW]["launches"] = launches["flash_prefill"]
     rows["lru_scan"]["launches"] = launches["lru_scan"]

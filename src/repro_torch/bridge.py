@@ -38,6 +38,25 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_items(tree, prefix: str = ""):
+    """(path, leaf) of every leaf of a tree of nested dicts, in insertion
+    order; a path joins the keys with ``/`` (``"layers/attn/wq"``)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_items(v, f"{prefix}/{k}" if prefix else str(k))
+    else:
+        yield prefix, tree
+
+
+def tree_from_items(like, flat, prefix: str = ""):
+    """The tree of ``like``'s structure whose leaf at each path is
+    ``flat[path]`` (the inverse of ``tree_items``)."""
+    if isinstance(like, dict):
+        return {k: tree_from_items(v, flat, f"{prefix}/{k}" if prefix
+                                   else str(k)) for k, v in like.items()}
+    return flat[prefix]
+
+
 def tree_bytes(tree) -> int:
     return int(sum(t.numel() * t.element_size() for t in tree_leaves(tree)))
 

@@ -1,2 +1,2 @@
 """Tensor-parallel partitioning rules (the serving subset of
-``repro.distributed``)."""
+``repro.distributed``) and the single-device train step (``stepfn``)."""

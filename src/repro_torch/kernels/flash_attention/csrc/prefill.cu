@@ -103,6 +103,13 @@
 //    on either warning; tools/prefill_variants.py shows what they cost.
 //  * No atomics and no split along keys: two calls agree bit for bit.
 //
+// The LSE form (flash_prefill_lse_bf16, the training forward: causal or
+// windowed, dk = dv in 32/64/128) is the square kernel plus one store a
+// row: scale * m + ln(l) in f32, which the backward (prefill_bwd.cu)
+// recomputes p from. A template flag beside FULL, with an argument struct
+// of its own, keeps the other instantiations' parameters and SASS as they
+// were (tools/prefill_timing.py prints the digests).
+//
 // Two numerical choices: scores are scaled in f32 AFTER the bf16 product,
 // as JAX's _gqa_scores does (the Pallas kernel scales q in f32 first, which
 // bf16 tensor-core inputs cannot mirror); p is rounded to bf16 before the
@@ -158,6 +165,17 @@ struct Args {
   int Sq;
 };
 
+// The LSE form's arguments: the square kernel's, and where each row's
+// log-sum-exp goes, lse (B, Hq, S) f32, for the backward
+// (prefill_bwd.cu). The other instantiations keep Args, so their
+// parameters and code stay as they were.
+struct ArgsLse : Args {
+  float* lse;
+};
+
+template <bool LSE> struct ArgsOf { using type = Args; };
+template <> struct ArgsOf<true> { using type = ArgsLse; };
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -169,12 +187,18 @@ __device__ __forceinline__ float ex2(float x) {
 // all key tiles, one q tile a CTA (the mirror pairing balances only a
 // causal band); the only mask is the key tail. The other instantiation is
 // the square causal / windowed kernel, its code unchanged by FULL.
-template <int DK, int DV, bool FULL>
+// LSE: the square kernel that also writes each row's log-sum-exp of the
+// scaled scores, scale * m + ln(l), in f32 (the training forward, whose
+// backward recomputes p from it); its code is the square kernel's plus
+// that store.
+template <int DK, int DV, bool FULL, bool LSE = false>
 __global__ void __launch_bounds__(THREADS, 1)
 prefill_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
-               const __grid_constant__ CUtensorMap to, const Args p) {
+               const __grid_constant__ CUtensorMap to,
+               const typename ArgsOf<LSE>::type p) {
+  static_assert(!(FULL && LSE), "the LSE form is the square kernel's");
   using T = Tile<DK, DV>;
   constexpr int BN = T::BN, SW = T::SW, PW = T::PW;
   extern __shared__ unsigned char smem_raw[];
@@ -427,6 +451,12 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
         lt += __shfl_xor_sync(0xffffffffu, lt, 2);
         const float inv = 1.f / fmaxf(lt, 1e-30f);
         const int r = wrow + 8 * hr;
+        if constexpr (LSE) {
+          // one thread of the quad writes the row, rows past S not at all
+          if (tig == 0 && r0 + r < S)
+            p.lse[((size_t)b * gridDim.y + h) * S + r0 + r] =
+                m[hr] * p.scale + logf(fmaxf(lt, 1e-30f));
+        }
         const int swz = SW == 128 ? (r & 7) : ((r >> 1) & 3);
 #pragma unroll
         for (int i = 0; i < DV / 8; ++i) {
@@ -471,10 +501,10 @@ bool encode(CUtensorMap* map, const void* ptr, int dh, int H, int S, int B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DK, int DV, bool FULL>
+template <int DK, int DV, bool FULL, bool LSE = false>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const Args& a, int B, int Hq, int Hkv, const long long (&st)[12],
-           cudaStream_t stream) {
+           const typename ArgsOf<LSE>::type& a, int B, int Hq, int Hkv,
+           const long long (&st)[12], cudaStream_t stream) {
   using T = Tile<DK, DV>;
   CUtensorMap tq, tk, tv, to;
   if (!encode(&tq, q, DK, Hq, a.Sq, B, st[2], st[1], st[0], T::PW, BM) ||
@@ -487,7 +517,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   // waiting
   static const int regs = [] {
     cudaFuncAttributes fa;
-    return cudaFuncGetAttributes(&fa, prefill_kernel<DK, DV, FULL>) ==
+    return cudaFuncGetAttributes(&fa, prefill_kernel<DK, DV, FULL, LSE>) ==
                    cudaSuccess
                ? fa.numRegs : 0;
   }();
@@ -496,13 +526,13 @@ int launch(const void* q, const void* k, const void* v, void* o,
   // above 48 KB of dynamic shared memory only after this opt-in (set on
   // every launch: it is per device and costs no device time)
   const cudaError_t e = cudaFuncSetAttribute(
-      prefill_kernel<DK, DV, FULL>,
+      prefill_kernel<DK, DV, FULL, LSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_qt = (a.Sq + BM - 1) / BM;
   const int per_cta = FULL ? 1 : T::ITEMS;
   const dim3 grid((n_qt + per_cta - 1) / per_cta, Hq, B);
-  prefill_kernel<DK, DV, FULL><<<grid, THREADS, T::SMEM, stream>>>(
+  prefill_kernel<DK, DV, FULL, LSE><<<grid, THREADS, T::SMEM, stream>>>(
       tq, tk, tv, to, a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -539,6 +569,35 @@ extern "C" int flash_prefill_bf16(
     }
   } else if (dk == 192 && dv == 128) {
     return dispatch<192, 128>(q, k, v, o, a, B, Hq, Hkv, st, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The LSE form (the training forward): a causal or windowed call of
+// dk = dv in 32/64/128 and Sq = Sk = S, as flash_prefill_bf16, that also
+// writes lse (B, Hq, S) f32, each row's log-sum-exp of its scaled scores.
+extern "C" int flash_prefill_lse_bf16(
+    const void* q, const void* k, const void* v, void* o, float* lse, int B,
+    int S, int Hq, int Hkv, int d, int causal, int window, int sqb, int sqs,
+    int sqh, int skb, int sks, int skh, int svb, int svs, int svh, int sob,
+    int sos, int soh, float scale, void* stream) {
+  if (S < 1 || Hkv < 1 || Hq % Hkv || !(causal || window))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ArgsLse a;
+  a.S = S;
+  a.G = Hq / Hkv;
+  a.causal = causal;
+  a.window = window;
+  a.scale = scale;
+  a.Sq = S;
+  a.lse = lse;
+  const long long st[12] = {sqb, sqs, sqh, skb, sks, skh,
+                            svb, svs, svh, sob, sos, soh};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32: return launch<32, 32, false, true>(q, k, v, o, a, B, Hq, Hkv, st, s);
+    case 64: return launch<64, 64, false, true>(q, k, v, o, a, B, Hq, Hkv, st, s);
+    case 128: return launch<128, 128, false, true>(q, k, v, o, a, B, Hq, Hkv, st, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

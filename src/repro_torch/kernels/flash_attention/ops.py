@@ -1,6 +1,9 @@
 """Wrappers of the attention kernels (counterparts of
 ``repro.kernels.flash_attention.ops.attention``, ``decode_paged`` and
-``decode``)."""
+``decode``), and the training path of ``attention``: on the card, a call
+whose q, k or v requires grad (under grad mode) runs the LSE form of
+``flash_prefill`` forward and the ``flash_prefill_bwd`` kernels backward
+(``attention_lse``, ``attention_bwd``), through ``FlashAttention``."""
 from __future__ import annotations
 
 import math
@@ -8,15 +11,21 @@ import math
 import torch
 
 from repro_torch.kernels import runtime as rt
-from repro_torch.kernels.flash_attention.ref import (attention_ref,
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref,
                                                      decode_attention_ref,
                                                      decode_paged_ref)
 
 _ARGS = [rt.P] * 8 + [rt.I] * 6 + [rt.F, rt.P]
 _DENSE_ARGS = [rt.P] * 4 + [rt.I] * 6 + [rt.F, rt.P]
 _PREFILL_ARGS = [rt.P] * 4 + [rt.I] * 21 + [rt.F, rt.P]
+_LSE_ARGS = [rt.P] * 5 + [rt.I] * 19 + [rt.F, rt.P]
+_BWD_ARGS = [rt.P] * 10 + [rt.I] * 7 + [rt.F, rt.P]
 # the (dk, dv) head widths flash_prefill is instantiated for
 PREFILL_WIDTHS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
+# the head widths d = dk = dv of its LSE form and of the backward
+BWD_WIDTHS = (32, 64, 128)
 
 
 def _check_head_shape(name, dh, G):
@@ -75,6 +84,7 @@ def decode_paged(q, k_pool, v_pool, tables, len1):
                          f"pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)}")
     if not rt.on_card(q, k_pool, v_pool, tables, len1):
         return decode_paged_ref(q, k_pool, v_pool, tables, len1)
+    rt.no_backward("decode_paged", q, k_pool, v_pool)
     G = Hq // Hkv
     if not q.dtype == k_pool.dtype == v_pool.dtype == torch.bfloat16:
         raise TypeError(f"decode_paged: dtypes q={q.dtype} k={k_pool.dtype} "
@@ -121,6 +131,7 @@ def decode(q, k_cache, v_cache, length: int):
                          "attend")
     if not rt.on_card(q, k_cache, v_cache):
         return decode_attention_ref(q, k_cache, v_cache, length)
+    rt.no_backward("decode", q, k_cache, v_cache)
     G = Hq // Hkv
     if not q.dtype == k_cache.dtype == v_cache.dtype == torch.bfloat16:
         raise TypeError(f"decode: dtypes q={q.dtype} k={k_cache.dtype} "
@@ -184,6 +195,16 @@ def attention(q, k, v, *, causal=True, window=0):
     if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
         raise TypeError(f"attention: dtypes q={q.dtype} k={k.dtype} "
                         f"v={v.dtype}; the kernel takes bf16 for all three")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if not (causal or window) or dk != dv or dk not in BWD_WIDTHS:
+            raise ValueError(
+                f"attention: a gradient is asked for, and the backward "
+                f"kernel takes dk = dv in {BWD_WIDTHS}, causal or windowed; "
+                f"got (dk, dv) = ({dk}, {dv}), causal={causal}, "
+                f"window={window} (ROADMAP.md, Queue 2: the training "
+                "kernels still missing on the card)")
+        return FlashAttention.apply(q, k, v, bool(causal), int(window))
     if (dk, dv) not in PREFILL_WIDTHS:
         raise ValueError(f"attention: kernel takes (dk, dv) in "
                          f"{PREFILL_WIDTHS}, got ({dk}, {dv})")
@@ -197,3 +218,94 @@ def attention(q, k, v, *, causal=True, window=0):
     rt.check_launch("flash_prefill", rc)
     rt.count_launch("flash_prefill")
     return out
+
+
+def attention_lse(q, k, v, *, causal=True, window=0):
+    """The training forward: (o (B,S,Hq,d), lse (B,Hq,S) f32), lse each
+    row's log-sum-exp of its scores scaled by 1/sqrt(d). Causal or windowed
+    calls with q, k, v of one length S. CPU tensors take the plain version;
+    CUDA tensors launch the LSE form of ``flash_prefill`` (bf16, d in
+    ``BWD_WIDTHS``), counted as ``flash_prefill[lse]``. Gives no gradient
+    itself: ``FlashAttention`` calls it."""
+    B, S, Hq, d = q.shape
+    Hkv = k.shape[2]
+    if k.shape != (B, S, Hkv, d) or v.shape != k.shape or Hq % Hkv \
+            or not (causal or window):
+        raise ValueError(f"attention_lse: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, causal="
+                         f"{causal}, window={window}: takes q, k, v of one "
+                         "length and width, causal or windowed")
+    if not rt.on_card(q, k, v):
+        return attention_lse_ref(q, k, v, causal=causal, window=window)
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16 \
+            or d not in BWD_WIDTHS:
+        raise ValueError(f"attention_lse: the kernel takes bf16 and d in "
+                         f"{BWD_WIDTHS}, got {q.dtype}, d={d}")
+    strides = _row_strides("attention_lse", q=q, k=k, v=v)
+    fn = rt.bind("flash_prefill", "flash_prefill_lse_bf16", _LSE_ARGS)
+    o = torch.empty((B, S, Hq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    strides += o.stride()[:3]
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), B, S, Hq, Hkv, d, int(causal), int(window),
+            *strides, 1.0 / math.sqrt(d), rt.stream_ptr(q))
+    rt.check_launch("flash_prefill", rc)
+    rt.count_launch("flash_prefill[lse]")
+    return o, lse
+
+
+def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
+    """dq, dk, dv (shaped and typed as q, k, v) of ``attention_lse``'s o for
+    the upstream gradient ``do``, from its ``lse``. CPU tensors take the
+    plain version (``attention_bwd_ref``, f32, cast); CUDA tensors launch
+    the ``flash_prefill_bwd`` kernels (di, dK/dV, dQ: one launch count),
+    which take contiguous bf16 at d in ``BWD_WIDTHS``."""
+    B, S, Hq, d = q.shape
+    Hkv = k.shape[2]
+    if k.shape != (B, S, Hkv, d) or v.shape != k.shape or Hq % Hkv \
+            or o.shape != q.shape or do.shape != q.shape \
+            or lse.shape != (B, Hq, S) or not (causal or window):
+        raise ValueError("attention_bwd: shapes or masks outside its "
+                         "contract (see attention_lse)")
+    if not rt.on_card(q, k, v, o, lse, do):
+        return tuple(g.to(t.dtype) for g, t in zip(
+            attention_bwd_ref(q, k, v, do, causal=causal, window=window),
+            (q, k, v)))
+    if not all(t.dtype == torch.bfloat16 for t in (q, k, v, o, do)) \
+            or lse.dtype != torch.float32 or d not in BWD_WIDTHS:
+        raise ValueError(f"attention_bwd: the kernel takes bf16 q, k, v, o, "
+                         f"do, f32 lse and d in {BWD_WIDTHS}")
+    rt.check_contiguous("attention_bwd", q=q, k=k, v=v, o=o, lse=lse, do=do)
+    fn = rt.bind("flash_prefill_bwd", "flash_prefill_bwd_bf16", _BWD_ARGS)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    di = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, S, Hq, Hkv, d, int(causal),
+            int(window), 1.0 / math.sqrt(d), rt.stream_ptr(q))
+    rt.check_launch("flash_prefill_bwd", rc)
+    rt.count_launch("flash_prefill_bwd")
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``attention`` with a gradient on the card: forward ``attention_lse``
+    (o and each row's lse saved with contiguous q, k, v), backward
+    ``attention_bwd``. ``attention`` routes here only for a CUDA call under
+    grad mode whose q, k or v requires grad."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        o, lse = attention_lse(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dq, dk, dv = attention_bwd(q, k, v, o, lse, do, causal=ctx.causal,
+                                   window=ctx.window)
+        return dq, dk, dv, None, None

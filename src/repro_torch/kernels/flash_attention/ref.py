@@ -2,7 +2,9 @@
 oracle; the paged decode gathers the lanes' blocks into contiguous caches;
 each takes a masked softmax in f32. ``decode_paged_split_ref`` is the paged
 kernel's own arithmetic (chunks of positions, merged in chunk order), for
-the tests and the card's checks."""
+the tests and the card's checks. ``attention_bwd_ref`` is the prefill's
+gradient by the explicit formulas, in f32, for the tests and the card's
+checks of the backward kernel (no path computes a gradient with it)."""
 from __future__ import annotations
 
 import math
@@ -16,6 +18,74 @@ def attention_ref(q, k, v, *, causal=True, window=0):
     """q (B,Sq,Hq,dk), k (B,Sk,Hkv,dk), v (B,Sk,Hkv,dv) -> (B,Sq,Hq,dv),
     scale 1/sqrt(dk); Sk != Sq only without a causal mask or a window."""
     return naive_attention(q, k, v, causal=causal, window=window)
+
+
+def attention_mask(Sq, Sk, *, causal=True, window=0, device=None):
+    """(Sq, Sk) bool, True where query i attends key j: ``j <= i``
+    (causal) and ``i - j < window`` (window > 0)."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= qpos - kpos < window
+    return mask
+
+
+def attention_bwd_masked(q, k, v, do, mask, di=None):
+    """dq, dk, dv (f32, shaped as q, k, v) of o = softmax(q k^T / sqrt(dk)
+    over ``mask``) v for the upstream gradient ``do`` (shaped as o), by the
+    explicit formulas in f32: p the masked softmax, dv = p^T do, dp = do
+    v^T, ds = p (dp - di), dq = ds k / sqrt(dk), dk = ds^T q / sqrt(dk),
+    the G q heads of a kv head summed into its dk / dv. ``di`` (B, Hq, Sq)
+    is rowsum(o * do) of this o unless given."""
+    B, Sq, Hq, dk = q.shape
+    _, Sk, Hkv, dv = v.shape
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(dk)
+    qf = q.float().reshape(B, Sq, Hkv, G, dk)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(B, Sq, Hkv, G, dv)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    del s
+    if di is None:
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+        di = (o * dof).sum(-1).permute(0, 2, 3, 1)         # (B,Hkv,G,Sq)
+        del o
+    else:
+        di = di.float().reshape(B, Hkv, G, Sq)
+    dv_ = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    ds = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = p * (ds - di[..., None])
+    del p
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk_ = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    return dq.reshape(B, Sq, Hq, dk), dk_, dv_
+
+
+def attention_bwd_ref(q, k, v, do, *, causal=True, window=0):
+    """The gradient of ``attention_ref(q, k, v, causal=..., window=...)``
+    for upstream ``do``: (dq, dk, dv) in f32 (``attention_bwd_masked``)."""
+    mask = attention_mask(q.shape[1], k.shape[1], causal=causal,
+                          window=window, device=q.device)
+    return attention_bwd_masked(q, k, v, do, mask)
+
+
+def attention_lse_ref(q, k, v, *, causal=True, window=0):
+    """(o, lse): ``attention_ref``'s output and each row's log-sum-exp of
+    its scaled scores, (B, Hq, S) f32 (``attention_lse``'s plain
+    version)."""
+    B, S, Hq, d = q.shape
+    Hkv = k.shape[2]
+    s = torch.einsum("bqhgd,bkhd->bhgqk",
+                     q.float().reshape(B, S, Hkv, Hq // Hkv, d), k.float()) \
+        * (1.0 / math.sqrt(d))
+    mask = attention_mask(S, S, causal=causal, window=window, device=q.device)
+    lse = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return (attention_ref(q, k, v, causal=causal, window=window),
+            lse.reshape(B, Hq, S))
 
 
 def split_inputs(q, k_pool, v_pool, tables, len1):

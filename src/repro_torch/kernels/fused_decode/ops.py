@@ -75,6 +75,7 @@ def qkv_rope_paged(x, norm_scale, wq, wk, wv, pos, *, theta=10000.0,
     if not rt.on_card(x, norm_scale, wq, wk, wv, pos):
         inv = _inv_freq(dh, float(theta), float(rope_frac), "cpu")
         return qkv_rope_paged_ref(x, norm_scale, wq, wk, wv, pos, inv)
+    rt.no_backward("qkv_rope_paged", x, norm_scale, wq, wk, wv)
     _check_bf16("qkv_rope_paged", x=x, norm_scale=norm_scale, wq=wq, wk=wk,
                 wv=wv)
     if pos.dtype != torch.int32:
@@ -339,6 +340,8 @@ def oproj_ffn_swiglu(x, attn_out, w_o, norm_scale, w_gate, w_up, w_down):
     if not rt.on_card(x, attn_out, w_o, norm_scale, w_gate, w_up, w_down):
         return oproj_ffn_swiglu_ref(x, attn_out, w_o, norm_scale, w_gate,
                                     w_up, w_down)
+    rt.no_backward("oproj_ffn_swiglu", x, attn_out, w_o, norm_scale, w_gate,
+                   w_up, w_down)
     _check_bf16("oproj_ffn_swiglu", x=x, attn_out=attn_out, w_o=w_o,
                 norm_scale=norm_scale, w_gate=w_gate, w_up=w_up,
                 w_down=w_down)
@@ -386,6 +389,7 @@ def qkv_rope(x, norm_scale, w_qkv, pos: int, *, n_q, n_kv, dh, theta=10000.0,
     if not rt.on_card(x, norm_scale, w_qkv):
         return qkv_rope_ref(x, norm_scale, w_qkv, pos, n_q=n_q, n_kv=n_kv,
                             dh=dh, theta=theta, rope_frac=rope_frac)
+    rt.no_backward("qkv_rope", x, norm_scale, w_qkv)
     _check_bf16("qkv_rope", x=x, norm_scale=norm_scale, w_qkv=w_qkv)
     _check_qkv_widths("qkv_rope", D, dh)
     rt.check_contiguous("qkv_rope", x=x, norm_scale=norm_scale, w_qkv=w_qkv)
@@ -422,6 +426,7 @@ def ffn_swiglu(x, norm_scale, w_gate, w_up, w_down, *, residual=True):
     if not rt.on_card(x, norm_scale, w_gate, w_up, w_down):
         return ffn_swiglu_ref(x, norm_scale, w_gate, w_up, w_down,
                               residual=residual)
+    rt.no_backward("ffn_swiglu", x, norm_scale, w_gate, w_up, w_down)
     _check_bf16("ffn_swiglu", x=x, norm_scale=norm_scale, w_gate=w_gate,
                 w_up=w_up, w_down=w_down)
     if D % 8 or F % 8:

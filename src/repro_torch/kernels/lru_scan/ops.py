@@ -21,6 +21,7 @@ def lru_scan(a, b):
                          f"{tuple(b.shape)} must be the same (B, S, D)")
     if not rt.on_card(a, b):
         return lru_scan_ref(a, b)
+    rt.no_backward("lru_scan", a, b)
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError(f"lru_scan: dtypes a={a.dtype} b={b.dtype}; the "
                         "kernel takes f32")

@@ -175,6 +175,7 @@ def monarch(x, w0, tw, w1):
                          f"min(128, N1)")
     if not rt.on_card(x, w0, tw, w1):
         return monarch_ref(x, w0, tw, w1)
+    rt.no_backward("monarch", x, w0, tw, w1)
     _check_card("monarch", N2, MONARCH_MAX_N2,
                 dict(x=x, w0=w0, tw=tw, w1=w1))
     _, smem = card_limits("monarch_fused", x.device.index)
@@ -204,6 +205,7 @@ def monarch_conv(x, w0, tw, w1, filt, w0i, twi, w1i):
     args = (x, w0, tw, w1, filt, w0i, twi, w1i)
     if not rt.on_card(*args):
         return monarch_conv_ref(*args)
+    rt.no_backward("monarch_conv", *args)
     B, N1, N2 = x.shape
     _check_card("monarch_conv", N2, MONARCH_CONV_MAX_N2,
                 dict(x=x, w0=w0, tw=tw, w1=w1, filt=filt, w0i=w0i, twi=twi,

@@ -39,6 +39,7 @@ SOURCES = {
     "qkv_rope": "fused_decode/csrc/qkv_rope.cu",
     "ffn_swiglu": "fused_decode/csrc/ffn_swiglu.cu",
     "flash_prefill": "flash_attention/csrc/prefill.cu",
+    "flash_prefill_bwd": "flash_attention/csrc/prefill_bwd.cu",
     "lru_scan": "lru_scan/csrc/lru_scan.cu",
     "monarch_fused": "monarch_fft/csrc/monarch.cu",
     "monarch_conv_fused": "monarch_fft/csrc/monarch_conv.cu",
@@ -53,8 +54,10 @@ _fns: Dict[tuple, ctypes._CFuncPtr] = {}
 # launch-count names besides the libraries': a form of a kernel counted on
 # its own (the tensor-parallel partial of ffn_swiglu, launched only by the
 # node's fused TP body; qkv_rope_paged rotating part of each head, which no
-# serving path asks for)
-FORMS = ("ffn_swiglu[residual=False]", "qkv_rope_paged[partial_rope]")
+# serving path asks for; flash_prefill writing each row's log-sum-exp, the
+# training forward)
+FORMS = ("ffn_swiglu[residual=False]", "qkv_rope_paged[partial_rope]",
+         "flash_prefill[lse]")
 _launches: Dict[str, int] = {name: 0 for name in (*SOURCES, *FORMS)}
 
 
@@ -86,6 +89,19 @@ def on_card(*tensors: torch.Tensor) -> bool:
         return True
     raise ValueError(f"kernel inputs on mixed/unsupported devices: "
                      f"{sorted(str(t.device) for t in tensors)}")
+
+
+def no_backward(name: str, *tensors: torch.Tensor) -> None:
+    """Called by a wrapper whose kernel has no backward, on the card, before
+    it launches: with grad mode on and an input that requires grad, the
+    result would carry no gradient and leave the weights upstream without
+    one, so the call raises instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward, and an input requires "
+            "grad: its result would carry no gradient (run under "
+            "torch.no_grad(), or see ROADMAP.md, Queue 2, for the training "
+            "kernels still missing on the card)")
 
 
 def check_contiguous(name: str, **tensors: torch.Tensor) -> None:

@@ -62,6 +62,17 @@ def init_params(specs, generator: torch.Generator, device):
     return out
 
 
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, or, with ``remat`` under grad mode, the same through
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are not
+    kept but recomputed in the backward (JAX's ``jax.checkpoint`` of a
+    layer's body under ``remat=True``)."""
+    if remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def param_bytes(specs) -> int:
     return int(sum(int(np.prod(s.shape)) * torch.empty((), dtype=s.dtype)
                    .element_size() for _, s in _spec_leaves(specs)))

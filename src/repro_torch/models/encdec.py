@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.common import spec
+from repro_torch.models.common import remat_call, spec
 from repro_torch.models.transformer import _stack, layer_params
 
 
@@ -117,42 +117,52 @@ def _mlp(cfg: ModelConfig, lp, h):
                                                         h))
 
 
-def encode(cfg: ModelConfig, params, enc_embeds):
+def _enc_layer(cfg: ModelConfig, lp, h):
+    hn = L.apply_norm(cfg, lp["attn"]["norm"], h)
+    q, k, v = _proj_qkv(cfg, lp["attn"], hn, hn)
+    h = h + _out(cfg, lp["attn"], L.attention(q, k, v, causal=False))
+    return _mlp(cfg, lp, h)
+
+
+def encode(cfg: ModelConfig, params, enc_embeds, *, remat=False):
     """enc_embeds (B,Se,D) -> the encoder's output (B,Se,D): the frames in
     bf16 plus their sinusoids, then pre-norm layers of self-attention (not
-    causal) and the GELU MLP, then the final LayerNorm."""
+    causal) and the GELU MLP, then the final LayerNorm. ``remat``
+    recomputes each layer in the backward (``common.remat_call``)."""
     _check_encdec(cfg)
     B, S, D = enc_embeds.shape
     h = enc_embeds.to(torch.bfloat16) + sinusoid_pos(
         S, D, enc_embeds.device)[None]
     for i in range(cfg.n_encoder_layers):
-        lp = layer_params(params, i, "enc_layers")
-        hn = L.apply_norm(cfg, lp["attn"]["norm"], h)
-        q, k, v = _proj_qkv(cfg, lp["attn"], hn, hn)
-        h = h + _out(cfg, lp["attn"], L.attention(q, k, v, causal=False))
-        h = _mlp(cfg, lp, h)
+        h = remat_call(remat, _enc_layer, cfg,
+                       layer_params(params, i, "enc_layers"), h)
     return L.apply_norm(cfg, params["enc_final_norm"], h)
 
 
+def _dec_layer(cfg: ModelConfig, lp, h, enc_out):
+    """One decoder layer: (h out, its self (k, v), its cross (k, v))."""
+    hn = L.apply_norm(cfg, lp["self_attn"]["norm"], h)
+    q, k, v = _proj_qkv(cfg, lp["self_attn"], hn, hn)
+    h = h + _out(cfg, lp["self_attn"], L.attention(q, k, v, causal=True))
+    hn = L.apply_norm(cfg, lp["cross_attn"]["norm"], h)
+    qc, kc, vc = _proj_qkv(cfg, lp["cross_attn"], hn, enc_out)
+    h = h + _out(cfg, lp["cross_attn"], L.attention(qc, kc, vc, causal=False))
+    return _mlp(cfg, lp, h), (k, v), (kc, vc)
+
+
 def _decoder(cfg: ModelConfig, params, tokens, enc_out, *, cache=None,
-             last_only=False):
+             last_only=False, remat=False):
     """The decoder over tokens (B,S) attending ``enc_out``: logits
     (B,S,V), or (B,1,V) with ``last_only``. With ``cache`` (from
     ``init_cache``) each layer's self K/V is written at ``[:S]`` and its
-    cross K/V whole."""
+    cross K/V whole. ``remat`` recomputes each layer in the backward."""
     B, S = tokens.shape
     h = params["embed"]["tok"][tokens] + sinusoid_pos(
         S, cfg.d_model, tokens.device)[None]
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i, "dec_layers")
-        hn = L.apply_norm(cfg, lp["self_attn"]["norm"], h)
-        q, k, v = _proj_qkv(cfg, lp["self_attn"], hn, hn)
-        h = h + _out(cfg, lp["self_attn"], L.attention(q, k, v, causal=True))
-        hn = L.apply_norm(cfg, lp["cross_attn"]["norm"], h)
-        qc, kc, vc = _proj_qkv(cfg, lp["cross_attn"], hn, enc_out)
-        h = h + _out(cfg, lp["cross_attn"],
-                     L.attention(qc, kc, vc, causal=False))
-        h = _mlp(cfg, lp, h)
+        h, (k, v), (kc, vc) = remat_call(
+            remat, _dec_layer, cfg, layer_params(params, i, "dec_layers"), h,
+            enc_out)
         if cache is not None:
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
@@ -164,12 +174,14 @@ def _decoder(cfg: ModelConfig, params, tokens, enc_out, *, cache=None,
     return torch.einsum("bsd,vd->bsv", h, params["embed"]["tok"])
 
 
-def forward(cfg: ModelConfig, params, batch, *, last_only=False):
+def forward(cfg: ModelConfig, params, batch, *, remat=False, last_only=False):
     """batch {"enc_embeds" (B,Se,D), "tokens" (B,S)} -> logits (B,S,V)
-    (or (B,1,V) with ``last_only``)."""
-    enc_out = encode(cfg, params, batch["enc_embeds"])
+    (or (B,1,V) with ``last_only``). ``remat`` recomputes each encoder and
+    decoder layer in the backward (JAX's takes the flag and checkpoints
+    nothing; the values are the same)."""
+    enc_out = encode(cfg, params, batch["enc_embeds"], remat=remat)
     return _decoder(cfg, params, batch["tokens"], enc_out,
-                    last_only=last_only)
+                    last_only=last_only, remat=remat)
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int):

@@ -38,8 +38,9 @@ class Model:
     def init(self, generator: torch.Generator, device):
         return common.init_params(self.param_specs(), generator, device)
 
-    def forward(self, params, batch, *, last_only=False):
-        return self.impl.forward(self.cfg, params, batch, last_only=last_only)
+    def forward(self, params, batch, *, remat=False, last_only=False):
+        return self.impl.forward(self.cfg, params, batch, remat=remat,
+                                 last_only=last_only)
 
     def prefill(self, params, batch, max_len):
         if self.cfg.family == "encdec":

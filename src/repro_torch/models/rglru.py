@@ -21,7 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.lru_scan import ops as lru_ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.common import spec
+from repro_torch.models.common import remat_call, spec
 
 _C_RGLRU = 8.0
 
@@ -174,11 +174,18 @@ def _group_apply(cfg: ModelConfig, gp, x, positions):
     return x, _stack_states(rec_states), kv
 
 
-def forward(cfg: ModelConfig, params, batch, *, last_only=False,
+def _tail_layer(cfg: ModelConfig, rp, mp, h):
+    h, ns = rec_block(cfg, rp, h)
+    return _mlp_block(cfg, mp, h), ns
+
+
+def forward(cfg: ModelConfig, params, batch, *, remat=False, last_only=False,
             return_states=False):
     """tokens (B,S) -> logits (B,S,V) (or (B,1,V) with ``last_only``); with
     ``return_states`` also (groups' rec states, stacked (k, v) of the
-    attention blocks (G,B,S,Hkv,dh), the tail's rec states or None)."""
+    attention blocks (G,B,S,Hkv,dh), the tail's rec states or None).
+    ``remat`` recomputes each group and tail layer in the backward
+    (``common.remat_call``)."""
     _check_rglru(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -187,8 +194,8 @@ def forward(cfg: ModelConfig, params, batch, *, last_only=False,
     G, tail = _group_counts(cfg)
     rec, ks, vs = [], [], []
     for g in range(G):
-        h, rs, (k, v) = _group_apply(cfg, _take(params["groups"], g), h,
-                                     positions)
+        h, rs, (k, v) = remat_call(remat, _group_apply, cfg,
+                                   _take(params["groups"], g), h, positions)
         rec.append(rs)
         ks.append(k)
         vs.append(v)
@@ -196,8 +203,9 @@ def forward(cfg: ModelConfig, params, batch, *, last_only=False,
     if tail:
         ts = []
         for i in range(tail):
-            h, ns = rec_block(cfg, _take(params["tail_rec"], i), h)
-            h = _mlp_block(cfg, _take(params["tail_mlp"], i), h)
+            h, ns = remat_call(remat, _tail_layer, cfg,
+                               _take(params["tail_rec"], i),
+                               _take(params["tail_mlp"], i), h)
             ts.append(ns)
         tail_states = _stack_states(ts)
     h = L.apply_norm(cfg, params["final_norm"], h)

@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.common import spec
+from repro_torch.models.common import remat_call, spec
 
 
 def _check_ported(cfg: ModelConfig):
@@ -257,14 +257,15 @@ def unembed(cfg, params, h):
     return h @ params["lm_head"]
 
 
-def forward(cfg: ModelConfig, params, batch, *, return_cache: bool = False,
-            last_only: bool = False):
+def forward(cfg: ModelConfig, params, batch, *, remat: bool = False,
+            return_cache: bool = False, last_only: bool = False):
     """tokens (B,S) -> logits (B,S,V) (or (B,1,V) with ``last_only``); with
     ``return_cache`` also one pair a layer stack (``layer_stacks``), as
     JAX's: ``(k, v)`` with k/v ``(L,B,S,Hkv,dh)``, or MLA's ``(c_kv,
     k_rope)`` ``(L,B,S,lora)`` / ``(L,B,S,rope)``. A vision config's
     ``batch["patch_embeds"]`` (B,P,D) replace the first P token embeddings
-    (the frontend is a stub, as in JAX)."""
+    (the frontend is a stub, as in JAX). ``remat`` recomputes each layer in
+    the backward (``common.remat_call``)."""
     _check_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -275,7 +276,7 @@ def forward(cfg: ModelConfig, params, batch, *, return_cache: bool = False,
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     caches: Dict[str, list] = {}
     for stack, _, lp, moe in layers_in_order(cfg, params):
-        h, kv = _layer(cfg, lp, h, positions, moe)
+        h, kv = remat_call(remat, _layer, cfg, lp, h, positions, moe)
         if return_cache:
             caches.setdefault(stack, []).append(kv)
     h = L.apply_norm(cfg, params["final_norm"], h)

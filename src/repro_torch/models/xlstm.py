@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from repro_torch.bridge import tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.common import spec
+from repro_torch.models.common import remat_call, spec
 from repro_torch.models.rglru import _take, causal_conv
 from repro_torch.models.transformer import _stack
 
@@ -340,16 +340,18 @@ def _group_apply(cfg: ModelConfig, gp, x, states=None):
     return x, {"mlstm": _stack_trees(new_m), "slstm": s_new}
 
 
-def forward(cfg: ModelConfig, params, batch, *, last_only=False,
+def forward(cfg: ModelConfig, params, batch, *, remat=False, last_only=False,
             return_states=False):
     """tokens (B,S) -> logits (B,S,V) (or (B,1,V) with ``last_only``);
     with ``return_states`` also the state tree after the last position.
-    S must be a multiple of ``min(256, S)``."""
+    S must be a multiple of ``min(256, S)``. ``remat`` recomputes each
+    group in the backward (``common.remat_call``)."""
     G, _ = _group_counts(cfg)
     h = params["embed"]["tok"][batch["tokens"]]
     states = []
     for g in range(G):
-        h, st = _group_apply(cfg, _take(params["groups"], g), h)
+        h, st = remat_call(remat, _group_apply, cfg,
+                           _take(params["groups"], g), h)
         states.append(st)
     h = L.apply_norm(cfg, params["final_norm"], h)
     if last_only:

@@ -40,6 +40,11 @@ def test_every_module_imports_with_jax_and_repro_refused():
             repro_torch.__path__, "repro_torch.")]
         for n in names:
             importlib.import_module(n)
+        # the training path's subpackages are walked too
+        assert {{"repro_torch.optim.adamw", "repro_torch.data.pipeline",
+                 "repro_torch.checkpoint.manager",
+                 "repro_torch.distributed.stepfn",
+                 "repro_torch.launch.train"}} <= set(names), names
         spec = importlib.util.spec_from_file_location(
             "chip_smoke", {str(ROOT / 'chip_smoke.py')!r})
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -232,3 +237,79 @@ def test_mixed_devices_raise():
     with pytest.raises(ValueError, match="mixed"):
         on_card(torch.zeros(1), _cuda_looking((1,)))
     assert on_card(torch.zeros(1), torch.ones(2)) is False
+
+
+def test_wrappers_without_a_backward_raise_under_grad(monkeypatch):
+    """On the card (``rt.on_card`` patched), a kernel wrapper whose kernel
+    has no backward raises under grad mode when an input requires grad,
+    before anything is built or launched; ``flash_prefill`` outside its
+    backward kernel's contract raises ``ValueError`` naming ROADMAP.md;
+    under ``no_grad`` the same calls go on to the launch."""
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.kernels.flash_attention.ops import (attention, decode,
+                                                         decode_paged)
+    from repro_torch.kernels.fused_decode.ops import (ffn_swiglu,
+                                                      oproj_ffn_swiglu,
+                                                      qkv_rope,
+                                                      qkv_rope_paged)
+    from repro_torch.kernels.lru_scan.ops import lru_scan
+    from repro_torch.kernels.monarch_fft.ops import monarch, monarch_conv
+
+    class Launched(Exception):
+        pass
+
+    def launched(*a, **k):
+        raise Launched()
+
+    monkeypatch.setattr(rt, "on_card", lambda *t: True)
+    monkeypatch.setattr(rt, "bind", launched)
+    monkeypatch.setattr(rt, "library", launched)
+    bf, i32 = torch.bfloat16, torch.int32
+
+    def w(*shape, dtype=bf):
+        return torch.zeros(shape, dtype=dtype).requires_grad_(True)
+
+    ints = lambda *shape: torch.ones(shape, dtype=i32)
+    calls = {
+        "decode_paged": lambda: decode_paged(w(2, 4, 32), w(5, 8, 4, 32),
+                                             w(5, 8, 4, 32), ints(2, 2),
+                                             ints(2)),
+        "flash_decode": lambda: decode(w(2, 4, 32), w(2, 16, 2, 32),
+                                       w(2, 16, 2, 32), 5),
+        "qkv_rope_paged": lambda: qkv_rope_paged(
+            w(2, 64), w(64), w(64, 4, 32), w(64, 2, 32), w(64, 2, 32),
+            ints(2)),
+        "oproj_ffn_swiglu": lambda: oproj_ffn_swiglu(
+            w(2, 64), w(2, 128), w(128, 64), w(64), w(64, 96), w(64, 96),
+            w(96, 64)),
+        "qkv_rope": lambda: qkv_rope(w(2, 64), w(64), w(64, 8 * 32), 3,
+                                     n_q=4, n_kv=2, dh=32),
+        "ffn_swiglu": lambda: ffn_swiglu(w(2, 64), w(64), w(64, 96),
+                                         w(64, 96), w(96, 64)),
+        "lru_scan": lambda: lru_scan(w(2, 16, 64, dtype=torch.float32),
+                                     w(2, 16, 64, dtype=torch.float32)),
+        "monarch_fused": lambda: monarch(w(2, 64, 128), w(64, 64),
+                                         w(64, 128), w(128, 128)),
+        "monarch_conv_fused": lambda: monarch_conv(
+            w(2, 64, 128), w(64, 64), w(64, 128), w(128, 128), w(128, 64),
+            w(128, 128), w(128, 64), w(64, 64)),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            with pytest.raises(Launched):
+                call()
+    outside = [  # d 256; MLA's (192, 128); FULL (neither mask)
+        lambda: attention(w(1, 8, 2, 256), w(1, 8, 2, 256),
+                          w(1, 8, 2, 256)),
+        lambda: attention(w(1, 8, 2, 192), w(1, 8, 2, 192),
+                          w(1, 8, 2, 128)),
+        lambda: attention(w(1, 8, 2, 64), w(1, 12, 2, 64), w(1, 12, 2, 64),
+                          causal=False)]
+    for call in outside:
+        with pytest.raises(ValueError, match="ROADMAP"):
+            call()
+        with torch.no_grad():
+            with pytest.raises(Launched):
+                call()

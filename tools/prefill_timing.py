@@ -1,5 +1,6 @@
 """Time the port's ``flash_prefill`` at the shapes ``chip_smoke.py``'s
-kernel phases hold it to (``chip_smoke.prefill_shapes``), on one card, for
+kernel phases hold it to (``chip_smoke.prefill_shapes``, then Whisper's
+three FULL shapes, neither causal nor windowed), on one card, for
 comparing two trees of the repository in one call:
 
     python tools/prefill_timing.py --src build/parent/src --label parent
@@ -29,20 +30,23 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-# prefill_kernel<DK>, <DK, DV> or <DK, DV, FULL> in a mangled name
-_ENTRY = r"prefill_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?"
+# prefill_kernel<DK>, <DK, DV>, <DK, DV, FULL> or <DK, DV, FULL, LSE> in a
+# mangled name
+_ENTRY = r"prefill_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?(?:Lb([01])E)?"
 
 
 def _key(m):
     return f"{m.group(1)},{m.group(2) or m.group(1)}" + (
-        ",full" if m.group(3) == "1" else "")
+        ",full" if m.group(3) == "1" else "") + (
+        ",lse" if m.group(4) == "1" else "")
 
 
 def instantiations(lib, log):
     """{"dk,dv": {"ptxas": [...], "sass": sha256}} of every
     ``prefill_kernel`` instantiation in library ``lib`` (a tree that
     instantiates one width per kernel reads as dk = dv; a FULL
-    instantiation, neither causal nor windowed, as "dk,dv,full")."""
+    instantiation, neither causal nor windowed, as "dk,dv,full"; the LSE
+    form, the training forward, as "dk,dv,lse")."""
     import hashlib
     import re
     import shutil
@@ -132,6 +136,28 @@ def main(argv=None):
         print(json.dumps({"label": args.label, "row": name, "ms": ms,
                           "row_rel_l2": err, "card": card}), flush=True)
         del q, k, v, got, want
+        torch.cuda.empty_cache()
+    # the FULL instantiation (neither mask) at Whisper-small's three shapes:
+    # the encoder, the teacher-forced cross-attention, the prefill's
+    c, w = get_config("whisper-small"), cs.WHISPER
+    B, Se, H, d = w["lanes"], c.encoder_seq, c.n_heads, c.head_dim
+    for Sq in (Se, w["target_len"], w["prompt_len"]):
+        name = f"whisper-small,B={B},Sq={Sq},Sk={Se},full"
+        if args.only and not any(name.startswith(o) for o in args.only):
+            continue
+        q = torch.randn((B, Sq, H, d), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        k, v = (torch.randn((B, Se, H, d), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        err = cs.row_rel_l2(attention(q, k, v, causal=False),
+                            attention_ref(q, k, v, causal=False))
+        if not err <= 2.0 ** -6:
+            raise AssertionError(f"{name}: row relative L2 error {err}")
+        ms = cs.time_ms(lambda: attention(q, k, v, causal=False), flush,
+                        args.reps)
+        print(json.dumps({"label": args.label, "row": name, "ms": ms,
+                          "row_rel_l2": err, "card": card}), flush=True)
+        del q, k, v
         torch.cuda.empty_cache()
 
 
