@@ -719,13 +719,17 @@ def build_kernels():
                    " lse]" if k[3] == "1" else "]"),
                 lambda k: prefill_smem(int(k[0]), int(k[1])))
         elif name == "flash_prefill_bwd":
+            # the row statistics, the warp-specialised dK/dV/dQ kernel
+            # (wgmma, TMA rings) and dq's rounding: registers, no spill,
+            # no serialised wgmma at every width
             bwd_smem = rt.bind(name, "flash_prefill_bwd_smem_bytes", [rt.I])
             entry_build_report(
-                name, log, r"(di_kernel|dkdv_kernel|dq_kernel)ILi(\d+)E",
-                [(kn, str(d)) for kn in ("di_kernel", "dkdv_kernel",
-                                         "dq_kernel") for d in BWD_WIDTHS],
+                name, log, r"(stat_kernel|bwd_kernel|dq_out_kernel)ILi(\d+)E",
+                [(kn, str(d)) for kn in ("stat_kernel", "bwd_kernel",
+                                         "dq_out_kernel")
+                 for d in BWD_WIDTHS],
                 lambda k: f"flash_prefill_bwd[{k[0]} d={k[1]}]",
-                lambda k: 0 if k[0] == "di_kernel" else bwd_smem(int(k[1])))
+                lambda k: bwd_smem(int(k[1])) if k[0] == "bwd_kernel" else 0)
         elif name in ("oproj_ffn_swiglu", "ffn_swiglu"):
             stream_smem = rt.bind(name, "stream_smem_bytes", [rt.I, rt.I])
             first = ("OprojPass" if name == "oproj_ffn_swiglu"
@@ -5106,10 +5110,11 @@ def bwd_row(row, B, S, Hq, Hkv, d, window, gen, flush):
     """``flash_prefill_bwd`` on (B, S) random bf16 q / k / v / dO at Hq q
     on Hkv kv heads, causal (and local at ``window``), o and lse from the
     LSE forward: dq, dk, dv each within ``TRAIN_BWD_REL_L2`` (relative L2)
-    of ``attention_bwd_ref`` in f32; timed beside that plain version, the
-    one-call yardstick (autograd of SDPA: is_causal, or the band as a
-    mask; timing only) and the square forward. Returns the kernel-table
-    row."""
+    of ``attention_bwd_ref`` in f32, and two calls equal bit for bit (dQ
+    is summed across CTAs in a fixed order); timed beside that plain
+    version, the one-call yardstick (autograd of SDPA: is_causal, or the
+    band as a mask; timing only) and the square forward. Returns the
+    kernel-table row."""
     import torch.nn.functional as Fn
 
     from repro_torch.kernels.flash_attention.ops import (attention_bwd,
@@ -5125,10 +5130,12 @@ def bwd_row(row, B, S, Hq, Hkv, d, window, gen, flush):
                                  window=window)
     plain = lambda: attention_bwd_ref(q, k, v, do, causal=True,
                                       window=window)
-    got, want = kern(), plain()
+    got, want, again = kern(), plain(), kern()
     torch.cuda.synchronize()
     errs = [rel_l2(g, w) for g, w in zip(got, want)]
-    del got, want
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError(f"{row}: two calls differ")
+    del got, want, again
     _log(f"kernel {row}: dq / dk / dv relative L2 "
          + " / ".join(f"{e:.3e}" for e in errs)
          + f" (tol {TRAIN_BWD_REL_L2:.3e})")

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives for the port's warp-specialised kernels, as
 // inline PTX: mbarriers with phase-parity waits, named barriers, 2-D and 4-D
-// TMA tile loads and 4-D stores, stmatrix, warpgroup MMA (wgmma) with its
+// TMA tile loads, 4-D stores and reductions, 1-D bulk copies, acquire loads
+// and proxy fences for flags in global memory, stmatrix, warpgroup MMA (wgmma) with its
 // shared-memory matrix descriptor and fences, setmaxnreg, and the grid
 // dependency controls of programmatic dependent launch. Compile for sm_90a:
 // wgmma and setmaxnreg exist only there.
@@ -87,6 +88,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// ``bytes`` (a multiple of 16) of global memory at src (16-byte aligned)
+// into shared memory at dst, one bulk copy; its bytes complete_tx on bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          unsigned bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // One box of shared memory at src into a 4-D tensor map at (c0, c1, c2,
 // c3); elements outside the tensor's extent are not written. The thread
 // that issued it commits it as a bulk group and waits (tma_store_wait)
@@ -100,6 +112,20 @@ __device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src,
       : "memory");
 }
 
+// One box of shared memory at src added element by element into a 4-D
+// tensor map at (c0, c1, c2, c3) (the map's type: f32 here), in L2;
+// elements outside the tensor's extent are dropped. Committed and waited
+// for as a store.
+__device__ __forceinline__ void tma_reduce_add_4d(const void* map,
+                                                  uint32_t src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(map),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -107,6 +133,27 @@ __device__ __forceinline__ void tma_store_commit() {
 // until this thread's committed stores have read their shared memory
 __device__ __forceinline__ void tma_store_wait() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// until this thread's committed stores and reductions have completed:
+// their writes to global memory are done, not only their reads of shared
+// memory
+__device__ __forceinline__ void tma_store_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// orders this thread's global-memory accesses through the async proxy
+// (TMA) and through the generic one with respect to each other
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// a load of a flag that later reads and writes may not move above
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
 // orders this thread's generic-proxy writes to shared memory before later
@@ -461,6 +508,64 @@ __device__ __forceinline__ void wgmma_rs_tb<256>(float (&d)[128],
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(scale_d));
+}
+
+// d (64 x N, f32) = a * b, plus d where scale_d != 0: a (64 x 16) bf16 in
+// shared memory, K-major, b (16 x N) bf16 in shared memory, MN-major (the
+// transpose bit: N contiguous, k-steps advance by rows).
+template <int N>
+__device__ void wgmma_ss_tb(float (&d)[N / 2], uint64_t a, uint64_t b,
+                            int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tb<16>(float (&d)[8], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tb<32>(float (&d)[16], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tb<64>(float (&d)[32], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 template <>

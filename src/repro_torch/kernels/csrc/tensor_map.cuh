@@ -1,9 +1,10 @@
 // Host side of the port's TMA loads: cuTensorMapEncodeTiled, reached
 // through the runtime's driver entry point so that a kernel library needs
-// no -lcuda, and a cache of 2-D bf16 tensor maps. flash_prefill
-// (prefill.cu) encodes its 4-D maps through encode_tiled; the FFN kernels'
-// weight stream (stream_gemm.cuh) and the Monarch kernels
-// (monarch_core.cuh) take their 2-D maps from map_2d_bf16.
+// no -lcuda, 4-D maps of (batch, position, head, width) tensors, and a
+// cache of 2-D bf16 tensor maps. flash_prefill (prefill.cu) encodes its 4-D
+// maps through encode_tiled, its backward (prefill_bwd.cu) through
+// map_bshd_bf16; the FFN kernels' weight stream (stream_gemm.cuh) and the
+// Monarch kernels (monarch_core.cuh) take their 2-D maps from map_2d_bf16.
 #pragma once
 
 #include <cuda.h>
@@ -42,6 +43,42 @@ static EncodeTiled encode_tiled() {
                : nullptr;
   }();
   return fn;
+}
+
+// A 4-D tensor of dims (innermost first) and strides in elements (the
+// innermost one contiguous), read or written in boxes of ``box``, its rows
+// of box[0] elements swizzled to ``swizzle`` bytes (128 or 64). Elements
+// outside the extent load as zeros and are dropped on a store.
+static bool map_4d(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                   const void* ptr, const cuuint64_t (&dims)[4],
+                   const long long (&strides)[3], const cuuint32_t (&box)[4],
+                   int swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t st[3] = {(cuuint64_t)(strides[0] * elem),
+                            (cuuint64_t)(strides[1] * elem),
+                            (cuuint64_t)(strides[2] * elem)};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, type, 4, const_cast<void*>(ptr), dims, st, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (B, S, H, dh) bf16 tensor as the 4-D map (dh, H, S, B), strides in
+// elements; boxes of (pw, 1, rows, 1), swizzled to pw * 2 bytes (128 or
+// 64). The position extent is S: rows past it load as zeros and are
+// dropped on a store. (prefill.cu keeps its own copy of this function, so
+// that its instantiations' code stays as it was built.)
+static bool map_bshd_bf16(CUtensorMap* map, const void* ptr, int dh, int H,
+                          int S, int B, long long sh, long long ss,
+                          long long sb, int pw, int rows) {
+  return map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr,
+                {(cuuint64_t)dh, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B},
+                {sh, ss, sb}, {(cuuint32_t)pw, 1, (cuuint32_t)rows, 1},
+                pw * 2);
 }
 
 struct Map2dKey {

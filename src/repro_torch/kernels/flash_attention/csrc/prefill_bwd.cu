@@ -5,9 +5,10 @@
 // models/layers.py::attention (the XLA block_attention, the pure-JAX
 // analogue of kernel.py::flash_prefill) and XLA derives its backward; the
 // port's forward is the flash_prefill kernel (prefill.cu), whose result
-// has no gradient without this. It follows the flash backward of JAX's
-// Pallas TPU kernel: di = rowsum(o * do) once, then a dK/dV kernel and a
-// dQ kernel that recompute p from q, k and the forward's row log-sum-exp.
+// has no gradient without this. It computes the flash backward of JAX's
+// Pallas TPU kernel -- di = rowsum(o * do) once, p recomputed from q, k
+// and the forward's row log-sum-exp -- with p formed once for dK, dV and
+// dQ together.
 //
 // Inputs, all contiguous: q, o, do (B, S, Hq, d) bf16; k, v (B, S, Hkv, d)
 // bf16; lse (B, Hq, S) f32 from the LSE form of prefill.cu. Outputs dq
@@ -22,54 +23,147 @@
 // against the bytes of q, k, v, o, do, lse read once and dq, dk, dv
 // written once: at the 7B expert's training shape (B 4, S 2048, 32 heads,
 // dh 128, causal) 3.437e11 flops and ~539 MB, 0.3475 ms at 989 TFLOP/s.
+// This design issues exactly those five: p is formed once.
 //
-// Design (simple first: mma.sync, cp.async; wgmma and TMA are a later
-// redesign):
-//  * di_kernel: one warp a (batch, position, q head) row, f32.
-//  * dkdv_kernel: one CTA of 4 warps per (batch, kv head, 64-key tile),
-//    each warp 16 keys with their dk and dv rows in f32 registers. It walks
-//    the G q heads of its kv head and, for each, the 64-row q tiles that
-//    see the key tile (from the tile's first key under causal; up to its
-//    last key + window - 1 with a window), Q and dO double-buffered by
-//    cp.async. Per 32 q rows: s^T = k q^T and dp^T = v do^T (m16n8k16,
-//    f32 accumulate), p^T and ds^T in registers, then dv += p^T do and
-//    dk += ds^T q with p^T / ds^T rounded to bf16 as the A operand (the
-//    accumulator layout is the A fragment's). The G heads' sum stays in
-//    the CTA: no atomics.
-//  * dq_kernel: one CTA of 4 warps per (batch, q head, 64-row q tile),
-//    each warp 16 rows with their dq in f32 registers, walking the 64-key
-//    tiles its rows see (K and V double-buffered): s = q k^T and dp = do
-//    v^T per 32 keys, ds in registers, dq += ds k.
-//  * Shared-memory rows are padded by 16 bytes, so the 8 rows an ldmatrix
-//    phase reads fall in distinct banks.
-// Deterministic: every output element is summed by one thread in a fixed
-// order. Rows and keys past S load as zeros and are masked; nothing past S
-// is written.
+// Design: prefill.cu's warp-specialised shape. Three launches:
+//  * stat_kernel: one CTA per (64-row q tile, q head, batch): di =
+//    rowsum(o * do) in f32 and lse * log2(e), into a scratch of (B, Hq,
+//    2, Sp) f32, Sp = S rounded up to 128. Rows past S get lse * log2(e)
+//    = +inf and di = 0, so p = exp2(s * scale * log2(e) - inf) = 0 there:
+//    the zero q row that TMA loads past S (s = 0) adds nothing, with no
+//    mask. It also zeroes the q tile's turn counter (below).
+//  * bwd_kernel: one CTA of 384 threads per (128-key tile, kv head,
+//    batch): two consumer warpgroups of 64 keys each, then a producer
+//    warpgroup, cut to 32 registers by setmaxnreg (the consumers raised to
+//    232), in which one thread issues every load and one (of the next
+//    warp) writes dQ. K and V are loaded once. The loader walks the G q
+//    heads of the kv head and, for each, the 64-row q tiles of the key
+//    tile's band (from its first key under causal; up to its last key +
+//    window - 1 with a window), streaming Q and dO (TMA boxes of 64-element
+//    rows, 128-byte swizzled; 64-byte at d 32) with their 64 lse * log2(e)
+//    and di values (one bulk copy each) into a ring with full and empty
+//    mbarriers a stage (2 stages at d 128, 4 below). Per q tile, each
+//    consumer warpgroup:
+//      s^T = K Q^T, dp^T = V dO^T    wgmma m64n64k16, both in shared memory
+//      p^T = exp2(s^T scale log2(e) - lse2)   masked only on tiles that
+//                                    cross the diagonal or the window edge
+//      ds^T = p^T (dp^T - di)
+//      dV += p^T dO, dK += ds^T Q    p^T, ds^T rounded to bf16 in registers
+//                                    as the A operand; dO, Q read MN-major
+//      ds -> shared memory           stmatrix .trans: q rows of the CTA's
+//                                    128 keys, K-major, 128-byte swizzled
+//      dQ(64 x d/2) = ds K           after both warpgroups stored their ds
+//                                    (a named barrier): A the ds tile, B
+//                                    the K tile's half of the columns,
+//                                    MN-major; K = the CTA's 128 keys
+//    The accumulator's rows are keys, so lse2 and di index its columns:
+//    each thread reads its 16 columns' values from the stage. dK and dV
+//    (64 + 64 f32 registers a thread at d 128) stay in the CTA: it sums
+//    the G heads itself, with no atomics. dQ is staged in f32 (two
+//    buffers, 128-byte swizzled boxes of 32 columns) for the writer,
+//    which adds it into an f32 workspace (B, Hq, Sp, d) by TMA: a store
+//    for the first key tile of a q tile, a reduction (cp.reduce.async.bulk
+//    .add) for the others, in a fixed order -- the key tiles of a q tile
+//    from the last down -- under a turn counter a (batch, q head, q tile):
+//    the writer waits until the counter reaches its key tile's place,
+//    adds, waits for the writes to complete and increments it. The grid
+//    launches a (batch, kv head)'s key tiles together, the last first, so
+//    its workspace stays in L2 and a CTA only waits on key tiles launched
+//    before it: no deadlock. Under causal key tile kt reaches q tile t two
+//    tiles after key tile kt + 1 did, so the turns are rarely waited for.
+//    Epilogue: dK scaled and dV staged in the warpgroup's own rows of the
+//    K and V buffers once both warpgroups are done, stored by TMA (which
+//    drops keys past S).
+//  * dq_out_kernel: dq = scale * the workspace, rounded to bf16.
+// Deterministic: every dK / dV element is summed by one thread in a fixed
+// order and every dQ element in the fixed turn order; two calls agree bit
+// for bit. Nothing past S is written.
+// Measured on the H100 and left out (PERF.md): two kernels forming p
+// twice (dK/dV as above without dQ, then a dQ kernel of 64-key tiles
+// under the forward's pairing of q tiles; 7 products), 1.01-1.07 against
+// 0.87-0.88 ms at the 7B shape but 2.0 against 2.5 at Mixtral's, whose
+// long bands leave this grid a tail; launching a (batch, kv head)'s
+// heaviest key tile first removes that tail (1.9-2.0 ms) but makes its
+// turns wait on key tiles launched after it, which can deadlock once a
+// (batch, kv head) has more key tiles than the card has SMs; writing dq
+// from the last contributor's writer warps, or from key tile 0's CTA
+// after its walk, in place of dq_out_kernel (1.01 and 1.02 ms: both put
+// the rounding on the longest CTAs' path).
 //
-// Where it can go wrong, and what guards it: a fragment mapping that is
-// off gives finite, wrong numbers, so the card tests and chip_smoke.py hold
-// dq, dk, dv to ref.py::attention_bwd_ref in f32 (each layer of the
-// training phase at the model's inputs), with a mask and a di fault
-// planted in the reference that the check must catch.
-#include "mma_sync.cuh"
+// Where it can go wrong, and what guards it:
+//  * A swizzle, descriptor or fragment mapping that is off gives finite,
+//    wrong numbers: the card tests and chip_smoke.py hold dq, dk, dv to
+//    ref.py::attention_bwd_ref in f32 (each layer of the training phase at
+//    the model's inputs), with a mask and a di fault planted in the
+//    reference that the check must catch.
+//  * A wrong mbarrier phase, or a turn that never comes, hangs the CTA (no
+//    timeout: prefill.cu says why); run new work under a timeout. A q
+//    tile's contributors are key tiles t / 2 down to the first under
+//    causal, the last down to the first otherwise: every key tile in that
+//    range walks the q tile.
+//  * ptxas serialises the wgmmas (C7512 / C7520) when one sits on a branch
+//    it cannot prove uniform or registers run short: both consumer
+//    warpgroups walk the whole band and a tile that none of a warpgroup's
+//    pairs attends is masked whole. chip_smoke.py fails on the warning and
+//    on a spill.
+//  * Rows past S load as zeros: lse2 = +inf zeroes their p; keys past S
+//    only reach dK / dV rows that are not stored.
+#include "hopper.cuh"
+#include "tensor_map.cuh"
 
 using namespace repro;
 
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int BK = 64;              // keys per dK/dV CTA; keys per dQ tile
-constexpr int BQ = 64;              // q rows per dQ CTA; q rows per dK/dV tile
+constexpr int CONSUMER_WARPS = 8;        // two warpgroups
+constexpr int THREADS = CONSUMER_WARPS * 32 + 128;   // + the producer's
+constexpr int PRODUCER_REGS = 32;        // the loads and the dQ writer
+constexpr int CONSUMER_REGS = 232;
+constexpr int BK = 128;                  // keys per CTA, 64 a warpgroup
+constexpr int BQ = 64;                   // q rows per ring tile
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int SMEM_MAX = 232448;         // a CTA's opt-in limit, sm_90
+
+// rows of the scratch a (batch, q head) holds: S rounded up to 128
+__host__ __device__ constexpr int stat_len(int S) {
+  return (S + 127) / 128 * 128;
+}
 
 template <int D>
-struct Smem {
-  static constexpr int LD = D + 8;                   // padded row, elements
-  static constexpr int TILE = 64 * LD;               // one 64-row tile
-  // dK/dV: K, V, then 2 x (Q, dO); dQ: Q, dO, then 2 x (K, V); and two
-  // buffers of 64 f32 pairs (lse * log2e, di) for dK/dV
-  static constexpr int BYTES = 6 * TILE * 2 + 2 * 2 * 64 * 4;
+struct Tile {
+  static constexpr int PW = D < 64 ? D : 64;         // elements per panel row
+  static constexpr int SW = PW * 2;                  // swizzle bytes
+  static constexpr int NP = D / PW;                  // panels per row
+  static constexpr int K_BYTES = BK * D * 2;         // K or V
+  static constexpr int QT_BYTES = BQ * D * 2;        // Q or dO, one stage
+  // ds of one q tile: BQ rows of the CTA's BK keys, two 128-byte swizzled
+  // panels of 64 keys (one a warpgroup)
+  static constexpr int DS_BYTES = BQ * BK * 2;
+  // dQ: each warpgroup sums the CTA's keys for D / 2 of the columns,
+  // staged in f32 boxes of FW columns (128- or 64-byte swizzled rows)
+  static constexpr int DQN = D / 2;
+  static constexpr int FW = DQN < 32 ? DQN : 32;
+  static constexpr int FSW = FW * 4;
+  static constexpr int NFB = DQN / FW;
+  static constexpr int DQS_BYTES = BQ * D * 4;       // one staging buffer
+  static constexpr int BARS = 8 * (1 + 3 * 4 + 4);
+  // K and V, two ds and two dQ staging buffers, then the Q / dO ring and
+  // its lse2 / di vectors, as many stages (2-4) as fit
+  static constexpr int FIXED =
+      1024 + 2 * K_BYTES + 2 * DS_BYTES + 2 * DQS_BYTES + BARS;
+  static constexpr int STAGE = 2 * QT_BYTES + 2 * BQ * 4;
+  static constexpr int STAGES = FIXED + 4 * STAGE <= SMEM_MAX   ? 4
+                                : FIXED + 3 * STAGE <= SMEM_MAX ? 3
+                                                                : 2;
+  static constexpr int SMEM = FIXED + STAGES * STAGE;
+  static_assert(SMEM <= SMEM_MAX, "shared memory");
+};
+
+struct Args {
+  int S, Hkv, G, causal, window;
+  float scale;
+  const float* stat;   // (B, Hq, 2, Sp): lse * log2(e), then di
+  unsigned* turn;      // (B, Hq, Sp / 64): dQ contributions so far
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -78,385 +172,550 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ bool visible(int r, int j, int S, int causal,
-                                        int window) {
-  return r < S && j < S && (!causal || j <= r) && (!window || r - j < window);
-}
-
-// rows [r0, r0 + 64) of a (B, S, H, D) tensor's head h, batch b, into a
-// padded shared tile; rows past S are zero-filled
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int b,
-                                          int h, int H, int S, int r0) {
-  constexpr int CH = D / 8;                          // 16-byte chunks a row
-  for (int i = threadIdx.x; i < 64 * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH, row = r0 + r;
-    const bool ok = row < S;
-    const __nv_bfloat16* g =
-        src + (((size_t)b * S + (ok ? row : 0)) * H + h) * D + c * 8;
-    cp_async16(dst + r * Smem<D>::LD + c * 8, g, ok);
+// f32 accumulator fragments rounded to bf16: the A fragments of a product
+// whose k runs along the accumulator's columns (mma.sync's layout, per
+// warp)
+template <int N>
+__device__ __forceinline__ void pack_a(unsigned (&a)[N / 16][4],
+                                       const float (&c)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
+    a[kk][1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
   }
 }
 
-// -------------------------------------------------------------- di
-// di[b, h, s] = sum_c o[b, s, h, c] * do[b, s, h, c] in f32: one warp a row
+// acc (64 x 64) = A B^T over D: A the warpgroup's 64 rows at a_lo (rows
+// a_rows apart between panels), B 64 rows at b_lo (b_rows apart), both
+// K-major in 128- (or 64-) byte swizzled panels; k-step kk is 32 bytes
+// into a panel row
+template <int D>
+__device__ __forceinline__ void issue_ss(float (&acc)[32], uint32_t a_lo,
+                                         int a_rows, uint32_t b_lo,
+                                         int b_rows) {
+  using T = Tile<D>;
+  constexpr uint32_t HI = desc_hi(8 * T::SW, T::SW);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk / (T::PW / 16), off = (kk % (T::PW / 16)) * 32;
+    wgmma_ss<64>(acc, make_desc(a_lo + ((c * a_rows * T::SW + off) >> 4), HI),
+                 make_desc(b_lo + ((c * b_rows * T::SW + off) >> 4), HI), kk);
+  }
+}
+
+// acc (64 x D) += A B over 64 k: A's four k-steps in registers, B (64 rows
+// of D) at b_lo read MN-major, its lbo the panel stride
+template <int D>
+__device__ __forceinline__ void issue_rs(float (&acc)[D / 2],
+                                         const unsigned (&a)[4][4],
+                                         uint32_t b_lo) {
+  using T = Tile<D>;
+  constexpr uint32_t HI = desc_hi(8 * T::SW, T::SW);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_tb<D>(acc, a[kk], make_desc(b_lo + ((kk * 16 * T::SW) >> 4), HI),
+                   1);
+}
+
+// the warpgroup's 64 x D accumulator, times mul, rounded to bf16 into its
+// own 64 rows of a tile at t (panels of ``rows`` rows), swizzled as the
+// store map's box: 16-byte chunk c of row r lies at chunk c ^ (r % 8)
+// (128-byte rows) or c ^ (r / 2 % 4) (64-byte rows)
+template <int D>
+__device__ __forceinline__ void stage_rows(uint32_t t, int rows,
+                                           const float (&acc)[D / 2],
+                                           float mul, int wrow, int tig) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = wrow + 8 * hr;
+    const int swz = T::SW == 128 ? (r & 7) : ((r >> 1) & 3);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const int c = i / (T::PW / 8), chunk = i % (T::PW / 8);
+      st_shared_u32(t + c * rows * T::SW + r * T::SW + ((chunk ^ swz) << 4) +
+                        tig * 4,
+                    pack_bf16(acc[4 * i + 2 * hr] * mul,
+                              acc[4 * i + 2 * hr + 1] * mul));
+    }
+  }
+}
+
+// -------------------------------------------------------------- stat
+// stat[b, h, 0, s] = lse * log2(e) and stat[b, h, 1, s] = sum_c o[b, s, h,
+// c] * do[b, s, h, c] in f32 for s < S; +inf and 0 for S <= s < Sp. One
+// CTA per (64-row q tile, q head, batch), a warp every eighth row; it also
+// zeroes the tile's turn counter.
 template <int D>
 __global__ void __launch_bounds__(256)
-di_kernel(const __nv_bfloat16* o, const __nv_bfloat16* dout, float* di,
-          int S, int Hq, long long rows) {
+stat_kernel(const __nv_bfloat16* o, const __nv_bfloat16* dout,
+            const float* lse, float* stat, unsigned* turn, int S, int Hq) {
+  constexpr int PER = D / 32;                        // 1, 2 or 4 elements
+  __shared__ float di_s[BQ];
+  const int s0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int Sp = stat_len(S);
+  float a[BQ / 8][PER], c[BQ / 8][PER];
+#pragma unroll
+  for (int i = 0; i < BQ / 8; ++i) {
+    const int s = min(s0 + warp + 8 * i, S - 1);
+    const long long at = (((long long)b * S + s) * Hq + h) * D + lane * PER;
+    load_span<__nv_bfloat16, PER>(o + at, a[i]);
+    load_span<__nv_bfloat16, PER>(dout + at, c[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < BQ / 8; ++i) {
+    float sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < PER; ++e) sum += a[i][e] * c[i][e];
+    sum = warp_sum(sum);
+    if (lane == 0) di_s[warp + 8 * i] = s0 + warp + 8 * i < S ? sum : 0.f;
+  }
+  __syncthreads();
+  const long long bh = (long long)b * Hq + h;
+  float* out = stat + bh * 2 * Sp + s0;
+  const int r = threadIdx.x & (BQ - 1), s = s0 + r;
+  if (threadIdx.x < BQ)
+    out[r] = s < S ? lse[bh * S + s] * LOG2E : INFINITY;
+  else if (threadIdx.x < 2 * BQ)
+    out[Sp + r] = di_s[r];
+  else if (threadIdx.x == 2 * BQ)
+    turn[bh * (Sp / BQ) + blockIdx.x] = 0;
+}
+
+// -------------------------------------------------------------- dK, dV, dQ
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_kernel(const __grid_constant__ CUtensorMap tq,
+           const __grid_constant__ CUtensorMap tdo,
+           const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv,
+           const __grid_constant__ CUtensorMap tdk,
+           const __grid_constant__ CUtensorMap tdv,
+           const __grid_constant__ CUtensorMap tacc, const Args p) {
+  using T = Tile<D>;
+  constexpr int SW = T::SW, PW = T::PW, ST = T::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte aligned tiles: the swizzle pattern follows address bits
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t k_s = base, v_s = base + T::K_BYTES;
+  const uint32_t ds_s = v_s + T::K_BYTES;                 // [2]
+  const uint32_t dqs_s = ds_s + 2 * T::DS_BYTES;          // [2]
+  const uint32_t q_r = dqs_s + 2 * T::DQS_BYTES;          // [ST]
+  const uint32_t do_r = q_r + ST * T::QT_BYTES;           // [ST]
+  const uint32_t st_r = do_r + ST * T::QT_BYTES;          // [ST][2][BQ]
+  const float* st_f =
+      reinterpret_cast<const float*>(smem_raw + (st_r - raw));
+  // mbarriers: K and V full; per stage Q full, dO full, empty; per dQ
+  // staging buffer full (the 8 consumer warps) and empty (the writer)
+  const uint32_t bars = st_r + ST * 2 * BQ * 4;
+  const uint32_t kv_full = bars;
+  auto q_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto do_full = [&](int s) { return bars + 8 * (1 + ST + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * ST + s); };
+  auto dq_full = [&](int i) { return bars + 8 * (1 + 3 * ST + i); };
+  auto dq_empty = [&](int i) { return bars + 8 * (3 + 3 * ST + i); };
+  auto stage = [](int n) { return n % ST; };
+  auto parity = [](int n) { return unsigned(n / ST) & 1; };
+
+  const int S = p.S, G = p.G, Sp = stat_len(S), W = p.window;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  // a (batch, kv head)'s key tiles are launched together, the last first:
+  // their dQ sums stay in L2, and each q tile's sum runs in that order
+  const int n_kt = gridDim.x, kt = n_kt - 1 - blockIdx.x;
+  const int k0 = kt * BK;
+  // the q rows that see a key of this tile, [q_lo, q_hi), in BQ-row tiles
+  // [t_lo, t_lo + n_t), for each of the G q heads
+  const int q_lo = p.causal ? k0 : 0;
+  const int q_hi = W ? min(S, k0 + BK - 1 + W) : S;
+  const int t_lo = q_lo / BQ, n_t = (q_hi + BQ - 1) / BQ - t_lo;
+  const int n_it = G * n_t;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(q_full(s), 1);
+      mbar_init(do_full(s), 1);
+      mbar_init(empty(s), CONSUMER_WARPS);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(dq_full(i), CONSUMER_WARPS);
+      mbar_init(dq_empty(i), 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMER_WARPS * 32) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMER_WARPS * 32) {
+      // ----------------------------------------------------- loads
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tdo);
+      tma_prefetch_map(&tk);
+      tma_prefetch_map(&tv);
+      mbar_expect_tx(kv_full, 2 * T::K_BYTES);
+      for (int c = 0; c < T::NP; ++c) {
+        tma_load_4d(k_s + c * BK * SW, &tk, kv_full, c * PW, hk, k0, b);
+        tma_load_4d(v_s + c * BK * SW, &tv, kv_full, c * PW, hk, k0, b);
+      }
+      for (int n = 0; n < n_it; ++n) {
+        const int s = stage(n), h = hk * G + n / n_t;
+        const int r0 = (t_lo + n % n_t) * BQ;
+        const float* st_g =
+            p.stat + ((size_t)b * G * p.Hkv + h) * 2 * Sp + r0;
+        mbar_wait(empty(s), parity(n) ^ 1);
+        mbar_expect_tx(q_full(s), T::QT_BYTES + BQ * 4);
+        for (int c = 0; c < T::NP; ++c)
+          tma_load_4d(q_r + s * T::QT_BYTES + c * BQ * SW, &tq, q_full(s),
+                      c * PW, h, r0, b);
+        bulk_load(st_r + s * 2 * BQ * 4, st_g, BQ * 4, q_full(s));
+        mbar_expect_tx(do_full(s), T::QT_BYTES + BQ * 4);
+        for (int c = 0; c < T::NP; ++c)
+          tma_load_4d(do_r + s * T::QT_BYTES + c * BQ * SW, &tdo, do_full(s),
+                      c * PW, h, r0, b);
+        bulk_load(st_r + (s * 2 + 1) * BQ * 4, st_g + Sp, BQ * 4, do_full(s));
+      }
+    } else if (threadIdx.x == CONSUMER_WARPS * 32 + 32) {
+      // ----------------------------------------------------- dQ writer
+      // Each q tile's dQ is summed in f32 in the workspace over the key
+      // tiles that see it, the last first (their launch order): its turn
+      // counter says how many have added theirs. The first stores, the
+      // others add (TMA reduce); the staging buffer is handed back once
+      // read, the turn passed on once the writes are complete. Under
+      // causal, key tile kt reaches q tile t t - 2 kt tiles into its walk,
+      // two tiles after key tile kt + 1 did, so turns are rarely waited
+      // for.
+      tma_prefetch_map(&tacc);
+      for (int n = 0; n < n_it; ++n) {
+        const int i = n & 1, h = hk * G + n / n_t, t = t_lo + n % n_t;
+        // this key tile's place among those that see q tile t: under
+        // causal (a window or not) key tiles t / 2 down to the first, else
+        // the last down to the first
+        const unsigned rank = (p.causal ? t / 2 : n_kt - 1) - kt;
+        unsigned* flag = p.turn + ((size_t)b * G * p.Hkv + h) * (Sp / BQ) + t;
+        mbar_wait(dq_full(i), unsigned(n >> 1) & 1);
+        while (ld_acquire(flag) != rank) {
+        }
+        fence_async_global();
+        const uint32_t src = dqs_s + i * T::DQS_BYTES;
+        for (int w = 0; w < 2; ++w)
+          for (int f = 0; f < T::NFB; ++f) {
+            const uint32_t box =
+                src + w * BQ * T::DQN * 4 + f * BQ * T::FSW;
+            const int c0 = w * T::DQN + f * T::FW;
+            if (rank == 0)
+              tma_store_4d(&tacc, box, c0, BQ * t, h, b);
+            else
+              tma_reduce_add_4d(&tacc, box, c0, BQ * t, h, b);
+          }
+        tma_store_commit();
+        tma_store_wait();                  // the staging buffer is read
+        mbar_arrive(dq_empty(i));
+        tma_store_wait_all();              // the sums are written
+        fence_async_global();
+        __threadfence();
+        atomicAdd(flag, 1u);
+      }
+    }
+  } else {
+    // ------------------------------------------------------- consumers
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int wg = warp >> 2, g = lane >> 2, tig = lane & 3;
+    const int wrow = (warp & 3) * 16 + g;        // row g of the warp's 16
+    const int kw = k0 + wg * 64;                 // the warpgroup's first key
+    const int key[2] = {kw + wrow, kw + wrow + 8};
+    const float sl2 = p.scale * LOG2E;
+    const uint32_t k_lo = desc_lo(k_s + wg * 64 * SW, 16);
+    const uint32_t v_lo = desc_lo(v_s + wg * 64 * SW, 16);
+    // dQ's B: the K tile's columns [wg * DQN, + DQN), read MN-major
+    constexpr int DC = T::DQN;
+    const uint32_t kq_lo =
+        desc_lo(k_s + (wg * DC / PW) * BK * SW + (wg * DC % PW) * 2, BK * SW);
+
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    float sc[32], dp[32];        // s^T then p^T; dp^T then ds^T: 64 x 64
+    unsigned pa[4][4], da[4][4];
+    float dq[DC / 2];            // the q tile's dQ, this warpgroup's columns
+
+    // s^T = K Q^T and dp^T = V dO^T of the CTA's n-th q tile: two groups
+    auto issue_sdp = [&](int n) {
+      const int s = stage(n);
+      mbar_wait(q_full(s), parity(n));
+      fence_regs(sc);
+      wgmma_fence();
+      issue_ss<D>(sc, opaque(k_lo), BK, desc_lo(q_r + s * T::QT_BYTES, 16),
+                  BQ);
+      wgmma_commit();
+      mbar_wait(do_full(s), parity(n));
+      fence_regs(dp);
+      wgmma_fence();
+      issue_ss<D>(dp, opaque(v_lo), BK, desc_lo(do_r + s * T::QT_BYTES, 16),
+                  BQ);
+      wgmma_commit();
+    };
+    // p^T of the n-th q tile in sc: element (key row g or g + 8, q column
+    // 8 j + 2 tig (+1)). Masks only tiles that cross the diagonal or the
+    // window's edge (rows past S carry lse2 = +inf, so their p is 0).
+    auto probs = [&](int n) {
+      const int r0 = (t_lo + n % n_t) * BQ;
+      if ((p.causal && kw + 63 > r0) || (W && r0 + BQ - 1 - kw >= W)) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = r0 + 8 * j + 2 * tig + (e & 1), c = key[e >> 1];
+            if ((p.causal && c > r) || (W && r - c >= W))
+              sc[4 * j + e] = -INFINITY;
+          }
+      }
+      const float* lse2 = st_f + stage(n) * 2 * BQ;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l =
+            *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * tig);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], sl2, (e & 1) ? -l.y : -l.x));
+      }
+    };
+    // ds^T = p^T (dp^T - di) of the n-th q tile in dp
+    auto grads = [&](int n) {
+      const float* di = st_f + stage(n) * 2 * BQ + BQ;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 d = *reinterpret_cast<const float2*>(di + 8 * j + 2 * tig);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] =
+              sc[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d.y : d.x));
+      }
+    };
+    // ds (q rows x the CTA's keys) into ds buffer i, K-major for the dQ
+    // product: the ds^T fragments stored transposed, 8 keys (16 bytes) a
+    // memory row; key chunk c of q row r at chunk c ^ (r % 8) of the
+    // warpgroup's 128-byte swizzled panel
+    auto store_ds = [&](int i) {
+      const int m = lane >> 3, chunk = 2 * (warp & 3) + (m & 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int r = 16 * kk + (m >> 1) * 8 + (lane & 7);
+        stmatrix_x4_trans(ds_s + i * T::DS_BYTES + wg * BQ * 128 + r * 128 +
+                              ((chunk ^ (r & 7)) << 4),
+                          da[kk][0], da[kk][1], da[kk][2], da[kk][3]);
+      }
+    };
+    // dV += p^T dO and dK += ds^T Q of the n-th q tile: one group
+    auto issue_dkdv = [&](int n) {
+      const int s = stage(n);
+      fence_regs(dv);
+      fence_regs(dk);
+      wgmma_fence();
+      issue_rs<D>(dv, pa, desc_lo(do_r + s * T::QT_BYTES, BQ * SW));
+      issue_rs<D>(dk, da, desc_lo(q_r + s * T::QT_BYTES, BQ * SW));
+      wgmma_commit();
+    };
+    // dQ (64 q rows x DC) = ds K over the CTA's 128 keys, ds from buffer i
+    auto issue_dq = [&](int i) {
+      constexpr uint32_t HA = desc_hi(8 * 128, 128);
+      constexpr uint32_t HB = desc_hi(8 * SW, SW);
+      const uint32_t a_lo = desc_lo(ds_s + i * T::DS_BYTES, 16);
+      fence_regs(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_ss_tb<DC>(
+            dq,
+            make_desc(a_lo + (((kk / 4) * BQ * 128 + (kk % 4) * 32) >> 4), HA),
+            make_desc(opaque(kq_lo) + ((kk * 16 * SW) >> 4), HB), kk);
+      wgmma_commit();
+    };
+    // after the n-th tile's products: its ring slot is free
+    auto done = [&](int n) {
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(dq);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        fence_regs(pa[kk]);
+        fence_regs(da[kk]);
+      }
+      if (lane == 0) mbar_arrive(empty(stage(n)));
+    };
+    // the warpgroup's dQ in f32 into staging buffer i for the writer:
+    // column c in box c / FW, its 16-byte chunk swizzled by the row
+    auto stage_dq = [&](int n) {
+      const int i = n & 1;
+      mbar_wait(dq_empty(i), (unsigned(n >> 1) & 1) ^ 1);
+      const uint32_t dst = dqs_s + i * T::DQS_BYTES + wg * BQ * DC * 4;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = wrow + 8 * hr;
+        const int swz = T::FSW == 128 ? (r & 7) : ((r >> 1) & 3);
+#pragma unroll
+        for (int j = 0; j < DC / 8; ++j) {
+          const int c = 8 * j + 2 * tig, f = c / T::FW, cc = c % T::FW;
+          const uint32_t at = dst + f * BQ * T::FSW + r * T::FSW +
+                              (((cc >> 2) ^ swz) << 4) + (cc & 3) * 4;
+          st_shared_u32(at, __float_as_uint(dq[4 * j + 2 * hr]));
+          st_shared_u32(at + 4, __float_as_uint(dq[4 * j + 2 * hr + 1]));
+        }
+      }
+      fence_async_shared();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(dq_full(i));
+    };
+
+    mbar_wait(kv_full, 0);
+    for (int n = 0; n < n_it; ++n) {
+      issue_sdp(n);
+      wgmma_wait<1>();                     // s^T; p^T under dp^T
+      fence_regs(sc);
+      probs(n);
+      pack_a<64>(pa, sc);
+      wgmma_wait<0>();                     // dp^T
+      fence_regs(dp);
+      grads(n);
+      pack_a<64>(da, dp);
+      store_ds(n & 1);
+      fence_async_shared();
+      issue_dkdv(n);
+      named_sync(3, 256);                  // both warpgroups' ds stored
+      issue_dq(n & 1);
+      wgmma_wait<0>();
+      done(n);
+      stage_dq(n);
+    }
+
+    // dK scaled and dV, staged in the warpgroup's own rows of the K and V
+    // tiles once both warpgroups' products (dQ reads every K row) are
+    // done, stored by TMA, which drops keys past S
+    named_sync(3, 256);
+    stage_rows<D>(k_s + wg * 64 * SW, BK, dk, p.scale, wrow, tig);
+    stage_rows<D>(v_s + wg * 64 * SW, BK, dv, 1.f, wrow, tig);
+    fence_async_shared();
+    named_sync(1 + wg, 128);
+    if ((threadIdx.x & 127) == 0) {
+      for (int c = 0; c < T::NP; ++c) {
+        tma_store_4d(&tdk, k_s + c * BK * SW + wg * 64 * SW, c * PW, hk, kw,
+                     b);
+        tma_store_4d(&tdv, v_s + c * BK * SW + wg * 64 * SW, c * PW, hk, kw,
+                     b);
+      }
+      tma_store_commit();
+      tma_store_wait();
+    }
+  }
+}
+
+// -------------------------------------------------------------- dq
+// dq[b, s, h] = scale * acc[b, h, s] rounded to bf16: one warp a row
+template <int D>
+__global__ void __launch_bounds__(256)
+dq_out_kernel(const float* acc, __nv_bfloat16* dq, int S, int Hq,
+              float scale, long long rows) {
   const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
-  constexpr int PER = D / 32;                        // 1, 2 or 4 elements
-  float a[PER], c[PER];
-  load_span<__nv_bfloat16, PER>(o + row * D + lane * PER, a);
-  load_span<__nv_bfloat16, PER>(dout + row * D + lane * PER, c);
-  float sum = 0.f;
+  const int h = (int)(row % Hq);
+  const long long bs = row / Hq;                    // row = (b * S + s) Hq + h
+  const int s = (int)(bs % S);
+  const long long b = bs / S;
+  constexpr int PER = D / 32;
+  float v[PER];
+  load_span<float, PER>(acc + ((b * Hq + h) * stat_len(S) + s) * D +
+                            lane * PER, v);
+  __nv_bfloat16* out = dq + row * D + lane * PER;
+  if constexpr (PER == 1) {
+    out[0] = __float2bfloat16(v[0] * scale);
+  } else {
 #pragma unroll
-  for (int i = 0; i < PER; ++i) sum += a[i] * c[i];
-  sum = warp_sum(sum);
-  if (lane == 0) {
-    const long long bs = row / Hq;                   // row = (b * S + s) Hq + h
-    const int h = (int)(row % Hq), s = (int)(bs % S);
-    const long long b = bs / S;
-    di[(b * Hq + h) * S + s] = sum;
+    for (int i = 0; i < PER; i += 2)
+      *reinterpret_cast<unsigned*>(out + i) =
+          pack_bf16(v[i] * scale, v[i + 1] * scale);
   }
 }
 
-// -------------------------------------------------------------- dK / dV
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-dkdv_kernel(const __nv_bfloat16* q, const __nv_bfloat16* k,
-            const __nv_bfloat16* v, const __nv_bfloat16* dout,
-            const float* lse, const float* di, __nv_bfloat16* dk,
-            __nv_bfloat16* dv, int S, int Hq, int Hkv, int causal,
-            int window, float scale) {
-  using SM = Smem<D>;
-  constexpr int LD = SM::LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + SM::TILE;
-  __nv_bfloat16* qs = vs + SM::TILE;                 // [2] tiles
-  __nv_bfloat16* dos = qs + 2 * SM::TILE;            // [2] tiles
-  float* stat = reinterpret_cast<float*>(dos + 2 * SM::TILE);  // [2][2][64]
-
-  const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
-  const int G = Hq / Hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const float sl2 = scale * LOG2E;
-
-  // the q rows that see a key of this tile: [q_lo, q_hi)
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window ? min(S, k0 + BK - 1 + window) : S;
-  const int t_lo = q_lo / BQ, n_t = (q_hi + BQ - 1) / BQ - t_lo;
-  const int n_it = G * n_t;                          // (head, q tile) pairs
-
-  auto load_it = [&](int it, int buf) {
-    const int h = hk * G + it / n_t, r0 = (t_lo + it % n_t) * BQ;
-    load_tile<D>(qs + buf * SM::TILE, q, b, h, Hq, S, r0);
-    load_tile<D>(dos + buf * SM::TILE, dout, b, h, Hq, S, r0);
-    cp_async_commit();
-    for (int i = threadIdx.x; i < BQ; i += THREADS) {
-      const int row = r0 + i;
-      const size_t at = ((size_t)b * Hq + h) * S + row;
-      stat[buf * 128 + i] = row < S ? lse[at] * LOG2E : 0.f;
-      stat[buf * 128 + 64 + i] = row < S ? di[at] : 0.f;
-    }
-  };
-
-  load_tile<D>(ks, k, b, hk, Hkv, S, k0);
-  load_tile<D>(vs, v, b, hk, Hkv, S, k0);
-  if (n_it > 0) load_it(0, 0);
-  else cp_async_commit();
-
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
-
-  const int kr0 = warp * 16;                         // the warp's keys
-  for (int it = 0; it < n_it; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_it) {
-      load_it(it + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int r0 = (t_lo + it % n_t) * BQ;
-    const __nv_bfloat16* qb = qs + buf * SM::TILE;
-    const __nv_bfloat16* db = dos + buf * SM::TILE;
-    const float* lse2 = stat + buf * 128;
-    const float* dib = lse2 + 64;
-#pragma unroll 1
-    for (int sub = 0; sub < BQ / 32; ++sub) {
-      const int qr0 = sub * 32;
-      float sa[4][4], pa[4][4];                      // s^T, dp^T: 16 x 32
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sa[n][e] = pa[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        unsigned ak[4], av[4];
-        const int ao = (kr0 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
-        ldsm_x4(ak, ks + ao);
-        ldsm_x4(av, vs + ao);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          unsigned bq[4], bd[4];
-          const int bo = (qr0 + np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
-                         kk * 16 + ((lane >> 3) & 1) * 8;
-          ldsm_x4(bq, qb + bo);
-          ldsm_x4(bd, db + bo);
-          mma_bf16(sa[2 * np], ak, bq[0], bq[1]);
-          mma_bf16(sa[2 * np + 1], ak, bq[2], bq[3]);
-          mma_bf16(pa[2 * np], av, bd[0], bd[1]);
-          mma_bf16(pa[2 * np + 1], av, bd[2], bd[3]);
-        }
-      }
-      // p^T and ds^T: element (key row g or g + 8, q column n * 8 + 2 tig
-      // (+1)) of the warp's 16 x 32 block, packed to bf16 as the A
-      // fragments of the next products (k = q columns): registers (row g,
-      // k 2 tig), (row g + 8, k 2 tig), (row g, k 8 + 2 tig), (row g + 8,
-      // k 8 + 2 tig) of each 16 columns
-      unsigned ap[2][4], as[2][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        float pe[4], se[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = qr0 + n * 8 + tig * 2 + (e & 1);
-          const int j = k0 + kr0 + g + (e >> 1) * 8;
-          const float p = visible(r0 + qi, j, S, causal, window)
-                              ? ex2(fmaf(sa[n][e], sl2, -lse2[qi]))
-                              : 0.f;
-          pe[e] = p;
-          se[e] = p * (pa[n][e] - dib[qi]);
-        }
-        const int kk2 = n >> 1, hi = (n & 1) * 2;
-        ap[kk2][hi] = pack_bf16(pe[0], pe[1]);
-        ap[kk2][hi + 1] = pack_bf16(pe[2], pe[3]);
-        as[kk2][hi] = pack_bf16(se[0], se[1]);
-        as[kk2][hi + 1] = pack_bf16(se[2], se[3]);
-      }
-      // dv += p^T do, dk += ds^T q: B (q rows x d) read transposed
-#pragma unroll
-      for (int kk2 = 0; kk2 < 2; ++kk2) {
-#pragma unroll
-        for (int np2 = 0; np2 < D / 16; ++np2) {
-          unsigned bd[4], bq[4];
-          const int bo = (qr0 + kk2 * 16 + (lane & 15)) * LD + np2 * 16 +
-                         (lane >> 4) * 8;
-          ldsm_x4_trans(bd, db + bo);
-          ldsm_x4_trans(bq, qb + bo);
-          mma_bf16(dva[2 * np2], ap[kk2], bd[0], bd[1]);
-          mma_bf16(dva[2 * np2 + 1], ap[kk2], bd[2], bd[3]);
-          mma_bf16(dka[2 * np2], as[kk2], bq[0], bq[1]);
-          mma_bf16(dka[2 * np2 + 1], as[kk2], bq[2], bq[3]);
-        }
-      }
-    }
-    __syncthreads();              // the buffer is refilled next iteration
-  }
-
-  // the warp's 16 keys: rows g and g + 8, columns n * 8 + 2 tig (+1)
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int j = k0 + kr0 + g + hr * 8;
-    if (j >= S) continue;
-    const size_t at = (((size_t)b * S + j) * Hkv + hk) * D + tig * 2;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<unsigned*>(dk + at + n * 8) =
-          pack_bf16(dka[n][2 * hr] * scale, dka[n][2 * hr + 1] * scale);
-      *reinterpret_cast<unsigned*>(dv + at + n * 8) =
-          pack_bf16(dva[n][2 * hr], dva[n][2 * hr + 1]);
-    }
-  }
+// setmaxnreg.inc waits for the registers the producer warpgroup gives
+// back: refuse a build whose entry count would leave the consumers waiting
+template <typename K>
+bool regs_cover(K kernel) {
+  cudaFuncAttributes fa;
+  if (cudaFuncGetAttributes(&fa, kernel) != cudaSuccess) return false;
+  return (fa.numRegs - PRODUCER_REGS) * 128 >=
+         (CONSUMER_REGS - fa.numRegs) * 32 * CONSUMER_WARPS;
 }
 
-// -------------------------------------------------------------- dQ
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-dq_kernel(const __nv_bfloat16* q, const __nv_bfloat16* k,
-          const __nv_bfloat16* v, const __nv_bfloat16* dout,
-          const float* lse, const float* di, __nv_bfloat16* dq, int S,
-          int Hq, int Hkv, int causal, int window, float scale) {
-  using SM = Smem<D>;
-  constexpr int LD = SM::LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + SM::TILE;
-  __nv_bfloat16* ks = dos + SM::TILE;                // [2] tiles
-  __nv_bfloat16* vs = ks + 2 * SM::TILE;             // [2] tiles
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const float sl2 = scale * LOG2E;
-
-  // the keys the tile's rows see: [k_lo, k_hi)
-  const int k_lo = window ? max(q0 - window + 1, 0) : 0;
-  const int k_hi = causal ? min(q0 + BQ, S) : S;
-  const int t_lo = k_lo / BK, n_t = (k_hi + BK - 1) / BK - t_lo;
-
-  auto load_kv = [&](int t, int buf) {
-    load_tile<D>(ks + buf * SM::TILE, k, b, hk, Hkv, S, (t_lo + t) * BK);
-    load_tile<D>(vs + buf * SM::TILE, v, b, hk, Hkv, S, (t_lo + t) * BK);
-    cp_async_commit();
-  };
-  load_tile<D>(qs, q, b, h, Hq, S, q0);
-  load_tile<D>(dos, dout, b, h, Hq, S, q0);
-  if (n_t > 0) load_kv(0, 0);
-  else cp_async_commit();
-
-  const int qr0 = warp * 16;                         // the warp's rows
-  float lse2[2], dib[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = q0 + qr0 + g + hr * 8;
-    const size_t at = ((size_t)b * Hq + h) * S + r;
-    lse2[hr] = r < S ? lse[at] * LOG2E : 0.f;
-    dib[hr] = r < S ? di[at] : 0.f;
-  }
-  float dqa[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[i][e] = 0.f;
-
-  for (int t = 0; t < n_t; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_t) {
-      load_kv(t + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int kb0 = (t_lo + t) * BK;
-    const __nv_bfloat16* kb = ks + buf * SM::TILE;
-    const __nv_bfloat16* vb = vs + buf * SM::TILE;
-#pragma unroll 1
-    for (int sub = 0; sub < BK / 32; ++sub) {
-      const int kc0 = sub * 32;
-      float sa[4][4], pa[4][4];                      // s, dp: 16 x 32
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sa[n][e] = pa[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        unsigned aq[4], ad[4];
-        const int ao = (qr0 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
-        ldsm_x4(aq, qs + ao);
-        ldsm_x4(ad, dos + ao);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          unsigned bk[4], bv[4];
-          const int bo = (kc0 + np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
-                         kk * 16 + ((lane >> 3) & 1) * 8;
-          ldsm_x4(bk, kb + bo);
-          ldsm_x4(bv, vb + bo);
-          mma_bf16(sa[2 * np], aq, bk[0], bk[1]);
-          mma_bf16(sa[2 * np + 1], aq, bk[2], bk[3]);
-          mma_bf16(pa[2 * np], ad, bv[0], bv[1]);
-          mma_bf16(pa[2 * np + 1], ad, bv[2], bv[3]);
-        }
-      }
-      unsigned as[2][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        float se[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int hr = e >> 1;
-          const int r = q0 + qr0 + g + hr * 8;
-          const int j = kb0 + kc0 + n * 8 + tig * 2 + (e & 1);
-          const float p = visible(r, j, S, causal, window)
-                              ? ex2(fmaf(sa[n][e], sl2, -lse2[hr]))
-                              : 0.f;
-          se[e] = p * (pa[n][e] - dib[hr]);
-        }
-        const int kk2 = n >> 1, hi = (n & 1) * 2;
-        as[kk2][hi] = pack_bf16(se[0], se[1]);
-        as[kk2][hi + 1] = pack_bf16(se[2], se[3]);
-      }
-      // dq += ds k: B (keys x d) read transposed
-#pragma unroll
-      for (int kk2 = 0; kk2 < 2; ++kk2) {
-#pragma unroll
-        for (int np2 = 0; np2 < D / 16; ++np2) {
-          unsigned bk[4];
-          const int bo = (kc0 + kk2 * 16 + (lane & 15)) * LD + np2 * 16 +
-                         (lane >> 4) * 8;
-          ldsm_x4_trans(bk, kb + bo);
-          mma_bf16(dqa[2 * np2], as[kk2], bk[0], bk[1]);
-          mma_bf16(dqa[2 * np2 + 1], as[kk2], bk[2], bk[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = q0 + qr0 + g + hr * 8;
-    if (r >= S) continue;
-    const size_t at = (((size_t)b * S + r) * Hq + h) * D + tig * 2;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<unsigned*>(dq + at + n * 8) =
-          pack_bf16(dqa[n][2 * hr] * scale, dqa[n][2 * hr + 1] * scale);
-  }
+// the f32 scratch a call takes, in floats: stat (B, Hq, 2, Sp), the dQ
+// workspace (B, Hq, Sp, d), the turn counters (B, Hq, Sp / 64)
+long long scratch_floats(int B, int S, int Hq, int d) {
+  const long long rows = (long long)B * Hq * stat_len(S);
+  return rows * (2 + d) + rows / BQ;
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* di, void* dq, void* dk,
-           void* dv, int B, int S, int Hq, int Hkv, int causal, int window,
-           float scale, cudaStream_t st) {
+           const void* dout, const float* lse, float* scratch, void* dq,
+           void* dk, void* dv, int B, int S, int Hq, int Hkv, int causal,
+           int window, float scale, cudaStream_t st) {
   using bf = __nv_bfloat16;
-  const long long rows = (long long)B * S * Hq;
-  di_kernel<D><<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
-      static_cast<const bf*>(o), static_cast<const bf*>(dout), di, S, Hq,
-      rows);
+  using T = Tile<D>;
+  const int Sp = stat_len(S);
+  float* stat = scratch;
+  float* acc = stat + 2LL * B * Hq * Sp;
+  unsigned* turn = reinterpret_cast<unsigned*>(acc + (long long)B * Hq * Sp * D);
+  stat_kernel<D><<<dim3(Sp / BQ, Hq, B), 256, 0, st>>>(
+      static_cast<const bf*>(o), static_cast<const bf*>(dout), lse, stat,
+      turn, S, Hq);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  constexpr int SMEM = Smem<D>::BYTES;
-  e = cudaFuncSetAttribute(dkdv_kernel<D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+
+  // (B, S, H, D) contiguous: strides (head, position, batch) in elements
+  const long long qh = D, qs = (long long)Hq * D, qb = qs * S;
+  const long long kh = D, ks = (long long)Hkv * D, kb = ks * S;
+  CUtensorMap mq, mdo, mk, mv, mdk, mdv, macc;
+  if (!map_bshd_bf16(&mq, q, D, Hq, S, B, qh, qs, qb, T::PW, BQ) ||
+      !map_bshd_bf16(&mdo, dout, D, Hq, S, B, qh, qs, qb, T::PW, BQ) ||
+      !map_bshd_bf16(&mk, k, D, Hkv, S, B, kh, ks, kb, T::PW, BK) ||
+      !map_bshd_bf16(&mv, v, D, Hkv, S, B, kh, ks, kb, T::PW, BK) ||
+      !map_bshd_bf16(&mdk, dk, D, Hkv, S, B, kh, ks, kb, T::PW, 64) ||
+      !map_bshd_bf16(&mdv, dv, D, Hkv, S, B, kh, ks, kb, T::PW, 64) ||
+      // the dQ workspace (B, Hq, Sp, D) f32 as (D, Sp, Hq, B)
+      !map_4d(&macc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, acc,
+              {(cuuint64_t)D, (cuuint64_t)Sp, (cuuint64_t)Hq, (cuuint64_t)B},
+              {D, (long long)Sp * D, (long long)Hq * Sp * D},
+              {(cuuint32_t)T::FW, (cuuint32_t)BQ, 1, 1}, T::FSW))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const bool ok = regs_cover(bwd_kernel<D>);
+  if (!ok) return static_cast<int>(cudaErrorInvalidConfiguration);
+  e = cudaFuncSetAttribute(bwd_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           T::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(dq_kernel<D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dkdv_kernel<D><<<dim3((S + BK - 1) / BK, Hkv, B), THREADS, SMEM, st>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k),
-      static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, di,
-      static_cast<bf*>(dk), static_cast<bf*>(dv), S, Hq, Hkv, causal, window,
-      scale);
+  const Args a{S, Hkv, Hq / Hkv, causal, window, scale, stat, turn};
+  bwd_kernel<D><<<dim3((S + BK - 1) / BK, Hkv, B), THREADS, T::SMEM, st>>>(
+      mq, mdo, mk, mv, mdk, mdv, macc, a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  dq_kernel<D><<<dim3((S + BQ - 1) / BQ, Hq, B), THREADS, SMEM, st>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k),
-      static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, di,
-      static_cast<bf*>(dq), S, Hq, Hkv, causal, window, scale);
+  const long long qrows = (long long)B * S * Hq;
+  dq_out_kernel<D><<<(unsigned)((qrows + 7) / 8), 256, 0, st>>>(
+      acc, static_cast<bf*>(dq), S, Hq, scale, qrows);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// di (B, Hq, S) f32 is the caller's scratch; every other pointer is a
-// contiguous tensor as described above
+// scratch is the caller's f32 scratch of flash_prefill_bwd_scratch_floats
+// values; every other pointer is a contiguous tensor as described above
 extern "C" int flash_prefill_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const float* lse, float* di, void* dq, void* dk,
+    const void* dout, const float* lse, float* scratch, void* dq, void* dk,
     void* dv, int B, int S, int Hq, int Hkv, int d, int causal, int window,
     float scale, void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || Hq % Hkv || !(causal || window) ||
@@ -464,22 +723,28 @@ extern "C" int flash_prefill_bwd_bf16(
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return launch<32>(q, k, v, o, dout, lse, di, dq, dk, dv, B, S,
-                               Hq, Hkv, causal, window, scale, s);
-    case 64: return launch<64>(q, k, v, o, dout, lse, di, dq, dk, dv, B, S,
-                               Hq, Hkv, causal, window, scale, s);
-    case 128: return launch<128>(q, k, v, o, dout, lse, di, dq, dk, dv, B, S,
-                                 Hq, Hkv, causal, window, scale, s);
+    case 32: return launch<32>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B,
+                               S, Hq, Hkv, causal, window, scale, s);
+    case 64: return launch<64>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B,
+                               S, Hq, Hkv, causal, window, scale, s);
+    case 128: return launch<128>(q, k, v, o, dout, lse, scratch, dq, dk, dv,
+                                 B, S, Hq, Hkv, causal, window, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// the dynamic shared memory one CTA of either kernel takes at head width d
+// the f32 values of the scratch a call at (B, S, Hq, d) takes
+extern "C" long long flash_prefill_bwd_scratch_floats(int B, int S, int Hq,
+                                                      int d) {
+  return scratch_floats(B, S, Hq, d);
+}
+
+// the dynamic shared memory one CTA of bwd_kernel takes at head width d
 extern "C" int flash_prefill_bwd_smem_bytes(int d) {
   switch (d) {
-    case 32: return Smem<32>::BYTES;
-    case 64: return Smem<64>::BYTES;
-    case 128: return Smem<128>::BYTES;
+    case 32: return Tile<32>::SMEM;
+    case 64: return Tile<64>::SMEM;
+    case 128: return Tile<128>::SMEM;
   }
   return 0;
 }

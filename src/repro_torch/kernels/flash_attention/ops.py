@@ -6,6 +6,7 @@ whose q, k or v requires grad (under grad mode) runs the LSE form of
 (``attention_lse``, ``attention_bwd``), through ``FlashAttention``."""
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -258,8 +259,9 @@ def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     """dq, dk, dv (shaped and typed as q, k, v) of ``attention_lse``'s o for
     the upstream gradient ``do``, from its ``lse``. CPU tensors take the
     plain version (``attention_bwd_ref``, f32, cast); CUDA tensors launch
-    the ``flash_prefill_bwd`` kernels (di, dK/dV, dQ: one launch count),
-    which take contiguous bf16 at d in ``BWD_WIDTHS``."""
+    the ``flash_prefill_bwd`` kernels (the row statistics, dK/dV/dQ, dq's
+    rounding: one launch count), which take contiguous bf16 at d in
+    ``BWD_WIDTHS``."""
     B, S, Hq, d = q.shape
     Hkv = k.shape[2]
     if k.shape != (B, S, Hkv, d) or v.shape != k.shape or Hq % Hkv \
@@ -277,10 +279,16 @@ def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
                          f"do, f32 lse and d in {BWD_WIDTHS}")
     rt.check_contiguous("attention_bwd", q=q, k=k, v=v, o=o, lse=lse, do=do)
     fn = rt.bind("flash_prefill_bwd", "flash_prefill_bwd_bf16", _BWD_ARGS)
+    scratch_floats = rt.bind("flash_prefill_bwd",
+                             "flash_prefill_bwd_scratch_floats", [rt.I] * 4)
+    scratch_floats.restype = ctypes.c_longlong
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    di = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    # each row's lse * log2(e) and di, dq's f32 sums and their turn
+    # counters, padded per (batch, head)
+    scratch = torch.empty(scratch_floats(B, S, Hq, d), dtype=torch.float32,
+                          device=q.device)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, S, Hq, Hkv, d, int(causal),
             int(window), 1.0 / math.sqrt(d), rt.stream_ptr(q))
     rt.check_launch("flash_prefill_bwd", rc)

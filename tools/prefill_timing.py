@@ -18,7 +18,16 @@ spin kernel). One JSON line a shape: its name, ms, the row error, the card
 and its power limit. A first JSON line gives each kernel instantiation's
 ``-Xptxas -v`` report and a digest of its SASS (``cuobjdump -sass``, with
 addresses and encodings left out), so two trees' builds of an unchanged
-instantiation can be seen to be the same code."""
+instantiation can be seen to be the same code.
+
+Then the backward, ``flash_prefill_bwd``, at the training phase's shape
+and at Mixtral's (``chip_smoke.TRAIN_BWD_ROW``, ``TRAIN_BWD_GQA_ROW``):
+a JSON line of its kernels' reports, SASS digests and counts of tensor-core
+instructions (``HMMA``: ``mma.sync``; ``HGMMA``: ``wgmma``), then one a
+shape: dq / dk / dv against ``attention_bwd_ref`` (relative L2 within
+``chip_smoke.TRAIN_BWD_REL_L2``), the kernel's time and, in the same
+process, the autograd backward of SDPA on the same inputs (the yardstick
+``chip_smoke.bwd_row`` times)."""
 from __future__ import annotations
 
 import argparse
@@ -33,6 +42,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # prefill_kernel<DK>, <DK, DV>, <DK, DV, FULL> or <DK, DV, FULL, LSE> in a
 # mangled name
 _ENTRY = r"prefill_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?(?:Lb([01])E)?"
+# the backward's kernels, <D>
+_BWD_ENTRY = r"((?:di|stat|dkdv|dq|bwd|dq_out)_kernel)ILi(\d+)E"
 
 
 def _key(m):
@@ -41,7 +52,11 @@ def _key(m):
         ",lse" if m.group(4) == "1" else "")
 
 
-def instantiations(lib, log):
+def _bwd_key(m):
+    return f"{m.group(1)},{m.group(2)}"
+
+
+def instantiations(lib, log, entry=_ENTRY, key_of=_key):
     """{"dk,dv": {"ptxas": [...], "sass": sha256}} of every
     ``prefill_kernel`` instantiation in library ``lib`` (a tree that
     instantiates one width per kernel reads as dk = dv; a FULL
@@ -54,8 +69,8 @@ def instantiations(lib, log):
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(_ENTRY, m.group(1))
-            key = _key(k) if k else None
+            k = re.search(entry, m.group(1))
+            key = key_of(k) if k else None
         elif key is not None and ("spill" in ln or "Used" in ln):
             out.setdefault(key, {"ptxas": []})["ptxas"].append(
                 ln.split("info    :")[-1].strip())
@@ -64,21 +79,112 @@ def instantiations(lib, log):
                           text=True).stdout
     parts = re.split(r"\n\s*Function : (\S+)\n", sass)
     for name, body in zip(parts[1::2], parts[2::2]):
-        k = re.search(_ENTRY, name)
+        k = re.search(entry, name)
         if not k:
             continue
         body = re.sub(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/", "", body)
         text = "\n".join(ln.strip() for ln in body.splitlines() if ln.strip())
-        out.setdefault(_key(k), {})[
-            "sass"] = hashlib.sha256(text.encode()).hexdigest()[:16]
+        rec = out.setdefault(key_of(k), {})
+        rec["sass"] = hashlib.sha256(text.encode()).hexdigest()[:16]
+        rec["HMMA"] = len(re.findall(r"\bHMMA\b", text))
+        rec["HGMMA"] = len(re.findall(r"\bHGMMA\b", text))
     return out
+
+
+def kernel_split(fn, calls=10):
+    """{CUDA kernel name: mean device ms a call} of ``fn`` under
+    ``torch.profiler`` (warm L2: back to back)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    import re
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if us > 0:
+            m = re.search(r"([A-Za-z_]\w*)(?:<[^()]*>)?\(", e.key)
+            name = m.group(1) if m else e.key[:40]
+            out[name] = out.get(name, 0.0) + us / 1e3 / calls
+    return out
+
+
+def backward_rows(args, card, flush):
+    """The backward's kernels' reports, then one JSON line a shape: the
+    kernel's time and SDPA's backward's on the same inputs."""
+    import torch
+    import torch.nn.functional as Fn
+
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.kernels.flash_attention.ops import (attention_bwd,
+                                                         attention_lse)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    log = rt.build(["flash_prefill_bwd"])["flash_prefill_bwd"]
+    print(json.dumps({"label": args.label, "bwd_instantiations":
+                      instantiations(rt._lib_path("flash_prefill_bwd"), log,
+                                     _BWD_ENTRY, _bwd_key)}), flush=True)
+    dev = flush.device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    c, m = get_config(cs.TRAIN["arch"]), get_config("mixtral-8x7b")
+    shapes = [(cs.TRAIN_BWD_ROW, cs.TRAIN["batch"], cs.TRAIN["seq"],
+               c.n_heads, c.n_kv_heads, c.head_dim, 0),
+              (cs.TRAIN_BWD_GQA_ROW, cs.MIXTRAL["prompts"],
+               cs.MIXTRAL["prompt_len"], m.n_heads, m.n_kv_heads, m.head_dim,
+               m.sliding_window)]
+    for row, B, S, Hq, Hkv, d, window in shapes:
+        if args.only and not any(row.startswith(o) for o in args.only):
+            continue
+        q, do = (torch.randn((B, S, Hq, d), generator=gen, device=dev)
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((B, S, Hkv, d), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        o, lse = attention_lse(q, k, v, causal=True, window=window)
+        kern = lambda: attention_bwd(q, k, v, o, lse, do, causal=True,
+                                     window=window)
+        errs = [cs.rel_l2(g, w) for g, w in zip(
+            kern(), attention_bwd_ref(q, k, v, do, causal=True,
+                                      window=window))]
+        if not max(errs) <= cs.TRAIN_BWD_REL_L2:
+            raise AssertionError(f"{row}: relative L2 {errs}")
+        ms = cs.time_ms(kern, flush, args.reps)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        mask = None
+        if window:
+            i = torch.arange(S, device=dev)
+            mask = (i[None, :] <= i[:, None]) & \
+                (i[:, None] - i[None, :] < window)
+        out = Fn.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=Hq != Hkv)
+        dot = do.transpose(1, 2)
+        sdpa_ms = cs.time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), flush, args.reps)
+        nbytes, flops = cs.bwd_cost(B, S, Hq, Hkv, d, window)
+        print(json.dumps({"label": args.label, "row": row, "ms": ms,
+                          "sdpa_bwd_ms": sdpa_ms, "rel_l2": errs,
+                          "tflops": flops / ms / 1e9,
+                          "kernels_ms": kernel_split(kern), "card": card}),
+              flush=True)
+        del q, k, v, o, lse, do, qt, kt, vt, out, dot, mask
+        torch.cuda.empty_cache()
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--only", nargs="*", default=None,
-                    help="shape names (by prefix) to time; all by default")
+                    help="shape names (by prefix) to time; all by default "
+                         "(the backward's start flash_prefill_bwd)")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--label", default=None)
     args = ap.parse_args(argv)
@@ -159,6 +265,7 @@ def main(argv=None):
                           "row_rel_l2": err, "card": card}), flush=True)
         del q, k, v
         torch.cuda.empty_cache()
+    backward_rows(args, card, flush)
 
 
 if __name__ == "__main__":
