@@ -232,6 +232,18 @@
    ``flash_prefill_bwd`` at that shape and at Mixtral's (G 4, window 4096,
    B 2 x 4608) and the LSE form against its plain version, beside SDPA's
    backward and forward.
+6j. Distribution phase: the 7B expert at full width through the mesh
+   builders. (a) 4 of its 32 layers on a (1, 1) mesh under NCCL in this
+   process: two train steps (batch 4 x 2048) whose losses, grad norms and
+   params are bit-equal to the single-device step's, launching the LSE
+   form and the backward as it does; a prefill of 4 x 512 and 8 greedy
+   decode steps bit-equal to ``prefill`` / ``decode_step``. (b) 2 layers,
+   two spawned ranks sharing the card over gloo (NCCL takes one rank a
+   card): two steps on a (1, 2) TP mesh (the first loss and grad norm
+   against the 1 x 1 step), the state saved whole and restored onto a (2,
+   1) DP mesh bit for bit, one DP step; each rank's ``flash_prefill[lse]``
+   and ``flash_prefill_bwd`` launches above zero; the collectives each
+   rank issued, by name.
 7. RecurrentGemma phase, after the experts' store is released:
    recurrentgemma-9b at full width and depth (38 layers, 10.4 G parameters,
    bf16) as the one expert of a ``CompositionOfExperts(HashRouter(1))`` on
@@ -619,6 +631,33 @@ TRAIN_RESUME_TOL_REL = 1e-3
 TRAIN_BWD_ROW = "flash_prefill_bwd[B=4,S=2048,G=1,causal]"
 TRAIN_BWD_GQA_ROW = "flash_prefill_bwd[mixtral-8x7b,G=4,B=2,S=4608,window=4096]"
 TRAIN_LSE_ROW = "flash_prefill[lse,B=4,S=2048]"
+# Distribution phase: the 7B expert at full width through the mesh
+# builders (distributed/stepfn.py). (a) a (1, 1) mesh under NCCL in this
+# process, ``layers_nccl`` of the 32 layers: two train steps bit-equal to
+# the single-device step's, then a prefill of ``prefill`` tokens and
+# ``decode_steps`` greedy steps bit-equal to ``prefill`` / ``decode_step``.
+# (b) two spawned ranks sharing the card over gloo (NCCL refuses two ranks
+# on one device), ``layers_gloo`` layers, the default layout (Megatron-SP
+# residual, the loss on the gathered logits): two steps on a (1, 2) TP
+# mesh, the state saved, restored onto a (2, 1) DP mesh, one step; each
+# step's loss and grad norm and the params after the TP steps and after the
+# DP step held against the 1 x 1 step's on the same weights and batch
+# (``loss_tol``, ``gnorm_tol``; worst leaf relative L2 ``param_tol``), and
+# a planted fault (both DP ranks on data shard 0's half of the batch) must
+# part by more than ``param_tol``. Gloo on CUDA tensors takes the
+# all-reduce, reduce-scatter and the process-group all-gather, but DTensor's
+# functional all-gather ends the process (tools/gloo_cuda_collectives.py),
+# so (b)'s ranks serve that op by the process group's
+# (``gather_through_process_group``). The limits are about 4x the H100's
+# first readings on this layout (loss 6.1e-6, grad norm 1.16e-5 relative at
+# worst over the three steps) and 2x for the params (5.1e-3: bf16 Adam
+# updates whose near-zero gradients flip sign with the reduction order);
+# the planted faults read 1.41 (shards swapped) and 3.5e-2 / loss 1.3e-3
+# (half the batch).
+DIST = dict(arch="samba-coe-expert-7b", layers_nccl=4, layers_gloo=2,
+            batch=4, seq=2048, steps=2, prefill=(4, 512), decode_steps=8,
+            lr=3e-4, seed=31, timeout=600,
+            loss_tol=2.5e-5, gnorm_tol=5e-5, param_tol=1e-2)
 
 
 def prefill_widths(c):
@@ -5521,6 +5560,491 @@ def checkpoint_round_trip(full, batch, opt_cfg):
     torch.cuda.empty_cache()
 
 
+def _dist_setup(d, layers, dev):
+    """The expert cut to ``layers`` at full width, a seeded init on ``dev``,
+    the SyntheticLM batch and the AdamW config of the distribution
+    phase."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import get_model
+    from repro_torch.optim import AdamWConfig
+    full = get_config(d["arch"])
+    cfg = dataclasses.replace(full, n_layers=layers)
+    model = get_model(cfg)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=d["seq"], global_batch=d["batch"],
+                                   seed=d["seed"])).batch_at(0)
+    batch = {k: torch.from_numpy(x).to(dev) for k, x in batch.items()}
+    opt = AdamWConfig(lr=d["lr"], warmup_steps=2, decay_steps=4)
+
+    def init():
+        return model.init(torch.Generator(dev).manual_seed(d["seed"]), dev)
+    return full, cfg, model, init, batch, opt
+
+
+@contextlib.contextmanager
+def collectives_counted():
+    """Counts the calls of the process-group collectives and of the
+    functional ones DTensor issues, by name; a collective called inside
+    another one (a deprecated functional name forwarding to its successor,
+    the functional all-gather served by the process group's) counts once,
+    as the outer one."""
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as funcol
+    counts, real, depth = {}, [], [0]
+    for mod, names in ((dist, ("all_reduce", "all_gather_into_tensor",
+                               "reduce_scatter_tensor", "broadcast",
+                               "barrier", "all_to_all_single")),
+                       (funcol, ("all_reduce", "all_gather_tensor",
+                                 "all_gather_single", "reduce_scatter_tensor",
+                                 "reduce_scatter_single",
+                                 "all_to_all_single"))):
+        for name in names:
+            fn = getattr(mod, name, None)
+            if fn is None:
+                continue
+            key = ("functional " + name.replace("_tensor", "")
+                   .replace("_single", "") if mod is funcol else name)
+
+            def counted(*a, _fn=fn, _key=key, **kw):
+                if not depth[0]:
+                    counts[_key] = counts.get(_key, 0) + 1
+                depth[0] += 1
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    depth[0] -= 1
+            setattr(mod, name, counted)
+            real.append((mod, name, fn))
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in real:
+            setattr(mod, name, fn)
+
+
+def dist_one_by_one(dev, d=DIST):
+    """(a): a (1, 1) mesh under NCCL in this process. Returns the train
+    steps' launch counts."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.bridge import tree_items
+    from repro_torch.distributed import partitioning as part
+    from repro_torch.distributed import stepfn
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.launch.mesh import init_distributed, single_device_mesh
+    full, cfg, model, init, batch, opt = _dist_setup(d, d["layers_nccl"],
+                                                     dev)
+    L, steps = cfg.n_layers, d["steps"]
+    _log(f"distribution (a): {cfg.name} cut to {L} of its {full.n_layers} "
+         f"layers at full width, batch {d['batch']} x {d['seq']}, "
+         f"{steps} steps: (1, 1) mesh under NCCL against the single-device "
+         "step")
+    fn = stepfn.make_train_step(cfg, opt)
+    state = stepfn.init_train_state(init())
+    single, single_s = [], []
+    for _ in range(steps):
+        ts = time.perf_counter()
+        state, m = fn(state, batch)
+        single.append((float(m["loss"]), float(m["grad_norm"])))
+        single_s.append(time.perf_counter() - ts)
+    ref = dict(tree_items(state["params"]))
+    del state
+    P, S = d["prefill"]
+    tokens = batch["tokens"][:P, :S]
+    max_len = S + d["decode_steps"]
+
+    def serve(prefill, decode, params):
+        logits, cache = prefill(params, tokens)
+        out = [logits]
+        for i in range(d["decode_steps"]):
+            logits, cache = decode(params, cache,
+                                   out[-1].argmax(-1)[:, None], S + i)
+            out.append(logits)
+        return out
+
+    params = init()
+    served = serve(lambda p, t: model.prefill(p, {"tokens": t}, max_len),
+                   model.decode_step, params)
+    tmp = tempfile.mkdtemp(prefix="dist_nccl_")
+    init_distributed("nccl", f"file://{tmp}/store", rank=0, world_size=1,
+                     device=dev)
+    try:
+        mesh = single_device_mesh(device=dev)
+        fn, sh, bsh = stepfn.make_train_step(cfg, opt, mesh=mesh)
+        state = part.device_put(stepfn.init_train_state(init()), sh)
+        b = part.device_put(batch, bsh(batch))
+        rt.reset_launches()
+        torch.cuda.synchronize()
+        meshed, meshed_s = [], []
+        for _ in range(steps):
+            ts = time.perf_counter()
+            state, m = fn(state, b)
+            meshed.append((float(m["loss"]), float(m["grad_norm"])))
+            meshed_s.append(time.perf_counter() - ts)
+        launches = rt.launch_counts()
+        check_launches("distribution (a) train", launches, {
+            "flash_prefill[lse]": 2 * L * steps,
+            "flash_prefill_bwd": L * steps})
+        diff = [n for n, x in tree_items(state["params"])
+                if not torch.equal(_bits(x.to_local()), _bits(ref[n]))]
+        _log(f"distribution (a): losses / grad norms {meshed} on the mesh, "
+             f"{single} on one device; {len(ref) - len(diff)} of "
+             f"{len(ref)} params bit-equal after step {steps}; launches "
+             f"flash_prefill[lse]={launches['flash_prefill[lse]']} "
+             f"flash_prefill_bwd={launches['flash_prefill_bwd']}; step "
+             f"times {[round(t, 4) for t in meshed_s]} s on the mesh (the "
+             f"first builds DTensor's sharding rules), "
+             f"{[round(t, 4) for t in single_s]} s on one device")
+        if meshed != single or diff:
+            raise AssertionError(f"distribution (a): the (1, 1) mesh step "
+                                 f"parts from the single-device step: "
+                                 f"{meshed} vs {single}; params {diff}")
+        del state, ref
+        prefill, psh, _ = stepfn.make_prefill_step(cfg, mesh, max_len,
+                                                   batch=P)
+        decode, _, _ = stepfn.make_decode_step(cfg, mesh, batch=P,
+                                               max_len=max_len)
+        p = part.device_put(params, psh)
+        rt.reset_launches()
+        got = serve(lambda q, t: prefill(q, {"tokens": t}), decode, p)
+        n = rt.launch_counts()
+        check_launches("distribution (a) serve", n, {"flash_prefill": L})
+        got = [g.to_local() for g in got]
+        same = all(torch.equal(g.argmax(-1), r.argmax(-1))
+                   for g, r in zip(got, served))
+        worst = max(float((g.float() - r.float()).abs().max())
+                    for g, r in zip(got, served))
+        _log(f"distribution (a): prefill {P} x {S} and {d['decode_steps']} "
+             f"greedy steps on the mesh: tokens "
+             f"{'identical' if same else 'DIFFER'}, largest logit "
+             f"difference {worst:.3e}; flash_prefill={n['flash_prefill']}")
+        if not same or worst != 0.0:
+            raise AssertionError("distribution (a): the mesh prefill / "
+                                 "decode parts from the single-device one")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def gather_through_process_group(dispatch_key="CUDA"):
+    """Gloo ends the process on DTensor's functional all-gather of CUDA
+    tensors, and takes the process group's ``all_gather_into_tensor``
+    (``tools/gloo_cuda_collectives.py``). This registers the latter as the
+    functional op's kernel for ``dispatch_key`` (the same gather, issued
+    synchronously), for the ranks of part (b) only; returns the library,
+    which must stay alive while it serves."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def all_gather_into_tensor(inp, group_size, group_name):
+        inp = inp.contiguous()
+        out = inp.new_empty((inp.shape[0] * group_size,)
+                            + tuple(inp.shape[1:]))
+        dist.all_gather_into_tensor(
+            out, inp, group=_resolve_process_group(group_name))
+        return out
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", all_gather_into_tensor, dispatch_key)
+    return lib
+
+
+def _local_part(full, x):
+    """The part of the whole tensor ``full`` that DTensor ``x``'s rank holds
+    by its placements, cut by index (even shards; mesh dims major to minor),
+    independent of DTensor's own gathers."""
+    from torch.distributed.tensor import Shard
+    coord = x.device_mesh.get_coordinate()
+    for md, p in enumerate(x.placements):
+        if isinstance(p, Shard):
+            full = torch.chunk(full, x.device_mesh.shape[md], p.dim)[coord[md]]
+    return full
+
+
+def _swap_shards(full, x):
+    """``full`` with the shards of DTensor ``x``'s sharded mesh dims in
+    reverse order: a whole tensor gathered in the wrong shard order."""
+    from torch.distributed.tensor import Shard
+    for md, p in enumerate(x.placements):
+        if isinstance(p, Shard):
+            full = torch.cat(torch.chunk(full, x.device_mesh.shape[md],
+                                         p.dim)[::-1], p.dim)
+    return full
+
+
+def _worst_rel_l2(got, want):
+    """The largest ``rel_l2`` over the leaves of ``want`` (name -> tensor),
+    ``got`` holding the same names."""
+    return max(rel_l2(got[n], x) for n, x in want.items())
+
+
+def _gloo_rank(rank, world, tmp, d, q):
+    """(b), one rank: TP 2 steps, the save, the restore onto DP 2 and a
+    step there, then two planted faults: the TP params gathered with their
+    shards swapped, and a DP step on a fresh restore with data shard 0's
+    half of the batch on both ranks; puts its readings on ``q``. Rank 0 first runs the 1 x 1 step ``steps`` + 1 times on the same
+    weights and batch and holds the mesh's params against it."""
+    import faulthandler
+    import sys as _sys
+    _sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "src"))
+    # a collective gloo refuses on CUDA tensors can end the process in C++:
+    # the Python stack is then written here for the parent to print
+    fault = open(os.path.join(tmp, f"rank{rank}.fault"), "w")
+    faulthandler.enable(fault)
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.bridge import tree_items
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed import partitioning as part
+    from repro_torch.distributed import stepfn
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    out = {"rank": rank}
+    steps = d["steps"]
+    try:
+        gather_lib = gather_through_process_group()
+        _, cfg, model, init, batch, opt = _dist_setup(d, d["layers_gloo"],
+                                                      dev)
+        ref = {}
+        if rank == 0:
+            fn = stepfn.make_train_step(cfg, opt)
+            state = stepfn.init_train_state(init())
+            out["one"] = []
+            for i in range(steps + 1):
+                state, m = fn(state, batch)
+                out["one"].append((float(m["loss"]), float(m["grad_norm"])))
+                if i + 1 >= steps:
+                    ref[i + 1] = {n: x.clone()
+                                  for n, x in tree_items(state["params"])}
+            del state, fn
+
+        def params_err(state, after):
+            """The mesh state's params, gathered, against the 1 x 1 run's
+            after step ``after`` (rank 0; every rank gathers)."""
+            got = {n: x.full_tensor() for n, x in tree_items(state["params"])}
+            return _worst_rel_l2(got, ref[after]) if rank == 0 else None
+
+        with collectives_counted() as calls:
+            init_distributed("gloo", f"file://{tmp}/store", rank=rank,
+                             world_size=world)
+            tp = make_mesh((1, world), ("data", "model"), device=dev)
+            fn, sh, bsh = stepfn.make_train_step(cfg, opt, mesh=tp)
+            state = part.device_put(stepfn.init_train_state(init()), sh)
+            b = part.device_put(batch, bsh(batch))
+            rt.reset_launches()
+            ts = time.perf_counter()
+            out["tp"] = []
+            for _ in range(steps):
+                state, m = fn(state, b)
+                out["tp"].append((float(m["loss"]), float(m["grad_norm"])))
+            out["tp_s"] = time.perf_counter() - ts
+            out["tp_launches"] = rt.launch_counts()
+            out["tp_calls"] = dict(calls)
+            calls.clear()
+            whole = {n: x.full_tensor() for n, x in tree_items(state)}
+            out["tp_shards_differ"] = [
+                n for n, x in tree_items(state)
+                if not torch.equal(_bits(x.to_local()),
+                                   _bits(_local_part(whole[n], x)))]
+            if rank == 0:
+                got = {n: whole["params/" + n] for n in ref[steps]}
+                out["tp_param_err"] = _worst_rel_l2(got, ref[steps])
+                out["swapped_param_err"] = _worst_rel_l2(
+                    {n: _swap_shards(got[n], x)
+                     for n, x in tree_items(state["params"])}, ref[steps])
+                del got
+            ckpt = CheckpointManager(f"{tmp}/ckpt", keep=1)
+            ts = time.perf_counter()
+            ckpt.save(steps, state)
+            out["save_s"] = time.perf_counter() - ts
+            del state
+            dp = make_mesh((world, 1), ("data", "model"), device=dev)
+            fn, sh, bsh = stepfn.make_train_step(cfg, opt, mesh=dp)
+            ts = time.perf_counter()
+            state, step = ckpt.restore_state(sh, shardings=sh)
+            out["restore_s"] = time.perf_counter() - ts
+            out["restored_step"] = step
+            # each leaf whole (DTensor's own gather) and this rank's part of
+            # it (cut by index) bit-equal to the state at the save
+            out["differ"] = [
+                n for n, x in tree_items(state)
+                if not (torch.equal(_bits(x.full_tensor()), _bits(whole[n]))
+                        and torch.equal(_bits(x.to_local()),
+                                        _bits(_local_part(whole[n], x))))]
+            out["n_leaves"] = len(whole)
+            out["ckpt_calls"] = dict(calls)
+            calls.clear()
+            del whole
+            rt.reset_launches()
+            ts = time.perf_counter()
+            state, m = fn(state, part.device_put(batch, bsh(batch)))
+            out["dp"] = (float(m["loss"]), float(m["grad_norm"]))
+            out["dp_s"] = time.perf_counter() - ts
+            out["dp_launches"] = rt.launch_counts()
+            out["dp_calls"] = dict(calls)
+            out["dp_param_err"] = params_err(state, steps + 1)
+            del state
+            # planted: both ranks step on data shard 0's half of the batch
+            state, _ = ckpt.restore_state(sh, shardings=sh)
+            half = d["batch"] // world
+            bsh_b = bsh(batch)
+            bad = {k: DTensor.from_local(v[:half], dp, bsh_b[k].placements,
+                                         run_check=False)
+                   for k, v in batch.items()}
+            state, m = fn(state, bad)
+            out["planted"] = (float(m["loss"]), float(m["grad_norm"]))
+            out["planted_param_err"] = params_err(state, steps + 1)
+            del state
+            dist.barrier()
+            dist.destroy_process_group()
+        del gather_lib
+    except Exception as e:                       # reported by the parent
+        import traceback
+        out["error"] = traceback.format_exc()[-3000:]
+        del e
+    q.put(out)
+
+
+def dist_two_ranks(dev, d=DIST):
+    """(b): two spawned ranks over gloo, the tensors on the card. Returns
+    each rank's launch counts summed over its steps."""
+    import multiprocessing as mp
+    import queue
+    import shutil
+    import tempfile
+    L, steps = d["layers_gloo"], d["steps"]
+    _log(f"distribution (b): {d['arch']} cut to {L} layers at full width, "
+         f"batch {d['batch']} x {d['seq']}: 2 ranks over gloo sharing the "
+         f"card; TP 2 (1, 2) for {steps} steps, save, restore onto DP 2 "
+         "(2, 1), 1 step; the default layout (Megatron-SP residual, the "
+         "loss on the gathered logits)")
+    tmp = tempfile.mkdtemp(prefix="dist_gloo_")
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_gloo_rank, args=(r, 2, tmp, d, q))
+             for r in range(2)]
+    ts = time.perf_counter()
+    for p in procs:
+        p.start()
+    res = {}
+    try:
+        while len(res) < 2 and time.perf_counter() - ts < d["timeout"]:
+            try:
+                r = q.get(timeout=5)
+            except queue.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+                continue
+            res[r["rank"]] = r
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        faults = [open(os.path.join(tmp, f"rank{r}.fault")).read()[-3000:]
+                  if os.path.exists(os.path.join(tmp, f"rank{r}.fault"))
+                  else "" for r in range(2)]
+        shutil.rmtree(tmp, ignore_errors=True)
+    if len(res) < 2:
+        raise AssertionError(f"distribution (b): ranks ended without a "
+                             f"result (exit codes "
+                             f"{[p.exitcode for p in procs]}):\n"
+                             + "\n".join(faults))
+    errs = [r["error"] for r in res.values() if "error" in r]
+    if errs:
+        raise AssertionError("distribution (b): a rank failed:\n"
+                             + "\n".join(errs))
+    totals = {}
+    for r in (0, 1):
+        x = res[r]
+        for k in ("tp_launches", "dp_launches"):
+            for name, n in x[k].items():
+                totals.setdefault(r, {})[name] = \
+                    totals.get(r, {}).get(name, 0) + n
+        _log(f"distribution (b) rank {r}: TP 2 steps {x['tp']} in "
+             f"{x['tp_s']:.2f} s, collectives {x['tp_calls']}; save "
+             f"{x['save_s']:.2f} s, restore {x['restore_s']:.2f} s onto DP "
+             f"2 (collectives {x['ckpt_calls']}); "
+             f"{x['n_leaves'] - len(x['differ'])} of {x['n_leaves']} leaves "
+             f"bit-equal, whole and this rank's part; DP step {x['dp']} in "
+             f"{x['dp_s']:.2f} s, collectives {x['dp_calls']}; launches TP "
+             f"flash_prefill[lse]={x['tp_launches']['flash_prefill[lse]']} "
+             f"flash_prefill_bwd={x['tp_launches']['flash_prefill_bwd']}, DP "
+             f"flash_prefill[lse]={x['dp_launches']['flash_prefill[lse]']} "
+             f"flash_prefill_bwd={x['dp_launches']['flash_prefill_bwd']} "
+             "(times through host memory: not a rate of distributed "
+             "training)")
+    r0 = res[0]
+    one = r0["one"]
+    pairs = [(f"TP 2 step {i + 1}", got, one[i])
+             for i, got in enumerate(r0["tp"])]
+    pairs.append((f"DP 2 step {steps + 1}", r0["dp"], one[steps]))
+    bad = []
+    for label, (lg, gg), (lw, gw) in pairs:
+        rl, rg = abs(lg - lw) / abs(lw), abs(gg - gw) / abs(gw)
+        _log(f"distribution (b): {label} loss {lg:.6f} against the 1 x 1 "
+             f"step's {lw:.6f}: {rl:.3e} relative (tol "
+             f"{d['loss_tol']:.1e}); grad norm {gg:.6f} against {gw:.6f}: "
+             f"{rg:.3e} (tol {d['gnorm_tol']:.1e})")
+        if not (rl <= d["loss_tol"] and rg <= d["gnorm_tol"]):
+            bad.append(label)
+    lw = one[steps][0]
+    planted_rl = abs(r0["planted"][0] - lw) / abs(lw)
+    caught = {"shards swapped": r0["swapped_param_err"] > d["param_tol"],
+              "data shard 0's half on both DP ranks":
+                  planted_rl > d["loss_tol"]
+                  or r0["planted_param_err"] > d["param_tol"]}
+    _log(f"distribution (b): params against the 1 x 1 run's, worst leaf "
+         f"relative L2: after TP 2 step {steps} {r0['tp_param_err']:.3e}, "
+         f"after DP 2 step {steps + 1} {r0['dp_param_err']:.3e} (tol "
+         f"{d['param_tol']:.1e}); planted: the TP params' shards swapped "
+         f"{r0['swapped_param_err']:.3e}; both DP ranks on data shard 0's "
+         f"half of the batch: loss {r0['planted'][0]:.6f} ({planted_rl:.3e} "
+         f"relative), params {r0['planted_param_err']:.3e}; "
+         + ", ".join(f"{k} {'caught' if v else 'NOT caught'}"
+                     for k, v in caught.items()))
+    if bad or not all(caught.values()) or max(r0["tp_param_err"],
+                                r0["dp_param_err"]) > d["param_tol"]:
+        raise AssertionError(f"distribution (b): the mesh steps part from "
+                             f"1 x 1 ({bad}) or the planted fault passed")
+    for r, x in res.items():
+        if x["differ"] or x["tp_shards_differ"] \
+                or x["restored_step"] != steps:
+            raise AssertionError(f"distribution (b) rank {r}: the DP 2 "
+                                 f"restore differs in {x['differ']}, the "
+                                 f"TP shards in {x['tp_shards_differ']}")
+        for k in ("tp_launches", "dp_launches"):
+            for name in ("flash_prefill[lse]", "flash_prefill_bwd"):
+                if not x[k][name] > 0:
+                    raise AssertionError(f"distribution (b) rank {r}: "
+                                         f"{name} never launched ({k})")
+    return totals
+
+
+def distribution_phase(dev, d=DIST):
+    """The distribution phase: (a), then (b). Returns (a)'s launch counts
+    and (b)'s per rank."""
+    t0 = time.perf_counter()
+    one = dist_one_by_one(dev, d)
+    gc.collect()
+    torch.cuda.empty_cache()
+    two = dist_two_ranks(dev, d)
+    _log(f"distribution: phase {time.perf_counter() - t0:.1f}s")
+    return one, two
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available; this run needs one "
@@ -5611,6 +6135,9 @@ def main():
     launches = train_phase(dev)
     rows[TRAIN_BWD_ROW]["launches"] = launches["flash_prefill_bwd"]
     rows[TRAIN_LSE_ROW]["launches"] = launches["flash_prefill[lse]"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    distribution_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
     launches = rg_phase(rg_cfg, dev)

@@ -1,7 +1,6 @@
-"""The train step (counterpart of ``repro.distributed.stepfn``'s loss and
-``make_train_step``) on one device: no mesh, no shardings, no jit. The
-mesh-sharded train, prefill and decode builders come with distribution
-(ROADMAP.md, Queue 1).
+"""The train, prefill and decode steps (counterpart of
+``repro.distributed.stepfn``): the loss, and the step builders on one device
+or on a mesh.
 
 The state is ``{"params", "opt": {"mu", "nu", "step"}}``; a step takes the
 gradient of the mean token cross-entropy of ``model.forward(params, batch,
@@ -11,24 +10,57 @@ the forward's attention runs the ``flash_prefill`` kernel's LSE form and
 its backward the ``flash_prefill_bwd`` kernels (``kernels.flash_attention.
 ops.FlashAttention``); a kernel with no backward raises under grad instead
 of leaving the weights upstream without a gradient.
+
+With a ``mesh`` (a ``DeviceMesh`` over the process group, ``launch.mesh``)
+the builders return JAX's triples, their shardings ``partitioning.
+NamedSharding`` trees: params and moments are DTensors placed by
+``partitioning.leaf_pspec``, the batch shards over the data axes, and the
+model runs unchanged under ``implicit_replication`` (its plain position
+and mask tensors count as replicated); DTensor's sharding propagation
+inserts the collectives, as GSPMD does, and ``layers.attention`` /
+``layers.moe_apply`` run each rank's shard through ``local_map``. Each
+gradient is redistributed to its param's placement before AdamW, which
+sums a param's partial gradients over the data axes (the loss is the mean
+over the global batch, so that sum is the data-parallel mean). In
+training the residual between layers shards its sequence over 'model'
+(Megatron-SP, ``ctx.activation_sharding``) while ``ctx.perf().
+activation_sp`` is on.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Any, NamedTuple, Optional
 
 import torch
 
 from repro_torch.bridge import tree_from_items, tree_items
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import ctx
+from repro_torch.distributed import partitioning as part
 from repro_torch.models import get_model
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 
 
 def softmax_xent(logits, targets):
-    """Mean token cross-entropy; f32 logsumexp."""
+    """Mean token cross-entropy; f32 logsumexp. With ``ctx.perf().
+    onehot_xent`` the gold logit is selected by an iota compare
+    (elementwise on vocab-sharded logits, its sum a partial reduction)
+    instead of a gather (which, on a mesh, gathers the vocab-sharded
+    logits first, as GSPMD's lowering of JAX's does). The two are the same
+    value."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    if ctx.perf().onehot_xent:
+        hit = torch.arange(lf.shape[-1], device=lf.device) \
+            == targets[..., None]
+        gold = torch.sum(torch.where(hit, lf, 0.0), dim=-1)
+    else:
+        if ctx.is_dtensor(lf):
+            from torch.distributed.tensor import Replicate, Shard
+            lf = lf.redistribute(lf.device_mesh, [
+                Replicate() if isinstance(p, Shard) and p.dim == lf.ndim - 1
+                else p for p in lf.placements])
+        gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
     return torch.mean(lse - gold)
 
 
@@ -51,15 +83,20 @@ def chunked_xent(cfg, model, params, h_fn, batch, n_chunks=8):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
-                    *, remat: bool = True, accum_steps: int = 1):
-    """Returns ``step_fn(state, batch) -> (state, metrics)``.
+                    *, mesh=None, remat: bool = True, accum_steps: int = 1):
+    """Returns ``step_fn(state, batch) -> (state, metrics)``; with a
+    ``mesh``, JAX's ``(step_fn, state_shardings, batch_shardings_fn)``, the
+    state then a tree of DTensors placed by ``state_shardings``
+    (``partitioning.device_put``) and the batch by ``batch_shardings_fn(
+    batch)``.
 
     batch = {'tokens': (B,S), 'targets': (B,S)[, 'enc_embeds': ...]}, on
     the params' device. metrics: ``loss``, ``lr``, ``grad_norm`` (f32
-    scalar tensors). With ``accum_steps`` > 1 the batch splits into
-    microbatches along dim 0 and their gradients are summed in f32, then
-    divided by ``accum_steps`` before one optimizer step, as JAX's scan
-    does. A param no loss reaches gets a zero gradient."""
+    scalar tensors, plain on a mesh too). With ``accum_steps`` > 1 the
+    batch splits into microbatches along dim 0 and their gradients are
+    summed in f32, then divided by ``accum_steps`` before one optimizer
+    step, as JAX's scan does. A param no loss reaches gets a zero
+    gradient."""
     model = get_model(cfg)
     opt_cfg = opt_cfg or AdamWConfig()
 
@@ -76,9 +113,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
         finally:
             for p in leaves:
                 p.requires_grad_(False)
+        # on a mesh: each gradient in its param's placement (a partial sum
+        # over the data axes reduced), before it is summed or applied
+        grads = [g if g is None or not ctx.is_dtensor(g) else
+                 g.redistribute(g.device_mesh, p.placements)
+                 for g, p in zip(grads, leaves)]
         return loss.detach(), dict(zip(names, grads))
 
-    def step_fn(state, batch):
+    def step_body(state, batch):
         params = state["params"]
         if accum_steps <= 1:
             loss, flat = loss_and_grads(params, batch)
@@ -106,7 +148,173 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
         metrics = dict(metrics, loss=loss)
         return {"params": new_params, "opt": new_opt}, metrics
 
-    return step_fn
+    if mesh is None:
+        return step_body
+
+    pspecs = part.param_pspecs(model.param_specs(), mesh)
+    state_sh = state_shardings(pspecs, mesh)
+    dp = part.data_axes(mesh)
+    tp = part.mesh_axes(mesh).get("model", 1)
+    act_ps = part.P(dp or None, "model" if tp > 1 else None, None)
+
+    def step_fn(state, batch):
+        with on_mesh(mesh), ctx.activation_sharding(
+                act_ps if ctx.perf().activation_sp else None):
+            state, metrics = step_body(state, batch)
+        return state, {k: _plain(v) for k, v in metrics.items()}
+
+    def batch_shardings(batch_tree):
+        return part.shardings_from_pspecs(
+            part.batch_pspecs(cfg, batch_tree, mesh), mesh)
+
+    return step_fn, state_sh, batch_shardings
+
+
+def _plain(x):
+    """A replicated DTensor's value as a plain tensor; a plain one as it
+    is."""
+    return x.full_tensor() if ctx.is_dtensor(x) else x
+
+
+@contextlib.contextmanager
+def on_mesh(mesh):
+    """The context the mesh builders run the model in: plain tensors count
+    as replicated, and ``ctx.current_mesh()`` is ``mesh``."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    with implicit_replication(), ctx.mesh_ctx(mesh):
+        yield
+
+
+def state_shardings(pspecs, mesh):
+    """The train state's ``NamedSharding`` tree: params and both moments
+    as ``pspecs``, the step replicated."""
+    psh = part.shardings_from_pspecs(pspecs, mesh)
+    return {"params": psh, "opt": {"mu": psh, "nu": psh,
+                                   "step": part.NamedSharding(mesh, part.P())}}
+
+
+class Abstract(NamedTuple):
+    """A leaf's shape and type as a meta-device tensor, and its sharding
+    (JAX's ``ShapeDtypeStruct`` with a sharding)."""
+    value: torch.Tensor
+    sharding: Any
+
+
+def _abstract(shape, dtype, sharding):
+    return Abstract(torch.empty(shape, dtype=dtype, device="meta"), sharding)
+
+
+def abstract_train_state(cfg: ModelConfig, mesh):
+    """The train state as ``Abstract`` leaves: the params' dtypes, f32
+    moments, an int32 step."""
+    from repro_torch.models.common import ParamSpec
+    specs = get_model(cfg).param_specs()
+    sh = state_shardings(part.param_pspecs(specs, mesh), mesh)
+
+    def leaves(s, shard, f32):
+        if isinstance(s, ParamSpec):
+            return _abstract(s.shape, torch.float32 if f32 else s.dtype,
+                             shard)
+        return {k: leaves(s[k], shard[k], f32) for k in s}
+    return {"params": leaves(specs, sh["params"], False),
+            "opt": {"mu": leaves(specs, sh["opt"]["mu"], True),
+                    "nu": leaves(specs, sh["opt"]["nu"], True),
+                    "step": _abstract((), torch.int32, sh["opt"]["step"])}}
+
+
+# ----------------------------------------------------------------------
+# serving steps
+# ----------------------------------------------------------------------
+
+_MESH_FAMILIES = ("dense", "moe", "mla_moe")
+
+
+def _fitted_cache_pspecs(cfg, mesh, batch, max_len):
+    cs = get_model(cfg).cache_spec(batch, max_len)
+    return part.fit_pspec_tree(cs, part.cache_pspecs(cfg, mesh), mesh)
+
+
+def _serving_shardings(cfg, mesh, batch, max_len):
+    if cfg.family not in _MESH_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r}: the mesh serving steps take the "
+            f"{'/'.join(_MESH_FAMILIES)} families (ROADMAP.md, Queue 1)")
+    model = get_model(cfg)
+    param_sh = part.shardings_from_pspecs(
+        part.param_pspecs(model.param_specs(), mesh), mesh)
+    cpsp = _fitted_cache_pspecs(cfg, mesh, batch, max_len)
+    dp = part.data_axes(mesh)
+    logits_sh = part.NamedSharding(mesh, part.fit_pspec(
+        (batch, cfg.vocab_size), part.P(dp or None, None), mesh))
+    return model, param_sh, cpsp, logits_sh
+
+
+def _tokens_on_mesh(tokens, mesh):
+    """Plain tokens (B, ...) sharded over the data axes where they divide
+    B; DTensors as they are."""
+    if ctx.is_dtensor(tokens):
+        return tokens
+    dp = part.data_axes(mesh)
+    spec = part.fit_pspec(tuple(tokens.shape), part.P(dp or None), mesh)
+    return part.distribute(tokens, part.NamedSharding(mesh, spec))
+
+
+def make_prefill_step(cfg: ModelConfig, mesh, max_len: int, *,
+                      batch: int = 0):
+    """Returns ``(prefill_fn, param_shardings, cache_shardings)``;
+    ``prefill_fn(params, batch) -> (last logits (B, V), cache)``: the
+    model's ``prefill`` on the mesh, its cache made in ``cache_shardings``
+    (the fitted ``cache_pspecs``) and the logits sharded over the data
+    axes, the vocab whole."""
+    model, param_sh, cpsp, logits_sh = _serving_shardings(
+        cfg, mesh, batch or 8, max_len)
+
+    def prefill_fn(params, batch):
+        batch = {k: _tokens_on_mesh(v, mesh) if k == "tokens" else v
+                 for k, v in batch.items()}
+        with on_mesh(mesh), ctx.named_shardings(cache=cpsp):
+            logits, cache = model.prefill(params, batch, max_len)
+        return logits.redistribute(mesh, logits_sh.placements), cache
+
+    return prefill_fn, param_sh, part.shardings_from_pspecs(cpsp, mesh)
+
+
+def make_decode_step(cfg: ModelConfig, mesh, *, batch: int = 0,
+                     max_len: int = 0):
+    """Returns ``(decode_fn, param_shardings, cache_shardings)``;
+    ``decode_fn(params, cache, tokens, pos) -> (logits (B, V), cache)``:
+    the model's ``decode_step`` on the mesh, the cache (DTensors in
+    ``cache_shardings``) written in place, with the per-layer cache
+    placements named (``ctx.named_shardings``: ``cache_kv`` /
+    ``cache_mla``)."""
+    model, param_sh, cpsp, logits_sh = _serving_shardings(
+        cfg, mesh, batch or 8, max_len or 1024)
+    layer_ps = {}
+    if cfg.family in ("dense", "moe"):
+        layer_ps["cache_kv"] = part.P(*cpsp["k"][1:])
+    if cfg.family == "mla_moe":
+        layer_ps["cache_mla"] = part.P(*cpsp["ckv"][1:])
+
+    def decode_fn(params, cache, tokens, pos):
+        tokens = _tokens_on_mesh(tokens, mesh)
+        with on_mesh(mesh), ctx.named_shardings(cache=cpsp, **layer_ps):
+            logits, cache = model.decode_step(params, cache, tokens, pos)
+        return logits.redistribute(mesh, logits_sh.placements), cache
+
+    return decode_fn, param_sh, part.shardings_from_pspecs(cpsp, mesh)
+
+
+def abstract_cache(cfg: ModelConfig, mesh, batch: int, max_len: int):
+    """The decode cache as ``Abstract`` leaves with the fitted cache
+    shardings (any family's ``cache_spec`` tree)."""
+    cs = get_model(cfg).cache_spec(batch, max_len)
+    cp = _fitted_cache_pspecs(cfg, mesh, batch, max_len)
+
+    def leaves(s, p):
+        if isinstance(p, part.PartitionSpec):
+            return _abstract(s[0], s[1], part.NamedSharding(mesh, p))
+        return {k: leaves(s[k], p[k]) for k in p}
+    return leaves(cs, cp)
 
 
 def init_train_state(params):

@@ -25,6 +25,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 _KERNELS_DIR = Path(__file__).resolve().parent
 _REPO_ROOT = _KERNELS_DIR.parents[2]
@@ -81,7 +82,14 @@ def reset_launches() -> None:
 def on_card(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on one CUDA device (launch the kernel),
     False when every tensor lies on the CPU (use the plain version). Mixed
-    or other devices raise."""
+    or other devices raise, and so does a DTensor: a kernel takes one
+    rank's local tensors, which ``layers.attention`` hands it through
+    ``local_map``; a wrapper never gathers a sharded tensor itself."""
+    for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError(
+                "kernel inputs are DTensors: a kernel runs on each rank's "
+                "local shard, through local_map (see layers.attention)")
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return False

@@ -3,7 +3,14 @@
 attention (the quadratic oracle and the ``flash_prefill`` kernel's entry),
 single-token attention against a dense cache, the SwiGLU / GeGLU / GELU
 FFN with its optional biases, and the routed MoE FFN (top-k with capacity
-drops and an optional shared expert)."""
+drops and an optional shared expert).
+
+On a mesh (DTensor params and activations, run by the mesh builders of
+``distributed.stepfn`` under ``implicit_replication``) two functions
+leave DTensor's sharding propagation: ``attention`` runs its kernel, or
+the kernel's plain version, on each rank's shard through ``local_map``,
+and ``moe_apply`` routes and dispatches through ``local_map`` too (DTensor
+has no rule for its sort and scatters)."""
 from __future__ import annotations
 
 import math
@@ -12,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.ctx import is_dtensor
 
 
 def rms_norm(x, scale, eps=1e-6):
@@ -128,9 +136,118 @@ def attention(q, k, v, *, causal=True, window=0):
     (B,Sk,Hkv,dv) -> (B,Sq,Hq,dv), scale 1/sqrt(dk); Sk != Sq only for a
     call that is neither causal nor windowed (cross-attention): the
     ``flash_prefill`` kernel on the card (dk = dv, or MLA's 192 / 128), its
-    plain version (the quadratic oracle) on the CPU."""
+    plain version (the quadratic oracle) on the CPU. DTensors go through
+    ``sharded_attention``."""
     from repro_torch.kernels.flash_attention import ops
+    if is_dtensor(q):
+        return sharded_attention(q, k, v, causal=causal, window=window)
     return ops.attention(q, k, v, causal=causal, window=window)
+
+
+_DATA_AXES = ("pod", "data")
+
+
+def _mesh_placements(mesh, data, model):
+    """One placement a mesh dim: ``data`` on the data axes, ``model`` on
+    'model', ``Replicate()`` on any other and on an axis of one rank (as
+    ``partitioning.placements``)."""
+    from torch.distributed.tensor import Replicate
+    return tuple(Replicate() if size == 1 else data if n in _DATA_AXES
+                 else model if n == "model" else Replicate()
+                 for n, size in zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _data_size(mesh) -> int:
+    return int(np.prod([s for n, s in zip(mesh.mesh_dim_names, mesh.shape)
+                        if n in _DATA_AXES]))
+
+
+def _model_size(mesh) -> int:
+    names = mesh.mesh_dim_names
+    return mesh.shape[names.index("model")] if "model" in names else 1
+
+
+def sharded_embedding(table, tokens):
+    """``table[tokens]`` of a DTensor table through ``local_map``. A table
+    whose vocab shards over 'model' gives each rank the rows it holds
+    (tokens outside them read row 0, zeroed), a partial sum over 'model'
+    that is reduced here, exactly (one rank adds its row to zeros); the
+    tokens keep their placement over the data axes, and the table's
+    gradient is a partial sum over them where the tokens shard."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    names = mesh.mesh_dim_names
+    m_pl = table.placements[names.index("model")] if "model" in names \
+        else Replicate()
+    vocab = isinstance(m_pl, Shard) and m_pl.dim == 0
+    rows = table.shape[0] // _model_size(mesh) if vocab else table.shape[0]
+    first = mesh.get_local_rank("model") * rows if vocab else 0
+    t_data = next((p for n, p in zip(names, tokens.placements)
+                   if n in _DATA_AXES), Replicate()) \
+        if is_dtensor(tokens) else Replicate()
+    t_pl = _mesh_placements(mesh, t_data, Replicate())
+    tab_pl = _mesh_placements(mesh, Replicate(), m_pl)
+    grad_pl = _mesh_placements(
+        mesh, Partial() if isinstance(t_data, Shard) else Replicate(), m_pl)
+
+    def local(tab, tok):
+        if not vocab:
+            return tab[tok]
+        mine = (tok >= first) & (tok < first + rows)
+        return tab[torch.where(mine, tok - first, 0)] \
+            * mine[..., None].to(tab.dtype)
+
+    out = local_map(local, out_placements=list(_mesh_placements(
+        mesh, t_data, Partial() if vocab else Replicate())),
+        in_placements=(tab_pl, t_pl), in_grad_placements=(grad_pl, t_pl),
+        device_mesh=mesh, redistribute_inputs=True)(table, tokens)
+    return out.redistribute(mesh, t_pl)
+
+
+def sharded_attention(q, k, v, *, causal=True, window=0):
+    """``attention`` of DTensors: each rank's local call (the kernel on the
+    card, its plain version on the CPU) through ``local_map``. q shards its
+    batch over the data axes and its heads over 'model' (each where the
+    axes divide them); k and v shard their kv heads with q's heads where
+    'model' divides them, else they replicate and each rank attends with
+    the kv heads its q heads read (one kv head and a smaller G, or one a
+    q head where the shard straddles kv heads), their gradient a partial
+    sum over 'model'."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    B, _, Hq, _ = q.shape
+    Hkv = k.shape[2]
+    tp = _model_size(mesh)
+    data = Shard(0) if B % _data_size(mesh) == 0 else Replicate()
+    q_heads = tp > 1 and Hq % tp == 0
+    kv_heads = q_heads and Hkv % tp == 0
+    qp = _mesh_placements(mesh, data, Shard(2) if q_heads else Replicate())
+    kv_model = Shard(2) if kv_heads else Replicate()
+    kvp = _mesh_placements(mesh, data, kv_model)
+    kvg = _mesh_placements(mesh, data, Partial() if q_heads and not kv_heads
+                           else kv_model)
+    G = Hq // Hkv
+    rank = mesh.get_local_rank("model") if q_heads else 0
+
+    def local(ql, kl, vl):
+        from repro_torch.kernels.flash_attention import ops
+        if q_heads and not kv_heads:
+            hq = ql.shape[2]
+            first = rank * hq
+            if G % hq == 0:                   # one kv head, G = hq
+                sl = slice(first // G, first // G + 1)
+                kl, vl = kl[:, :, sl], vl[:, :, sl]
+            else:                             # a kv head a q head
+                idx = (first + torch.arange(hq, device=kl.device)) // G
+                kl, vl = kl[:, :, idx], vl[:, :, idx]
+        return ops.attention(ql, kl, vl, causal=causal, window=window)
+
+    return local_map(local, out_placements=list(qp),
+                     in_placements=(qp, kvp, kvp),
+                     in_grad_placements=(qp, kvg, kvg), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 def decode_attention(q, k_cache, v_cache, valid_mask):
@@ -228,11 +345,14 @@ def moe_specs(cfg: ModelConfig):
 
 def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
     """Slots an expert holds for ``n_tokens`` tokens: JAX's ``max(1,
-    ceil(T * K / E * capacity_factor))`` (the same float expression), at
-    most T: an expert takes a token at most once, so slots past T stay
-    empty and are never read back (the output is the same)."""
+    ceil(T * K / E * capacity_factor))`` (the same float expression; the
+    factor ``ctx.perf().capacity_factor`` where that is set), at most T: an
+    expert takes a token at most once, so slots past T stay empty and are
+    never read back (the output is the same)."""
+    from repro_torch.distributed import ctx
     E, K = cfg.n_experts, cfg.top_k
-    C = max(1, int(math.ceil(n_tokens * K / E * cfg.capacity_factor)))
+    cap = ctx.perf().capacity_factor or cfg.capacity_factor
+    C = max(1, int(math.ceil(n_tokens * K / E * cap)))
     return min(C, n_tokens)
 
 
@@ -248,17 +368,26 @@ def moe_route(cfg: ModelConfig, router, xt):
     return logits, topw * cfg.routed_scale, topi
 
 
-def moe_dispatch(cfg: ModelConfig, topi):
+def moe_dispatch(cfg: ModelConfig, topi, first: int = 0, n_local=None):
     """The (token, choice) assignments of ``topi`` (T, K), flattened token
     by token and sorted stably by expert: (order, each one's expert, its
     rank within the expert). An assignment whose rank reaches
-    ``moe_capacity(cfg, T)`` is dropped."""
+    ``moe_capacity(cfg, T)`` is dropped. With ``n_local`` < E only the
+    experts ``first .. first + n_local - 1`` are this rank's: they are
+    numbered from 0, and every other assignment gets ``n_local`` and sorts
+    last (JAX's ``moe_apply_ep_local``); a local expert's ranks are its
+    ranks among all experts."""
+    E = cfg.n_experts
+    n_local = E if n_local is None else n_local
     eid = topi.reshape(-1)
+    if n_local < E:
+        mine = (eid >= first) & (eid < first + n_local)
+        eid = torch.where(mine, eid - first, torch.full_like(eid, n_local))
     order = torch.argsort(eid, stable=True)
     eid_s = eid[order]
     # per-expert counts by a scatter (bincount would read its maximum back
     # to the host on the card)
-    counts = torch.zeros(cfg.n_experts, dtype=eid_s.dtype,
+    counts = torch.zeros(n_local + (n_local < E), dtype=eid_s.dtype,
                          device=eid.device).scatter_add_(
         0, eid_s, torch.ones_like(eid_s))
     starts = torch.cumsum(counts, 0) - counts
@@ -266,36 +395,117 @@ def moe_dispatch(cfg: ModelConfig, topi):
         - starts[eid_s]
 
 
+def moe_experts(cfg: ModelConfig, experts, xt, topw, topi, C: int,
+                first: int = 0):
+    """The routed experts' output (T, D) f32 for tokens xt (T, D) routed to
+    ``topi`` with weights ``topw`` (T, K), at ``C`` slots an expert. The
+    (token, choice) assignments, sorted stably by expert, take the
+    expert's slots in that order; past C an assignment is dropped (slot C
+    collects them, zeroed). Each expert's SwiGLU runs on its (C, D)
+    slots; the outputs, each cast with its combine weight to the
+    activations' type and multiplied, are summed per token in f32.
+    ``experts`` may hold a run of E_loc experts from ``first`` (expert
+    parallelism: the others' assignments are dropped here), or every
+    expert's shard of the hidden dim."""
+    T, D = xt.shape
+    K = cfg.top_k
+    n_local = experts["wo"].shape[0]
+    order, eid_s, pos = moe_dispatch(cfg, topi, first, n_local)
+    tid_s, w_s = order // K, topw.reshape(T * K)[order]
+    keep = (eid_s < n_local) & (pos < C)
+    pos_c = torch.where(keep, pos, torch.full_like(pos, C))
+    row = torch.where(keep, eid_s, torch.zeros_like(eid_s))
+    xe = xt.new_zeros((n_local, C + 1, D))
+    xe[row, pos_c] = torch.where(keep[:, None], xt[tid_s],
+                                 torch.zeros((), dtype=xt.dtype,
+                                             device=xt.device))
+    xe = xe[:, :C]
+    ye = ffn_hidden(cfg, experts, xe) @ experts["wo"]      # (E_loc,C,D)
+    yc = ye[row, torch.clamp(pos_c, max=C - 1)]
+    yc = yc * (w_s * keep.to(w_s.dtype))[:, None].to(yc.dtype)
+    out = torch.zeros((T, D), dtype=torch.float32, device=xt.device)
+    out.index_add_(0, tid_s, yc.float())
+    return out
+
+
 def moe_apply(cfg: ModelConfig, p, x):
-    """x (B, S, D) -> (B, S, D). The (token, choice) assignments, sorted
-    stably by expert, take the expert's slots in that order; past its
-    capacity (``moe_capacity`` of all B * S tokens) an assignment is
-    dropped (slot C collects them, zeroed). Each expert's SwiGLU runs on
-    its (C, D) slots; the outputs, each cast with its combine weight to
-    the activations' type and multiplied, are summed per token in f32,
-    then cast. A shared expert's FFN is added after the cast, as JAX's
-    does."""
+    """x (B, S, D) -> (B, S, D): ``moe_experts`` over all B * S tokens
+    (``moe_capacity`` of them), cast to x's type; a shared expert's FFN is
+    added after the cast, as JAX's does. DTensors go through
+    ``sharded_moe``."""
+    if is_dtensor(x):
+        return sharded_moe(cfg, p, x)
     B, S, D = x.shape
-    E, K = cfg.n_experts, cfg.top_k
     T = B * S
     xt = x.reshape(T, D)
     _, topw, topi = moe_route(cfg, p["router"], xt)
-    C = moe_capacity(cfg, T)
-    order, eid_s, pos = moe_dispatch(cfg, topi)
-    tid_s, w_s = order // K, topw.reshape(T * K)[order]
-    keep = pos < C
-    pos_c = torch.where(keep, pos, torch.full_like(pos, C))
-    xe = x.new_zeros((E, C + 1, D))
-    xe[eid_s, pos_c] = torch.where(keep[:, None], xt[tid_s],
-                                   torch.zeros((), dtype=x.dtype,
-                                               device=x.device))
-    xe = xe[:, :C]
-    ye = ffn_hidden(cfg, p["experts"], xe) @ p["experts"]["wo"]   # (E,C,D)
-    yc = ye[eid_s, torch.clamp(pos_c, max=C - 1)]
-    yc = yc * (w_s * keep.to(w_s.dtype))[:, None].to(yc.dtype)
-    out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
-    out.index_add_(0, tid_s, yc.float())
-    out = out.to(x.dtype)
+    out = moe_experts(cfg, p["experts"], xt, topw, topi,
+                      moe_capacity(cfg, T)).to(x.dtype)
     if cfg.n_shared_experts:
         out = out + ffn_apply(cfg, p["shared"], xt)
     return out.reshape(B, S, D)
+
+
+def sharded_moe(cfg: ModelConfig, p, x):
+    """``moe_apply`` of DTensors, its routing and dispatch on each rank
+    through ``local_map``; the experts keep their params' placement over
+    'model' (a run of E / tp experts a rank, or, where tp does not divide
+    E, a shard of each expert's hidden dim), and each rank's f32 output is
+    a partial sum over 'model', reduced before the cast.
+
+    ``ctx.perf().moe_ep_local`` off (JAX's default): the tokens are
+    gathered over the data axes, and every rank routes and dispatches all
+    B * S of them as the single-device ``moe_apply`` does, at its capacity
+    and with its drops (GSPMD keeps the global meaning). On, with E
+    divisible by the 'model' axis: JAX's ``moe_apply_ep_local``, each data
+    shard's tokens routed locally at the capacity of the local tokens, one
+    reduction over 'model' the only collective."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.distributed import ctx
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    B, S, _ = x.shape
+    E, tp = cfg.n_experts, _model_size(mesh)
+    ex = [p["experts"][k] for k in ("wi_gate", "wi_up", "wo")]
+    # each expert weight's placement over 'model' (E, or its hidden dim)
+    m_pls = [w.placements[names.index("model")] if "model" in names
+             else Replicate() for w in ex]
+    m_pl = m_pls[-1]
+    ep = isinstance(m_pl, Shard) and m_pl.dim == 0
+    sharded = not isinstance(m_pl, Replicate)
+    local_tokens = ctx.perf().moe_ep_local and ep and E % tp == 0
+    if local_tokens and B % _data_size(mesh):
+        raise ValueError(f"moe_ep_local: batch {B} does not divide over the "
+                         f"data axes ({_data_size(mesh)})")
+    first = mesh.get_local_rank("model") * (E // tp) if ep else 0
+    part = Partial() if sharded else Replicate()
+    d_tok = Shard(0) if local_tokens else Replicate()
+    # gradients: a local input's share of the sum over 'model' where the
+    # experts shard; over the data axes, the local tokens' share where each
+    # rank routes its own
+    d_grad = Partial() if local_tokens else Replicate()
+    in_pl = (_mesh_placements(mesh, d_tok, Replicate()),
+             _mesh_placements(mesh, Replicate(), Replicate()),
+             *(_mesh_placements(mesh, Replicate(), m) for m in m_pls))
+    grad_pl = (_mesh_placements(mesh, d_tok, part),
+               _mesh_placements(mesh, d_grad, part),
+               *(_mesh_placements(mesh, d_grad, m) for m in m_pls))
+
+    def local(xl, router, wg, wu, wo):
+        Bl, Sl, D = xl.shape
+        xt = xl.reshape(Bl * Sl, D)
+        _, topw, topi = moe_route(cfg, router, xt)
+        out = moe_experts(cfg, {"wi_gate": wg, "wi_up": wu, "wo": wo}, xt,
+                          topw, topi, moe_capacity(cfg, Bl * Sl), first)
+        return out.reshape(Bl, Sl, D)
+
+    out = local_map(local,
+                    out_placements=list(_mesh_placements(mesh, d_tok, part)),
+                    in_placements=in_pl, in_grad_placements=grad_pl,
+                    device_mesh=mesh, redistribute_inputs=True)(
+        x, p["router"], *ex)
+    out = out.redistribute(mesh, x.placements).to(x.dtype)
+    if cfg.n_shared_experts:
+        out = out + ffn_apply(cfg, p["shared"], x)
+    return out

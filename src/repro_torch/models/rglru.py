@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.bridge import tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import ctx
 from repro_torch.kernels.lru_scan import ops as lru_ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -194,6 +195,7 @@ def forward(cfg: ModelConfig, params, batch, *, remat=False, last_only=False,
     G, tail = _group_counts(cfg)
     rec, ks, vs = [], [], []
     for g in range(G):
+        h = ctx.constrain(h)
         h, rs, (k, v) = remat_call(remat, _group_apply, cfg,
                                    _take(params["groups"], g), h, positions)
         rec.append(rs)

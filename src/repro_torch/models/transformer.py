@@ -35,6 +35,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import ctx
 from repro_torch.models import layers as L
 from repro_torch.models.common import remat_call, spec
 
@@ -157,11 +158,24 @@ def attn_out(cfg, p, o):
     return y + p["bo"] if cfg.attn_out_bias else y
 
 
+def _normed(cfg, p_norm, x):
+    """The norm of the residual x, whole along S on a mesh with
+    Megatron-SP (``ctx.gather_sequence``), for the projections after it."""
+    return ctx.gather_sequence(L.apply_norm(cfg, p_norm, x))
+
+
+def _residual(x, y):
+    """x plus a block's output y, y first placed as the residual is
+    (``ctx.constrain``: with Megatron-SP the partial sums of the
+    row-parallel projection reduce-scattered over S)."""
+    return x + ctx.constrain(y)
+
+
 def _dense_attn(cfg, p, x, positions):
-    h = L.apply_norm(cfg, p["norm"], x)
+    h = _normed(cfg, p["norm"], x)
     q, k, v = qkv_proj(cfg, p, h, positions)
     o = L.attention(q, k, v, window=cfg.sliding_window)
-    return x + attn_out(cfg, p, o), (k, v)
+    return _residual(x, attn_out(cfg, p, o)), (k, v)
 
 
 def _mla_attn(cfg, p, x, positions):
@@ -171,7 +185,7 @@ def _mla_attn(cfg, p, x, positions):
     (B,S,lora), k_rope (B,S,rope))), the layer's cache entries."""
     B, S, _ = x.shape
     nope, rope, lora = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
-    h = L.apply_norm(cfg, p["norm"], x)
+    h = _normed(cfg, p["norm"], x)
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
     q_rope = L.apply_rope(cfg, q[..., nope:], positions)
     ckv_full = h @ p["w_dkv"]                                  # (B,S,lora+rope)
@@ -185,7 +199,7 @@ def _mla_attn(cfg, p, x, positions):
     q = torch.cat([q[..., :nope], q_rope], dim=-1)
     o = L.attention(q, k, v)
     y = torch.einsum("bshv,hvd->bsd", o, p["wo"])
-    return x + y, (c_kv, k_rope[:, :, 0])
+    return _residual(x, y), (c_kv, k_rope[:, :, 0])
 
 
 def _mla_attn_decode(cfg, p, x, ckv_cache, krope_cache, pos: int):
@@ -227,12 +241,12 @@ def _mlp(cfg, p_norm, p_mlp, x, moe=None):
     """x plus the layer's FFN: the routed MoE where ``moe`` (by default,
     where the config has experts; its capacity counts every token of x),
     else the dense one."""
-    h = L.apply_norm(cfg, p_norm, x)
+    h = _normed(cfg, p_norm, x)
     if moe is None:
         moe = cfg.n_experts > 0
     if moe:
-        return x + L.moe_apply(cfg, p_mlp, h)
-    return x + L.ffn_apply(cfg, p_mlp, h)
+        return _residual(x, L.moe_apply(cfg, p_mlp, h))
+    return _residual(x, L.ffn_apply(cfg, p_mlp, h))
 
 
 def _layer(cfg, lp, x, positions, moe=None):
@@ -246,6 +260,10 @@ def _layer(cfg, lp, x, positions, moe=None):
 
 
 def embed_tokens(cfg, params, tokens):
+    """The token table's rows; a DTensor table through
+    ``layers.sharded_embedding``."""
+    if ctx.is_dtensor(params["embed"]["tok"]):
+        return L.sharded_embedding(params["embed"]["tok"], tokens)
     return params["embed"]["tok"][tokens]
 
 
@@ -276,10 +294,11 @@ def forward(cfg: ModelConfig, params, batch, *, remat: bool = False,
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     caches: Dict[str, list] = {}
     for stack, _, lp, moe in layers_in_order(cfg, params):
+        h = ctx.constrain(h)
         h, kv = remat_call(remat, _layer, cfg, lp, h, positions, moe)
         if return_cache:
             caches.setdefault(stack, []).append(kv)
-    h = L.apply_norm(cfg, params["final_norm"], h)
+    h = _normed(cfg, params["final_norm"], h)
     if last_only:
         h = h[:, -1:]
     logits = unembed(cfg, params, h)
@@ -321,7 +340,9 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
-    return {k: torch.zeros(sh, dtype=dt, device=device)
+    """Zeros of ``cache_spec``; on a mesh step, DTensors in its cache
+    placements (``ctx.cache_zeros``)."""
+    return {k: ctx.cache_zeros(k, sh, dt, device)
             for k, (sh, dt) in cache_spec(cfg, batch, max_len).items()}
 
 

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.bridge import tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import ctx
 from repro_torch.models import layers as L
 from repro_torch.models.common import remat_call, spec
 from repro_torch.models.rglru import _take, causal_conv
@@ -350,6 +351,7 @@ def forward(cfg: ModelConfig, params, batch, *, remat=False, last_only=False,
     h = params["embed"]["tok"][batch["tokens"]]
     states = []
     for g in range(G):
+        h = ctx.constrain(h)
         h, st = remat_call(remat, _group_apply, cfg,
                            _take(params["groups"], g), h)
         states.append(st)

@@ -58,7 +58,10 @@ def init_opt_state(params):
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's sum of squares, in f32
-    (each leaf's norm taken in f32 without an f32 copy of the leaf)."""
+    (each leaf's norm taken in f32 without an f32 copy of the leaf). A
+    DTensor leaf's norm is the whole tensor's: DTensor reduces its shards'
+    partial norms over the mesh before the square, so every rank gets the
+    global norm and clips alike."""
     total = None
     for x in tree_leaves(tree):
         sq = torch.linalg.vector_norm(x, dtype=torch.float32).square()

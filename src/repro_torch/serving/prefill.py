@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.bridge import tree_leaves
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import ctx
 
 
 # ----------------------------------------------------------------------
@@ -111,6 +112,7 @@ def packed_prefill_fn(cfg: ModelConfig):
         ks, vs = [], []
         for i in range(cfg.n_layers):
             lp = T.layer_params(params, i)
+            h = ctx.constrain(h)
             h, (k, v) = _attn(lp["attn"], h, seg, pos)
             h = T._mlp(cfg, lp["mlp_norm"], lp["mlp"], h)
             ks.append(k[0])
