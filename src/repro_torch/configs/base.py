@@ -110,9 +110,14 @@ def pad_for_tp(cfg: ModelConfig, tp: int) -> ModelConfig:
     return replace(cfg, **upd)
 
 
-def reduced(cfg: ModelConfig) -> ModelConfig:
+def reduced(cfg: ModelConfig, *, full_heads: bool = False) -> ModelConfig:
     """Tiny same-family config for CPU tests (``repro.configs.base.reduced``
-    branch for branch, ``attn_chunk`` aside)."""
+    branch for branch, ``attn_chunk`` aside). With ``full_heads`` the
+    attention keeps ``cfg``'s heads, their count and widths (``head_dim``;
+    MLA's q / k and v widths) and the rope sections that go with them: a
+    tiny model whose attention runs at the shapes the full one's does, as
+    the card's attention kernels take them (xLSTM's heads, which attend
+    nothing, stay reduced)."""
     upd = dict(
         n_layers=min(cfg.n_layers, 4),
         d_model=128,
@@ -137,6 +142,10 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         upd["qk_rope_dim"] = 16
         upd["v_head_dim"] = 32
         upd["head_dim"] = 32
+    if full_heads:
+        for key in ("n_heads", "n_kv_heads", "head_dim", "qk_nope_dim",
+                    "qk_rope_dim", "v_head_dim"):
+            upd.pop(key, None)
     if cfg.family == "encdec":
         upd["n_encoder_layers"] = 2
         upd["n_layers"] = 2
@@ -150,7 +159,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         upd["n_kv_heads"] = 2
         upd["head_dim"] = 0   # derived in the model
         upd["d_ff"] = 0
-    if cfg.mrope_sections:
+    if cfg.mrope_sections and "head_dim" in upd:
         upd["mrope_sections"] = (4, 6, 6)   # sums to half of head_dim 32
     if cfg.rope_fraction < 1.0:
         upd["rope_fraction"] = 0.5

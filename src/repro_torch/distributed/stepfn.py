@@ -170,6 +170,28 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     return step_fn, state_sh, batch_shardings
 
 
+def kernel_launches(cfg: ModelConfig) -> dict:
+    """The kernel launches one single-device train step of ``cfg`` (remat
+    on, as ``make_train_step`` defaults) takes on the card, by launch count
+    name: each attention's LSE forward (``flash_prefill[lse]``) twice, the
+    forward and its recompute, and its backward (``flash_prefill_bwd``)
+    once; each recurrent layer's ``lru_scan`` and ``lru_scan_bwd``
+    likewise. Whisper's decoder layers attend twice (self and cross);
+    xLSTM's blocks run no kernel."""
+    if cfg.family == "rglru":
+        pattern = [cfg.block_pattern[i % len(cfg.block_pattern)]
+                   for i in range(cfg.n_layers)]
+        n_attn, n_rec = pattern.count("attn"), pattern.count("rec")
+    elif cfg.family == "encdec":
+        n_attn, n_rec = cfg.n_encoder_layers + 2 * cfg.n_layers, 0
+    elif cfg.family == "xlstm":
+        n_attn, n_rec = 0, 0
+    else:
+        n_attn, n_rec = cfg.n_layers, 0
+    return {"flash_prefill[lse]": 2 * n_attn, "flash_prefill_bwd": n_attn,
+            "lru_scan": 2 * n_rec, "lru_scan_bwd": n_rec}
+
+
 def _plain(x):
     """A replicated DTensor's value as a plain tensor; a plain one as it
     is."""

@@ -103,12 +103,13 @@
 //    on either warning; tools/prefill_variants.py shows what they cost.
 //  * No atomics and no split along keys: two calls agree bit for bit.
 //
-// The LSE form (flash_prefill_lse_bf16, the training forward: causal or
-// windowed, dk = dv in 32/64/128) is the square kernel plus one store a
-// row: scale * m + ln(l) in f32, which the backward (prefill_bwd.cu)
-// recomputes p from. A template flag beside FULL, with an argument struct
-// of its own, keeps the other instantiations' parameters and SASS as they
-// were (tools/prefill_timing.py prints the digests).
+// The LSE form (flash_prefill_lse_bf16, the training forward, at every
+// (dk, dv) of the kernel: causal or windowed with Sq = Sk, or FULL with any
+// Sq and Sk) is the square or the FULL kernel plus one store a row: scale
+// * m + ln(l) in f32, into lse (B, Hq, Sq), which the backward
+// (prefill_bwd.cu) recomputes p from. A template flag beside FULL, with an
+// argument struct of its own, keeps the other instantiations' parameters
+// and SASS as they were (tools/prefill_timing.py prints the digests).
 //
 // Two numerical choices: scores are scaled in f32 AFTER the bf16 product,
 // as JAX's _gqa_scores does (the Pallas kernel scales q in f32 first, which
@@ -165,8 +166,8 @@ struct Args {
   int Sq;
 };
 
-// The LSE form's arguments: the square kernel's, and where each row's
-// log-sum-exp goes, lse (B, Hq, S) f32, for the backward
+// The LSE form's arguments: the kernel's, and where each row's
+// log-sum-exp goes, lse (B, Hq, Sq) f32, for the backward
 // (prefill_bwd.cu). The other instantiations keep Args, so their
 // parameters and code stay as they were.
 struct ArgsLse : Args {
@@ -187,10 +188,10 @@ __device__ __forceinline__ float ex2(float x) {
 // all key tiles, one q tile a CTA (the mirror pairing balances only a
 // causal band); the only mask is the key tail. The other instantiation is
 // the square causal / windowed kernel, its code unchanged by FULL.
-// LSE: the square kernel that also writes each row's log-sum-exp of the
-// scaled scores, scale * m + ln(l), in f32 (the training forward, whose
-// backward recomputes p from it); its code is the square kernel's plus
-// that store.
+// LSE: the kernel (square or FULL) that also writes each row's
+// log-sum-exp of the scaled scores, scale * m + ln(l), in f32 (the training
+// forward, whose backward recomputes p from it); its code is the kernel's
+// plus that store.
 template <int DK, int DV, bool FULL, bool LSE = false>
 __global__ void __launch_bounds__(THREADS, 1)
 prefill_kernel(const __grid_constant__ CUtensorMap tq,
@@ -198,7 +199,6 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tv,
                const __grid_constant__ CUtensorMap to,
                const typename ArgsOf<LSE>::type p) {
-  static_assert(!(FULL && LSE), "the LSE form is the square kernel's");
   using T = Tile<DK, DV>;
   constexpr int BN = T::BN, SW = T::SW, PW = T::PW;
   extern __shared__ unsigned char smem_raw[];
@@ -452,9 +452,10 @@ prefill_kernel(const __grid_constant__ CUtensorMap tq,
         const float inv = 1.f / fmaxf(lt, 1e-30f);
         const int r = wrow + 8 * hr;
         if constexpr (LSE) {
-          // one thread of the quad writes the row, rows past S not at all
-          if (tig == 0 && r0 + r < S)
-            p.lse[((size_t)b * gridDim.y + h) * S + r0 + r] =
+          // one thread of the quad writes the row, rows past Sq not at all
+          const int Sq = FULL ? p.Sq : S;
+          if (tig == 0 && r0 + r < Sq)
+            p.lse[((size_t)b * gridDim.y + h) * Sq + r0 + r] =
                 m[hr] * p.scale + logf(fmaxf(lt, 1e-30f));
         }
         const int swz = SW == 128 ? (r & 7) : ((r >> 1) & 3);
@@ -537,13 +538,34 @@ int launch(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DK, int DV>
+template <int DK, int DV, bool LSE>
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             const Args& a, int B, int Hq, int Hkv,
+             const typename ArgsOf<LSE>::type& a, int B, int Hq, int Hkv,
              const long long (&st)[12], cudaStream_t s) {
   return a.causal || a.window
-             ? launch<DK, DV, false>(q, k, v, o, a, B, Hq, Hkv, st, s)
-             : launch<DK, DV, true>(q, k, v, o, a, B, Hq, Hkv, st, s);
+             ? launch<DK, DV, false, LSE>(q, k, v, o, a, B, Hq, Hkv, st, s)
+             : launch<DK, DV, true, LSE>(q, k, v, o, a, B, Hq, Hkv, st, s);
+}
+
+// the instantiation for head widths (dk, dv), or cudaErrorInvalidValue
+template <bool LSE>
+int dispatch_widths(const void* q, const void* k, const void* v, void* o,
+                    const typename ArgsOf<LSE>::type& a, int B, int Hq,
+                    int Hkv, int dk, int dv, const long long (&st)[12],
+                    cudaStream_t s) {
+  if (dk == dv) {
+    switch (dk) {
+      case 32: return dispatch<32, 32, LSE>(q, k, v, o, a, B, Hq, Hkv, st, s);
+      case 64: return dispatch<64, 64, LSE>(q, k, v, o, a, B, Hq, Hkv, st, s);
+      case 128:
+        return dispatch<128, 128, LSE>(q, k, v, o, a, B, Hq, Hkv, st, s);
+      case 256:
+        return dispatch<256, 256, LSE>(q, k, v, o, a, B, Hq, Hkv, st, s);
+    }
+  } else if (dk == 192 && dv == 128) {
+    return dispatch<192, 128, LSE>(q, k, v, o, a, B, Hq, Hkv, st, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -559,47 +581,33 @@ extern "C" int flash_prefill_bf16(
   const Args a{Sk, Hq / Hkv, causal, window, scale, Sq};
   const long long st[12] = {sqb, sqs, sqh, skb, sks, skh,
                             svb, svs, svh, sob, sos, soh};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dk == dv) {
-    switch (dk) {
-      case 32: return dispatch<32, 32>(q, k, v, o, a, B, Hq, Hkv, st, s);
-      case 64: return dispatch<64, 64>(q, k, v, o, a, B, Hq, Hkv, st, s);
-      case 128: return dispatch<128, 128>(q, k, v, o, a, B, Hq, Hkv, st, s);
-      case 256: return dispatch<256, 256>(q, k, v, o, a, B, Hq, Hkv, st, s);
-    }
-  } else if (dk == 192 && dv == 128) {
-    return dispatch<192, 128>(q, k, v, o, a, B, Hq, Hkv, st, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_widths<false>(q, k, v, o, a, B, Hq, Hkv, dk, dv, st,
+                                static_cast<cudaStream_t>(stream));
 }
 
-// The LSE form (the training forward): a causal or windowed call of
-// dk = dv in 32/64/128 and Sq = Sk = S, as flash_prefill_bf16, that also
-// writes lse (B, Hq, S) f32, each row's log-sum-exp of its scaled scores.
+// The LSE form (the training forward): a call as flash_prefill_bf16 takes,
+// at any of its (dk, dv), that also writes lse (B, Hq, Sq) f32, each row's
+// log-sum-exp of its scaled scores.
 extern "C" int flash_prefill_lse_bf16(
     const void* q, const void* k, const void* v, void* o, float* lse, int B,
-    int S, int Hq, int Hkv, int d, int causal, int window, int sqb, int sqs,
-    int sqh, int skb, int sks, int skh, int svb, int svs, int svh, int sob,
-    int sos, int soh, float scale, void* stream) {
-  if (S < 1 || Hkv < 1 || Hq % Hkv || !(causal || window))
+    int Sq, int Sk, int Hq, int Hkv, int dk, int dv, int causal, int window,
+    int sqb, int sqs, int sqh, int skb, int sks, int skh, int svb, int svs,
+    int svh, int sob, int sos, int soh, float scale, void* stream) {
+  if (Sq < 1 || Sk < 1 || Hkv < 1 || Hq % Hkv ||
+      (Sk != Sq && (causal || window)))
     return static_cast<int>(cudaErrorInvalidValue);
   ArgsLse a;
-  a.S = S;
+  a.S = Sk;
   a.G = Hq / Hkv;
   a.causal = causal;
   a.window = window;
   a.scale = scale;
-  a.Sq = S;
+  a.Sq = Sq;
   a.lse = lse;
   const long long st[12] = {sqb, sqs, sqh, skb, sks, skh,
                             svb, svs, svh, sob, sos, soh};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32: return launch<32, 32, false, true>(q, k, v, o, a, B, Hq, Hkv, st, s);
-    case 64: return launch<64, 64, false, true>(q, k, v, o, a, B, Hq, Hkv, st, s);
-    case 128: return launch<128, 128, false, true>(q, k, v, o, a, B, Hq, Hkv, st, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_widths<true>(q, k, v, o, a, B, Hq, Hkv, dk, dv, st,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // the dynamic shared memory one CTA takes at head widths (dk, dv) (0 for

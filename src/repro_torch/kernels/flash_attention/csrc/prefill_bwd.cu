@@ -1,5 +1,6 @@
-// The backward of causal / windowed GQA flash attention over a whole prompt,
-// for Hopper (sm_90a): dq, dk, dv of o = softmax(mask(q k^T * scale)) v.
+// The backward of GQA flash attention over a whole prompt (causal,
+// sliding-window or full), for Hopper (sm_90a): dq, dk, dv of o =
+// softmax(mask(q k^T * scale)) v.
 //
 // Replaces: no Pallas kernel. JAX's train step differentiates
 // models/layers.py::attention (the XLA block_attention, the pure-JAX
@@ -8,13 +9,15 @@
 // has no gradient without this. It computes the flash backward of JAX's
 // Pallas TPU kernel -- di = rowsum(o * do) once, p recomputed from q, k
 // and the forward's row log-sum-exp -- with p formed once for dK, dV and
-// dQ together.
+// dQ together (d 32/64/128; twice at d 256 and (192, 128), below).
 //
-// Inputs, all contiguous: q, o, do (B, S, Hq, d) bf16; k, v (B, S, Hkv, d)
-// bf16; lse (B, Hq, S) f32 from the LSE form of prefill.cu. Outputs dq
-// (B, S, Hq, d), dk, dv (B, S, Hkv, d) bf16. d in 32/64/128, any G = Hq /
-// Hkv, any S >= 1; query i attends key j where j <= i (causal) and
-// i - j < window (window > 0); at least one of the two.
+// Inputs, all contiguous: q (B, Sq, Hq, dk), o, do (B, Sq, Hq, dv) bf16;
+// k (B, Sk, Hkv, dk), v (B, Sk, Hkv, dv) bf16; lse (B, Hq, Sq) f32 from
+// the LSE form of prefill.cu. Outputs dq, dk, dv shaped as q, k, v, bf16.
+// (dk, dv) = (d, d) for d 32/64/128/256, or (192, 128); any G = Hq / Hkv.
+// Query i attends key j where j <= i (causal) and i - j < window (window >
+// 0), with Sq = Sk = S >= 1; or, with neither (FULL: Whisper's encoder and
+// its cross-attention), every key, for any Sq, Sk >= 1.
 //   p = exp(q k^T scale - lse), dv = p^T do, dp = do v^T,
 //   ds = p (dp - di), dq = scale ds k, dk = scale ds^T q.
 //
@@ -28,9 +31,9 @@
 // Design: prefill.cu's warp-specialised shape. Three launches:
 //  * stat_kernel: one CTA per (64-row q tile, q head, batch): di =
 //    rowsum(o * do) in f32 and lse * log2(e), into a scratch of (B, Hq,
-//    2, Sp) f32, Sp = S rounded up to 128. Rows past S get lse * log2(e)
+//    2, Sp) f32, Sp = Sq rounded up to 128. Rows past Sq get lse * log2(e)
 //    = +inf and di = 0, so p = exp2(s * scale * log2(e) - inf) = 0 there:
-//    the zero q row that TMA loads past S (s = 0) adds nothing, with no
+//    the zero q row that TMA loads past Sq (s = 0) adds nothing, with no
 //    mask. It also zeroes the q tile's turn counter (below).
 //  * bwd_kernel: one CTA of 384 threads per (128-key tile, kv head,
 //    batch): two consumer warpgroups of 64 keys each, then a producer
@@ -38,8 +41,9 @@
 //    232), in which one thread issues every load and one (of the next
 //    warp) writes dQ. K and V are loaded once. The loader walks the G q
 //    heads of the kv head and, for each, the 64-row q tiles of the key
-//    tile's band (from its first key under causal; up to its last key +
-//    window - 1 with a window), streaming Q and dO (TMA boxes of 64-element
+//    tile's band (every q tile under FULL; from its first key under
+//    causal; up to its last key + window - 1 with a window), streaming Q
+//    and dO (TMA boxes of 64-element
 //    rows, 128-byte swizzled; 64-byte at d 32) with their 64 lse * log2(e)
 //    and di values (one bulk copy each) into a ring with full and empty
 //    mbarriers a stage (2 stages at d 128, 4 below). Per q tile, each
@@ -106,9 +110,15 @@
 //    warpgroups walk the whole band and a tile that none of a warpgroup's
 //    pairs attends is masked whole. chip_smoke.py fails on the warning and
 //    on a spill.
-//  * Rows past S load as zeros: lse2 = +inf zeroes their p; keys past S
-//    only reach dK / dV rows that are not stored.
+//  * Rows past Sq load as zeros: lse2 = +inf zeroes their p. Keys past S
+//    in a square call only reach dK / dV rows that are not stored (their
+//    p sits under the causal mask). Under FULL a zero K row gives s = 0
+//    and p = exp(-lse), which need not be small (a row whose scores are
+//    all very negative has lse far below 0): dQ would gain p (0 - di) * 0,
+//    NaN once p overflows, so FULL masks keys past Sk (a card test at Sk
+//    % 128 != 0 and chip_smoke.py's planted unmasked padding key hold it).
 #include "hopper.cuh"
+#include "mma_sync.cuh"
 #include "tensor_map.cuh"
 
 using namespace repro;
@@ -165,6 +175,20 @@ struct Args {
   const float* stat;   // (B, Hq, 2, Sp): lse * log2(e), then di
   unsigned* turn;      // (B, Hq, Sp / 64): dQ contributions so far
 };
+
+// FULL (neither mask; Whisper's encoder and cross-attention): S is the key
+// length and Sq the query length. The square instantiation keeps Args, so
+// its parameters and code stay as they were.
+struct ArgsFull : Args {
+  int Sq;
+};
+
+template <bool FULL> struct ArgsOf { using type = Args; };
+template <> struct ArgsOf<true> { using type = ArgsFull; };
+
+// the query length: S in a square call
+__device__ __forceinline__ int q_len(const Args& a) { return a.S; }
+__device__ __forceinline__ int q_len(const ArgsFull& a) { return a.Sq; }
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -286,7 +310,10 @@ stat_kernel(const __nv_bfloat16* o, const __nv_bfloat16* dout,
 }
 
 // -------------------------------------------------------------- dK, dV, dQ
-template <int D>
+// FULL: every key tile walks every q tile of Sq, and the only mask is the
+// key tail past S (a zero K row gives s = 0, whose p is not 0 under FULL);
+// the square instantiation's code is as it was.
+template <int D, bool FULL = false>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_kernel(const __grid_constant__ CUtensorMap tq,
            const __grid_constant__ CUtensorMap tdo,
@@ -294,7 +321,8 @@ bwd_kernel(const __grid_constant__ CUtensorMap tq,
            const __grid_constant__ CUtensorMap tv,
            const __grid_constant__ CUtensorMap tdk,
            const __grid_constant__ CUtensorMap tdv,
-           const __grid_constant__ CUtensorMap tacc, const Args p) {
+           const __grid_constant__ CUtensorMap tacc,
+           const typename ArgsOf<FULL>::type p) {
   using T = Tile<D>;
   constexpr int SW = T::SW, PW = T::PW, ST = T::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -321,7 +349,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap tq,
   auto stage = [](int n) { return n % ST; };
   auto parity = [](int n) { return unsigned(n / ST) & 1; };
 
-  const int S = p.S, G = p.G, Sp = stat_len(S), W = p.window;
+  const int S = p.S, G = p.G, Sp = stat_len(q_len(p)), W = p.window;
   const int hk = blockIdx.y, b = blockIdx.z;
   // a (batch, kv head)'s key tiles are launched together, the last first:
   // their dQ sums stay in L2, and each q tile's sum runs in that order
@@ -330,7 +358,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap tq,
   // the q rows that see a key of this tile, [q_lo, q_hi), in BQ-row tiles
   // [t_lo, t_lo + n_t), for each of the G q heads
   const int q_lo = p.causal ? k0 : 0;
-  const int q_hi = W ? min(S, k0 + BK - 1 + W) : S;
+  const int q_hi = W ? min(S, k0 + BK - 1 + W) : q_len(p);
   const int t_lo = q_lo / BQ, n_t = (q_hi + BQ - 1) / BQ - t_lo;
   const int n_it = G * n_t;
 
@@ -462,10 +490,19 @@ bwd_kernel(const __grid_constant__ CUtensorMap tq,
     };
     // p^T of the n-th q tile in sc: element (key row g or g + 8, q column
     // 8 j + 2 tig (+1)). Masks only tiles that cross the diagonal or the
-    // window's edge (rows past S carry lse2 = +inf, so their p is 0).
+    // window's edge, under FULL the key tail (rows past Sq carry lse2 =
+    // +inf, so their p is 0).
     auto probs = [&](int n) {
       const int r0 = (t_lo + n % n_t) * BQ;
-      if ((p.causal && kw + 63 > r0) || (W && r0 + BQ - 1 - kw >= W)) {
+      if constexpr (FULL) {
+        if (kw + 63 >= S) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (key[e >> 1] >= S) sc[4 * j + e] = -INFINITY;
+        }
+      } else if ((p.causal && kw + 63 > r0) || (W && r0 + BQ - 1 - kw >= W)) {
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -642,6 +679,342 @@ dq_out_kernel(const float* acc, __nv_bfloat16* dq, int S, int Hq,
   }
 }
 
+// ------------------------------------------------ mma.sync, d 256, (192, 128)
+// The widths whose dK and dV do not fit the warp-specialised kernel's
+// registers (RecurrentGemma's local attention at d 256, 16 q heads on one
+// kv head; MLA's (192, 128)): two kernels of mma.sync m16n8k16, forming p
+// twice, each with every mask (causal, window, FULL with Sq != Sk).
+//  * mma_dkdv_kernel: one CTA of 8 warps per (64-key tile, kv head,
+//    batch), K and V loaded once; it walks the G q heads and, for each,
+//    the 32-row q tiles of the key tile's band (Q and dO double-buffered by
+//    cp.async). Warp w owns keys 16 (w % 4) of the tile and half w / 4 of
+//    dK's and dV's columns (DK / 2 + DV / 2 f32 accumulators a thread:
+//    128 at d 256). Of the two products p needs, warps 0-3 form s^T = K
+//    Q^T and warps 4-7 dp^T = V dO^T, and each pair swaps them through
+//    shared memory; then both take p^T = exp2(s^T scale log2 e - lse2)
+//    and ds^T = p^T (dp^T - di) and add p^T dO and ds^T Q into their
+//    columns. dK / dV sum the G heads in the CTA, in a fixed order.
+//  * mma_dq_kernel: one CTA per (64-row q tile, q head, batch), Q and dO
+//    loaded once, the 32-key tiles of its band streamed; warps 0-3 form s,
+//    4-7 dp, swapped as above, each adds ds K into its half of dQ.
+// Rows are padded by 16 bytes in shared memory, so ldmatrix reads no bank
+// twice. Masks are applied on the tiles that cross an edge: keys past Sk
+// (K and V rows load as zeros), the diagonal, the window; rows past Sq carry
+// lse2 = +inf from stat_kernel, so their p is 0. Deterministic: no atomics.
+// Bound as the wgmma kernel's; this one issues s and dp twice (4 dk + 3
+// dv products a pair for 3 dk + 2 dv), and is not tuned.
+namespace mma {
+
+constexpr int WARPS = 8;                  // 4 row groups x 2 column halves
+constexpr int NT = WARPS * 32;
+constexpr int BT = 64;                    // keys (dkdv) / q rows (dq) a CTA
+constexpr int BS = 32;                    // q rows (dkdv) / keys (dq) a step
+
+struct Args {
+  int Sq, Sk, Hq, Hkv, causal, window;
+  float scale;
+};
+
+template <int DK, int DV>
+struct Tile {
+  static constexpr int RK = DK + 8;       // padded rows, in elements
+  static constexpr int RV = DV + 8;
+  static constexpr int FIX = BT * (RK + RV) * 2;     // K, V or Q, dO
+  static constexpr int STAGE = BS * (RK + RV) * 2;   // a streamed step
+  static constexpr int XCH = WARPS * 16 * 32 * 4;    // the swapped products
+  static constexpr int SMEM = FIX + 2 * STAGE + XCH;
+  static_assert(SMEM <= SMEM_MAX, "shared memory");
+};
+
+using bf = __nv_bfloat16;
+
+// rows [row0, row0 + n) of a (rows, width) bf16 matrix at src (row_stride
+// elements apart) into dst (RS apart) by cp.async, rows past limit as zeros
+template <int WIDTH, int RS>
+__device__ __forceinline__ void load_rows(bf* dst, const bf* src,
+                                          long long row_stride, int row0,
+                                          int n, int limit) {
+  constexpr int CPR = WIDTH / 8;          // 16-byte chunks a row
+  for (int i = threadIdx.x; i < n * CPR; i += NT) {
+    const int r = i / CPR, c = (i % CPR) * 8;
+    const bool ok = row0 + r < limit;
+    cp_async16(dst + r * RS + c, src + (ok ? row0 + r : 0) * row_stride + c,
+               ok);
+  }
+}
+
+// acc (16 x 32) = A (16 x KD at a, row-major, RA apart) B^T, B (32 x KD at
+// b, RB apart): the warp's tile of q k^T or do v^T
+template <int KD>
+__device__ __forceinline__ void prod_abt(float (&acc)[16], const bf* a,
+                                         int RA, const bf* b, int RB,
+                                         int lane) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KD / 16; ++kk) {
+    unsigned af[4];
+    ldsm_x4(af, a + (lane & 15) * RA + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      unsigned bfr[4];
+      ldsm_x4(bfr, b + (np * 16 + (lane & 7) + (lane >> 4) * 8) * RB +
+                       kk * 16 + ((lane >> 3) & 1) * 8);
+      float(&c0)[4] = *reinterpret_cast<float(*)[4]>(acc + 8 * np);
+      float(&c1)[4] = *reinterpret_cast<float(*)[4]>(acc + 8 * np + 4);
+      mma_bf16(c0, af, bfr[0], bfr[1]);
+      mma_bf16(c1, af, bfr[2], bfr[3]);
+    }
+  }
+}
+
+// acc (16 x N) += A (16 x 32: two k-steps of fragments) B, B (32 x N at b,
+// row-major, RB apart) read transposed
+template <int N>
+__device__ __forceinline__ void prod_ab(float (&acc)[N / 2],
+                                        const unsigned (&a)[2][4],
+                                        const bf* b, int RB, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int np = 0; np < N / 16; ++np) {
+      unsigned bfr[4];
+      ldsm_x4_trans(bfr, b + (kk * 16 + (lane & 15)) * RB + np * 16 +
+                             (lane >> 4) * 8);
+      float(&c0)[4] = *reinterpret_cast<float(*)[4]>(acc + 8 * np);
+      float(&c1)[4] = *reinterpret_cast<float(*)[4]>(acc + 8 * np + 4);
+      mma_bf16(c0, a[kk], bfr[0], bfr[1]);
+      mma_bf16(c1, a[kk], bfr[2], bfr[3]);
+    }
+}
+
+// the warp's own product into its slot of the exchange, the partner's
+// (warp w ^ 4) out of it; s is the half-0 warp's, dp the half-1 warp's
+__device__ __forceinline__ void swap_products(float* x,
+                                              const float (&own)[16],
+                                              float (&s)[16], float (&dp)[16],
+                                              int warp, int lane) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) x[(warp * 16 + i) * 32 + lane] = own[i];
+  __syncthreads();
+  const int other = warp ^ 4;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float o = x[(other * 16 + i) * 32 + lane];
+    s[i] = warp < 4 ? own[i] : o;
+    dp[i] = warp < 4 ? o : own[i];
+  }
+}
+
+// the warp's 16 x N accumulator times mul, rounded to bf16, into rows
+// row0 + g (+ 8) below limit of a (rows, ...) matrix at dst, columns c0 on
+template <int N>
+__device__ __forceinline__ void store_rows_bf16(bf* dst, long long stride,
+                                                int row0, int limit, int c0,
+                                                const float (&acc)[N / 2],
+                                                float mul, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = row0 + g + 8 * hr;
+      if (r < limit)
+        *reinterpret_cast<unsigned*>(dst + r * stride + c0 + 8 * j + 2 * t) =
+            pack_bf16(acc[4 * j + 2 * hr] * mul, acc[4 * j + 2 * hr + 1] * mul);
+    }
+}
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(NT, 1)
+mma_dkdv_kernel(const bf* q, const bf* k, const bf* v, const bf* dout,
+                const float* stat, bf* dk, bf* dv, const Args p) {
+  using T = Tile<DK, DV>;
+  constexpr int RK = T::RK, RV = T::RV;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf* k_s = reinterpret_cast<bf*>(mma_smem);
+  bf* v_s = k_s + BT * RK;
+  bf* q_r = v_s + BT * RV;                          // [2][BS][RK]
+  bf* do_r = q_r + 2 * BS * RK;                     // [2][BS][RV]
+  float* x_s = reinterpret_cast<float*>(do_r + 2 * BS * RV);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, half = warp >> 2;
+  const int hk = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BT;
+  const int G = p.Hq / p.Hkv, W = p.window, Sp = stat_len(p.Sq);
+  const int kw = k0 + 16 * (warp & 3);              // the warp's first key
+  const float sl2 = p.scale * LOG2E;
+  // the q rows that see a key of this tile, in BS-row tiles
+  const int q_lo = p.causal ? k0 : 0;
+  const int q_hi = W ? min(p.Sq, k0 + BT - 1 + W) : p.Sq;
+  const int t_lo = q_lo / BS, n_t = max((q_hi + BS - 1) / BS - t_lo, 0);
+  const int n_it = G * n_t;
+  const long long qs = (long long)p.Hq * DK, os = (long long)p.Hq * DV;
+  const long long ks = (long long)p.Hkv * DK, vs = (long long)p.Hkv * DV;
+
+  load_rows<DK, RK>(k_s, k + ((long long)b * p.Sk * p.Hkv + hk) * DK, ks, k0,
+                    BT, p.Sk);
+  load_rows<DV, RV>(v_s, v + ((long long)b * p.Sk * p.Hkv + hk) * DV, vs, k0,
+                    BT, p.Sk);
+  auto load_step = [&](int n) {
+    const int h = hk * G + n / n_t, r0 = (t_lo + n % n_t) * BS, i = n & 1;
+    load_rows<DK, RK>(q_r + i * BS * RK,
+                      q + ((long long)b * p.Sq * p.Hq + h) * DK, qs, r0, BS,
+                      p.Sq);
+    load_rows<DV, RV>(do_r + i * BS * RV,
+                      dout + ((long long)b * p.Sq * p.Hq + h) * DV, os, r0,
+                      BS, p.Sq);
+  };
+  if (n_it > 0) load_step(0);
+  cp_async_commit();
+
+  float dka[DK / 4], dva[DV / 4];                   // this half's columns
+#pragma unroll
+  for (int i = 0; i < DK / 4; ++i) dka[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 4; ++i) dva[i] = 0.f;
+
+  for (int n = 0; n < n_it; ++n) {
+    if (n + 1 < n_it) load_step(n + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int h = hk * G + n / n_t, r0 = (t_lo + n % n_t) * BS, i = n & 1;
+    const bf* qt = q_r + i * BS * RK;
+    const bf* dot = do_r + i * BS * RV;
+    float own[16], sc[16], dp[16];
+    if (half == 0)
+      prod_abt<DK>(own, k_s + (warp & 3) * 16 * RK, RK, qt, RK, lane);
+    else
+      prod_abt<DV>(own, v_s + (warp & 3) * 16 * RV, RV, dot, RV, lane);
+    swap_products(x_s, own, sc, dp, warp, lane);
+    // element (key kw + g + 8 (e / 2), q row r0 + 8 j + 2 t + e % 2)
+    const bool edge = (p.causal && kw + 15 > r0) ||
+                      (W && r0 + BS - 1 - kw >= W) || kw + 15 >= p.Sk;
+    const float* st = stat + ((long long)b * p.Hq + h) * 2 * Sp + r0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(st + 8 * j + 2 * t);
+      const float2 d =
+          *reinterpret_cast<const float2*>(st + Sp + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float s = sc[4 * j + e];
+        if (edge) {
+          const int c = kw + g + 8 * (e >> 1), r = r0 + 8 * j + 2 * t + (e & 1);
+          if (c >= p.Sk || (p.causal && c > r) || (W && r - c >= W))
+            s = -INFINITY;
+        }
+        const float pe = ex2(fmaf(s, sl2, (e & 1) ? -l.y : -l.x));
+        sc[4 * j + e] = pe;
+        dp[4 * j + e] = pe * (dp[4 * j + e] - ((e & 1) ? d.y : d.x));
+      }
+    }
+    unsigned pa[2][4], da[2][4];
+    pack_a<32>(pa, sc);
+    pack_a<32>(da, dp);
+    prod_ab<DV / 2>(dva, pa, dot + half * (DV / 2), RV, lane);
+    prod_ab<DK / 2>(dka, da, qt + half * (DK / 2), RK, lane);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  const long long base = (long long)b * p.Sk * p.Hkv + hk;
+  store_rows_bf16<DK / 2>(dk + base * DK, ks, kw, p.Sk, half * (DK / 2), dka,
+                          p.scale, lane);
+  store_rows_bf16<DV / 2>(dv + base * DV, vs, kw, p.Sk, half * (DV / 2), dva,
+                          1.f, lane);
+}
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(NT, 1)
+mma_dq_kernel(const bf* q, const bf* k, const bf* v, const bf* dout,
+              const float* stat, bf* dq, const Args p) {
+  using T = Tile<DK, DV>;
+  constexpr int RK = T::RK, RV = T::RV;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf* q_s = reinterpret_cast<bf*>(mma_smem);
+  bf* do_s = q_s + BT * RK;
+  bf* k_r = do_s + BT * RV;                         // [2][BS][RK]
+  bf* v_r = k_r + 2 * BS * RK;                      // [2][BS][RV]
+  float* x_s = reinterpret_cast<float*>(v_r + 2 * BS * RV);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, half = warp >> 2;
+  const int h = blockIdx.y, b = blockIdx.z, r0 = blockIdx.x * BT;
+  const int hk = h / (p.Hq / p.Hkv), W = p.window, Sp = stat_len(p.Sq);
+  const int rw = r0 + 16 * (warp & 3);              // the warp's first row
+  const float sl2 = p.scale * LOG2E;
+  // the keys any row of this tile sees, in BS-key tiles
+  const int k_lo = W ? max(r0 - W + 1, 0) : 0;
+  const int k_hi = p.causal ? min(r0 + BT, p.Sk) : p.Sk;
+  const int t_lo = k_lo / BS, n_it = max((k_hi + BS - 1) / BS - t_lo, 0);
+  const long long qs = (long long)p.Hq * DK, os = (long long)p.Hq * DV;
+  const long long ks = (long long)p.Hkv * DK, vs = (long long)p.Hkv * DV;
+
+  load_rows<DK, RK>(q_s, q + ((long long)b * p.Sq * p.Hq + h) * DK, qs, r0,
+                    BT, p.Sq);
+  load_rows<DV, RV>(do_s, dout + ((long long)b * p.Sq * p.Hq + h) * DV, os,
+                    r0, BT, p.Sq);
+  auto load_step = [&](int n) {
+    const int c0 = (t_lo + n) * BS, i = n & 1;
+    load_rows<DK, RK>(k_r + i * BS * RK,
+                      k + ((long long)b * p.Sk * p.Hkv + hk) * DK, ks, c0,
+                      BS, p.Sk);
+    load_rows<DV, RV>(v_r + i * BS * RV,
+                      v + ((long long)b * p.Sk * p.Hkv + hk) * DV, vs, c0,
+                      BS, p.Sk);
+  };
+  if (n_it > 0) load_step(0);
+  cp_async_commit();
+  // lse2 and di of the thread's rows rw + g and rw + g + 8
+  const float* st = stat + ((long long)b * p.Hq + h) * 2 * Sp;
+  const float l2[2] = {st[rw + g], st[rw + g + 8]};
+  const float di[2] = {st[Sp + rw + g], st[Sp + rw + g + 8]};
+
+  float dqa[DK / 4];                                // this half's columns
+#pragma unroll
+  for (int i = 0; i < DK / 4; ++i) dqa[i] = 0.f;
+
+  for (int n = 0; n < n_it; ++n) {
+    if (n + 1 < n_it) load_step(n + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int c0 = (t_lo + n) * BS, i = n & 1;
+    const bf* kt = k_r + i * BS * RK;
+    float own[16], sc[16], dp[16];
+    if (half == 0)
+      prod_abt<DK>(own, q_s + (warp & 3) * 16 * RK, RK, kt, RK, lane);
+    else
+      prod_abt<DV>(own, do_s + (warp & 3) * 16 * RV, RV,
+                   v_r + i * BS * RV, RV, lane);
+    swap_products(x_s, own, sc, dp, warp, lane);
+    // element (q row rw + g + 8 (e / 2), key c0 + 8 j + 2 t + e % 2)
+    const bool edge = (p.causal && c0 + BS - 1 > rw) ||
+                      (W && rw + 15 - c0 >= W) || c0 + BS > p.Sk;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float s = sc[4 * j + e];
+        if (edge) {
+          const int r = rw + g + 8 * (e >> 1), c = c0 + 8 * j + 2 * t + (e & 1);
+          if (c >= p.Sk || (p.causal && c > r) || (W && r - c >= W))
+            s = -INFINITY;
+        }
+        const float pe = ex2(fmaf(s, sl2, -l2[e >> 1]));
+        dp[4 * j + e] = pe * (dp[4 * j + e] - di[e >> 1]);
+      }
+    unsigned da[2][4];
+    pack_a<32>(da, dp);
+    prod_ab<DK / 2>(dqa, da, kt + half * (DK / 2), RK, lane);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  store_rows_bf16<DK / 2>(dq + ((long long)b * p.Sq * p.Hq + h) * DK, qs, rw,
+                          p.Sq, half * (DK / 2), dqa, p.scale, lane);
+}
+
+}  // namespace mma
+
 // setmaxnreg.inc waits for the registers the producer warpgroup gives
 // back: refuse a build whose entry count would leave the consumers waiting
 template <typename K>
@@ -653,98 +1026,186 @@ bool regs_cover(K kernel) {
 }
 
 // the f32 scratch a call takes, in floats: stat (B, Hq, 2, Sp), the dQ
-// workspace (B, Hq, Sp, d), the turn counters (B, Hq, Sp / 64)
-long long scratch_floats(int B, int S, int Hq, int d) {
-  const long long rows = (long long)B * Hq * stat_len(S);
-  return rows * (2 + d) + rows / BQ;
+// workspace (B, Hq, Sp, d) of the warp-specialised kernel, the turn
+// counters (B, Hq, Sp / 64); Sp from the query length
+bool wgmma_widths(int dk, int dv) {
+  return dk == dv && (dk == 32 || dk == 64 || dk == 128);
 }
 
-template <int D>
+long long scratch_floats(int B, int Sq, int Hq, int dk, int dv) {
+  const long long rows = (long long)B * Hq * stat_len(Sq);
+  return rows * (2 + (wgmma_widths(dk, dv) ? dk : 0)) + rows / BQ;
+}
+
+template <int D, bool FULL>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* scratch, void* dq,
-           void* dk, void* dv, int B, int S, int Hq, int Hkv, int causal,
-           int window, float scale, cudaStream_t st) {
+           void* dk, void* dv, int B, int Sq, int Sk, int Hq, int Hkv,
+           int causal, int window, float scale, cudaStream_t st) {
   using bf = __nv_bfloat16;
   using T = Tile<D>;
-  const int Sp = stat_len(S);
+  const int Sp = stat_len(Sq);
   float* stat = scratch;
   float* acc = stat + 2LL * B * Hq * Sp;
   unsigned* turn = reinterpret_cast<unsigned*>(acc + (long long)B * Hq * Sp * D);
   stat_kernel<D><<<dim3(Sp / BQ, Hq, B), 256, 0, st>>>(
       static_cast<const bf*>(o), static_cast<const bf*>(dout), lse, stat,
-      turn, S, Hq);
+      turn, Sq, Hq);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
   // (B, S, H, D) contiguous: strides (head, position, batch) in elements
-  const long long qh = D, qs = (long long)Hq * D, qb = qs * S;
-  const long long kh = D, ks = (long long)Hkv * D, kb = ks * S;
+  const long long qh = D, qs = (long long)Hq * D, qb = qs * Sq;
+  const long long kh = D, ks = (long long)Hkv * D, kb = ks * Sk;
   CUtensorMap mq, mdo, mk, mv, mdk, mdv, macc;
-  if (!map_bshd_bf16(&mq, q, D, Hq, S, B, qh, qs, qb, T::PW, BQ) ||
-      !map_bshd_bf16(&mdo, dout, D, Hq, S, B, qh, qs, qb, T::PW, BQ) ||
-      !map_bshd_bf16(&mk, k, D, Hkv, S, B, kh, ks, kb, T::PW, BK) ||
-      !map_bshd_bf16(&mv, v, D, Hkv, S, B, kh, ks, kb, T::PW, BK) ||
-      !map_bshd_bf16(&mdk, dk, D, Hkv, S, B, kh, ks, kb, T::PW, 64) ||
-      !map_bshd_bf16(&mdv, dv, D, Hkv, S, B, kh, ks, kb, T::PW, 64) ||
+  if (!map_bshd_bf16(&mq, q, D, Hq, Sq, B, qh, qs, qb, T::PW, BQ) ||
+      !map_bshd_bf16(&mdo, dout, D, Hq, Sq, B, qh, qs, qb, T::PW, BQ) ||
+      !map_bshd_bf16(&mk, k, D, Hkv, Sk, B, kh, ks, kb, T::PW, BK) ||
+      !map_bshd_bf16(&mv, v, D, Hkv, Sk, B, kh, ks, kb, T::PW, BK) ||
+      !map_bshd_bf16(&mdk, dk, D, Hkv, Sk, B, kh, ks, kb, T::PW, 64) ||
+      !map_bshd_bf16(&mdv, dv, D, Hkv, Sk, B, kh, ks, kb, T::PW, 64) ||
       // the dQ workspace (B, Hq, Sp, D) f32 as (D, Sp, Hq, B)
       !map_4d(&macc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, acc,
               {(cuuint64_t)D, (cuuint64_t)Sp, (cuuint64_t)Hq, (cuuint64_t)B},
               {D, (long long)Sp * D, (long long)Hq * Sp * D},
               {(cuuint32_t)T::FW, (cuuint32_t)BQ, 1, 1}, T::FSW))
     return static_cast<int>(cudaErrorInvalidValue);
-  static const bool ok = regs_cover(bwd_kernel<D>);
+  static const bool ok = regs_cover(bwd_kernel<D, FULL>);
   if (!ok) return static_cast<int>(cudaErrorInvalidConfiguration);
-  e = cudaFuncSetAttribute(bwd_kernel<D>,
+  e = cudaFuncSetAttribute(bwd_kernel<D, FULL>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            T::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const Args a{S, Hkv, Hq / Hkv, causal, window, scale, stat, turn};
-  bwd_kernel<D><<<dim3((S + BK - 1) / BK, Hkv, B), THREADS, T::SMEM, st>>>(
-      mq, mdo, mk, mv, mdk, mdv, macc, a);
+  typename ArgsOf<FULL>::type a;
+  a.S = Sk;
+  a.Hkv = Hkv;
+  a.G = Hq / Hkv;
+  a.causal = causal;
+  a.window = window;
+  a.scale = scale;
+  a.stat = stat;
+  a.turn = turn;
+  if constexpr (FULL) a.Sq = Sq;
+  bwd_kernel<D, FULL><<<dim3((Sk + BK - 1) / BK, Hkv, B), THREADS, T::SMEM,
+                         st>>>(mq, mdo, mk, mv, mdk, mdv, macc, a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long qrows = (long long)B * S * Hq;
+  const long long qrows = (long long)B * Sq * Hq;
   dq_out_kernel<D><<<(unsigned)((qrows + 7) / 8), 256, 0, st>>>(
-      acc, static_cast<bf*>(dq), S, Hq, scale, qrows);
+      acc, static_cast<bf*>(dq), Sq, Hq, scale, qrows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int dispatch(const void* q, const void* k, const void* v, const void* o,
+             const void* dout, const float* lse, float* scratch, void* dq,
+             void* dk, void* dv, int B, int Sq, int Sk, int Hq, int Hkv,
+             int causal, int window, float scale, cudaStream_t st) {
+  return causal || window
+             ? launch<D, false>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B,
+                                Sq, Sk, Hq, Hkv, causal, window, scale, st)
+             : launch<D, true>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B,
+                               Sq, Sk, Hq, Hkv, causal, window, scale, st);
+}
+
+// the mma.sync kernels (d 256, (192, 128)): the row statistics, dK / dV,
+// dQ
+template <int DK, int DV>
+int launch_mma(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, float* scratch, void* dq,
+               void* dk, void* dv, int B, int Sq, int Sk, int Hq, int Hkv,
+               int causal, int window, float scale, cudaStream_t st) {
+  using bf = __nv_bfloat16;
+  using T = mma::Tile<DK, DV>;
+  const int Sp = stat_len(Sq);
+  float* stat = scratch;
+  unsigned* turn = reinterpret_cast<unsigned*>(stat + 2LL * B * Hq * Sp);
+  stat_kernel<DV><<<dim3(Sp / BQ, Hq, B), 256, 0, st>>>(
+      static_cast<const bf*>(o), static_cast<const bf*>(dout), lse, stat,
+      turn, Sq, Hq);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaFuncSetAttribute(mma::mma_dkdv_kernel<DK, DV>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           T::SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(mma::mma_dq_kernel<DK, DV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             T::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const mma::Args a{Sq, Sk, Hq, Hkv, causal, window, scale};
+  mma::mma_dkdv_kernel<DK, DV>
+      <<<dim3((Sk + mma::BT - 1) / mma::BT, Hkv, B), mma::NT, T::SMEM, st>>>(
+          static_cast<const bf*>(q), static_cast<const bf*>(k),
+          static_cast<const bf*>(v), static_cast<const bf*>(dout), stat,
+          static_cast<bf*>(dk), static_cast<bf*>(dv), a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  mma::mma_dq_kernel<DK, DV>
+      <<<dim3((Sq + mma::BT - 1) / mma::BT, Hq, B), mma::NT, T::SMEM, st>>>(
+          static_cast<const bf*>(q), static_cast<const bf*>(k),
+          static_cast<const bf*>(v), static_cast<const bf*>(dout), stat,
+          static_cast<bf*>(dq), a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // scratch is the caller's f32 scratch of flash_prefill_bwd_scratch_floats
-// values; every other pointer is a contiguous tensor as described above
+// values; every other pointer is a contiguous tensor as described above.
+// Square calls (causal or windowed, Sq = Sk) or FULL (neither, any Sq, Sk);
+// (dk, dv) = (d, d) for d 32/64/128 (the warp-specialised kernel) or 256,
+// or (192, 128) (the mma.sync kernels).
 extern "C" int flash_prefill_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* scratch, void* dq, void* dk,
-    void* dv, int B, int S, int Hq, int Hkv, int d, int causal, int window,
-    float scale, void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || Hq % Hkv || !(causal || window) ||
-      window < 0)
+    void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int dk_, int dv_,
+    int causal, int window, float scale, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || Hq % Hkv || window < 0 ||
+      (Sq != Sk && (causal || window)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32: return launch<32>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B,
-                               S, Hq, Hkv, causal, window, scale, s);
-    case 64: return launch<64>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B,
-                               S, Hq, Hkv, causal, window, scale, s);
-    case 128: return launch<128>(q, k, v, o, dout, lse, scratch, dq, dk, dv,
-                                 B, S, Hq, Hkv, causal, window, scale, s);
+#define REPRO_BWD_ARGS                                                     \
+  q, k, v, o, dout, lse, scratch, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, \
+      window, scale, s
+  if (dk_ == dv_) {
+    switch (dk_) {
+      case 32: return dispatch<32>(REPRO_BWD_ARGS);
+      case 64: return dispatch<64>(REPRO_BWD_ARGS);
+      case 128: return dispatch<128>(REPRO_BWD_ARGS);
+      case 256: return launch_mma<256, 256>(REPRO_BWD_ARGS);
+    }
+  } else if (dk_ == 192 && dv_ == 128) {
+    return launch_mma<192, 128>(REPRO_BWD_ARGS);
   }
+#undef REPRO_BWD_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// the f32 values of the scratch a call at (B, S, Hq, d) takes
-extern "C" long long flash_prefill_bwd_scratch_floats(int B, int S, int Hq,
-                                                      int d) {
-  return scratch_floats(B, S, Hq, d);
+// the f32 values of the scratch a call at (B, Sq, Hq, dk, dv) takes
+extern "C" long long flash_prefill_bwd_scratch_floats(int B, int Sq, int Hq,
+                                                      int dk, int dv) {
+  return scratch_floats(B, Sq, Hq, dk, dv);
 }
 
-// the dynamic shared memory one CTA of bwd_kernel takes at head width d
-extern "C" int flash_prefill_bwd_smem_bytes(int d) {
-  switch (d) {
-    case 32: return Tile<32>::SMEM;
-    case 64: return Tile<64>::SMEM;
-    case 128: return Tile<128>::SMEM;
+// 1 where (dk, dv) runs the warp-specialised kernel (wgmma, p formed
+// once), 0 where it runs the mma.sync kernels
+extern "C" int flash_prefill_bwd_wgmma(int dk, int dv) {
+  return wgmma_widths(dk, dv) ? 1 : 0;
+}
+
+// the dynamic shared memory one CTA of the dK / dV kernel takes at (dk, dv)
+// (bwd_kernel; mma_dkdv_kernel and mma_dq_kernel at d 256 and (192, 128))
+extern "C" int flash_prefill_bwd_smem_bytes(int dk, int dv) {
+  if (dk == dv) {
+    switch (dk) {
+      case 32: return Tile<32>::SMEM;
+      case 64: return Tile<64>::SMEM;
+      case 128: return Tile<128>::SMEM;
+      case 256: return mma::Tile<256, 256>::SMEM;
+    }
+  } else if (dk == 192 && dv == 128) {
+    return mma::Tile<192, 128>::SMEM;
   }
   return 0;
 }

@@ -21,12 +21,26 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
 _ARGS = [rt.P] * 8 + [rt.I] * 6 + [rt.F, rt.P]
 _DENSE_ARGS = [rt.P] * 4 + [rt.I] * 6 + [rt.F, rt.P]
 _PREFILL_ARGS = [rt.P] * 4 + [rt.I] * 21 + [rt.F, rt.P]
-_LSE_ARGS = [rt.P] * 5 + [rt.I] * 19 + [rt.F, rt.P]
-_BWD_ARGS = [rt.P] * 10 + [rt.I] * 7 + [rt.F, rt.P]
-# the (dk, dv) head widths flash_prefill is instantiated for
+_LSE_ARGS = [rt.P] * 5 + [rt.I] * 21 + [rt.F, rt.P]
+_BWD_ARGS = [rt.P] * 10 + [rt.I] * 9 + [rt.F, rt.P]
+# the (dk, dv) head widths flash_prefill is instantiated for, its LSE form
+# and its backward too
 PREFILL_WIDTHS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
-# the head widths d = dk = dv of its LSE form and of the backward
-BWD_WIDTHS = (32, 64, 128)
+
+
+def _grad_contract(name, Sq, Sk, dk, dv, causal, window, card=True):
+    """What the LSE form and the backward kernel take: (dk, dv) in
+    ``PREFILL_WIDTHS`` (on the ``card``; the plain versions take any);
+    causal or windowed with Sq = Sk, or FULL (neither) with any Sq, Sk.
+    Raises ``ValueError`` naming ROADMAP.md otherwise."""
+    if (card and (dk, dv) not in PREFILL_WIDTHS) \
+            or (Sq != Sk and (causal or window)):
+        raise ValueError(
+            f"{name}: the training kernels take (dk, dv) in "
+            f"{PREFILL_WIDTHS}, causal or windowed with Sq = Sk, or neither "
+            f"with any Sq, Sk; got (dk, dv) = ({dk}, {dv}), Sq={Sq}, "
+            f"Sk={Sk}, causal={causal}, window={window} (ROADMAP.md, Queue "
+            "2: what the training kernels take on the card)")
 
 
 def _check_head_shape(name, dh, G):
@@ -198,13 +212,7 @@ def attention(q, k, v, *, causal=True, window=0):
                         f"v={v.dtype}; the kernel takes bf16 for all three")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if not (causal or window) or dk != dv or dk not in BWD_WIDTHS:
-            raise ValueError(
-                f"attention: a gradient is asked for, and the backward "
-                f"kernel takes dk = dv in {BWD_WIDTHS}, causal or windowed; "
-                f"got (dk, dv) = ({dk}, {dv}), causal={causal}, "
-                f"window={window} (ROADMAP.md, Queue 2: the training "
-                "kernels still missing on the card)")
+        _grad_contract("attention", Sq, Sk, dk, dv, causal, window)
         return FlashAttention.apply(q, k, v, bool(causal), int(window))
     if (dk, dv) not in PREFILL_WIDTHS:
         raise ValueError(f"attention: kernel takes (dk, dv) in "
@@ -221,35 +229,41 @@ def attention(q, k, v, *, causal=True, window=0):
     return out
 
 
+def _lse_shapes(name, q, k, v):
+    """(B, Sq, Sk, Hq, Hkv, dk, dv) of q (B,Sq,Hq,dk), k (B,Sk,Hkv,dk), v
+    (B,Sk,Hkv,dv), or ValueError."""
+    B, Sq, Hq, dk = q.shape
+    _, Sk, Hkv, dv = v.shape
+    if k.shape != (B, Sk, Hkv, dk) or v.shape[0] != B or Hq % Hkv:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not match k "
+                         f"{tuple(k.shape)} / v {tuple(v.shape)}")
+    return B, Sq, Sk, Hq, Hkv, dk, dv
+
+
 def attention_lse(q, k, v, *, causal=True, window=0):
-    """The training forward: (o (B,S,Hq,d), lse (B,Hq,S) f32), lse each
-    row's log-sum-exp of its scores scaled by 1/sqrt(d). Causal or windowed
-    calls with q, k, v of one length S. CPU tensors take the plain version;
-    CUDA tensors launch the LSE form of ``flash_prefill`` (bf16, d in
-    ``BWD_WIDTHS``), counted as ``flash_prefill[lse]``. Gives no gradient
-    itself: ``FlashAttention`` calls it."""
-    B, S, Hq, d = q.shape
-    Hkv = k.shape[2]
-    if k.shape != (B, S, Hkv, d) or v.shape != k.shape or Hq % Hkv \
-            or not (causal or window):
-        raise ValueError(f"attention_lse: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}, causal="
-                         f"{causal}, window={window}: takes q, k, v of one "
-                         "length and width, causal or windowed")
-    if not rt.on_card(q, k, v):
+    """The training forward: (o (B,Sq,Hq,dv), lse (B,Hq,Sq) f32), lse each
+    row's log-sum-exp of its scores scaled by 1/sqrt(dk), for q
+    (B,Sq,Hq,dk), k (B,Sk,Hkv,dk), v (B,Sk,Hkv,dv) within
+    ``_grad_contract``. CPU tensors take the plain version; CUDA tensors
+    launch the LSE form of ``flash_prefill`` (bf16), counted as
+    ``flash_prefill[lse]``. Gives no gradient itself: ``FlashAttention``
+    calls it."""
+    B, Sq, Sk, Hq, Hkv, dk, dv = _lse_shapes("attention_lse", q, k, v)
+    card = rt.on_card(q, k, v)
+    _grad_contract("attention_lse", Sq, Sk, dk, dv, causal, window, card)
+    if not card:
         return attention_lse_ref(q, k, v, causal=causal, window=window)
-    if not q.dtype == k.dtype == v.dtype == torch.bfloat16 \
-            or d not in BWD_WIDTHS:
-        raise ValueError(f"attention_lse: the kernel takes bf16 and d in "
-                         f"{BWD_WIDTHS}, got {q.dtype}, d={d}")
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        raise TypeError(f"attention_lse: the kernel takes bf16, got "
+                        f"{q.dtype} / {k.dtype} / {v.dtype}")
     strides = _row_strides("attention_lse", q=q, k=k, v=v)
     fn = rt.bind("flash_prefill", "flash_prefill_lse_bf16", _LSE_ARGS)
-    o = torch.empty((B, S, Hq, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    o = torch.empty((B, Sq, Hq, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     strides += o.stride()[:3]
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, S, Hq, Hkv, d, int(causal), int(window),
-            *strides, 1.0 / math.sqrt(d), rt.stream_ptr(q))
+            lse.data_ptr(), B, Sq, Sk, Hq, Hkv, dk, dv, int(causal),
+            int(window), *strides, 1.0 / math.sqrt(dk), rt.stream_ptr(q))
     rt.check_launch("flash_prefill", rc)
     rt.count_launch("flash_prefill[lse]")
     return o, lse
@@ -259,48 +273,51 @@ def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     """dq, dk, dv (shaped and typed as q, k, v) of ``attention_lse``'s o for
     the upstream gradient ``do``, from its ``lse``. CPU tensors take the
     plain version (``attention_bwd_ref``, f32, cast); CUDA tensors launch
-    the ``flash_prefill_bwd`` kernels (the row statistics, dK/dV/dQ, dq's
-    rounding: one launch count), which take contiguous bf16 at d in
-    ``BWD_WIDTHS``."""
-    B, S, Hq, d = q.shape
-    Hkv = k.shape[2]
-    if k.shape != (B, S, Hkv, d) or v.shape != k.shape or Hq % Hkv \
-            or o.shape != q.shape or do.shape != q.shape \
-            or lse.shape != (B, Hq, S) or not (causal or window):
-        raise ValueError("attention_bwd: shapes or masks outside its "
-                         "contract (see attention_lse)")
-    if not rt.on_card(q, k, v, o, lse, do):
+    the ``flash_prefill_bwd`` kernels, which take contiguous bf16 within
+    ``_grad_contract`` (one launch count): the row statistics, then dK /
+    dV / dQ by the warp-specialised kernel and dq's rounding at d 32 / 64
+    / 128, or the mma.sync dK / dV and dQ kernels at d 256 and (192,
+    128)."""
+    B, Sq, Sk, Hq, Hkv, dk, dv = _lse_shapes("attention_bwd", q, k, v)
+    if o.shape != (B, Sq, Hq, dv) or do.shape != o.shape \
+            or lse.shape != (B, Hq, Sq):
+        raise ValueError(f"attention_bwd: o {tuple(o.shape)}, do "
+                         f"{tuple(do.shape)}, lse {tuple(lse.shape)} do not "
+                         f"match q {tuple(q.shape)} / v {tuple(v.shape)}")
+    card = rt.on_card(q, k, v, o, lse, do)
+    _grad_contract("attention_bwd", Sq, Sk, dk, dv, causal, window, card)
+    if not card:
         return tuple(g.to(t.dtype) for g, t in zip(
             attention_bwd_ref(q, k, v, do, causal=causal, window=window),
             (q, k, v)))
     if not all(t.dtype == torch.bfloat16 for t in (q, k, v, o, do)) \
-            or lse.dtype != torch.float32 or d not in BWD_WIDTHS:
-        raise ValueError(f"attention_bwd: the kernel takes bf16 q, k, v, o, "
-                         f"do, f32 lse and d in {BWD_WIDTHS}")
+            or lse.dtype != torch.float32:
+        raise TypeError("attention_bwd: the kernel takes bf16 q, k, v, o, "
+                        "do and f32 lse")
     rt.check_contiguous("attention_bwd", q=q, k=k, v=v, o=o, lse=lse, do=do)
     fn = rt.bind("flash_prefill_bwd", "flash_prefill_bwd_bf16", _BWD_ARGS)
     scratch_floats = rt.bind("flash_prefill_bwd",
-                             "flash_prefill_bwd_scratch_floats", [rt.I] * 4)
+                             "flash_prefill_bwd_scratch_floats", [rt.I] * 5)
     scratch_floats.restype = ctypes.c_longlong
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    # each row's lse * log2(e) and di, dq's f32 sums and their turn
-    # counters, padded per (batch, head)
-    scratch = torch.empty(scratch_floats(B, S, Hq, d), dtype=torch.float32,
-                          device=q.device)
+    dq, dk_, dv_ = (torch.empty_like(t) for t in (q, k, v))
+    # each row's lse * log2(e) and di, the turn counters and (the
+    # warp-specialised kernel's) dq's f32 sums, padded per (batch, head)
+    scratch = torch.empty(scratch_floats(B, Sq, Hq, dk, dv),
+                          dtype=torch.float32, device=q.device)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, S, Hq, Hkv, d, int(causal),
-            int(window), 1.0 / math.sqrt(d), rt.stream_ptr(q))
+            dk_.data_ptr(), dv_.data_ptr(), B, Sq, Sk, Hq, Hkv, dk, dv,
+            int(causal), int(window), 1.0 / math.sqrt(dk), rt.stream_ptr(q))
     rt.check_launch("flash_prefill_bwd", rc)
     rt.count_launch("flash_prefill_bwd")
-    return dq, dk, dv
+    return dq, dk_, dv_
 
 
 class FlashAttention(torch.autograd.Function):
-    """``attention`` with a gradient on the card: forward ``attention_lse``
-    (o and each row's lse saved with contiguous q, k, v), backward
-    ``attention_bwd``. ``attention`` routes here only for a CUDA call under
-    grad mode whose q, k or v requires grad."""
+    """``attention`` with a gradient: forward ``attention_lse`` (o and each
+    row's lse saved with contiguous q, k, v), backward ``attention_bwd``.
+    ``attention`` routes here only for a CUDA call under grad mode whose q,
+    k or v requires grad; on CPU tensors both are the plain versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):

@@ -33,13 +33,18 @@ def attention_mask(Sq, Sk, *, causal=True, window=0, device=None):
     return mask
 
 
-def attention_bwd_masked(q, k, v, do, mask, di=None):
+def attention_bwd_masked(q, k, v, do, mask, di=None, rounded=False):
     """dq, dk, dv (f32, shaped as q, k, v) of o = softmax(q k^T / sqrt(dk)
     over ``mask``) v for the upstream gradient ``do`` (shaped as o), by the
     explicit formulas in f32: p the masked softmax, dv = p^T do, dp = do
     v^T, ds = p (dp - di), dq = ds k / sqrt(dk), dk = ds^T q / sqrt(dk),
     the G q heads of a kv head summed into its dk / dv. ``di`` (B, Hq, Sq)
-    is rowsum(o * do) of this o unless given."""
+    is rowsum(o * do) of this o unless given. With ``rounded``, at the
+    backward kernels' bf16 rounding points: p and ds rounded before the
+    products that take them, o (the forward's output) and dq, dk, dv
+    rounded as they are stored."""
+    r = (lambda t: t.to(torch.bfloat16).float()) if rounded else \
+        (lambda t: t)
     B, Sq, Hq, dk = q.shape
     _, Sk, Hkv, dv = v.shape
     G = Hq // Hkv
@@ -51,18 +56,18 @@ def attention_bwd_masked(q, k, v, do, mask, di=None):
     p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
     del s
     if di is None:
-        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+        o = r(torch.einsum("bhgqk,bkhd->bqhgd", r(p), vf))
         di = (o * dof).sum(-1).permute(0, 2, 3, 1)         # (B,Hkv,G,Sq)
         del o
     else:
         di = di.float().reshape(B, Hkv, G, Sq)
-    dv_ = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    dv_ = torch.einsum("bhgqk,bqhgd->bkhd", r(p), dof)
     ds = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
-    ds = p * (ds - di[..., None])
+    ds = r(p * (ds - di[..., None]))
     del p
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
     dk_ = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
-    return dq.reshape(B, Sq, Hq, dk), dk_, dv_
+    return r(dq.reshape(B, Sq, Hq, dk)), r(dk_), r(dv_)
 
 
 def attention_bwd_ref(q, k, v, do, *, causal=True, window=0):
@@ -75,17 +80,18 @@ def attention_bwd_ref(q, k, v, do, *, causal=True, window=0):
 
 def attention_lse_ref(q, k, v, *, causal=True, window=0):
     """(o, lse): ``attention_ref``'s output and each row's log-sum-exp of
-    its scaled scores, (B, Hq, S) f32 (``attention_lse``'s plain
-    version)."""
-    B, S, Hq, d = q.shape
-    Hkv = k.shape[2]
+    its scaled scores, (B, Hq, Sq) f32 (``attention_lse``'s plain version),
+    for q (B,Sq,Hq,dk), k (B,Sk,Hkv,dk), v (B,Sk,Hkv,dv)."""
+    B, Sq, Hq, dk = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
     s = torch.einsum("bqhgd,bkhd->bhgqk",
-                     q.float().reshape(B, S, Hkv, Hq // Hkv, d), k.float()) \
-        * (1.0 / math.sqrt(d))
-    mask = attention_mask(S, S, causal=causal, window=window, device=q.device)
+                     q.float().reshape(B, Sq, Hkv, Hq // Hkv, dk),
+                     k.float()) * (1.0 / math.sqrt(dk))
+    mask = attention_mask(Sq, Sk, causal=causal, window=window,
+                          device=q.device)
     lse = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
     return (attention_ref(q, k, v, causal=causal, window=window),
-            lse.reshape(B, Hq, S))
+            lse.reshape(B, Hq, Sq))
 
 
 def split_inputs(q, k_pool, v_pool, tables, len1):

@@ -70,7 +70,66 @@ lru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+__global__ void __launch_bounds__(THREADS)
+lru_scan_bwd_kernel(const float* __restrict__ a, const float* __restrict__ h,
+                    const float* __restrict__ dh, float* __restrict__ da,
+                    float* __restrict__ db, int S, int D) {
+  const int d = blockIdx.x * THREADS + threadIdx.x;
+  if (d >= D) return;
+  const size_t base = (size_t)blockIdx.y * S * D + d;
+  const float* ap = a + base;
+  const float* hp = h + base;
+  const float* gp = dh + base;
+  float* dap = da + base;
+  float* dbp = db + base;
+
+  // timestep t's a_t, h_{t-1} and dh_t (zeros outside [0, S))
+  auto load = [&](int t, float& av, float& hv, float& gv) {
+    const bool ok = t >= 0;
+    av = ok ? __ldg(ap + (size_t)t * D) : 0.f;
+    gv = ok ? __ldg(gp + (size_t)t * D) : 0.f;
+    hv = t >= 1 ? __ldg(hp + (size_t)(t - 1) * D) : 0.f;
+  };
+  float ca[U], ch[U], cg[U], na[U], nh[U], ng[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) load(S - 1 - u, ca[u], ch[u], cg[u]);
+  float g = 0.f, a_next = 0.f;       // g_{t+1} and a_{t+1}
+  for (int t1 = S - 1; t1 >= 0; t1 -= U) {
+#pragma unroll
+    for (int u = 0; u < U; ++u)             // the next chunk's loads first
+      load(t1 - U - u, na[u], nh[u], ng[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = t1 - u;
+      if (t >= 0) {
+        g = fmaf(a_next, g, cg[u]);
+        dbp[(size_t)t * D] = g;
+        dap[(size_t)t * D] = g * ch[u];
+        a_next = ca[u];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      ca[u] = na[u];
+      ch[u] = nh[u];
+      cg[u] = ng[u];
+    }
+  }
+}
+
 }  // namespace
+
+extern "C" int lru_scan_bwd_f32(const void* a, const void* h, const void* dh,
+                                void* da, void* db, int B, int S, int D,
+                                void* stream) {
+  if (B < 1 || S < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((D + THREADS - 1) / THREADS, B);
+  lru_scan_bwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(h),
+      static_cast<const float*>(dh), static_cast<float*>(da),
+      static_cast<float*>(db), S, D);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int lru_scan_f32(const void* a, const void* b, void* h, int B,
                             int S, int D, void* stream) {

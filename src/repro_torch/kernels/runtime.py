@@ -56,9 +56,9 @@ _fns: Dict[tuple, ctypes._CFuncPtr] = {}
 # its own (the tensor-parallel partial of ffn_swiglu, launched only by the
 # node's fused TP body; qkv_rope_paged rotating part of each head, which no
 # serving path asks for; flash_prefill writing each row's log-sum-exp, the
-# training forward)
+# training forward; lru_scan's backward kernel, in the lru_scan library)
 FORMS = ("ffn_swiglu[residual=False]", "qkv_rope_paged[partial_rope]",
-         "flash_prefill[lse]")
+         "flash_prefill[lse]", "lru_scan_bwd")
 _launches: Dict[str, int] = {name: 0 for name in (*SOURCES, *FORMS)}
 
 

@@ -4,12 +4,11 @@
 Deterministic resumable data (``data``), the single-device train step
 (``distributed.stepfn``: AdamW, remat), atomic checkpoints in the JAX
 package's format (``checkpoint``). On the card (``--device cuda``, the
-default) the dense and moe families train, their attention through the
-``flash_prefill`` kernel's LSE form and its backward kernel; a family
-whose kernels have no backward (RecurrentGemma's ``lru_scan``, MLA's
-(192, 128) widths, Whisper's full attention) raises there instead of
-training without gradients. ``--device cpu --reduced``
-runs any family on the plain versions:
+default) every family trains: attention through the ``flash_prefill``
+kernel's LSE form and its backward kernel (causal, windowed or full, at
+every head width the kernel takes), RecurrentGemma's recurrence through
+``lru_scan`` and its backward kernel. ``--device cpu --reduced`` runs any
+family on the plain versions:
 
     python -m repro_torch.launch.train --arch samba-coe-expert-7b \\
         --reduced --device cpu --steps 6
@@ -61,7 +60,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--reduced", action="store_true",
-                    help="tiny same-family config (CPU-runnable)")
+                    help="tiny same-family config at the family's "
+                         "attention heads (CPU-runnable)")
     ap.add_argument("--mesh", default="1x1",
                     help="'1x1' | 'DxM' | 'production' | "
                          "'production-multipod' (all but 1x1 under "
@@ -79,7 +79,7 @@ def main(argv=None):
     tp = part.mesh_axes(mesh).get("model", 1) if mesh is not None else 1
     cfg = get_config(args.arch)
     if args.reduced:
-        cfg = reduced(cfg)
+        cfg = reduced(cfg, full_heads=True)
     cfg = pad_for_tp(cfg, tp)
     model = get_model(cfg)
 

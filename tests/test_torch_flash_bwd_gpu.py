@@ -18,8 +18,14 @@ and ds to bf16 for its products and its outputs to bf16: a few bf16
 units). At S 1 every row attends its one key with p = 1, so ds = p (dp -
 di) and with it dq and dk vanish: both results are rounding noise there,
 and those two are held instead to an absolute 2^-6 of dv's largest
-element. Two calls agree bit for bit, and the gradients autograd takes
-through ``ops.attention`` equal the direct call's."""
+element. Where every key shares a large offset, the offset cancels in dq
+and dk and scales up ds's bf16 rounding past 2^-6 (an H100 read dq 4.1e-2
+at q 4, k -4 + noise): there dq and dk are held to the offset-free columns
+(``test_full_masks_the_keys_past_sk``), or every gradient to the plain
+formulas at the kernels' bf16 rounding points
+(``test_full_shared_key_offset_is_rounding``). Two calls agree bit for
+bit, and the gradients autograd takes through ``ops.attention`` equal the
+direct call's."""
 import numpy as np
 import pytest
 import torch
@@ -125,3 +131,130 @@ def test_backward_with_more_key_tiles_than_sms(dev, causal, window):
         assert torch.equal(g, a), f"{name}: two calls differ"
         err = _rel_l2(g, w)
         assert err < BWD_REL_L2, f"{name}: rel L2 {err}"
+
+
+# (dk, dv, G, Sq, Sk, causal, window) past the square d 32 / 64 / 128 cases:
+# d 256 (RecurrentGemma's 16 q heads on one kv head, windowed) and MLA's
+# (192, 128) causal on the mma.sync kernels' 64-key / 32-row tiles and
+# 64-row / 32-key tiles; FULL (neither mask) with Sq != Sk at every width,
+# Sk off the 128-key tiles (keys past Sk masked)
+NEW_CASES = [
+    (256, 256, 16, 100, 100, True, 64), (256, 256, 16, 300, 300, True, 128),
+    (256, 256, 1, 65, 65, True, 0), (256, 256, 2, 129, 129, False, 17),
+    (256, 256, 4, 70, 130, False, 0), (256, 256, 16, 33, 33, True, 31),
+    (192, 128, 1, 63, 63, True, 0), (192, 128, 1, 257, 257, True, 0),
+    (192, 128, 2, 130, 130, True, 40), (192, 128, 1, 33, 100, False, 0),
+    (64, 64, 1, 100, 300, False, 0), (64, 64, 2, 1, 129, False, 0),
+    (64, 64, 1, 300, 65, False, 0), (32, 32, 4, 77, 200, False, 0),
+    (128, 128, 1, 130, 257, False, 0), (64, 64, 1, 257, 257, False, 0),
+]
+
+
+@pytest.mark.parametrize("dk,dv,G,Sq,Sk,causal,window", NEW_CASES)
+def test_backward_at_the_new_contracts(dev, dk, dv, G, Sq, Sk, causal,
+                                       window):
+    """As ``test_backward_at_tile_edges``, at d 256, (192, 128) and FULL
+    with Sq != Sk; the LSE form's o and lse against ``attention_lse_ref``
+    (o within 2^-6 a row, lse within 1e-3) on the way."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_lse_ref)
+    rs = np.random.RandomState(dk + dv + G + Sq + 3 * Sk + window)
+    B, Hkv = 2, 1 if G == 16 else 2
+    q = _t(rs, (B, Sq, Hkv * G, dk), dev)
+    k, v = _t(rs, (B, Sk, Hkv, dk), dev), _t(rs, (B, Sk, Hkv, dv), dev)
+    do = _t(rs, (B, Sq, Hkv * G, dv), dev)
+    rt.reset_launches()
+    o, lse = ops.attention_lse(q, k, v, causal=causal, window=window)
+    o_ref, lse_ref = attention_lse_ref(q, k, v, causal=causal,
+                                       window=window)
+    got = ops.attention_bwd(q, k, v, o, lse, do, causal=causal,
+                            window=window)
+    again = ops.attention_bwd(q, k, v, o, lse, do, causal=causal,
+                              window=window)
+    torch.cuda.synchronize()
+    n = rt.launch_counts()
+    assert n["flash_prefill[lse]"] == 1 and n["flash_prefill_bwd"] == 2
+    assert lse.shape == (B, Hkv * G, Sq)
+    assert float((lse - lse_ref).abs().max()) < 1e-3
+    row_err = float(((o.float() - o_ref.float()).norm(dim=-1)
+                     / o_ref.float().norm(dim=-1).clamp_min(1e-30)).max())
+    assert row_err < BWD_REL_L2, row_err
+    want = attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert torch.equal(g, a), f"{name}: two calls differ"
+        err = _rel_l2(g, w)
+        assert err < BWD_REL_L2, f"{name}: rel L2 {err}"
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = ops.attention(qg, kg, vg, causal=causal, window=window)
+    out.backward(do)
+    for name, t, g in zip(("dq", "dk", "dv"), (qg, kg, vg), got):
+        assert torch.equal(t.grad, g), name
+    assert torch.equal(out, o)
+
+
+@pytest.mark.parametrize("dk,dv", [(64, 64), (256, 256), (192, 128)])
+def test_full_masks_the_keys_past_sk(dev, dk, dv):
+    """FULL at Sk 200 (off the 128- and 64-key tiles) with every score of
+    a row far below 0 (q 32 and k -32 in the first 4 elements, standard
+    normal in the rest: s about -4096 / sqrt dk), so lse is far below 0 and
+    a zero key past Sk would weigh exp(-lse), past f32's range: unmasked,
+    dq turns NaN. Its gradients are finite and match the plain version
+    outside those 4 columns (there the common -32 of every key cancels in
+    dq = sum ds k, and so does q's 32 in dk: bf16 rounding, no signal)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    rs = np.random.RandomState(dk)
+    B, Sq, Sk, H = 1, 70, 200, 2
+    q, k = _t(rs, (B, Sq, H, dk), dev), _t(rs, (B, Sk, H, dk), dev)
+    q[..., :4], k[..., :4] = 32.0, -32.0
+    v, do = _t(rs, (B, Sk, H, dv), dev), _t(rs, (B, Sq, H, dv), dev)
+    o, lse = ops.attention_lse(q, k, v, causal=False)
+    assert float(lse.max()) < -100.0
+    got = ops.attention_bwd(q, k, v, o, lse, do, causal=False)
+    want = attention_bwd_ref(q, k, v, do, causal=False)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(g).all(), name
+        if name != "dv":
+            g, w = g[..., 4:], w[..., 4:]
+        err = _rel_l2(g, w)
+        assert err < BWD_REL_L2, f"{name}: rel L2 {err}"
+
+
+# the kernels' error where every key shares an offset, as a multiple of the
+# error of the plain formulas at their bf16 rounding points
+ROUNDING_RATIO = 1.25
+
+
+@pytest.mark.parametrize("dk,dv", [(64, 64), (256, 256), (192, 128)])
+def test_full_shared_key_offset_is_rounding(dev, dk, dv, capsys):
+    """FULL at Sk 200 where every key shares an offset (q 4 and k -4 +
+    0.25 N(0, 1) in every element). The offset cancels in dq = sum_j ds_ij
+    k_j (sum_j ds_ij = 0) and q's in dk = sum_i ds_ij q_i, so ds's bf16
+    rounding, scaled up by the offsets, dominates dq's and dk's error: the
+    plain formulas at the kernels' bf16 rounding points
+    (``attention_bwd_masked(..., rounded=True)``) read it too, above
+    ``BWD_REL_L2``. Each of the kernel's dq, dk, dv, against the f32
+    formulas, is held within ``ROUNDING_RATIO`` of theirs; both readings
+    are printed."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_masked,
+                                                         attention_mask)
+    rs = np.random.RandomState(dk)
+    B, Sq, Sk, H = 1, 70, 200, 2
+    q = torch.full((B, Sq, H, dk), 4.0, dtype=torch.bfloat16, device=dev)
+    k = torch.as_tensor(-4.0 + 0.25 * rs.standard_normal((B, Sk, H, dk)),
+                        dtype=torch.float32, device=dev).to(torch.bfloat16)
+    v, do = _t(rs, (B, Sk, H, dv), dev), _t(rs, (B, Sq, H, dv), dev)
+    o, lse = ops.attention_lse(q, k, v, causal=False)
+    got = ops.attention_bwd(q, k, v, o, lse, do, causal=False)
+    mask = attention_mask(Sq, Sk, causal=False, device=dev)
+    want = attention_bwd_masked(q, k, v, do, mask)
+    rounded = attention_bwd_masked(q, k, v, do, mask, rounded=True)
+    for name, g, r, w in zip(("dq", "dk", "dv"), got, rounded, want):
+        err, floor = _rel_l2(g, w), _rel_l2(r, w)
+        with capsys.disabled():
+            print(f"\n({dk}, {dv}) {name}: the kernel {err:.4e}, the plain "
+                  f"formulas at its rounding points {floor:.4e}")
+        assert err <= ROUNDING_RATIO * floor, (name, err, floor)

@@ -242,11 +242,17 @@ def test_mixed_devices_raise():
 def test_wrappers_without_a_backward_raise_under_grad(monkeypatch):
     """On the card (``rt.on_card`` patched), a kernel wrapper whose kernel
     has no backward raises under grad mode when an input requires grad,
-    before anything is built or launched; ``flash_prefill`` outside its
-    backward kernel's contract raises ``ValueError`` naming ROADMAP.md;
-    under ``no_grad`` the same calls go on to the launch."""
+    before anything is built or launched; under ``no_grad`` the same calls
+    go on to the launch. ``lru_scan`` and ``flash_prefill`` within their
+    backward kernels' contracts (d 256, MLA's (192, 128), FULL with Sq !=
+    Sk) reach the launch under grad too; outside it (d 96, a causal call
+    with Sk != Sq) the training kernels raise ``ValueError`` naming
+    ROADMAP.md."""
     from repro_torch.kernels import runtime as rt
-    from repro_torch.kernels.flash_attention.ops import (attention, decode,
+    from repro_torch.kernels.flash_attention.ops import (attention,
+                                                         attention_bwd,
+                                                         attention_lse,
+                                                         decode,
                                                          decode_paged)
     from repro_torch.kernels.fused_decode.ops import (ffn_swiglu,
                                                       oproj_ffn_swiglu,
@@ -286,8 +292,6 @@ def test_wrappers_without_a_backward_raise_under_grad(monkeypatch):
                                      n_q=4, n_kv=2, dh=32),
         "ffn_swiglu": lambda: ffn_swiglu(w(2, 64), w(64), w(64, 96),
                                          w(64, 96), w(96, 64)),
-        "lru_scan": lambda: lru_scan(w(2, 16, 64, dtype=torch.float32),
-                                     w(2, 16, 64, dtype=torch.float32)),
         "monarch_fused": lambda: monarch(w(2, 64, 128), w(64, 64),
                                          w(64, 128), w(128, 128)),
         "monarch_conv_fused": lambda: monarch_conv(
@@ -300,16 +304,29 @@ def test_wrappers_without_a_backward_raise_under_grad(monkeypatch):
         with torch.no_grad():
             with pytest.raises(Launched):
                 call()
-    outside = [  # d 256; MLA's (192, 128); FULL (neither mask)
+    inside = [  # d 256; MLA's (192, 128); FULL (neither mask), Sk != Sq
         lambda: attention(w(1, 8, 2, 256), w(1, 8, 2, 256),
                           w(1, 8, 2, 256)),
         lambda: attention(w(1, 8, 2, 192), w(1, 8, 2, 192),
                           w(1, 8, 2, 128)),
         lambda: attention(w(1, 8, 2, 64), w(1, 12, 2, 64), w(1, 12, 2, 64),
-                          causal=False)]
-    for call in outside:
-        with pytest.raises(ValueError, match="ROADMAP"):
+                          causal=False),
+        lambda: lru_scan(w(2, 16, 64, dtype=torch.float32),
+                         w(2, 16, 64, dtype=torch.float32))]
+    for call in inside:
+        with pytest.raises(Launched):
             call()
         with torch.no_grad():
             with pytest.raises(Launched):
                 call()
+    outside = [  # d 96; causal with Sk != Sq (the LSE form, the backward)
+        lambda: attention(w(1, 8, 2, 96), w(1, 8, 2, 96), w(1, 8, 2, 96)),
+        lambda: attention_lse(w(1, 8, 2, 64), w(1, 12, 2, 64),
+                              w(1, 12, 2, 64), causal=True),
+        lambda: attention_bwd(w(1, 8, 2, 64), w(1, 12, 2, 64),
+                              w(1, 12, 2, 64), w(1, 8, 2, 64),
+                              w(1, 2, 8, dtype=torch.float32),
+                              w(1, 8, 2, 64), causal=True)]
+    for call in outside:
+        with pytest.raises(ValueError, match="ROADMAP"):
+            call()

@@ -46,7 +46,14 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, reduced
 from repro_torch.data import DataConfig, MemmapTokens, SyntheticLM
 from repro_torch.distributed import stepfn
-from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+from repro_torch.kernels.flash_attention.ops import FlashAttention
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_masked,
+                                                     attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_mask,
+                                                     attention_ref)
+from repro_torch.kernels.lru_scan.ops import LruScan, lru_scan
+from repro_torch.kernels.lru_scan.ref import lru_scan_bwd_ref, lru_scan_ref
 from repro_torch.optim import (AdamWConfig, adamw_update, init_opt_state,
                                lr_schedule)
 
@@ -197,25 +204,157 @@ def test_checkpoint_retention_crash_safety_and_async(tmp_path):
 
 
 # ------------------------------------------------------ attention backward
-def test_attention_bwd_ref_matches_jax_vjp():
-    """Causal, causal with a window, and G 2."""
-    for causal, window, G in ((True, 0, 1), (True, 5, 1), (True, 0, 2)):
-        rs = np.random.RandomState(G + window)
-        B, S, Hkv, d = 2, 19, 2, 8
-        q = rs.standard_normal((B, S, Hkv * G, d)).astype(np.float32)
-        k = rs.standard_normal((B, S, Hkv, d)).astype(np.float32)
-        v = rs.standard_normal((B, S, Hkv, d)).astype(np.float32)
-        do = rs.standard_normal((B, S, Hkv * G, d)).astype(np.float32)
-        _, vjp = jax.vjp(lambda a, b, c: JL.naive_attention(
-            a, b, c, causal=causal, window=window), q, k, v)
-        want = vjp(jnp.asarray(do))
-        got = attention_bwd_ref(
-            *(torch.from_numpy(x) for x in (q, k, v, do)), causal=causal,
-            window=window)
-        for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
-                                       err_msg=f"{name} {causal} {window} "
-                                               f"{G}")
+# (Sq, Sk, dk, dv, G, causal, window): causal, causal with a window, G 2;
+# FULL (neither mask) with Sq != Sk both ways; dk != dv causal (MLA's
+# shape, cut); G 16 on one kv head with a window (RecurrentGemma's, cut)
+ATTN_GRAD_CASES = [
+    (19, 19, 8, 8, 1, True, 0), (19, 19, 8, 8, 1, True, 5),
+    (19, 19, 8, 8, 2, True, 0), (7, 23, 8, 8, 2, False, 0),
+    (23, 7, 8, 8, 1, False, 0), (19, 19, 12, 8, 2, True, 0),
+    (21, 21, 8, 8, 16, True, 6),
+]
+
+
+def _attn_inputs(Sq, Sk, dk, dv, G, seed):
+    rs = np.random.RandomState(seed)
+    B, Hkv = 2, 1 if G == 16 else 2
+    return (rs.standard_normal((B, Sq, Hkv * G, dk)).astype(np.float32),
+            rs.standard_normal((B, Sk, Hkv, dk)).astype(np.float32),
+            rs.standard_normal((B, Sk, Hkv, dv)).astype(np.float32),
+            rs.standard_normal((B, Sq, Hkv * G, dv)).astype(np.float32))
+
+
+@pytest.mark.parametrize("Sq,Sk,dk,dv,G,causal,window", ATTN_GRAD_CASES)
+def test_attention_bwd_ref_matches_jax_vjp(Sq, Sk, dk, dv, G, causal,
+                                           window):
+    q, k, v, do = _attn_inputs(Sq, Sk, dk, dv, G, G + window + Sq + 3 * Sk)
+    _, vjp = jax.vjp(lambda a, b, c: JL.naive_attention(
+        a, b, c, causal=causal, window=window), q, k, v)
+    want = vjp(jnp.asarray(do))
+    got = attention_bwd_ref(
+        *(torch.from_numpy(x) for x in (q, k, v, do)), causal=causal,
+        window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   err_msg=f"{name} {causal} {window} {G}")
+
+
+@pytest.mark.parametrize("Sq,Sk,dk,dv,G,causal,window", ATTN_GRAD_CASES)
+def test_attention_bwd_rounded_ref_near_jax_vjp(Sq, Sk, dk, dv, G, causal,
+                                                window):
+    """``attention_bwd_masked(..., rounded=True)``, the formulas at the
+    backward kernels' bf16 rounding points: every output a bf16 value,
+    within a relative L2 error of 2^-6 of ``jax.vjp`` in f32 (a few bf16
+    units), and off the unrounded formulas (the rounding takes effect)."""
+    args = [torch.from_numpy(x).to(torch.bfloat16) for x in _attn_inputs(
+        Sq, Sk, dk, dv, G, G + window + Sq + 3 * Sk)]
+    mask = attention_mask(Sq, Sk, causal=causal, window=window)
+    got = attention_bwd_masked(*args, mask, rounded=True)
+    plain = attention_bwd_masked(*args, mask)
+    q, k, v, do = (np.asarray(t.float()) for t in args)
+    _, vjp = jax.vjp(lambda a, b, c: JL.naive_attention(
+        a, b, c, causal=causal, window=window), q, k, v)
+    want = vjp(jnp.asarray(do))
+    for name, g, p, w in zip(("dq", "dk", "dv"), got, plain, want):
+        assert torch.equal(g, g.to(torch.bfloat16).float()), name
+        assert not torch.equal(g, p), name
+        w = torch.from_numpy(np.array(w))
+        assert float((g - w).norm() / w.norm()) < 2.0 ** -6, name
+
+
+@pytest.mark.parametrize("Sq,Sk,dk,dv,G,causal,window", ATTN_GRAD_CASES)
+def test_attention_lse_ref_matches_jax(Sq, Sk, dk, dv, G, causal, window):
+    """o against JAX's naive attention, lse against JAX's log-sum-exp of
+    the scaled, masked scores (``_gqa_scores``), atol 1e-5."""
+    q, k, v, _ = _attn_inputs(Sq, Sk, dk, dv, G, 5 * G + window + Sq + Sk)
+    B, Hq, Hkv = q.shape[0], q.shape[2], k.shape[2]
+    s = JL._gqa_scores(jnp.asarray(q).reshape(B, Sq, Hkv, G, dk),
+                       jnp.asarray(k), 1.0 / np.sqrt(dk))
+    qpos, kpos = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
+    mask = np.ones((Sq, Sk), bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= qpos - kpos < window
+    want_lse = jax.nn.logsumexp(jnp.where(mask, s, -jnp.inf), axis=-1) \
+        .reshape(B, Hq, Sq)
+    want_o = JL.naive_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal, window=window)
+    o, lse = attention_lse_ref(*(torch.from_numpy(x) for x in (q, k, v)),
+                               causal=causal, window=window)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-5)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), atol=1e-5)
+
+
+@pytest.mark.parametrize("Sq,Sk,dk,dv,G,causal,window", ATTN_GRAD_CASES)
+def test_flash_attention_function_on_cpu(Sq, Sk, dk, dv, G, causal, window):
+    """``FlashAttention.apply`` on CPU tensors (its forward the LSE form's
+    plain version, its backward ``attention_bwd``'s) gives autograd
+    through the plain forward's output and gradients, atol 1e-5."""
+    q, k, v, do = (torch.from_numpy(x) for x in _attn_inputs(
+        Sq, Sk, dk, dv, G, 7 * G + window + Sq))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want_o = attention_ref(*leaves, causal=causal, window=window)
+    want = torch.autograd.grad(want_o, leaves, do)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = FlashAttention.apply(*leaves, causal, window)
+    got = torch.autograd.grad(o, leaves, do)
+    torch.testing.assert_close(o, want_o, atol=1e-5, rtol=0)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0, msg=name)
+
+
+# ------------------------------------------------------ lru_scan backward
+def _scan_inputs(B, S, D, seed):
+    rs = np.random.RandomState(seed)
+    return (rs.uniform(0.3, 1.0, (B, S, D)).astype(np.float32),
+            rs.standard_normal((B, S, D)).astype(np.float32),
+            rs.standard_normal((B, S, D)).astype(np.float32))
+
+
+def _rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("B,S,D", [(2, 37, 24), (1, 2, 8), (3, 50, 5)])
+def test_lru_scan_bwd_ref_matches_jax_vjp(B, S, D):
+    """``lru_scan_bwd_ref`` against ``jax.vjp`` of the RG-LRU's
+    ``associative_scan`` (``repro.models.rglru.rec_block``), at S off the
+    kernel's 16-step chunks: da and db within 1e-5 relative L2."""
+    a, b, dh = _scan_inputs(B, S, D, S + D)
+
+    def scan(a_, b_):
+        return jax.lax.associative_scan(
+            lambda c1, c2: (c1[0] * c2[0], c2[0] * c1[1] + c2[1]),
+            (a_, b_), axis=1)[1]
+    h, vjp = jax.vjp(scan, jnp.asarray(a), jnp.asarray(b))
+    want_da, want_db = vjp(jnp.asarray(dh))
+    da, db = lru_scan_bwd_ref(torch.from_numpy(a),
+                              torch.from_numpy(np.array(h)),
+                              torch.from_numpy(dh))
+    assert _rel_l2(da.numpy(), want_da) < 1e-5
+    assert _rel_l2(db.numpy(), want_db) < 1e-5
+
+
+def test_lru_scan_function_on_cpu():
+    """``LruScan.apply`` on CPU tensors (its forward and backward the plain
+    versions) gives autograd through ``lru_scan_ref``'s output and
+    gradients; ``lru_scan`` on CPU tensors takes that autograd path."""
+    a, b, dh = (torch.from_numpy(x) for x in _scan_inputs(2, 37, 24, 1))
+    leaves = [t.clone().requires_grad_(True) for t in (a, b)]
+    want_h = lru_scan_ref(*leaves)
+    want = torch.autograd.grad(want_h, leaves, dh)
+    leaves = [t.clone().requires_grad_(True) for t in (a, b)]
+    h = LruScan.apply(*leaves)
+    got = torch.autograd.grad(h, leaves, dh)
+    torch.testing.assert_close(h, want_h, atol=0, rtol=0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+    leaves = [t.clone().requires_grad_(True) for t in (a, b)]
+    got = torch.autograd.grad(lru_scan(*leaves), leaves, dh)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 # ------------------------------------------------------------- train step

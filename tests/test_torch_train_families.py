@@ -20,6 +20,8 @@ leaf are held otherwise:
     norm within 1e-3 relative (read 1.3e-6 / 1.7e-4 and 2.0e-5 / 4.4e-5);
     their updates are not compared, bf16 noise flipping AdamW's signs
     (13 % and 17 % of a leaf's update)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -57,7 +59,49 @@ def _threads():
     "xlstm-1.3b", "granite-8b", "chatglm3-6b", "starcoder2-3b",
     "qwen2-vl-2b", "qwen2.5-32b"])
 def test_one_train_step_matches_jax(arch):
-    jcfg, cfg = jax_reduced(jax_get_config(arch)), reduced(get_config(arch))
+    _step_against_jax(arch, jax_reduced(jax_get_config(arch)),
+                      reduced(get_config(arch)))
+
+
+# the fields ``reduced(..., full_heads=True)`` keeps from the full config
+FULL_HEADS = ("n_heads", "n_kv_heads", "head_dim", "qk_nope_dim",
+              "qk_rope_dim", "v_head_dim", "mrope_sections")
+
+
+@pytest.mark.parametrize("arch", [
+    "recurrentgemma-9b", "deepseek-v2-lite-16b", "whisper-small"])
+def test_full_heads_step_matches_jax(arch):
+    """``reduced(..., full_heads=True)`` (what ``launch/train.py --reduced``
+    trains) against JAX's reduced config given the same heads, one step as
+    above; the port's forward calls ``layers.attention`` and ``lru_scan``
+    as often as ``stepfn.kernel_launches`` counts their LSE forms and
+    ``lru_scan`` launches on the card (remat: each twice)."""
+    from repro_torch.kernels.lru_scan import ops as lru_ops
+    from repro_torch.models import layers as L
+    cfg = reduced(get_config(arch), full_heads=True)
+    full = get_config(arch)
+    assert all(getattr(cfg, f) == getattr(full, f) for f in FULL_HEADS)
+    jcfg = dataclasses.replace(jax_reduced(jax_get_config(arch)),
+                               **{f: getattr(cfg, f) for f in FULL_HEADS})
+    calls = {"flash_prefill[lse]": 0, "lru_scan": 0}
+    real = L.attention, lru_ops.lru_scan
+
+    def counted(key, fn):
+        def call(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return call
+    L.attention = counted("flash_prefill[lse]", real[0])
+    lru_ops.lru_scan = counted("lru_scan", real[1])
+    try:
+        _step_against_jax(arch, jcfg, cfg)
+    finally:
+        L.attention, lru_ops.lru_scan = real
+    want = stepfn.kernel_launches(cfg)
+    assert calls == {k: want[k] for k in calls}, (calls, want)
+
+
+def _step_against_jax(arch, jcfg, cfg):
     init = jax_get_model(jcfg).init(jax.random.PRNGKey(4))
     params = {k: jax.tree.map(np.asarray if k == "enc_layers" else
                               (lambda x: np.asarray(x, np.float32)), v)

@@ -1,7 +1,7 @@
 """Training on the card: the ``flash_prefill`` LSE forward and the
-``flash_prefill_bwd`` kernels against their plain versions, one train step
-of two reduced families, and the families whose kernels have no backward
-refusing to train. Every test carries the ``gpu`` marker and skips, from
+``flash_prefill_bwd`` kernels against their plain versions, the
+``lru_scan_bwd`` kernel against its plain version, and one train step of
+each reduced family with its launch counts. Every test carries the ``gpu`` marker and skips, from
 inside a fixture, where no card is present. Run them on an H100 with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu \
@@ -120,6 +120,9 @@ def _train_one_step(cfg, dev, seed=0):
     rs = np.random.RandomState(seed)
     toks = torch.as_tensor(rs.randint(0, cfg.vocab_size, (2, 97)))
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = torch.as_tensor(rs.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)), dtype=torch.float32)
     opt = AdamWConfig(warmup_steps=2, decay_steps=4)
     step = stepfn.make_train_step(cfg, opt)
     rt.reset_launches()
@@ -148,30 +151,84 @@ def test_one_train_step_on_the_card(dev, arch):
     assert int(state["opt"]["step"]) == 1
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-small",
-                                  "deepseek-v2-lite-16b"])
-def test_training_without_a_backward_kernel_raises(dev, arch):
-    """lru_scan has no backward (RuntimeError from the launch guard); MLA's
-    (192, 128) and Whisper's full attention are outside the backward
-    kernel's contract (ValueError). Neither returns weights without a
-    gradient."""
+# the reduced configs at their family's real attention heads (``reduced(...,
+# full_heads=True)``), so a step reaches each backward instantiation the
+# full-size family trains through: RecurrentGemma's 16 q heads on one kv
+# head of 256 (window 32), MLA's (192, 128), Whisper's heads of 64 (its
+# encoder and cross-attention FULL, here over 200 frames: off the key tiles)
+FAMILY_EXTRA = {
+    "recurrentgemma-9b": {},
+    "deepseek-v2-lite-16b": {},
+    "whisper-small": dict(encoder_seq=200),
+    "xlstm-1.3b": {},
+}
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_EXTRA))
+def test_family_train_step_on_the_card(dev, arch):
+    """One train step of each family the earlier card tests left out, its
+    loss within 2 % of the f32 CPU step's, a finite non-zero gradient norm,
+    and exactly the launches the code implies (``stepfn.kernel_launches``);
+    no square ``flash_prefill`` and no other kernel."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.distributed import stepfn
-    from repro_torch.models import get_model
-    cfg = reduced(get_config(arch))
-    if arch == "deepseek-v2-lite-16b":       # MLA at its real head widths
-        cfg = dataclasses.replace(cfg, qk_nope_dim=128, qk_rope_dim=64,
-                                  v_head_dim=128)
-    params = get_model(cfg).init(torch.Generator(dev).manual_seed(0), dev)
-    before = {k: v.clone() for k, v in params["final_norm"].items()}
-    toks = torch.randint(0, cfg.vocab_size, (2, 65), device=dev)
-    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
-    if cfg.family == "encdec":
-        batch["enc_embeds"] = torch.zeros(2, cfg.encoder_seq, cfg.d_model,
-                                          device=dev)
-    step = stepfn.make_train_step(cfg)
-    with pytest.raises((RuntimeError, ValueError),
-                       match="no backward|backward kernel"):
-        step(stepfn.init_train_state(params), batch)
-    for k, v in params["final_norm"].items():
-        assert torch.equal(v, before[k])
+    cfg = dataclasses.replace(reduced(get_config(arch), full_heads=True),
+                              **FAMILY_EXTRA[arch])
+    state, m, m32, counts = _train_one_step(cfg, dev)
+    loss, loss32 = float(m["loss"]), float(m32["loss"])
+    assert np.isfinite(loss) and abs(loss - loss32) < 0.02 * abs(loss32)
+    assert np.isfinite(float(m["grad_norm"])) and float(m["grad_norm"]) > 0
+    want = stepfn.kernel_launches(cfg)
+    assert {k: n for k, n in counts.items() if n} == \
+        {k: n for k, n in want.items() if n}, counts
+    assert int(state["opt"]["step"]) == 1
+
+
+def test_lru_scan_backward_matches_plain(dev):
+    """``lru_scan_bwd`` at S off its 16-step chunks (1, 17, 300) and D off
+    the 128-thread blocks, against ``lru_scan_bwd_ref`` in f32 (relative L2
+    1e-5: one f32 fma a step in both, summed in another order by the plain
+    version's doubling scan), two calls bit-equal, and through autograd
+    (``lru_scan`` under grad routes to ``LruScan``)."""
+    from repro_torch.kernels.lru_scan.ops import lru_scan, lru_scan_bwd
+    from repro_torch.kernels.lru_scan.ref import lru_scan_bwd_ref
+    rs = np.random.RandomState(11)
+    for B, S, D in ((2, 1, 64), (1, 17, 200), (3, 300, 130)):
+        a = torch.as_tensor(rs.uniform(0.5, 1.0, (B, S, D)),
+                            dtype=torch.float32, device=dev)
+        b, dh = (torch.as_tensor(rs.standard_normal((B, S, D)),
+                                 dtype=torch.float32, device=dev)
+                 for _ in range(2))
+        with torch.no_grad():
+            h = lru_scan(a, b)
+        rt.reset_launches()
+        got, again = lru_scan_bwd(a, h, dh), lru_scan_bwd(a, h, dh)
+        torch.cuda.synchronize()
+        assert rt.launch_counts()["lru_scan_bwd"] == 2
+        for name, g, x, w in zip(("da", "db"), got, again,
+                                 lru_scan_bwd_ref(a, h, dh)):
+            assert torch.equal(g, x), name
+            assert _rel_l2(g, w) < 1e-5, (name, B, S, D)
+        ag, bg = (t.clone().requires_grad_(True) for t in (a, b))
+        lru_scan(ag, bg).backward(dh)
+        assert torch.equal(ag.grad, got[0]) and torch.equal(bg.grad, got[1])
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "deepseek-v2-lite-16b",
+                                  "whisper-small"])
+def test_trainer_on_the_card(dev, arch, capsys):
+    """``launch/train.py --reduced`` on the card (its default device) for
+    the families that train through the new kernels: the loss falls over 6
+    steps (the trainer's own check) and the kernels launched (``--reduced``
+    keeps each family's attention heads: MLA at DeepSeek's (192, 128))."""
+    from repro_torch.launch import train
+    rt.reset_launches()
+    losses = train.main(["--arch", arch, "--reduced", "--steps", "6",
+                         "--batch", "2", "--seq", "96"])
+    assert len(losses) == 6 and losses[-1] < losses[0]
+    assert f"loss {losses[0]:.4f} -> {losses[-1]:.4f} OK" in \
+        capsys.readouterr().out
+    n = rt.launch_counts()
+    assert n["flash_prefill_bwd"] > 0 and n["flash_prefill"] == 0
+    if arch == "recurrentgemma-9b":
+        assert n["lru_scan_bwd"] > 0

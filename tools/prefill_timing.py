@@ -20,7 +20,8 @@ and its power limit. A first JSON line gives each kernel instantiation's
 addresses and encodings left out), so two trees' builds of an unchanged
 instantiation can be seen to be the same code.
 
-Then the backward, ``flash_prefill_bwd``, at the training phase's shape
+Then the LSE form at the training phase's shape (``chip_smoke.
+TRAIN_LSE_ROW``) and the backward, ``flash_prefill_bwd``, at that shape
 and at Mixtral's (``chip_smoke.TRAIN_BWD_ROW``, ``TRAIN_BWD_GQA_ROW``):
 a JSON line of its kernels' reports, SASS digests and counts of tensor-core
 instructions (``HMMA``: ``mma.sync``; ``HGMMA``: ``wgmma``), then one a
@@ -42,8 +43,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # prefill_kernel<DK>, <DK, DV>, <DK, DV, FULL> or <DK, DV, FULL, LSE> in a
 # mangled name
 _ENTRY = r"prefill_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?(?:Lb([01])E)?"
-# the backward's kernels, <D>
-_BWD_ENTRY = r"((?:di|stat|dkdv|dq|bwd|dq_out)_kernel)ILi(\d+)E"
+# the backward's kernels: <D>, the warp-specialised <D, FULL>, the
+# mma.sync <DK, DV>
+_BWD_ENTRY = (r"((?:mma_)?(?:di|stat|dkdv|dq|bwd|dq_out)_kernel)ILi(\d+)E"
+              r"(?:Lb([01])E)?(?:Li(\d+)E)?")
 
 
 def _key(m):
@@ -53,7 +56,10 @@ def _key(m):
 
 
 def _bwd_key(m):
-    return f"{m.group(1)},{m.group(2)}"
+    # a square instantiation reads as the trees before FULL named it
+    return f"{m.group(1)},{m.group(2)}" + (
+        ",full" if m.group(3) == "1" else "") + (
+        f",{m.group(4)}" if m.group(4) else "")
 
 
 def instantiations(lib, log, entry=_ENTRY, key_of=_key):
@@ -260,6 +266,26 @@ def main(argv=None):
         if not err <= 2.0 ** -6:
             raise AssertionError(f"{name}: row relative L2 error {err}")
         ms = cs.time_ms(lambda: attention(q, k, v, causal=False), flush,
+                        args.reps)
+        print(json.dumps({"label": args.label, "row": name, "ms": ms,
+                          "row_rel_l2": err, "card": card}), flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    # the LSE form (the training forward) at the training phase's shape
+    # (chip_smoke.TRAIN_LSE_ROW)
+    from repro_torch.kernels.flash_attention.ops import attention_lse
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+    name = cs.TRAIN_LSE_ROW
+    if not args.only or any(name.startswith(o) for o in args.only):
+        c = get_config(cs.TRAIN["arch"])
+        B, S, H, d = cs.TRAIN["batch"], cs.TRAIN["seq"], c.n_heads, c.head_dim
+        q, k, v = (torch.randn((B, S, H, d), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        err = cs.row_rel_l2(attention_lse(q, k, v, causal=True)[0],
+                            attention_lse_ref(q, k, v, causal=True)[0])
+        if not err <= 2.0 ** -6:
+            raise AssertionError(f"{name}: row relative L2 error {err}")
+        ms = cs.time_ms(lambda: attention_lse(q, k, v, causal=True), flush,
                         args.reps)
         print(json.dumps({"label": args.label, "row": name, "ms": ms,
                           "row_rel_l2": err, "card": card}), flush=True)
