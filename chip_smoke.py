@@ -831,33 +831,36 @@ def build_kernels():
                 + (" lse" if k[3] == "1" else "") + "]",
                 lambda k: prefill_smem(int(k[0]), int(k[1])))
         elif name == "flash_prefill_bwd":
-            # the row statistics, the warp-specialised dK/dV/dQ kernel
-            # (wgmma, TMA rings; square b0 and FULL b1) and dq's rounding
-            # at d 32 / 64 / 128; the mma.sync dK / dV and dQ kernels at d
-            # 256 and (192, 128): registers, no spill, no serialised wgmma
+            # the row statistics, the warp-specialised dK/dV/dQ kernels
+            # (wgmma, TMA rings): bwd_kernel (square b0, FULL b1) and dq's
+            # rounding at d 32 / 64 / 128, wide_kernel, its dq rounding
+            # and its head groups' sum at d 256 and (192, 128): registers,
+            # no spill, no serialised wgmma
             bwd_smem = rt.bind(name, "flash_prefill_bwd_smem_bytes",
                                [rt.I, rt.I])
-            wgmma = rt.bind(name, "flash_prefill_bwd_wgmma", [rt.I, rt.I])
-            wg = [str(dk) for dk, dv in PREFILL_WIDTHS if wgmma(dk, dv)]
-            mma = [(str(dk), str(dv)) for dk, dv in PREFILL_WIDTHS
-                   if not wgmma(dk, dv)]
+            wide = [(str(dk), str(dv)) for dk, dv in PREFILL_WIDTHS
+                    if dk == 192 or dk == 256]
+            wg = [str(dk) for dk, dv in PREFILL_WIDTHS
+                  if (str(dk), str(dv)) not in wide]
             stat = sorted({str(dv) for _, dv in PREFILL_WIDTHS}, key=int)
             entry_build_report(
                 name, log,
-                r"(stat_kernel|dq_out_kernel)ILi(\d+)E|"
+                r"(stat_kernel|dq_out_kernel|wide_dq_kernel)ILi(\d+)E|"
                 r"(bwd_kernel)ILi(\d+)ELb([01])E|"
-                r"(mma_dkdv_kernel|mma_dq_kernel)ILi(\d+)ELi(\d+)E",
+                r"(wide_kernel|wide_sum_kernel)ILi(\d+)ELi(\d+)E",
                 [("stat_kernel", d) for d in stat]
                 + [("dq_out_kernel", d) for d in wg]
                 + [("bwd_kernel", d, f) for d in wg for f in "01"]
-                + [(kn, dk, dv) for kn in ("mma_dkdv_kernel", "mma_dq_kernel")
-                   for dk, dv in mma],
+                + [("wide_dq_kernel", dk) for dk, _ in wide]
+                + [(kn, dk, dv) for kn in ("wide_kernel", "wide_sum_kernel")
+                   for dk, dv in wide],
                 lambda k: f"flash_prefill_bwd[{k[0]} d={k[1]}"
                 + (" full" if k[0] == "bwd_kernel" and k[2] == "1" else "")
-                + (f" dv={k[2]}" if k[0].startswith("mma") else "") + "]",
+                + (f" dv={k[2]}" if k[0].startswith("wide_") and len(k) == 3
+                   else "") + "]",
                 lambda k: bwd_smem(int(k[1]), int(k[1])) if k[0] ==
                 "bwd_kernel" else bwd_smem(int(k[1]), int(k[2]))
-                if k[0].startswith("mma") else 0)
+                if k[0] == "wide_kernel" else 0)
         elif name in ("oproj_ffn_swiglu", "ffn_swiglu"):
             stream_smem = rt.bind(name, "stream_smem_bytes", [rt.I, rt.I])
             first = ("OprojPass" if name == "oproj_ffn_swiglu"
@@ -5249,25 +5252,32 @@ def bwd_inputs(B, Sq, Sk, Hq, Hkv, dk, dv, gen, dev):
         r(B, Sq, Hq, dv)
 
 
-def sdpa_grad(q, k, v, do, causal, window):
-    """The one-call yardstick: a closure taking the autograd backward of
-    SDPA on (q, k, v) for ``do`` (is_causal, the band as a mask, or no
-    mask), with the SDPA forward's graph kept; timing only."""
+def sdpa_call(q, k, v, causal, window, grad=False):
+    """A closure calling SDPA on (q, k, v) in its (B, H, S, d) layout
+    (is_causal, the band as a mask, or no mask; GQA by ``enable_gqa``),
+    and the transposed inputs; with ``grad`` they require grad. Timing
+    only: the port never calls it."""
     import torch.nn.functional as Fn
-    Sq, Sk = q.shape[1], k.shape[1]
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+    Sq = q.shape[1]
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(grad)
                   for t in (q, k, v))
     mask = None
     if window:
         i = torch.arange(Sq, device=q.device)
         mask = (i[:, None] - i[None, :] < window) & \
             (i[None, :] <= i[:, None] if causal else True)
-    out = Fn.scaled_dot_product_attention(
+    return (lambda: Fn.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
-        enable_gqa=q.shape[2] != k.shape[2])
-    dot = do.transpose(1, 2)
-    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                       retain_graph=True)
+        enable_gqa=q.shape[2] != k.shape[2])), (qt, kt, vt)
+
+
+def sdpa_grad(q, k, v, do, causal, window):
+    """The one-call yardstick: a closure taking the autograd backward of
+    SDPA on (q, k, v) for ``do`` (is_causal, the band as a mask, or no
+    mask), with the SDPA forward's graph kept; timing only."""
+    fwd, inputs = sdpa_call(q, k, v, causal, window, grad=True)
+    out, dot = fwd(), do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, inputs, dot, retain_graph=True)
 
 
 def bwd_row(row, B, S, Hq, Hkv, d, window, gen, flush, *, Sk=None, dv=None,
@@ -5280,8 +5290,8 @@ def bwd_row(row, B, S, Hq, Hkv, d, window, gen, flush, *, Sk=None, dv=None,
     of ``attention_bwd_ref`` in f32, and two calls equal bit for bit (dQ is
     summed in a fixed order); timed beside that plain version, the
     one-call yardstick (``sdpa_grad``: timing only; the CUDA kernels its
-    backward ran are logged) and the LSE forward. Returns the kernel-table
-    row."""
+    backward ran are logged) and the LSE forward beside SDPA's forward
+    (``lse_library_ms``). Returns the kernel-table row."""
     from repro_torch.kernels.flash_attention.ops import (attention_bwd,
                                                          attention_lse)
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
@@ -5318,6 +5328,10 @@ def bwd_row(row, B, S, Hq, Hkv, d, window, gen, flush, *, Sk=None, dv=None,
              lse_ms=time_ms(lambda: attention_lse(q, k, v, causal=causal,
                                                   window=window),
                             flush, 20))
+    with torch.no_grad():
+        # the LSE forward's one-call yardstick: SDPA's forward
+        r["lse_library_ms"] = time_ms(sdpa_call(q, k, v, causal, window)[0],
+                                      flush, 10)
     got, want = kern(), plain()
     r["max_abs_err"] = max(float((g.float() - w).abs().max())
                            for g, w in zip(got, want))
@@ -5332,7 +5346,8 @@ def bwd_row(row, B, S, Hq, Hkv, d, window, gen, flush, *, Sk=None, dv=None,
          f"{flops / r['ms'] / 1e9:.1f} TFLOP/s, "
          f"{r['bound_ms'] / r['ms']:.3f} of the bound, "
          f"{r['library_ms'] / r['ms']:.3f}x SDPA's backward time; the LSE "
-         f"forward {r['lse_ms']:.4f}ms; SDPA's backward ran "
+         f"forward {r['lse_ms']:.4f}ms (SDPA's forward "
+         f"{r['lse_library_ms']:.4f}ms); SDPA's backward ran "
          f"{[n[:90] for n in lib_kernels[:4]]}")
     del q, k, v, o, lse, do, lib
     torch.cuda.empty_cache()

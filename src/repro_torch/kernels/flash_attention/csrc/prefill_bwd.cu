@@ -9,7 +9,7 @@
 // has no gradient without this. It computes the flash backward of JAX's
 // Pallas TPU kernel -- di = rowsum(o * do) once, p recomputed from q, k
 // and the forward's row log-sum-exp -- with p formed once for dK, dV and
-// dQ together (d 32/64/128; twice at d 256 and (192, 128), below).
+// dQ together, at every width.
 //
 // Inputs, all contiguous: q (B, Sq, Hq, dk), o, do (B, Sq, Hq, dv) bf16;
 // k (B, Sk, Hkv, dk), v (B, Sk, Hkv, dv) bf16; lse (B, Hq, Sq) f32 from
@@ -28,7 +28,9 @@
 // dh 128, causal) 3.437e11 flops and ~539 MB, 0.3475 ms at 989 TFLOP/s.
 // This design issues exactly those five: p is formed once.
 //
-// Design: prefill.cu's warp-specialised shape. Three launches:
+// Design: prefill.cu's warp-specialised shape. Three launches at d 32 /
+// 64 / 128 (at d 256 and (192, 128), wide_kernel takes bwd_kernel's
+// place, with a fourth where it splits the heads; see its section):
 //  * stat_kernel: one CTA per (64-row q tile, q head, batch): di =
 //    rowsum(o * do) in f32 and lse * log2(e), into a scratch of (B, Hq,
 //    2, Sp) f32, Sp = Sq rounded up to 128. Rows past Sq get lse * log2(e)
@@ -92,7 +94,9 @@
 // (batch, kv head) has more key tiles than the card has SMs; writing dq
 // from the last contributor's writer warps, or from key tile 0's CTA
 // after its walk, in place of dq_out_kernel (1.01 and 1.02 ms: both put
-// the rounding on the longest CTAs' path).
+// the rounding on the longest CTAs' path); at d 256 and (192, 128), a
+// pair of mma.sync kernels forming p twice (2.29 ms at DeepSeek's MLA
+// shape, 4.38 at RecurrentGemma's; wide_kernel replaced them).
 //
 // Where it can go wrong, and what guards it:
 //  * A swizzle, descriptor or fragment mapping that is off gives finite,
@@ -118,7 +122,6 @@
 //    NaN once p overflows, so FULL masks keys past Sk (a card test at Sk
 //    % 128 != 0 and chip_smoke.py's planted unmasked padding key hold it).
 #include "hopper.cuh"
-#include "mma_sync.cuh"
 #include "tensor_map.cuh"
 
 using namespace repro;
@@ -679,341 +682,541 @@ dq_out_kernel(const float* acc, __nv_bfloat16* dq, int S, int Hq,
   }
 }
 
-// ------------------------------------------------ mma.sync, d 256, (192, 128)
-// The widths whose dK and dV do not fit the warp-specialised kernel's
-// registers (RecurrentGemma's local attention at d 256, 16 q heads on one
-// kv head; MLA's (192, 128)): two kernels of mma.sync m16n8k16, forming p
-// twice, each with every mask (causal, window, FULL with Sq != Sk).
-//  * mma_dkdv_kernel: one CTA of 8 warps per (64-key tile, kv head,
-//    batch), K and V loaded once; it walks the G q heads and, for each,
-//    the 32-row q tiles of the key tile's band (Q and dO double-buffered by
-//    cp.async). Warp w owns keys 16 (w % 4) of the tile and half w / 4 of
-//    dK's and dV's columns (DK / 2 + DV / 2 f32 accumulators a thread:
-//    128 at d 256). Of the two products p needs, warps 0-3 form s^T = K
-//    Q^T and warps 4-7 dp^T = V dO^T, and each pair swaps them through
-//    shared memory; then both take p^T = exp2(s^T scale log2 e - lse2)
-//    and ds^T = p^T (dp^T - di) and add p^T dO and ds^T Q into their
-//    columns. dK / dV sum the G heads in the CTA, in a fixed order.
-//  * mma_dq_kernel: one CTA per (64-row q tile, q head, batch), Q and dO
-//    loaded once, the 32-key tiles of its band streamed; warps 0-3 form s,
-//    4-7 dp, swapped as above, each adds ds K into its half of dQ.
-// Rows are padded by 16 bytes in shared memory, so ldmatrix reads no bank
-// twice. Masks are applied on the tiles that cross an edge: keys past Sk
-// (K and V rows load as zeros), the diagonal, the window; rows past Sq carry
-// lse2 = +inf from stat_kernel, so their p is 0. Deterministic: no atomics.
-// Bound as the wgmma kernel's; this one issues s and dp twice (4 dk + 3
-// dv products a pair for 3 dk + 2 dv), and is not tuned.
-namespace mma {
-
-constexpr int WARPS = 8;                  // 4 row groups x 2 column halves
-constexpr int NT = WARPS * 32;
-constexpr int BT = 64;                    // keys (dkdv) / q rows (dq) a CTA
-constexpr int BS = 32;                    // q rows (dkdv) / keys (dq) a step
-
-struct Args {
-  int Sq, Sk, Hq, Hkv, causal, window;
-  float scale;
-};
+// ------------------------------------------------- d 256 and (192, 128)
+// The widths whose dK and dV do not fit bwd_kernel's registers (64 keys a
+// warpgroup holding every column: 256 f32 a thread at d 256):
+// RecurrentGemma's local attention at d 256 (16 q heads on one kv head)
+// and MLA's (192, 128). bwd_kernel's shape, with the head dimension split
+// across the two consumer warpgroups instead of the keys: one CTA per
+// (64-key tile, kv head, batch, head group). Per q tile (64 rows), each
+// warpgroup
+//   s^T = K Q^T, dp^T = V dO^T     wgmma m64n32: the 64 keys x its 32 q
+//                                  rows, over the whole width
+//   p^T, ds^T -> shared memory     bf16, a 64 x 64 tile each, keys as rows
+//   (named barrier: both halves stored)
+//   dV[:, half] += p^T dO[:, half]  A from shared memory (K-major), B the
+//   dK[:, half] += ds^T Q[:, half]  stage's dO / Q (MN-major), k = 64 q
+//   dQ[:, half] = ds K[:, half]     A the ds^T tile read MN-major, k = 64
+//                                   keys
+// so p is formed once (five products). A thread holds dK 64 + dV 64 + dQ
+// 64 f32 at d 256 (48 + 32 + 48 at (192, 128)), and s, dp 16 each outside
+// the dQ product. A half is one wgmma piece of d / 2 columns, or at 192
+// (no N 96) 64 columns from 128 wg and 32 from 64 + 32 wg: both
+// warpgroups issue the same sequence. Once both warpgroups' products of
+// the tile are done (a second named barrier), the stage's Q and dO are
+// read, and each warpgroup stages its dQ columns in f32 in that stage
+// (boxes of 32 columns, 128-byte swizzled; a stage holds max(Q + dO, dQ in
+// f32): 64 KB at d 256, 48 KB at (192, 128)); the writer adds them into
+// the (B, Hq, Sp, dk) workspace by TMA as bwd_kernel's does (a store for
+// the first key tile of a q tile, cp.reduce.async.bulk .add for the
+// others, the last key tile first, under the turn counters), then frees
+// the stage for the loader. Shared memory: K, V, p^T, ds^T and the ring
+// (2 stages at d 256, 215,112 bytes; 3 at (192, 128), 207,464). A group's
+// key tiles launch the first (the longest causal band) first where they
+// fit the card's SMs at once, else the last first, as bwd_kernel's.
+// The grid: where (key tiles, kv heads, batch) fill less than one wave of
+// the card's SMs (RecurrentGemma: 47 x 1 x 2 = 94 on 132), the G q heads
+// of a kv head are split over ``split`` CTAs (the divisor of G that packs
+// the most work into the fewest waves, wide_split); each writes its dK /
+// dV in f32 to a partial of the scratch, and wide_sum_kernel sums the
+// partials in split order and rounds once: no CTA waits on another for
+// them, so the split adds no ordering constraint. Otherwise dK and dV
+// (dK scaled) are staged in bf16 in the K and V tiles and stored by TMA.
+// Masks as in bwd_kernel, only on tiles that cross the diagonal, the
+// window's edge or Sk (keys past Sk are masked in every mode: under a
+// window without the causal mask, as under FULL, a zero key's p need not
+// be small).
+constexpr int PANEL = 64 * 128;          // 64 rows of 128 bytes
 
 template <int DK, int DV>
-struct Tile {
-  static constexpr int RK = DK + 8;       // padded rows, in elements
-  static constexpr int RV = DV + 8;
-  static constexpr int FIX = BT * (RK + RV) * 2;     // K, V or Q, dO
-  static constexpr int STAGE = BS * (RK + RV) * 2;   // a streamed step
-  static constexpr int XCH = WARPS * 16 * 32 * 4;    // the swapped products
-  static constexpr int SMEM = FIX + 2 * STAGE + XCH;
+struct Wide {
+  static constexpr int K_BYTES = BQ * DK * 2;        // the 64 keys' K
+  static constexpr int V_BYTES = BQ * DV * 2;
+  static constexpr int Q_BYTES = BQ * DK * 2;        // a q tile's Q
+  static constexpr int DO_BYTES = BQ * DV * 2;
+  static constexpr int DQ_BYTES = BQ * DK * 4;       // its dQ in f32
+  static constexpr int STAGE =
+      Q_BYTES + DO_BYTES > DQ_BYTES ? Q_BYTES + DO_BYTES : DQ_BYTES;
+  static constexpr int PS_BYTES = BQ * BQ * 2;       // p^T or ds^T
+  static constexpr int FIXED = 1024 + K_BYTES + V_BYTES + 2 * PS_BYTES;
+  // a stage with its lse2 and di, and its four mbarriers
+  static constexpr int PER_STAGE = STAGE + 2 * BQ * 4 + 4 * 8;
+  static constexpr int STAGES = FIXED + 8 + 3 * PER_STAGE <= SMEM_MAX ? 3 : 2;
+  static constexpr int SMEM = FIXED + 8 + STAGES * PER_STAGE;
   static_assert(SMEM <= SMEM_MAX, "shared memory");
 };
 
-using bf = __nv_bfloat16;
+struct WideArgs {
+  int Sq, Sk, Hkv, G, causal, window, split;
+  int heavy_first;     // launch a group's key tiles from the first
+  float scale;
+  const float* stat;   // (B, Hq, 2, Sp): lse * log2(e), then di
+  unsigned* turn;      // (B, Hq, Sp / 64): dQ contributions so far
+  float* part;         // split > 1: dK (split, B, Hkv, Skp, dk), then dV's
+};
 
-// rows [row0, row0 + n) of a (rows, width) bf16 matrix at src (row_stride
-// elements apart) into dst (RS apart) by cp.async, rows past limit as zeros
-template <int WIDTH, int RS>
-__device__ __forceinline__ void load_rows(bf* dst, const bf* src,
-                                          long long row_stride, int row0,
-                                          int n, int limit) {
-  constexpr int CPR = WIDTH / 8;          // 16-byte chunks a row
-  for (int i = threadIdx.x; i < n * CPR; i += NT) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const bool ok = row0 + r < limit;
-    cp_async16(dst + r * RS + c, src + (ok ? row0 + r : 0) * row_stride + c,
-               ok);
+// A warpgroup's half of a width D as wgmma pieces (see above)
+template <int D>
+struct Half {
+  static constexpr int N0 = D == 192 ? 64 : D / 2;
+  static constexpr int N1 = D == 192 ? 32 : 0;
+  float a[N0 / 2];
+  float b[N1 ? N1 / 2 : 1];
+  __device__ __forceinline__ static int c0(int wg) {
+    return D == 192 ? 128 * wg : D / 2 * wg;
+  }
+  __device__ __forceinline__ static int c1(int wg) { return 64 + 32 * wg; }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < N0 / 2; ++i) a[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < N1 / 2; ++i) b[i] = 0.f;
+  }
+  __device__ __forceinline__ void fence() {
+    fence_regs(a);
+    if constexpr (N1 > 0) fence_regs(b);
+  }
+  // f(piece, its first column) for each piece
+  template <typename F>
+  __device__ __forceinline__ void each(int wg, F&& f) {
+    f(a, c0(wg));
+    if constexpr (N1 > 0) f(b, c1(wg));
+  }
+};
+
+__device__ __forceinline__ void st_shared_v2(uint32_t addr, float x,
+                                             float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x),
+               "f"(y)
+               : "memory");
+}
+
+// the byte address of column c, row 0, in a tile of 128-byte swizzled
+// panels of 64 bf16 columns (64 rows each), before the swizzle
+__device__ __forceinline__ uint32_t col_at(uint32_t tile, int c) {
+  return tile + (c >> 6) * PANEL + (c & 63) * 2;
+}
+
+// acc (64 keys x 32 q) = A B^T over D: A the CTA's 64 keys (the K or V
+// tile at a_lo), B the warpgroup's 32 q rows of the stage's Q or dO (at
+// b_lo); both K-major in panels of 64 columns, PANEL bytes apart; k-step
+// kk 32 bytes into a panel row
+template <int D>
+__device__ __forceinline__ void issue_st(float (&acc)[16], uint32_t a_lo,
+                                         uint32_t b_lo) {
+  constexpr uint32_t HI = desc_hi(8 * 128, 128);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = ((kk / 4) * PANEL + (kk % 4) * 32) >> 4;
+    wgmma_ss<32>(acc, make_desc(a_lo + off, HI), make_desc(b_lo + off, HI),
+                 kk);
   }
 }
 
-// acc (16 x 32) = A (16 x KD at a, row-major, RA apart) B^T, B (32 x KD at
-// b, RB apart): the warp's tile of q k^T or do v^T
-template <int KD>
-__device__ __forceinline__ void prod_abt(float (&acc)[16], const bf* a,
-                                         int RA, const bf* b, int RB,
-                                         int lane) {
+template <int N, bool TA>
+__device__ __forceinline__ void mma_kn(float (&acc)[N / 2], uint64_t a,
+                                       uint64_t b, int scale_d) {
+  if constexpr (TA)
+    wgmma_ss_tt<N>(acc, a, b, scale_d);
+  else
+    wgmma_ss_tb<N>(acc, a, b, scale_d);
+}
+
+// acc (64 rows x the warpgroup's half of D) = A B, plus acc where acc_in:
+// k = 64 rows; A a 64 x 64 tile at a_lo, K-major (k-step 32 bytes on) or,
+// TA, MN-major (k-step 16 rows on); B the half's columns of a tile of
+// panels at ``tile``, MN-major (k-step 16 rows on, panels PANEL apart)
+template <int D, bool TA>
+__device__ __forceinline__ void issue_half(Half<D>& acc, uint32_t a_lo,
+                                           uint32_t tile, int wg,
+                                           int acc_in) {
+  using H = Half<D>;
+  constexpr uint32_t HI = desc_hi(8 * 128, 128);
+  const uint32_t b0 = desc_lo(col_at(tile, H::c0(wg)), PANEL);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  for (int kk = 0; kk < 4; ++kk)
+    mma_kn<H::N0, TA>(acc.a, make_desc(a_lo + (TA ? kk * 128 : kk * 2), HI),
+                      make_desc(b0 + kk * 128, HI), acc_in || kk);
+  if constexpr (H::N1 > 0) {
+    const uint32_t b1 = desc_lo(col_at(tile, H::c1(wg)), PANEL);
 #pragma unroll
-  for (int kk = 0; kk < KD / 16; ++kk) {
-    unsigned af[4];
-    ldsm_x4(af, a + (lane & 15) * RA + kk * 16 + (lane >> 4) * 8);
+    for (int kk = 0; kk < 4; ++kk)
+      mma_kn<H::N1, TA>(acc.b,
+                        make_desc(a_lo + (TA ? kk * 128 : kk * 2), HI),
+                        make_desc(b1 + kk * 128, HI), acc_in || kk);
+  }
+}
+
+// a piece (the warpgroup's 64 rows x 2 M columns from c0) times mul,
+// rounded to bf16, into a tile of 128-byte swizzled panels: 16-byte chunk
+// x of row r at chunk x ^ (r % 8)
+template <int M>
+__device__ __forceinline__ void put_bf16(uint32_t tile, int c0,
+                                         const float (&acc)[M], float mul,
+                                         int wrow, int tig) {
 #pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      unsigned bfr[4];
-      ldsm_x4(bfr, b + (np * 16 + (lane & 7) + (lane >> 4) * 8) * RB +
-                       kk * 16 + ((lane >> 3) & 1) * 8);
-      float(&c0)[4] = *reinterpret_cast<float(*)[4]>(acc + 8 * np);
-      float(&c1)[4] = *reinterpret_cast<float(*)[4]>(acc + 8 * np + 4);
-      mma_bf16(c0, af, bfr[0], bfr[1]);
-      mma_bf16(c1, af, bfr[2], bfr[3]);
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = wrow + 8 * hr;
+#pragma unroll
+    for (int j = 0; j < M / 4; ++j) {
+      const int c = c0 + 8 * j + 2 * tig;
+      st_shared_u32(
+          tile + (c >> 6) * PANEL + r * 128 +
+              ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2,
+          pack_bf16(acc[4 * j + 2 * hr] * mul, acc[4 * j + 2 * hr + 1] * mul));
     }
   }
 }
 
-// acc (16 x N) += A (16 x 32: two k-steps of fragments) B, B (32 x N at b,
-// row-major, RB apart) read transposed
-template <int N>
-__device__ __forceinline__ void prod_ab(float (&acc)[N / 2],
-                                        const unsigned (&a)[2][4],
-                                        const bf* b, int RB, int lane) {
+// a piece in f32 into boxes of 32 columns (PANEL bytes apart, 128-byte
+// rows, swizzled as above): the dQ workspace's TMA boxes
+template <int M>
+__device__ __forceinline__ void put_f32(uint32_t tile, int c0,
+                                        const float (&acc)[M], int wrow,
+                                        int tig) {
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = wrow + 8 * hr;
 #pragma unroll
-    for (int np = 0; np < N / 16; ++np) {
-      unsigned bfr[4];
-      ldsm_x4_trans(bfr, b + (kk * 16 + (lane & 15)) * RB + np * 16 +
-                             (lane >> 4) * 8);
-      float(&c0)[4] = *reinterpret_cast<float(*)[4]>(acc + 8 * np);
-      float(&c1)[4] = *reinterpret_cast<float(*)[4]>(acc + 8 * np + 4);
-      mma_bf16(c0, a[kk], bfr[0], bfr[1]);
-      mma_bf16(c1, a[kk], bfr[2], bfr[3]);
+    for (int j = 0; j < M / 4; ++j) {
+      const int c = c0 + 8 * j + 2 * tig;
+      st_shared_v2(tile + (c >> 5) * PANEL + r * 128 +
+                       ((((c & 31) >> 2) ^ (r & 7)) << 4) + (c & 3) * 4,
+                   acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
     }
-}
-
-// the warp's own product into its slot of the exchange, the partner's
-// (warp w ^ 4) out of it; s is the half-0 warp's, dp the half-1 warp's
-__device__ __forceinline__ void swap_products(float* x,
-                                              const float (&own)[16],
-                                              float (&s)[16], float (&dp)[16],
-                                              int warp, int lane) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) x[(warp * 16 + i) * 32 + lane] = own[i];
-  __syncthreads();
-  const int other = warp ^ 4;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const float o = x[(other * 16 + i) * 32 + lane];
-    s[i] = warp < 4 ? own[i] : o;
-    dp[i] = warp < 4 ? o : own[i];
   }
 }
 
-// the warp's 16 x N accumulator times mul, rounded to bf16, into rows
-// row0 + g (+ 8) below limit of a (rows, ...) matrix at dst, columns c0 on
-template <int N>
-__device__ __forceinline__ void store_rows_bf16(bf* dst, long long stride,
-                                                int row0, int limit, int c0,
-                                                const float (&acc)[N / 2],
-                                                float mul, int lane) {
-  const int g = lane >> 2, t = lane & 3;
+// a piece in f32 into rows of ld floats in global memory
+template <int M>
+__device__ __forceinline__ void put_global(float* rows, int ld, int c0,
+                                           const float (&acc)[M], int wrow,
+                                           int tig) {
 #pragma unroll
-  for (int j = 0; j < N / 8; ++j)
+  for (int hr = 0; hr < 2; ++hr) {
+    float* row = rows + (long long)(wrow + 8 * hr) * ld + c0 + 2 * tig;
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int r = row0 + g + 8 * hr;
-      if (r < limit)
-        *reinterpret_cast<unsigned*>(dst + r * stride + c0 + 8 * j + 2 * t) =
-            pack_bf16(acc[4 * j + 2 * hr] * mul, acc[4 * j + 2 * hr + 1] * mul);
-    }
+    for (int j = 0; j < M / 4; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j) =
+          make_float2(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
+  }
 }
 
 template <int DK, int DV>
-__global__ void __launch_bounds__(NT, 1)
-mma_dkdv_kernel(const bf* q, const bf* k, const bf* v, const bf* dout,
-                const float* stat, bf* dk, bf* dv, const Args p) {
-  using T = Tile<DK, DV>;
-  constexpr int RK = T::RK, RV = T::RV;
-  extern __shared__ __align__(16) unsigned char mma_smem[];
-  bf* k_s = reinterpret_cast<bf*>(mma_smem);
-  bf* v_s = k_s + BT * RK;
-  bf* q_r = v_s + BT * RV;                          // [2][BS][RK]
-  bf* do_r = q_r + 2 * BS * RK;                     // [2][BS][RV]
-  float* x_s = reinterpret_cast<float*>(do_r + 2 * BS * RV);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, half = warp >> 2;
-  const int hk = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BT;
-  const int G = p.Hq / p.Hkv, W = p.window, Sp = stat_len(p.Sq);
-  const int kw = k0 + 16 * (warp & 3);              // the warp's first key
-  const float sl2 = p.scale * LOG2E;
-  // the q rows that see a key of this tile, in BS-row tiles
+__global__ void __launch_bounds__(THREADS, 1)
+wide_kernel(const __grid_constant__ CUtensorMap tq,
+            const __grid_constant__ CUtensorMap tdo,
+            const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv,
+            const __grid_constant__ CUtensorMap tdk,
+            const __grid_constant__ CUtensorMap tdv,
+            const __grid_constant__ CUtensorMap tacc, const WideArgs p) {
+  using T = Wide<DK, DV>;
+  constexpr int ST = T::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t k_s = base, v_s = base + T::K_BYTES;
+  const uint32_t p_s = v_s + T::V_BYTES;                  // p^T
+  const uint32_t ds_s = p_s + T::PS_BYTES;                // ds^T
+  const uint32_t ring = ds_s + T::PS_BYTES;               // [ST]
+  const uint32_t st_r = ring + ST * T::STAGE;             // [ST][2][BQ]
+  const float* st_f =
+      reinterpret_cast<const float*>(smem_raw + (st_r - raw));
+  // mbarriers: K and V full; per stage Q full, dO full, empty (the writer
+  // has read the stage's dQ), dQ staged (the 8 consumer warps)
+  const uint32_t bars = st_r + ST * 2 * BQ * 4;
+  const uint32_t kv_full = bars;
+  auto q_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto do_full = [&](int s) { return bars + 8 * (1 + ST + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * ST + s); };
+  auto dq_full = [&](int s) { return bars + 8 * (1 + 3 * ST + s); };
+  auto stage = [](int n) { return n % ST; };
+  auto parity = [](int n) { return unsigned(n / ST) & 1; };
+
+  const int Sq = p.Sq, Sk = p.Sk, W = p.window, Sp = stat_len(Sq);
+  const int hk = blockIdx.y / p.split, b = blockIdx.z;
+  const int Hq = p.G * p.Hkv, Gs = p.G / p.split;
+  const int h0 = hk * p.G + (blockIdx.y % p.split) * Gs;  // first q head
+  // a (batch, kv head, head group)'s key tiles are launched together: the
+  // first (the longest band under causal) first where the group fits the
+  // card at once, else the last first (bwd_kernel's order), so that a CTA
+  // that waits for a turn only waits on CTAs that can run
+  const int n_kt = gridDim.x;
+  const int kt = p.heavy_first ? blockIdx.x : n_kt - 1 - blockIdx.x;
+  const int k0 = kt * BQ;
+  // the q rows that see a key of this tile, [q_lo, q_hi), in BQ-row tiles
+  // [t_lo, t_lo + n_t), for each of the CTA's Gs q heads
   const int q_lo = p.causal ? k0 : 0;
-  const int q_hi = W ? min(p.Sq, k0 + BT - 1 + W) : p.Sq;
-  const int t_lo = q_lo / BS, n_t = max((q_hi + BS - 1) / BS - t_lo, 0);
-  const int n_it = G * n_t;
-  const long long qs = (long long)p.Hq * DK, os = (long long)p.Hq * DV;
-  const long long ks = (long long)p.Hkv * DK, vs = (long long)p.Hkv * DV;
+  const int q_hi = W ? min(Sq, k0 + BQ - 1 + W) : Sq;
+  const int t_lo = q_lo / BQ, n_t = (q_hi + BQ - 1) / BQ - t_lo;
+  const int n_it = Gs * n_t;
 
-  load_rows<DK, RK>(k_s, k + ((long long)b * p.Sk * p.Hkv + hk) * DK, ks, k0,
-                    BT, p.Sk);
-  load_rows<DV, RV>(v_s, v + ((long long)b * p.Sk * p.Hkv + hk) * DV, vs, k0,
-                    BT, p.Sk);
-  auto load_step = [&](int n) {
-    const int h = hk * G + n / n_t, r0 = (t_lo + n % n_t) * BS, i = n & 1;
-    load_rows<DK, RK>(q_r + i * BS * RK,
-                      q + ((long long)b * p.Sq * p.Hq + h) * DK, qs, r0, BS,
-                      p.Sq);
-    load_rows<DV, RV>(do_r + i * BS * RV,
-                      dout + ((long long)b * p.Sq * p.Hq + h) * DV, os, r0,
-                      BS, p.Sq);
-  };
-  if (n_it > 0) load_step(0);
-  cp_async_commit();
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(q_full(s), 1);
+      mbar_init(do_full(s), 1);
+      mbar_init(empty(s), 1);
+      mbar_init(dq_full(s), CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  float dka[DK / 4], dva[DV / 4];                   // this half's columns
-#pragma unroll
-  for (int i = 0; i < DK / 4; ++i) dka[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < DV / 4; ++i) dva[i] = 0.f;
-
-  for (int n = 0; n < n_it; ++n) {
-    if (n + 1 < n_it) load_step(n + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int h = hk * G + n / n_t, r0 = (t_lo + n % n_t) * BS, i = n & 1;
-    const bf* qt = q_r + i * BS * RK;
-    const bf* dot = do_r + i * BS * RV;
-    float own[16], sc[16], dp[16];
-    if (half == 0)
-      prod_abt<DK>(own, k_s + (warp & 3) * 16 * RK, RK, qt, RK, lane);
-    else
-      prod_abt<DV>(own, v_s + (warp & 3) * 16 * RV, RV, dot, RV, lane);
-    swap_products(x_s, own, sc, dp, warp, lane);
-    // element (key kw + g + 8 (e / 2), q row r0 + 8 j + 2 t + e % 2)
-    const bool edge = (p.causal && kw + 15 > r0) ||
-                      (W && r0 + BS - 1 - kw >= W) || kw + 15 >= p.Sk;
-    const float* st = stat + ((long long)b * p.Hq + h) * 2 * Sp + r0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 l = *reinterpret_cast<const float2*>(st + 8 * j + 2 * t);
-      const float2 d =
-          *reinterpret_cast<const float2*>(st + Sp + 8 * j + 2 * t);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float s = sc[4 * j + e];
-        if (edge) {
-          const int c = kw + g + 8 * (e >> 1), r = r0 + 8 * j + 2 * t + (e & 1);
-          if (c >= p.Sk || (p.causal && c > r) || (W && r - c >= W))
-            s = -INFINITY;
+  if (threadIdx.x >= CONSUMER_WARPS * 32) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMER_WARPS * 32) {
+      // ----------------------------------------------------- loads
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tdo);
+      tma_prefetch_map(&tk);
+      tma_prefetch_map(&tv);
+      mbar_expect_tx(kv_full, T::K_BYTES + T::V_BYTES);
+      for (int c = 0; c < DK / 64; ++c)
+        tma_load_4d(k_s + c * PANEL, &tk, kv_full, c * 64, hk, k0, b);
+      for (int c = 0; c < DV / 64; ++c)
+        tma_load_4d(v_s + c * PANEL, &tv, kv_full, c * 64, hk, k0, b);
+      for (int n = 0; n < n_it; ++n) {
+        const int s = stage(n), h = h0 + n / n_t;
+        const int r0 = (t_lo + n % n_t) * BQ;
+        const float* st_g = p.stat + ((size_t)b * Hq + h) * 2 * Sp + r0;
+        const uint32_t qt = ring + s * T::STAGE;
+        mbar_wait(empty(s), parity(n) ^ 1);
+        mbar_expect_tx(q_full(s), T::Q_BYTES + BQ * 4);
+        for (int c = 0; c < DK / 64; ++c)
+          tma_load_4d(qt + c * PANEL, &tq, q_full(s), c * 64, h, r0, b);
+        bulk_load(st_r + s * 2 * BQ * 4, st_g, BQ * 4, q_full(s));
+        mbar_expect_tx(do_full(s), T::DO_BYTES + BQ * 4);
+        for (int c = 0; c < DV / 64; ++c)
+          tma_load_4d(qt + T::Q_BYTES + c * PANEL, &tdo, do_full(s), c * 64,
+                      h, r0, b);
+        bulk_load(st_r + (s * 2 + 1) * BQ * 4, st_g + Sp, BQ * 4,
+                  do_full(s));
+      }
+    } else if (threadIdx.x == CONSUMER_WARPS * 32 + 32) {
+      // ----------------------------------------------------- dQ writer
+      // As bwd_kernel's, from the ring stage the tile was loaded into; the
+      // stage goes back to the loader once read. Under causal the key
+      // tiles of q tile t are t down to the first that sees it.
+      tma_prefetch_map(&tacc);
+      for (int n = 0; n < n_it; ++n) {
+        const int s = stage(n), h = h0 + n / n_t, t = t_lo + n % n_t;
+        const unsigned rank = (p.causal ? t : n_kt - 1) - kt;
+        unsigned* flag = p.turn + ((size_t)b * Hq + h) * (Sp / BQ) + t;
+        mbar_wait(dq_full(s), parity(n));
+        while (ld_acquire(flag) != rank) {
         }
-        const float pe = ex2(fmaf(s, sl2, (e & 1) ? -l.y : -l.x));
-        sc[4 * j + e] = pe;
-        dp[4 * j + e] = pe * (dp[4 * j + e] - ((e & 1) ? d.y : d.x));
+        fence_async_global();
+        for (int f = 0; f < DK / 32; ++f) {
+          const uint32_t box = ring + s * T::STAGE + f * PANEL;
+          if (rank == 0)
+            tma_store_4d(&tacc, box, f * 32, BQ * t, h, b);
+          else
+            tma_reduce_add_4d(&tacc, box, f * 32, BQ * t, h, b);
+        }
+        tma_store_commit();
+        tma_store_wait();                  // the stage is read
+        mbar_arrive(empty(s));
+        tma_store_wait_all();              // the sums are written
+        fence_async_global();
+        __threadfence();
+        atomicAdd(flag, 1u);
       }
     }
-    unsigned pa[2][4], da[2][4];
-    pack_a<32>(pa, sc);
-    pack_a<32>(da, dp);
-    prod_ab<DV / 2>(dva, pa, dot + half * (DV / 2), RV, lane);
-    prod_ab<DK / 2>(dka, da, qt + half * (DK / 2), RK, lane);
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  const long long base = (long long)b * p.Sk * p.Hkv + hk;
-  store_rows_bf16<DK / 2>(dk + base * DK, ks, kw, p.Sk, half * (DK / 2), dka,
-                          p.scale, lane);
-  store_rows_bf16<DV / 2>(dv + base * DV, vs, kw, p.Sk, half * (DV / 2), dva,
-                          1.f, lane);
-}
+  } else {
+    // ------------------------------------------------------- consumers
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int wg = warp >> 2, g = lane >> 2, tig = lane & 3;
+    const int wrow = (warp & 3) * 16 + g;        // row g of the warp's 16
+    const int key[2] = {k0 + wrow, k0 + wrow + 8};
+    const float sl2 = p.scale * LOG2E;
+    const uint32_t k_lo = desc_lo(k_s, 16), v_lo = desc_lo(v_s, 16);
 
-template <int DK, int DV>
-__global__ void __launch_bounds__(NT, 1)
-mma_dq_kernel(const bf* q, const bf* k, const bf* v, const bf* dout,
-              const float* stat, bf* dq, const Args p) {
-  using T = Tile<DK, DV>;
-  constexpr int RK = T::RK, RV = T::RV;
-  extern __shared__ __align__(16) unsigned char mma_smem[];
-  bf* q_s = reinterpret_cast<bf*>(mma_smem);
-  bf* do_s = q_s + BT * RK;
-  bf* k_r = do_s + BT * RV;                         // [2][BS][RK]
-  bf* v_r = k_r + 2 * BS * RK;                      // [2][BS][RV]
-  float* x_s = reinterpret_cast<float*>(v_r + 2 * BS * RV);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, half = warp >> 2;
-  const int h = blockIdx.y, b = blockIdx.z, r0 = blockIdx.x * BT;
-  const int hk = h / (p.Hq / p.Hkv), W = p.window, Sp = stat_len(p.Sq);
-  const int rw = r0 + 16 * (warp & 3);              // the warp's first row
-  const float sl2 = p.scale * LOG2E;
-  // the keys any row of this tile sees, in BS-key tiles
-  const int k_lo = W ? max(r0 - W + 1, 0) : 0;
-  const int k_hi = p.causal ? min(r0 + BT, p.Sk) : p.Sk;
-  const int t_lo = k_lo / BS, n_it = max((k_hi + BS - 1) / BS - t_lo, 0);
-  const long long qs = (long long)p.Hq * DK, os = (long long)p.Hq * DV;
-  const long long ks = (long long)p.Hkv * DK, vs = (long long)p.Hkv * DV;
-
-  load_rows<DK, RK>(q_s, q + ((long long)b * p.Sq * p.Hq + h) * DK, qs, r0,
-                    BT, p.Sq);
-  load_rows<DV, RV>(do_s, dout + ((long long)b * p.Sq * p.Hq + h) * DV, os,
-                    r0, BT, p.Sq);
-  auto load_step = [&](int n) {
-    const int c0 = (t_lo + n) * BS, i = n & 1;
-    load_rows<DK, RK>(k_r + i * BS * RK,
-                      k + ((long long)b * p.Sk * p.Hkv + hk) * DK, ks, c0,
-                      BS, p.Sk);
-    load_rows<DV, RV>(v_r + i * BS * RV,
-                      v + ((long long)b * p.Sk * p.Hkv + hk) * DV, vs, c0,
-                      BS, p.Sk);
-  };
-  if (n_it > 0) load_step(0);
-  cp_async_commit();
-  // lse2 and di of the thread's rows rw + g and rw + g + 8
-  const float* st = stat + ((long long)b * p.Hq + h) * 2 * Sp;
-  const float l2[2] = {st[rw + g], st[rw + g + 8]};
-  const float di[2] = {st[Sp + rw + g], st[Sp + rw + g + 8]};
-
-  float dqa[DK / 4];                                // this half's columns
+    Half<DK> dk;
+    Half<DV> dv;
+    dk.zero();
+    dv.zero();
+    mbar_wait(kv_full, 0);
+    for (int n = 0; n < n_it; ++n) {
+      const int s = stage(n);
+      const uint32_t qt = ring + s * T::STAGE, dot = qt + T::Q_BYTES;
+      // s^T then p^T; dp^T then ds^T: the 64 keys x this warpgroup's 32 q
+      // rows. Fresh each tile, as is dQ: nothing of the last tile's stays
+      // live across this one's products.
+      float sc[16], dp[16];
+      Half<DK> dq;
+      mbar_wait(q_full(s), parity(n));
+      wgmma_fence();
+      issue_st<DK>(sc, opaque(k_lo), desc_lo(qt + wg * 32 * 128, 16));
+      wgmma_commit();
+      mbar_wait(do_full(s), parity(n));
+      wgmma_fence();
+      issue_st<DV>(dp, opaque(v_lo), desc_lo(dot + wg * 32 * 128, 16));
+      wgmma_commit();
+      wgmma_wait<1>();                     // s^T; p^T under dp^T
+      fence_regs(sc);
+      // element (key key[e / 2], q row qc + 8 j + 2 tig + e % 2); masked
+      // only on tiles that cross the diagonal, the window's edge or Sk
+      // (rows past Sq carry lse2 = +inf, so their p is 0)
+      const int qc = (t_lo + n % n_t) * BQ + 32 * wg;
+      if (k0 + BQ - 1 >= Sk || (p.causal && k0 + BQ - 1 > qc) ||
+          (W && qc + 31 - k0 >= W)) {
 #pragma unroll
-  for (int i = 0; i < DK / 4; ++i) dqa[i] = 0.f;
-
-  for (int n = 0; n < n_it; ++n) {
-    if (n + 1 < n_it) load_step(n + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int c0 = (t_lo + n) * BS, i = n & 1;
-    const bf* kt = k_r + i * BS * RK;
-    float own[16], sc[16], dp[16];
-    if (half == 0)
-      prod_abt<DK>(own, q_s + (warp & 3) * 16 * RK, RK, kt, RK, lane);
-    else
-      prod_abt<DV>(own, do_s + (warp & 3) * 16 * RV, RV,
-                   v_r + i * BS * RV, RV, lane);
-    swap_products(x_s, own, sc, dp, warp, lane);
-    // element (q row rw + g + 8 (e / 2), key c0 + 8 j + 2 t + e % 2)
-    const bool edge = (p.causal && c0 + BS - 1 > rw) ||
-                      (W && rw + 15 - c0 >= W) || c0 + BS > p.Sk;
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float s = sc[4 * j + e];
-        if (edge) {
-          const int r = rw + g + 8 * (e >> 1), c = c0 + 8 * j + 2 * t + (e & 1);
-          if (c >= p.Sk || (p.causal && c > r) || (W && r - c >= W))
-            s = -INFINITY;
-        }
-        const float pe = ex2(fmaf(s, sl2, -l2[e >> 1]));
-        dp[4 * j + e] = pe * (dp[4 * j + e] - di[e >> 1]);
+          for (int e = 0; e < 4; ++e) {
+            const int r = qc + 8 * j + 2 * tig + (e & 1), c = key[e >> 1];
+            if (c >= Sk || (p.causal && c > r) || (W && r - c >= W))
+              sc[4 * j + e] = -INFINITY;
+          }
       }
-    unsigned da[2][4];
-    pack_a<32>(da, dp);
-    prod_ab<DK / 2>(dqa, da, kt + half * (DK / 2), RK, lane);
-    __syncthreads();
+      const float* stv = st_f + s * 2 * BQ + 32 * wg;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 l =
+            *reinterpret_cast<const float2*>(stv + 8 * j + 2 * tig);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], sl2, (e & 1) ? -l.y : -l.x));
+      }
+      put_bf16(p_s, 32 * wg, sc, 1.f, wrow, tig);
+      wgmma_wait<0>();                     // dp^T
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 d =
+            *reinterpret_cast<const float2*>(stv + BQ + 8 * j + 2 * tig);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] =
+              sc[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d.y : d.x));
+      }
+      put_bf16(ds_s, 32 * wg, dp, 1.f, wrow, tig);
+      fence_async_shared();
+      named_sync(3, 256);                  // both halves of p^T, ds^T
+      dk.fence();
+      dv.fence();
+      wgmma_fence();
+      issue_half<DV, false>(dv, desc_lo(p_s, 16), dot, wg, 1);
+      issue_half<DK, false>(dk, desc_lo(ds_s, 16), qt, wg, 1);
+      issue_half<DK, true>(dq, desc_lo(ds_s, PANEL), k_s, wg, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      dk.fence();
+      dv.fence();
+      dq.fence();
+      // both warpgroups' products are done: the stage's Q and dO, p^T and
+      // ds^T are read; dQ in f32 into the stage for the writer
+      named_sync(4, 256);
+      dq.each(wg, [&](auto& piece, int c0) {
+        put_f32(qt, c0, piece, wrow, tig);
+      });
+      fence_async_shared();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(dq_full(s));
+    }
+
+    if (p.split == 1) {
+      // dK scaled and dV, rounded to bf16, each warpgroup its columns, in
+      // the K and V tiles (read for the last time before the last tile's
+      // second barrier), stored by TMA, which drops keys past Sk
+      dk.each(wg, [&](auto& piece, int c0) {
+        put_bf16(k_s, c0, piece, p.scale, wrow, tig);
+      });
+      dv.each(wg, [&](auto& piece, int c0) {
+        put_bf16(v_s, c0, piece, 1.f, wrow, tig);
+      });
+      fence_async_shared();
+      named_sync(5, 256);
+      if (threadIdx.x == 0) {
+        for (int c = 0; c < DK / 64; ++c)
+          tma_store_4d(&tdk, k_s + c * PANEL, c * 64, hk, k0, b);
+        for (int c = 0; c < DV / 64; ++c)
+          tma_store_4d(&tdv, v_s + c * PANEL, c * 64, hk, k0, b);
+        tma_store_commit();
+        tma_store_wait();
+      }
+    } else {
+      // the head group's dK and dV in f32, rows k0.. of its partials
+      const size_t at =
+          ((size_t)(blockIdx.y % p.split) * gridDim.z + b) * p.Hkv + hk;
+      const size_t skp = (size_t)n_kt * BQ;
+      float* pk = p.part + (at * skp + k0) * DK;
+      float* pv = p.part + (size_t)p.split * gridDim.z * p.Hkv * skp * DK +
+                  (at * skp + k0) * DV;
+      dk.each(wg, [&](auto& piece, int c0) {
+        put_global(pk, DK, c0, piece, wrow, tig);
+      });
+      dv.each(wg, [&](auto& piece, int c0) {
+        put_global(pv, DV, c0, piece, wrow, tig);
+      });
+    }
   }
-  cp_async_wait<0>();
-  store_rows_bf16<DK / 2>(dq + ((long long)b * p.Sq * p.Hq + h) * DK, qs, rw,
-                          p.Sq, half * (DK / 2), dqa, p.scale, lane);
 }
 
-}  // namespace mma
+// dq[b, s, h] = scale * acc[b, h, s] rounded to bf16 at d 256 / 192: one
+// warp a row, two columns a lane a step
+template <int D>
+__global__ void __launch_bounds__(256)
+wide_dq_kernel(const float* acc, __nv_bfloat16* dq, int S, int Hq,
+               float scale, long long rows) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int h = (int)(row % Hq);
+  const long long bs = row / Hq;                    // row = (b * S + s) Hq + h
+  const int s = (int)(bs % S);
+  const long long b = bs / S;
+  const float* src = acc + ((b * Hq + h) * stat_len(S) + s) * D;
+  __nv_bfloat16* out = dq + row * D;
+#pragma unroll
+  for (int c = 2 * lane; c < D; c += 64) {
+    const float2 v = *reinterpret_cast<const float2*>(src + c);
+    *reinterpret_cast<unsigned*>(out + c) =
+        pack_bf16(v.x * scale, v.y * scale);
+  }
+}
+
+// out[c] = mul * sum_j src[j * stride + c] over the split's partials, in
+// order j = 0, 1, ...; rounded to bf16
+template <int D>
+__device__ __forceinline__ void sum_row(const float* src, long long stride,
+                                        int split, float mul,
+                                        __nv_bfloat16* out, int lane) {
+#pragma unroll
+  for (int c = 2 * lane; c < D; c += 64) {
+    float x = 0.f, y = 0.f;
+    for (int j = 0; j < split; ++j) {
+      const float2 v = *reinterpret_cast<const float2*>(src + j * stride + c);
+      x += v.x;
+      y += v.y;
+    }
+    *reinterpret_cast<unsigned*>(out + c) = pack_bf16(x * mul, y * mul);
+  }
+}
+
+// dk = scale * the sum of the head groups' dK partials, dv the sum of
+// theirs, bf16: one warp a (batch, key, kv head) row
+template <int DK, int DV>
+__global__ void __launch_bounds__(256)
+wide_sum_kernel(const float* part, __nv_bfloat16* dk, __nv_bfloat16* dv,
+                int B, int Sk, int Hkv, int split, float scale) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= (long long)B * Sk * Hkv) return;
+  const int hk = (int)(row % Hkv);
+  const long long bs = row / Hkv;                 // row = (b * Sk + key) Hkv + hk
+  const int key = (int)(bs % Sk);
+  const long long b = bs / Sk;
+  const long long skp = (Sk + BQ - 1) / BQ * BQ;
+  const long long per = B * Hkv * skp;            // rows of one partial
+  const long long at = (b * Hkv + hk) * skp + key;
+  sum_row<DK>(part + at * DK, per * DK, split, scale, dk + row * DK, lane);
+  sum_row<DV>(part + split * per * DK + at * DV, per * DV, split, 1.f,
+              dv + row * DV, lane);
+}
 
 // setmaxnreg.inc waits for the registers the producer warpgroup gives
 // back: refuse a build whose entry count would leave the consumers waiting
@@ -1025,16 +1228,45 @@ bool regs_cover(K kernel) {
          (CONSUMER_REGS - fa.numRegs) * 32 * CONSUMER_WARPS;
 }
 
-// the f32 scratch a call takes, in floats: stat (B, Hq, 2, Sp), the dQ
-// workspace (B, Hq, Sp, d) of the warp-specialised kernel, the turn
-// counters (B, Hq, Sp / 64); Sp from the query length
-bool wgmma_widths(int dk, int dv) {
-  return dk == dv && (dk == 32 || dk == 64 || dk == 128);
+// (dk, dv) that wide_kernel takes (bwd_kernel takes d 32 / 64 / 128)
+bool wide_widths(int dk, int dv) {
+  return (dk == 256 && dv == 256) || (dk == 192 && dv == 128);
 }
 
-long long scratch_floats(int B, int Sq, int Hq, int dk, int dv) {
+// The head groups wide_kernel splits a kv head's G q heads into: 1 where
+// the (key tile, kv head, batch) CTAs fill a wave of the card's ``sms``
+// SMs, else the divisor of G whose CTAs leave the fewest waves a head, the
+// smallest of equals (RecurrentGemma's 94 CTAs: 4, 376 CTAs in 3 waves).
+int wide_split(int B, int Sk, int Hq, int Hkv, int dk, int dv, int sms) {
+  if (!wide_widths(dk, dv) || sms < 1 || Hkv < 1 || Hq % Hkv) return 1;
+  const long long ctas = (long long)((Sk + BQ - 1) / BQ) * Hkv * B;
+  if (ctas >= sms) return 1;
+  const int G = Hq / Hkv;
+  int best = 1;
+  long long best_waves = 1;                 // waves a head group, x best
+  for (int s = 2; s <= G; ++s) {
+    if (G % s) continue;
+    const long long waves = (ctas * s + sms - 1) / sms;
+    if (waves * best < best_waves * s) {
+      best = s;
+      best_waves = waves;
+    }
+  }
+  return best;
+}
+
+// the f32 scratch a call takes, in floats: stat (B, Hq, 2, Sp), the dQ
+// workspace (B, Hq, Sp, dk) of the warp-specialised kernels, the turn
+// counters (B, Hq, Sp / 64); Sp from the query length; then, where
+// wide_kernel splits the heads (split > 1), its dK and dV partials
+// (split, B, Hkv, Skp, dk + dv), Skp = Sk rounded up to 64
+long long scratch_floats(int B, int Sq, int Sk, int Hq, int Hkv, int dk,
+                         int dv, int split) {
   const long long rows = (long long)B * Hq * stat_len(Sq);
-  return rows * (2 + (wgmma_widths(dk, dv) ? dk : 0)) + rows / BQ;
+  const long long n = rows * (2 + dk) + rows / BQ;
+  if (split <= 1) return n;
+  const long long skp = (long long)(Sk + BQ - 1) / BQ * BQ;
+  return (n + 3) / 4 * 4 + (long long)split * B * Hkv * skp * (dk + dv);
 }
 
 template <int D, bool FULL>
@@ -1108,104 +1340,144 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
                                Sq, Sk, Hq, Hkv, causal, window, scale, st);
 }
 
-// the mma.sync kernels (d 256, (192, 128)): the row statistics, dK / dV,
-// dQ
+// wide_kernel (d 256, (192, 128)): the row statistics, dK / dV / dQ with
+// the q heads in ``split`` groups, dq's rounding, and the groups' dK / dV
+// summed where split > 1
 template <int DK, int DV>
-int launch_mma(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const float* lse, float* scratch, void* dq,
-               void* dk, void* dv, int B, int Sq, int Sk, int Hq, int Hkv,
-               int causal, int window, float scale, cudaStream_t st) {
+int launch_wide(const void* q, const void* k, const void* v, const void* o,
+                const void* dout, const float* lse, float* scratch, void* dq,
+                void* dk, void* dv, int B, int Sq, int Sk, int Hq, int Hkv,
+                int causal, int window, int split, float scale,
+                cudaStream_t st) {
   using bf = __nv_bfloat16;
-  using T = mma::Tile<DK, DV>;
-  const int Sp = stat_len(Sq);
+  using T = Wide<DK, DV>;
+  const int G = Hq / Hkv;
+  if (split < 1 || G % split) return static_cast<int>(cudaErrorInvalidValue);
+  const int Sp = stat_len(Sq), n_kt = (Sk + BQ - 1) / BQ;
   float* stat = scratch;
-  unsigned* turn = reinterpret_cast<unsigned*>(stat + 2LL * B * Hq * Sp);
+  float* acc = stat + 2LL * B * Hq * Sp;
+  unsigned* turn =
+      reinterpret_cast<unsigned*>(acc + (long long)B * Hq * Sp * DK);
+  const long long n = scratch_floats(B, Sq, Sk, Hq, Hkv, DK, DV, 1);
+  float* part = scratch + (n + 3) / 4 * 4;
   stat_kernel<DV><<<dim3(Sp / BQ, Hq, B), 256, 0, st>>>(
       static_cast<const bf*>(o), static_cast<const bf*>(dout), lse, stat,
       turn, Sq, Hq);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(mma::mma_dkdv_kernel<DK, DV>,
+
+  // (B, S, H, d) contiguous: strides (head, position, batch) in elements
+  const long long qs = (long long)Hq * DK, os = (long long)Hq * DV;
+  const long long ks = (long long)Hkv * DK, vs = (long long)Hkv * DV;
+  CUtensorMap mq, mdo, mk, mv, mdk, mdv, macc;
+  if (!map_bshd_bf16(&mq, q, DK, Hq, Sq, B, DK, qs, qs * Sq, 64, BQ) ||
+      !map_bshd_bf16(&mdo, dout, DV, Hq, Sq, B, DV, os, os * Sq, 64, BQ) ||
+      !map_bshd_bf16(&mk, k, DK, Hkv, Sk, B, DK, ks, ks * Sk, 64, BQ) ||
+      !map_bshd_bf16(&mv, v, DV, Hkv, Sk, B, DV, vs, vs * Sk, 64, BQ) ||
+      !map_bshd_bf16(&mdk, dk, DK, Hkv, Sk, B, DK, ks, ks * Sk, 64, BQ) ||
+      !map_bshd_bf16(&mdv, dv, DV, Hkv, Sk, B, DV, vs, vs * Sk, 64, BQ) ||
+      // the dQ workspace (B, Hq, Sp, DK) f32 as (DK, Sp, Hq, B)
+      !map_4d(&macc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, acc,
+              {(cuuint64_t)DK, (cuuint64_t)Sp, (cuuint64_t)Hq, (cuuint64_t)B},
+              {DK, (long long)Sp * DK, (long long)Hq * Sp * DK},
+              {32, (cuuint32_t)BQ, 1, 1}, 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const bool ok = regs_cover(wide_kernel<DK, DV>);
+  if (!ok) return static_cast<int>(cudaErrorInvalidConfiguration);
+  e = cudaFuncSetAttribute(wide_kernel<DK, DV>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            T::SMEM);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(mma::mma_dq_kernel<DK, DV>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             T::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const mma::Args a{Sq, Sk, Hq, Hkv, causal, window, scale};
-  mma::mma_dkdv_kernel<DK, DV>
-      <<<dim3((Sk + mma::BT - 1) / mma::BT, Hkv, B), mma::NT, T::SMEM, st>>>(
-          static_cast<const bf*>(q), static_cast<const bf*>(k),
-          static_cast<const bf*>(v), static_cast<const bf*>(dout), stat,
-          static_cast<bf*>(dk), static_cast<bf*>(dv), a);
+  // heaviest first where a group's key tiles can all be resident (one CTA
+  // an SM): the turns of a q tile then run down from a CTA launched after
+  // the one that waits, but every one of them gets an SM
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const WideArgs a{Sq,    Sk,    Hkv,  G,    causal, window, split,
+                   n_kt <= sms,  scale, stat, turn,   part};
+  wide_kernel<DK, DV><<<dim3(n_kt, Hkv * split, B), THREADS, T::SMEM, st>>>(
+      mq, mdo, mk, mv, mdk, mdv, macc, a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  mma::mma_dq_kernel<DK, DV>
-      <<<dim3((Sq + mma::BT - 1) / mma::BT, Hq, B), mma::NT, T::SMEM, st>>>(
-          static_cast<const bf*>(q), static_cast<const bf*>(k),
-          static_cast<const bf*>(v), static_cast<const bf*>(dout), stat,
-          static_cast<bf*>(dq), a);
+  const long long qrows = (long long)B * Sq * Hq;
+  wide_dq_kernel<DK><<<(unsigned)((qrows + 7) / 8), 256, 0, st>>>(
+      acc, static_cast<bf*>(dq), Sq, Hq, scale, qrows);
+  if (split > 1) {
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const long long krows = (long long)B * Sk * Hkv;
+    wide_sum_kernel<DK, DV><<<(unsigned)((krows + 7) / 8), 256, 0, st>>>(
+        part, static_cast<bf*>(dk), static_cast<bf*>(dv), B, Sk, Hkv, split,
+        scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // scratch is the caller's f32 scratch of flash_prefill_bwd_scratch_floats
-// values; every other pointer is a contiguous tensor as described above.
-// Square calls (causal or windowed, Sq = Sk) or FULL (neither, any Sq, Sk);
-// (dk, dv) = (d, d) for d 32/64/128 (the warp-specialised kernel) or 256,
-// or (192, 128) (the mma.sync kernels).
+// values at the same split; every other pointer is a contiguous tensor as
+// described above. Square calls (causal or windowed, Sq = Sk) or FULL
+// (neither, any Sq, Sk); (dk, dv) = (d, d) for d 32/64/128 (bwd_kernel,
+// split 1) or 256, or (192, 128) (wide_kernel, split from
+// flash_prefill_bwd_split).
 extern "C" int flash_prefill_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* scratch, void* dq, void* dk,
     void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int dk_, int dv_,
-    int causal, int window, float scale, void* stream) {
+    int causal, int window, int split, float scale, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || Hq % Hkv || window < 0 ||
-      (Sq != Sk && (causal || window)))
+      (Sq != Sk && (causal || window)) ||
+      (split != 1 && !wide_widths(dk_, dv_)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_BWD_ARGS                                                     \
   q, k, v, o, dout, lse, scratch, dq, dk, dv, B, Sq, Sk, Hq, Hkv, causal, \
-      window, scale, s
+      window
   if (dk_ == dv_) {
     switch (dk_) {
-      case 32: return dispatch<32>(REPRO_BWD_ARGS);
-      case 64: return dispatch<64>(REPRO_BWD_ARGS);
-      case 128: return dispatch<128>(REPRO_BWD_ARGS);
-      case 256: return launch_mma<256, 256>(REPRO_BWD_ARGS);
+      case 32: return dispatch<32>(REPRO_BWD_ARGS, scale, s);
+      case 64: return dispatch<64>(REPRO_BWD_ARGS, scale, s);
+      case 128: return dispatch<128>(REPRO_BWD_ARGS, scale, s);
+      case 256:
+        return launch_wide<256, 256>(REPRO_BWD_ARGS, split, scale, s);
     }
   } else if (dk_ == 192 && dv_ == 128) {
-    return launch_mma<192, 128>(REPRO_BWD_ARGS);
+    return launch_wide<192, 128>(REPRO_BWD_ARGS, split, scale, s);
   }
 #undef REPRO_BWD_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// the f32 values of the scratch a call at (B, Sq, Hq, dk, dv) takes
-extern "C" long long flash_prefill_bwd_scratch_floats(int B, int Sq, int Hq,
-                                                      int dk, int dv) {
-  return scratch_floats(B, Sq, Hq, dk, dv);
+// the head groups a call at these shapes splits each kv head's q heads
+// into on a card of ``sms`` SMs (1 but at d 256 / (192, 128))
+extern "C" int flash_prefill_bwd_split(int B, int Sk, int Hq, int Hkv, int dk,
+                                       int dv, int sms) {
+  return wide_split(B, Sk, Hq, Hkv, dk, dv, sms);
 }
 
-// 1 where (dk, dv) runs the warp-specialised kernel (wgmma, p formed
-// once), 0 where it runs the mma.sync kernels
-extern "C" int flash_prefill_bwd_wgmma(int dk, int dv) {
-  return wgmma_widths(dk, dv) ? 1 : 0;
+// the f32 values of the scratch a call at these shapes and split takes
+extern "C" long long flash_prefill_bwd_scratch_floats(int B, int Sq, int Sk,
+                                                      int Hq, int Hkv, int dk,
+                                                      int dv, int split) {
+  return scratch_floats(B, Sq, Sk, Hq, Hkv, dk, dv, split);
 }
 
-// the dynamic shared memory one CTA of the dK / dV kernel takes at (dk, dv)
-// (bwd_kernel; mma_dkdv_kernel and mma_dq_kernel at d 256 and (192, 128))
+// the dynamic shared memory one CTA of the dK / dV / dQ kernel takes at
+// (dk, dv) (bwd_kernel; wide_kernel at d 256 and (192, 128))
 extern "C" int flash_prefill_bwd_smem_bytes(int dk, int dv) {
   if (dk == dv) {
     switch (dk) {
       case 32: return Tile<32>::SMEM;
       case 64: return Tile<64>::SMEM;
       case 128: return Tile<128>::SMEM;
-      case 256: return mma::Tile<256, 256>::SMEM;
+      case 256: return Wide<256, 256>::SMEM;
     }
   } else if (dk == 192 && dv == 128) {
-    return mma::Tile<192, 128>::SMEM;
+    return Wide<192, 128>::SMEM;
   }
   return 0;
 }

@@ -22,7 +22,7 @@ _ARGS = [rt.P] * 8 + [rt.I] * 6 + [rt.F, rt.P]
 _DENSE_ARGS = [rt.P] * 4 + [rt.I] * 6 + [rt.F, rt.P]
 _PREFILL_ARGS = [rt.P] * 4 + [rt.I] * 21 + [rt.F, rt.P]
 _LSE_ARGS = [rt.P] * 5 + [rt.I] * 21 + [rt.F, rt.P]
-_BWD_ARGS = [rt.P] * 10 + [rt.I] * 9 + [rt.F, rt.P]
+_BWD_ARGS = [rt.P] * 10 + [rt.I] * 10 + [rt.F, rt.P]
 # the (dk, dv) head widths flash_prefill is instantiated for, its LSE form
 # and its backward too
 PREFILL_WIDTHS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
@@ -275,9 +275,11 @@ def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     plain version (``attention_bwd_ref``, f32, cast); CUDA tensors launch
     the ``flash_prefill_bwd`` kernels, which take contiguous bf16 within
     ``_grad_contract`` (one launch count): the row statistics, then dK /
-    dV / dQ by the warp-specialised kernel and dq's rounding at d 32 / 64
-    / 128, or the mma.sync dK / dV and dQ kernels at d 256 and (192,
-    128)."""
+    dV / dQ by a warp-specialised wgmma kernel that forms p once
+    (``bwd_kernel`` at d 32 / 64 / 128; ``wide_kernel`` at d 256 and
+    (192, 128), the q heads of a kv head split over CTAs where the grid
+    would not fill the card: ``flash_prefill_bwd_split``), dq's rounding
+    and, where the heads were split, the sum of their dK / dV."""
     B, Sq, Sk, Hq, Hkv, dk, dv = _lse_shapes("attention_bwd", q, k, v)
     if o.shape != (B, Sq, Hq, dv) or do.shape != o.shape \
             or lse.shape != (B, Hq, Sq):
@@ -296,18 +298,22 @@ def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
                         "do and f32 lse")
     rt.check_contiguous("attention_bwd", q=q, k=k, v=v, o=o, lse=lse, do=do)
     fn = rt.bind("flash_prefill_bwd", "flash_prefill_bwd_bf16", _BWD_ARGS)
+    split = rt.bind("flash_prefill_bwd", "flash_prefill_bwd_split",
+                    [rt.I] * 7)(B, Sk, Hq, Hkv, dk, dv,
+                                rt.device_sms(q.device.index))
     scratch_floats = rt.bind("flash_prefill_bwd",
-                             "flash_prefill_bwd_scratch_floats", [rt.I] * 5)
+                             "flash_prefill_bwd_scratch_floats", [rt.I] * 8)
     scratch_floats.restype = ctypes.c_longlong
     dq, dk_, dv_ = (torch.empty_like(t) for t in (q, k, v))
-    # each row's lse * log2(e) and di, the turn counters and (the
-    # warp-specialised kernel's) dq's f32 sums, padded per (batch, head)
-    scratch = torch.empty(scratch_floats(B, Sq, Hq, dk, dv),
+    # each row's lse * log2(e) and di, dq's f32 sums and the turn counters,
+    # padded per (batch, head); the head groups' f32 dK / dV where split
+    scratch = torch.empty(scratch_floats(B, Sq, Sk, Hq, Hkv, dk, dv, split),
                           dtype=torch.float32, device=q.device)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
             dk_.data_ptr(), dv_.data_ptr(), B, Sq, Sk, Hq, Hkv, dk, dv,
-            int(causal), int(window), 1.0 / math.sqrt(dk), rt.stream_ptr(q))
+            int(causal), int(window), split, 1.0 / math.sqrt(dk),
+            rt.stream_ptr(q))
     rt.check_launch("flash_prefill_bwd", rc)
     rt.count_launch("flash_prefill_bwd")
     return dq, dk_, dv_

@@ -1,9 +1,11 @@
-"""``flash_prefill_bwd`` at the edges of its tiles on the card: the dK/dV
-kernel's 128-key tiles (64 keys a warpgroup, 64-row q tiles) and the dQ
-kernel's 128-row q tiles (64-key tiles). Lengths S 1, 63, 65, 127, 129,
-257 and 513; windows of 17, 64 and 128, with and without the causal mask
-(a band narrower than a tile, one that is neither causal nor fills a
-tile, and S below a tile); G 1, 2, 4, 8; every width d 32 / 64 / 128.
+"""``flash_prefill_bwd`` at the edges of its tiles on the card:
+``bwd_kernel``'s 128-key tiles (64 keys a warpgroup, 64-row q tiles) at d
+32 / 64 / 128 and ``wide_kernel``'s 64-key tiles (each warpgroup half of
+the 64-row q tile's columns) at d 256 and (192, 128). Lengths S 1, 63,
+64, 65, 127, 129, 257 and 513; windows of 17, 64 and 128, with and
+without the causal mask (a band narrower than a tile, one that is neither
+causal nor fills a tile, and S below a tile); G 1, 2, 4, 8, 16, with
+``wide_kernel``'s q heads split over CTAs and not; every width.
 Every test carries the ``gpu`` marker and skips, from inside a fixture,
 where no card is present. Run them on an H100 with
 
@@ -108,36 +110,75 @@ def test_backward_at_tile_edges(dev, d, G, S, causal, window):
         assert torch.equal(t.grad, g), name
 
 
+# run in a child process under a timeout: an ordering deadlock there is
+# killed with it and fails the test instead of hanging the card
+_MORE_TILES = """
+import sys
+import numpy as np
+import torch
+from repro_torch.kernels import runtime as rt
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+dk, dv, causal, window = (int(a) for a in sys.argv[1:])
+dev = torch.device("cuda")
+torch.backends.cuda.matmul.allow_tf32 = False
+tile = 128 if dk <= 128 else 64
+S = rt.device_sms(0) * tile + 300
+rs = np.random.RandomState(S)
+t = lambda shape: torch.as_tensor(rs.standard_normal(shape),
+                                  dtype=torch.float32,
+                                  device=dev).to(torch.bfloat16)
+q, do = t((1, S, 2, dk)), t((1, S, 2, dv))
+k, v = t((1, S, 1, dk)), t((1, S, 1, dv))
+o, lse = ops.attention_lse(q, k, v, causal=bool(causal), window=window)
+got = ops.attention_bwd(q, k, v, o, lse, do, causal=bool(causal),
+                        window=window)
+again = ops.attention_bwd(q, k, v, o, lse, do, causal=bool(causal),
+                          window=window)
+torch.cuda.synchronize()
+want = attention_bwd_ref(q, k, v, do, causal=bool(causal), window=window)
+for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+    assert torch.equal(g, a), f"{name}: two calls differ"
+    g, w = g.float(), w.float()
+    assert torch.isfinite(g).all(), name
+    err = float((g - w).norm() / w.norm().clamp_min(1e-30))
+    assert err < 2.0 ** -6, f"{name}: rel L2 {err}"
+print("ok", S)
+"""
+
+
+@pytest.mark.parametrize("dk,dv", [(64, 64), (256, 256), (192, 128)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 1000)])
-def test_backward_with_more_key_tiles_than_sms(dev, causal, window):
-    """One (batch, kv head) with more 128-key tiles than the card has SMs:
-    its CTAs cannot all be resident at once, and each q tile's dQ is summed
-    in their launch order, so a CTA may only wait on one launched before
-    it. G 2, d 64; against the plain version as above."""
-    from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
-    S = rt.device_sms(dev.index or 0) * 128 + 300
-    rs = np.random.RandomState(S)
-    q, do = (_t(rs, (1, S, 2, 64), dev) for _ in range(2))
-    k, v = (_t(rs, (1, S, 1, 64), dev) for _ in range(2))
-    o, lse = ops.attention_lse(q, k, v, causal=causal, window=window)
-    got = ops.attention_bwd(q, k, v, o, lse, do, causal=causal,
-                            window=window)
-    again = ops.attention_bwd(q, k, v, o, lse, do, causal=causal,
-                              window=window)
-    torch.cuda.synchronize()
-    want = attention_bwd_ref(q, k, v, do, causal=causal, window=window)
-    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
-        assert torch.equal(g, a), f"{name}: two calls differ"
-        err = _rel_l2(g, w)
-        assert err < BWD_REL_L2, f"{name}: rel L2 {err}"
+def test_backward_with_more_key_tiles_than_sms(dev, dk, dv, causal, window):
+    """One (batch, kv head) with more key tiles than the card has SMs
+    (128-key tiles at d 64, 64-key tiles at d 256 and (192, 128), where
+    the heads are not split): its CTAs cannot all be resident at once, and
+    each q tile's dQ is summed in their launch order, so a CTA may only
+    wait on one launched before it. G 2; against the plain version as
+    above, in a child process killed after 300 s."""
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ)
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    try:
+        r = subprocess.run(
+            [sys.executable, "-c", _MORE_TILES, str(dk), str(dv),
+             str(int(causal)), str(window)], env=env, capture_output=True,
+            text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        pytest.fail("the backward did not finish in 300 s: a CTA waits on "
+                    "one that cannot run")
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
 
 
 # (dk, dv, G, Sq, Sk, causal, window) past the square d 32 / 64 / 128 cases:
 # d 256 (RecurrentGemma's 16 q heads on one kv head, windowed) and MLA's
-# (192, 128) causal on the mma.sync kernels' 64-key / 32-row tiles and
-# 64-row / 32-key tiles; FULL (neither mask) with Sq != Sk at every width,
-# Sk off the 128-key tiles (keys past Sk masked)
+# (192, 128) causal on wide_kernel's 64-key tiles and 64-row q tiles (32
+# rows a warpgroup); FULL (neither mask) with Sq != Sk at every width, Sk
+# off the 128- and 64-key tiles (keys past Sk masked)
 NEW_CASES = [
     (256, 256, 16, 100, 100, True, 64), (256, 256, 16, 300, 300, True, 128),
     (256, 256, 1, 65, 65, True, 0), (256, 256, 2, 129, 129, False, 17),
@@ -148,6 +189,21 @@ NEW_CASES = [
     (64, 64, 1, 300, 65, False, 0), (32, 32, 4, 77, 200, False, 0),
     (128, 128, 1, 130, 257, False, 0), (64, 64, 1, 257, 257, False, 0),
 ]
+
+# and at wide_kernel's 64-key and 64-row tile edges, both widths: S 63 / 64
+# / 65 / 127 / 129 causal, windowed (with and without the causal mask) and
+# FULL with Sq != Sk either way (the two already above left out)
+NEW_CASES += [case for case in [
+    (dk, dv, G, Sq, Sk, causal, window)
+    for dk, dv in ((256, 256), (192, 128))
+    for G, Sq, Sk, causal, window in (
+        (1, 63, 63, True, 0), (2, 64, 64, True, 0), (1, 65, 65, True, 0),
+        (4, 127, 127, True, 0), (1, 129, 129, True, 0),
+        (2, 127, 127, True, 64), (1, 129, 129, True, 63),
+        (2, 65, 65, False, 64), (1, 129, 129, False, 17),
+        (2, 63, 129, False, 0), (1, 129, 64, False, 0),
+        (1, 65, 127, False, 0))]
+    if case not in NEW_CASES]
 
 
 @pytest.mark.parametrize("dk,dv,G,Sq,Sk,causal,window", NEW_CASES)
@@ -192,6 +248,43 @@ def test_backward_at_the_new_contracts(dev, dk, dv, G, Sq, Sk, causal,
     for name, t, g in zip(("dq", "dk", "dv"), (qg, kg, vg), got):
         assert torch.equal(t.grad, g), name
     assert torch.equal(out, o)
+
+
+# (dk, dv, B, S, window): G 16 on one kv head, with (key tiles x batch)
+# below a wave of the card's SMs, so the heads are split (S 300, 2000 at B
+# 2: 5 and 32 key tiles), and at or above it (66 x 2 key tiles of S 128),
+# where they are not
+SPLIT_CASES = [(256, 256, 2, 300, 2048), (256, 256, 2, 2000, 1024),
+               (256, 256, 66, 128, 0), (192, 128, 2, 300, 0),
+               (192, 128, 66, 128, 100)]
+
+
+@pytest.mark.parametrize("dk,dv,B,S,window", SPLIT_CASES)
+def test_wide_backward_head_split(dev, dk, dv, B, S, window):
+    """G 16 q heads on one kv head, causal: ``flash_prefill_bwd_split``
+    splits them over CTAs where the grid leaves the card's SMs idle (each
+    head group's dK / dV summed in group order) and keeps them together
+    where it fills a wave; gradients as above either way, two calls equal
+    bit for bit."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    split = rt.bind("flash_prefill_bwd", "flash_prefill_bwd_split",
+                    [rt.I] * 7)(B, S, 16, 1, dk, dv,
+                                rt.device_sms(dev.index or 0))
+    assert (split > 1) == (B * -(-S // 64) < rt.device_sms(dev.index or 0))
+    rs = np.random.RandomState(dk + B + S + window)
+    q, do = _t(rs, (B, S, 16, dk), dev), _t(rs, (B, S, 16, dv), dev)
+    k, v = _t(rs, (B, S, 1, dk), dev), _t(rs, (B, S, 1, dv), dev)
+    o, lse = ops.attention_lse(q, k, v, causal=True, window=window)
+    got = ops.attention_bwd(q, k, v, o, lse, do, causal=True, window=window)
+    again = ops.attention_bwd(q, k, v, o, lse, do, causal=True,
+                              window=window)
+    torch.cuda.synchronize()
+    want = attention_bwd_ref(q, k, v, do, causal=True, window=window)
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(g, a), f"{name}: two calls differ"
+        err = _rel_l2(g, w)
+        assert err < BWD_REL_L2, f"{name}: rel L2 {err} (split {split})"
 
 
 @pytest.mark.parametrize("dk,dv", [(64, 64), (256, 256), (192, 128)])

@@ -10,7 +10,9 @@ skipped), built by ``nvcc`` with the runtime's flags into
 ``build/bwd_variants/<name>/``; its ``-Xptxas -v`` report is printed
 (registers, spills, any serialised-wgmma warning). Then, at the training
 phase's shape and at Mixtral's (``chip_smoke.TRAIN_BWD_ROW``,
-``TRAIN_BWD_GQA_ROW``), every build is held to ``attention_bwd_ref``
+``TRAIN_BWD_GQA_ROW``), or at the rows ``--rows`` names (any of those
+and ``chip_smoke.FAMILY_BWD_ROWS``: ``wide_kernel``'s probes at
+RecurrentGemma's and DeepSeek's), every build is held to ``attention_bwd_ref``
 (relative L2 within ``chip_smoke.TRAIN_BWD_REL_L2``) and timed as
 ``chip_smoke.time_ms`` times a row, in the order tree, v1, ..., vn, vn,
 ..., v1, tree; one JSON line a (build, shape, turn), with each CUDA
@@ -63,6 +65,158 @@ PATCHES = {
     "probe_heavy_first": [(
         "const int n_kt = gridDim.x, kt = n_kt - 1 - blockIdx.x;",
         "const int n_kt = gridDim.x, kt = blockIdx.x;")],
+    # wide_kernel (d 256, (192, 128); time them with --rows at the family
+    # rows): its writer writes nothing
+    "probe_wide_no_writes": [(
+        "          if (rank == 0)\n"
+        "            tma_store_4d(&tacc, box, f * 32, BQ * t, h, b);\n"
+        "          else\n"
+        "            tma_reduce_add_4d(&tacc, box, f * 32, BQ * t, h, b);\n",
+        "          (void)box;\n")],
+    # no dQ product
+    "probe_wide_no_dq_mma": [(
+        "      issue_half<DK, true>(dq, desc_lo(ds_s, PANEL), k_s, wg, 0);\n",
+        "")],
+    # no dV or dK product
+    "probe_wide_no_dkdv_mma": [(
+        "      issue_half<DV, false>(dv, desc_lo(p_s, 16), dot, wg, 1);\n"
+        "      issue_half<DK, false>(dk, desc_lo(ds_s, 16), qt, wg, 1);\n",
+        "")],
+    # no dp^T product (ds from whatever dp holds)
+    "probe_wide_no_dp_mma": [(
+        "      issue_st<DV>(dp, opaque(v_lo), desc_lo(dot + wg * 32 * 128, 16));\n",
+        "")],
+    # dQ not staged in the ring stage
+    "probe_wide_no_dq_stage": [(
+        "        put_f32(qt, c0, piece, wrow, tig);\n", "")],
+    # the warpgroups do not wait for each other before staging dQ
+    "probe_wide_no_sync": [("      named_sync(4, 256);\n", "")],
+    # wide_kernel's writer waits for its turn before the tile's dQ is staged
+    # (the flag's round trip under the consumers' products)
+    "wide_turn_first": [(
+        "        mbar_wait(dq_full(s), parity(n));\n"
+        "        while (ld_acquire(flag) != rank) {\n"
+        "        }\n"
+        "        fence_async_global();\n"
+        "        for (int f = 0; f < DK / 32; ++f) {\n",
+        "        while (ld_acquire(flag) != rank) {\n"
+        "        }\n"
+        "        mbar_wait(dq_full(s), parity(n));\n"
+        "        fence_async_global();\n"
+        "        for (int f = 0; f < DK / 32; ++f) {\n")],
+    # wide_kernel launches every group's key tiles the last first, as
+    # bwd_kernel does (the tree: the first first where a group fits the card)
+    "wide_last_first": [(
+        "                   n_kt <= sms,  scale, stat, turn,   part};\n",
+        "                   0,            scale, stat, turn,   part};\n")],
+    # wide_kernel's turns count 32-column boxes: a contributor adds box f
+    # once the previous one's box f is in, and counts its own boxes once
+    # that one has counted all of its
+    "wide_box_turns": [
+        ("constexpr int PANEL = 64 * 128;          // 64 rows of 128 bytes\n",
+         "constexpr int PANEL = 64 * 128;          // 64 rows of 128 bytes\n"
+         "\n"
+         "template <int N>\n"
+         "__device__ __forceinline__ void bulk_wait_n() {\n"
+         "  asm volatile(\"cp.async.bulk.wait_group %0;\\n\" ::\"n\"(N) : \"memory\");\n"
+         "}\n"
+         "\n"
+         "template <int NB, int F = 0>\n"
+         "__device__ __forceinline__ void count_boxes(unsigned* flag) {\n"
+         "  if constexpr (F < NB) {\n"
+         "    bulk_wait_n<NB - 1 - F>();\n"
+         "    fence_async_global();\n"
+         "    __threadfence();\n"
+         "    atomicAdd(flag, 1u);\n"
+         "    count_boxes<NB, F + 1>(flag);\n"
+         "  }\n"
+         "}\n"),
+        ("        mbar_wait(dq_full(s), parity(n));\n"
+         "        while (ld_acquire(flag) != rank) {\n"
+         "        }\n"
+         "        fence_async_global();\n"
+         "        for (int f = 0; f < DK / 32; ++f) {\n"
+         "          const uint32_t box = ring + s * T::STAGE + f * PANEL;\n"
+         "          if (rank == 0)\n"
+         "            tma_store_4d(&tacc, box, f * 32, BQ * t, h, b);\n"
+         "          else\n"
+         "            tma_reduce_add_4d(&tacc, box, f * 32, BQ * t, h, b);\n"
+         "        }\n"
+         "        tma_store_commit();\n"
+         "        tma_store_wait();                  // the stage is read\n"
+         "        mbar_arrive(empty(s));\n"
+         "        tma_store_wait_all();              // the sums are written\n"
+         "        fence_async_global();\n"
+         "        __threadfence();\n"
+         "        atomicAdd(flag, 1u);\n",
+         "        constexpr unsigned NB = DK / 32;\n"
+         "        mbar_wait(dq_full(s), parity(n));\n"
+         "        for (int f = 0; f < (int)NB; ++f) {\n"
+         "          const uint32_t box = ring + s * T::STAGE + f * PANEL;\n"
+         "          if (rank == 0) {\n"
+         "            tma_store_4d(&tacc, box, f * 32, BQ * t, h, b);\n"
+         "          } else {\n"
+         "            while (ld_acquire(flag) < (rank - 1) * NB + f + 1) {\n"
+         "            }\n"
+         "            fence_async_global();\n"
+         "            tma_reduce_add_4d(&tacc, box, f * 32, BQ * t, h, b);\n"
+         "          }\n"
+         "          tma_store_commit();\n"
+         "        }\n"
+         "        tma_store_wait();                  // the stage is read\n"
+         "        mbar_arrive(empty(s));\n"
+         "        while (ld_acquire(flag) != rank * NB) {\n"
+         "        }\n"
+         "        count_boxes<NB>(flag);\n")],
+    # wide_kernel's writer passes a q tile's turn on once it has issued the
+    # next tile's sums (bulk wait_group 1), not before it takes that tile
+    "wide_writer_lag": [(
+        "      tma_prefetch_map(&tacc);\n"
+        "      for (int n = 0; n < n_it; ++n) {\n"
+        "        const int s = stage(n), h = h0 + n / n_t, t = t_lo + n % n_t;\n",
+        "      tma_prefetch_map(&tacc);\n"
+        "      unsigned* held = nullptr;\n"
+        "      for (int n = 0; n < n_it; ++n) {\n"
+        "        const int s = stage(n), h = h0 + n / n_t, t = t_lo + n % n_t;\n"),
+        ("        tma_store_commit();\n"
+         "        tma_store_wait();                  // the stage is read\n"
+         "        mbar_arrive(empty(s));\n"
+         "        tma_store_wait_all();              // the sums are written\n"
+         "        fence_async_global();\n"
+         "        __threadfence();\n"
+         "        atomicAdd(flag, 1u);\n"
+         "      }\n"
+         "    }\n"
+         "  } else {\n"
+         "    // ------------------------------------------------------- consumers\n"
+         "    setmaxnreg_inc<CONSUMER_REGS>();\n"
+         "    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n"
+         "    const int wg = warp >> 2, g = lane >> 2, tig = lane & 3;\n"
+         "    const int wrow = (warp & 3) * 16 + g;        // row g of the warp's 16\n"
+         "    const int key[2] = {k0 + wrow, k0 + wrow + 8};\n",
+         "        tma_store_commit();\n"
+         "        tma_store_wait();                  // the stage is read\n"
+         "        mbar_arrive(empty(s));\n"
+         "        if (held != nullptr) {\n"
+         "          asm volatile(\"cp.async.bulk.wait_group 1;\\n\" ::: \"memory\");\n"
+         "          fence_async_global();\n"
+         "          __threadfence();\n"
+         "          atomicAdd(held, 1u);\n"
+         "        }\n"
+         "        held = flag;\n"
+         "      }\n"
+         "      tma_store_wait_all();\n"
+         "      fence_async_global();\n"
+         "      __threadfence();\n"
+         "      if (held != nullptr) atomicAdd(held, 1u);\n"
+         "    }\n"
+         "  } else {\n"
+         "    // ------------------------------------------------------- consumers\n"
+         "    setmaxnreg_inc<CONSUMER_REGS>();\n"
+         "    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n"
+         "    const int wg = warp >> 2, g = lane >> 2, tig = lane & 3;\n"
+         "    const int wrow = (warp & 3) * 16 + g;        // row g of the warp's 16\n"
+         "    const int key[2] = {k0 + wrow, k0 + wrow + 8};\n")],
 }
 
 _SRC = "flash_attention/csrc/prefill_bwd.cu"
@@ -124,6 +278,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", nargs="*", default=list(PATCHES))
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--rows", nargs="*", default=None,
+                    help="rows (by prefix) to time: the training phase's "
+                         "and Mixtral's by default; chip_smoke."
+                         "FAMILY_BWD_ROWS's too")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -154,20 +312,25 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
     c, m = get_config(cs.TRAIN["arch"]), get_config("mixtral-8x7b")
+    # (row, B, Sq, Sk, Hq, Hkv, dk, dv, causal, window)
     shapes = [(cs.TRAIN_BWD_ROW, cs.TRAIN["batch"], cs.TRAIN["seq"],
-               c.n_heads, c.n_kv_heads, c.head_dim, 0),
+               cs.TRAIN["seq"], c.n_heads, c.n_kv_heads, c.head_dim,
+               c.head_dim, True, 0),
               (cs.TRAIN_BWD_GQA_ROW, cs.MIXTRAL["prompts"],
-               cs.MIXTRAL["prompt_len"], m.n_heads, m.n_kv_heads, m.head_dim,
+               cs.MIXTRAL["prompt_len"], cs.MIXTRAL["prompt_len"],
+               m.n_heads, m.n_kv_heads, m.head_dim, m.head_dim, True,
                m.sliding_window)]
-    for row, B, S, Hq, Hkv, d, window in shapes:
-        q, do = (torch.randn((B, S, Hq, d), generator=gen, device=dev)
-                 .to(torch.bfloat16) for _ in range(2))
-        k, v = (torch.randn((B, S, Hkv, d), generator=gen, device=dev)
-                .to(torch.bfloat16) for _ in range(2))
+    family = cs.family_bwd_shapes()
+    shapes += [(row, *family[key][1:])
+               for key, row in cs.FAMILY_BWD_ROWS.items()]
+    rows = args.rows or [cs.TRAIN_BWD_ROW, cs.TRAIN_BWD_GQA_ROW]
+    shapes = [sh for sh in shapes if any(sh[0].startswith(r) for r in rows)]
+    for row, B, Sq, Sk, Hq, Hkv, dk, dv, causal, window in shapes:
+        q, k, v, do = cs.bwd_inputs(B, Sq, Sk, Hq, Hkv, dk, dv, gen, dev)
         use(rt, libs["tree"])
-        o, lse = attention_lse(q, k, v, causal=True, window=window)
-        want = attention_bwd_ref(q, k, v, do, causal=True, window=window)
-        kern = lambda: attention_bwd(q, k, v, o, lse, do, causal=True,
+        o, lse = attention_lse(q, k, v, causal=causal, window=window)
+        want = attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+        kern = lambda: attention_bwd(q, k, v, o, lse, do, causal=causal,
                                      window=window)
         first = {}
         for turn, name in enumerate(order):

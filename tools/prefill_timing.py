@@ -21,14 +21,17 @@ addresses and encodings left out), so two trees' builds of an unchanged
 instantiation can be seen to be the same code.
 
 Then the LSE form at the training phase's shape (``chip_smoke.
-TRAIN_LSE_ROW``) and the backward, ``flash_prefill_bwd``, at that shape
-and at Mixtral's (``chip_smoke.TRAIN_BWD_ROW``, ``TRAIN_BWD_GQA_ROW``):
-a JSON line of its kernels' reports, SASS digests and counts of tensor-core
-instructions (``HMMA``: ``mma.sync``; ``HGMMA``: ``wgmma``), then one a
-shape: dq / dk / dv against ``attention_bwd_ref`` (relative L2 within
-``chip_smoke.TRAIN_BWD_REL_L2``), the kernel's time and, in the same
-process, the autograd backward of SDPA on the same inputs (the yardstick
-``chip_smoke.bwd_row`` times)."""
+TRAIN_LSE_ROW``) and the backward, ``flash_prefill_bwd``, at that shape,
+at Mixtral's (``chip_smoke.TRAIN_BWD_ROW``, ``TRAIN_BWD_GQA_ROW``) and at
+the families' training shapes (``chip_smoke.FAMILY_BWD_ROWS``:
+RecurrentGemma's d 256, DeepSeek's (192, 128), Whisper's FULL encoder
+and cross-attention at d 64): a JSON line of
+its kernels' reports, SASS digests and counts of tensor-core instructions
+(``HMMA``: ``mma.sync``; ``HGMMA``: ``wgmma``), then one a shape: dq / dk
+/ dv against ``attention_bwd_ref`` (relative L2 within ``chip_smoke.
+TRAIN_BWD_REL_L2``), the kernel's time and, in the same process, the
+autograd backward of SDPA on the same inputs (``chip_smoke.sdpa_grad``,
+the yardstick ``chip_smoke.bwd_row`` times)."""
 from __future__ import annotations
 
 import argparse
@@ -43,10 +46,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # prefill_kernel<DK>, <DK, DV>, <DK, DV, FULL> or <DK, DV, FULL, LSE> in a
 # mangled name
 _ENTRY = r"prefill_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?(?:Lb([01])E)?"
-# the backward's kernels: <D>, the warp-specialised <D, FULL>, the
-# mma.sync <DK, DV>
-_BWD_ENTRY = (r"((?:mma_)?(?:di|stat|dkdv|dq|bwd|dq_out)_kernel)ILi(\d+)E"
-              r"(?:Lb([01])E)?(?:Li(\d+)E)?")
+# the backward's kernels: <D>, the warp-specialised <D, FULL> and <DK,
+# DV> (wide_kernel and its sum; a tree before it: the mma.sync <DK, DV>)
+_BWD_ENTRY = (r"((?:mma_)?(?:di|stat|dkdv|dq|bwd|dq_out|wide|wide_dq|"
+              r"wide_sum)_kernel)ILi(\d+)E(?:Lb([01])E)?(?:Li(\d+)E)?")
 
 
 def _key(m):
@@ -125,7 +128,6 @@ def backward_rows(args, card, flush):
     """The backward's kernels' reports, then one JSON line a shape: the
     kernel's time and SDPA's backward's on the same inputs."""
     import torch
-    import torch.nn.functional as Fn
 
     import chip_smoke as cs
     from repro_torch.configs import get_config
@@ -141,47 +143,46 @@ def backward_rows(args, card, flush):
     dev = flush.device
     gen = torch.Generator(device=dev).manual_seed(1)
     c, m = get_config(cs.TRAIN["arch"]), get_config("mixtral-8x7b")
+    # (row, B, Sq, Sk, Hq, Hkv, dk, dv, causal, window)
     shapes = [(cs.TRAIN_BWD_ROW, cs.TRAIN["batch"], cs.TRAIN["seq"],
-               c.n_heads, c.n_kv_heads, c.head_dim, 0),
+               cs.TRAIN["seq"], c.n_heads, c.n_kv_heads, c.head_dim,
+               c.head_dim, True, 0),
               (cs.TRAIN_BWD_GQA_ROW, cs.MIXTRAL["prompts"],
-               cs.MIXTRAL["prompt_len"], m.n_heads, m.n_kv_heads, m.head_dim,
+               cs.MIXTRAL["prompt_len"], cs.MIXTRAL["prompt_len"],
+               m.n_heads, m.n_kv_heads, m.head_dim, m.head_dim, True,
                m.sliding_window)]
-    for row, B, S, Hq, Hkv, d, window in shapes:
+    family = cs.family_bwd_shapes()
+    shapes += [(cs.FAMILY_BWD_ROWS[key], *family[key][1:])
+               for key in ("rg", "mla", "enc", "cross")]
+    for row, B, Sq, Sk, Hq, Hkv, dk, dv, causal, window in shapes:
         if args.only and not any(row.startswith(o) for o in args.only):
             continue
-        q, do = (torch.randn((B, S, Hq, d), generator=gen, device=dev)
-                 .to(torch.bfloat16) for _ in range(2))
-        k, v = (torch.randn((B, S, Hkv, d), generator=gen, device=dev)
-                .to(torch.bfloat16) for _ in range(2))
-        o, lse = attention_lse(q, k, v, causal=True, window=window)
-        kern = lambda: attention_bwd(q, k, v, o, lse, do, causal=True,
+        q, k, v, do = cs.bwd_inputs(B, Sq, Sk, Hq, Hkv, dk, dv, gen, dev)
+        o, lse = attention_lse(q, k, v, causal=causal, window=window)
+        kern = lambda: attention_bwd(q, k, v, o, lse, do, causal=causal,
                                      window=window)
+        got, again = kern(), kern()
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"{row}: two calls differ")
         errs = [cs.rel_l2(g, w) for g, w in zip(
-            kern(), attention_bwd_ref(q, k, v, do, causal=True,
-                                      window=window))]
+            got, attention_bwd_ref(q, k, v, do, causal=causal,
+                                   window=window))]
+        del got, again
         if not max(errs) <= cs.TRAIN_BWD_REL_L2:
             raise AssertionError(f"{row}: relative L2 {errs}")
         ms = cs.time_ms(kern, flush, args.reps)
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
-                      for t in (q, k, v))
-        mask = None
-        if window:
-            i = torch.arange(S, device=dev)
-            mask = (i[None, :] <= i[:, None]) & \
-                (i[:, None] - i[None, :] < window)
-        out = Fn.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-            enable_gqa=Hq != Hkv)
-        dot = do.transpose(1, 2)
-        sdpa_ms = cs.time_ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True), flush, args.reps)
-        nbytes, flops = cs.bwd_cost(B, S, Hq, Hkv, d, window)
+        lib = cs.sdpa_grad(q, k, v, do, causal, window)
+        sdpa_ms = cs.time_ms(lib, flush, args.reps)
+        nbytes, flops = cs.bwd_cost(B, Sq, Hq, Hkv, dk, window, Sk=Sk, dv=dv,
+                                    causal=causal)
         print(json.dumps({"label": args.label, "row": row, "ms": ms,
                           "sdpa_bwd_ms": sdpa_ms, "rel_l2": errs,
                           "tflops": flops / ms / 1e9,
+                          "bound_ms": max(nbytes / cs.HBM_BYTES_PER_S,
+                                          flops / cs.BF16_FLOPS_PER_S) * 1e3,
                           "kernels_ms": kernel_split(kern), "card": card}),
               flush=True)
-        del q, k, v, o, lse, do, qt, kt, vt, out, dot, mask
+        del q, k, v, o, lse, do, lib
         torch.cuda.empty_cache()
 
 
