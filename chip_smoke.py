@@ -258,7 +258,22 @@
    against the 1 x 1 step), the state saved whole and restored onto a (2,
    1) DP mesh bit for bit, one DP step; each rank's ``flash_prefill[lse]``
    and ``flash_prefill_bwd`` launches above zero; the collectives each
-   rank issued, by name.
+   rank issued, by name. (a′) recurrentgemma-9b (one (rec, rec, attn)
+   group), xlstm-1.3b (one group of 8 blocks) and whisper-small (2
+   encoder and 2 decoder layers) at full width on the (1, 1) NCCL mesh:
+   two train steps, a prefill and 4 greedy decode steps each, bit-equal to
+   the single-device steps, ``lru_scan`` / ``lru_scan_bwd`` and the
+   attention kernels run through ``local_map`` with their launch counts
+   printed.
+6k. Dry-run phase (``launch.dryrun``, fake tensors on a fake group): the
+   CLI on mixtral-8x7b x decode_32k, single pod, ``--correct``, its status
+   and terms printed; then the training phase's own step (the 7B cut to 8
+   layers, B 4 x 2048, remat) traced on a fake (1, 1) group: its flops,
+   bytes and terms (the H100's data-sheet constants, modelled, not
+   measured) beside the step time the training phase measured, and its
+   kernel calls equal to the 5ᴸ / 5ᴮ rows' launches a step (a gate). The
+   serve phase prints ``core.fusion``'s predicted kernels for one decode
+   step beside the launches it counted (a line, not a gate).
 7. RecurrentGemma phase, after the experts' store is released:
    recurrentgemma-9b at full width and depth (38 layers, 10.4 G parameters,
    bf16) as the one expert of a ``CompositionOfExperts(HashRouter(1))`` on
@@ -733,6 +748,25 @@ DIST = dict(arch="samba-coe-expert-7b", layers_nccl=4, layers_gloo=2,
             batch=4, seq=2048, steps=2, prefill=(4, 512), decode_steps=8,
             lr=3e-4, seed=31, timeout=600,
             loss_tol=2.5e-5, gnorm_tol=5e-5, param_tol=1e-2)
+# The families distribution (a′) adds at full width on its (1, 1) NCCL
+# mesh, each cut in depth only: RecurrentGemma to one (rec, rec, attn)
+# group, xLSTM to one group of slstm_every blocks (its sLSTM steps once a
+# position: 512 of them), Whisper to 2 encoder and 2 decoder layers; two
+# train steps, a prefill of (lanes, tokens) and 4 decode steps each.
+DIST_FAMILIES = {
+    "recurrentgemma-9b": dict(cut=dict(n_layers=3), batch=2, seq=2048,
+                              prefill=(2, 512)),
+    "xlstm-1.3b": dict(cut=dict(n_layers=8), batch=2, seq=512,
+                       prefill=(2, 256)),
+    "whisper-small": dict(cut=dict(n_layers=2, n_encoder_layers=2), batch=4,
+                          seq=448, prefill=(4, 64)),
+}
+DIST_FAMILY_DECODE = 4
+# The dry-run phase: the CLI's cell, and a limit on each of its two
+# subprocesses (each builds a fake group and traces on fake tensors).
+DRYRUN = dict(arch="mixtral-8x7b", cell="decode_32k", timeout=300)
+# what a phase measured that a later one prints beside its own
+MEASURED = {}
 
 
 def prefill_widths(c):
@@ -1487,11 +1521,10 @@ def prefill_row(row, c, B, S, window, gen, flush):
 
     import torch.nn.functional as Fn
 
-    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ops import (attention,
+                                                         attention_cost)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models.layers import naive_attention
-    from repro_torch.serving.backends import (prefill_attention_flops,
-                                              prefill_attention_hbm_bytes)
     dev = flush.device
     Hq, Hkv = c.n_heads, c.n_kv_heads
     dk, dv = prefill_widths(c)
@@ -1510,12 +1543,12 @@ def prefill_row(row, c, B, S, window, gen, flush):
         def lib():
             return Fn.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=Hq != Hkv)
+    cost = attention_cost(B, S, S, Hq, Hkv, dk, dv, True, window)
     r = kernel_row(
         row, lambda: attention(q, k, v, causal=True, window=window),
         lambda: attention_ref(q, k, v, causal=True, window=window), lib,
-        prefill_attention_hbm_bytes(B, S, Hq, Hkv, dk, dv),
-        prefill_attention_flops(B, S, Hq, dk, window, dv), flush,
-        kernel="flash_prefill", row_tol=PREFILL_ROW_REL_L2)
+        cost.bytes, cost.flops, flush, kernel="flash_prefill",
+        row_tol=PREFILL_ROW_REL_L2)
     _log(f"kernel {row}: {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s, "
          f"{r['bound_ms'] / r['ms']:.3f} of the bound; SDPA "
          f"{r['library_ms']:.4f} ms ({r['library_ms'] / r['ms']:.3f}x "
@@ -1557,13 +1590,11 @@ def prefill_kernel_phase(cfg, rg_cfg, dev):
     ``_lru_coeffs`` makes them)."""
     import torch.nn.functional as Fn
 
-    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ops import (attention,
+                                                         attention_cost)
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.lru_scan.ops import lru_scan
+    from repro_torch.kernels.lru_scan.ops import lru_scan, lru_scan_cost
     from repro_torch.kernels.lru_scan.ref import lru_scan_ref
-    from repro_torch.serving.backends import (lru_scan_hbm_bytes,
-                                              prefill_attention_flops,
-                                              prefill_attention_hbm_bytes)
 
     gen = torch.Generator(device=dev).manual_seed(6)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -1582,15 +1613,15 @@ def prefill_kernel_phase(cfg, rg_cfg, dev):
         q, k, v = (torch.randn((1, S, h, dh), generator=gen, device=dev)
                    .to(torch.bfloat16) for h in (Hq, Hkv, Hkv))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        cost = attention_cost(1, S, S, Hq, Hkv, dh, dh)
         r = kernel_row(
             f"flash_prefill[B=1,S={S}]",
             lambda: attention(q, k, v, causal=True),
             lambda: attention_ref(q, k, v, causal=True),
             lambda: Fn.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=Hq != Hkv),
-            prefill_attention_hbm_bytes(1, S, Hq, Hkv, dh),
-            prefill_attention_flops(1, S, Hq, dh), flush,
-            kernel="flash_prefill", row_tol=PREFILL_ROW_REL_L2)
+            cost.bytes, cost.flops, flush, kernel="flash_prefill",
+            row_tol=PREFILL_ROW_REL_L2)
         if r["name"] == B1_PREFILL_ROW:
             rows[B1_PREFILL_ROW] = r
         del q, k, v, qt, kt, vt
@@ -1599,10 +1630,10 @@ def prefill_kernel_phase(cfg, rg_cfg, dev):
     b = torch.randn((B, S, D), generator=gen, device=dev)
     # f32 in both, summed in other orders (a sequential walk, a doubling
     # scan): 1e-5 of the largest |h| (CPU trials at S = 3000: 5e-7)
+    cost = lru_scan_cost(B, S, D)
     rows["lru_scan"] = kernel_row(
         "lru_scan", lambda: lru_scan(a, b), lambda: lru_scan_ref(a, b), None,
-        lru_scan_hbm_bytes(B, S, D), 2 * B * S * D, flush, rel_tol=1e-5,
-        peak=F32_FLOPS_PER_S)
+        cost.bytes, cost.flops, flush, rel_tol=1e-5, peak=F32_FLOPS_PER_S)
     del a, b, flush
     return rows
 
@@ -2095,6 +2126,15 @@ def serve_phase(cfg, dev):
          f"decode_s={st.exec_s:.4f})")
     _log(f"serve: peak device memory {peak / 2 ** 30:.2f} GiB; launches "
          f"{launches}")
+    from repro_torch.core.fusion import backend_prediction
+    pred = backend_prediction(cfg, s["n_slots"], s["max_len"], "fused")
+    _log(f"serve: core.fusion predicts {pred['predicted_kernels']} kernels "
+         f"for one fused decode step ({cfg.n_layers} layers x 4 fused groups "
+         f"+ the embedding and the head, {s['n_slots']} lanes at context "
+         f"{s['max_len']}); the engine launched "
+         f"{sum(launches[k] for k in PAGED_KERNELS) // st.decode_rounds} "
+         f"a round ({len(PAGED_KERNELS)} kernels a layer: oproj_ffn_swiglu "
+         "runs both oproj_residual and ffn_fused)")
 
     params = coe.cache.activate(coe.expert_names()[0])
     step, rids = fused_step_check("serve", cfg, dev, engine, params,
@@ -4555,14 +4595,6 @@ def deepseek_phase(dev):
     return launches["flash_prefill"]
 
 
-def attention_cost(B, Sq, Sk, Hq, Hkv, dk, dv):
-    """(bytes, flops) of one ``flash_prefill`` call that is neither causal
-    nor windowed: q and o (Sq rows), k and v (Sk rows) moved once in bf16;
-    q k^T and p v over all Sq x Sk pairs, 2 per multiply-add."""
-    nbytes = 2 * B * (Sq * Hq * (dk + dv) + Sk * Hkv * (dk + dv))
-    return nbytes, 2 * B * Hq * (dk + dv) * Sq * Sk
-
-
 def whisper_row(row, c, B, Sq, Sk, gen, flush):
     """``flash_prefill`` at Whisper's heads on random bf16 q (B, Sq) and k
     / v (B, Sk), not causal, against its plain version row by row, beside
@@ -4571,7 +4603,8 @@ def whisper_row(row, c, B, Sq, Sk, gen, flush):
     kernel-table row."""
     import torch.nn.functional as Fn
 
-    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ops import (attention,
+                                                         attention_cost)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     dev = flush.device
     H, dh = c.n_heads, c.head_dim
@@ -4580,7 +4613,7 @@ def whisper_row(row, c, B, Sq, Sk, gen, flush):
     k, v = (torch.randn((B, Sk, H, dh), generator=gen, device=dev)
             .to(torch.bfloat16) for _ in range(2))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    nbytes, flops = attention_cost(B, Sq, Sk, H, H, dh, dh)
+    flops, nbytes = attention_cost(B, Sq, Sk, H, H, dh, dh, causal=False)
     r = kernel_row(
         row, lambda: attention(q, k, v, causal=False),
         lambda: attention_ref(q, k, v, causal=False),
@@ -5228,18 +5261,14 @@ def xlstm_phase(dev):
 
 
 def bwd_cost(B, S, Hq, Hkv, d, window=0, *, Sk=None, dv=None, causal=True):
-    """(bytes, flops) of one ``flash_prefill_bwd`` call: q (B,S,Hq,d) and,
-    by default, k, v (B,S,Hkv,d), causal (and ``window`` > 0: local); ``Sk``
-    keys and v / o of ``dv`` where given; ``causal=False`` and no window is
-    FULL (S x Sk pairs). q, k, v, o, do and lse read once, dq, dk, dv
-    written once (bf16; lse f32); the five products s, dp, dv, dq, dk over
-    the attended pairs, 2 per multiply-add: 2 B Hq pairs (3 dk + 2 dv)."""
-    from repro_torch.serving.backends import attention_pairs
+    """(bytes, flops) of one ``flash_prefill_bwd`` call (its cost function,
+    ``ops.attention_bwd_cost``): q (B,S,Hq,d) and, by default, k, v
+    (B,S,Hkv,d), causal (and ``window`` > 0: local); ``Sk`` keys and v / o
+    of ``dv`` where given; ``causal=False`` and no window is FULL."""
+    from repro_torch.kernels.flash_attention.ops import attention_bwd_cost
     Sk, dv = S if Sk is None else Sk, d if dv is None else dv
-    pairs = attention_pairs(S, window) if causal else S * Sk
-    nbytes = 2 * B * (S * Hq * (2 * d + 2 * dv) + 2 * Sk * Hkv * (d + dv)) \
-        + 4 * B * Hq * S
-    return nbytes, 2 * B * Hq * pairs * (3 * d + 2 * dv)
+    c = attention_bwd_cost(B, S, Sk, Hq, Hkv, d, dv, causal, window)
+    return c.bytes, c.flops
 
 
 def bwd_inputs(B, Sq, Sk, Hq, Hkv, dk, dv, gen, dev):
@@ -5364,10 +5393,9 @@ def train_kernel_rows(dev):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import (attention,
-                                                         attention_lse)
+                                                         attention_lse,
+                                                         attention_lse_cost)
     from repro_torch.kernels.flash_attention.ref import attention_lse_ref
-    from repro_torch.serving.backends import (prefill_attention_flops,
-                                              prefill_attention_hbm_bytes)
     c, t = get_config(TRAIN["arch"]), TRAIN
     gen = torch.Generator(device=dev).manual_seed(t["seed"])
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -5377,12 +5405,12 @@ def train_kernel_rows(dev):
     q, k, v = (torch.randn((B, S, H, d), generator=gen, device=dev)
                .to(torch.bfloat16) for _ in range(3))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    cost = attention_lse_cost(B, S, S, H, H, d, d)
     r = kernel_row(
         TRAIN_LSE_ROW, lambda: attention_lse(q, k, v, causal=True)[0],
         lambda: attention_lse_ref(q, k, v, causal=True)[0],
         lambda: Fn.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-        prefill_attention_hbm_bytes(B, S, H, H, d) + 4 * B * H * S,
-        prefill_attention_flops(B, S, H, d), flush, kernel="flash_prefill",
+        cost.bytes, cost.flops, flush, kernel="flash_prefill",
         row_tol=PREFILL_ROW_REL_L2)
     lse = attention_lse(q, k, v, causal=True)[1]
     lse_err = float((lse - attention_lse_ref(q, k, v, causal=True)[1])
@@ -5499,7 +5527,7 @@ def train_phase(dev):
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     from repro_torch.models import get_model
     from repro_torch.optim import AdamWConfig
-    from repro_torch.serving.backends import attention_pairs
+    from repro_torch.kernels.flash_attention.ops import attention_pairs
     t0 = time.perf_counter()
     t = TRAIN
     full = get_config(t["arch"])
@@ -5606,7 +5634,8 @@ def train_phase(dev):
         if e.device_type == DeviceType.CUDA)) / 1e6
     flops = 6 * (n_params - cfg.vocab_size * cfg.d_model) * B * S \
         + 3 * cfg.n_layers * 2 * B * cfg.n_heads * 2 * cfg.head_dim \
-        * attention_pairs(S)
+        * attention_pairs(S, S)
+    MEASURED["train_step_s"], MEASURED["train_model_flops"] = wall, flops
     _log(f"train: a step {wall:.4f} s (median of steps 1-{t['steps'] - 2}), "
          f"{B * S / wall:.1f} tokens/s, peak memory {peak:.2f} GB, AdamW "
          f"{np.median(adamw_ms):.2f} ms; device busy {busy:.4f} s of the "
@@ -5675,7 +5704,8 @@ def family_kernel_rows(dev):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import attention_lse
     from repro_torch.kernels.flash_attention.ref import attention_lse_ref
-    from repro_torch.kernels.lru_scan.ops import lru_scan, lru_scan_bwd
+    from repro_torch.kernels.lru_scan.ops import (lru_scan, lru_scan_bwd,
+                                                  lru_scan_bwd_cost)
     from repro_torch.kernels.lru_scan.ref import lru_scan_bwd_ref
     gen = torch.Generator(device=dev).manual_seed(47)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -5708,10 +5738,11 @@ def family_kernel_rows(dev):
         h = lru_scan(a, b)
     # f32 in both, summed in other orders (a sequential walk, a doubling
     # scan of the reversed recurrence)
+    cost = lru_scan_bwd_cost(B, S, D)
     r = kernel_row(
         LRU_BWD_ROW, lambda: lru_scan_bwd(a, h, dh),
-        lambda: lru_scan_bwd_ref(a, h, dh), None, 5 * B * S * D * 4,
-        3 * B * S * D, flush, rel_tol=1e-5, peak=F32_FLOPS_PER_S)
+        lambda: lru_scan_bwd_ref(a, h, dh), None, cost.bytes, cost.flops,
+        flush, rel_tol=1e-5, peak=F32_FLOPS_PER_S)
     r["rel_l2"] = [rel_l2(g, w) for g, w in zip(lru_scan_bwd(a, h, dh),
                                                 lru_scan_bwd_ref(a, h, dh))]
     _log(f"kernel {LRU_BWD_ROW}: da / db relative L2 "
@@ -5731,7 +5762,7 @@ def train_model_flops(cfg, params, B, S):
     plus 3 x the attention's forward products (no recompute counted)."""
     from repro_torch.bridge import tree_items
     from repro_torch.distributed.stepfn import kernel_launches
-    from repro_torch.serving.backends import attention_pairs
+    from repro_torch.kernels.flash_attention.ops import attention_pairs
     enc_tokens = B * cfg.encoder_seq if cfg.family == "encdec" else 0
     flops = 0
     has_head = any(n == "lm_head" for n, _ in tree_items(params))
@@ -5746,10 +5777,10 @@ def train_model_flops(cfg, params, B, S):
     if cfg.family == "encdec":
         Se = cfg.encoder_seq
         pairs = cfg.n_encoder_layers * Se * Se + cfg.n_layers * (
-            attention_pairs(S, 0) + S * Se)
+            attention_pairs(S, S) + S * Se)
     else:
         pairs = kernel_launches(cfg)["flash_prefill_bwd"] * attention_pairs(
-            S, cfg.sliding_window)
+            S, S, True, cfg.sliding_window)
     return flops + 3 * one * pairs
 
 
@@ -6646,16 +6677,269 @@ def dist_two_ranks(dev, d=DIST):
     return totals
 
 
+def _family_inputs(cfg, B, S, dev):
+    """The distribution phase's SyntheticLM batch (B, S) for ``cfg``, and
+    for Whisper seeded bf16 frame embeddings (B, encoder_seq, D)."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                   global_batch=B,
+                                   seed=DIST["seed"])).batch_at(0)
+    batch = {k: torch.from_numpy(x).to(dev) for k, x in batch.items()}
+    if cfg.family == "encdec":
+        gen = torch.Generator(dev).manual_seed(DIST["seed"])
+        batch["enc_embeds"] = torch.randn(
+            (B, cfg.encoder_seq, cfg.d_model), generator=gen,
+            device=dev).to(torch.bfloat16)
+    return batch
+
+
+def dist_family(arch, f, mesh, dev):
+    """(a′) for one family: ``f``'s cut of ``arch`` at full width, two
+    train steps, a prefill and ``DIST_FAMILY_DECODE`` greedy decode steps
+    on the (1, 1) ``mesh`` against the single-device steps, bit for bit.
+    Returns the train steps' and the serving's launch counts."""
+    import dataclasses
+
+    from repro_torch.bridge import tree_items
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import partitioning as part
+    from repro_torch.distributed import stepfn
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.models import get_model
+    from repro_torch.optim import AdamWConfig
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, **f["cut"])
+    model = get_model(cfg)
+    B, S, steps = f["batch"], f["seq"], DIST["steps"]
+    batch = _family_inputs(cfg, B, S, dev)
+    opt = AdamWConfig(lr=DIST["lr"], warmup_steps=2, decay_steps=4)
+
+    def init():
+        return model.init(torch.Generator(dev).manual_seed(DIST["seed"]),
+                          dev)
+
+    def train(fn, state, b):
+        out, walls = [], []
+        for _ in range(steps):
+            ts = time.perf_counter()
+            state, m = fn(state, b)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+            walls.append(round(time.perf_counter() - ts, 3))
+        return state, out, walls
+
+    state, single, single_s = train(stepfn.make_train_step(cfg, opt),
+                                    stepfn.init_train_state(init()), batch)
+    ref = dict(tree_items(state["params"]))
+    del state
+    fn, sh, bsh = stepfn.make_train_step(cfg, opt, mesh=mesh)
+    b = part.device_put(batch, bsh(batch))
+    rt.reset_launches()
+    state, meshed, meshed_s = train(
+        fn, part.device_put(stepfn.init_train_state(init()), sh), b)
+    train_n = rt.launch_counts()
+    check_launches(f"distribution (a') {arch} train", train_n,
+                   {k: v * steps for k, v in
+                    stepfn.kernel_launches(cfg).items()})
+    diff = [n for n, x in tree_items(state["params"])
+            if not torch.equal(_bits(x.to_local()), _bits(ref[n]))]
+    n_params = len(ref)
+    del state, b, ref
+    _log(f"distribution (a') {arch}: cut to {cfg.n_layers} of its "
+         f"{full.n_layers} layers at full width, batch {B} x {S}: losses / "
+         f"grad norms {meshed} on the mesh, {single} on one device; "
+         f"{n_params - len(diff)} of {n_params} params bit-equal after "
+         f"step {steps}; launches "
+         + (" ".join(f"{k}={v}" for k, v in train_n.items() if v)
+            or "none (xLSTM's blocks run no kernel)")
+         + f"; step times {meshed_s} s on the mesh, {single_s} s on one "
+         "device")
+    if meshed != single or diff:
+        raise AssertionError(f"distribution (a') {arch}: the (1, 1) mesh "
+                             f"step parts from the single-device step: "
+                             f"{meshed} vs {single}; params {diff}")
+    P, Sp = f["prefill"]
+    pre = {k: v[:P, :Sp] if k == "tokens" else v[:P]
+           for k, v in batch.items() if k != "targets"}
+    max_len = Sp + DIST_FAMILY_DECODE
+
+    def serve(prefill, decode, params):
+        logits, cache = prefill(params, pre)
+        out = [logits]
+        for i in range(DIST_FAMILY_DECODE):
+            logits, cache = decode(params, cache,
+                                   out[-1].argmax(-1)[:, None], Sp + i)
+            out.append(logits)
+        return out
+
+    params = init()
+    served = serve(lambda p, x: model.prefill(p, x, max_len),
+                   model.decode_step, params)
+    prefill, psh, _ = stepfn.make_prefill_step(cfg, mesh, max_len, batch=P)
+    decode, _, _ = stepfn.make_decode_step(cfg, mesh, batch=P,
+                                           max_len=max_len)
+    p = part.device_put(params, psh)
+    rt.reset_launches()
+    got = [g.to_local() for g in serve(prefill, decode, p)]
+    serve_n = rt.launch_counts()
+    want = stepfn.kernel_launches(cfg)
+    check_launches(f"distribution (a') {arch} serve", serve_n, {
+        "flash_prefill": want["flash_prefill_bwd"],
+        "lru_scan": want["lru_scan_bwd"]})
+    same = all(torch.equal(g.argmax(-1), r.argmax(-1))
+               for g, r in zip(got, served))
+    worst = max(float((g.float() - r.float()).abs().max())
+                for g, r in zip(got, served))
+    _log(f"distribution (a') {arch}: prefill {P} x {Sp} and "
+         f"{DIST_FAMILY_DECODE} greedy steps on the mesh: tokens "
+         f"{'identical' if same else 'DIFFER'}, largest logit difference "
+         f"{worst:.3e}; launches "
+         + (" ".join(f"{k}={v}" for k, v in serve_n.items() if v)
+            or "none (the decode steps run no kernel)"))
+    if not same or worst != 0.0:
+        raise AssertionError(f"distribution (a') {arch}: the mesh prefill /"
+                             " decode parts from the single-device one")
+    del params, p, served, got
+    return train_n, serve_n
+
+
+def dist_families(dev, fams=DIST_FAMILIES):
+    """(a′): ``dist_family`` for each family on one (1, 1) NCCL mesh in
+    this process. Returns the launch counts by family."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, single_device_mesh
+    tmp = tempfile.mkdtemp(prefix="dist_fam_")
+    init_distributed("nccl", f"file://{tmp}/store", rank=0, world_size=1,
+                     device=dev)
+    out = {}
+    try:
+        mesh = single_device_mesh(device=dev)
+        for arch, f in fams.items():
+            t0 = time.perf_counter()
+            out[arch] = dist_family(arch, f, mesh, dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+            _log(f"distribution (a') {arch}: "
+                 f"{time.perf_counter() - t0:.1f}s")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def distribution_phase(dev, d=DIST):
-    """The distribution phase: (a), then (b). Returns (a)'s launch counts
-    and (b)'s per rank."""
+    """The distribution phase: (a), (a′), then (b). Returns (a)'s launch
+    counts, (a′)'s by family and (b)'s per rank."""
     t0 = time.perf_counter()
     one = dist_one_by_one(dev, d)
     gc.collect()
     torch.cuda.empty_cache()
+    fams = dist_families(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     two = dist_two_ranks(dev, d)
     _log(f"distribution: phase {time.perf_counter() - t0:.1f}s")
-    return one, two
+    return one, fams, two
+
+
+_TRAIN_TRACE = """
+import dataclasses, json, logging, sys
+from repro_torch.configs import ShapeCell, get_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.roofline import RooflineTerms
+logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+    logging.ERROR)
+arch, L, B, S, model_flops = sys.argv[1:]
+cfg = dataclasses.replace(get_config(arch), n_layers=int(L))
+D.start_group(1)
+mesh = make_mesh((1, 1), ("data", "model"), device=D.fake_devices()[1])
+tr = D.trace_step(cfg, ShapeCell("train", int(S), int(B), "train"), mesh)
+coll = D.collective_bytes(tr.coll)
+t = RooflineTerms(arch, "train", "(1, 1)", 1, float(tr.flops),
+                  float(tr.bytes), float(sum(coll.values())), coll,
+                  float(model_flops), float(tr.peak))
+print(json.dumps({"kernels": tr.kernels, "argument_bytes": tr.argument_bytes,
+                  "devices": D.fake_devices(), **t.as_dict()}))
+"""
+
+
+def dryrun_phase(root):
+    """The dry-run phase: the CLI on ``DRYRUN``'s cell (single pod,
+    ``--correct``), then the training phase's step traced on a fake (1, 1)
+    group beside the time the training phase measured; its kernel calls
+    must equal the 5ᴸ / 5ᴮ rows' launches a step. Each in a subprocess
+    (a fake group owns its process's default group)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    d = DRYRUN
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
+        path = os.path.join(tmp, "dryrun.json")
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             d["arch"], "--cell", d["cell"], "--single-pod-only",
+             "--correct", "--results", path], capture_output=True,
+            text=True, env=env, cwd=root, timeout=d["timeout"])
+        if out.returncode:
+            raise AssertionError(f"dryrun: the CLI failed:\n"
+                                 f"{out.stdout[-3000:]}{out.stderr[-3000:]}")
+        rec = json.load(open(path))[f"{d['arch']}|{d['cell']}|single"]
+    r, m = rec["roofline"], rec["memory"]
+    _log(f"dryrun: {d['arch']} x {d['cell']} x {r['mesh']}: status "
+         f"{rec['status']}, traced in {rec['trace_s']} s; per device "
+         f"arguments {m['argument_bytes_per_device'] / 1e9:.3f} GB, peak "
+         f"{m['peak_bytes_per_device'] / 1e9:.3f} GB; flops "
+         f"{r['hlo_flops']:.4e} bytes {r['hlo_bytes']:.4e} collective "
+         f"{r['collective_bytes']:.4e} {r['collective_breakdown']}; "
+         f"compute {r['compute_s'] * 1e3:.3f} ms, memory "
+         f"{r['memory_s'] * 1e3:.3f} ms, collective "
+         f"{r['collective_s'] * 1e3:.3f} ms -> {r['bottleneck']}-bound, "
+         f"useful {r['useful_flops_ratio']:.3f} (extrapolated from 1 and 2 "
+         f"layers over {rec['loopfix']['units']} units; the full trace's "
+         f"flops {rec['roofline_raw']['hlo_flops']:.4e}); modelled with the "
+         "H100's data-sheet constants, not measured")
+    if rec["status"] != "ok":
+        raise AssertionError(f"dryrun: {d['arch']} x {d['cell']}: {rec}")
+    t = TRAIN
+    cfg = get_config(t["arch"])
+    out = subprocess.run(
+        [sys.executable, "-c", _TRAIN_TRACE, t["arch"], str(t["layers"]),
+         str(t["batch"]), str(t["seq"]),
+         str(MEASURED.get("train_model_flops", 0.0))],
+        capture_output=True, text=True, env=env, cwd=root,
+        timeout=d["timeout"])
+    if out.returncode:
+        raise AssertionError(f"dryrun: the training trace failed:\n"
+                             f"{out.stderr[-3000:]}")
+    tr = json.loads(out.stdout.strip().splitlines()[-1])
+    want = {"flash_prefill[lse]": 2 * t["layers"],
+            "flash_prefill_bwd": t["layers"]}
+    measured = MEASURED.get("train_step_s")
+    _log(f"dryrun: the training phase's step ({cfg.name} cut to "
+         f"{t['layers']} layers, B {t['batch']} x {t['seq']}, remat) traced "
+         f"on a fake (1, 1) group of {tr['devices']} tensors: flops "
+         f"{tr['hlo_flops']:.4e} (model flops {tr['model_flops']:.4e}, "
+         f"useful {tr['useful_flops_ratio']:.3f}), bytes "
+         f"{tr['hlo_bytes']:.4e}, arguments "
+         f"{tr['argument_bytes'] / 1e9:.2f} GB, peak "
+         f"{tr['per_device_peak_bytes'] / 1e9:.2f} GB; terms compute "
+         f"{tr['compute_s'] * 1e3:.2f} ms, memory {tr['memory_s'] * 1e3:.2f}"
+         f" ms -> {tr['bottleneck']}-bound, step >= {tr['step_s']:.4f} s "
+         f"modelled against {measured} s measured by the training phase; "
+         f"kernel calls {tr['kernels']} "
+         f"(the 5ᴸ / 5ᴮ rows' launches a step: {want})")
+    if tr["kernels"] != want:
+        raise AssertionError(f"dryrun: the traced kernel calls "
+                             f"{tr['kernels']} are not the training step's "
+                             f"{want}")
+    _log(f"dryrun: phase {time.perf_counter() - t0:.1f}s")
+    return rec, tr
 
 
 def main():
@@ -6767,6 +7051,7 @@ def main():
     distribution_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    dryrun_phase(root)
     launches = rg_phase(rg_cfg, dev)
     rows[RG_PREFILL_ROW]["launches"] = launches["flash_prefill"]
     rows["lru_scan"]["launches"] = launches["lru_scan"]

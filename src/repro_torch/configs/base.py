@@ -7,6 +7,11 @@ steer its XLA lowering, which the port does not have). The MoE fields are
 JAX's, ``first_dense_layers`` included (DeepSeek's dense head layers), and
 so are the MLA, encoder-decoder (Whisper) and xLSTM fields. The expert
 capacity is ``capacity_factor``: the port has no run-time override of it.
+
+The dry-run's supports are JAX's too: the derived dims and predicates
+(``kv_dim``, ``attention_free``, ``sub_quadratic``, ``has_decode``), the
+parameter counts (from the port's own ``param_specs``, the same leaves as
+JAX's), the four ``SHAPE_CELLS`` and ``cell_applicable``.
 """
 from __future__ import annotations
 
@@ -80,6 +85,80 @@ class ModelConfig:
         if self.family == "mla_moe":
             return self.n_heads * (self.qk_nope_dim + self.qk_rope_dim)
         return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "xlstm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True where a 500k-token decode keeps a bounded state: the
+        recurrent families and any sliding window."""
+        return self.family in ("rglru", "xlstm") or self.sliding_window > 0
+
+    @property
+    def has_decode(self) -> bool:
+        return True   # every family has a decoder
+
+    def n_params(self) -> int:
+        """Total parameter count, from the param spec tree."""
+        return sum(n for _, n in _leaf_sizes(self))
+
+    def n_active_params(self) -> int:
+        """Parameters touched per token: an ``experts`` leaf counts
+        ``top_k / n_experts`` of its size (rounded down), as JAX's."""
+        if self.n_experts == 0:
+            return self.n_params()
+        inactive = sum(n - (n * self.top_k) // self.n_experts
+                       for path, n in _leaf_sizes(self)
+                       if "experts" in path)
+        return self.n_params() - inactive
+
+
+def _leaf_sizes(cfg: ModelConfig):
+    """(path keys, element count) of every leaf of ``cfg``'s param specs."""
+    from repro_torch.models.registry import get_model
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from walk(v, path + (k,))
+        else:
+            n = 1
+            for d in tree.shape:
+                n *= int(d)
+            yield path, n
+    return list(walk(get_model(cfg).param_specs(), ()))
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    """One of the dry-run's shapes: a sequence length, a global batch and
+    the step that runs it ('train' | 'prefill' | 'decode')."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+SHAPE_CELLS = (
+    ShapeCell("train_4k", 4096, 256, "train"),
+    ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    ShapeCell("decode_32k", 32768, 128, "decode"),
+    ShapeCell("long_500k", 524288, 1, "decode"),
+)
+
+
+def cell_applicable(cfg: ModelConfig, cell: ShapeCell) -> Tuple[bool, str]:
+    """Whether a shape cell applies to the arch; the reason where not."""
+    if cell.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("pure full-attention arch: 500k decode skipped "
+                       "(see DESIGN.md §4)")
+    return True, ""
 
 
 def _round_up(x: int, m: int) -> int:

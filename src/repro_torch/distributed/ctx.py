@@ -71,11 +71,23 @@ def named_shardings(**pspecs):
         _NAMED = prev
 
 
-def constrain(h):
+def reduce_like(y, x):
+    """A DTensor ``y`` holding partial sums (a row-parallel projection's
+    output) reduced to ``x``'s placements (the residual it joins);
+    anything else as it is."""
+    if is_dtensor(y) and is_dtensor(x) \
+            and any(p.is_partial() for p in y.placements):
+        return y.redistribute(y.device_mesh, x.placements)
+    return y
+
+
+def constrain(h, like=None):
     """The active activation placement on a (B, S, D) residual: a DTensor
-    ``redistribute``; a plain tensor, or no active spec, passes as it is."""
+    ``redistribute``; a plain tensor passes as it is. With no active spec,
+    ``reduce_like(h, like)`` where ``like`` (the residual h joins) is
+    given, else h as it is."""
     if _ACTIVATION_PSPEC is None:
-        return h
+        return h if like is None else reduce_like(h, like)
     return _redistribute(h, _ACTIVATION_PSPEC)
 
 
@@ -101,11 +113,14 @@ def constrain_named(name: str, x):
     return _redistribute(x, p)
 
 
-def cache_zeros(key: str, shape, dtype, device):
-    """A zero cache leaf ``key``: on a mesh with a named ``cache`` spec
-    tree (the mesh serving steps), a DTensor placed by the fitted spec of
-    ``key``, each rank allocating only its shard; else a plain tensor."""
-    spec = (_NAMED.get("cache") or {}).get(key)
+def cache_zeros(key, shape, dtype, device):
+    """A zero cache leaf ``key`` (a name, or the tuple of names down a
+    nested cache): on a mesh with a named ``cache`` spec tree (the mesh
+    serving steps), a DTensor placed by the fitted spec of ``key``, each
+    rank allocating only its shard; else a plain tensor."""
+    spec = _NAMED.get("cache") or {}
+    for k in (key,) if isinstance(key, str) else key:
+        spec = spec.get(k) if isinstance(spec, dict) else None
     if spec is None or _MESH is None:
         return torch.zeros(shape, dtype=dtype, device=device)
     from torch.distributed.tensor import zeros

@@ -315,6 +315,20 @@ def distribute(x, sharding: NamedSharding):
                              src_data_rank=None)
 
 
+def placed(tree, pspecs, mesh):
+    """A tree of DTensors with each leaf redistributed to its spec in
+    ``pspecs`` (fitted to its shape), where it is not there already; a
+    plain leaf (the whole tensor on every rank) is distributed."""
+    if isinstance(pspecs, PartitionSpec):
+        spec = fit_pspec(tuple(tree.shape), pspecs, mesh)
+        pl = placements(spec, mesh)
+        if not hasattr(tree, "placements"):
+            return distribute(tree, NamedSharding(mesh, spec))
+        return tree if tuple(tree.placements) == pl \
+            else tree.redistribute(mesh, pl)
+    return {k: placed(tree[k], v, mesh) for k, v in pspecs.items()}
+
+
 def device_put(tree, shardings):
     """``distribute`` leaf by leaf over a tree of tensors and a matching
     tree of ``NamedSharding``s."""

@@ -46,22 +46,41 @@ def softmax_xent(logits, targets):
     onehot_xent`` the gold logit is selected by an iota compare
     (elementwise on vocab-sharded logits, its sum a partial reduction)
     instead of a gather (which, on a mesh, gathers the vocab-sharded
-    logits first, as GSPMD's lowering of JAX's does). The two are the same
-    value."""
+    logits first, as GSPMD's lowering of JAX's does, and takes each rank's
+    rows through ``local_map``). The two are the same value."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     if ctx.perf().onehot_xent:
         hit = torch.arange(lf.shape[-1], device=lf.device) \
             == targets[..., None]
         gold = torch.sum(torch.where(hit, lf, 0.0), dim=-1)
+    elif ctx.is_dtensor(lf):
+        gold = _sharded_gold(lf, targets)
     else:
-        if ctx.is_dtensor(lf):
-            from torch.distributed.tensor import Replicate, Shard
-            lf = lf.redistribute(lf.device_mesh, [
-                Replicate() if isinstance(p, Shard) and p.dim == lf.ndim - 1
-                else p for p in lf.placements])
-        gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+        gold = _gold(lf, targets)
     return torch.mean(lse - gold)
+
+
+def _gold(lf, targets):
+    return torch.gather(lf, -1, targets[..., None].long())[..., 0]
+
+
+def _sharded_gold(lf, targets):
+    """``_gold`` of DTensor logits: the vocab gathered, then each rank's
+    rows through ``local_map``, the batch and sequence kept as they are
+    sharded (DTensor's own rule for the gather's backward, a scatter,
+    replicates the whole (B, S, V) gradient on every rank)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+    mesh = lf.device_mesh
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == lf.ndim - 1
+          else p for p in lf.placements]
+    lf = lf.redistribute(mesh, pl)
+    if not ctx.is_dtensor(targets):
+        targets = distribute_tensor(targets, mesh, pl, src_data_rank=None)
+    return local_map(_gold, out_placements=pl, in_placements=(pl, pl),
+                     in_grad_placements=(pl, pl), device_mesh=mesh,
+                     redistribute_inputs=True)(lf, targets)
 
 
 def chunked_xent(cfg, model, params, h_fn, batch, n_chunks=8):
@@ -248,19 +267,12 @@ def abstract_train_state(cfg: ModelConfig, mesh):
 # serving steps
 # ----------------------------------------------------------------------
 
-_MESH_FAMILIES = ("dense", "moe", "mla_moe")
-
-
 def _fitted_cache_pspecs(cfg, mesh, batch, max_len):
     cs = get_model(cfg).cache_spec(batch, max_len)
     return part.fit_pspec_tree(cs, part.cache_pspecs(cfg, mesh), mesh)
 
 
 def _serving_shardings(cfg, mesh, batch, max_len):
-    if cfg.family not in _MESH_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the mesh serving steps take the "
-            f"{'/'.join(_MESH_FAMILIES)} families (ROADMAP.md, Queue 1)")
     model = get_model(cfg)
     param_sh = part.shardings_from_pspecs(
         part.param_pspecs(model.param_specs(), mesh), mesh)
@@ -296,7 +308,8 @@ def make_prefill_step(cfg: ModelConfig, mesh, max_len: int, *,
                  for k, v in batch.items()}
         with on_mesh(mesh), ctx.named_shardings(cache=cpsp):
             logits, cache = model.prefill(params, batch, max_len)
-        return logits.redistribute(mesh, logits_sh.placements), cache
+        return (logits.redistribute(mesh, logits_sh.placements),
+                part.placed(cache, cpsp, mesh))
 
     return prefill_fn, param_sh, part.shardings_from_pspecs(cpsp, mesh)
 
@@ -312,7 +325,7 @@ def make_decode_step(cfg: ModelConfig, mesh, *, batch: int = 0,
     model, param_sh, cpsp, logits_sh = _serving_shardings(
         cfg, mesh, batch or 8, max_len or 1024)
     layer_ps = {}
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "encdec", "rglru"):
         layer_ps["cache_kv"] = part.P(*cpsp["k"][1:])
     if cfg.family == "mla_moe":
         layer_ps["cache_mla"] = part.P(*cpsp["ckv"][1:])

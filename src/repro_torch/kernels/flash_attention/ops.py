@@ -3,7 +3,11 @@
 ``decode``), and the training path of ``attention``: on the card, a call
 whose q, k or v requires grad (under grad mode) runs the LSE form of
 ``flash_prefill`` forward and the ``flash_prefill_bwd`` kernels backward
-(``attention_lse``, ``attention_bwd``), through ``FlashAttention``."""
+(``attention_lse``, ``attention_bwd``), through ``FlashAttention``.
+
+``attention_cost``, ``attention_lse_cost`` and ``attention_bwd_cost`` give
+each kernel's work at a call's shapes: the bound of its kernel-table row,
+and what a fake call hands ``runtime.traced`` in a dry-run."""
 from __future__ import annotations
 
 import ctypes
@@ -41,6 +45,46 @@ def _grad_contract(name, Sq, Sk, dk, dv, causal, window, card=True):
             f"with any Sq, Sk; got (dk, dv) = ({dk}, {dv}), Sq={Sq}, "
             f"Sk={Sk}, causal={causal}, window={window} (ROADMAP.md, Queue "
             "2: what the training kernels take on the card)")
+
+
+def attention_pairs(Sq, Sk, causal=True, window=0) -> int:
+    """(query, key) pairs a call attends: query i sees key j where j <= i
+    (causal) and i - j < window (window > 0); with neither, all Sq x Sk."""
+    if not causal and not window:
+        return Sq * Sk
+    S = Sq
+    if causal:
+        W = min(window or S, S)
+        return W * (W + 1) // 2 + (S - W) * W
+    # a window without the causal mask: the keys after i count too
+    return S * S - max(0, S - window) * max(0, S - window + 1) // 2
+
+
+def attention_cost(B, Sq, Sk, Hq, Hkv, dk, dv, causal=True, window=0):
+    """``flash_prefill``'s work: q and o (Sq rows), k and v (Sk rows) moved
+    once in bf16; q k^T (width dk) and p v (width dv) over the attended
+    pairs, 2 per multiply-add."""
+    nbytes = 2 * B * (Sq * Hq * (dk + dv) + Sk * Hkv * (dk + dv))
+    flops = 2 * B * Hq * (dk + dv) * attention_pairs(Sq, Sk, causal, window)
+    return rt.Cost(flops, nbytes)
+
+
+def attention_lse_cost(B, Sq, Sk, Hq, Hkv, dk, dv, causal=True, window=0):
+    """The LSE form's work: ``attention_cost`` and each row's f32
+    log-sum-exp written."""
+    c = attention_cost(B, Sq, Sk, Hq, Hkv, dk, dv, causal, window)
+    return rt.Cost(c.flops, c.bytes + 4 * B * Hq * Sq)
+
+
+def attention_bwd_cost(B, Sq, Sk, Hq, Hkv, dk, dv, causal=True, window=0):
+    """``flash_prefill_bwd``'s work: q, k, v, o, dO and lse read once, dq,
+    dk, dv written once (bf16; lse f32); the five products s, dp, dv, dq,
+    dk over the attended pairs, 2 per multiply-add: 2 B Hq pairs (3 dk +
+    2 dv)."""
+    nbytes = 2 * B * (Sq * Hq * (2 * dk + 2 * dv) + 2 * Sk * Hkv * (dk + dv)) \
+        + 4 * B * Hq * Sq
+    pairs = attention_pairs(Sq, Sk, causal, window)
+    return rt.Cost(2 * B * Hq * pairs * (3 * dk + 2 * dv), nbytes)
 
 
 def _check_head_shape(name, dh, G):
@@ -171,7 +215,7 @@ def _row_strides(name, **tensors):
     multiples of 16 bytes."""
     out = []
     for k, t in tensors.items():
-        if t.stride(3) != 1 or t.data_ptr() % 16 or \
+        if t.stride(3) != 1 or (not rt.fake(t) and t.data_ptr() % 16) or \
                 any(s % 8 for s in t.stride()[:3]):
             raise ValueError(f"{name}: {k} needs a contiguous head_dim and "
                              "16-byte aligned rows")
@@ -218,6 +262,10 @@ def attention(q, k, v, *, causal=True, window=0):
         raise ValueError(f"attention: kernel takes (dk, dv) in "
                          f"{PREFILL_WIDTHS}, got ({dk}, {dv})")
     strides = _row_strides("attention", q=q, k=k, v=v)
+    if rt.fake(q, k, v):
+        return rt.traced("flash_prefill", q.new_empty((B, Sq, Hq, dv)),
+                         attention_cost(B, Sq, Sk, Hq, Hkv, dk, dv, causal,
+                                        window))
     fn = rt.bind("flash_prefill", "flash_prefill_bf16", _PREFILL_ARGS)
     out = torch.empty((B, Sq, Hq, dv), dtype=q.dtype, device=q.device)
     strides += out.stride()[:3]
@@ -257,6 +305,11 @@ def attention_lse(q, k, v, *, causal=True, window=0):
         raise TypeError(f"attention_lse: the kernel takes bf16, got "
                         f"{q.dtype} / {k.dtype} / {v.dtype}")
     strides = _row_strides("attention_lse", q=q, k=k, v=v)
+    if rt.fake(q, k, v):
+        return rt.traced("flash_prefill[lse]", (
+            q.new_empty((B, Sq, Hq, dv)),
+            q.new_empty((B, Hq, Sq), dtype=torch.float32)),
+            attention_lse_cost(B, Sq, Sk, Hq, Hkv, dk, dv, causal, window))
     fn = rt.bind("flash_prefill", "flash_prefill_lse_bf16", _LSE_ARGS)
     o = torch.empty((B, Sq, Hq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
@@ -297,6 +350,10 @@ def attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
         raise TypeError("attention_bwd: the kernel takes bf16 q, k, v, o, "
                         "do and f32 lse")
     rt.check_contiguous("attention_bwd", q=q, k=k, v=v, o=o, lse=lse, do=do)
+    if rt.fake(q, k, v, o, lse, do):
+        return rt.traced("flash_prefill_bwd", tuple(
+            torch.empty_like(t) for t in (q, k, v)), attention_bwd_cost(
+            B, Sq, Sk, Hq, Hkv, dk, dv, causal, window))
     fn = rt.bind("flash_prefill_bwd", "flash_prefill_bwd_bf16", _BWD_ARGS)
     split = rt.bind("flash_prefill_bwd", "flash_prefill_bwd_split",
                     [rt.I] * 7)(B, Sk, Hq, Hkv, dk, dv,

@@ -1,7 +1,9 @@
 """Wrapper of the RG-LRU recurrence kernel (counterpart of
 ``repro.kernels.lru_scan.ops.lru_scan``) and its backward: on the card, a
 call whose a or b requires grad (under grad mode) runs the forward kernel
-and, backward, ``lru_scan_bwd``, through ``LruScan``."""
+and, backward, ``lru_scan_bwd``, through ``LruScan``. ``lru_scan_cost`` and
+``lru_scan_bwd_cost`` give each kernel's work (its kernel-table row's
+bound, and a dry-run's fake call's)."""
 from __future__ import annotations
 
 import torch
@@ -21,10 +23,26 @@ def _check_f32(name, **tensors):
     rt.check_contiguous(name, **tensors)
 
 
+def lru_scan_cost(B, S, D):
+    """``lru_scan``'s work: a and b read once and h written once, f32; a
+    multiply and an add an element."""
+    return rt.Cost(2 * B * S * D, 3 * 4 * B * S * D)
+
+
+def lru_scan_bwd_cost(B, S, D):
+    """``lru_scan_bwd``'s work: a, h and dh read once, da and db written
+    once, f32; g_t = dh_t + a_{t+1} g_{t+1} and da_t = g_t h_{t-1}: three
+    flops an element."""
+    return rt.Cost(3 * B * S * D, 5 * 4 * B * S * D)
+
+
 def _scan(a, b):
     """The forward kernel's launch on CUDA f32 a, b."""
     _check_f32("lru_scan", a=a, b=b)
     B, S, D = a.shape
+    if rt.fake(a, b):
+        return rt.traced("lru_scan", torch.empty_like(a),
+                         lru_scan_cost(B, S, D))
     fn = rt.bind("lru_scan", "lru_scan_f32", _ARGS)
     h = torch.empty_like(a)
     rc = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, D,
@@ -65,6 +83,10 @@ def lru_scan_bwd(a, h, dh):
         return lru_scan_bwd_ref(a, h, dh)
     _check_f32("lru_scan_bwd", a=a, h=h, dh=dh)
     B, S, D = a.shape
+    if rt.fake(a, h, dh):
+        return rt.traced("lru_scan_bwd", (torch.empty_like(a),
+                                          torch.empty_like(a)),
+                         lru_scan_bwd_cost(B, S, D))
     fn = rt.bind("lru_scan", "lru_scan_bwd_f32", _BWD_ARGS)
     da, db = torch.empty_like(a), torch.empty_like(a)
     rc = fn(a.data_ptr(), h.data_ptr(), dh.data_ptr(), da.data_ptr(),

@@ -12,9 +12,18 @@ shared library with a plain C interface, at first use, into
 loaded with ``ctypes``. Every C entry point launches on the stream it is
 given and returns ``cudaGetLastError()``; the wrapper raises on a non-zero
 code. A failed build raises; it never degrades to the plain version.
+
+A dry-run (``launch.dryrun``) traces the steps on fake tensors
+(``FakeTensor``, which hold a shape and a type and no data): a wrapper whose
+inputs are all fake, on the card or, on a torch built without CUDA, on the
+meta device (such a build has no device guard for CUDA, which autograd and
+Python indexing need), checks its arguments as for a launch, then returns
+empty outputs of the kernel's shapes and types and hands the kernel's flops
+and bytes to ``traced``. It builds, launches and counts nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,9 +31,10 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, NamedTuple, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
 
 _KERNELS_DIR = Path(__file__).resolve().parent
@@ -84,7 +94,8 @@ def on_card(*tensors: torch.Tensor) -> bool:
     False when every tensor lies on the CPU (use the plain version). Mixed
     or other devices raise, and so does a DTensor: a kernel takes one
     rank's local tensors, which ``layers.attention`` hands it through
-    ``local_map``; a wrapper never gathers a sharded tensor itself."""
+    ``local_map``; a wrapper never gathers a sharded tensor itself. Fake
+    tensors on the meta device stand for the card's (``fake``)."""
     for t in tensors:
         if isinstance(t, DTensor):
             raise TypeError(
@@ -95,8 +106,48 @@ def on_card(*tensors: torch.Tensor) -> bool:
         return False
     if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
         return True
+    if kinds == {"meta"} and fake(*tensors):
+        return True
     raise ValueError(f"kernel inputs on mixed/unsupported devices: "
                      f"{sorted(str(t.device) for t in tensors)}")
+
+
+def fake(*tensors: torch.Tensor) -> bool:
+    """True when every tensor is a ``FakeTensor``: the call is traced, not
+    run (a type check; ``on_card`` has placed them on the card or, for a
+    torch built without CUDA, on the meta device)."""
+    return all(isinstance(t, FakeTensor) for t in tensors)
+
+
+class Cost(NamedTuple):
+    """The work of one kernel call: its arithmetic and the device-memory
+    bytes it must move (each input read once, each output written once)."""
+    flops: int
+    bytes: int
+
+
+_cost_hook = None
+
+
+@contextlib.contextmanager
+def cost_hook(fn):
+    """Within the block, ``fn(name, flops, nbytes)`` receives the work of
+    every traced kernel call (``traced``), in the order of the calls."""
+    global _cost_hook
+    prev, _cost_hook = _cost_hook, fn
+    try:
+        yield
+    finally:
+        _cost_hook = prev
+
+
+def traced(name: str, outputs, cost: Cost):
+    """A wrapper's fake call: hands ``cost``, the work of the kernel
+    ``name`` at these shapes (its ``ops`` cost function), to the active
+    ``cost_hook``, and returns ``outputs``, the kernel's empty outputs."""
+    if _cost_hook is not None:
+        _cost_hook(name, cost.flops, cost.bytes)
+    return outputs
 
 
 def no_backward(name: str, *tensors: torch.Tensor) -> None:
@@ -117,7 +168,7 @@ def check_contiguous(name: str, **tensors: torch.Tensor) -> None:
     for k, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
-        if t.data_ptr() % 16:
+        if not isinstance(t, FakeTensor) and t.data_ptr() % 16:
             raise ValueError(f"{name}: {k} must start on a 16-byte boundary")
 
 

@@ -62,6 +62,18 @@ def init_params(specs, generator: torch.Generator, device):
     return out
 
 
+def unstack(tree):
+    """The slices of a stacked tree along its leading axis, one tree an
+    index: views (``unbind``), whose gradients the backward stacks in one
+    op. Indexing each slice instead (``t[i]``) makes each one's gradient a
+    zero-filled copy of the whole stack, L of them summed for L slices."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
 def remat_call(remat: bool, fn, *args):
     """``fn(*args)``, or, with ``remat`` under grad mode, the same through
     ``torch.utils.checkpoint`` (non-reentrant): its activations are not

@@ -18,16 +18,25 @@ self cache ``{"k","v"}`` at ``[:S]`` and the cross K/V ``{"cross_k",
 "cross_v"}`` ``(L,B,encoder_seq,H,dh)``, each layer's entries written
 straight into the cache (its dtype, bf16 as JAX's ``cache_spec``);
 ``decode_step`` writes the self cache in place at ``pos`` (JAX returns a
-new one)."""
+new one).
+
+On a mesh (DTensors, the mesh builders of ``distributed.stepfn``) the
+token table is looked up through ``layers.sharded_embedding`` and each
+attention runs each rank's shard through ``local_map`` (``layers.
+attention``); the cache is made in the step's cache placements
+(``ctx.cache_zeros``), and a decode step attends its self cache in the
+named ``cache_kv`` placement, as JAX's constrains it. As in JAX, no
+activation is sharded over the sequence."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import ctx
 from repro_torch.models import layers as L
-from repro_torch.models.common import remat_call, spec
-from repro_torch.models.transformer import _stack, layer_params
+from repro_torch.models.common import remat_call, spec, unstack
+from repro_torch.models.transformer import _stack, embed_tokens, layer_params
 
 
 def _check_encdec(cfg: ModelConfig):
@@ -112,15 +121,22 @@ def _out(cfg: ModelConfig, p, o):
     return y + p["bo"] if cfg.attn_out_bias else y
 
 
+def _add(h, y):
+    """The residual h plus a block's output y: on a mesh y's partial sums
+    reduced to h's placement first (``ctx.reduce_like``), so that every
+    layer takes its input in one placement, as a scan's carry keeps one."""
+    return h + ctx.reduce_like(y, h)
+
+
 def _mlp(cfg: ModelConfig, lp, h):
-    return h + L.ffn_apply(cfg, lp["mlp"], L.apply_norm(cfg, lp["mlp_norm"],
-                                                        h))
+    return _add(h, L.ffn_apply(cfg, lp["mlp"],
+                               L.apply_norm(cfg, lp["mlp_norm"], h)))
 
 
 def _enc_layer(cfg: ModelConfig, lp, h):
     hn = L.apply_norm(cfg, lp["attn"]["norm"], h)
     q, k, v = _proj_qkv(cfg, lp["attn"], hn, hn)
-    h = h + _out(cfg, lp["attn"], L.attention(q, k, v, causal=False))
+    h = _add(h, _out(cfg, lp["attn"], L.attention(q, k, v, causal=False)))
     return _mlp(cfg, lp, h)
 
 
@@ -133,9 +149,8 @@ def encode(cfg: ModelConfig, params, enc_embeds, *, remat=False):
     B, S, D = enc_embeds.shape
     h = enc_embeds.to(torch.bfloat16) + sinusoid_pos(
         S, D, enc_embeds.device)[None]
-    for i in range(cfg.n_encoder_layers):
-        h = remat_call(remat, _enc_layer, cfg,
-                       layer_params(params, i, "enc_layers"), h)
+    for lp in unstack(params["enc_layers"]):
+        h = remat_call(remat, _enc_layer, cfg, lp, h)
     return L.apply_norm(cfg, params["enc_final_norm"], h)
 
 
@@ -143,10 +158,12 @@ def _dec_layer(cfg: ModelConfig, lp, h, enc_out):
     """One decoder layer: (h out, its self (k, v), its cross (k, v))."""
     hn = L.apply_norm(cfg, lp["self_attn"]["norm"], h)
     q, k, v = _proj_qkv(cfg, lp["self_attn"], hn, hn)
-    h = h + _out(cfg, lp["self_attn"], L.attention(q, k, v, causal=True))
+    h = _add(h, _out(cfg, lp["self_attn"], L.attention(q, k, v,
+                                                       causal=True)))
     hn = L.apply_norm(cfg, lp["cross_attn"]["norm"], h)
     qc, kc, vc = _proj_qkv(cfg, lp["cross_attn"], hn, enc_out)
-    h = h + _out(cfg, lp["cross_attn"], L.attention(qc, kc, vc, causal=False))
+    h = _add(h, _out(cfg, lp["cross_attn"], L.attention(qc, kc, vc,
+                                                        causal=False)))
     return _mlp(cfg, lp, h), (k, v), (kc, vc)
 
 
@@ -157,12 +174,11 @@ def _decoder(cfg: ModelConfig, params, tokens, enc_out, *, cache=None,
     ``init_cache``) each layer's self K/V is written at ``[:S]`` and its
     cross K/V whole. ``remat`` recomputes each layer in the backward."""
     B, S = tokens.shape
-    h = params["embed"]["tok"][tokens] + sinusoid_pos(
+    h = embed_tokens(cfg, params, tokens) + sinusoid_pos(
         S, cfg.d_model, tokens.device)[None]
-    for i in range(cfg.n_layers):
-        h, (k, v), (kc, vc) = remat_call(
-            remat, _dec_layer, cfg, layer_params(params, i, "dec_layers"), h,
-            enc_out)
+    for i, lp in enumerate(unstack(params["dec_layers"])):
+        h, (k, v), (kc, vc) = remat_call(remat, _dec_layer, cfg, lp, h,
+                                         enc_out)
         if cache is not None:
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
@@ -197,7 +213,9 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
-    return {k: torch.zeros(sh, dtype=dt, device=device)
+    """Zeros of ``cache_spec``; on a mesh step, DTensors in its cache
+    placements (``ctx.cache_zeros``)."""
+    return {k: ctx.cache_zeros(k, sh, dt, device)
             for k, (sh, dt) in cache_spec(cfg, batch, max_len).items()}
 
 
@@ -226,7 +244,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
     pos = int(pos)
     dev = tokens.device
     S = cache["k"].shape[2]
-    h = params["embed"]["tok"][tokens] + sinusoid_pos(
+    h = embed_tokens(cfg, params, tokens) + sinusoid_pos(
         torch.full((1,), pos, device=dev), cfg.d_model)[None]
     valid = (torch.arange(S, device=dev) < pos + 1)[None].expand(B, S)
     ev = torch.ones((B, cache["cross_k"].shape[2]), dtype=torch.bool,
@@ -239,14 +257,16 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
         kc, vc = cache["k"][i], cache["v"][i]
         kc[:, pos] = k[:, 0]
         vc[:, pos] = v[:, 0]
-        h = h + _out(cfg, p, L.decode_attention(q, kc, vc, valid))
+        h = _add(h, _out(cfg, p, L.decode_attention(
+            q, ctx.constrain_named("cache_kv", kc),
+            ctx.constrain_named("cache_kv", vc), valid)))
         p = lp["cross_attn"]
         hn = L.apply_norm(cfg, p["norm"], h)
         qc = torch.einsum("bsd,dhk->bshk", hn, p["wq"])
         if cfg.qkv_bias:
             qc = qc + p["bq"]
-        h = h + _out(cfg, p, L.decode_attention(qc, cache["cross_k"][i],
-                                                cache["cross_v"][i], ev))
+        h = _add(h, _out(cfg, p, L.decode_attention(
+            qc, cache["cross_k"][i], cache["cross_v"][i], ev)))
         h = _mlp(cfg, lp, h)
     h = L.apply_norm(cfg, params["final_norm"], h)
     return torch.einsum("bsd,vd->bsv", h, params["embed"]["tok"])[:, 0], cache

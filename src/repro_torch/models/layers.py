@@ -167,6 +167,21 @@ def _model_size(mesh) -> int:
     return mesh.shape[names.index("model")] if "model" in names else 1
 
 
+def local_elementwise(fn, x):
+    """``fn(x)`` for an elementwise ``fn``; a DTensor's on each rank's
+    shard through ``local_map`` (DTensor has no sharding rule for some
+    elementwise backward, ``log_sigmoid``'s among them), a partial sum
+    reduced first."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    return local_map(fn, out_placements=list(pl), in_placements=(pl,),
+                     in_grad_placements=(pl,), device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x)
+
+
 def sharded_embedding(table, tokens):
     """``table[tokens]`` of a DTensor table through ``local_map``. A table
     whose vocab shards over 'model' gives each rank the rows it holds
@@ -234,14 +249,8 @@ def sharded_attention(q, k, v, *, causal=True, window=0):
     def local(ql, kl, vl):
         from repro_torch.kernels.flash_attention import ops
         if q_heads and not kv_heads:
-            hq = ql.shape[2]
-            first = rank * hq
-            if G % hq == 0:                   # one kv head, G = hq
-                sl = slice(first // G, first // G + 1)
-                kl, vl = kl[:, :, sl], vl[:, :, sl]
-            else:                             # a kv head a q head
-                idx = (first + torch.arange(hq, device=kl.device)) // G
-                kl, vl = kl[:, :, idx], vl[:, :, idx]
+            kl, vl = _rank_kv_heads(kl, vl, rank * ql.shape[2], ql.shape[2],
+                                    G)
         return ops.attention(ql, kl, vl, causal=causal, window=window)
 
     return local_map(local, out_placements=list(qp),
@@ -250,10 +259,61 @@ def sharded_attention(q, k, v, *, causal=True, window=0):
                      redistribute_inputs=True)(q, k, v)
 
 
+def _rank_kv_heads(kl, vl, first, hq, G):
+    """The kv heads (dim 2) that q heads ``first .. first + hq - 1`` read,
+    G q heads a kv head: one kv head where hq divides G, else one a q
+    head."""
+    if G % hq == 0:
+        sl = slice(first // G, first // G + 1)
+        return kl[:, :, sl], vl[:, :, sl]
+    idx = (first + torch.arange(hq, device=kl.device)) // G
+    return kl[:, :, idx], vl[:, :, idx]
+
+
+def sharded_decode_attention(q, k_cache, v_cache, valid_mask):
+    """``decode_attention`` of DTensors through ``local_map``, placed as
+    ``sharded_attention`` places attention: q's batch over the data axes
+    and its heads over 'model', the caches' kv heads with them where
+    'model' divides them, else whole on every rank, which attends with the
+    kv heads its q heads read. A plain mask (the same on every rank) is
+    sharded with the batch."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    B, _, Hq, _ = q.shape
+    Hkv = k_cache.shape[2]
+    tp = _model_size(mesh)
+    data = Shard(0) if B % _data_size(mesh) == 0 else Replicate()
+    q_heads = tp > 1 and Hq % tp == 0
+    kv_heads = q_heads and Hkv % tp == 0
+    qp = _mesh_placements(mesh, data, Shard(2) if q_heads else Replicate())
+    kvp = _mesh_placements(mesh, data, Shard(2) if kv_heads else Replicate())
+    vp = _mesh_placements(mesh, data, Replicate())
+    if not is_dtensor(valid_mask):
+        valid_mask = distribute_tensor(valid_mask, mesh, vp,
+                                       src_data_rank=None)
+    G = Hq // Hkv
+    rank = mesh.get_local_rank("model") if q_heads else 0
+
+    def local(ql, kl, vl, ml):
+        if q_heads and not kv_heads:
+            kl, vl = _rank_kv_heads(kl, vl, rank * ql.shape[2], ql.shape[2],
+                                    G)
+        return decode_attention(ql, kl, vl, ml)
+
+    return local_map(local, out_placements=list(qp),
+                     in_placements=(qp, kvp, kvp, vp), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k_cache, v_cache,
+                                               valid_mask)
+
+
 def decode_attention(q, k_cache, v_cache, valid_mask):
     """Single-token decode. q (B,1,Hq,dh); caches (B,S,Hkv,dh); valid_mask
     (B,S) bool. Scores and softmax in f32; probabilities cast to the cache's
-    dtype for the value product, summed in f32 (as the JAX function does)."""
+    dtype for the value product, summed in f32 (as the JAX function does).
+    DTensors go through ``sharded_decode_attention``."""
+    if is_dtensor(q):
+        return sharded_decode_attention(q, k_cache, v_cache, valid_mask)
     B, _, Hq, dh = q.shape
     _, S, Hkv, dv = v_cache.shape
     qg = q.reshape(B, Hkv, Hq // Hkv, dh)

@@ -7,6 +7,7 @@ rglru (``rglru``) and xlstm (``xlstm``).
     logits = model.forward(params, {"tokens": tokens})
     last, cache = model.prefill(params, {"tokens": tokens}, max_len)
     logits, cache = model.decode_step(params, cache, tokens, pos)
+    batch = model.input_specs(cell)      # meta tensors for the dry-run
 
 The encoder-decoder's batch also carries ``enc_embeds`` (B, encoder_seq,
 D), and its ``prefill`` receives the whole batch, as JAX's does; the
@@ -19,7 +20,7 @@ from types import ModuleType
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.models import common, encdec, rglru, transformer, xlstm
 
 _FAMILIES = {"dense": transformer, "moe": transformer,
@@ -55,6 +56,26 @@ class Model:
 
     def init_cache(self, batch, max_len, device):
         return self.impl.init_cache(self.cfg, batch, max_len, device)
+
+    def input_specs(self, cell: ShapeCell):
+        """Meta-device stand-ins for every model input of a shape cell, at
+        JAX's shapes and dtypes: int32 ``tokens`` (and ``targets`` to
+        train) of (B, S), Whisper's bf16 ``enc_embeds`` (B, encoder_seq,
+        D); a decode cell's one new token (B, 1)."""
+        B, S = cell.global_batch, cell.seq_len
+
+        def tok(b, s):
+            return torch.empty((b, s), dtype=torch.int32, device="meta")
+        if cell.kind == "decode":
+            return {"tokens": tok(B, 1)}
+        batch = {"tokens": tok(B, S)}
+        if cell.kind == "train":
+            batch["targets"] = tok(B, S)
+        if self.cfg.family == "encdec":
+            batch["enc_embeds"] = torch.empty(
+                (B, self.cfg.encoder_seq, self.cfg.d_model),
+                dtype=torch.bfloat16, device="meta")
+        return batch
 
 
 def get_model(cfg: ModelConfig) -> Model:

@@ -10,19 +10,27 @@ and the local attention through ``layers.attention`` (``flash_prefill`` with
 the window on the card). A decode step is the single fused recurrence step,
 and attends with the plain ``layers.decode_attention`` against a ring of
 ``W = min(window, max_len)`` positions written in place at ``pos % W``.
+
+On a mesh (DTensors, the mesh builders of ``distributed.stepfn``) the
+recurrence runs each rank's shard through ``local_map`` (``sharded_lru_
+scan``: the batch over the data axes, ``d_rnn`` over 'model'), as
+``layers.sharded_attention`` runs attention. With Megatron-SP the
+recurrent block, like the attention and MLP blocks, takes the whole
+sequence: ``transformer._normed`` gathers its normed input and
+``transformer._residual`` places its output as the residual is, so the
+causal conv and the gates never see a sequence shard.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.bridge import tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import ctx
 from repro_torch.kernels.lru_scan import ops as lru_ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.common import remat_call, spec
+from repro_torch.models.common import remat_call, spec, unstack
 
 _C_RGLRU = 8.0
 
@@ -121,23 +129,44 @@ def _lru_coeffs(p, u):
     return a, b
 
 
+def sharded_lru_scan(a, b):
+    """``lru_scan`` of DTensors a, b (B, S, Dr): each rank's local call
+    (the kernel on the card, its plain version on the CPU) through
+    ``local_map``, the batch sharded over the data axes and Dr over
+    'model' where the axes divide them (the recurrence is independent per
+    (batch, channel))."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = a.device_mesh
+    B, _, Dr = a.shape
+    data = Shard(0) if B % L._data_size(mesh) == 0 else Replicate()
+    tp = L._model_size(mesh)
+    pl = L._mesh_placements(mesh, data,
+                            Shard(2) if tp > 1 and Dr % tp == 0
+                            else Replicate())
+    return local_map(lru_ops.lru_scan, out_placements=list(pl),
+                     in_placements=(pl, pl), in_grad_placements=(pl, pl),
+                     device_mesh=mesh, redistribute_inputs=True)(a, b)
+
+
 def rec_block(cfg: ModelConfig, p, x, state=None):
     """x (B,S,D). state = {'h': (B,Dr), 'conv': (B,cw-1,Dr)} or None (a
     whole sequence from a zero state). Returns (y, new_state)."""
-    h = L.apply_norm(cfg, p["norm"], x)
+    h = T._normed(cfg, p["norm"], x)
     gate = F.gelu(h @ p["w_gate"], approximate="tanh")
     u = h @ p["w_branch"]
     conv_state = state["conv"] if state is not None else None
     u, new_conv = causal_conv(u, p["conv_w"], p["conv_b"], conv_state)
     a, b = _lru_coeffs(p, u)
     if state is None:
-        hid = lru_ops.lru_scan(a, b)
+        hid = sharded_lru_scan(a, b) if ctx.is_dtensor(a) \
+            else lru_ops.lru_scan(a, b)
         new_h = hid[:, -1]
     else:
         new_h = a[:, 0] * state["h"] + b[:, 0]
         hid = new_h[:, None]
     y = (gate * hid.to(gate.dtype)) @ p["w_out"]
-    return x + y, {"h": new_h, "conv": new_conv}
+    return T._residual(x, y), {"h": new_h, "conv": new_conv}
 
 
 def _mlp_block(cfg: ModelConfig, pm, x):
@@ -163,10 +192,11 @@ def _group_apply(cfg: ModelConfig, gp, x, positions):
     """One (rec, rec, attn) group over a whole sequence. Returns (x, the
     rec blocks' stacked states, the attention's (k, v))."""
     rec_states, kv, li = [], None, 0
+    recs, mlps = unstack(gp["rec"]), unstack(gp["rec_mlp"])
     for kind in cfg.block_pattern:
         if kind == "rec":
-            x, ns = rec_block(cfg, _take(gp["rec"], li), x)
-            x = _mlp_block(cfg, _take(gp["rec_mlp"], li), x)
+            x, ns = rec_block(cfg, recs[li], x)
+            x = _mlp_block(cfg, mlps[li], x)
             rec_states.append(ns)
             li += 1
         else:
@@ -190,27 +220,27 @@ def forward(cfg: ModelConfig, params, batch, *, remat=False, last_only=False,
     _check_rglru(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    h = params["embed"]["tok"][tokens]
+    h = T.embed_tokens(cfg, params, tokens)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     G, tail = _group_counts(cfg)
     rec, ks, vs = [], [], []
-    for g in range(G):
+    for gp in unstack(params["groups"]) if G else ():
         h = ctx.constrain(h)
-        h, rs, (k, v) = remat_call(remat, _group_apply, cfg,
-                                   _take(params["groups"], g), h, positions)
+        h, rs, (k, v) = remat_call(remat, _group_apply, cfg, gp, h,
+                                   positions)
         rec.append(rs)
         ks.append(k)
         vs.append(v)
     tail_states = None
     if tail:
         ts = []
-        for i in range(tail):
-            h, ns = remat_call(remat, _tail_layer, cfg,
-                               _take(params["tail_rec"], i),
-                               _take(params["tail_mlp"], i), h)
+        for rp, mp in zip(unstack(params["tail_rec"]),
+                          unstack(params["tail_mlp"])):
+            h = ctx.constrain(h)
+            h, ns = remat_call(remat, _tail_layer, cfg, rp, mp, h)
             ts.append(ns)
         tail_states = _stack_states(ts)
-    h = L.apply_norm(cfg, params["final_norm"], h)
+    h = T._normed(cfg, params["final_norm"], h)
     if last_only:
         h = h[:, -1:]
     logits = h @ params["lm_head"]
@@ -244,8 +274,13 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
-    return tree_map(lambda s: torch.zeros(s[0], dtype=s[1], device=device),
-                    cache_spec(cfg, batch, max_len))
+    """Zeros of ``cache_spec``; on a mesh step, DTensors in its cache
+    placements (``ctx.cache_zeros``)."""
+    def zeros(tree, path):
+        if isinstance(tree, dict):
+            return {k: zeros(v, path + (k,)) for k, v in tree.items()}
+        return ctx.cache_zeros(path, tree[0], tree[1], device)
+    return zeros(cache_spec(cfg, batch, max_len), ())
 
 
 @torch.no_grad()
@@ -282,7 +317,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
     B = tokens.shape[0]
     pos = int(pos)
     dev = tokens.device
-    h = params["embed"]["tok"][tokens]
+    h = T.embed_tokens(cfg, params, tokens)
     posv = torch.full((B, 1), pos, dtype=torch.long, device=dev)
     W = cache["k"].shape[2]
     valid = (torch.arange(W, device=dev) < min(pos + 1, W))[None].expand(B, W)

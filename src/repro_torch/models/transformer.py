@@ -37,7 +37,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import ctx
 from repro_torch.models import layers as L
-from repro_torch.models.common import remat_call, spec
+from repro_torch.models.common import remat_call, spec, unstack
 
 
 def _check_ported(cfg: ModelConfig):
@@ -133,10 +133,11 @@ def layer_params(params, i: int, stack: str = "layers") -> Dict[str, Any]:
 
 
 def layers_in_order(cfg: ModelConfig, params):
-    """``(stack, i, layer params, moe)`` of every layer, in order."""
+    """``(stack, i, layer params, moe)`` of every layer, in order (the
+    stacks' ``unstack`` views)."""
     for stack, n, moe in layer_stacks(cfg):
-        for i in range(n):
-            yield stack, i, layer_params(params, i, stack), moe
+        for i, lp in enumerate(unstack(params[stack])):
+            yield stack, i, lp, moe
 
 
 def qkv_proj(cfg, p, hn, positions):
@@ -167,8 +168,10 @@ def _normed(cfg, p_norm, x):
 def _residual(x, y):
     """x plus a block's output y, y first placed as the residual is
     (``ctx.constrain``: with Megatron-SP the partial sums of the
-    row-parallel projection reduce-scattered over S)."""
-    return x + ctx.constrain(y)
+    row-parallel projection reduce-scattered over S; without it, on a
+    mesh, reduced to the residual's placement, so that every layer takes
+    its input in one placement, as a scan's carry keeps one)."""
+    return x + ctx.constrain(y, like=x)
 
 
 def _dense_attn(cfg, p, x, positions):
@@ -206,8 +209,8 @@ def _mla_attn_decode(cfg, p, x, ckv_cache, krope_cache, pos: int):
     """Absorbed MLA decode of x (B,1,D) at host position ``pos``: x plus
     the output projection of ``_mla_decode_context`` of its norm."""
     h = L.apply_norm(cfg, p["norm"], x)                        # (B,1,D)
-    ctx = _mla_decode_context(cfg, p, h, ckv_cache, krope_cache, pos)
-    return x + torch.einsum("bhv,hvd->bd", ctx, p["wo"])[:, None]
+    c = _mla_decode_context(cfg, p, h, ckv_cache, krope_cache, pos)
+    return _residual(x, torch.einsum("bhv,hvd->bd", c, p["wo"])[:, None])
 
 
 def _mla_decode_context(cfg, p, h, ckv_cache, krope_cache, pos: int):
@@ -377,14 +380,17 @@ def prefill(cfg: ModelConfig, params, tokens, max_len: int):
 
 def _decode_dense_layer(cfg, lp, hh, kc, vc, idx, posv, valid):
     """One layer of the decode step; writes this token's K/V into the
-    layer's caches kc/vc (B,S,Hkv,dh) at ``idx``, in place."""
+    layer's caches kc/vc (B,S,Hkv,dh) at ``idx``, in place, and attends
+    them in the named ``cache_kv`` placement (the mesh decode step's; the
+    cache's own, so no data moves)."""
     p = lp["attn"]
     hn = L.apply_norm(cfg, p["norm"], hh)
     q, k, v = qkv_proj(cfg, p, hn, posv)
     kc[:, idx] = k[:, 0]
     vc[:, idx] = v[:, 0]
-    o = L.decode_attention(q, kc, vc, valid)
-    hh = hh + attn_out(cfg, p, o)
+    o = L.decode_attention(q, ctx.constrain_named("cache_kv", kc),
+                           ctx.constrain_named("cache_kv", vc), valid)
+    hh = _residual(hh, attn_out(cfg, p, o))
     return _mlp(cfg, lp["mlp_norm"], lp["mlp"], hh), (kc, vc)
 
 

@@ -25,6 +25,17 @@ an f32 one, the port casts it up first (``_ein``).
 No Pallas kernel computes either recurrence in JAX (both are XLA), so
 both stay plain PyTorch here.
 
+On a mesh (DTensors, the mesh builders of ``distributed.stepfn``) both
+blocks take the whole sequence: with Megatron-SP ``transformer._normed``
+gathers each normed input and ``transformer._residual`` places each
+output as the residual is, as around attention and the MLP. The sLSTM's
+step loop runs each rank's batch shard through ``local_map``
+(``_slstm_scan``): its weights replicate over 'model', so every rank of a
+model group steps the same rows, and no step's op goes through DTensor.
+The mLSTM's core runs so too (``_mlstm_core``), each head whole: its
+projections shard over 'model' as JAX's do, and their outputs are
+gathered for it.
+
 The state keeps JAX's layout: ``{"mlstm": {"C" (G,n_m,B,H,dh,dh) f32,
 "n" (G,n_m,B,H,dh) f32, "conv" (G,n_m,B,cw-1,Di)}, "slstm": {"h", "c",
 "n", "m"} (G,B,D) f32}``; its size does not depend on the sequence.
@@ -36,11 +47,11 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.bridge import tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import ctx
 from repro_torch.models import layers as L
-from repro_torch.models.common import remat_call, spec
+from repro_torch.models import transformer as T
+from repro_torch.models.common import remat_call, spec, unstack
 from repro_torch.models.rglru import _take, causal_conv
 from repro_torch.models.transformer import _stack
 
@@ -183,10 +194,13 @@ def mlstm_chunkwise(q, k, v, ilog, flog, state=None, chunk=_CHUNK):
         h_inter = torch.einsum("bthd,bhde->bthe", qc, C) * dec_t[..., None]
         n_inter = n[:, None] * dec_t[..., None]
         # intra-chunk decay w_tj = exp(cum_t - cum_j + il_j), j <= t: above
-        # the diagonal the exponent may overflow, so the mask selects
+        # the diagonal the exponent may overflow, so the mask selects the
+        # exponent (-inf there): the same values as masking the exp, and
+        # no inf there for the backward to multiply by a zero gradient
         g = ic - cum                                    # (B,c,H)
-        wmat = torch.where(tri[None, :, :, None],
-                           torch.exp(cum[:, :, None] + g[:, None, :]), 0.0)
+        wmat = torch.exp(torch.where(tri[None, :, :, None],
+                                     cum[:, :, None] + g[:, None, :],
+                                     float("-inf")))
         s = torch.einsum("bthd,bjhd->btjh", qc, kc) * wmat
         h_intra = torch.einsum("btjh,bjhd->bthd", s, vc)
         n_intra = torch.einsum("btjh,bjhd->bthd", wmat, kc)
@@ -220,37 +234,98 @@ def mlstm_step(q, k, v, ilog, flog, state):
     return h, {"C": C, "n": n}
 
 
+def _split_heads(x, H, dh):
+    """x (B,S,H*dh) as (B,S,H,dh). A DTensor sharded over its last dim on a
+    mesh axis that does not divide H is made whole along it first: DTensor
+    cannot split a shard that straddles heads (xlstm-1.3b's 4 heads on a
+    16-wide model axis)."""
+    if ctx.is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        pl = [Replicate() if isinstance(p, Shard) and p.dim == x.ndim - 1
+              and H % n else p
+              for p, n in zip(x.placements, x.device_mesh.shape)]
+        if pl != list(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+    return x.reshape(*x.shape[:-1], H, dh)
+
+
+def _mlstm_steps(q, k, v, ilog, flog, gn, C=None, n=None):
+    """The mLSTM recurrence over q, k, v (B,S,H,dh): chunkwise over a
+    sequence (from (C, n) where given), the step recurrence for one token
+    after a state; then the per-head norm with scale ``gn``. Returns (the
+    normed h (B,S,H*dh) bf16, C, n)."""
+    st = None if C is None else {"C": C, "n": n}
+    if st is None or q.shape[1] > 1:
+        h, st = mlstm_chunkwise(q, k, v, ilog, flog, st)
+    else:
+        h, st = mlstm_step(q[:, 0], k[:, 0], v[:, 0], ilog[:, 0],
+                           flog[:, 0], st)
+        h = h[:, None]
+    return _mh_rms(h, gn), st["C"], st["n"]
+
+
+def _mlstm_core(q, k, v, ilog, flog, gn, state):
+    """``_mlstm_steps`` on plain tensors, or, for DTensors, on each rank's
+    batch shard through ``local_map``, every head whole on every rank of
+    a model group (a head's q . k and its state's products span its whole
+    width, and xlstm-1.3b's 4 heads do not divide over a 16-wide model
+    axis): q, k, v, gn and the state are gathered over 'model' first."""
+    args = (q, k, v, ilog, flog, gn) + ((None, None) if state is None
+                                        else tuple(state))
+    if not ctx.is_dtensor(q):
+        return _mlstm_steps(*args)
+    from torch.distributed.tensor.experimental import local_map
+    rows, whole, w_grad = _row_placements(q)
+    st_pl = (None, None) if state is None else (rows, rows)
+    return local_map(_mlstm_steps, out_placements=(rows,) * 3,
+                     in_placements=(rows,) * 5 + (whole,) + st_pl,
+                     in_grad_placements=(rows,) * 5 + (w_grad,) + st_pl,
+                     device_mesh=q.device_mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def _row_placements(x):
+    """For a recurrence run on each rank's rows of DTensor ``x`` (B, ...):
+    the rows' placements (the batch over the data axes where they divide
+    it, whole over 'model'), a weight's (whole), and the weight's gradient
+    (each rank's share of the sum over its batch shard)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    sharded = x.shape[0] % L._data_size(mesh) == 0
+    return (L._mesh_placements(mesh, Shard(0) if sharded else Replicate(),
+                               Replicate()),
+            L._mesh_placements(mesh, Replicate(), Replicate()),
+            L._mesh_placements(mesh, Partial() if sharded else Replicate(),
+                               Replicate()))
+
+
 def mlstm_block(cfg: ModelConfig, p, x, state=None):
     """x (B,S,D); state {'C','n','conv'} or None. Returns (y, new state):
     chunkwise over a sequence (from the state where one is given), the
     step recurrence for one token after a state."""
     B, S, D = x.shape
     _, Di, H, dh, _ = _dims(cfg)
-    h = L.apply_norm(cfg, p["norm"], x)
+    h = T._normed(cfg, p["norm"], x)
     u = h @ p["w_up"]                                   # (B,S,Di)
     z = h @ p["w_z"]
     conv_state = state["conv"] if state is not None else None
     cpre, new_conv = causal_conv(u, p["conv_w"], p["conv_b"], conv_state)
     cact = F.silu(cpre)
-    ch = cact.reshape(B, S, H, dh)
-    uh = u.reshape(B, S, H, dh)
+    ch = _split_heads(cact, H, dh)
+    uh = _split_heads(u, H, dh)
     q = _ein("bshd,hde->bshe", ch, p["wq"])
     k = _ein("bshd,hde->bshe", ch, p["wk"])
     v = _ein("bshd,hde->bshe", uh, p["wv"])
     ilog = torch.clamp((cact @ p["w_i"] + p["b_i"]).float(), -_ILOG_CLIP,
                        _ILOG_CLIP)
-    flog = F.logsigmoid((cact @ p["w_f"] + p["b_f"]).float())
-    if state is None or S > 1:
-        st = None if state is None else {"C": state["C"], "n": state["n"]}
-        hs, new_st = mlstm_chunkwise(q, k, v, ilog, flog, st)
-    else:
-        hs, new_st = mlstm_step(q[:, 0], k[:, 0], v[:, 0], ilog[:, 0],
-                                flog[:, 0], {"C": state["C"],
-                                             "n": state["n"]})
-        hs = hs[:, None]
-    hn = _mh_rms(hs, p["gn"])                           # (B,S,Di)
+    flog = L.local_elementwise(F.logsigmoid,
+                               (cact @ p["w_f"] + p["b_f"]).float())
+    st = None if state is None else (state["C"], state["n"])
+    hn, C, n = _mlstm_core(q, k, v, ilog, flog, p["gn"], st)   # (B,S,Di)
+    new_st = {"C": C, "n": n}
     out = (hn * F.silu(z)) @ p["w_down"]
-    return x + out, {"C": new_st["C"], "n": new_st["n"], "conv": new_conv}
+    return T._residual(x, out), {"C": new_st["C"], "n": new_st["n"],
+                                 "conv": new_conv}
 
 
 # ----------------------------------------------------------------------
@@ -282,6 +357,50 @@ def _slstm_rec(r, b, h_prev, xw_t):
     return (xw_t + rec + b).float()
 
 
+def _slstm_steps(r, b, xw, h, c, n, m):
+    """The sLSTM recurrence over xw (B,S,4,D) from the state (h, c, n, m)
+    (B,D) f32, or from zeros (n = 1e-6) where h is None. Returns (the
+    outputs (B,S,D) f32, h, c, n, m)."""
+    B, S, _, D = xw.shape
+    if h is None:
+        h = torch.zeros((B, D), dtype=torch.float32, device=xw.device)
+        c, n, m = h, h + 1e-6, h
+    hs = []
+    for t in range(S):
+        o = _slstm_rec(r, b, h, xw[:, t])
+        zt = torch.tanh(o[:, 0])
+        logi = torch.clamp(o[:, 1], -_ILOG_CLIP, _ILOG_CLIP)
+        logf = F.logsigmoid(o[:, 2])
+        m_new = torch.maximum(logf + m, logi)
+        i_s = torch.exp(logi - m_new)
+        f_s = torch.exp(logf + m - m_new)
+        c = f_s * c + i_s * zt
+        n = f_s * n + i_s
+        h = torch.sigmoid(o[:, 3]) * c / torch.clamp_min(n, 1e-6)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1), h, c, n, m
+
+
+def _slstm_scan(r, b, xw, state):
+    """``_slstm_steps`` on plain tensors, or, for DTensors, on each rank's
+    shard through ``local_map``: the batch over the data axes where they
+    divide it, r and b replicated (their gradient a partial sum over the
+    data axes where the batch shards)."""
+    args = (r, b, xw) + ((None,) * 4 if state is None else
+                         tuple(state[k] for k in ("h", "c", "n", "m")))
+    if not ctx.is_dtensor(xw):
+        return _slstm_steps(*args)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xw.device_mesh
+    rows, whole, w_grad = _row_placements(xw)
+    st_pl = (None,) * 4 if state is None else (rows,) * 4
+    return local_map(_slstm_steps, out_placements=(rows,) * 5,
+                     in_placements=(whole, whole, rows, *st_pl),
+                     in_grad_placements=(w_grad, w_grad, rows, *st_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
 def slstm_apply(cfg: ModelConfig, p, x, state=None):
     """Sequential sLSTM with the exact max-stabiliser, then its GELU
     post-FFN. x (B,S,D); state {'h','c','n','m'} (B,D) f32 or None
@@ -289,30 +408,15 @@ def slstm_apply(cfg: ModelConfig, p, x, state=None):
     taken for all S at once (the same rounding a step's would have), the
     recurrence one position at a time. Returns (y, new state)."""
     B, S, D = x.shape
-    xn = L.apply_norm(cfg, p["norm"], x)
-    if state is None:
-        z = torch.zeros((B, D), dtype=torch.float32, device=x.device)
-        state = {"h": z, "c": z, "n": z + 1e-6, "m": z}
+    xn = T._normed(cfg, p["norm"], x)
     w, r, b = _gate_weights(p)
     xw = (xn @ w).reshape(B, S, 4, D)
-    st, hs = state, []
-    for t in range(S):
-        o = _slstm_rec(r, b, st["h"], xw[:, t])
-        zt = torch.tanh(o[:, 0])
-        logi = torch.clamp(o[:, 1], -_ILOG_CLIP, _ILOG_CLIP)
-        logf = F.logsigmoid(o[:, 2])
-        m_new = torch.maximum(logf + st["m"], logi)
-        i_s = torch.exp(logi - m_new)
-        f_s = torch.exp(logf + st["m"] - m_new)
-        c = f_s * st["c"] + i_s * zt
-        n = f_s * st["n"] + i_s
-        h = torch.sigmoid(o[:, 3]) * c / torch.clamp_min(n, 1e-6)
-        st = {"h": h, "c": c, "n": n, "m": m_new}
-        hs.append(h)
-    out = x + torch.stack(hs, dim=1).to(x.dtype)
-    hn = L.apply_norm(cfg, p["ffn_norm"], out)
-    out = out + F.gelu(hn @ p["w_up"], approximate="tanh") @ p["w_dn"]
-    return out, st
+    hs, h, c, n, m = _slstm_scan(r, b, xw, state)
+    out = T._residual(x, hs.to(x.dtype))
+    hn = T._normed(cfg, p["ffn_norm"], out)
+    out = T._residual(out, F.gelu(hn @ p["w_up"], approximate="tanh")
+                      @ p["w_dn"])
+    return out, {"h": h, "c": c, "n": n, "m": m}
 
 
 # ----------------------------------------------------------------------
@@ -330,11 +434,10 @@ def _group_apply(cfg: ModelConfig, gp, x, states=None):
     """One group: its mLSTM blocks, then its sLSTM. ``states`` the group's
     slice of the state tree, or None. Returns (x, the group's new
     states)."""
-    n_m = gp["mlstm"]["w_i"].shape[0]
     new_m = []
-    for i in range(n_m):
+    for i, mp in enumerate(unstack(gp["mlstm"])):
         st = None if states is None else _take(states["mlstm"], i)
-        x, ns = mlstm_block(cfg, _take(gp["mlstm"], i), x, st)
+        x, ns = mlstm_block(cfg, mp, x, st)
         new_m.append(ns)
     s_st = None if states is None else states["slstm"]
     x, s_new = slstm_apply(cfg, gp["slstm"], x, s_st)
@@ -348,14 +451,13 @@ def forward(cfg: ModelConfig, params, batch, *, remat=False, last_only=False,
     S must be a multiple of ``min(256, S)``. ``remat`` recomputes each
     group in the backward (``common.remat_call``)."""
     G, _ = _group_counts(cfg)
-    h = params["embed"]["tok"][batch["tokens"]]
+    h = T.embed_tokens(cfg, params, batch["tokens"])
     states = []
-    for g in range(G):
+    for gp in unstack(params["groups"]):
         h = ctx.constrain(h)
-        h, st = remat_call(remat, _group_apply, cfg,
-                           _take(params["groups"], g), h)
+        h, st = remat_call(remat, _group_apply, cfg, gp, h)
         states.append(st)
-    h = L.apply_norm(cfg, params["final_norm"], h)
+    h = T._normed(cfg, params["final_norm"], h)
     if last_only:
         h = h[:, -1:]
     logits = h @ params["lm_head"]
@@ -380,9 +482,11 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
-    """Zeros, the sLSTM normaliser n at 1e-6."""
-    c = tree_map(lambda s: torch.zeros(s[0], dtype=s[1], device=device),
-                 cache_spec(cfg, batch, max_len))
+    """Zeros, the sLSTM normaliser n at 1e-6; on a mesh step, DTensors in
+    the cache placements (``ctx.cache_zeros``)."""
+    c = {k: {name: ctx.cache_zeros((k, name), *sd, device)
+             for name, sd in leaves.items()}
+         for k, leaves in cache_spec(cfg, batch, max_len).items()}
     c["slstm"]["n"] += 1e-6
     return c
 
@@ -400,7 +504,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
     """tokens (B,1) -> (logits (B,V), the new state tree). ``pos`` is not
     read: the recurrence carries the position."""
     G, _ = _group_counts(cfg)
-    h = params["embed"]["tok"][tokens]
+    h = T.embed_tokens(cfg, params, tokens)
     states = []
     for g in range(G):
         h, st = _group_apply(cfg, _take(params["groups"], g), h,

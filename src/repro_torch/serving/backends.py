@@ -230,38 +230,6 @@ def dense_kernel_flops(cfg: ModelConfig, batch: int,
             "ffn_swiglu": 2 * B * 3 * D * F}
 
 
-def attention_pairs(seq: int, window: int = 0) -> int:
-    """(query, key) pairs a causal prefill of ``seq`` positions attends:
-    sum over i of min(i + 1, W), W = seq without a window."""
-    W = min(window or seq, seq)
-    return W * (W + 1) // 2 + (seq - W) * W
-
-
-def prefill_attention_flops(batch: int, seq: int, n_q: int, dh: int,
-                            window: int = 0, dv: Optional[int] = None) -> int:
-    """Arithmetic of one causal ``flash_prefill`` call: q k^T (width dh)
-    and p v (width ``dv``, by default dh), 2 per multiply-add, over the
-    attended pairs only."""
-    dv = dh if dv is None else dv
-    return 2 * batch * n_q * (dh + dv) * attention_pairs(seq, window)
-
-
-def prefill_attention_hbm_bytes(batch: int, seq: int, n_q: int, n_kv: int,
-                                dh: int, dv: Optional[int] = None) -> int:
-    """Device-memory bytes of one ``flash_prefill`` call: q, k (width dh)
-    and v (width ``dv``, by default dh) read once and o (width dv) written
-    once, bf16."""
-    dv = dh if dv is None else dv
-    return _BF16 * batch * seq * (n_q * dh + n_kv * dh + n_kv * dv
-                                  + n_q * dv)
-
-
-def lru_scan_hbm_bytes(batch: int, seq: int, d: int) -> int:
-    """Device-memory bytes of one ``lru_scan`` call: a and b read once and h
-    written once, f32 (two flops per element besides)."""
-    return 3 * _F32 * batch * seq * d
-
-
 def fused_kernel_hbm_bytes(cfg: ModelConfig, batch: int, len1: Sequence[int],
                            maxb: int) -> int:
     """Device-memory bytes the three kernels must move in one fused g = 1

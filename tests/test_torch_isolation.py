@@ -40,11 +40,14 @@ def test_every_module_imports_with_jax_and_repro_refused():
             repro_torch.__path__, "repro_torch.")]
         for n in names:
             importlib.import_module(n)
-        # the training path's subpackages are walked too
+        # the training path's subpackages are walked too, and the dry-run
+        # and its cost models
         assert {{"repro_torch.optim.adamw", "repro_torch.data.pipeline",
                  "repro_torch.checkpoint.manager",
                  "repro_torch.distributed.stepfn",
-                 "repro_torch.launch.train"}} <= set(names), names
+                 "repro_torch.launch.train", "repro_torch.core.fusion",
+                 "repro_torch.launch.roofline", "repro_torch.launch.loopfix",
+                 "repro_torch.launch.dryrun"}} <= set(names), names
         spec = importlib.util.spec_from_file_location(
             "chip_smoke", {str(ROOT / 'chip_smoke.py')!r})
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
