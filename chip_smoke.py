@@ -281,6 +281,23 @@
    prompts of 3000 tokens (past the 2048-position window), 16 new tokens,
    twice: 12 ``flash_prefill`` and 26 ``lru_scan`` launches per call; the
    first lane's prefill logits against the plain f32 composition.
+7b. Examples phase: the user-facing examples (``examples/*_torch.py``),
+   each ``main`` in this process at its own sizes. quickstart: the reduced
+   expert's forward and prefill launch ``flash_prefill`` once a layer each
+   (the decode steps are plain), the forward's logits against the plain
+   f32 forward of the same weights (``DENSE_PREFILL_LOGIT_TOL_REL``).
+   coe_serving three times (the defaults: 6 experts behind an HBM cache of
+   2.5, 24 requests, 4 slots; the run-to-completion scheduler on the int8
+   store; the mmap store with one expert's worth of KV reserve and a
+   trace): every request served, the pool clean, evictions, each paged
+   kernel once a layer a decode round, switches / misses / decode rounds /
+   allocs equal to the same run on the CPU, the trace valid. train_expert
+   (8 layers, d 512, B 8 x 256): a straight run of 120 steps, and one that
+   loses its last checkpoint and resumes from step 100; the two final
+   checkpoints and states bit-equal, every loss finite, the LSE form and
+   the backward launched as ``stepfn.kernel_launches`` counts. The kernel
+   rows before it hold the paged kernels, ``flash_prefill``, its LSE form
+   and its backward at these shapes.
 8. Prints the kernel table as one JSON line, the card's name and power
    limit, and ends with ``{"ok": true, "device": {...}}``.
 
@@ -1208,15 +1225,18 @@ def split_faults_caught(name, got, q, kp, vp, tables, len1):
                                  f"fault ({fault})")
 
 
-def paged_inputs(cfg, dev, B=8, seed=1):
-    """The paged kernels' inputs at ``cfg``'s widths, bf16: B lanes at
-    ragged positions 1..512 straddling blocks, one inactive lane (its table
-    all scratch), weights scaled by 1 / sqrt(fan-in)."""
+def paged_inputs(cfg, dev, B=8, seed=1, block=None, max_len=None,
+                 len1=(1, 15, 16, 1, 17, 255, 300, 512)):
+    """The paged kernels' inputs at ``cfg``'s widths, bf16: B lanes at the
+    ragged positions ``len1`` straddling blocks of the serve phase's pool
+    (or of ``block`` x ``max_len``), lane 3 inactive (its table all
+    scratch), weights scaled by 1 / sqrt(fan-in)."""
     from types import SimpleNamespace
     bf = torch.bfloat16
     D, Hq, Hkv, dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                          cfg.head_dim, cfg.d_ff)
-    block, maxb = SERVE["block_size"], SERVE["max_len"] // SERVE["block_size"]
+    block = block or SERVE["block_size"]
+    maxb = (max_len or SERVE["max_len"]) // block
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def rnd(*shape, scale=1.0):
@@ -1229,7 +1249,7 @@ def paged_inputs(cfg, dev, B=8, seed=1):
     t.perm = torch.randperm(rows - 1, generator=gen, device=dev)
     t.tables = t.perm[:B * maxb].reshape(B, maxb).to(torch.int32)
     t.tables[3] = rows - 1                               # inactive lane
-    t.len1_host = [1, 15, 16, 1, 17, 255, 300, 512]
+    t.len1_host = list(len1)
     t.len1 = torch.tensor(t.len1_host, dtype=torch.int32, device=dev)
     t.pos = t.len1 - 1
     t.scale = (1.0 + 0.1 * rnd(D).float()).to(bf)
@@ -1314,14 +1334,14 @@ def lib_decode_paged(t, tables, len1):
         enable_gqa=Hq != Hkv)
 
 
-def paged_rows(cfg, dev, names, seed, rope_frac=1.0):
+def paged_rows(cfg, dev, names, seed, rope_frac=1.0, **shape):
     """Kernel rows of the paged kernels at ``cfg``'s widths: ``names`` maps
-    each kernel of ``paged_cases`` to its row's name. Returns (rows, the
-    inputs, the cases)."""
+    each kernel of ``paged_cases`` to its row's name; ``shape`` goes to
+    ``paged_inputs``. Returns (rows, the inputs, the cases)."""
     from repro_torch.serving.backends import (dense_kernel_flops,
                                               dense_kernel_hbm_bytes,
                                               kernel_flops, kernel_hbm_bytes)
-    t = paged_inputs(cfg, dev, seed=seed)
+    t = paged_inputs(cfg, dev, seed=seed, **shape)
     cases = paged_cases(cfg, t, rope_frac)
     nbytes = kernel_hbm_bytes(cfg, t.B, t.len1_host, t.maxb)
     flops = kernel_flops(cfg, t.B, t.len1_host)
@@ -5319,11 +5339,13 @@ def bwd_row(row, B, S, Hq, Hkv, d, window, gen, flush, *, Sk=None, dv=None,
     of ``attention_bwd_ref`` in f32, and two calls equal bit for bit (dQ is
     summed in a fixed order); timed beside that plain version, the
     one-call yardstick (``sdpa_grad``: timing only; the CUDA kernels its
-    backward ran are logged) and the LSE forward beside SDPA's forward
-    (``lse_library_ms``). Returns the kernel-table row."""
+    backward ran are logged) and the LSE forward beside its plain version
+    (``lse_plain_ms``) and SDPA's forward (``lse_library_ms``). Returns the
+    kernel-table row."""
     from repro_torch.kernels.flash_attention.ops import (attention_bwd,
                                                          attention_lse)
-    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_lse_ref)
     dev = flush.device
     Sk, dv = S if Sk is None else Sk, d if dv is None else dv
     tol = TRAIN_BWD_REL_L2 if tol is None else tol
@@ -5356,7 +5378,9 @@ def bwd_row(row, B, S, Hq, Hkv, d, window, gen, flush, *, Sk=None, dv=None,
              bytes=nbytes, flops=flops, launches=0,
              lse_ms=time_ms(lambda: attention_lse(q, k, v, causal=causal,
                                                   window=window),
-                            flush, 20))
+                            flush, 20),
+             lse_plain_ms=time_ms(lambda: attention_lse_ref(
+                 q, k, v, causal=causal, window=window), flush, 3))
     with torch.no_grad():
         # the LSE forward's one-call yardstick: SDPA's forward
         r["lse_library_ms"] = time_ms(sdpa_call(q, k, v, causal, window)[0],
@@ -5375,11 +5399,38 @@ def bwd_row(row, B, S, Hq, Hkv, d, window, gen, flush, *, Sk=None, dv=None,
          f"{flops / r['ms'] / 1e9:.1f} TFLOP/s, "
          f"{r['bound_ms'] / r['ms']:.3f} of the bound, "
          f"{r['library_ms'] / r['ms']:.3f}x SDPA's backward time; the LSE "
-         f"forward {r['lse_ms']:.4f}ms (SDPA's forward "
-         f"{r['lse_library_ms']:.4f}ms); SDPA's backward ran "
+         f"forward {r['lse_ms']:.4f}ms (plain {r['lse_plain_ms']:.4f}ms, "
+         f"SDPA's forward {r['lse_library_ms']:.4f}ms); SDPA's backward ran "
          f"{[n[:90] for n in lib_kernels[:4]]}")
     del q, k, v, o, lse, do, lib
     torch.cuda.empty_cache()
+    return r
+
+
+def lse_row(row, q, k, v, flush):
+    """The LSE form of ``flash_prefill`` (causal) on ``q``, ``k``, ``v``
+    against its plain version (o row by row, lse within 1e-3), beside
+    SDPA's forward. Returns the kernel-table row."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.flash_attention.ops import (attention_lse,
+                                                         attention_lse_cost)
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+    B, S, Hq, d = q.shape
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    cost = attention_lse_cost(B, S, S, Hq, k.shape[2], d, v.shape[3])
+    r = kernel_row(
+        row, lambda: attention_lse(q, k, v, causal=True)[0],
+        lambda: attention_lse_ref(q, k, v, causal=True)[0],
+        lambda: Fn.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        cost.bytes, cost.flops, flush, kernel="flash_prefill",
+        row_tol=PREFILL_ROW_REL_L2)
+    lse_err = float((attention_lse(q, k, v, causal=True)[1]
+                     - attention_lse_ref(q, k, v, causal=True)[1])
+                    .abs().max())
+    _log(f"kernel {row}: lse max |kernel - plain| {lse_err:.3e} (tol 1e-3)")
+    if not lse_err <= 1e-3:
+        raise AssertionError(f"{row}: lse differs by {lse_err}")
     return r
 
 
@@ -5389,13 +5440,8 @@ def train_kernel_rows(dev):
     LSE form of ``flash_prefill`` beside the plain instantiation; then the
     backward at Mixtral's 5ᴹ shape (32 q on 8 kv heads, B 2, S 4608,
     window 4096), where the GQA sum and the window edges run."""
-    import torch.nn.functional as Fn
-
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.ops import (attention,
-                                                         attention_lse,
-                                                         attention_lse_cost)
-    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+    from repro_torch.kernels.flash_attention.ops import attention
     c, t = get_config(TRAIN["arch"]), TRAIN
     gen = torch.Generator(device=dev).manual_seed(t["seed"])
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -5404,27 +5450,15 @@ def train_kernel_rows(dev):
                                    0, gen, flush)}
     q, k, v = (torch.randn((B, S, H, d), generator=gen, device=dev)
                .to(torch.bfloat16) for _ in range(3))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    cost = attention_lse_cost(B, S, S, H, H, d, d)
-    r = kernel_row(
-        TRAIN_LSE_ROW, lambda: attention_lse(q, k, v, causal=True)[0],
-        lambda: attention_lse_ref(q, k, v, causal=True)[0],
-        lambda: Fn.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-        cost.bytes, cost.flops, flush, kernel="flash_prefill",
-        row_tol=PREFILL_ROW_REL_L2)
-    lse = attention_lse(q, k, v, causal=True)[1]
-    lse_err = float((lse - attention_lse_ref(q, k, v, causal=True)[1])
-                    .abs().max())
-    if not lse_err <= 1e-3:
-        raise AssertionError(f"{TRAIN_LSE_ROW}: lse differs by {lse_err}")
+    r = lse_row(TRAIN_LSE_ROW, q, k, v, flush)
     with torch.no_grad():
         r["square_ms"] = time_ms(lambda: attention(q, k, v, causal=True),
                                  flush, 50)
-    _log(f"kernel {TRAIN_LSE_ROW}: lse max |kernel - plain| {lse_err:.3e} "
-         f"(tol 1e-3); the plain instantiation {r['square_ms']:.4f} ms: "
-         f"the LSE form {r['ms'] / r['square_ms']:.4f}x its time")
+    _log(f"kernel {TRAIN_LSE_ROW}: the plain instantiation "
+         f"{r['square_ms']:.4f} ms: the LSE form {r['ms'] / r['square_ms']:.4f}x "
+         f"its time")
     rows[TRAIN_LSE_ROW] = r
-    del q, k, v, qt, kt, vt, lse
+    del q, k, v
     m = get_config("mixtral-8x7b")
     rows[TRAIN_BWD_GQA_ROW] = bwd_row(
         TRAIN_BWD_GQA_ROW, MIXTRAL["prompts"], MIXTRAL["prompt_len"],
@@ -6942,6 +6976,296 @@ def dryrun_phase(root):
     return rec, tr
 
 
+# The examples phase (``examples/*_torch.py``, each ``main`` in this
+# process at its own sizes). coe_serving's three runs: the defaults; the
+# baseline scheduler on the int8 store; the mmap store with one expert's
+# worth of the HBM tier carved out for the KV pool and a trace. The
+# training check: a straight run of ``train_steps`` and one that loses its
+# last checkpoint and resumes from the one before (the example's
+# ``CKPT_EVERY``, 100), which must end bit-equal. A run of 100 steps
+# resumed to 120 would follow another schedule (the cosine decays over
+# --steps, as in JAX's example), so both runs take --steps 120.
+EXAMPLES = dict(serve_runs=([], ["--scheduler", "run_to_completion",
+                                 "--store", "int8"],
+                            ["--store", "mmap", "--kv-reserve-experts",
+                             "1"]),
+                train_steps=120, seed=47)
+# The examples' kernel rows: each kernel of the phase at the shape the
+# phase gives it. The paged kernels at the reduced expert's widths (D 128,
+# 4 q on 2 kv heads of 32, F 256) over coe_serving's pool (4 slots, block
+# 8, 48 positions; lane 3 inactive); flash_prefill at the quickstart's
+# prompt; the LSE form and the backward at train_expert's (8 heads of 64,
+# B 8 x 256, causal).
+EXAMPLE_PAGED_ROWS = {k: f"{k}[examples,D=128,dh=32,G=2,block=8]"
+                      for k in PAGED_KERNELS}
+EXAMPLE_PAGED_LEN1 = (9, 48, 17, 1)
+EXAMPLE_PREFILL_ROW = "flash_prefill[examples,dh=32,G=2,B=2,S=16]"
+EXAMPLE_LSE_ROW = "flash_prefill[lse,examples,dh=64,B=8,S=256]"
+EXAMPLE_BWD_ROW = "flash_prefill_bwd[examples,dh=64,B=8,S=256]"
+
+
+def example_kernel_rows(root, dev):
+    """The examples phase's kernels against their plain versions at its
+    shapes (``EXAMPLE_*_ROW``)."""
+    from repro_torch.configs import get_config, reduced
+    cfg = reduced(get_config("samba-coe-expert-7b"))
+    cs = load_example(root, "coe_serving_torch")
+    qs = load_example(root, "quickstart_torch")
+    te = load_example(root, "train_expert_torch")
+    n_slots = cs.parse_args([]).n_slots
+    rows, _, _ = paged_rows(cfg, dev, EXAMPLE_PAGED_ROWS, EXAMPLES["seed"],
+                            B=n_slots, block=cs.ENGINE["block_size"],
+                            max_len=cs.ENGINE["max_len"],
+                            len1=EXAMPLE_PAGED_LEN1)
+    gen = torch.Generator(device=dev).manual_seed(EXAMPLES["seed"])
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows[EXAMPLE_PREFILL_ROW] = prefill_row(EXAMPLE_PREFILL_ROW, cfg,
+                                            *qs.PROMPT, 0, gen, flush)
+    t, c = te.parse_args([]), te.expert_config()
+    B, S, H, d = t.batch, t.seq, c.n_heads, c.head_dim
+    rows[EXAMPLE_BWD_ROW] = bwd_row(EXAMPLE_BWD_ROW, B, S, H, c.n_kv_heads,
+                                    d, 0, gen, flush)
+    q, k, v = (torch.randn((B, S, H, d), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    rows[EXAMPLE_LSE_ROW] = lse_row(EXAMPLE_LSE_ROW, q, k, v, flush)
+    del q, k, v, flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def nvidia_smi():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def load_example(root, name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(root, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def counted_calls(mod, names, calls):
+    """Replace ``mod``'s functions ``names`` by wrappers that zero the
+    launch counts before each call and append (name, counts) after it."""
+    from repro_torch.kernels import runtime as rt
+
+    def wrap(name, fn):
+        def call(*a, **k):
+            rt.reset_launches()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            calls.append((name, rt.launch_counts()))
+            return out
+        return call
+    for n in names:
+        setattr(mod, n, wrap(n, getattr(mod, n)))
+
+
+def examples_quickstart(root, dev):
+    """quickstart_torch: forward and prefill each launch ``flash_prefill``
+    once a layer and nothing else (the decode steps are plain); the
+    forward's logits against the plain f32 forward of the same weights."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.models import transformer as T
+    qs = load_example(root, "quickstart_torch")
+    calls = []
+    counted_calls(qs, ("forward_logits", "prefill_and_decode"), calls)
+    t0 = time.perf_counter()
+    out = qs.main([])
+    wall = time.perf_counter() - t0
+    cfg = out["cfg"]
+    for name, launches in calls:
+        check_launches(f"examples: quickstart {name}", launches,
+                       {"flash_prefill": cfg.n_layers})
+    with torch.no_grad(), plain_prefill():
+        ref = T.forward(cfg, tree_map(lambda t: t.float(), out["params"]),
+                        {"tokens": out["tokens"]})
+    logits_check("examples: quickstart forward logits (kernels, bf16) vs "
+                 "the plain f32 forward", out["logits"], ref,
+                 DENSE_PREFILL_LOGIT_TOL_REL)
+    if out["spilled"] != ["act_a", "act_b"]:
+        raise AssertionError(f"examples: quickstart placement {out}")
+    _log(f"examples: quickstart {wall:.2f}s; flash_prefill launches "
+         f"{[(n, c['flash_prefill']) for n, c in calls]} "
+         f"({cfg.n_layers} layers a call)")
+    return {EXAMPLE_PREFILL_ROW: sum(c["flash_prefill"] for _, c in calls)}
+
+
+def serve_counts(coe, engine):
+    """The counts of a coe_serving run that its timing cannot move."""
+    st, cs, ps = engine.stats, coe.cache.stats, engine.pool.stats
+    return dict(requests=st.requests, switches=st.switches,
+                misses=cs.misses, decode_rounds=st.decode_rounds,
+                allocs=ps.allocs, frees=ps.frees)
+
+
+def examples_serving(root, dev):
+    """coe_serving_torch's three runs on the card, each against the same
+    run on the CPU made here: every request served, a clean pool, an
+    evicting cache, the three paged kernels once a layer a decode round
+    and nothing else (the packed prefill is plain, as in JAX), the
+    timing-free counts equal to the CPU run's, and the trace valid."""
+    import io
+    import tempfile
+
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.obs.trace import validate_chrome_trace
+    cs = load_example(root, "coe_serving_torch")
+    args = cs.parse_args([])
+    out = dict.fromkeys(EXAMPLE_PAGED_ROWS.values(), 0)
+    with tempfile.TemporaryDirectory(prefix="coe_trace_") as tmp:
+        for i, extra in enumerate(EXAMPLES["serve_runs"]):
+            argv, path = list(extra), None
+            if "mmap" in extra:
+                path = os.path.join(tmp, "trace.json")
+                argv += ["--trace", path]
+            label = f"examples: coe_serving {' '.join(extra) or 'defaults'}"
+            with contextlib.redirect_stdout(io.StringIO()):
+                ccoe, ceng, _ = cs.main(argv + ["--device", "cpu"])
+            want = serve_counts(ccoe, ceng)
+            torch.cuda.synchronize()
+            rt.reset_launches()
+            t0 = time.perf_counter()
+            coe, eng, done = cs.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = rt.launch_counts()
+            cfg = eng.cfg
+            st, ps = eng.stats, eng.pool.stats
+            if len(done) != args.requests or st.requests != args.requests:
+                raise AssertionError(f"{label}: {len(done)} of "
+                                     f"{args.requests} requests done")
+            if ps.blocks_in_use or ps.allocs != ps.frees \
+                    or eng.pool.check_invariants():
+                raise AssertionError(f"{label}: KV pool {ps.as_dict()}")
+            if coe.cache.stats.evictions < 1:
+                raise AssertionError(f"{label}: no eviction "
+                                     f"{coe.cache.stats.as_dict()}")
+            check_launches(f"{label} ({cfg.n_layers} layers x "
+                           f"{st.decode_rounds} decode rounds)", launches,
+                           {k: cfg.n_layers * st.decode_rounds
+                            for k in PAGED_KERNELS})
+            got = serve_counts(coe, eng)
+            if got != want:
+                raise AssertionError(f"{label}: counts {got} on the card, "
+                                     f"{want} on the CPU")
+            if path is not None:
+                with open(path) as f:
+                    problems = validate_chrome_trace(json.load(f))
+                if problems:
+                    raise AssertionError(f"{label}: trace {problems[:5]}")
+            _log(f"{label}: {wall:.2f}s, {st.tokens_out} tokens, "
+                 f"{st.tokens_out / wall:.1f} tok/s; counts {got} equal to "
+                 f"the CPU run's; launches "
+                 f"{ {k: launches[k] for k in PAGED_KERNELS} }"
+                 + ("; trace valid" if path is not None else ""))
+            for k, row in EXAMPLE_PAGED_ROWS.items():
+                out[row] += launches[k]
+    return out
+
+
+def examples_training(root, dev):
+    """train_expert_torch: a straight run of ``train_steps`` in one
+    directory; in another the same run, its last checkpoint removed, then
+    resumed from the checkpoint before it. The two final checkpoints (every leaf's
+    file) and states bit-equal, every loss finite, the training kernels
+    launched as ``stepfn.kernel_launches`` counts a step."""
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.distributed import stepfn
+    from repro_torch.kernels import runtime as rt
+    te = load_example(root, "train_expert_torch")
+    e = EXAMPLES
+    steps = str(e["train_steps"])
+    resume_at = (e["train_steps"] - 1) // te.CKPT_EVERY * te.CKPT_EVERY
+    cfg, args = te.expert_config(), te.parse_args([])
+    with tempfile.TemporaryDirectory(prefix="train_expert_") as tmp:
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        rt.reset_launches()
+        t0 = time.perf_counter()
+        straight, losses_b, steady = te.main(["--steps", steps,
+                                              "--ckpt", b])
+        wall = time.perf_counter() - t0
+        launches = rt.launch_counts()
+        check_launches("examples: train_expert", launches,
+                       {k: n * e["train_steps"] for k, n in
+                        stepfn.kernel_launches(cfg).items()})
+        _, losses_a, _ = te.main(["--steps", steps, "--ckpt", a])
+        last = f"step-{e['train_steps']:09d}"
+        shutil.rmtree(os.path.join(a, last))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            resumed, losses_r, _ = te.main(["--steps", steps, "--ckpt", a])
+        text = buf.getvalue()
+        print(text, end="")
+        if f"resumed from step {resume_at}" not in text:
+            raise AssertionError("examples: train_expert did not resume "
+                                 f"from step {resume_at}")
+        for name, losses, n in (("straight", losses_b, e["train_steps"]),
+                                ("first", losses_a, e["train_steps"]),
+                                ("resumed", losses_r,
+                                 e["train_steps"] - resume_at)):
+            if len(losses) != n or not torch.isfinite(losses).all():
+                raise AssertionError(f"examples: train_expert {name} run "
+                                     f"losses {losses}")
+        diff = [i for i, (x, y) in enumerate(zip(tree_leaves(resumed),
+                                                 tree_leaves(straight)))
+                if x.dtype != y.dtype or not torch.equal(_bits(x), _bits(y))]
+        files = sorted(f for f in os.listdir(os.path.join(b, last))
+                       if f.endswith(".npy"))
+        differ = [f for f in files if open(os.path.join(a, last, f), "rb")
+                  .read() != open(os.path.join(b, last, f), "rb").read()]
+        if diff or differ or not files:
+            raise AssertionError(f"examples: train_expert resumed and "
+                                 f"straight differ: leaves {diff}, files "
+                                 f"{differ} of {len(files)}")
+        if not torch.equal(losses_a[resume_at:], losses_r):
+            raise AssertionError("examples: train_expert resumed losses "
+                                 "differ from the first run's")
+    n = e["train_steps"] - 1
+    tokens = n * args.batch * args.seq
+    _log(f"examples: train_expert {cfg.name} ({cfg.n_params() / 1e6:.1f}M "
+         f"params, B {args.batch} x {args.seq}): {e['train_steps']} steps in "
+         f"{wall:.2f}s; "
+         f"{steady / n * 1e3:.2f} ms a step, {tokens / steady:.0f} tokens/s "
+         f"(after the first step, checkpoint writes excluded); loss "
+         f"{float(losses_b[0]):.4f} -> {float(losses_b[-1]):.4f}; resumed "
+         f"from step {resume_at}: {len(files)} leaf files and "
+         f"{len(tree_leaves(straight))} leaves bit-equal to the straight "
+         f"run")
+    return {EXAMPLE_LSE_ROW: launches["flash_prefill[lse]"],
+            EXAMPLE_BWD_ROW: launches["flash_prefill_bwd"]}
+
+
+def examples_phase(root, dev):
+    """The user-facing examples on the card: quickstart, coe_serving's
+    three runs, train_expert's straight and resumed runs. Returns each
+    ``EXAMPLE_*`` row's launches: the quickstart's forward and prefill,
+    the three serving runs, the straight training run."""
+    t0 = time.perf_counter()
+    launches = examples_quickstart(root, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(examples_serving(root, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(examples_training(root, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"examples: phase {time.perf_counter() - t0:.1f}s on "
+         f"{nvidia_smi()}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available; this run needs one "
@@ -6968,6 +7292,7 @@ def main():
     rows.update(whisper_kernel_rows(dev))
     rows.update(train_kernel_rows(dev))
     rows.update(family_kernel_rows(dev))
+    rows.update(example_kernel_rows(root, dev))
     rows.update(monarch_kernel_phase(dev))
     torch.cuda.empty_cache()
     launches = monarch_phase(dev)
@@ -7055,10 +7380,11 @@ def main():
     launches = rg_phase(rg_cfg, dev)
     rows[RG_PREFILL_ROW]["launches"] = launches["flash_prefill"]
     rows["lru_scan"]["launches"] = launches["lru_scan"]
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    for row, n in examples_phase(root, dev).items():
+        rows[row]["launches"] = n
+    smi = nvidia_smi()
     _log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)

@@ -1,13 +1,18 @@
-"""Memory tiers and the serving-time HBM split (own copies of
-``repro.core.memory_tiers.MachineTiers``, its presets and ``MACHINES``
-table, ``HBMBudget`` and ``plan_hbm_budget``).
+"""Memory tiers, the serving-time HBM split and the static lifetime
+allocator (own copies of ``repro.core.memory_tiers.MachineTiers``, its
+presets and ``MACHINES`` table, ``HBMBudget``, ``plan_hbm_budget``,
+``Symbol``, ``Allocation``, ``allocate_static``, ``spill_order`` and
+``plan_placement``).
 
 The presets are the analytic model's published constants (paper Table II
 and the DGX specifications it cites), not measurements of the port; the
-port's node plans against ``DGX_H100``."""
+port's node plans against ``DGX_H100``. The allocator is host-side
+planning (paper §V-A), as in the JAX package: nothing on the device
+allocates by it."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict, List, Sequence, Tuple
 
 GiB = 1024 ** 3
 GBps = 1e9
@@ -113,3 +118,93 @@ def plan_hbm_budget(total_bytes: int, expert_bytes: int, block_bytes: int,
     kv = max(kv, block_bytes)
     return HBMBudget(total_bytes=total_bytes,
                      weights_bytes=total_bytes - kv, kv_bytes=kv)
+
+
+# ----------------------------------------------------------------------
+# Static lifetime allocator (paper §V-A)
+# ----------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Symbol:
+    name: str
+    size: int              # bytes
+    first_use: int         # step index
+    last_use: int          # inclusive
+    read_only: bool = False
+    transfer_footprint: int = 0   # aggregate bytes moved if spilled (reuse x size)
+
+
+@dataclass
+class Allocation:
+    offsets: Dict[str, int]
+    peak: int
+
+
+def allocate_static(symbols: Sequence[Symbol], align: int = 512) -> Allocation:
+    """Greedy lifetime-based allocation: symbols with disjoint [first, last]
+    lifetimes may share addresses (the paper's 'static garbage
+    collection'). Symbols are placed by (first_use, -size); a symbol is
+    retired once its last_use is before the next first_use; the freed
+    holes are coalesced and the smallest that fits is taken (its remainder
+    stays a hole); only a miss grows the top. Sizes round up to ``align``."""
+    def rnd(x):
+        return (x + align - 1) // align * align
+
+    events = sorted(symbols, key=lambda s: (s.first_use, -s.size))
+    live: Dict[str, Tuple[int, int, int]] = {}   # name -> (off, size, last)
+    holes: List[Tuple[int, int]] = []            # (offset, size)
+    offsets: Dict[str, int] = {}
+    peak = top = 0
+    for sym in events:
+        for n, (off, sz, last) in list(live.items()):
+            if last < sym.first_use:
+                holes.append((off, sz))
+                del live[n]
+        holes.sort()
+        merged: List[Tuple[int, int]] = []
+        for off, sz in holes:
+            if merged and merged[-1][0] + merged[-1][1] == off:
+                merged[-1] = (merged[-1][0], merged[-1][1] + sz)
+            else:
+                merged.append((off, sz))
+        holes = merged
+        need = rnd(sym.size)
+        best = None
+        for i, (off, sz) in enumerate(holes):
+            if sz >= need and (best is None or sz < holes[best][1]):
+                best = i
+        if best is not None:
+            off, sz = holes.pop(best)
+            offsets[sym.name] = off
+            if sz > need:
+                holes.append((off + need, sz - need))
+        else:
+            offsets[sym.name] = top
+            top += need
+        live[sym.name] = (offsets[sym.name], need, sym.last_use)
+        peak = max(peak, top)
+    return Allocation(offsets, peak)
+
+
+def spill_order(symbols: Sequence[Symbol]) -> List[Symbol]:
+    """Spill candidates by aggregate transfer footprint ascending, then
+    size: the symbols that would cost the least capacity-tier bandwidth go
+    first, and weights (high reuse during decode) sort last."""
+    return sorted(symbols, key=lambda s: (s.transfer_footprint, s.size))
+
+
+def plan_placement(symbols: Sequence[Symbol], hbm_capacity: int,
+                   align: int = 512) -> Tuple[Allocation, List[str]]:
+    """Allocate into HBM; spill by ``spill_order`` of ``symbols`` until the
+    peak fits. Returns (allocation of the resident symbols, spilled
+    names in spill order)."""
+    resident = list(symbols)
+    spilled: List[str] = []
+    order = spill_order(symbols)
+    while True:
+        alloc = allocate_static(resident, align)
+        if alloc.peak <= hbm_capacity or not resident:
+            return alloc, spilled
+        victim = order[len(spilled)].name
+        resident = [s for s in resident if s.name != victim]
+        spilled.append(victim)

@@ -39,6 +39,14 @@ def _spec_leaves(specs, prefix=""):
         yield from _spec_leaves(specs[k], f"{prefix}/{k}" if prefix else k)
 
 
+def abstract_params(specs):
+    """The tree of ``specs`` with each leaf a meta-device tensor of its
+    shape and dtype: allocates nothing (JAX's ``ShapeDtypeStruct`` tree)."""
+    if isinstance(specs, ParamSpec):
+        return torch.empty(specs.shape, dtype=specs.dtype, device="meta")
+    return {k: abstract_params(v) for k, v in specs.items()}
+
+
 def init_params(specs, generator: torch.Generator, device):
     """Materialise ``specs`` on ``device``, drawing from ``generator`` leaf by
     leaf in sorted key order (deterministic for a seeded generator on the
@@ -83,6 +91,10 @@ def remat_call(remat: bool, fn, *args):
         from torch.utils.checkpoint import checkpoint
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
+
+
+def param_count(specs) -> int:
+    return int(sum(int(np.prod(s.shape)) for _, s in _spec_leaves(specs)))
 
 
 def param_bytes(specs) -> int:

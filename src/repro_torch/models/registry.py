@@ -4,6 +4,7 @@ rglru (``rglru``) and xlstm (``xlstm``).
 
     model = get_model(cfg)
     params = model.init(generator, device)
+    shapes = model.abstract_params()     # meta tensors, nothing allocated
     logits = model.forward(params, {"tokens": tokens})
     last, cache = model.prefill(params, {"tokens": tokens}, max_len)
     logits, cache = model.decode_step(params, cache, tokens, pos)
@@ -35,6 +36,9 @@ class Model:
 
     def param_specs(self):
         return self.impl.param_specs(self.cfg)
+
+    def abstract_params(self):
+        return common.abstract_params(self.param_specs())
 
     def init(self, generator: torch.Generator, device):
         return common.init_params(self.param_specs(), generator, device)

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
-imports JAX or anything of the JAX package, and a CUDA tensor handed to a
-kernel wrapper is never sent to the plain version."""
+"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``
+and the port's examples, ``examples/*_torch.py``) imports JAX or anything
+of the JAX package, and a CUDA tensor handed to a kernel wrapper is never
+sent to the plain version."""
 import pathlib
 import re
 import subprocess
@@ -16,7 +17,11 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)\b(?!_)", re.M)
 
 
 def test_no_source_imports_jax_or_the_jax_package():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert {f.name for f in examples} >= {
+        "quickstart_torch.py", "coe_serving_torch.py",
+        "train_expert_torch.py"}
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 20
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _IMPORT.search(f.read_text())]
@@ -25,7 +30,7 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 def test_every_module_imports_with_jax_and_repro_refused():
     code = textwrap.dedent(f"""
-        import importlib, importlib.abc, pkgutil, sys
+        import glob, importlib, importlib.abc, os, pkgutil, sys
         class Refuse(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
                 if name.split(".")[0] in ("jax", "jaxlib", "repro"):
@@ -48,9 +53,13 @@ def test_every_module_imports_with_jax_and_repro_refused():
                  "repro_torch.launch.train", "repro_torch.core.fusion",
                  "repro_torch.launch.roofline", "repro_torch.launch.loopfix",
                  "repro_torch.launch.dryrun"}} <= set(names), names
-        spec = importlib.util.spec_from_file_location(
-            "chip_smoke", {str(ROOT / 'chip_smoke.py')!r})
-        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        paths = [{str(ROOT / 'chip_smoke.py')!r}] + sorted(
+            glob.glob({str(ROOT / 'examples' / '*_torch.py')!r}))
+        assert len(paths) >= 4, paths
+        for path in paths:
+            spec = importlib.util.spec_from_file_location(
+                os.path.basename(path)[:-3], path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not bad, bad

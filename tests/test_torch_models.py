@@ -14,9 +14,10 @@ from repro.models import get_model as jax_get_model
 from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro.models.common import param_bytes as jax_param_bytes
-from repro_torch.bridge import to_torch
-from repro_torch.configs import get_config, reduced
-from repro_torch.models import common, get_model, layers as L, transformer as T
+from repro_torch.bridge import to_torch, tree_items
+from repro_torch.configs import CONFIGS, get_config, reduced
+from repro_torch.models import common, get_model, layers as L, param_count
+from repro_torch.models import transformer as T
 
 ATOL = 1e-4
 
@@ -128,3 +129,24 @@ def test_unknown_family_raises_key_error_naming_it(cfgs):
     for fn, c in ((get_model, cfg), (jax_get_model, jcfg)):
         with pytest.raises(KeyError, match="'mamba'"):
             fn(dataclasses.replace(c, family="mamba"))
+
+
+@pytest.mark.parametrize("arch", sorted(CONFIGS))
+def test_param_count_and_abstract_params_match_jax(arch):
+    """``param_count`` equals JAX's for every config, and
+    ``Model.abstract_params`` gives meta tensors of JAX's shapes and
+    dtypes (``ShapeDtypeStruct``s), leaf by leaf."""
+    from repro.models import param_count as jax_param_count
+    specs = get_model(get_config(arch)).param_specs()
+    jm = jax_get_model(jax_get_config(arch))
+    assert param_count(specs) == jax_param_count(jm.param_specs()) \
+        == get_config(arch).n_params()
+    got = dict(tree_items(get_model(get_config(arch)).abstract_params()))
+    want = {jax.tree_util.keystr(p, simple=True, separator="/"): s
+            for p, s in jax.tree_util.tree_flatten_with_path(
+                jm.abstract_params())[0]}
+    assert got.keys() == want.keys()
+    for k, t in got.items():
+        assert t.device.type == "meta", k
+        assert tuple(t.shape) == want[k].shape, k
+        assert str(t.dtype).split(".")[1] == str(want[k].dtype), k
