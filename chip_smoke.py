@@ -4,12 +4,12 @@
 
 1. Builds the hand-written kernels from ``src/repro_torch/**/csrc`` (one
    ``nvcc`` per source, in parallel) and prints each one's registers and
-   spills; for ``decode_paged``, ``flash_prefill`` and the four
-   weight-stream kernels (``qkv_rope_paged``, ``oproj_ffn_swiglu``,
-   ``qkv_rope``, ``ffn_swiglu``) one line per kernel instantiation
-   (head_dim and group; pass, lanes and column group) with its registers,
-   spills and dynamic shared memory, failing on a spill or on wgmma
-   instructions that ptxas serialised.
+   spills; for ``decode_paged``, ``flash_decode``, ``flash_prefill`` and
+   the four weight-stream kernels (``qkv_rope_paged``,
+   ``oproj_ffn_swiglu``, ``qkv_rope``, ``ffn_swiglu``) one line per kernel
+   instantiation (head_dim and query tile; pass, lanes and column group)
+   with its registers, spills and dynamic shared memory, failing on a
+   spill or on wgmma instructions that ptxas serialised.
 2. Kernel phase at the samba-coe-expert-7b widths (B = 8 lanes, bf16): the
    paged kernels at ragged positions 1..512 straddling blocks with one
    inactive lane (``decode_paged`` also with every lane at 512, held row by
@@ -28,8 +28,10 @@
    F 14336), ``qkv_rope_paged`` rotating half of each head at chatglm3-6b's
    widths (two faults planted in its plain version: RoPE dropped, the whole
    head rotated) and ``flash_prefill`` at 8 x 2048 tokens, dh 128, at G 5,
-   12 and 16; then ``flash_prefill`` at Mixtral-8x7B's heads (32 q on 8 kv
-   heads, dh 128) at its generate prefill (2 x 4608 tokens, window 4096)
+   12 and 16; ``decode_paged`` and ``flash_decode`` at each GQA group
+   outside 1/2/4/8 that a config has (5, 6, 12, 16 at dh 128; 16 at dh 256,
+   RecurrentGemma's); then ``flash_prefill`` at Mixtral-8x7B's heads (32 q
+   on 8 kv heads, dh 128) at its generate prefill (2 x 4608 tokens, window 4096)
    and at its paged drain's (B 1, S 64 / 160 / 256, causal); then
    ``flash_prefill`` at DeepSeek-V2-Lite's MLA prefill (4 x 2048 tokens,
    16 heads, q / k of 192, v of 128, causal), with the scale of v's width
@@ -115,8 +117,10 @@
    first lane's last-token logits against the plain ``forward`` run in f32 a
    layer at a time, 16 greedy steps of 32 ``decoder_layer_step``s (each
    dense kernel once per layer per step), one step's logits against the
-   plain ``decode_step`` run in f32 a layer at a time, two planted faults,
-   and one step's device time by kernel.
+   plain ``decode_step`` run in f32 a layer at a time, that step with
+   ``PerfOptions.decode_cache_carry`` on bit-equal to off (logits and the
+   whole cache), two planted faults, and one step's device time by
+   kernel.
 6. Generate phase: ``CompositionOfExperts.generate`` over the same three
    experts (their pinned store, an HBM cache of two) with an ``LMRouter`` on
    the expert backbone: 8 prompts of 128 tokens, 16 new tokens each; the
@@ -210,9 +214,11 @@
    every block teacher-forced (the block in f32 over the steps' inputs
    as one chunk from its state before them). A
    fault is planted for each check and must fail it: the first block's
-   core in bf16; the conv window and the sLSTM state not carried. Prints
-   the recurrent state's bytes a lane, prefill s, tok/s and a step's
-   host wall against device busy.
+   core in bf16; the conv window and the sLSTM state not carried. Then
+   ``PerfOptions.mlstm_bf16``: the first group's 7 mLSTM blocks at the
+   prefill's shape, each against the block in f32, and the chunkwise core
+   timed with the field on and off. Prints the recurrent state's bytes a
+   lane, prefill s, tok/s and a step's host wall against device busy.
 6i. Training phase: samba-coe-expert-7b at full width cut to 8 of its 32
    layers (1.881 B params; AdamW's 12 bytes a parameter put the whole
    model past the card), 6 steps of the port's train step on one
@@ -271,8 +277,11 @@
    layers, B 4 x 2048, remat) traced on a fake (1, 1) group: its flops,
    bytes and terms (the H100's data-sheet constants, modelled, not
    measured) beside the step time the training phase measured, and its
-   kernel calls equal to the 5ᴸ / 5ᴮ rows' launches a step (a gate). The
-   serve phase prints ``core.fusion``'s predicted kernels for one decode
+   kernel calls equal to the 5ᴸ / 5ᴮ rows' launches a step (a gate); then
+   DeepSeek-V2-Lite's train_4k cell (one layer unit, the fake single pod)
+   with ``PerfOptions.moe_dispatch_constraint`` off and on: collective
+   bytes by kind, which must differ, and the MoE buffers pinned by expert
+   over 'model' with the field on. The serve phase prints ``core.fusion``'s predicted kernels for one decode
    step beside the launches it counted (a line, not a gate).
 7. RecurrentGemma phase, after the experts' store is released:
    recurrentgemma-9b at full width and depth (38 layers, 10.4 G parameters,
@@ -502,6 +511,16 @@ GRANITE_ROWS = {"decode_paged": "decode_paged[granite-8b,G=4]",
                 "oproj_ffn_swiglu": "oproj_ffn_swiglu[granite-8b,F=14336]"}
 ROPE_FRAC_ROW = "qkv_rope_paged[chatglm3-6b,rope_frac=0.5]"
 PARTIAL_ROPE = "qkv_rope_paged[partial_rope]"    # its launch-count name
+# both decode kernels at each GQA group outside 1/2/4/8 that a config has
+# (the four plain-body variants at dh 128, RecurrentGemma's 16 q heads on
+# one kv head of 256): decode_paged at the variants' drain (8 lanes at
+# paged_inputs' ragged lengths up to 512, VARIANTS' pool of blocks of 16),
+# flash_decode at 8 lanes of a 2048-position cache. No path launches them
+# there (the variants run the plain body, RG decodes plain): their
+# launches are the variants' drains' counts, 0
+GROUP_DECODE_ARCHS = ("qwen2.5-32b", "qwen2-vl-2b", "starcoder2-3b",
+                      "chatglm3-6b", "recurrentgemma-9b")
+GROUP_DENSE = dict(lanes=8, length=2048)
 VARIANT_PREFILL_ROWS = {
     "qwen2.5-32b": "flash_prefill[qwen2.5-32b,G=5,B=1,S=256]",
     "qwen2-vl-2b": "flash_prefill[qwen2-vl-2b,G=6,B=1,S=256]",
@@ -847,6 +866,25 @@ def time_ms(fn, flush, reps, read=False):
     return total / reps
 
 
+def warm_card(dev, seconds=2.0):
+    """Keep the card busy with bf16 products for ``seconds`` before the
+    first timed row. The card idles through the build; in one run the
+    first row timed after it (``decode_paged``, row 1) read 0.0810 ms
+    where its read-flushed time read 0.0199 and the same kernel in
+    ``tools/decode_timing.py``, later in that call, 0.0215."""
+    a = torch.randn((4096, 4096), device=dev).to(torch.bfloat16)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(16):
+            a @ a
+        torch.cuda.synchronize()
+
+
+# the decode kernels' (dh, query tile) instantiations
+DECODE_TILES = [(str(dh), str(g)) for dh in (32, 64, 128, 256)
+                for g in (1, 2, 4, 8)]
+
+
 def build_kernels():
     from repro_torch.kernels import runtime as rt
     from repro_torch.kernels.flash_attention.ops import PREFILL_WIDTHS
@@ -864,10 +902,14 @@ def build_kernels():
                                  [rt.I, rt.I])
             entry_build_report(
                 name, log, r"decode_split_kernelILi(\d+)ELi(\d+)E",
-                [(str(dh), str(g)) for dh in (32, 64, 128, 256)
-                 for g in (1, 2, 4, 8)],
-                lambda k: f"decode_paged[dh={k[0]} G={k[1]}]",
+                DECODE_TILES, lambda k: f"decode_paged[dh={k[0]} tile={k[1]}]",
                 lambda k: paged_smem(int(k[0]), int(k[1])))
+        elif name == "flash_decode":
+            # static shared memory only (the ptxas line's smem)
+            entry_build_report(
+                name, log, r"decode_dense_kernelI\w+?Li(\d+)ELi(\d+)ELi\d+E",
+                DECODE_TILES, lambda k: f"flash_decode[dh={k[0]} tile={k[1]}]",
+                lambda k: 0)
         elif name == "flash_prefill":
             # each (dk, dv) four times: causal / windowed (b0 b0), FULL
             # (b1 b0), and their LSE forms (the training forward)
@@ -3167,6 +3209,7 @@ def dense_decode_phase(cfg, dev, params):
     the plain ``decode_step`` layer run in f32; prints what two planted
     faults read and where a step's time goes. Returns the launch counts."""
     from repro_torch.bridge import tree_map
+    from repro_torch.distributed import ctx
     from repro_torch.kernels import runtime as rt
     from repro_torch.kernels.fused_decode.ops import (decoder_layer_step,
                                                       layer_step_params)
@@ -3251,7 +3294,21 @@ def dense_decode_phase(cfg, dev, params):
                                          posv, valid)
         h = L.apply_norm(cfg, f32(params["final_norm"]), h)
         l32 = (h @ params["lm_head"].float())[:, 0]
+    carried = {k: v.clone() for k, v in cache.items()}
     lb = T.decode_step(cfg, params, cache, tok[:, None], pos)[0].float()
+    # PerfOptions.decode_cache_carry: the same step on a copy of the cache
+    # with the field on gives the same bits, logits and the whole cache
+    with ctx.perf_options(ctx.PerfOptions(decode_cache_carry=True)):
+        lc = T.decode_step(cfg, params, carried, tok[:, None], pos)[0]
+    same = torch.equal(lc.float(), lb) and all(
+        torch.equal(carried[k], cache[k]) for k in cache)
+    _log(f"dense: decode_step with PerfOptions.decode_cache_carry on, on a "
+         f"copy of the cache: logits and the whole cache bit-equal to off: "
+         f"{same}")
+    if not same:
+        raise AssertionError("dense: decode_cache_carry changed the step's "
+                             "bits")
+    del carried, lc
     lf = step(tok, pos).float()
     tol = DENSE_LOGIT_TOL_REL * float(l32.abs().max())
 
@@ -3820,6 +3877,7 @@ def variant_kernel_phase(dev):
                                      {"qkv_rope_paged": ROPE_FRAC_ROW},
                                      seed=9, rope_frac=glm.rope_fraction)
     rows.update(frac_rows)
+    rows.update(group_decode_rows(dev))
     got = cases["qkv_rope_paged"][0]()
     args = (t.x, t.scale, t.wq, t.wk, t.wv)
     for fault, pos, frac in (("rope_dropped", torch.zeros_like(t.pos),
@@ -3850,6 +3908,92 @@ def variant_kernel_phase(dev):
                             S, 0, gen, flush)
             if r["name"] == row:
                 rows[row] = r
+    del flush
+    return rows
+
+
+def group_decode_row_names(arch):
+    from repro_torch.configs import get_config
+    c = get_config(arch)
+    G, B = c.n_heads // c.n_kv_heads, GROUP_DENSE["lanes"]
+    return (f"decode_paged[{arch},G={G},dh={c.head_dim}]",
+            f"flash_decode[{arch},G={G},dh={c.head_dim},B={B},"
+            f"S={GROUP_DENSE['length']}]")
+
+
+def group_decode_rows(dev):
+    """Rows 1⁗ and 6′: ``decode_paged`` and ``flash_decode`` at each
+    ``GROUP_DECODE_ARCHS`` config's heads, each against its plain version
+    (and ``decode_paged`` against its chunked plain version, row by row),
+    beside SDPA with ``enable_gqa`` and a length mask. At these groups a
+    CTA serves one query (``decode_core.cuh``'s ``decode_tile``)."""
+    from types import SimpleNamespace
+
+    import torch.nn.functional as Fn
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import (decode, decode_paged,
+                                                         split_chunk)
+    from repro_torch.kernels.flash_attention.ref import (
+        decode_attention_ref, decode_paged_ref, decode_paged_split_ref)
+    from repro_torch.serving.backends import (dense_kernel_flops,
+                                              dense_kernel_hbm_bytes,
+                                              kernel_flops, kernel_hbm_bytes)
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(23)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    v, B, S = VARIANTS, GROUP_DENSE["lanes"], GROUP_DENSE["length"]
+    len1 = (1, 15, 16, 1, 17, 255, 300, 512)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    rows = {}
+    for arch in GROUP_DECODE_ARCHS:
+        c = get_config(arch)
+        Hq, Hkv, dh = c.n_heads, c.n_kv_heads, c.head_dim
+        G = Hq // Hkv
+        paged_name, dense_name = group_decode_row_names(arch)
+        block, maxb = v["block_size"], v["max_len"] // v["block_size"]
+        n_rows = B * maxb + 1
+        t = SimpleNamespace(q=rnd(B, Hq, dh), kp=rnd(n_rows, block, Hkv, dh),
+                            vp=rnd(n_rows, block, Hkv, dh), block=block,
+                            maxb=maxb)
+        tables = torch.randperm(n_rows - 1, generator=gen, device=dev)[
+            :B * maxb].reshape(B, maxb).to(torch.int32)
+        tables[3] = n_rows - 1                           # inactive lane
+        lens = torch.tensor(len1, dtype=torch.int32, device=dev)
+        args = (t.q, t.kp, t.vp, tables, lens)
+        q, kc, vc = rnd(B, Hq, dh), rnd(B, S, Hkv, dh), rnd(B, S, Hkv, dh)
+        mask = torch.ones((B, 1, 1, S), dtype=torch.bool, device=dev)
+
+        def lib_dense(q=q, kc=kc, vc=vc, mask=mask):
+            return Fn.scaled_dot_product_attention(
+                q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+
+        rows[paged_name] = kernel_row(
+            paged_name, lambda args=args: decode_paged(*args),
+            lambda args=args: decode_paged_ref(*args),
+            lambda t=t, tables=tables, lens=lens:
+            lib_decode_paged(t, tables, lens),
+            kernel_hbm_bytes(c, B, len1, maxb)["decode_paged"],
+            kernel_flops(c, B, len1)["decode_paged"], flush,
+            kernel="decode_paged", row_tol=DECODE_ROW_REL_L2)
+        rows[dense_name] = kernel_row(
+            dense_name, lambda q=q, kc=kc, vc=vc: decode(q, kc, vc, S),
+            lambda q=q, kc=kc, vc=vc: decode_attention_ref(q, kc, vc, S),
+            lib_dense, dense_kernel_hbm_bytes(c, B, S)["flash_decode"],
+            dense_kernel_flops(c, B, S)["flash_decode"], flush,
+            kernel="flash_decode", row_tol=DECODE_ROW_REL_L2)
+        split = row_rel_l2(decode_paged(*args),
+                           decode_paged_split_ref(*args, split_chunk()))
+        if not split <= DECODE_ROW_REL_L2:
+            raise AssertionError(f"{paged_name}: row relative L2 {split} "
+                                 "against the chunked plain version")
+        _log(f"kernel {paged_name}: row relative L2 against the chunked "
+             f"plain version {split:.3e} (tol {DECODE_ROW_REL_L2:.3e})")
+        del t, tables, q, kc, vc, args
     del flush
     return rows
 
@@ -5244,6 +5388,9 @@ def xlstm_phase(dev):
         del x0
     _log(f"xlstm: the prefill's checks {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    xlstm_bf16_check(cfg, params, tt)
+    _log(f"xlstm: mlstm_bf16's checks {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
 
     # the decode steps from the prefill's state, each block teacher-forced
     logits, fed, taps = xlstm_decode_tapped(model, params, st,
@@ -5278,6 +5425,73 @@ def xlstm_phase(dev):
     coe.cache.close()
     torch.cuda.empty_cache()
     _log(f"xlstm: phase {time.perf_counter() - t_phase:.1f}s")
+
+
+def xlstm_bf16_check(cfg, params, tt):
+    """``PerfOptions.mlstm_bf16`` at the prefill's shape: the first group's
+    mLSTM blocks chained from the embedding of ``tt``, each with the field
+    on against the same block in f32 (field off; weights and input
+    upcast), the update's relative L2 within ``XLSTM_BLOCK_TOL_REL`` (the
+    limit the blocks with the f32 core meet), printed beside the f32
+    core's reading and the two blocks' distance; then the first block's
+    chunkwise core on its own inputs timed both ways (CUDA events, L2
+    flushed)."""
+    from repro_torch.distributed import ctx
+    from repro_torch.models import xlstm as X
+    on = ctx.PerfOptions(mlstm_bf16=True)
+    _, n_m = X._group_counts(cfg)
+    core_in = []
+
+    def tap(name, real):
+        if name != "mlstm_chunkwise":
+            return real
+
+        def run(*a):
+            if not core_in:
+                core_in.append(a)
+            return real(*a)
+        return run
+
+    worst, rows = 0.0, []
+    with torch.no_grad():
+        x = params["embed"]["tok"][tt]
+        grp = X._take(params["groups"], 0)["mlstm"]
+        for j in range(n_m):
+            p = X._take(grp, j)
+            with ctx.perf_options(on), xlstm_patched(tap):
+                y, _ = X.mlstm_block(cfg, p, x)
+            y_off, _ = X.mlstm_block(cfg, p, x)
+            y32, _ = X.mlstm_block(cfg, _f32(p), x.float())
+            e_on = rel_l2(y - x, y32 - x.float())
+            rows.append((e_on, rel_l2(y_off - x, y32 - x.float()),
+                         rel_l2(y - x, y_off - x)))
+            worst = max(worst, e_on)
+            x = y
+        del x, y, y_off, y32
+    B, S = tt.shape
+    _log(f"xlstm mlstm_bf16: the first group's {n_m} mLSTM blocks at B {B} "
+         f"x {S}, each update against the block in f32: on "
+         + " ".join(f"{r[0]:.4f}" for r in rows) + "; the f32 core's "
+         + " ".join(f"{r[1]:.4f}" for r in rows) + "; on vs off "
+         + " ".join(f"{r[2]:.4f}" for r in rows)
+         + f" (tol {XLSTM_BLOCK_TOL_REL})")
+    if not worst <= XLSTM_BLOCK_TOL_REL:
+        raise AssertionError(f"xlstm mlstm_bf16: a block parts from f32 by "
+                             f"{worst} > {XLSTM_BLOCK_TOL_REL}")
+    a = core_in[0]
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=tt.device)
+    ms = {}
+    for name, opts in (("f32", ctx.PerfOptions()), ("bf16", on)):
+        with ctx.perf_options(opts), torch.no_grad():
+            ms[name] = time_ms(lambda: X.mlstm_chunkwise(*a), flush, 5)
+    del flush, core_in
+    q = a[0]
+    _log(f"xlstm mlstm_bf16: the chunkwise core of block 0 (B {q.shape[0]}, "
+         f"S {q.shape[1]}, {q.shape[2]} heads of {q.shape[3]}) "
+         f"{ms['bf16']:.3f} ms with the field on, {ms['f32']:.3f} ms off "
+         f"(CUDA events, L2 flushed; plain PyTorch products, f32 sums "
+         f"either way)")
+    return rows, ms
 
 
 def bwd_cost(B, S, Hq, Hkv, d, window=0, *, Sk=None, dv=None, causal=True):
@@ -6879,6 +7093,40 @@ def distribution_phase(dev, d=DIST):
     return one, fams, two
 
 
+# PerfOptions.moe_dispatch_constraint in the dry-run: DeepSeek-V2-Lite's
+# train_4k cell at one layer unit on the fake single-pod (16, 16) group,
+# traced with the field off and on: collective bytes by kind, and the MoE
+# buffers' placements the trace applies
+_MOE_PIN_TRACE = """
+import json, logging, sys
+from repro_torch.configs import get_config, pad_for_tp
+from repro_torch.distributed import ctx
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.loopfix import reduced_depth_cfg
+from repro_torch.launch.mesh import make_production_mesh
+logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+    logging.ERROR)
+arch, cell = sys.argv[1:]
+D.start_group(256)
+mesh = make_production_mesh(multi_pod=False)
+cfg = reduced_depth_cfg(pad_for_tp(get_config(arch), 16), 1)
+pin, seen, out = ctx.constrain_named, [], {}
+
+def spy(name, t):
+    y = pin(name, t)
+    if name == "moe_dispatch":
+        seen.append([list(t.shape), str(y.placements)])
+    return y
+
+ctx.constrain_named = spy
+for on in (False, True):
+    seen.clear()
+    with ctx.perf_options(ctx.PerfOptions(moe_dispatch_constraint=on)):
+        tr = D.trace_step(cfg, D._cell(cell), mesh)
+    out[str(on)] = dict(coll=D.collective_bytes(tr.coll), seen=list(seen),
+                        peak=tr.peak)
+print(json.dumps(out))
+"""
 _TRAIN_TRACE = """
 import dataclasses, json, logging, sys
 from repro_torch.configs import ShapeCell, get_config
@@ -6972,8 +7220,36 @@ def dryrun_phase(root):
         raise AssertionError(f"dryrun: the traced kernel calls "
                              f"{tr['kernels']} are not the training step's "
                              f"{want}")
+    moe_pin_trace(root, env)
     _log(f"dryrun: phase {time.perf_counter() - t0:.1f}s")
     return rec, tr
+
+
+def moe_pin_trace(root, env, arch="deepseek-v2-lite-16b", cell="train_4k"):
+    """``PerfOptions.moe_dispatch_constraint`` in the dry-run
+    (``_MOE_PIN_TRACE``): with the field on, every MoE buffer the trace
+    pins lies by expert over 'model', and the collective bytes by kind
+    differ from the field off; both printed."""
+    out = subprocess.run([sys.executable, "-c", _MOE_PIN_TRACE, arch, cell],
+                         capture_output=True, text=True, env=env, cwd=root,
+                         timeout=DRYRUN["timeout"])
+    if out.returncode:
+        raise AssertionError(f"dryrun: the moe_dispatch_constraint trace "
+                             f"failed:\n{out.stderr[-3000:]}")
+    r = json.loads(out.stdout.strip().splitlines()[-1])
+    off, on = r["False"], r["True"]
+    for label, x in (("off", off), ("on", on)):
+        _log(f"dryrun: {arch} x {cell} (one layer unit, single-pod (16, 16), "
+             f"per device) with PerfOptions.moe_dispatch_constraint {label}: "
+             f"collective bytes by kind "
+             + ", ".join(f"{k} {v:.4e}" for k, v in sorted(x["coll"].items()))
+             + f"; peak {x['peak'] / 1e9:.2f} GB; MoE buffers pinned: "
+             + (", ".join(f"{tuple(sh)} {pl}" for sh, pl in x["seen"])
+                or "none") + " (modelled, not measured)")
+    if off["seen"] or not on["seen"] or any(
+            pl != "(Replicate(), Shard(dim=0))" for _, pl in on["seen"]) \
+            or on["coll"] == off["coll"]:
+        raise AssertionError(f"dryrun: moe_dispatch_constraint: {r}")
 
 
 # The examples phase (``examples/*_torch.py``, each ``main`` in this
@@ -7281,6 +7557,7 @@ def main():
     cfg = get_config("samba-coe-expert-7b")
     t_start = time.perf_counter()
     build_kernels()
+    warm_card(dev)
     rg_cfg = get_config("recurrentgemma-9b")
     rows = kernel_phase(cfg, dev)
     rows.update(dense_kernel_phase(cfg, dev))
@@ -7347,6 +7624,10 @@ def main():
         n[PARTIAL_ROPE] for n in launches.values())
     for arch, row in VARIANT_PREFILL_ROWS.items():
         rows[row]["launches"] = launches[arch]["flash_prefill"]
+    for arch in GROUP_DECODE_ARCHS[:-1]:
+        for kernel, row in zip(("decode_paged", "flash_decode"),
+                               group_decode_row_names(arch)):
+            rows[row]["launches"] = launches[arch].get(kernel, 0)
     rows[MIXTRAL_ROW]["launches"], rows[MIXTRAL_B1_ROW]["launches"] = \
         mixtral_phase(dev)
     rows[DEEPSEEK_ROW]["launches"] = deepseek_phase(dev)
@@ -7380,6 +7661,9 @@ def main():
     launches = rg_phase(rg_cfg, dev)
     rows[RG_PREFILL_ROW]["launches"] = launches["flash_prefill"]
     rows["lru_scan"]["launches"] = launches["lru_scan"]
+    for kernel, row in zip(("decode_paged", "flash_decode"),
+                           group_decode_row_names(GROUP_DECODE_ARCHS[-1])):
+        rows[row]["launches"] = launches.get(kernel, 0)
     gc.collect()
     torch.cuda.empty_cache()
     for row, n in examples_phase(root, dev).items():

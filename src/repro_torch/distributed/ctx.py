@@ -14,9 +14,14 @@ or output gradient is sharded over S. Off a mesh (no DTensor) every
 constraint is the identity, so the single-device paths keep their bits.
 
 ``PerfOptions`` holds JAX's nine fields with JAX's defaults. The port reads
-``capacity_factor``, ``moe_ep_local``, ``cache_seq_shard``, ``onehot_xent``
-and ``activation_sp``; ``perf_options`` refuses a non-default value of the
-others (``UNREAD``), naming the field, instead of ignoring it.
+every one that a JAX module reads: ``capacity_factor``, ``moe_ep_local``,
+``cache_seq_shard``, ``onehot_xent``, ``activation_sp``, ``mlstm_bf16``
+(``models/xlstm.py``), ``decode_cache_carry`` (``models/transformer.py``:
+the decode loop's in-place cache is the carry's form) and
+``moe_dispatch_constraint`` (``models/layers.py``'s mesh MoE,
+``launch/dryrun.py``); ``perf_options`` refuses a non-default value of
+``chunked_loss`` (``UNREAD``), which no JAX module reads either, naming the
+field, instead of ignoring it.
 """
 from __future__ import annotations
 
@@ -106,6 +111,11 @@ def gather_sequence(h):
     return h.redistribute(h.device_mesh, pl)
 
 
+def named(name: str):
+    """The active named placement ``name`` (a ``PartitionSpec``), or None."""
+    return _NAMED.get(name)
+
+
 def constrain_named(name: str, x):
     p = _NAMED.get(name)
     if p is None:
@@ -160,10 +170,9 @@ class PerfOptions:
     mlstm_bf16: bool = False
 
 
-# the fields no module of the port reads yet (ROADMAP.md); chunked_loss
-# no module of JAX's reads either
-UNREAD = ("moe_dispatch_constraint", "decode_cache_carry", "mlstm_bf16",
-          "chunked_loss")
+# the fields no module of the port reads: chunked_loss, which no module
+# of JAX's reads either
+UNREAD = ("chunked_loss",)
 
 _PERF = PerfOptions()
 
@@ -175,7 +184,7 @@ def perf_options(opts: PerfOptions):
         if getattr(opts, name) != getattr(PerfOptions(), name):
             raise NotImplementedError(
                 f"PerfOptions.{name}={getattr(opts, name)!r}: the port does "
-                "not read this field yet (ROADMAP.md, Queue 1)")
+                "not read this field (nor does the JAX package)")
     prev = _PERF
     _PERF = opts
     try:
@@ -186,6 +195,20 @@ def perf_options(opts: PerfOptions):
 
 def perf() -> PerfOptions:
     return _PERF
+
+
+def moe_dispatch_named(cfg, mesh) -> dict:
+    """The named placements of JAX's ``launch/dryrun.py::_lower_for`` under
+    ``moe_dispatch_constraint``: the MoE dispatch and result buffers (E, C,
+    D) by expert over 'model', where the 'model' axis divides the experts
+    (``{"moe_dispatch": P("model", None, None)}``); else none."""
+    from repro_torch.distributed.partitioning import PartitionSpec
+    names = mesh.mesh_dim_names
+    tp = mesh.shape[names.index("model")] if "model" in names else 1
+    if perf().moe_dispatch_constraint and cfg.n_experts \
+            and cfg.n_experts % tp == 0:
+        return {"moe_dispatch": PartitionSpec("model", None, None)}
+    return {}
 
 
 _MESH = None

@@ -11,8 +11,9 @@
 // Bound: device-memory bytes: (K+V bytes of B * length positions + q + out)
 // / 3.35 TB/s - 537 MB, 0.160 ms at the 7B width, B = 8, length 4096.
 //
-// Design: decode_core.cuh's CTA per (lane, kv head), which serves the head's
-// whole q group (the TPU wrapper vmapped one launch per kv head instead).
+// Design: decode_core.cuh's CTA per (lane, kv head, query tile), which
+// serves the tile's queries of the head's group (the TPU wrapper vmapped
+// one launch per kv head instead).
 // Row (b, t) of kv head h sits at ((b * S + t) * Hkv + h) * dh: one head's
 // row is a 256-byte run every Hkv * dh * 2 bytes, read by dh / EPL threads
 // with 16-byte loads. At 8 lanes x 32 kv heads the 256 CTAs are all
@@ -35,13 +36,16 @@ template <typename T, int DH, int GT, int EPL>
 __global__ void __launch_bounds__(DECODE_NWARPS * 32)
 decode_dense_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                     const T* __restrict__ vc, T* __restrict__ out, int S,
-                    int Hkv, int length, float scale) {
-  const int b = blockIdx.x / Hkv, h = blockIdx.x % Hkv;
+                    int Hkv, int G, int length, float scale) {
+  // CTA x = (b * Hkv + h) * tiles + tile serves q rows x * GT .. + GT - 1
+  const int bh = blockIdx.x / decode_tiles<GT>(G);
+  const int b = bh / Hkv, h = bh % Hkv;
   const int L = length < S ? length : S;
   const size_t tok_stride = (size_t)Hkv * DH;
   const DenseRows rows{(size_t)b * S * tok_stride + (size_t)h * DH,
                        tok_stride};
-  decode_cta<T, DH, GT, EPL>(q, kc, vc, out, b, h, Hkv, L, scale, rows);
+  decode_cta<T, DH, GT, EPL>(q, kc, vc, out, (size_t)blockIdx.x * GT, L,
+                             scale, rows);
 }
 
 }  // namespace
@@ -54,10 +58,11 @@ extern "C" int flash_decode_bf16(const void* q, const void* kc, const void* vc,
   return with_head_shape(dh, G, [&](auto dh_c, auto g_c) {
     constexpr int DH = decltype(dh_c)::value, GT = decltype(g_c)::value;
     decode_dense_kernel<T, DH, GT, decode_epl<GT>()>
-        <<<B * Hkv, DECODE_NWARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        <<<B * Hkv * decode_tiles<GT>(G), DECODE_NWARPS * 32, 0,
+           static_cast<cudaStream_t>(stream)>>>(
             static_cast<const T*>(q), static_cast<const T*>(kc),
-            static_cast<const T*>(vc), static_cast<T*>(out), S, Hkv, length,
-            scale);
+            static_cast<const T*>(vc), static_cast<T*>(out), S, Hkv, G,
+            length, scale);
     return static_cast<int>(cudaGetLastError());
   });
 }

@@ -8,12 +8,19 @@
 // and values, with an online softmax (m, l, acc) in f32. Positions at or
 // past L are never loaded.
 //
+// Any G >= 1: a CTA serves a query tile of GT = decode_tile(G) of the
+// head's G queries, all G at 1/2/4/8 and otherwise one, so a head takes
+// G / GT CTAs, each reading the head's K / V (after the first, mostly from
+// L2). Tiles of 8 and 16 with dead rows past G, which read K / V fewer
+// times, ran slower on an H100 at G 5/6/12/16 (PERF.md, rows 1⁗ and 6′).
+//
 // Bound: device-memory bytes. Each cached token costs Hkv*dh*2 elements of
 // K and V and is read once; at decode batch sizes there is nothing to reuse.
 //
-// Design: one CTA of 8 warps per (lane, kv head), which serves the head's
-// whole q group. The TPU walked the positions along a sequential grid axis
-// with the softmax state in VMEM; here the CTA's warps split the positions.
+// Design: one CTA of 8 warps per (lane, kv head, query tile), which serves
+// the tile's queries. The TPU walked the positions along a sequential grid
+// axis with the softmax state in VMEM; here the CTA's warps split the
+// positions.
 // A token's K row is dh elements, EPL per thread, so a warp serves
 // 32 / (dh / EPL) tokens at once (4 at dh = 128, bf16); every group of
 // threads keeps its own online-softmax state (m, l, acc) in registers and
@@ -41,14 +48,15 @@ __device__ __forceinline__ void merge_state(float& m, float& l, float pm,
   m = M;
 }
 
-// The CTA of (b, h): rows(t) is the element offset of token t's row of kv
-// head h in kp / vp; q and out are (B, Hkv, GT, DH).
+// The CTA of the GT queries at row qrow of q and out (B * Hq, DH), all of
+// kv head h: rows(t) is the element offset of token t's row of kv head h
+// in kp / vp.
 template <typename T, int DH, int GT, int EPL, class Rows>
 __device__ __forceinline__ void decode_cta(const T* __restrict__ q,
                                            const T* __restrict__ kp,
                                            const T* __restrict__ vp,
-                                           T* __restrict__ out, int b, int h,
-                                           int Hkv, int L, float scale,
+                                           T* __restrict__ out, size_t qrow,
+                                           int L, float scale,
                                            const Rows& rows) {
   constexpr int NWARPS = DECODE_NWARPS;
   constexpr int LPT = DH / EPL;       // threads per token
@@ -60,8 +68,7 @@ __device__ __forceinline__ void decode_cta(const T* __restrict__ q,
   float qf[GT][EPL];
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
-    load_span<T, EPL>(q + ((size_t)(b * Hkv + h) * GT + g) * DH + gl * EPL,
-                      qf[g]);
+    load_span<T, EPL>(q + (qrow + g) * DH + gl * EPL, qf[g]);
 #pragma unroll
     for (int i = 0; i < EPL; ++i) qf[g][i] *= scale;
   }
@@ -168,7 +175,7 @@ __device__ __forceinline__ void decode_cta(const T* __restrict__ q,
     }
     __syncthreads();
   }
-  T* o = out + (size_t)(b * Hkv + h) * GT * DH;
+  T* o = out + qrow * DH;
   for (int i = threadIdx.x; i < GT * DH; i += blockDim.x) {
     const int g = i / DH;
     o[i] = from_f<T>((&sm_acc[0][0])[i] / fmaxf(sm_l[g], 1e-30f));
@@ -176,16 +183,30 @@ __device__ __forceinline__ void decode_cta(const T* __restrict__ q,
 }
 
 // Elements each thread holds of a K / V row: fewer with more queries per
-// group, so the per-query accumulators stay in registers.
+// tile, so the per-query accumulators stay in registers.
 template <int GT>
 constexpr int decode_epl() { return GT <= 2 ? 16 : 8; }
 
+// The query tile of a kv head's group of G: G itself at 1/2/4/8, else 1.
+constexpr int decode_tile(int G) {
+  return G == 1 || G == 2 || G == 4 || G == 8 ? G : 1;
+}
+
+// The CTAs of one kv head, G / GT: G at GT 1, else 1 (a compile-time 1,
+// so that a kernel with GT > 1 divides by nothing).
+template <int GT>
+__host__ __device__ __forceinline__ int decode_tiles(int G) {
+  return GT == 1 ? G : 1;
+}
+
 // Calls f(DH, GT) with both as std::integral_constant for the head widths
-// and group sizes the kernels are built for; other values are refused.
+// the kernels are built for and GT = decode_tile(G); other head widths, and
+// G < 1, are refused.
 template <class F>
 int with_head_shape(int dh, int G, F&& f) {
+  if (G < 1) return static_cast<int>(cudaErrorInvalidValue);
   auto by_group = [&](auto dh_c) {
-    switch (G) {
+    switch (decode_tile(G)) {
       case 1: return f(dh_c, std::integral_constant<int, 1>{});
       case 2: return f(dh_c, std::integral_constant<int, 2>{});
       case 4: return f(dh_c, std::integral_constant<int, 4>{});

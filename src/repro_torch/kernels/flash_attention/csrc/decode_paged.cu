@@ -15,10 +15,14 @@
 // 3.35 TB/s. At decode batch sizes nothing is reused, so the design is
 // about keeping the memory streaming on every SM.
 //
-//  * Chunks. CTA (h, b, c) takes positions [c C, min(L, (c + 1) C)) of
-//    lane b and kv head h, C = SPLIT_C = 128: at the kernel row's lengths
-//    (1..512, 7B width, B = 8) the 512-position lane is streamed by 128
-//    CTAs, where one CTA per (lane, head) left it to 32. Of 64 / 128 / 256,
+//  * Query tiles. Any G >= 1: a CTA serves GT = decode_tile(G) of the
+//    head's queries (decode_core.cuh: G at 1/2/4/8, else 1), so a head
+//    takes G / GT CTAs along x, each with its own partial slots and
+//    counter.
+//  * Chunks. CTA (x, b, c) takes positions [c C, min(L, (c + 1) C)) of
+//    lane b and its kv head h, C = SPLIT_C = 128: at the kernel row's
+//    lengths (1..512, 7B width, B = 8) the 512-position lane is streamed
+//    by 128 CTAs, where one CTA per (lane, head) left it to 32. Of 64 / 128 / 256,
 //    128 kept the paged step fastest (its lanes hold 2..121 positions, and
 //    a split lane pays a merge) and the kernel row as fast as 64; with
 //    every lane at 512 positions 256 was fastest, and one CTA per head
@@ -42,7 +46,7 @@
 //    by warp in a fixed order: the chunk's partial state.
 //  * A deterministic merge. A lane with one chunk writes o = acc / l.
 //    Otherwise every CTA stores its partial (acc, m, l) in its slot of the
-//    workspace, and the last CTA of (b, h) to arrive - a per-(b, h)
+//    workspace, and the last CTA of (b, x) to arrive - a per-(b, x)
 //    counter, added to with release / acquire semantics at device scope
 //    and reset by that CTA - merges the lane's partials in chunk order:
 //    M = max m_c, o = sum_c acc_c e^(m_c - M) / sum_c l_c e^(m_c - M). No
@@ -112,8 +116,9 @@ __device__ __forceinline__ void fma4(float4& a, const float4& b, float e) {
   a.w += b.w * e;
 }
 
-// q, out: (B, Hkv, GT, DH); part: (B * Hkv, gridDim.z, SLOT) floats;
-// counters: (B * Hkv) ints, zero between launches.
+// q, out: (B, Hkv * G, DH); part: (B * gridDim.x, gridDim.z, SLOT) floats;
+// counters: (B * gridDim.x) ints, zero between launches. CTA (x, b, c)
+// serves lane b's query rows x * GT .. + GT - 1, of kv head x / (G / GT).
 template <int DH, int GT>
 __global__ void __launch_bounds__(SPLIT_THREADS)
 decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
@@ -121,9 +126,10 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
                     const int* __restrict__ tables,
                     const int* __restrict__ len1, bf16* __restrict__ out,
                     float* __restrict__ part, int* __restrict__ counters,
-                    int Hkv, int block, int maxb, float scale) {
+                    int Hkv, int G, int block, int maxb, float scale) {
   using S = Split<DH, GT>;
-  const int h = blockIdx.x, b = blockIdx.y, c = blockIdx.z;
+  const int h = blockIdx.x / decode_tiles<GT>(G), b = blockIdx.y;
+  const int c = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int t0 = c * SPLIT_C;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -180,7 +186,8 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   float qf[GT][8];
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
-    load_vec<bf16, 8>(q + ((size_t)(b * Hkv + h) * GT + g) * DH + gl * 8,
+    load_vec<bf16, 8>(q + (((size_t)b * gridDim.x + blockIdx.x) * GT + g) *
+                              DH + gl * 8,
                       qf[g]);
 #pragma unroll
     for (int i = 0; i < 8; ++i) qf[g][i] *= scale;
@@ -286,7 +293,7 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     return a;
   };
 
-  const int bh = b * Hkv + h;
+  const int bh = b * gridDim.x + blockIdx.x;  // the CTA's slots, counter
   bf16* o = out + (size_t)bh * GT * DH;
   if (nc == 1) {
     for (int e4 = tid; e4 < N4; e4 += SPLIT_THREADS) {
@@ -357,8 +364,9 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 template <int DH, int GT>
 static int launch_split(const bf16* q, const bf16* kp, const bf16* vp,
                         const int* tables, const int* len1, bf16* out,
-                        float* part, int* counters, int B, int Hkv, int block,
-                        int maxb, float scale, cudaStream_t stream) {
+                        float* part, int* counters, int B, int Hkv, int G,
+                        int block, int maxb, float scale,
+                        cudaStream_t stream) {
   constexpr int SMEM = Split<DH, GT>::BYTES;
   static unsigned opted = 0;                 // one bit per device
   if (SMEM > 48 * 1024) {
@@ -375,9 +383,10 @@ static int launch_split(const bf16* q, const bf16* kp, const bf16* vp,
     }
   }
   const int chunks = (maxb * block + SPLIT_C - 1) / SPLIT_C;
-  decode_split_kernel<DH, GT><<<dim3(Hkv, B, chunks), SPLIT_THREADS, SMEM,
-                                stream>>>(q, kp, vp, tables, len1, out, part,
-                                          counters, Hkv, block, maxb, scale);
+  const dim3 grid(Hkv * decode_tiles<GT>(G), B, chunks);
+  decode_split_kernel<DH, GT><<<grid, SPLIT_THREADS, SMEM, stream>>>(
+      q, kp, vp, tables, len1, out, part, counters, Hkv, G, block, maxb,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -394,9 +403,10 @@ extern "C" int decode_paged_smem_bytes(int dh, int G) {
   return bytes == static_cast<int>(cudaErrorInvalidValue) ? 0 : bytes;
 }
 
-// part: (B * Hkv, chunks, slot) floats with chunks = ceil(maxb * block /
-// chunk) and slot = G * (dh + 2) rounded up to a multiple of 4; counters:
-// B * Hkv ints, zero (the kernel leaves them so).
+// With GT = decode_tile(G) (decode_core.cuh): part: (B * Hkv * G / GT,
+// chunks, slot) floats with chunks = ceil(maxb * block / chunk) and slot =
+// GT * (dh + 2) rounded up to a multiple of 4; counters: B * Hkv * G / GT
+// ints, zero (the kernel leaves them so).
 extern "C" int decode_paged_bf16(const void* q, const void* kp, const void* vp,
                                  const void* tables, const void* len1,
                                  void* out, void* part, void* counters, int B,
@@ -408,7 +418,7 @@ extern "C" int decode_paged_bf16(const void* q, const void* kp, const void* vp,
         static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
         static_cast<const bf16*>(vp), static_cast<const int*>(tables),
         static_cast<const int*>(len1), static_cast<bf16*>(out),
-        static_cast<float*>(part), static_cast<int*>(counters), B, Hkv,
+        static_cast<float*>(part), static_cast<int*>(counters), B, Hkv, G,
         block, maxb, scale, static_cast<cudaStream_t>(stream));
   });
 }

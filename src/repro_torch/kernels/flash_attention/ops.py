@@ -88,9 +88,16 @@ def attention_bwd_cost(B, Sq, Sk, Hq, Hkv, dk, dv, causal=True, window=0):
 
 
 def _check_head_shape(name, dh, G):
-    if dh not in (32, 64, 128, 256) or G not in (1, 2, 4, 8):
-        raise ValueError(f"{name}: kernel takes dh in 32/64/128/256 and G in "
-                         f"1/2/4/8, got dh={dh}, G={G}")
+    if dh not in (32, 64, 128, 256):
+        raise ValueError(f"{name}: kernel takes dh in 32/64/128/256 (any G), "
+                         f"got dh={dh}, G={G}")
+
+
+def _decode_tile(G):
+    """The queries of a kv head's group of G that one CTA of the decode
+    kernels serves, as ``decode_core.cuh``'s ``decode_tile``: G itself at
+    1/2/4/8, else 1."""
+    return G if G in (1, 2, 4, 8) else 1
 
 
 _chunk = None
@@ -133,7 +140,8 @@ def decode_paged(q, k_pool, v_pool, tables, len1):
     CPU tensors take the plain version, in any float dtype; CUDA tensors
     launch the kernel, which takes bf16 q and pools. It splits each lane's
     positions in chunks of ``split_chunk()`` over CTAs and merges them in
-    chunk order, in one launch; ``len1`` is never read on the host. Its
+    chunk order, in one launch; ``len1`` is never read on the host. Any G
+    = Hq / Hkv: a CTA serves ``_decode_tile(G)`` of a head's queries. Its
     scratch lives in a workspace kept per device and stream
     (``_split_workspace``)."""
     B, Hq, dh = q.shape
@@ -157,10 +165,11 @@ def decode_paged(q, k_pool, v_pool, tables, len1):
     fn = rt.bind("decode_paged", "decode_paged_bf16", _ARGS)
     maxb = tables.shape[1]
     chunks = -(-maxb * block // split_chunk())
-    slot = -(-G * (dh + 2) // 4) * 4
+    gt = _decode_tile(G)
+    ctas = B * Hkv * (G // gt)                    # CTAs of a chunk
+    slot = -(-gt * (dh + 2) // 4) * 4
     stream = rt.stream_ptr(q)
-    part, count = _split_workspace(q, stream, B * Hkv * chunks * slot,
-                                   B * Hkv)
+    part, count = _split_workspace(q, stream, ctas * chunks * slot, ctas)
     out = torch.empty_like(q)
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             tables.data_ptr(), len1.data_ptr(), out.data_ptr(),
@@ -177,7 +186,8 @@ def decode(q, k_cache, v_cache, length: int):
     least 1); the rest of the cache is never read. Returns (B,Hq,dh).
 
     CPU tensors take the plain version, in any float dtype; CUDA tensors
-    launch the kernel, which takes bf16 q and caches."""
+    launch the kernel, which takes bf16 q and caches and any G = Hq / Hkv,
+    a CTA serving ``_decode_tile(G)`` of a head's queries."""
     B, Hq, dh = q.shape
     _, S, Hkv, dh_c = k_cache.shape
     if (dh_c != dh or Hq % Hkv or k_cache.shape[0] != B

@@ -66,6 +66,7 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import (ARCH_IDS, SHAPE_CELLS, cell_applicable,
                                  get_config, pad_for_tp)
+from repro_torch.distributed import ctx
 from repro_torch.distributed import partitioning as part
 from repro_torch.distributed import stepfn
 from repro_torch.kernels import runtime as rt
@@ -287,7 +288,10 @@ def trace_step(cfg, cell, mesh):
     model = get_model(cfg)
     B, S = cell.global_batch, cell.seq_len
     trace = Trace()
-    with trace, rt.cost_hook(trace.kernel), _DTensorInternals(trace):
+    # PerfOptions.moe_dispatch_constraint: the MoE buffers by expert over
+    # 'model', named as JAX's _lower_for names them
+    with trace, rt.cost_hook(trace.kernel), _DTensorInternals(trace), \
+            ctx.named_shardings(**ctx.moe_dispatch_named(cfg, mesh)):
         if cell.kind == "train":
             fn, _, _ = stepfn.make_train_step(cfg, mesh=mesh)
             args = (_fake_tree(stepfn.abstract_train_state(cfg, mesh), dev),

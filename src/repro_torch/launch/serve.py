@@ -9,6 +9,15 @@ kernels. For example, on one H100:
     python -m repro_torch.launch.serve --device cuda --n-experts 3 \\
         --hbm-experts 2 --requests 16 --new-tokens 32
 
+It takes JAX's command line (``repro.launch.serve``) and JAX's defaults,
+but for ``--backend`` (``fused``: on the card, the kernels) and
+``--prompt-len`` (a range, 64-256; JAX's single N gives every prompt N
+tokens), and adds ``--device`` (``cpu`` off the card); JAX's own example
+runs as it is:
+
+    python -m repro_torch.launch.serve --device cpu --reduced \
+        --requests 8 --n-experts 4 --prompt-len 16 --new-tokens 6
+
 Expert weights are random, drawn from ``--seed`` on the serving device.
 ``--arch`` names any dense or moe config of the port (``configs.CONFIGS``).
 The default ``--backend fused`` decodes on the kernels, which refuse an MoE
@@ -303,7 +312,12 @@ def _serve(args, cfg, server, ready):
     return engine, done
 
 
-def main(argv=None):
+def build_parser():
+    """The command line: JAX's flags (``repro.launch.serve``), with JAX's
+    defaults but two: ``--backend`` defaults to ``fused`` (the kernels, the
+    card's path) and ``--prompt-len`` to a range; plus the port's own
+    (``--device``, ``--arch`` choices, the pool's shape, ``--store``,
+    ``--seed``, the watchdog's)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     from repro_torch.configs import CONFIGS
@@ -318,17 +332,21 @@ def main(argv=None):
                          "a sliding window)")
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config (CPU smoke runs)")
-    ap.add_argument("--n-experts", type=int, default=3)
-    ap.add_argument("--hbm-experts", type=float, default=2.0,
+    ap.add_argument("--n-experts", type=int, default=8)
+    ap.add_argument("--hbm-experts", type=float, default=2.5,
                     help="HBM tier capacity in units of one expert")
     ap.add_argument("--requests", type=int, default=16)
-    ap.add_argument("--prompt-len", type=int, nargs=2, default=(64, 256),
-                    metavar=("LOW", "HIGH"))
-    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--prompt-len", type=int, nargs="+", default=[64, 256],
+                    metavar="N",
+                    help="N: every prompt N tokens (JAX's form); LOW HIGH: "
+                    "lengths drawn from [LOW, HIGH]")
+    ap.add_argument("--new-tokens", type=int, default=8)
     ap.add_argument("--n-slots", type=int, default=8)
     ap.add_argument("--block-size", type=int, default=16)
-    ap.add_argument("--max-len", type=int, default=512)
-    ap.add_argument("--tagged-fraction", type=float, default=0.5)
+    ap.add_argument("--max-len", type=int, default=None,
+                    help="the pool's positions a request (default: the "
+                    "longest prompt plus --new-tokens, as JAX's)")
+    ap.add_argument("--tagged-fraction", type=float, default=0.25)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scheduler", default="continuous",
                     choices=["continuous", "run_to_completion"])
@@ -376,7 +394,24 @@ def main(argv=None):
                     "requests, KV refcount books, HBM budget, queue age")
     ap.add_argument("--watchdog-interval", type=float, default=1.0,
                     metavar="S", help="watchdog sampling interval")
+    return ap
+
+
+def parse_args(argv=None):
+    """``build_parser``'s namespace with ``prompt_len`` as (low, high) and
+    ``max_len`` filled in."""
+    ap = build_parser()
     args = ap.parse_args(argv)
+    if len(args.prompt_len) > 2:
+        ap.error("--prompt-len takes N or LOW HIGH")
+    args.prompt_len = (args.prompt_len[0], args.prompt_len[-1])
+    if args.max_len is None:
+        args.max_len = args.prompt_len[1] + args.new_tokens
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
 
     from repro_torch.configs import get_config, pad_for_tp, reduced
     from repro_torch.obs import get_registry, serve_metrics, trace

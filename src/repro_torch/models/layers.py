@@ -455,37 +455,62 @@ def moe_dispatch(cfg: ModelConfig, topi, first: int = 0, n_local=None):
         - starts[eid_s]
 
 
+def moe_slots(cfg: ModelConfig, topi, C: int, n_local: int,
+              first: int = 0):
+    """Where each (token, choice) assignment of ``topi`` (T, K) goes, in
+    expert order (``moe_dispatch``): (its index in ``topi``'s (T * K), its
+    token, its expert's row among the ``n_local`` from ``first``, its
+    slot, kept). Past ``C`` slots, or to an expert not among the local
+    ones, an assignment is dropped: slot C, zeroed."""
+    order, eid_s, pos = moe_dispatch(cfg, topi, first, n_local)
+    keep = (eid_s < n_local) & (pos < C)
+    return (order, order // cfg.top_k,
+            torch.where(keep, eid_s, torch.zeros_like(eid_s)),
+            torch.where(keep, pos, torch.full_like(pos, C)), keep)
+
+
+def moe_scatter(xt, slots, C: int, n_local: int):
+    """The dispatch buffer (n_local, C, D) of tokens xt (T, D): each kept
+    assignment's token row in its expert's slot, the rest zero."""
+    _, tid_s, row, pos_c, keep = slots
+    xe = xt.new_zeros((n_local, C + 1, xt.shape[1]))
+    xe[row, pos_c] = torch.where(keep[:, None], xt[tid_s],
+                                 torch.zeros((), dtype=xt.dtype,
+                                             device=xt.device))
+    return xe[:, :C]
+
+
+def moe_combine(ye, topw, slots, C: int):
+    """The experts' output (T, D) f32 from the result buffer ye (n_local,
+    C, D): each kept assignment's row, cast with its combine weight
+    (``topw`` (T, K)) to ye's type and multiplied, summed per token in
+    f32."""
+    order, tid_s, row, pos_c, keep = slots
+    w_s = topw.reshape(-1)[order]
+    yc = ye[row, torch.clamp(pos_c, max=C - 1)]
+    yc = yc * (w_s * keep.to(w_s.dtype))[:, None].to(yc.dtype)
+    out = torch.zeros((topw.shape[0], ye.shape[-1]), dtype=torch.float32,
+                      device=ye.device)
+    out.index_add_(0, tid_s, yc.float())
+    return out
+
+
 def moe_experts(cfg: ModelConfig, experts, xt, topw, topi, C: int,
                 first: int = 0):
     """The routed experts' output (T, D) f32 for tokens xt (T, D) routed to
     ``topi`` with weights ``topw`` (T, K), at ``C`` slots an expert. The
     (token, choice) assignments, sorted stably by expert, take the
-    expert's slots in that order; past C an assignment is dropped (slot C
-    collects them, zeroed). Each expert's SwiGLU runs on its (C, D)
-    slots; the outputs, each cast with its combine weight to the
-    activations' type and multiplied, are summed per token in f32.
-    ``experts`` may hold a run of E_loc experts from ``first`` (expert
-    parallelism: the others' assignments are dropped here), or every
-    expert's shard of the hidden dim."""
-    T, D = xt.shape
-    K = cfg.top_k
+    expert's slots in that order; past C an assignment is dropped
+    (``moe_slots``). Each expert's SwiGLU runs on its (C, D) slots
+    (``moe_scatter``); the outputs are combined per token
+    (``moe_combine``). ``experts`` may hold a run of E_loc experts from
+    ``first`` (expert parallelism: the others' assignments are dropped
+    here), or every expert's shard of the hidden dim."""
     n_local = experts["wo"].shape[0]
-    order, eid_s, pos = moe_dispatch(cfg, topi, first, n_local)
-    tid_s, w_s = order // K, topw.reshape(T * K)[order]
-    keep = (eid_s < n_local) & (pos < C)
-    pos_c = torch.where(keep, pos, torch.full_like(pos, C))
-    row = torch.where(keep, eid_s, torch.zeros_like(eid_s))
-    xe = xt.new_zeros((n_local, C + 1, D))
-    xe[row, pos_c] = torch.where(keep[:, None], xt[tid_s],
-                                 torch.zeros((), dtype=xt.dtype,
-                                             device=xt.device))
-    xe = xe[:, :C]
+    slots = moe_slots(cfg, topi, C, n_local, first)
+    xe = moe_scatter(xt, slots, C, n_local)
     ye = ffn_hidden(cfg, experts, xe) @ experts["wo"]      # (E_loc,C,D)
-    yc = ye[row, torch.clamp(pos_c, max=C - 1)]
-    yc = yc * (w_s * keep.to(w_s.dtype))[:, None].to(yc.dtype)
-    out = torch.zeros((T, D), dtype=torch.float32, device=xt.device)
-    out.index_add_(0, tid_s, yc.float())
-    return out
+    return moe_combine(ye, topw, slots, C)
 
 
 def moe_apply(cfg: ModelConfig, p, x):
@@ -519,7 +544,8 @@ def sharded_moe(cfg: ModelConfig, p, x):
     and with its drops (GSPMD keeps the global meaning). On, with E
     divisible by the 'model' axis: JAX's ``moe_apply_ep_local``, each data
     shard's tokens routed locally at the capacity of the local tokens, one
-    reduction over 'model' the only collective."""
+    reduction over 'model' the only collective. Off, and under a named
+    ``moe_dispatch`` placement: ``pinned_moe``."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     from repro_torch.distributed import ctx
@@ -539,6 +565,13 @@ def sharded_moe(cfg: ModelConfig, p, x):
         raise ValueError(f"moe_ep_local: batch {B} does not divide over the "
                          f"data axes ({_data_size(mesh)})")
     first = mesh.get_local_rank("model") * (E // tp) if ep else 0
+    if ctx.named("moe_dispatch") is not None and not local_tokens:
+        if not (ep and E % tp == 0):
+            raise ValueError(
+                f"moe_dispatch: pins the (E, C, D) buffers by expert over "
+                f"'model'; the experts of {cfg.name} ({E} over {tp}) do not "
+                "shard by expert")
+        return pinned_moe(cfg, p, x, first)
     part = Partial() if sharded else Replicate()
     d_tok = Shard(0) if local_tokens else Replicate()
     # gradients: a local input's share of the sum over 'model' where the
@@ -565,6 +598,76 @@ def sharded_moe(cfg: ModelConfig, p, x):
                     in_placements=in_pl, in_grad_placements=grad_pl,
                     device_mesh=mesh, redistribute_inputs=True)(
         x, p["router"], *ex)
+    out = out.redistribute(mesh, x.placements).to(x.dtype)
+    if cfg.n_shared_experts:
+        out = out + ffn_apply(cfg, p["shared"], x)
+    return out
+
+
+def pinned_moe(cfg: ModelConfig, p, x, first: int):
+    """``sharded_moe`` with the (E, C, D) dispatch and result buffers
+    DTensors placed by the named ``moe_dispatch`` spec (JAX's
+    ``PerfOptions.moe_dispatch_constraint``, which ``launch/dryrun.py``
+    sets as JAX's ``_lower_for`` does: ``('model', None, None)``, by
+    expert over 'model'), the experts sharded by expert, from ``first``
+    on each rank. Each rank routes its own tokens; the routing
+    is gathered, and every rank dispatches all B * S tokens (gathered) into
+    its experts' slots, at the single-device capacity and drops; the FFN
+    runs on those slots. The combine takes the result buffer whole on
+    every rank (its ``in_placements`` gather it over 'model') and combines
+    every token, its output whole, then laid out as x is. The output is
+    the single-device ``moe_apply``'s. These gathers of x, the routing and
+    the result buffer cost more bytes than the unpinned path's one
+    reduction; an all-to-all of the buffers, as GSPMD makes of JAX's pins,
+    is not written yet (ROADMAP.md)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.distributed import ctx
+    mesh = x.device_mesh
+    B, S, D = x.shape
+    E, tp = cfg.n_experts, _model_size(mesh)
+    C = moe_capacity(cfg, B * S)
+    rep = _mesh_placements(mesh, Replicate(), Replicate())
+    by_expert = _mesh_placements(mesh, Replicate(), Shard(0))
+    # a shard of the tokens routes its own: the router's gradient is a
+    # partial sum over the mesh dims that shard them
+    router_grad = tuple(Partial() if isinstance(pl, Shard) else Replicate()
+                        for pl in x.placements)
+
+    def route(xl, router):
+        Bl, Sl, _ = xl.shape
+        _, topw, topi = moe_route(cfg, router, xl.reshape(Bl * Sl, D))
+        return topw.reshape(Bl, Sl, -1), topi.reshape(Bl, Sl, -1)
+
+    topw, topi = local_map(
+        route, out_placements=(list(x.placements), list(x.placements)),
+        in_placements=(x.placements, rep),
+        in_grad_placements=(x.placements, router_grad), device_mesh=mesh)(
+        x, p["router"])
+    topw = topw.redistribute(mesh, rep).to_local().reshape(B * S, -1)
+    topi = topi.redistribute(mesh, rep).to_local().reshape(B * S, -1)
+    slots = moe_slots(cfg, topi, C, E // tp, first)
+
+    def dispatch(xl):
+        return moe_scatter(xl.reshape(B * S, D), slots, C, E // tp)
+
+    xe = local_map(dispatch, out_placements=list(by_expert),
+                   in_placements=(rep,),
+                   in_grad_placements=(_mesh_placements(
+                       mesh, Replicate(), Partial()),),
+                   device_mesh=mesh, redistribute_inputs=True)(x)
+    xe = ctx.constrain_named("moe_dispatch", xe)
+    ye = ffn_hidden(cfg, p["experts"], xe) @ p["experts"]["wo"]
+    ye = ctx.constrain_named("moe_dispatch", ye)
+    everywhere = moe_slots(cfg, topi, C, E)
+
+    def combine(ye_all, w):
+        return moe_combine(ye_all, w, everywhere, C).reshape(B, S, D)
+
+    out = local_map(combine, out_placements=list(rep),
+                    in_placements=(rep, None),
+                    in_grad_placements=(rep, None), device_mesh=mesh,
+                    redistribute_inputs=True)(ye, topw)
     out = out.redistribute(mesh, x.placements).to(x.dtype)
     if cfg.n_shared_experts:
         out = out + ffn_apply(cfg, p["shared"], x)

@@ -418,6 +418,13 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
         idx = pos % S if cfg.sliding_window else pos
         valid = (torch.arange(S, device=dev)
                  < min(pos + 1, S))[None].expand(B, S)
+        # PerfOptions.decode_cache_carry: JAX threads the stacked cache
+        # through its layer scan as a carry, updating each layer's slice in
+        # place, where it otherwise scans the slices out and stacks them
+        # anew. This loop writes each layer's slice of the one stacked cache
+        # in place whatever the field says, which is the carry's form: on
+        # and off give the same bits (tests/test_torch_dense_decode.py).
+        # MLA's branch takes no such field, as JAX's does not.
         for i in range(cfg.n_layers):
             h, _ = _decode_dense_layer(cfg, layer_params(params, i), h,
                                        cache["k"][i], cache["v"][i], idx,

@@ -12,12 +12,14 @@ to [-10, 10] instead of carrying the max-stabiliser through the chunkwise
 path; forget gates are log-sigmoids, so no exponent of a kept term
 overflows. The sLSTM keeps the exact max-stabiliser.
 
-Numerics follow JAX's default (``PerfOptions.mlstm_bf16`` off): the
-chunkwise mLSTM computes in f32, and JAX's rounding points are kept where
-its code has them: the gate logits are a product plus a bias in the
-weights' type, cast to f32 after the add; a step's ``k ⊗ v`` and
-``q / sqrt(dh)`` stay in the inputs' type; the sLSTM's ``x_t W + h R + b``
-is summed in the weights' type with ``h`` rounded to bf16; the per-head
+Numerics follow JAX's: by default (``PerfOptions.mlstm_bf16`` off) the
+chunkwise mLSTM computes in f32; with the field on, in bf16 where JAX's
+does, with f32 gates, state and sums (``mlstm_chunkwise``). JAX's
+rounding points are kept where its code has them: the gate logits are a
+product plus a bias in the weights' type, cast to f32 after the add; a
+step's ``k ⊗ v`` and ``q / sqrt(dh)`` stay in the inputs' type; the
+sLSTM's ``x_t W + h R + b`` is summed in the weights' type with ``h``
+rounded to bf16; the per-head
 RMS norm casts to bf16; the sLSTM's output is cast to the input's type
 before the residual. Where JAX's einsum promotes a bf16 operand against
 an f32 one, the port casts it up first (``_ein``).
@@ -163,8 +165,17 @@ def _mh_rms(x, scale):
 def mlstm_chunkwise(q, k, v, ilog, flog, state=None, chunk=_CHUNK):
     """q, k, v (B,S,H,dh); ilog / flog (B,S,H) f32 (flog <= 0). state:
     {'C': (B,H,dh,dh) f32, 'n': (B,H,dh) f32} or None (zeros). S must be a
-    multiple of ``min(chunk, S)``. Computes in f32. Returns (h (B,S,H,dh)
-    f32, new state)."""
+    multiple of ``min(chunk, S)``. Returns (h (B,S,H,dh) f32, new state).
+
+    Computes in f32, or, under ``PerfOptions.mlstm_bf16``, at JAX's bf16
+    rounding points: q·scale (the scale rounded to bf16 first), k and v
+    rounded to bf16; the intra-chunk scores and the state's products take
+    the rounded values, each product exact in f32 and summed in f32 (JAX's
+    ``preferred_element_type``); ``s`` is rounded before it meets v, the
+    decay before it meets k, ``wj`` before the state's products. The gates
+    and the (C, n) state stay f32. JAX's three-operand state update
+    (``bjh,bjhd,bjhe->bhde``) contracts ``wj`` with k first, at f32 (the
+    XLA it lowers to: wj·k, then that with v), as here."""
     B, S, H, dh = q.shape
     c = min(chunk, S)
     if S % c:
@@ -172,9 +183,25 @@ def mlstm_chunkwise(q, k, v, ilog, flog, state=None, chunk=_CHUNK):
                          f"min({chunk}, S) = {c} (the chunk length)")
     nc = S // c
     scale = 1.0 / math.sqrt(dh)
-    qf = (q.float() * scale).reshape(B, nc, c, H, dh)
-    kf = k.float().reshape(B, nc, c, H, dh)
-    vf = v.float().reshape(B, nc, c, H, dh)
+    if ctx.perf().mlstm_bf16:
+        # q, k, v stay bf16 and are upcast at each use, so that each use's
+        # gradient is rounded to bf16 on its own and the uses' gradients
+        # are summed in bf16, as JAX's cotangents of its bf16 operands are
+        bf = torch.bfloat16
+        qf = (q.to(bf) * torch.tensor(scale, dtype=bf, device=q.device)) \
+            .reshape(B, nc, c, H, dh)
+        kf = k.to(bf).reshape(B, nc, c, H, dh)
+        vf = v.to(bf).reshape(B, nc, c, H, dh)
+
+        def rnd(t):
+            return t.to(bf).float()
+    else:
+        qf = (q.float() * scale).reshape(B, nc, c, H, dh)
+        kf = k.float().reshape(B, nc, c, H, dh)
+        vf = v.float().reshape(B, nc, c, H, dh)
+
+        def rnd(t):
+            return t
     il = ilog.reshape(B, nc, c, H)
     fl = flog.reshape(B, nc, c, H)
     dev = q.device
@@ -191,7 +218,8 @@ def mlstm_chunkwise(q, k, v, ilog, flog, state=None, chunk=_CHUNK):
         cum = torch.cumsum(fc, dim=1)                   # inclusive log f
         # inter-chunk: h_t += exp(cum_t) q_t C, n_t += exp(cum_t) n
         dec_t = torch.exp(cum)                          # (B,c,H)
-        h_inter = torch.einsum("bthd,bhde->bthe", qc, C) * dec_t[..., None]
+        h_inter = torch.einsum("bthd,bhde->bthe", qc.float(), C) \
+            * dec_t[..., None]
         n_inter = n[:, None] * dec_t[..., None]
         # intra-chunk decay w_tj = exp(cum_t - cum_j + il_j), j <= t: above
         # the diagonal the exponent may overflow, so the mask selects the
@@ -201,18 +229,20 @@ def mlstm_chunkwise(q, k, v, ilog, flog, state=None, chunk=_CHUNK):
         wmat = torch.exp(torch.where(tri[None, :, :, None],
                                      cum[:, :, None] + g[:, None, :],
                                      float("-inf")))
-        s = torch.einsum("bthd,bjhd->btjh", qc, kc) * wmat
-        h_intra = torch.einsum("btjh,bjhd->bthd", s, vc)
-        n_intra = torch.einsum("btjh,bjhd->bthd", wmat, kc)
-        den = torch.einsum("bthd,bthd->bth", qc, n_inter + n_intra).abs()
+        s = torch.einsum("bthd,bjhd->btjh", qc.float(), kc.float()) \
+            * wmat
+        h_intra = torch.einsum("btjh,bjhd->bthd", rnd(s), vc.float())
+        n_intra = torch.einsum("btjh,bjhd->bthd", rnd(wmat), kc.float())
+        den = torch.einsum("bthd,bthd->bth", qc.float(),
+                           n_inter + n_intra).abs()
         hs.append((h_inter + h_intra) / torch.clamp_min(den, 1.0)[..., None])
         # the state past the chunk
         last = cum[:, -1]                               # (B,H)
         wj = torch.exp(last[:, None] + g)               # (B,c,H)
         C = C * torch.exp(last)[..., None, None] + torch.einsum(
-            "bjhd,bjhe->bhde", kc * wj[..., None], vc)
+            "bjhd,bjhe->bhde", kc.float() * rnd(wj)[..., None], vc.float())
         n = n * torch.exp(last)[..., None] + torch.einsum(
-            "bjh,bjhd->bhd", wj, kc)
+            "bjh,bjhd->bhd", rnd(wj), kc.float())
     h = torch.stack(hs, dim=1).reshape(B, S, H, dh)
     return h, {"C": C, "n": n}
 

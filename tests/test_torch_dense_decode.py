@@ -9,7 +9,8 @@ CPU, on the same numpy inputs:
     differ in the last f32 bits, times positions below 20);
   * ``decoder_layer_step`` against JAX's, for y and both caches;
   * the model's ``prefill`` + ``decode_step`` on the reduced
-    samba-coe-expert-7b at f32 weights, for logits and caches;
+    samba-coe-expert-7b at f32 weights, for logits and caches, also with
+    ``PerfOptions.decode_cache_carry`` on (bit-equal to off in the port);
   * the L-layer composition of ``decoder_layer_step`` through
     ``layer_step_params`` against the port's own ``decode_step``.
 
@@ -25,6 +26,7 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
+from repro.distributed import ctx as jctx
 from repro.kernels.flash_attention.ops import decode as jax_decode
 from repro.kernels.fused_decode.kernel import ffn_swiglu as jax_ffn_swiglu
 from repro.kernels.fused_decode.kernel import qkv_rope as jax_qkv_rope
@@ -33,6 +35,7 @@ from repro.kernels.fused_decode.ops import \
 from repro.models import get_model as jax_get_model
 from repro_torch.bridge import to_torch
 from repro_torch.configs import get_config, reduced
+from repro_torch.distributed import ctx
 from repro_torch.kernels import runtime as rt
 from repro_torch.kernels.flash_attention.ops import decode
 from repro_torch.kernels.fused_decode.ops import (decoder_layer_step,
@@ -91,7 +94,9 @@ def test_qkv_rope_plain_matches_pallas():
 
 def test_decode_plain_matches_pallas_and_never_reads_past_length():
     B, S, dh = 3, 24, 32
-    for hq, hkv in ((4, 4), (4, 2), (8, 2)):         # G = 1, 2, 4
+    # G = 1, 2, 4 and 3, 5, 6, 12, 16 (one query a CTA on the card)
+    for hq, hkv in ((4, 4), (4, 2), (8, 2), (6, 2), (10, 2), (12, 2),
+                    (24, 2), (16, 1)):
         rs = np.random.RandomState(hq * hkv)
         q = _n(rs, (B, hq, dh))
         kc, vc = _n(rs, (B, S, hkv, dh)), _n(rs, (B, S, hkv, dh))
@@ -204,6 +209,44 @@ def test_prefill_and_decode_step_match_jax(model):
     tc = {k: torch.as_tensor(v.copy()) for k, v in c32.items()}
     lg, c2 = m.decode_step(params, tc, torch.as_tensor(tok), S)
     assert c2["k"] is tc["k"]
+    _close(lg, jlg, MODEL_ATOL)
+    for name in ("k", "v"):
+        _close(c2[name], jc2[name])
+
+
+def test_decode_cache_carry_is_bit_equal_and_matches_jax(model):
+    """``PerfOptions.decode_cache_carry``: the port's decode step with the
+    field on gives the bits it gives with it off (logits and both caches,
+    two steps), and matches JAX's decode step with the field on (its
+    carried-cache scan) within MODEL_ATOL on the same f32 cache."""
+    jcfg, cfg, tree = model
+    B, S, max_len = 2, 5, 9
+    toks = np.random.RandomState(2).randint(0, cfg.vocab_size, (B, S)) \
+        .astype(np.int32)
+    jm, m = jax_get_model(jcfg), get_model(cfg)
+    params = to_torch(tree)
+    jlast, jcache = jm.prefill(tree, {"tokens": jnp.asarray(toks)}, max_len)
+    c32 = {k: np.asarray(v, np.float32) for k, v in jcache.items()}
+    tok = np.array(jnp.argmax(jlast, -1), np.int32)[:, None]
+    runs = {}
+    for carry in (False, True):
+        tc = {k: torch.as_tensor(v.copy()) for k, v in c32.items()}
+        with ctx.perf_options(ctx.PerfOptions(decode_cache_carry=carry)):
+            lg1, _ = m.decode_step(params, tc, torch.as_tensor(tok), S)
+            lg2, c2 = m.decode_step(params, tc, lg1.argmax(-1)[:, None],
+                                    S + 1)
+        runs[carry] = (lg1, lg2, c2)
+    for a, b in zip(runs[False][:2], runs[True][:2]):
+        assert torch.equal(a, b)
+    for name in ("k", "v"):
+        assert torch.equal(runs[False][2][name], runs[True][2][name])
+    with jctx.perf_options(jctx.PerfOptions(decode_cache_carry=True)):
+        jlg, jc2 = jm.decode_step(tree, {k: jnp.asarray(v) for k, v in
+                                         c32.items()}, jnp.asarray(tok),
+                                  jnp.int32(S))
+    tc = {k: torch.as_tensor(v.copy()) for k, v in c32.items()}
+    with ctx.perf_options(ctx.PerfOptions(decode_cache_carry=True)):
+        lg, c2 = m.decode_step(params, tc, torch.as_tensor(tok), S)
     _close(lg, jlg, MODEL_ATOL)
     for name in ("k", "v"):
         _close(c2[name], jc2[name])

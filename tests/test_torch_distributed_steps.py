@@ -14,6 +14,9 @@ groups of 1, 2 and 4 ranks (``_torch_ranks``):
     drops) and JAX's, at capacity factor 0.5 (assignments dropped), with
     the experts sharded over 'model' and, at 3 experts, with each expert's
     hidden dim sharded instead;
+  * ``moe_dispatch_constraint``'s pinned buffers (sharded by expert over
+    'model') keep the mesh MoE's output and gradients (1 x 2 and 2 x 2
+    meshes);
   * EP-local MoE (``moe_ep_local``: each data shard routes its own tokens
     to each rank's E / tp experts, one reduction over 'model') within 0.02
     of the global dispatch (JAX's reduced DeepSeek variant: 4 experts, top
@@ -167,6 +170,76 @@ def test_mesh_moe_equals_single_device(tmp_path, n_experts):
                               else "(Replicate(), Shard(dim=2))")
     assert _rel(got["out"], ref) < MOE_TOL_REL
     assert _rel(got["out"], jref) < MOE_TOL_REL
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
+def test_moe_dispatch_constraint_keeps_output_and_gradients(tmp_path, shape):
+    """``PerfOptions.moe_dispatch_constraint`` on a (1, 2) and a (2, 2)
+    gloo mesh: 4 experts by expert over 'model' (2 a rank), capacity
+    factor 0.5 (assignments dropped); on (2, 2) the tokens are sharded
+    over 'data', so the routing is gathered across data ranks and the
+    router's gradient is a partial sum over them. With the field on,
+    under the named placements the dry-run sets
+    (``ctx.moe_dispatch_named``), the dispatch and result buffers are
+    DTensors sharded by expert over 'model'; the output, and the gradients
+    of x, the router and the experts, equal the field off within
+    MOE_TOL_REL, and the output the single-device ``moe_apply``."""
+    cfg = dataclasses.replace(
+        pad_for_tp(reduced(get_config("mixtral-8x7b")), 2),
+        capacity_factor=0.5, n_experts=4)
+    from repro.models.common import init_params as jax_init_params
+    from repro.models.layers import moe_specs as jax_moe_specs
+    jcfg = dataclasses.replace(
+        jax_pad_for_tp(jax_reduced(jax_get_config("mixtral-8x7b")), 2),
+        capacity_factor=0.5, n_experts=4)
+    jp = jax.tree.map(lambda a: np.asarray(a, np.float32), jax_init_params(
+        jax.random.PRNGKey(0), jax_moe_specs(jcfg)))
+    x = np.asarray(jax.random.normal(jax.random.PRNGKey(1),
+                                     (4, 8, cfg.d_model)), np.float32)
+    p, xt = to_torch(jp), torch.from_numpy(x.copy())
+    ref = L.moe_apply(cfg, p, xt)
+    save(tmp_path, {"cfg": cfg, "p": p, "x": xt, "shape": shape})
+    run_ranks("""
+        from repro_torch.distributed import ctx, partitioning as part, stepfn
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models import layers as L
+        inp = torch.load(f"{TMP}/in.pt", weights_only=False)
+        cfg = inp["cfg"]
+        mesh = make_mesh(inp["shape"], ("data", "model"))
+        seen, res = [], {}
+        pin = ctx.constrain_named
+
+        def spy(name, t):
+            out = pin(name, t)
+            seen.append((name, tuple(t.shape), str(out.placements)))
+            return out
+
+        ctx.constrain_named = spy
+        for on in (False, True):
+            p = part.device_put(inp["p"], part.shardings_from_pspecs(
+                part.param_pspecs(L.moe_specs(cfg), mesh), mesh))
+            leaves = [p["router"], *p["experts"].values()]
+            for t in leaves:
+                t.requires_grad_(True)
+            x = part.distribute(inp["x"].clone(),
+                                part.NamedSharding(mesh, part.P("data")))
+            x.requires_grad_(True)
+            with ctx.perf_options(ctx.PerfOptions(
+                    moe_dispatch_constraint=on)), stepfn.on_mesh(mesh), \
+                    ctx.named_shardings(**ctx.moe_dispatch_named(cfg, mesh)):
+                out = L.moe_apply(cfg, p, x)
+                out.full_tensor().pow(2).sum().backward()
+            res[on] = [out.full_tensor().detach(), x.grad.full_tensor()] + [
+                t.grad.full_tensor() for t in leaves]
+        emit("pinned", {"res": res, "seen": seen})
+    """, shape[0] * shape[1], tmp_path)
+    got = load(tmp_path, "pinned")
+    E, C = 4, L.moe_capacity(cfg, 32)
+    assert got["seen"] == [("moe_dispatch", (E, C, cfg.d_model),
+                            "(Replicate(), Shard(dim=0))")] * 2
+    for on, off in zip(got["res"][True], got["res"][False]):
+        assert _rel(on, off) < MOE_TOL_REL
+    assert _rel(got["res"][True][0], ref) < MOE_TOL_REL
 
 
 _JAX_EP_LOCAL = """

@@ -16,6 +16,10 @@ its sLSTM steps once per position (JAX counts one step), and the trace
 runs every step's ops. The kernels a trace records are the step's
 (``stepfn.kernel_launches`` for training).
 
+``PerfOptions.moe_dispatch_constraint`` on the fake production group:
+DeepSeek-V2-Lite's MoE buffers pinned by expert over 'model' and its
+collectives by kind changed; Mixtral's (8 experts over 16) unchanged.
+
 The CLI on a fake production group of 256: a decode cell ends ``ok``
 with its terms, and a full-attention arch's ``long_500k`` is skipped."""
 import json
@@ -66,6 +70,44 @@ print(json.dumps(out))
 """
 
 
+# PerfOptions.moe_dispatch_constraint in the dry-run: each serving and
+# training cell of ``arch`` at one layer unit on the fake single-pod
+# (16, 16) group, traced with the field off and on; every named placement
+# the trace applies, and the collective bytes by kind
+PIN_TRACE = """
+import json, logging, sys
+from repro_torch.configs import get_config, pad_for_tp
+from repro_torch.distributed import ctx
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.loopfix import reduced_depth_cfg
+from repro_torch.launch.mesh import make_production_mesh
+logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+    logging.ERROR)
+arch = sys.argv[1]
+D.start_group(256)
+mesh = make_production_mesh(multi_pod=False)
+cfg = reduced_depth_cfg(pad_for_tp(get_config(arch), 16), 1)
+pin, seen = ctx.constrain_named, []
+
+def spy(name, t):
+    out = pin(name, t)
+    if name == "moe_dispatch":
+        seen.append([list(t.shape), str(out.placements)])
+    return out
+
+ctx.constrain_named = spy
+out = {}
+for cell in ("train_4k", "prefill_32k", "decode_32k"):
+    for on in (False, True):
+        seen.clear()
+        with ctx.perf_options(ctx.PerfOptions(moe_dispatch_constraint=on)):
+            tr = D.trace_step(cfg, D._cell(cell), mesh)
+        out[f"{cell}|{on}"] = dict(coll=D.collective_bytes(tr.coll),
+                                   flops=float(tr.flops), seen=list(seen))
+print(json.dumps(out))
+"""
+
+
 def _run(args, timeout):
     out = subprocess.run([sys.executable, *args], capture_output=True,
                          text=True, env=env(), cwd=ROOT, timeout=timeout)
@@ -101,6 +143,32 @@ def test_dryrun_traces_every_family(arch):
         k: v for k, v in (("flash_prefill", n_attn), ("lru_scan", n_rec))
         if v}
     assert got["(2, 2)|decode|3"]["kernels"] == {}
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mixtral-8x7b"])
+def test_moe_dispatch_constraint_in_the_dryrun(arch):
+    """DeepSeek-V2-Lite's 64 experts divide the 16-wide model axis: with
+    the field on, the trace pins both MoE buffers (E, C, D) of each MoE
+    layer by expert over 'model' (placements ``(Replicate(),
+    Shard(dim=0))``), and the collective bytes by kind differ from the
+    field off (PERF.md records both breakdowns). Mixtral's 8 experts do
+    not divide it: JAX's condition leaves them unpinned, and every cell
+    traces the same."""
+    got = json.loads(_run(["-c", PIN_TRACE, arch], 420).splitlines()[-1])
+    for cell in ("train_4k", "prefill_32k", "decode_32k"):
+        off, on = got[f"{cell}|False"], got[f"{cell}|True"]
+        assert off["seen"] == []
+        if arch == "mixtral-8x7b":
+            assert on == off, cell
+            continue
+        # one layer unit: the dense first layer, one MoE layer; its two
+        # buffers, pinned in the forward (and its recomputation)
+        E, D_ = 64, 2048
+        assert on["seen"] and all(
+            shape[0] == E and shape[2] == D_
+            and pl == "(Replicate(), Shard(dim=0))"
+            for shape, pl in on["seen"]), (cell, on["seen"])
+        assert on["coll"] != off["coll"], cell
 
 
 def test_dryrun_cli_on_a_production_group(tmp_path):

@@ -36,7 +36,10 @@ def _t(a):
     return torch.as_tensor(a)
 
 
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (8, 2)])   # G = 1, 2, 4
+# G = 1, 2, 4, and groups the card kernels serve one query a CTA: 3, 5,
+# 6, 12, 16
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (8, 2), (6, 2), (10, 2),
+                                    (12, 2), (24, 2), (16, 1)])
 def test_decode_paged_plain_matches_pallas(hq, hkv):
     B, dh, block, maxb = 5, 32, 8, 3
     rows = B * maxb + 1                       # + scratch

@@ -75,7 +75,9 @@ def _paged_args(rs, B, hq, hkv, dh, block, maxb, len1, dev, inactive=3):
 
 
 @pytest.mark.parametrize("hq,hkv,dh", [(32, 32, 128), (8, 4, 64), (8, 2, 128),
-                                       (4, 1, 32)])
+                                       (4, 1, 32), (12, 4, 64), (40, 8, 128),
+                                       (12, 2, 128), (24, 2, 128),
+                                       (32, 2, 128), (16, 1, 256)])
 def test_decode_paged_kernel_matches_plain(dev, hq, hkv, dh):
     """One launch, held to both plain versions (the masked softmax and the
     kernel's chunked arithmetic), at ragged lengths, at the chunk edges (C
@@ -96,6 +98,53 @@ def test_decode_paged_kernel_matches_plain(dev, hq, hkv, dh):
             assert rt.launch_counts()["decode_paged"] == 1
             _rows_close(got, decode_paged_ref(*args))
             _rows_close(got, decode_paged_split_ref(*args, C))
+
+
+# (Hq, Hkv, dh): G 3, 5, 6, 12 and 16 (the variants' groups), 16 at dh 256
+ANY_GROUP = ((12, 4, 64), (40, 8, 128), (12, 2, 128), (24, 2, 128),
+             (32, 2, 128), (16, 1, 256), (48, 3, 32))
+
+
+@pytest.mark.parametrize("hq,hkv,dh", ANY_GROUP)
+def test_decode_kernels_take_any_group(dev, hq, hkv, dh):
+    """Both decode kernels at a G outside 1/2/4/8, where a CTA serves one
+    query: each launch held to its plain version row by row (a row stored
+    at the wrong query would land on another head's rows), two calls
+    bit-equal, one launch counted a call."""
+    from repro_torch.kernels.flash_attention.ops import decode
+    from repro_torch.kernels.flash_attention.ref import decode_attention_ref
+    rs = np.random.RandomState(hq // hkv)
+    args = _paged_args(rs, 8, hq, hkv, dh, 16, 32,
+                       [1, 17, 128, 1, 129, 300, 511, 512], dev)
+    q, kc, vc = (_t(rs, (3, hq, dh), dev), _t(rs, (3, 300, hkv, dh), dev),
+                 _t(rs, (3, 300, hkv, dh), dev))
+    rt.reset_launches()
+    got = decode_paged(*args)
+    again = decode_paged(*args)
+    dense = [decode(q, kc, vc, n) for n in (1, 77, 300)]
+    torch.cuda.synchronize()
+    assert rt.launch_counts()["decode_paged"] == 2
+    assert rt.launch_counts()["flash_decode"] == 3
+    _rows_close(got, decode_paged_ref(*args))
+    assert torch.equal(got, again)
+    for n, o in zip((1, 77, 300), dense):
+        _rows_close(o, decode_attention_ref(q, kc[:, :n], vc[:, :n], n))
+
+
+def test_decode_kernels_refuse_what_they_are_not_built_for(dev):
+    """A CUDA tensor at a head width the kernels lack raises; it never
+    takes the plain version."""
+    from repro_torch.kernels.flash_attention.ops import decode
+    rs = np.random.RandomState(0)
+    q, kc = _t(rs, (2, 4, 96), dev), _t(rs, (2, 8, 2, 96), dev)
+    rt.reset_launches()
+    with pytest.raises(ValueError, match="dh"):
+        decode(q, kc, kc, 4)
+    args = _paged_args(rs, 2, 4, 2, 96, 8, 2, [3, 9], dev, None)
+    with pytest.raises(ValueError, match="dh"):
+        decode_paged(*args)
+    assert rt.launch_counts().get("decode_paged", 0) == 0
+    assert rt.launch_counts().get("flash_decode", 0) == 0
 
 
 def test_decode_paged_counters_reset_between_calls(dev):

@@ -4,10 +4,25 @@ on the H100): the intra-chunk decay's exponent overflows above the
 diagonal, and a mask applied after the ``exp`` leaves inf there for the
 backward to multiply by a zero gradient. ``mlstm_chunkwise`` masks the
 exponent instead: the forward is the same bit for bit, the gradients are
-finite."""
+finite. Under ``PerfOptions.mlstm_bf16`` (q, k, v and the products' other
+operands rounded to bf16) the backward runs through the roundings: the
+gradients of q, k and v are finite and within TOL of ``jax.grad`` of JAX's
+``mlstm_chunkwise`` under the same option (bit-equal in the readings; JAX's
+gate gradients are NaN where its decay overflows, so they are not
+compared)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
 import torch
 
+from repro.distributed import ctx as jctx
+from repro.models import xlstm as JX
+from repro_torch.distributed import ctx
 from repro_torch.models.xlstm import mlstm_chunkwise
+
+# test_torch_xlstm.py's tolerance for the chunkwise core
+TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 def _inputs(seed, closing):
@@ -52,3 +67,29 @@ def test_forward_unchanged_by_masking_the_exponent():
             tri[None, :, :, None], cum[:, :, None] + g[:, None, :],
             float("-inf")))
         assert torch.equal(masked_exp, _masked_after_exp(*x, c))
+
+
+def _loss(h, st):
+    return h.sum() + st["C"].sum() + st["n"].sum()
+
+
+@pytest.mark.parametrize("closing", [False, True])
+def test_gradients_under_mlstm_bf16(closing):
+    x = _inputs(2, closing)
+    with ctx.perf_options(ctx.PerfOptions(mlstm_bf16=True)):
+        _loss(*mlstm_chunkwise(*x, chunk=32)).backward()
+    assert all(torch.isfinite(t.grad).all() for t in x)
+
+    def jloss(*a):
+        return _loss(*JX.mlstm_chunkwise(*a, chunk=32))
+
+    with jctx.perf_options(jctx.PerfOptions(mlstm_bf16=True)):
+        want = jax.grad(jloss, argnums=(0, 1, 2))(
+            *(jnp.asarray(t.detach().numpy()) for t in x))
+    for name, t, w in zip("qkv", x, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                   err_msg=name, **TOL)
+    # the option is read: the f32 core's gradients differ
+    y = _inputs(2, closing)
+    _loss(*mlstm_chunkwise(*y, chunk=32)).backward()
+    assert not torch.equal(y[0].grad, x[0].grad)

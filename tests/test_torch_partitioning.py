@@ -191,10 +191,17 @@ def test_perf_options_are_jax_s():
                                           moe_ep_local=True)):
         assert ctx.perf().capacity_factor == 2.0
     assert ctx.perf() == ctx.PerfOptions()
+    # every field a JAX module reads is read: only chunked_loss, which none
+    # reads, is refused
+    assert ctx.UNREAD == ("chunked_loss",)
     for name in ctx.UNREAD:
         with pytest.raises(NotImplementedError, match=name):
             with ctx.perf_options(ctx.PerfOptions(**{name: True})):
                 pass
+    for name in ("mlstm_bf16", "decode_cache_carry",
+                 "moe_dispatch_constraint"):
+        with ctx.perf_options(ctx.PerfOptions(**{name: True})):
+            assert getattr(ctx.perf(), name) is True
     assert ctx.perf() == ctx.PerfOptions()
 
 

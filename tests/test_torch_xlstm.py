@@ -6,10 +6,12 @@ JAX's init moved by seeded noise (so the zero-initialised biases and the
 unit norm scales are exercised too).
 
 Tolerances:
-  * ``mlstm_chunkwise`` (with and without a carried state), in f32:
-    within atol 1e-4, rtol 1e-4 (the frameworks sum in other orders);
-  * the model's logits, its state tree leaf by leaf and three decode
-    steps, on f32 weights: within 2^-8 of the largest value
+  * ``mlstm_chunkwise`` (with and without a carried state), in f32 and
+    under ``PerfOptions.mlstm_bf16``: within atol 1e-4, rtol 1e-4 (the
+    frameworks sum in other orders; at the same bf16 rounding points);
+  * the model's logits (also under ``mlstm_bf16``), its state tree leaf
+    by leaf and three decode steps, on f32 weights: within 2^-8 of the
+    largest value
     (``MODEL_REL``). The model rounds to bf16 inside, as JAX's does (the
     per-head norm's output, the sLSTM's recurrent h), where an f32
     difference of 1e-5 (each block's reading) flips a rounding; the
@@ -40,6 +42,7 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
+from repro.distributed import ctx as jctx
 from repro.core import CompositionOfExperts as JaxCoE
 from repro.core import ExpertHandle as JaxHandle
 from repro.core import HashRouter as JaxHashRouter
@@ -50,12 +53,16 @@ from repro.models.common import param_bytes as jax_param_bytes
 from repro_torch.bridge import to_torch
 from repro_torch.configs import CONFIGS, get_config, reduced
 from repro_torch.core import CompositionOfExperts, ExpertHandle, HashRouter
+from repro_torch.distributed import ctx
 from repro_torch.models import common, get_model
 from repro_torch.models import xlstm as X
 
 ARCH = "xlstm-1.3b"
 TOL = dict(atol=1e-4, rtol=1e-4)
 MODEL_REL = 2.0 ** -8
+# how far mlstm_bf16 must move the chunkwise core from the f32 one: bf16
+# q, k, v move h and C by ~0.03 at unit inputs
+BF16_MOVES = 1e-3
 
 
 @pytest.fixture(autouse=True)
@@ -174,6 +181,64 @@ def test_mlstm_chunkwise_matches_jax(carried):
     _close(h.numpy(), jh)
     for k_ in ("C", "n"):
         _close(tst[k_].numpy(), jst[k_], k_)
+
+
+@pytest.mark.parametrize("carried", [False, True])
+def test_mlstm_chunkwise_matches_jax_under_mlstm_bf16(carried):
+    """``PerfOptions.mlstm_bf16`` in both packages: the chunkwise core at
+    ``test_mlstm_chunkwise_matches_jax``'s shapes within TOL of JAX's
+    (readings ~1e-6: the same bf16 rounding points, f32 sums in other
+    orders), and more than BF16_MOVES from the f32 core (readings ~0.03)."""
+    rs = np.random.RandomState(int(carried))
+    B, S, H, dh = 2, 64, 2, 16
+    q, k, v = (rs.standard_normal((B, S, H, dh)).astype(np.float32)
+               for _ in range(3))
+    il, fl = _gates(rs, B, S, H)
+    st = None
+    if carried:
+        st = {"C": rs.standard_normal((B, H, dh, dh)).astype(np.float32),
+              "n": np.abs(rs.standard_normal((B, H, dh))).astype(np.float32)}
+
+    def port():
+        return X.mlstm_chunkwise(
+            *map(torch.as_tensor, (q, k, v, il, fl)),
+            None if st is None else {k_: torch.as_tensor(a).clone()
+                                     for k_, a in st.items()}, chunk=16)
+
+    with jctx.perf_options(jctx.PerfOptions(mlstm_bf16=True)):
+        jh, jst = JX.mlstm_chunkwise(
+            *map(jnp.asarray, (q, k, v, il, fl)),
+            None if st is None else {k_: jnp.asarray(a)
+                                     for k_, a in st.items()}, chunk=16)
+    with ctx.perf_options(ctx.PerfOptions(mlstm_bf16=True)):
+        h, tst = port()
+    assert h.dtype == torch.float32
+    _close(h.numpy(), jh)
+    for k_ in ("C", "n"):
+        _close(tst[k_].numpy(), jst[k_], k_)
+    h32, st32 = port()
+    assert float((h - h32).abs().max()) > BF16_MOVES
+    assert float((tst["C"] - st32["C"]).abs().max()) > BF16_MOVES
+
+
+def test_forward_logits_match_jax_under_mlstm_bf16(params):
+    """The reduced model's logits with ``mlstm_bf16`` on in both packages
+    (S 512: two chunks of 256, so the carried state's bf16 products run),
+    within MODEL_REL of JAX's (reading 1.6e-3), where the f32 core's
+    logits are not (6.3e-3 from the port's)."""
+    jcfg, cfg = _cfgs()
+    tp = to_torch(params)
+    toks = np.random.RandomState(4).randint(0, cfg.vocab_size, (1, 512))
+    with jctx.perf_options(jctx.PerfOptions(mlstm_bf16=True)):
+        want = JX.forward(jcfg, params, {"tokens": jnp.asarray(toks)},
+                          last_only=True)
+    batch = {"tokens": torch.as_tensor(toks).long()}
+    with ctx.perf_options(ctx.PerfOptions(mlstm_bf16=True)):
+        got = get_model(cfg).forward(tp, batch, last_only=True)
+    assert _rel(got.numpy(), want) <= MODEL_REL
+    f32 = get_model(cfg).forward(tp, batch, last_only=True)
+    # the f32 core's logits lie outside the tolerance the port meets
+    assert _rel(f32.numpy(), want) > MODEL_REL
 
 
 def test_mlstm_step_matches_jax_on_bf16_inputs():
