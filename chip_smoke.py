@@ -7,7 +7,8 @@
    spills; for ``decode_paged``, ``flash_decode``, ``flash_prefill`` and
    the four weight-stream kernels (``qkv_rope_paged``,
    ``oproj_ffn_swiglu``, ``qkv_rope``, ``ffn_swiglu``) one line per kernel
-   instantiation (head_dim and query tile; pass, lanes and column group)
+   instantiation (head_dim, and the paged decode's query tile; pass, lanes
+   and column group)
    with its registers, spills and dynamic shared memory, failing on a
    spill or on wgmma instructions that ptxas serialised.
 2. Kernel phase at the samba-coe-expert-7b widths (B = 8 lanes, bf16): the
@@ -16,7 +17,9 @@
    row to both its plain versions, the masked softmax and its own chunked
    arithmetic, with two chunk faults planted in the latter that the row
    check must catch), the dense-cache kernels at length 4096 in a 4096-position
-   cache (``ffn_swiglu`` in both forms), the node's three kernels at one
+   cache (``ffn_swiglu`` in both forms; ``flash_decode`` also row by row
+   against its own chunked arithmetic, with the same two chunk faults
+   planted there), the node's three kernels at one
    rank's shapes of the expert at TP 2 (``decode_paged`` at 16 heads,
    ``qkv_rope_paged`` at 16 / 16 heads, ``ffn_swiglu(residual=False)`` at
    F 5504); then the prefill kernels:
@@ -30,9 +33,11 @@
    head rotated) and ``flash_prefill`` at 8 x 2048 tokens, dh 128, at G 5,
    12 and 16; ``decode_paged`` and ``flash_decode`` at each GQA group
    outside 1/2/4/8 that a config has (5, 6, 12, 16 at dh 128; 16 at dh 256,
-   RecurrentGemma's); then ``flash_prefill`` at Mixtral-8x7B's heads (32 q
-   on 8 kv heads, dh 128) at its generate prefill (2 x 4608 tokens, window 4096)
-   and at its paged drain's (B 1, S 64 / 160 / 256, causal); then
+   RecurrentGemma's), each also row by row against its chunked plain
+   version (``flash_decode`` with the two chunk faults planted); then
+   ``flash_prefill`` at Mixtral-8x7B's heads (32 q on 8 kv heads, dh 128)
+   at its generate prefill (2 x 4608 tokens, window 4096) and at its paged
+   drain's (B 1, S 64 / 160 / 256, causal); then
    ``flash_prefill`` at DeepSeek-V2-Lite's MLA prefill (4 x 2048 tokens,
    16 heads, q / k of 192, v of 128, causal), with the scale of v's width
    planted in its plain version besides the causal edge, and the kernels
@@ -880,7 +885,7 @@ def warm_card(dev, seconds=2.0):
         torch.cuda.synchronize()
 
 
-# the decode kernels' (dh, query tile) instantiations
+# the paged decode kernel's (dh, query tile) instantiations
 DECODE_TILES = [(str(dh), str(g)) for dh in (32, 64, 128, 256)
                 for g in (1, 2, 4, 8)]
 
@@ -905,11 +910,14 @@ def build_kernels():
                 DECODE_TILES, lambda k: f"decode_paged[dh={k[0]} tile={k[1]}]",
                 lambda k: paged_smem(int(k[0]), int(k[1])))
         elif name == "flash_decode":
-            # static shared memory only (the ptxas line's smem)
+            dense_smem = rt.bind(name, "flash_decode_smem_bytes", [rt.I])
+            # cp.async through L2 only (b0) or allocating in L1 (b1)
             entry_build_report(
-                name, log, r"decode_dense_kernelI\w+?Li(\d+)ELi(\d+)ELi\d+E",
-                DECODE_TILES, lambda k: f"flash_decode[dh={k[0]} tile={k[1]}]",
-                lambda k: 0)
+                name, log, r"decode_group_kernelILi(\d+)ELb([01])E",
+                [(str(dh), l1) for dh in (32, 64, 128, 256) for l1 in "01"],
+                lambda k: f"flash_decode[dh={k[0]}"
+                + (" l1" if k[1] == "1" else "") + "]",
+                lambda k: dense_smem(int(k[0])))
         elif name == "flash_prefill":
             # each (dk, dv) four times: causal / windowed (b0 b0), FULL
             # (b1 b0), and their LSE forms (the training forward)
@@ -1222,40 +1230,39 @@ def rope_fault_caught(name, got, plain_fault):
         raise AssertionError(f"{name}: the row check missed a planted fault")
 
 
-def split_faults_caught(name, got, q, kp, vp, tables, len1):
-    """Row ``name`` of ``decode_paged``: its output ``got`` against its
-    split plain version (the kernel's own chunks, merged in chunk order) row
-    by row, within
+def split_faults_caught(name, got, inputs, chunk, lane, p_dtype=None):
+    """Row ``name`` of a split decode kernel: its output ``got`` against
+    its split plain version (``inputs``, the kernel's scores, values and
+    valid positions, in chunks of ``chunk`` merged in chunk order; p
+    rounded to ``p_dtype`` where given) row by row, within
     DECODE_ROW_REL_L2; then two faults planted in that plain version must
-    read above it: the longest lane's second chunk's partial dropped, and
-    the position at the start of every chunk but the first left out. Fails
+    read above it: lane ``lane``'s second chunk's partial dropped, and the
+    position at the start of every chunk but the first left out. Fails
     where a check does not hold."""
-    from repro_torch.kernels.flash_attention.ops import split_chunk
     from repro_torch.kernels.flash_attention.ref import (merge_partials,
-                                                         split_inputs,
                                                          split_partials)
-    C = split_chunk()
-    s, vc, valid = split_inputs(q, kp, vp, tables, len1)
-    m, l, acc = split_partials(s, vc, valid, C)
+    s, vc, valid = inputs
+    m, l, acc = split_partials(s, vc, valid, chunk, p_dtype)
 
     def merged(m, l, acc):
-        return merge_partials(m, l, acc).reshape(q.shape).to(q.dtype)
+        return merge_partials(m, l, acc).reshape(got.shape).to(got.dtype)
 
     err = row_rel_l2(got, merged(m, l, acc))
-    _log(f"kernel {name}: against the split plain version (chunk {C})"
+    _log(f"kernel {name}: against the split plain version (chunk {chunk})"
          f" largest row relative L2 error {err:.3e} (tol "
          f"{DECODE_ROW_REL_L2:.3e})")
     if not err <= DECODE_ROW_REL_L2:
         raise AssertionError(f"{name}: a row's relative L2 error "
                              f"{err} against the split plain version")
-    b = int(len1.argmax())
     m, l, acc = m.clone(), l.clone(), acc.clone()
-    m[b, :, :, 1], l[b, :, :, 1], acc[b, :, :, 1] = float("-inf"), 0.0, 0.0
+    m[lane, :, :, 1], l[lane, :, :, 1], acc[lane, :, :, 1] = \
+        float("-inf"), 0.0, 0.0
     edge = valid.clone()
-    edge[:, C::C] = False
+    edge[:, chunk::chunk] = False
     for fault, want in (("chunk_dropped", merged(m, l, acc)),
                         ("chunk_edge_dropped",
-                         merged(*split_partials(s, vc, edge, C)))):
+                         merged(*split_partials(s, vc, edge, chunk,
+                                                p_dtype)))):
         f_err = row_rel_l2(got, want)
         caught = f_err > DECODE_ROW_REL_L2
         _log(f"kernel {name}: planted fault {fault} (in the split "
@@ -1265,6 +1272,46 @@ def split_faults_caught(name, got, q, kp, vp, tables, len1):
         if not caught:
             raise AssertionError(f"{name}: the row check missed a planted "
                                  f"fault ({fault})")
+
+
+def paged_split_check(name, got, q, kp, vp, tables, len1):
+    """``split_faults_caught`` for a ``decode_paged`` row: chunks of
+    ``split_chunk()``, the longest lane's chunk dropped."""
+    from repro_torch.kernels.flash_attention.ops import split_chunk
+    from repro_torch.kernels.flash_attention.ref import split_inputs
+    split_faults_caught(name, got, split_inputs(q, kp, vp, tables, len1),
+                        split_chunk(), int(len1.argmax()))
+
+
+def dense_split_check(name, got, q, kc, vc, length):
+    """``split_faults_caught`` for a ``flash_decode`` row: chunks of
+    ``decode_plan``'s for this call on this card, p rounded to the cache's
+    dtype, lane 0's chunk dropped. Where the plan takes one chunk a pair,
+    the row is held to that chunk first and the faults are planted at
+    chunks of half the positions. Returns the plan."""
+    from repro_torch.kernels import runtime as rt
+    from repro_torch.kernels.flash_attention.ops import (DECODE_STAGE,
+                                                         decode_plan)
+    from repro_torch.kernels.flash_attention.ref import (dense_split_inputs,
+                                                         decode_split_ref)
+    B, Hq, dh = q.shape
+    S, Hkv = kc.shape[1], kc.shape[2]
+    L = min(length, S)
+    plan = decode_plan(B, Hkv, Hq // Hkv, dh, L,
+                       rt.device_sms(q.device.index))
+    chunk = plan.chunk
+    if plan.chunks == 1:
+        err = row_rel_l2(got, decode_split_ref(q, kc, vc, length, chunk))
+        _log(f"kernel {name}: against the split plain version (one chunk "
+             f"of {chunk}) largest row relative L2 error {err:.3e} (tol "
+             f"{DECODE_ROW_REL_L2:.3e})")
+        if not err <= DECODE_ROW_REL_L2:
+            raise AssertionError(f"{name}: a row's relative L2 error "
+                                 f"{err} against the split plain version")
+        chunk = -(-(-(-L // 2)) // DECODE_STAGE) * DECODE_STAGE
+    split_faults_caught(name, got, dense_split_inputs(q, kc, vc, length),
+                        chunk, 0, vc.dtype)
+    return plan
 
 
 def paged_inputs(cfg, dev, B=8, seed=1, block=None, max_len=None,
@@ -1411,9 +1458,9 @@ def kernel_phase(cfg, dev, B=8):
     rows_out, t, cases = paged_rows(cfg, dev, {k: k for k in PAGED_KERNELS},
                                     seed=1)
     q, kp, vp, maxb, block = t.q, t.kp, t.vp, t.maxb, t.block
-    split_faults_caught("decode_paged",
-                        decode_paged(q, kp, vp, t.tables, t.len1),
-                        q, kp, vp, t.tables, t.len1)
+    paged_split_check("decode_paged",
+                      decode_paged(q, kp, vp, t.tables, t.len1),
+                      q, kp, vp, t.tables, t.len1)
     # every lane at 512 positions, on rows of its own
     full = t.perm[:B * maxb].reshape(B, maxb).to(torch.int32)
     len1_full = torch.full((B,), maxb * block, dtype=torch.int32, device=dev)
@@ -1425,9 +1472,9 @@ def kernel_phase(cfg, dev, B=8):
         kernel_hbm_bytes(cfg, B, [maxb * block] * B, maxb)["decode_paged"],
         kernel_flops(cfg, B, [maxb * block] * B)["decode_paged"], flush,
         kernel="decode_paged", row_tol=DECODE_ROW_REL_L2)
-    split_faults_caught(FULL_PAGED_ROW,
-                        decode_paged(q, kp, vp, full, len1_full), q, kp, vp,
-                        full, len1_full)
+    paged_split_check(FULL_PAGED_ROW,
+                      decode_paged(q, kp, vp, full, len1_full), q, kp, vp,
+                      full, len1_full)
     for name in ("qkv_rope_paged", "oproj_ffn_swiglu"):
         pass_times(name, rows_out[name], cases[name][0], flush)
     inv = torch.as_tensor(rope_inv_freq(cfg.head_dim, cfg.rope_theta),
@@ -1442,8 +1489,10 @@ def kernel_phase(cfg, dev, B=8):
 def dense_kernel_phase(cfg, dev, B=8):
     """The dense-cache decode kernels against their plain versions at the
     config's widths: ``flash_decode`` at length 4096 in a 4096-position
-    cache (8 lanes x 32 kv heads), ``qkv_rope`` at position 4095,
-    ``ffn_swiglu`` in both forms (the row times the residual form)."""
+    cache (8 lanes x 32 kv heads), also row by row against its chunked
+    plain version with two chunk faults planted there, ``qkv_rope`` at
+    position 4095, ``ffn_swiglu`` in both forms (the row times the
+    residual form)."""
     import torch.nn.functional as Fn
 
     from repro_torch.kernels.flash_attention.ops import decode
@@ -1511,8 +1560,11 @@ def dense_kernel_phase(cfg, dev, B=8):
     flops = dense_kernel_flops(cfg, B, length)
     rows = {name: kernel_row(name, *fns, nbytes[name], flops[name], flush,
                              row_tol=STREAM_ROW_REL_L2
-                             if name in STREAM_PASSES else None)
+                             if name in STREAM_PASSES else DECODE_ROW_REL_L2)
             for name, fns in cases.items()}
+    plan = dense_split_check("flash_decode", cases["flash_decode"][0](), q,
+                             kc, vc, length)
+    rows["flash_decode"]["plan"] = plan._asdict()
     for name in ("qkv_rope", "ffn_swiglu"):
         pass_times(name, rows[name], cases[name][0], flush)
     rope_fault_caught("qkv_rope", cases["qkv_rope"][0](),
@@ -3924,9 +3976,11 @@ def group_decode_row_names(arch):
 def group_decode_rows(dev):
     """Rows 1⁗ and 6′: ``decode_paged`` and ``flash_decode`` at each
     ``GROUP_DECODE_ARCHS`` config's heads, each against its plain version
-    (and ``decode_paged`` against its chunked plain version, row by row),
-    beside SDPA with ``enable_gqa`` and a length mask. At these groups a
-    CTA serves one query (``decode_core.cuh``'s ``decode_tile``)."""
+    and its chunked plain version, row by row (``flash_decode`` also with
+    two chunk faults planted there), beside SDPA with ``enable_gqa`` and a
+    length mask. At these groups a ``decode_paged`` CTA serves one query
+    (``decode_core.cuh``'s ``decode_tile``), a ``flash_decode`` CTA the
+    whole group over a chunk of ``decode_plan``'s."""
     from types import SimpleNamespace
 
     import torch.nn.functional as Fn
@@ -3986,6 +4040,8 @@ def group_decode_rows(dev):
             lib_dense, dense_kernel_hbm_bytes(c, B, S)["flash_decode"],
             dense_kernel_flops(c, B, S)["flash_decode"], flush,
             kernel="flash_decode", row_tol=DECODE_ROW_REL_L2)
+        rows[dense_name]["plan"] = dense_split_check(
+            dense_name, decode(q, kc, vc, S), q, kc, vc, S)._asdict()
         split = row_rel_l2(decode_paged(*args),
                            decode_paged_split_ref(*args, split_chunk()))
         if not split <= DECODE_ROW_REL_L2:
@@ -7268,14 +7324,14 @@ EXAMPLES = dict(serve_runs=([], ["--scheduler", "run_to_completion",
                 train_steps=120, seed=47)
 # The examples' kernel rows: each kernel of the phase at the shape the
 # phase gives it. The paged kernels at the reduced expert's widths (D 128,
-# 4 q on 2 kv heads of 32, F 256) over coe_serving's pool (4 slots, block
+# 4 q on 4 kv heads of 32, F 256) over coe_serving's pool (4 slots, block
 # 8, 48 positions; lane 3 inactive); flash_prefill at the quickstart's
 # prompt; the LSE form and the backward at train_expert's (8 heads of 64,
 # B 8 x 256, causal).
-EXAMPLE_PAGED_ROWS = {k: f"{k}[examples,D=128,dh=32,G=2,block=8]"
+EXAMPLE_PAGED_ROWS = {k: f"{k}[examples,D=128,dh=32,G=1,block=8]"
                       for k in PAGED_KERNELS}
 EXAMPLE_PAGED_LEN1 = (9, 48, 17, 1)
-EXAMPLE_PREFILL_ROW = "flash_prefill[examples,dh=32,G=2,B=2,S=16]"
+EXAMPLE_PREFILL_ROW = "flash_prefill[examples,dh=32,G=1,B=2,S=16]"
 EXAMPLE_LSE_ROW = "flash_prefill[lse,examples,dh=64,B=8,S=256]"
 EXAMPLE_BWD_ROW = "flash_prefill_bwd[examples,dh=64,B=8,S=256]"
 

@@ -39,7 +39,7 @@
 //    (Letting the next kernel launch once the first copies are issued -
 //    programmatic dependent launch, so that the out-projection's weight
 //    loads run under attention - made the paged step slower: PERF.md.)
-//  * Arithmetic in f32, as decode_core.cuh's: dh / 8 lanes a position
+//  * Arithmetic in f32, on the CUDA cores: dh / 8 lanes a position
 //    (16-byte shared loads, shuffles), each lane group with its own online
 //    softmax state (m, l, acc) over its positions of every stage; at the
 //    chunk's end the groups merge by shuffles within each warp, then warp

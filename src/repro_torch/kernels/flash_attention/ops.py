@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -23,7 +24,7 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      decode_paged_ref)
 
 _ARGS = [rt.P] * 8 + [rt.I] * 6 + [rt.F, rt.P]
-_DENSE_ARGS = [rt.P] * 4 + [rt.I] * 6 + [rt.F, rt.P]
+_DENSE_ARGS = [rt.P] * 6 + [rt.I] * 8 + [rt.F, rt.P]
 _PREFILL_ARGS = [rt.P] * 4 + [rt.I] * 21 + [rt.F, rt.P]
 _LSE_ARGS = [rt.P] * 5 + [rt.I] * 21 + [rt.F, rt.P]
 _BWD_ARGS = [rt.P] * 10 + [rt.I] * 10 + [rt.F, rt.P]
@@ -94,8 +95,8 @@ def _check_head_shape(name, dh, G):
 
 
 def _decode_tile(G):
-    """The queries of a kv head's group of G that one CTA of the decode
-    kernels serves, as ``decode_core.cuh``'s ``decode_tile``: G itself at
+    """The queries of a kv head's group of G that one CTA of the paged
+    kernel serves, as ``decode_core.cuh``'s ``decode_tile``: G itself at
     1/2/4/8, else 1."""
     return G if G in (1, 2, 4, 8) else 1
 
@@ -114,13 +115,13 @@ def split_chunk() -> int:
 
 
 def _split_workspace(q: torch.Tensor, stream: int, n_part: int,
-                     n_count: int):
-    """The paged kernel's partial slots (f32) and per-(lane, head) counters
-    (int32) for ``q``'s device and ``stream``: kept between calls (the
-    counters must start at zero, and the kernel leaves them so), each grown
-    when a call needs more; the counters are zeroed when they grow. No other
-    kernel shares them."""
-    key = (q.device.index, stream)
+                     n_count: int, kernel: str):
+    """The partial slots (f32) and per-pair counters (int32) of the split
+    decode ``kernel`` ("decode_paged" or "flash_decode") for ``q``'s device
+    and ``stream``: kept between calls (the counters must start at zero, and
+    the kernel leaves them so), each grown when a call needs more; the
+    counters are zeroed when they grow. No other kernel shares them."""
+    key = (kernel, q.device.index, stream)
     part, count = _workspaces.get(key, (None, None))
     if part is None or part.numel() < n_part:
         part = torch.empty(n_part, dtype=torch.float32, device=q.device)
@@ -169,7 +170,8 @@ def decode_paged(q, k_pool, v_pool, tables, len1):
     ctas = B * Hkv * (G // gt)                    # CTAs of a chunk
     slot = -(-gt * (dh + 2) // 4) * 4
     stream = rt.stream_ptr(q)
-    part, count = _split_workspace(q, stream, ctas * chunks * slot, ctas)
+    part, count = _split_workspace(q, stream, ctas * chunks * slot, ctas,
+                                   "decode_paged")
     out = torch.empty_like(q)
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             tables.data_ptr(), len1.data_ptr(), out.data_ptr(),
@@ -180,14 +182,89 @@ def decode_paged(q, k_pool, v_pool, tables, len1):
     return out
 
 
-def decode(q, k_cache, v_cache, length: int):
+# the dense kernel's (decode.cu) positions a round of its 4 warps' slices
+# of 16 (a chunk of whole rounds keeps the warps even), query rows a CTA
+DECODE_STAGE = 64
+DECODE_ROWS = 16
+# the dense kernel's plan aims at one CTA for every DECODE_SMS_PER_CTA SMs
+# of the card; a pair takes at most DECODE_MAX_CHUNKS chunks (decode.cu's
+# DD_MAX_CHUNKS)
+DECODE_SMS_PER_CTA = 2
+DECODE_MAX_CHUNKS = 256
+
+
+class DecodePlan(NamedTuple):
+    """How ``decode`` splits a call over CTAs: each ``pair`` (lane, kv head,
+    query tile of up to 16 of the head's G queries) takes ``chunks`` CTAs,
+    chunk c the positions [c chunk, min(length, (c + 1) chunk)), none
+    empty. Where chunks > 1, each CTA writes a partial of ``slot`` floats
+    and each pair has a counter. With ``l1`` the K / V copies allocate in
+    L1 (``cp.async.ca``): where the grid gives every SM a CTA, streaming at
+    the card's byte rate, row 6 ran 5 % faster so and the smaller rows 6′,
+    bound by latency, 3-8 % slower (PERF.md)."""
+    chunk: int
+    chunks: int
+    pairs: int
+    slot: int
+    l1: bool
+
+    @property
+    def ctas(self) -> int:
+        return self.pairs * self.chunks
+
+    @property
+    def part_floats(self) -> int:
+        return self.ctas * self.slot if self.chunks > 1 else 0
+
+    @property
+    def counters(self) -> int:
+        return self.pairs if self.chunks > 1 else 0
+
+
+def decode_plan(B, Hkv, G, dh, length, sms, chunk=None) -> DecodePlan:
+    """The dense kernel's grid for a call attending ``length`` positions (at
+    most the cache's S) on a card of ``sms`` SMs. Unless ``chunk`` is given,
+    each pair takes the chunk count nearest ``sms / (DECODE_SMS_PER_CTA *
+    pairs)`` (at least 1, at most one ``DECODE_STAGE`` round a chunk and
+    ``DECODE_MAX_CHUNKS`` chunks), its positions split evenly in whole
+    rounds; so one chunk a pair where the pairs alone give every other SM a
+    CTA. On an H100 the rows of 8-16 pairs ran fastest at 64 CTAs of
+    256-512 positions: past that, each CTA's fixed costs (its first
+    loads' latency, its partial, the merge) outweigh what more CTAs stream
+    (PERF.md). A chunk that gives a pair more than ``DECODE_MAX_CHUNKS``
+    chunks raises. Host ints only: nothing on the device is read."""
+    if length < 1:
+        raise ValueError(f"decode_plan: length {length} < 1")
+    pairs = B * Hkv * -(-G // DECODE_ROWS)
+    if chunk is None:
+        want = (sms + pairs * DECODE_SMS_PER_CTA // 2) \
+            // (pairs * DECODE_SMS_PER_CTA)
+        want = max(1, min(want, -(-length // DECODE_STAGE),
+                           DECODE_MAX_CHUNKS))
+        chunk = -(-(-(-length // want)) // DECODE_STAGE) * DECODE_STAGE
+    chunk = min(chunk, length)
+    chunks = -(-length // chunk) if chunk >= 1 else 0
+    if not 1 <= chunks <= DECODE_MAX_CHUNKS:
+        raise ValueError(f"decode_plan: chunk {chunk} gives {chunks} chunks "
+                         f"of {length} positions (1..{DECODE_MAX_CHUNKS})")
+    slot = -(-min(G, DECODE_ROWS) * (dh + 2) // 4) * 4
+    return DecodePlan(chunk, chunks, pairs, slot, pairs * chunks >= sms)
+
+
+def decode(q, k_cache, v_cache, length: int, *, chunk=None):
     """Dense-cache GQA decode: q (B,Hq,dh) against caches (B,S,Hkv,dh),
     attending positions ``< length`` (a host int shared by the batch, at
-    least 1); the rest of the cache is never read. Returns (B,Hq,dh).
+    least 1; past S, all S); the rest of the cache is never read. Returns
+    (B,Hq,dh).
 
     CPU tensors take the plain version, in any float dtype; CUDA tensors
-    launch the kernel, which takes bf16 q and caches and any G = Hq / Hkv,
-    a CTA serving ``_decode_tile(G)`` of a head's queries."""
+    launch the kernel, which takes bf16 q and caches and any G = Hq / Hkv.
+    A CTA serves the whole group of a (lane, kv head) on tensor cores (16
+    queries a CTA, sibling CTAs past 16) over a chunk of the positions;
+    ``decode_plan`` picks the chunk from the shapes and the card's SMs
+    (``chunk`` overrides it), and the chunks' partials merge in chunk order
+    within the launch, in a workspace kept per device and stream
+    (``_split_workspace``)."""
     B, Hq, dh = q.shape
     _, S, Hkv, dh_c = k_cache.shape
     if (dh_c != dh or Hq % Hkv or k_cache.shape[0] != B
@@ -209,10 +286,16 @@ def decode(q, k_cache, v_cache, length: int):
     _check_head_shape("decode", dh, G)
     rt.check_contiguous("decode", q=q, k_cache=k_cache, v_cache=v_cache)
     fn = rt.bind("flash_decode", "flash_decode_bf16", _DENSE_ARGS)
+    L = min(length, S)
+    plan = decode_plan(B, Hkv, G, dh, L, rt.device_sms(q.device.index),
+                       chunk)
+    stream = rt.stream_ptr(q)
+    part, count = _split_workspace(q, stream, plan.part_floats,
+                                   plan.counters, "flash_decode")
     out = torch.empty_like(q)
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), B, S, Hkv, G, dh, length, 1.0 / math.sqrt(dh),
-            rt.stream_ptr(q))
+            out.data_ptr(), part.data_ptr(), count.data_ptr(), B, S, Hkv, G,
+            dh, L, plan.chunk, int(plan.l1), 1.0 / math.sqrt(dh), stream)
     rt.check_launch("flash_decode", rc)
     rt.count_launch("flash_decode")
     return out

@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the attention kernels: prefill is the quadratic
 oracle; the paged decode gathers the lanes' blocks into contiguous caches;
-each takes a masked softmax in f32. ``decode_paged_split_ref`` is the paged
-kernel's own arithmetic (chunks of positions, merged in chunk order), for
-the tests and the card's checks. ``attention_bwd_ref`` is the prefill's
-gradient by the explicit formulas, in f32, for the tests and the card's
-checks of the backward kernel (no path computes a gradient with it)."""
+each takes a masked softmax in f32. ``decode_paged_split_ref`` and
+``decode_split_ref`` are the two decode kernels' own arithmetic (chunks of
+positions, merged in chunk order), for the tests and the card's checks.
+``attention_bwd_ref`` is the prefill's gradient by the explicit formulas,
+in f32, for the tests and the card's checks of the backward kernel (no
+path computes a gradient with it)."""
 from __future__ import annotations
 
 import math
@@ -122,12 +123,14 @@ def decode_paged_ref(q, k_pool, v_pool, tables, len1):
     return o.reshape(q.shape).to(q.dtype)
 
 
-def split_partials(s, vc, valid, chunk: int):
+def split_partials(s, vc, valid, chunk: int, p_dtype=None):
     """Each chunk's partial state, as one CTA of the kernel computes it:
     positions [c chunk, (c + 1) chunk) give m = max s, p = exp(s - m),
-    l = sum p, acc = sum p v (f32) over their valid positions; a chunk
-    with none has m = -inf, l = 0, acc = 0. Returns m, l (B,Hkv,G,n) and
-    acc (B,Hkv,G,n,dh), n = ceil(S / chunk)."""
+    l = sum p, acc = sum p v (f32) over their valid positions, p rounded
+    to ``p_dtype`` in the value product where given (the dense kernel
+    rounds it to the cache's); a chunk with none has m = -inf, l = 0, acc =
+    0. Returns m, l (B,Hkv,G,n) and acc (B,Hkv,G,n,dh), n = ceil(S /
+    chunk)."""
     B, Hkv, G, S = s.shape
     n = -(-S // chunk)
     pad = n * chunk - S
@@ -139,7 +142,8 @@ def split_partials(s, vc, valid, chunk: int):
     m = s.amax(-1)
     p = torch.exp(s - m.masked_fill(m == float("-inf"), 0.0)[..., None])
     l = p.sum(-1)
-    acc = torch.einsum("bhgnc,bnchd->bhgnd", p,
+    pv = p if p_dtype is None else p.to(p_dtype).float()
+    acc = torch.einsum("bhgnc,bnchd->bhgnd", pv,
                        v.reshape(B, n, chunk, Hkv, -1))
     return m, l, acc
 
@@ -165,6 +169,33 @@ def decode_paged_split_ref(q, k_pool, v_pool, tables, len1, chunk: int):
     maxb * block are not attended. Returns (B,Hq,dh) in q.dtype."""
     o = merge_partials(*split_partials(
         *split_inputs(q, k_pool, v_pool, tables, len1), chunk))
+    return o.reshape(q.shape).to(q.dtype)
+
+
+def dense_split_inputs(q, k_cache, v_cache, length: int):
+    """The dense kernel's scores s (B,Hkv,G,L) in f32 (q k^T / sqrt(dh)),
+    values (B,L,Hkv,dh) in f32 and valid (B,L), all True, over the first L
+    = min(length, S) positions of the caches; nothing past them is read."""
+    B, Hq, dh = q.shape
+    Hkv = k_cache.shape[2]
+    L = min(int(length), k_cache.shape[1])
+    qg = q.reshape(B, Hkv, Hq // Hkv, dh).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_cache[:, :L].float()) \
+        * (1.0 / math.sqrt(dh))
+    valid = torch.ones((B, L), dtype=torch.bool, device=q.device)
+    return s, v_cache[:, :L].float(), valid
+
+
+def decode_split_ref(q, k_cache, v_cache, length: int, chunk: int):
+    """``decode`` as the kernel computes it: the first min(length, S)
+    positions in chunks of ``chunk``, each chunk's partial (m, l, acc) in
+    f32, p rounded to the cache's dtype for the value product, the
+    partials merged in chunk order (``dense_split_inputs``,
+    ``split_partials``, ``merge_partials``). Positions past ``length`` are
+    never read. Returns (B,Hq,dh) in q.dtype."""
+    o = merge_partials(*split_partials(
+        *dense_split_inputs(q, k_cache, v_cache, length), chunk,
+        p_dtype=v_cache.dtype))
     return o.reshape(q.shape).to(q.dtype)
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -184,8 +185,10 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
 def device_sms(index: int) -> int:
-    """Streaming multiprocessors of CUDA device ``index``."""
+    """Streaming multiprocessors of CUDA device ``index``, read once (the
+    wrappers that plan a grid ask at every call)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 

@@ -1,6 +1,10 @@
 """The dense-cache decode path of the port against the JAX package, on the
 CPU, on the same numpy inputs:
 
+  * ``decode_split_ref``, the dense decode kernel's own arithmetic (chunks
+    of positions merged in chunk order), against the Pallas kernel and the
+    plain version at G 1-20 and dh 32-256, at the chunks' edges; the
+    kernel's plan (``decode_plan``) at rows 6 and 6′ and small shapes;
   * the plain versions of the three kernels of ``decoder_layer_step``
     (``qkv_rope``, ``decode``, ``ffn_swiglu``) against the Pallas kernels
     run in interpret mode, at f32 within ATOL = 1e-5 (the two frameworks sum
@@ -37,7 +41,11 @@ from repro_torch.bridge import to_torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.distributed import ctx
 from repro_torch.kernels import runtime as rt
-from repro_torch.kernels.flash_attention.ops import decode
+from repro_torch.kernels.flash_attention.ops import (DECODE_MAX_CHUNKS,
+                                                     DECODE_STAGE, decode,
+                                                     decode_plan)
+from repro_torch.kernels.flash_attention.ref import (decode_attention_ref,
+                                                     decode_split_ref)
 from repro_torch.kernels.fused_decode.ops import (decoder_layer_step,
                                                   ffn_swiglu,
                                                   layer_step_params, qkv_rope)
@@ -114,6 +122,102 @@ def test_decode_plain_matches_pallas_and_never_reads_past_length():
             _close(got, cut, atol=1e-6)
     with pytest.raises(ValueError, match="no position"):
         decode(*map(torch.as_tensor, (q, kc, vc)), 0)
+
+
+SPLIT_S = 512         # JAX's decode needs S % min(512, S) == 0
+SPLIT_CHUNKS = (64, 192)
+ROW_REL_L2 = 2.0 ** -7    # bf16: each row's relative L2 error
+
+
+@pytest.mark.parametrize("G,dh", [(1, 32), (5, 64), (6, 128), (12, 256),
+                                  (16, 128), (16, 256), (20, 64)])
+def test_decode_split_plain_matches_pallas_at_chunk_edges(G, dh):
+    """``decode_split_ref`` (the dense kernel's chunks, merged in chunk
+    order) against JAX's decode in interpret mode and the port's plain
+    version, f32 within ATOL, at lengths 1, either side of each chunk's
+    end and S, the positions past ``length`` poisoned; and in bf16 (p
+    rounded to bf16 for the value product, as the kernel does) against the
+    plain version row by row within 2^-7."""
+    B, Hkv = 2, 2 if G < 12 else 1
+    rs = np.random.RandomState(G * dh)
+    q = _n(rs, (B, Hkv * G, dh))
+    kc, vc = _n(rs, (B, SPLIT_S, Hkv, dh)), _n(rs, (B, SPLIT_S, Hkv, dh))
+    lengths = sorted({1, SPLIT_S} | {c + d for c in SPLIT_CHUNKS
+                                     for d in (-1, 0, 1)})
+    for length in lengths:
+        k2, v2 = kc.copy(), vc.copy()
+        k2[:, length:], v2[:, length:] = BIG, BIG
+        want = jax_decode(*map(jnp.asarray, (q, k2, v2)), length,
+                          interpret=True)
+        t = tuple(map(torch.as_tensor, (q, k2, v2)))
+        plain = decode_attention_ref(*t, length)
+        _close(plain, want)
+        for chunk in SPLIT_CHUNKS:
+            got = decode_split_ref(*t, length, chunk)
+            assert got.shape == plain.shape and torch.isfinite(got).all()
+            _close(got, want)
+            _close(got, plain, 1e-6)
+        tb = tuple(x.to(torch.bfloat16) for x in t)
+        got = decode_split_ref(*tb, length, SPLIT_CHUNKS[0]).float()
+        ref = decode_attention_ref(*tb, length).float()
+        err = ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max()
+        assert err <= ROW_REL_L2, (length, float(err))
+
+
+# the plan on an H100's 132 SMs at rows 6 and 6′: (chunk, chunks)
+H100_PLANS = {(8, 32, 1, 128, 4096): (4096, 1), (8, 8, 5, 128, 2048): (2048, 1),
+              (8, 2, 6, 128, 2048): (512, 4), (8, 2, 12, 128, 2048): (512, 4),
+              (8, 2, 16, 128, 2048): (512, 4),
+              (8, 1, 16, 256, 2048): (256, 8)}
+
+
+@pytest.mark.parametrize("B,Hkv,G,dh,length", [
+    (8, 32, 1, 128, 4096),                    # row 6: the 7B's dense phase
+    (8, 8, 5, 128, 2048), (8, 2, 6, 128, 2048), (8, 2, 12, 128, 2048),
+    (8, 2, 16, 128, 2048), (8, 1, 16, 256, 2048),          # rows 6′
+    (1, 1, 1, 32, 1), (3, 2, 20, 64, 513), (2, 4, 4, 64, 100),
+    (64, 8, 4, 128, 32768), (1, 1, 16, 256, 65)])
+def test_decode_plan_covers_length(B, Hkv, G, dh, length):
+    """The dense kernel's plan on 132 SMs (an H100 SXM) and 114 (PCIe):
+    every chunk non-empty, the chunks covering [0, length) exactly, whole
+    rounds of the warps' slices a chunk unless one chunk takes every
+    position, a CTA for every 4 SMs at least where the positions allow
+    and no more CTAs than SMs where it splits, the copies through L1
+    where every SM has a CTA (at rows 6 and 6′ the chunks tuned on an
+    H100, ``H100_PLANS``), and the workspace sized to the grid: a partial
+    slot per CTA and a counter per pair where it splits, nothing where it
+    does not; at most DECODE_MAX_CHUNKS chunks a pair. A chunk given is
+    taken as it is."""
+    want = H100_PLANS.get((B, Hkv, G, dh, length))
+    if want is not None:
+        p = decode_plan(B, Hkv, G, dh, length, 132)
+        assert p[:2] == want
+        assert p.l1 == (Hkv == 32)        # only row 6 fills every SM
+    for sms in (132, 114):
+        p = decode_plan(B, Hkv, G, dh, length, sms)
+        ends = [min(length, (c + 1) * p.chunk) for c in range(p.chunks)]
+        assert all(e > c * p.chunk for c, e in enumerate(ends))
+        assert ends[-1] == length and sum(
+            e - c * p.chunk for c, e in enumerate(ends)) == length
+        assert p.chunk % DECODE_STAGE == 0 or p.chunks == 1
+        assert p.pairs == B * Hkv * -(-G // 16)
+        assert p.ctas == p.pairs * p.chunks
+        assert p.ctas >= min(sms // 4, p.pairs * -(-length // DECODE_STAGE))
+        assert p.chunks == 1 or p.ctas <= sms
+        assert p.l1 == (p.ctas >= sms)
+        assert p.slot == -(-min(G, 16) * (dh + 2) // 4) * 4
+        split = p.chunks > 1
+        assert p.part_floats == (p.ctas * p.slot if split else 0)
+        assert p.counters == (p.pairs if split else 0)
+        assert p.chunks <= DECODE_MAX_CHUNKS
+    given = max(100, -(-length // DECODE_MAX_CHUNKS))
+    p = decode_plan(B, Hkv, G, dh, length, 132, chunk=given)
+    assert p.chunk == min(given, length) and p.chunks == -(-length // given)
+    # a chunk of none, or one that gives a pair too many chunks, raises
+    for bad in (0, (length - 1) // DECODE_MAX_CHUNKS):
+        if bad == 0 or -(-length // bad) > DECODE_MAX_CHUNKS:
+            with pytest.raises(ValueError, match="chunk"):
+                decode_plan(B, Hkv, G, dh, length, 132, chunk=bad)
 
 
 def test_ffn_swiglu_plain_matches_pallas_both_forms():

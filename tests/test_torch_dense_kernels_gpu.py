@@ -12,15 +12,19 @@ This file imports no JAX: the machine with the card has none.
 The kernels take bf16 (the served type). Tolerance: kernel and plain version
 both accumulate in f32 and round to bf16 once, so they differ by summation
 order plus at most one rounding of the output: two units in the last place
-of the largest value (2^-7 relative, at least 2^-7 absolute).
+of the largest value (2^-7 relative, at least 2^-7 absolute). ``decode``
+also rounds its probabilities to bf16 before the value product, as the
+plain version does at another point (unnormalised against normalised), and
+is held row by row within 2^-7 of each row's norm besides.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import runtime as rt
-from repro_torch.kernels.flash_attention.ops import decode
-from repro_torch.kernels.flash_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention.ops import decode, decode_plan
+from repro_torch.kernels.flash_attention.ref import (decode_attention_ref,
+                                                     decode_split_ref)
 from repro_torch.kernels.fused_decode.ops import (decoder_layer_step,
                                                   ffn_swiglu, qkv_rope)
 from repro_torch.kernels.fused_decode.ref import (decoder_layer_step_ref,
@@ -54,25 +58,97 @@ def _t(rs, shape, dev, scale=1.0):
                            dtype=torch.float32, device=dev).to(torch.bfloat16)
 
 
+# chip_smoke.DECODE_ROW_REL_L2: each output row's relative L2 error
+# against the chunked plain version
+DECODE_ROW_REL_L2 = 2.0 ** -7
+
+
+def _rows_close(got, ref, tol=DECODE_ROW_REL_L2):
+    g, w = got.float(), ref.float()
+    err = float(((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30))
+                .max())
+    assert torch.isfinite(g).all()
+    assert err <= tol, (err, tol)
+
+
 def test_decode_kernel_matches_plain(dev):
-    """G in {1, 2, 4}, dh in {32, 64, 128}; lengths 1, either side of the
-    kernel's position step (8 warps x 32 / (dh / EPL) tokens: 32 at dh = 128,
-    64 at dh = 64, 128 at dh = 32) and the full cache."""
+    """G 1-20 (a tile of 16 query rows a CTA, a sibling CTA past 16), dh
+    32-256; at the plan's chunk and at chunks of 16 (a quarter stage) and
+    100 (a stage and a half): lengths 1, either side of a ring stage (64
+    positions) and of the chunk, and the full cache, the positions past
+    ``length`` poisoned."""
     B, S = 3, 300
-    for hq, hkv, dh in ((4, 4, 128), (8, 4, 64), (8, 2, 32), (32, 32, 128)):
+    for hq, hkv, dh in ((4, 4, 128), (8, 4, 64), (8, 2, 32), (32, 32, 128),
+                        (10, 2, 128), (12, 2, 64), (24, 2, 128), (32, 2, 32),
+                        (16, 1, 256), (40, 2, 64), (20, 1, 256)):
         rs = np.random.RandomState(dh + hq)
         q = _t(rs, (B, hq, dh), dev)
         kc, vc = _t(rs, (B, S, hkv, dh), dev), _t(rs, (B, S, hkv, dh), dev)
-        step = 8 * 32 // (dh // (16 if hq // hkv <= 2 else 8))
-        for length in (1, step - 1, step, step + 1, S):
-            k2, v2 = kc.clone(), vc.clone()
-            k2[:, length:], v2[:, length:] = BIG, BIG
-            rt.reset_launches()
-            got = decode(q, k2, v2, length)
-            torch.cuda.synchronize()
-            assert rt.launch_counts()["flash_decode"] == 1
-            _close(got, decode_attention_ref(q, kc[:, :length],
-                                             vc[:, :length], length))
+        for chunk in (None, 16, 100):
+            C = chunk or decode_plan(B, hkv, hq // hkv, dh, S,
+                                     rt.device_sms(dev.index or 0)).chunk
+            for length in sorted({1, 63, 64, 65, C - 1, C, C + 1, S}
+                                 - {0}):
+                k2, v2 = kc.clone(), vc.clone()
+                k2[:, length:], v2[:, length:] = BIG, BIG
+                rt.reset_launches()
+                got = decode(q, k2, v2, length, chunk=chunk)
+                torch.cuda.synchronize()
+                assert rt.launch_counts()["flash_decode"] == 1
+                _close(got, decode_attention_ref(q, kc[:, :length],
+                                                 vc[:, :length], length))
+
+
+def test_decode_kernel_matches_chunked_plain_row_by_row(dev):
+    """Each output row against the chunked plain version at the plan's
+    chunk (the kernel's own arithmetic: partials merged in chunk order, p
+    rounded to bf16) and against the plain version, within 2^-7 of its
+    norm: row 6's G 1 and rows 6′'s G 5/6/12/16 (dh 128) and 16 (dh 256),
+    and G 20, at B 4 over 1024 positions of a 1100-position cache; and row
+    6's G 1 at B 8 (256 pairs: every SM a CTA, the copies through L1)."""
+    S, length = 1100, 1024
+    for B, hq, hkv, dh in ((4, 32, 32, 128), (4, 40, 8, 128),
+                           (4, 12, 2, 128), (4, 24, 2, 128),
+                           (4, 32, 2, 128), (4, 16, 1, 256),
+                           (4, 40, 2, 64), (8, 32, 32, 128)):
+        rs = np.random.RandomState(hq * dh)
+        q = _t(rs, (B, hq, dh), dev)
+        kc, vc = _t(rs, (B, S, hkv, dh), dev), _t(rs, (B, S, hkv, dh), dev)
+        plan = decode_plan(B, hkv, hq // hkv, dh, length,
+                           rt.device_sms(dev.index or 0))
+        assert plan.l1 or B < 8          # 256 pairs: more than any H100's SMs
+        got = decode(q, kc, vc, length)
+        _rows_close(got, decode_split_ref(q, kc, vc, length, plan.chunk))
+        _rows_close(got, decode_attention_ref(q, kc, vc, length))
+
+
+def test_decode_counters_reset_between_calls(dev):
+    """The merge counters and partial slots live in a workspace kept
+    between calls and the counters are reset by the kernel: split calls at
+    three shapes (G 5 at dh 128, G 16 at dh 256, G 20 at dh 64, which has
+    two tiles a kv head; at chunks of 128, 64 and 16), interleaved, stay
+    right and repeat bit for bit."""
+    rs = np.random.RandomState(7)
+    calls = []
+    for B, hq, hkv, dh, S, length, chunk in (
+            (8, 40, 8, 128, 600, 517, 128), (4, 16, 1, 256, 300, 300, 64),
+            (3, 40, 2, 64, 200, 131, 16)):
+        for _ in range(2):
+            calls.append(((_t(rs, (B, hq, dh), dev),
+                           _t(rs, (B, S, hkv, dh), dev),
+                           _t(rs, (B, S, hkv, dh), dev), length),
+                          chunk))
+    first = [decode(*a, chunk=c) for a, c in calls]
+    again = [decode(*a, chunk=c) for a, c in calls]
+    torch.cuda.synchronize()
+    for (a, c), f, g in zip(calls, first, again):
+        q, kc, vc, length = a
+        assert torch.equal(f, g)
+        _rows_close(f, decode_attention_ref(q, kc[:, :length],
+                                            vc[:, :length], length))
+        assert decode_plan(q.shape[0], kc.shape[2], q.shape[1] // kc.shape[2],
+                           q.shape[2], length, rt.device_sms(dev.index or 0),
+                           c).chunks > 1
 
 
 def test_qkv_rope_kernel_matches_plain(dev):
@@ -161,13 +237,20 @@ def test_dense_kernel_results_repeat_bit_for_bit(dev):
            _t(rs, (F, D), dev, 0.05))
     q = _t(rs, (B, n_q, dh), dev)
     kc, vc = _t(rs, (B, S, n_kv, dh), dev), _t(rs, (B, S, n_kv, dh), dev)
+    # decode split along S at G 12: the chunks' partials merged by the last
+    # CTA of each (lane, kv head)
+    q12 = _t(rs, (B, 24, 128), dev)
+    k12, v12 = _t(rs, (B, S, 2, 128), dev), _t(rs, (B, S, 2, 128), dev)
+    assert decode_plan(B, 2, 12, 128, 500, rt.device_sms(dev.index or 0)) \
+        .chunks > 1
     # the QKV stream at dh 256 (four tiles a group) and at 7B (up to three
     # splits of a column group)
     w256 = _t(rs, (D, 6 * 256), dev, 0.05)
     x7, s7 = _t(rs, (B, 4096), dev), _t(rs, (4096,), dev)
     w7 = _t(rs, (4096, 96 * 128), dev, 4096 ** -0.5)
     runs = [(qkv_rope(x, scale, w, 33, n_q=n_q, n_kv=n_kv, dh=dh),
-             decode(q, kc, vc, 400), ffn_swiglu(*ffn),
+             decode(q, kc, vc, 400), decode(q12, k12, v12, 500),
+             decode(q12, k12, v12, 500, chunk=16), ffn_swiglu(*ffn),
              ffn_swiglu(*ffn, residual=False),
              qkv_rope(x, scale, w256, 4000, n_q=4, n_kv=1, dh=256),
              qkv_rope(x7, s7, w7, 4095, n_q=32, n_kv=32, dh=128))

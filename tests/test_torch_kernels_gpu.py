@@ -107,10 +107,11 @@ ANY_GROUP = ((12, 4, 64), (40, 8, 128), (12, 2, 128), (24, 2, 128),
 
 @pytest.mark.parametrize("hq,hkv,dh", ANY_GROUP)
 def test_decode_kernels_take_any_group(dev, hq, hkv, dh):
-    """Both decode kernels at a G outside 1/2/4/8, where a CTA serves one
-    query: each launch held to its plain version row by row (a row stored
-    at the wrong query would land on another head's rows), two calls
-    bit-equal, one launch counted a call."""
+    """Both decode kernels at a G outside 1/2/4/8, where a paged CTA serves
+    one query and a dense CTA the whole group: each launch held to its
+    plain version row by row (a row stored at the wrong query would land
+    on another head's rows), two calls bit-equal, one launch counted a
+    call."""
     from repro_torch.kernels.flash_attention.ops import decode
     from repro_torch.kernels.flash_attention.ref import decode_attention_ref
     rs = np.random.RandomState(hq // hkv)

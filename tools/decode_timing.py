@@ -11,15 +11,22 @@ to, on one card, for comparing two trees of the repository in one call:
 serve phase's pool (8 lanes at ``chip_smoke.paged_inputs``' ragged
 lengths, lane 3 inactive; row 1), every lane at 512 positions (1′), one
 tensor-parallel rank's 16 heads (1″), granite-8b's 32 q on 8 kv heads (G
-4, 1‴), and ``flash_decode`` at the 7B's widths, 8 lanes at length 4096
-(row 6); then both kernels at each GQA group of
+4, 1‴), the examples' coe_serving (the reduced expert's 4 q on 4 kv heads
+of 32, 4 slots of blocks of 8; 1ᴱ), and ``flash_decode`` at the 7B's
+widths, 8 lanes at length 4096 (row 6); then both kernels at each GQA group of
 ``chip_smoke.GROUP_DECODE_ARCHS`` (rows 1⁗ and 6′), which a tree that
 refuses that group reports as skipped. Inputs are random bf16 from a
 torch generator seeded per row; each call is held to its plain version
 (largest row relative L2 error within 2^-7) and timed as ``chip_smoke.py``
 times a row (``chip_smoke.time_ms``: the mean of ``--reps`` launches, each
-after a 128 MB write flushed the L2, behind a spin kernel). One JSON line
-a row: its name, ms, the row error, the card and its power limit."""
+after a 128 MB write flushed the L2, behind a spin kernel; and
+``ms_read_flushed`` after a flush that only reads), each
+``flash_decode`` row beside SDPA (``enable_gqa``, a length mask) in the
+same process. One JSON line a row: its name, ms, the row error, the card
+and its power limit. ``--only`` keeps the rows whose name holds one of its
+strings; ``--chunks`` also times each ``flash_decode`` row at each chunk
+given (``ops.decode``'s ``chunk``, a probe of ``decode_plan``), as rows
+``<name>[chunk=C]`` (the plan's own chunk in each row's ``plan``)."""
 from __future__ import annotations
 
 import argparse
@@ -57,13 +64,17 @@ def main(argv=None):
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--label", default=None)
+    ap.add_argument("--only", nargs="*", default=None)
+    ap.add_argument("--chunks", nargs="*", type=int, default=())
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
+    import torch.nn.functional as Fn
 
     import chip_smoke as cs
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import runtime as rt
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import (decode_attention_ref,
                                                          decode_paged_ref)
@@ -83,41 +94,65 @@ def main(argv=None):
                                          (512,) * 8),
             ("decode_paged[tp=2,heads=16]", tp2, LEN1),
             ("decode_paged[granite-8b,G=4]", get_config("granite-8b"), LEN1),
+            (cs.EXAMPLE_PAGED_ROWS["decode_paged"],
+             reduced(get_config("samba-coe-expert-7b")),
+             cs.EXAMPLE_PAGED_LEN1),
             ("flash_decode", c7, None)]
     for arch in cs.GROUP_DECODE_ARCHS:
         paged, dense = cs.group_decode_row_names(arch)
         rows += [(paged, get_config(arch), LEN1),
                  (dense, get_config(arch), None)]
-    for i, (name, cfg, len1) in enumerate(rows):
-        gen = torch.Generator(device=dev).manual_seed(100 + i)
-        if len1 is None:              # flash_decode: 8 lanes, a full cache
-            S = 4096 if name == "flash_decode" else \
-                cs.GROUP_DENSE["length"]
-            q = torch.randn((8, cfg.n_heads, cfg.head_dim), generator=gen,
-                            device=dev).to(torch.bfloat16)
-            kc, vc = (torch.randn((8, S, cfg.n_kv_heads, cfg.head_dim),
-                                  generator=gen, device=dev)
-                      .to(torch.bfloat16) for _ in range(2))
-            kern = lambda: ops.decode(q, kc, vc, S)
-            plain = lambda: decode_attention_ref(q, kc, vc, S)
-        else:
-            a = paged_args(cfg, gen, dev, len1)
-            kern = lambda: ops.decode_paged(*a)
-            plain = lambda: decode_paged_ref(*a)
+
+    def emit(name, kern, plain, **extra):
         try:
             got = kern()
         except ValueError as e:       # a tree that refuses this group
             print(json.dumps({"label": args.label, "row": name,
                               "skipped": str(e)}), flush=True)
-            continue
+            return
         err = cs.row_rel_l2(got, plain())
         if not err <= 2.0 ** -7:
             raise AssertionError(f"{name}: row relative L2 error {err}")
         ms = cs.time_ms(kern, flush, args.reps)
+        rf = cs.time_ms(kern, flush, args.reps, read=True)
         print(json.dumps({"label": args.label, "row": name, "ms": ms,
-                          "row_rel_l2": err, "card": card}), flush=True)
-        torch.cuda.empty_cache()
+                          "ms_read_flushed": rf, "row_rel_l2": err,
+                          **extra, "card": card}), flush=True)
 
+    for i, (name, cfg, len1) in enumerate(rows):
+        if args.only is not None and not any(o in name for o in args.only):
+            continue
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        if len1 is None:              # flash_decode: 8 lanes, a full cache
+            S = 4096 if name == "flash_decode" else \
+                cs.GROUP_DENSE["length"]
+            Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+            q = torch.randn((8, Hq, cfg.head_dim), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            kc, vc = (torch.randn((8, S, Hkv, cfg.head_dim),
+                                  generator=gen, device=dev)
+                      .to(torch.bfloat16) for _ in range(2))
+            mask = torch.ones((8, 1, 1, S), dtype=torch.bool, device=dev)
+            plain = lambda: decode_attention_ref(q, kc, vc, S)
+            plan = getattr(ops, "decode_plan", None)
+            extra = {} if plan is None else {"plan": plan(
+                8, Hkv, Hq // Hkv, cfg.head_dim, S,
+                rt.device_sms(dev.index or 0))._asdict()}
+            sdpa = lambda: Fn.scaled_dot_product_attention(
+                q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=mask, enable_gqa=Hq != Hkv)
+            extra["sdpa_ms"] = cs.time_ms(sdpa, flush, args.reps)
+            emit(name, lambda: ops.decode(q, kc, vc, S), plain, **extra)
+            for c in args.chunks:
+                emit(f"{name}[chunk={c}]",
+                     lambda c=c: ops.decode(q, kc, vc, S, chunk=c), plain)
+        else:
+            # the examples' row: 4 slots of blocks of 8 over 48 positions
+            a = paged_args(cfg, gen, dev, len1, B=4, block=8, max_len=48) \
+                if "examples" in name else paged_args(cfg, gen, dev, len1)
+            emit(name, lambda: ops.decode_paged(*a),
+                 lambda: decode_paged_ref(*a))
+        torch.cuda.empty_cache()
 
 if __name__ == "__main__":
     main()
